@@ -1,0 +1,44 @@
+"""minicpm3-4b  [hf:openbmb/MiniCPM3-4B; hf]
+
+62L d_model=2560 40H d_ff=6400 vocab=73448 -- MLA (q_lora 768, kv_lora 256,
+qk_nope 64, qk_rope 32, v_head 64).  kv=40 per the assignment (MLA expands
+latents to all 40 heads).
+"""
+
+from repro_torch.models.config import ArchConfig, MLAConfig
+
+CONFIG = ArchConfig(
+    name="minicpm3-4b",
+    family="dense",
+    n_layers=62,
+    d_model=2560,
+    n_heads=40,
+    n_kv_heads=40,
+    d_ff=6400,
+    vocab_size=73448,
+    attention="mla",
+    mla=MLAConfig(
+        q_lora_rank=768,
+        kv_lora_rank=256,
+        qk_nope_head_dim=64,
+        qk_rope_head_dim=32,
+        v_head_dim=64,
+    ),
+    subquadratic=False,
+)
+
+SMOKE = CONFIG.scaled(
+    n_layers=2,
+    d_model=64,
+    n_heads=4,
+    n_kv_heads=4,
+    d_ff=128,
+    vocab_size=256,
+    mla=MLAConfig(
+        q_lora_rank=32,
+        kv_lora_rank=16,
+        qk_nope_head_dim=16,
+        qk_rope_head_dim=8,
+        v_head_dim=16,
+    ),
+)

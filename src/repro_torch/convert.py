@@ -1,0 +1,58 @@
+"""Carry a parameter tree of the JAX package over to the port.
+
+The reference stacks per-layer parameters on a leading axis (for
+``lax.scan``); the port keeps a list with one dict per layer.  The tree comes
+in as numpy arrays (``jax.tree.map(np.asarray, params)``), so this module
+imports no JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.device import resolve_device
+from repro_torch.models.config import ArchConfig
+from repro_torch.models.transformer import check_supported
+
+
+def params_from_jax(
+    np_params: dict,
+    cfg: ArchConfig,
+    device: str | torch.device | None = None,
+    dtype: torch.dtype | None = None,
+) -> dict:
+    """numpy parameter tree of ``repro`` -> the port's parameters on ``device``
+    (default: the card).  Projection weights and the embedding are cast once
+    to ``dtype`` (default: the config's compute dtype) -- the reference casts
+    them on every call to the same values; RMSNorm ``scale`` vectors stay
+    fp32, as in the reference."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    dt = dtype or getattr(torch, cfg.dtype)
+
+    def convert(node, layer: int | None = None):
+        if isinstance(node, dict):
+            return {
+                k: (_leaf(v, layer, torch.float32) if k == "scale" else convert(v, layer))
+                for k, v in node.items()
+            }
+        return _leaf(node, layer, dt)
+
+    def _leaf(arr, layer, to_dtype):
+        a = np.asarray(arr)
+        if layer is not None:
+            a = a[layer]
+        # widen first: numpy has no bf16, and bf16 -> fp32 is exact
+        return torch.tensor(np.asarray(a, dtype=np.float32)).to(dev, to_dtype)
+
+    stacked = np_params["layers"]
+    n = np.asarray(stacked["attn_norm"]["scale"]).shape[0]
+    if n != cfg.n_layers:
+        raise ValueError(f"{cfg.name}: tree has {n} stacked layers, config says {cfg.n_layers}")
+    return {
+        "final_norm": convert(np_params["final_norm"]),
+        "embed": convert(np_params["embed"]),
+        "lm_head": convert(np_params["lm_head"]),
+        "layers": [convert(stacked, i) for i in range(n)],
+    }

@@ -1,0 +1,29 @@
+"""Plain PyTorch attention (the CPU path and the flash kernel's oracle)."""
+
+from __future__ import annotations
+
+import torch
+
+
+def attention_ref(q, k, v, *, causal=True, window=None, scale=None, kv_valid=None):
+    """q: (BH, Sq, D), k/v: (BH, Skv, D).  Standard softmax attention.
+
+    Scores in fp32, masked to -1e30 (causal, sliding window, and keys at or
+    past ``kv_valid``), probabilities cast to V's dtype for P @ V.
+    """
+    d = q.shape[-1]
+    scale = scale if scale is not None else d**-0.5
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    sq, skv = q.shape[1], k.shape[1]
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    mask = kpos < (skv if kv_valid is None else kv_valid)
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window is not None:
+        mask = mask & (kpos > qpos - window)
+    s = torch.where(mask[None], s, -1e30)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bqk,bkd->bqd", p.to(v.dtype).float(), v.float())
+    return out.to(q.dtype)
