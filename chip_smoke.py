@@ -156,7 +156,8 @@ def phase_device() -> dict:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    say(f"[1] nvidia-smi: {smi}")
+    say("[1] device (nvidia-smi --query-gpu=name,power.limit --format=csv,noheader):")
+    say(smi)
     name = torch.cuda.get_device_name(0)
     cap = torch.cuda.get_device_capability(0)
     say(f"    device {name} sm_{cap[0]}{cap[1]} x{torch.cuda.device_count()}; "

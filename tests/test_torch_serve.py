@@ -107,6 +107,23 @@ def test_decode_logits_match_jax_fp32(fp32_pair):
         np.testing.assert_allclose(got.numpy(), _np(want), rtol=0, atol=FP32_TOL)
 
 
+def test_per_slot_decode_matches_jax_and_leaves_empty_slot_untouched(fp32_pair):
+    """Vector positions: slot 0 decodes at 16, slot 1 is empty (pos -1)."""
+    jmodel, jparams, tmodel, tparams = fp32_pair
+    jb, tb = _prompts(jmodel, seed=5)
+    _, jcache = jmodel.prefill(jparams, jb, max_len=24)
+    _, tcache = tmodel.prefill(tparams, tb, max_len=24)
+    before = {k: v[1].clone() for k, v in tcache["layers"][0].items()}
+    tok = np.array([[3], [7]], np.int32)
+    pos = np.array([16, -1], np.int32)
+    want, _ = jmodel.decode_step(jparams, jax.numpy.asarray(tok), cache=jcache, pos=jax.numpy.asarray(pos))
+    got, tcache = tmodel.decode_step(tparams, torch.from_numpy(tok), cache=tcache, pos=torch.from_numpy(pos))
+    np.testing.assert_allclose(got[0].numpy(), _np(want)[0], rtol=0, atol=FP32_TOL)
+    for k, v in tcache["layers"][0].items():
+        assert torch.equal(v[1], before[k]), k
+    assert int(tcache["layers"][0]["pos"][0, 16]) == 16
+
+
 @pytest.mark.parametrize("arch", ["internlm2-1.8b", "h2o-danube-3-4b"])
 def test_greedy_tokens_identical_fp32(arch):
     """8 greedy tokens through both ServeEngines; h2o-danube-3-4b's SMOKE

@@ -22,6 +22,7 @@ import torch
 
 from repro.kernels.systolic import ops as jax_ops
 from repro_torch.kernels.systolic import kernel as t_kernel
+from repro_torch.core.hw import H100, dtype_bytes
 from repro_torch.kernels.systolic import ops
 
 SHAPES = [
@@ -96,3 +97,15 @@ def test_kernel_call_refuses_cpu_tensors():
         t_kernel.systolic_matmul_call(
             torch.ones(4, 8), torch.ones(8, 4), None, out_dtype=torch.float32
         )
+
+
+@pytest.mark.parametrize("m,bound_by", [(4, "bytes"), (2048, "operations")])
+def test_h100_bound_of_a_projection(m, bound_by):
+    """A decode projection is bound by reading the weight, a prefill one by
+    the tensor cores (989e12 bf16 FLOP/s, 3.35e12 B/s datasheet)."""
+    k = n = 2048
+    flops = 2 * m * n * k
+    nbytes = (m * k + k * n + m * n) * dtype_bytes(torch.bfloat16)
+    secs, by = H100.bound_s(flops, nbytes, "bfloat16")
+    assert by == bound_by
+    assert secs == pytest.approx(max(flops / 989e12, nbytes / 3.35e12))
