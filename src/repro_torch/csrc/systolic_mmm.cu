@@ -19,11 +19,15 @@
 //     fp32 products in full fp32 (TF32 would not match it).
 //   * tiles are staged in shared memory with cp.async, two stages deep, so the
 //     next k tile loads while the current one is multiplied.
-//   * for M <= 16 (decode) a 16-row tile is used, so the grid has N/64 blocks
-//     streaming disjoint columns of B instead of N/128 mostly idle ones.
+//   * for M <= 16 (decode) a 16-row tile is used, and the contraction is
+//     split across blocks (split-K): N/64 column tiles alone would keep at
+//     most 32 of the 132 SMs reading B for N <= 2048.  Each (column tile,
+//     K slice) block writes an fp32 partial; a second, small kernel sums the
+//     partials in a fixed order and applies the bias / activation / cast
+//     epilogue.  The split is chosen so about four blocks per SM read B.
 //   * ragged M, N and K are masked while staging (zero fill) and at the
 //     store, so callers never pad.
-// Not yet used (later work): wgmma, TMA, warp specialisation, split-K.
+// Not yet used (later work): wgmma, TMA, warp specialisation.
 
 #include <mma.h>
 
@@ -85,7 +89,11 @@ template <int BM, int BN, int BK, int WARPS_M, int WARPS_N, typename O>
 __global__ void __launch_bounds__(32 * WARPS_M * WARPS_N)
     mmm_bf16_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ B,
                     const float* __restrict__ bias, O* __restrict__ out, int M, int N, int K,
-                    int act, bool vec_a, bool vec_b) {
+                    int act, bool vec_a, bool vec_b, int k_chunk, float* __restrict__ partial) {
+  // Block z of the grid contracts K slice [z * k_chunk, (z + 1) * k_chunk);
+  // k_chunk is a multiple of BK, so only the last slice meets K's ragged end.
+  // With `partial` set, the raw fp32 sums go to partial[z] (M x N) and the
+  // epilogue is left to splitk_reduce.
   using C = TcCfg<BM, BN, BK, WARPS_M, WARPS_N>;
   __shared__ __align__(128) __nv_bfloat16 As[2][C::A_ELEMS];
   __shared__ __align__(128) __nv_bfloat16 Bs[2][C::B_ELEMS];
@@ -104,17 +112,18 @@ __global__ void __launch_bounds__(32 * WARPS_M * WARPS_N)
 #pragma unroll
     for (int j = 0; j < C::FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
 
-  const int nk = (K + BK - 1) / BK;
+  const int kb = blockIdx.z * k_chunk;
+  const int nk = (min(K, kb + k_chunk) - kb + BK - 1) / BK;
   if (nk > 0) {
-    repro::load_tile<__nv_bfloat16, BM, BK, C::LDA, C::NT>(As[0], A, M, K, m0, 0, vec_a);
-    repro::load_tile<__nv_bfloat16, BK, BN, C::LDB, C::NT>(Bs[0], B, K, N, 0, n0, vec_b);
+    repro::load_tile<__nv_bfloat16, BM, BK, C::LDA, C::NT>(As[0], A, M, K, m0, kb, vec_a);
+    repro::load_tile<__nv_bfloat16, BK, BN, C::LDB, C::NT>(Bs[0], B, K, N, kb, n0, vec_b);
   }
   repro::cp_async_commit();
 
   for (int kt = 0; kt < nk; ++kt) {
     const int cur = kt & 1;
     if (kt + 1 < nk) {  // prefetch the next k tile into the other stage
-      const int k1 = (kt + 1) * BK;
+      const int k1 = kb + (kt + 1) * BK;
       repro::load_tile<__nv_bfloat16, BM, BK, C::LDA, C::NT>(As[cur ^ 1], A, M, K, m0, k1, vec_a);
       repro::load_tile<__nv_bfloat16, BK, BN, C::LDB, C::NT>(Bs[cur ^ 1], B, K, N, k1, n0, vec_b);
     }
@@ -151,9 +160,17 @@ __global__ void __launch_bounds__(32 * WARPS_M * WARPS_N)
       __syncwarp();
       const int r0 = m0 + wm * C::WTM + i * 16;
       const int c0 = n0 + wn * C::WTN + j * 16;
+      if (partial != nullptr) {
+        float* p = partial + (size_t)blockIdx.z * M * N;
+        for (int e = lane; e < 256; e += 32) {
+          const int r = r0 + e / 16, c = c0 + e % 16;
+          if (r < M && c < N) p[(size_t)r * N + c] = scratch[e];
+        }
+      } else {
 #pragma unroll
-      for (int e = lane; e < 256; e += 32)
-        store_out(out, bias, act, M, N, r0 + e / 16, c0 + e % 16, scratch[e]);
+        for (int e = lane; e < 256; e += 32)
+          store_out(out, bias, act, M, N, r0 + e / 16, c0 + e % 16, scratch[e]);
+      }
       __syncwarp();
     }
   }
@@ -218,15 +235,67 @@ __global__ void __launch_bounds__(F_NT)
       store_out(out, bias, act, M, N, m0 + ty + 16 * i, n0 + tx + 16 * j, acc[i][j]);
 }
 
+// Split-K epilogue: out = act(sum_z partial[z] + bias), summed in z order.
+template <typename O>
+__global__ void splitk_reduce(const float* __restrict__ partial, int splits,
+                              const float* __restrict__ bias, O* __restrict__ out, int M, int N,
+                              int act) {
+  const size_t mn = (size_t)M * N;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < mn;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float v = 0.f;
+    for (int z = 0; z < splits; ++z) v += partial[z * mn + i];
+    store_out(out, bias, act, M, N, (int)(i / N), (int)(i % N), v);
+  }
+}
+
+// The decode tile (M <= 16, bf16) and how its contraction is split.
+constexpr int D_BM = 16, D_BN = 64, D_BK = 64;
+
+struct Split {
+  int splits;   // blocks along K
+  int k_chunk;  // contraction per block, a multiple of D_BK
+};
+
+int sm_count() {
+  static int cached[64] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) return 132;
+  if (cached[dev] == 0) cudaDeviceGetAttribute(&cached[dev], cudaDevAttrMultiProcessorCount, dev);
+  return cached[dev] > 0 ? cached[dev] : 132;
+}
+
+// Enough K slices that about four decode blocks per SM stream B (the
+// N / D_BN column tiles alone may fill a few SMs only); one slice when the
+// GEMM is not a bf16 decode or the column tiles already fill the card.
+Split plan_split(int M, int N, int K, int in_dtype) {
+  if (in_dtype != repro::DT_BF16 || M > D_BM || K <= D_BK) return {1, K};
+  const int col_tiles = (N + D_BN - 1) / D_BN;
+  const int k_tiles = (K + D_BK - 1) / D_BK;
+  const int want = (4 * sm_count() + col_tiles - 1) / col_tiles;
+  const int splits = want < k_tiles ? want : k_tiles;
+  if (splits <= 1) return {1, K};
+  const int per = (k_tiles + splits - 1) / splits;  // k tiles per slice
+  return {(k_tiles + per - 1) / per, per * D_BK};
+}
+
 template <int BM, int BN, int BK, int WM, int WN, typename O>
 void launch_bf16(const void* a, const void* b, const float* bias, void* out, int M, int N, int K,
-                 int act, cudaStream_t s) {
+                 int act, cudaStream_t s, Split sp = {1, 0}, float* partial = nullptr) {
   const bool vec_a = repro::aligned16(a) && K % 8 == 0;
   const bool vec_b = repro::aligned16(b) && N % 8 == 0;
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, sp.splits);
   mmm_bf16_kernel<BM, BN, BK, WM, WN, O><<<grid, 32 * WM * WN, 0, s>>>(
       static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b), bias,
-      static_cast<O*>(out), M, N, K, act, vec_a, vec_b);
+      static_cast<O*>(out), M, N, K, act, vec_a, vec_b, sp.splits > 1 ? sp.k_chunk : K,
+      sp.splits > 1 ? partial : nullptr);
+  if (sp.splits > 1) {
+    const size_t mn = (size_t)M * N;
+    const int blocks = (int)((mn + 255) / 256 < 4096 ? (mn + 255) / 256 : 4096);
+    splitk_reduce<O><<<blocks, 256, 0, s>>>(partial, sp.splits, bias, static_cast<O*>(out), M,
+                                            N, act);
+  }
 }
 
 template <typename O>
@@ -242,11 +311,12 @@ void launch_f32(const void* a, const void* b, const float* bias, void* out, int 
 
 template <typename O>
 void launch(const void* a, const void* b, const float* bias, void* out, int M, int N, int K,
-            int in_dtype, int act, cudaStream_t s) {
+            int in_dtype, int act, cudaStream_t s, float* workspace) {
   if (in_dtype == repro::DT_F32) {
     launch_f32<O>(a, b, bias, out, M, N, K, act, s);
-  } else if (M <= 16) {  // decode: one 16-row tile, 4 warps side by side over 64 columns
-    launch_bf16<16, 64, 64, 1, 4, O>(a, b, bias, out, M, N, K, act, s);
+  } else if (M <= D_BM) {  // decode: one 16-row tile, 4 warps side by side over 64 columns
+    launch_bf16<D_BM, D_BN, D_BK, 1, 4, O>(a, b, bias, out, M, N, K, act, s,
+                                           plan_split(M, N, K, in_dtype), workspace);
   } else {  // prefill: 128x128 tile, 8 warps of 64x32
     launch_bf16<128, 128, 32, 2, 4, O>(a, b, bias, out, M, N, K, act, s);
   }
@@ -254,21 +324,32 @@ void launch(const void* a, const void* b, const float* bias, void* out, int M, i
 
 }  // namespace
 
+// Bytes of fp32 scratch that systolic_mmm needs for this problem on the
+// current device (the split-K partials; 0 when the contraction is not split).
+extern "C" long long systolic_mmm_workspace(int M, int N, int K, int in_dtype) {
+  const Split sp = plan_split(M, N, K, in_dtype);
+  return sp.splits > 1 ? (long long)sp.splits * M * N * (long long)sizeof(float) : 0;
+}
+
 // a: (M, K), b: (K, N), both row-major and of dtype `in_dtype`; bias: (N,)
-// fp32 or null; out: (M, N) row-major of dtype `out_dtype`.  Launches on
+// fp32 or null; out: (M, N) row-major of dtype `out_dtype`; workspace: at
+// least systolic_mmm_workspace() bytes (null if that is 0).  Launches on
 // `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int systolic_mmm(const void* a, const void* b, const void* bias, void* out, int M,
                             int N, int K, int in_dtype, int out_dtype, int activation,
-                            void* stream) {
+                            void* workspace, long long workspace_bytes, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* bf = static_cast<const float*>(bias);
   if ((in_dtype != repro::DT_F32 && in_dtype != repro::DT_BF16) ||
       (out_dtype != repro::DT_F32 && out_dtype != repro::DT_BF16) || activation < ACT_NONE ||
-      activation > ACT_TANH || M <= 0 || N <= 0 || K < 0)
+      activation > ACT_TANH || M <= 0 || N <= 0 || K < 0 ||
+      workspace_bytes < systolic_mmm_workspace(M, N, K, in_dtype) ||
+      (workspace_bytes > 0 && workspace == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  float* ws = static_cast<float*>(workspace);
   if (out_dtype == repro::DT_F32)
-    launch<float>(a, b, bf, out, M, N, K, in_dtype, activation, s);
+    launch<float>(a, b, bf, out, M, N, K, in_dtype, activation, s, ws);
   else
-    launch<__nv_bfloat16>(a, b, bf, out, M, N, K, in_dtype, activation, s);
+    launch<__nv_bfloat16>(a, b, bf, out, M, N, K, in_dtype, activation, s, ws);
   return static_cast<int>(cudaGetLastError());
 }

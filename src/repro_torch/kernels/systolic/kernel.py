@@ -7,6 +7,7 @@ kernel masks ragged edges itself, so shapes need not divide any block.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -18,11 +19,14 @@ from repro_torch.kernels.systolic.ref import ACTIVATIONS
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 ACTIVATION_CODES = {name: i for i, name in enumerate(ACTIVATIONS)}
 
-# Kernel launches made by this process (read and reset by chip_smoke.py).
+# Kernel launches made by this process, in all and by (M, K, N) (read and
+# reset by chip_smoke.py).
 launches = 0
+launches_by_shape: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
 
 
 @functools.cache
@@ -30,9 +34,18 @@ def _entry():
     """The loaded library and its C entry point (built on first call)."""
     lib = _build.library("systolic_mmm")
     fn = lib.systolic_mmm
-    fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+    fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _LL, _P]
     fn.restype = _I
+    lib.systolic_mmm_workspace.argtypes = [_I, _I, _I, _I]
+    lib.systolic_mmm_workspace.restype = _LL
     return lib, fn
+
+
+@functools.cache
+def _workspace_bytes(m: int, n: int, k: int, dtype_code: int, device_index: int | None) -> int:
+    """fp32 scratch bytes the kernel needs (its split-K partials); depends on
+    the shape and the card's SM count, so it is asked once per shape and card."""
+    return _entry()[0].systolic_mmm_workspace(m, n, k, dtype_code)
 
 
 def systolic_matmul_call(
@@ -73,12 +86,15 @@ def systolic_matmul_call(
     if m == 0 or n == 0:
         return out
     lib, fn = _entry()
+    nbytes = _workspace_bytes(m, n, k, DTYPE_CODES[a.dtype], a.device.index)
+    ws = torch.empty(nbytes // 4, dtype=torch.float32, device=a.device) if nbytes else None
     stream = torch.cuda.current_stream(a.device).cuda_stream
     code = fn(
         a.data_ptr(), b.data_ptr(), None if bias is None else bias.data_ptr(),
         out.data_ptr(), m, n, k, DTYPE_CODES[a.dtype], DTYPE_CODES[out_dtype],
-        ACTIVATION_CODES[activation], stream,
+        ACTIVATION_CODES[activation], None if ws is None else ws.data_ptr(), nbytes, stream,
     )
     _build.check(lib, "systolic_mmm launch", code)
     launches += 1
+    launches_by_shape[(m, k, n)] += 1
     return out

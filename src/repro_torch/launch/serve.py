@@ -36,7 +36,7 @@ def run_synchronized(model, params, args, device: torch.device) -> torch.Tensor:
     engine = ServeEngine(
         model,
         params,
-        ServeConfig(max_len=args.prompt_len + args.gen, batch=args.batch, seed=args.seed),
+        ServeConfig(max_len=args.prompt_len + args.gen, batch=args.batch),
         device=device,
     )
     prompts = make_batch(cfg, batch=args.batch, seq=args.prompt_len, kind="prefill",

@@ -118,16 +118,14 @@ def _head(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 # ===========================================================================
 
 
-def forward(params: dict, batch: dict, cfg: ArchConfig, *, head_mode: str = "all") -> torch.Tensor:
-    """Full-sequence forward.  batch: {"tokens": (B, S) int}.  -> logits fp32.
-    head_mode "last" applies the head to the final position only."""
+def forward(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+    """Full-sequence forward.  batch: {"tokens": (B, S) int}.  -> logits fp32
+    at every position (``prefill`` gives the last position's alone)."""
     x = _embed_input(params, batch, cfg)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     for lp in params["layers"]:
         x, _ = attn_block_fwd(lp, x, cfg, positions)
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    if head_mode == "last":
-        x = x[:, -1:]
     return _head(params, x, cfg)
 
 

@@ -1,4 +1,4 @@
-"""Batched serving engine: synchronized prefill -> greedy (or sampled) decode.
+"""Batched serving engine: synchronized prefill -> greedy decode.
 
 The counterpart of the synchronized half of ``repro.serving.engine``.  It
 runs eagerly: no ``torch.compile`` and no CUDA graph yet.  The reference
@@ -27,8 +27,6 @@ from repro_torch.serving.kvpool import clear_slots
 class ServeConfig:
     max_len: int
     batch: int  # synchronized batch size
-    temperature: float = 0.0  # 0 => greedy
-    seed: int = 0
 
 
 def _tensors(tree):
@@ -54,22 +52,16 @@ class ServeEngine:
         self.cfg = model.cfg
         self.scfg = scfg
         self.params = params
-        self._gen = torch.Generator(device=self.device).manual_seed(scfg.seed)
         self.cache = None
         self.pos = 0
 
     # -- sampling --------------------------------------------------------------
 
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
-        """logits: (B, 1, V) -> tokens (B, 1) int32.  Greedy is argmax; sampled
-        decoding draws from a torch Generator, so it cannot match the
-        reference's ``jax.random`` draws."""
-        if self.scfg.temperature <= 0.0:
-            return torch.argmax(logits, dim=-1).to(torch.int32)
-        probs = torch.softmax(logits.float() / self.scfg.temperature, dim=-1)
-        flat = probs.reshape(-1, probs.shape[-1])
-        tok = torch.multinomial(flat, 1, generator=self._gen)
-        return tok.reshape(logits.shape[:-1]).to(torch.int32)
+        """logits: (B, 1, V) -> tokens (B, 1) int32, greedy (argmax).
+        Temperature sampling comes with the continuous-serving part of the
+        port, whose launcher sets it."""
+        return torch.argmax(logits, dim=-1).to(torch.int32)
 
     # -- synchronized serving --------------------------------------------------
 

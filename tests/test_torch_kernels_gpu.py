@@ -31,6 +31,10 @@ GEMM_SHAPES = [
     (512, 128, 1024),
     (4, 2048, 2048),  # decode projection
     (4, 1024, 2048),
+    (4, 2048, 8192),  # decode, contraction split across blocks
+    (16, 1024, 2048),
+    (1, 300, 1000),  # split-K with ragged N and K
+    (9, 70, 4000),
 ]
 ATTN_CASES = [
     (128, 128, True, None),
