@@ -10,17 +10,24 @@ Phases, each printing its own lines; any failure exits non-zero:
      build of the CUDA kernels from csrc/ (one nvcc per source, in parallel);
   2. each hand-written kernel against its plain PyTorch version on the card,
      at the main path's shapes and on ragged ones, max errors beside the
-     tolerance;
+     tolerance (the block-scaled int8 / fp8 GEMM also over scale blocks of
+     128, 64, 32 and whole-K);
   3. full-width internlm2-1.8b in bf16 (random weights from a seed) served
      through ServeEngine: batch 4, prompt 512, 32 greedy tokens, with the
      kernels' launch counts checked exactly, in all and per GEMM shape; the
      kernel path's prefill logits and two decode steps from the same cache
      against the same model run through the plain versions on the card; and
      the SMOKE config in fp32 on the card against the port's CPU path;
+     then the same model served w8a8 (int8 weights quantized from the same
+     fp32 masters, per-token int8 activations), every projection on the
+     block-scaled kernel, with the same launch, kernel-vs-plain and decode
+     checks, and its logits against the bf16 model's within the reference's
+     bound of 0.15 x the largest logit;
   4. each kernel timed at the main path's shapes (CUDA events) beside its
      bound, its plain version and one PyTorch library call (a yardstick the
-     port never calls); one JSON line lists the kernels, each shape's time
-     weighted by the launches the main path made at that shape;
+     port never calls; none computes the block-scaled product, so the
+     quantized kernel's is null); one JSON line lists the kernels, each
+     shape's time weighted by the launches the main path made at that shape;
   5. the last line: {"ok": true, "device": {...}}.
 Without a card, or without the rest of the repository beside it, it exits
 non-zero and prints no result.
@@ -44,7 +51,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import torch  # noqa: E402
 
-from repro_torch import configs  # noqa: E402
+from repro_torch import configs, quant  # noqa: E402
 from repro_torch.core.hw import H100, dtype_bytes  # noqa: E402
 from repro_torch.data.synthetic import make_batch  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -53,8 +60,14 @@ from repro_torch.kernels.attention import ops as attn_ops  # noqa: E402
 from repro_torch.kernels.attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.systolic import kernel as mm_kernel  # noqa: E402
 from repro_torch.kernels.systolic import ops as mm_ops  # noqa: E402
-from repro_torch.kernels.systolic.ref import ACTIVATIONS, matmul_ref  # noqa: E402
+from repro_torch.kernels.systolic.ref import (  # noqa: E402
+    ACTIVATIONS,
+    matmul_ref,
+    quant_matmul_ref,
+    quant_systolic_matmul_ref,
+)
 from repro_torch.models.registry import get_model  # noqa: E402
+from repro_torch.models.transformer import cast_params  # noqa: E402
 from repro_torch.serving import ServeConfig, ServeEngine  # noqa: E402
 
 ARCH = "internlm2-1.8b"
@@ -67,10 +80,23 @@ GEMM_RTOL_FP32 = 1e-5  # fp32 atol is 1e-5 * sqrt(K): summation order, growing w
 ATTN_TOL = {BF16: 3e-2, torch.float32: 2e-4}  # P rounded to bf16 / online vs direct softmax
 LOGITS_TOL_BF16 = 5e-2  # of the largest logit: bf16 activations rounded at other points
 LOGITS_TOL_FP32 = 1e-4  # fp32 SMOKE model, card vs CPU: summation order only
+# Block-scaled GEMM vs its dequantize-then-fp32 plain version: atol 1e-5 x
+# (max|sum| + 1), the reference's own (same quantized values, other fp32
+# order; the activations are <= 1.1-Lipschitz), plus one bf16 ulp (2^-7
+# relative) where the output is bf16 and the two round different fp32 sums.
+QGEMM_ATOL = 1e-5
+QGEMM_RTOL_BF16 = 2**-7
+# w8a8 kernel path vs plain path at full width: bf16 activations rounded at
+# other points (as LOGITS_TOL_BF16), and each layer's per-token int8 rounding
+# turns a one-ulp bf16 difference into a one-step int8 difference where a
+# value sits on a rounding boundary.
+LOGITS_TOL_W8A8 = 5e-2
+W8A8_VS_BF16_TOL = 0.15  # of the bf16 model's largest logit: tests/test_quant.py's w8a8 bound
 # (K, N) of the seven projections of one internlm2-1.8b layer, with multiplicity.
 PROJECTIONS = {(2048, 2048): 2, (2048, 1024): 2, (2048, 8192): 2, (8192, 2048): 1}
 SOURCES = {
     "systolic_mmm": ("src/repro_torch/csrc/systolic_mmm.cu", "src/repro/kernels/systolic/kernel.py:37"),
+    "systolic_qmm": ("src/repro_torch/csrc/systolic_qmm.cu", "src/repro/kernels/systolic/kernel.py:174"),
     "flash_attn": ("src/repro_torch/csrc/flash_attn.cu", "src/repro/kernels/attention/kernel.py:30"),
 }
 
@@ -90,16 +116,19 @@ def expect(ok: bool, what: str) -> None:
 def reset_counts() -> None:
     mm_kernel.launches = 0
     mm_kernel.launches_by_shape.clear()
+    mm_kernel.quant_launches = 0
+    mm_kernel.quant_launches_by_shape.clear()
     attn_kernel.launches = 0
 
 
-def counts() -> tuple[int, int]:
-    return mm_kernel.launches, attn_kernel.launches
+def counts() -> tuple[int, int, int]:
+    """(systolic, quantized systolic, flash) launches since the last reset."""
+    return mm_kernel.launches, mm_kernel.quant_launches, attn_kernel.launches
 
 
 @contextlib.contextmanager
 def plain_versions():
-    """Route both kernel wrappers' CUDA calls to their plain versions (for the
+    """Route the kernel wrappers' CUDA calls to their plain versions (for the
     comparison run only; the port itself has no such switch)."""
 
     def mm(a, b, bias, *, out_dtype, activation="none"):
@@ -109,6 +138,7 @@ def plain_versions():
         return attention_ref(q, k, v, causal=causal, window=window, scale=scale, kv_valid=kv_valid)
 
     with mock.patch.object(mm_kernel, "systolic_matmul_call", mm), \
+            mock.patch.object(mm_kernel, "quant_systolic_matmul_call", quant_systolic_matmul_ref), \
             mock.patch.object(attn_kernel, "flash_attention_call", flash):
         yield
 
@@ -213,6 +243,22 @@ def check_flash(b, h, s, d, dtype, gen, *, window=None, causal=True) -> float:
     return err
 
 
+def check_qgemm(m, k, n, qd, gen, *, qk=(128, 128), act="none", out_dtype=BF16) -> float:
+    """The block-scaled kernel against its plain version on one quantized pair."""
+    qa = quant.quantize(randn((m, k), gen, torch.float32), qd, block=(1, qk[0]))
+    qb = quant.quantize(randn((k, n), gen, torch.float32), qd, block=(qk[1], 1))
+    got = mm_ops.quant_matmul(qa, qb, out_dtype=out_dtype, activation=act)
+    want = quant_matmul_ref(qa, qb, activation=act, out_dtype=out_dtype)
+    pre = quant_matmul_ref(qa, qb, out_dtype=torch.float32)
+    atol = QGEMM_ATOL * (pre.abs().max().item() + 1.0)
+    rtol = QGEMM_RTOL_BF16 if out_dtype == BF16 else 0.0
+    ok, err, rel = close(got, want, atol, rtol)
+    expect(ok and got.dtype == out_dtype,
+           f"qgemm {qd:4s} M={m:<5d} K={k:<5d} N={n:<5d} qk={qk!s:9s} act={act:5s} out={str(out_dtype)[6:]:8s} "
+           f"max_abs={err:.3e} max_rel={rel:.3e} (atol {atol:.1e}, rtol {rtol:.1e})")
+    return err
+
+
 def phase_kernels() -> dict:
     say("[2] kernels against their plain versions on the card")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -228,13 +274,28 @@ def phase_kernels() -> dict:
         check_gemm(64, 96, 160, torch.float32, gen, bias=True, act=act)
         check_gemm(4, 1000, 300, BF16, gen, bias=True, act=act)  # epilogue after the split-K sum
         check_gemm(100, 130, 70, BF16, gen, bias=True, act=act, out_dtype=torch.float32)
+    check_gemm(BATCH * PROMPT, 2048, 8192, BF16, gen, bias=True)  # the shape K2 is timed at
+    q_err = 0.0
+    for qd in quant.QDTYPES:
+        for m in (4, BATCH * PROMPT):
+            for k, n in PROJECTIONS:
+                err = check_qgemm(m, k, n, qd, gen)
+                q_err = max(q_err, err) if qd == "int8" else q_err  # the main path's dtype
+        for m, k, n in ((72, 100, 130), (300, 515, 257), (1, 300, 1000), (9, 70, 4000)):
+            check_qgemm(m, k, n, qd, gen, out_dtype=torch.float32)
+        for qk in ((64, 64), (32, 32), (0, 0), (128, 64), (32, 0), (48, 32)):
+            check_qgemm(4, 1000, 300, qd, gen, qk=qk, out_dtype=torch.float32)  # split-K, partial last block
+            check_qgemm(100, 520, 130, qd, gen, qk=qk, out_dtype=torch.float32)
+        for act in ACTIVATIONS:
+            check_qgemm(4, 1000, 300, qd, gen, act=act)
+            check_qgemm(100, 520, 130, qd, gen, act=act, out_dtype=torch.float32)
     attn_err = 0.0
     for s, window in ((512, None), (512, 128), (500, None)):
         attn_err = max(attn_err, check_flash(BATCH, 16, s, 128, BF16, gen, window=window))
     check_flash(2, 2, 130, 64, torch.float32, gen, window=32)
     check_flash(2, 2, 100, 16, BF16, gen, causal=False)
     torch.cuda.synchronize()
-    return {"systolic_mmm": mm_err, "flash_attn": attn_err}
+    return {"systolic_mmm": mm_err, "systolic_qmm": q_err, "flash_attn": attn_err}
 
 
 # ---------------------------------------------------------------------------
@@ -242,17 +303,16 @@ def phase_kernels() -> dict:
 # ---------------------------------------------------------------------------
 
 
-def phase_serve() -> dict:
-    cfg = configs.get_config(ARCH)
-    say(f"[3] serve {ARCH} (full width: {cfg.n_layers}L d={cfg.d_model} H={cfg.n_heads}/{cfg.n_kv_heads} "
-        f"d_ff={cfg.d_ff} V={cfg.vocab_size}) in {cfg.dtype}, batch {BATCH}, prompt {PROMPT}, {GEN} tokens")
-    model = get_model(cfg)
-    t0 = time.perf_counter()
-    params = model.init(SEED, "cuda")
-    torch.cuda.synchronize()
-    say(f"    init {time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+def serve_path(label: str, model, params, want: dict, batch, feed=None) -> dict:
+    """Serve one synchronized batch through ServeEngine on the kernels, with
+    the counts set to 0 just before prefill and decode and read just after;
+    then hold the kernel path's prefill logits and two decode steps from one
+    cache against the plain path.  ``want``: the GEMM counter that the
+    projections must hit ("systolic" or "quant") and the logits tolerance.
+    ``feed``: the tokens to feed the two decode steps (default: the kernel
+    path's own greedy tokens)."""
+    cfg = model.cfg
     engine = ServeEngine(model, params, ServeConfig(max_len=PROMPT + GEN, batch=BATCH), device="cuda")
-    batch = make_batch(cfg, batch=BATCH, seq=PROMPT, kind="prefill", seed=SEED, device="cuda")
     engine.generate(batch, 2)  # warm-up: library handles, first launches (not counted)
     torch.cuda.synchronize()
 
@@ -261,71 +321,120 @@ def phase_serve() -> dict:
     first = engine.prefill(batch)
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
-    pf_counts, pf_shapes = counts(), dict(mm_kernel.launches_by_shape)
+    pf_counts = counts()
+    pf_shapes = dict(mm_kernel.launches_by_shape if want["gemm"] == "systolic" else mm_kernel.quant_launches_by_shape)
     reset_counts()
     t0 = time.perf_counter()
     rest = engine.decode(first, GEN - 1)
     torch.cuda.synchronize()
     t_decode = time.perf_counter() - t0
-    dec_counts, dec_shapes = counts(), dict(mm_kernel.launches_by_shape)
+    dec_counts = counts()
+    dec_shapes = dict(mm_kernel.launches_by_shape if want["gemm"] == "systolic" else mm_kernel.quant_launches_by_shape)
     tokens = torch.cat([first, rest], dim=1)
     n_proj = 7 * cfg.n_layers
-    say(f"    prefill {t_prefill * 1e3:.3f} ms; decode {t_decode / (GEN - 1) * 1e3:.3f} ms/step, "
+    say(f"    {label}: prefill {t_prefill * 1e3:.3f} ms; decode {t_decode / (GEN - 1) * 1e3:.3f} ms/step, "
         f"{BATCH * (GEN - 1) / t_decode:.1f} tok/s over {GEN - 1} steps")
-    expect(pf_counts == (n_proj, cfg.n_layers),
-           f"prefill launches: systolic {pf_counts[0]} (want {n_proj}), flash {pf_counts[1]} (want {cfg.n_layers})")
-    expect(dec_counts == (n_proj * (GEN - 1), 0),
-           f"decode launches over {GEN - 1} steps: systolic {dec_counts[0]} (want {n_proj * (GEN - 1)}), "
-           f"flash {dec_counts[1]} (want 0)")
+    gemm = (n_proj, 0) if want["gemm"] == "systolic" else (0, n_proj)
+    want_pf = (*gemm, cfg.n_layers)
+    want_dec = (gemm[0] * (GEN - 1), gemm[1] * (GEN - 1), 0)
+    expect(pf_counts == want_pf, f"{label} prefill launches (systolic, quant, flash): {pf_counts}, want {want_pf}")
+    expect(dec_counts == want_dec,
+           f"{label} decode launches over {GEN - 1} steps (systolic, quant, flash): {dec_counts}, want {want_dec}")
     expect(tuple(tokens.shape) == (BATCH, GEN) and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
-           f"tokens {tuple(tokens.shape)} in [0, {cfg.vocab_size}): {tokens[0, :12].tolist()}")
+           f"{label} tokens {tuple(tokens.shape)} in [0, {cfg.vocab_size}): {tokens[0, :12].tolist()}")
     # Per-shape counts, from the launch site: the timing phase weights each
     # shape's time by these, so they must be the model's seven projections.
-    want_pf = {(BATCH * PROMPT, k, n): mult * cfg.n_layers for (k, n), mult in PROJECTIONS.items()}
-    want_dec = {(BATCH, k, n): mult * cfg.n_layers * (GEN - 1) for (k, n), mult in PROJECTIONS.items()}
-    expect(pf_shapes == want_pf, f"prefill systolic launches by (M, K, N): {sorted(pf_shapes.items())}")
-    expect(dec_shapes == want_dec, f"decode systolic launches by (M, K, N): {sorted(dec_shapes.items())}")
+    want_pf_shapes = {(BATCH * PROMPT, k, n): mult * cfg.n_layers for (k, n), mult in PROJECTIONS.items()}
+    want_dec_shapes = {(BATCH, k, n): mult * cfg.n_layers * (GEN - 1) for (k, n), mult in PROJECTIONS.items()}
+    expect(pf_shapes == want_pf_shapes, f"{label} prefill {want['gemm']} launches by (M, K, N): {sorted(pf_shapes.items())}")
+    expect(dec_shapes == want_dec_shapes, f"{label} decode {want['gemm']} launches by (M, K, N): {sorted(dec_shapes.items())}")
 
+    logits = []  # the kernel path's prefill and two decode-step logits
     with torch.no_grad():
         reset_counts()
         got, cache_k = model.prefill(params, batch, max_len=PROMPT + GEN)
         kernel_counts = counts()
         with plain_versions():
-            want, _ = model.prefill(params, batch, max_len=PROMPT + GEN)
+            want_l, _ = model.prefill(params, batch, max_len=PROMPT + GEN)
         plain_counts = tuple(c - k for c, k in zip(counts(), kernel_counts))
-        expect(plain_counts == (0, 0), f"plain-path prefill launched no kernel ({plain_counts})")
-        err, scale = compare_logits("prefill", got, want)
+        expect(plain_counts == (0, 0, 0), f"{label} plain-path prefill launched no kernel ({plain_counts})")
+        err, scale = compare_logits(f"{label} prefill", got, want_l, want["tol"])
+        logits.append(got)
         # Two decode steps from one cache: the kernel path's primed cache, and
         # a copy of it for the plain path; both are fed the same tokens.
         cache_p = _tree(torch.clone, cache_k)
-        tok, dec_err = got.argmax(-1).to(torch.int32), 0.0
+        tok, dec_err, fed = got.argmax(-1).to(torch.int32), 0.0, []
         for step in range(2):
+            tok = tok if feed is None else feed[step]
+            fed.append(tok)
             lk, cache_k = model.decode_step(params, tok, cache=cache_k, pos=PROMPT + step)
             n0 = counts()
             with plain_versions():
                 lp, cache_p = model.decode_step(params, tok, cache=cache_p, pos=PROMPT + step)
-            expect(counts() == n0, f"plain-path decode step {step} launched no kernel")
-            dec_err = max(dec_err, compare_logits(f"decode step {step}", lk, lp)[0])
+            expect(counts() == n0, f"{label} plain-path decode step {step} launched no kernel")
+            dec_err = max(dec_err, compare_logits(f"{label} decode step {step}", lk, lp, want["tol"])[0])
+            logits.append(lk)
             tok = lk.argmax(-1).to(torch.int32)
-    del engine, params, cache_k, cache_p
-    torch.cuda.empty_cache()
+    del engine, cache_k, cache_p
     return {
         "prefill_ms": t_prefill * 1e3,
         "decode_ms_per_step": t_decode / (GEN - 1) * 1e3,
         "decode_tok_s": BATCH * (GEN - 1) / t_decode,
-        "prefill_launches": list(pf_counts),
+        "prefill_launches": list(pf_counts),  # (systolic, quant, flash)
         "decode_launches": list(dec_counts),
         "prefill_shapes": [[*mkn, c] for mkn, c in sorted(pf_shapes.items())],  # [M, K, N, launches]
         "decode_shapes": [[*mkn, c] for mkn, c in sorted(dec_shapes.items())],
         "logits_max_abs_err": err,
         "logits_scale": scale,
         "decode_logits_max_abs_err": dec_err,
+        "logits": logits,
+        "fed": fed,
     }
 
 
-def compare_logits(what: str, got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
-    """Kernel-path logits (B, 1, V) against the plain path's, within the bf16
-    tolerance; then the greedy tokens.  Random weights leave near-ties among
+def phase_serve() -> tuple[dict, dict]:
+    """The bf16 model, then the w8a8 model quantized from the same fp32 masters."""
+    cfg = configs.get_config(ARCH)
+    say(f"[3] serve {ARCH} (full width: {cfg.n_layers}L d={cfg.d_model} H={cfg.n_heads}/{cfg.n_kv_heads} "
+        f"d_ff={cfg.d_ff} V={cfg.vocab_size}) in {cfg.dtype}, batch {BATCH}, prompt {PROMPT}, {GEN} tokens")
+    model = get_model(cfg)
+    t0 = time.perf_counter()
+    masters = model.init(SEED, "cuda", dtype=torch.float32)  # the fp32 values both models come from
+    params = cast_params(masters, BF16)
+    qparams = cast_params(quant.quantize_params(masters), BF16)
+    del masters
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    n_q, q_bytes = quant.count_quantized(qparams)
+    say(f"    init {time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB on the card; "
+        f"w8a8: {n_q} projection weights -> int8 ({q_bytes / 1e6:.1f} MB resident values)")
+    batch = make_batch(cfg, batch=BATCH, seq=PROMPT, kind="prefill", seed=SEED, device="cuda")
+    bf16 = serve_path("bf16", model, params, {"gemm": "systolic", "tol": LOGITS_TOL_BF16}, batch)
+    with quant.use_act_quant("int8"):
+        w8a8 = serve_path("w8a8", model, qparams, {"gemm": "quant", "tol": LOGITS_TOL_W8A8}, batch,
+                          feed=bf16["fed"])
+    # w8a8 against the bf16 model from the same fp32 weights, both on the
+    # kernels, prefill and two decode steps fed the same tokens.
+    w8a8["vs_bf16_max_abs_err"], w8a8["vs_bf16_bound"] = [], []
+    for what, got, want in zip(("prefill", "decode step 0", "decode step 1"), w8a8["logits"], bf16["logits"]):
+        err = (got - want).abs().max().item()
+        bound = W8A8_VS_BF16_TOL * want.abs().max().item()
+        expect(bool(torch.isfinite(got).all()) and err < bound,
+               f"w8a8 vs bf16 {what} logits: max_abs={err:.3e} (bound {W8A8_VS_BF16_TOL} x max|logit| = "
+               f"{bound:.3e}); greedy tokens agree in {int((got.argmax(-1) == want.argmax(-1)).sum())} of "
+               f"{got.shape[0]} rows")
+        w8a8["vs_bf16_max_abs_err"].append(err)
+        w8a8["vs_bf16_bound"].append(bound)
+    for r in (bf16, w8a8):
+        del r["logits"], r["fed"]
+    del params, qparams
+    torch.cuda.empty_cache()
+    return bf16, w8a8
+
+
+def compare_logits(what: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> tuple[float, float]:
+    """Kernel-path logits (B, 1, V) against the plain path's, within ``tol``
+    of the largest; then the greedy tokens.  Random weights leave near-ties among
     the top logits, which bf16 rounding may order either way (one row in four
     flipped in an earlier run), so a row may pick another token than the
     plain path only if that token's plain logit is within twice the row's
@@ -333,9 +442,9 @@ def compare_logits(what: str, got: torch.Tensor, want: torch.Tensor) -> tuple[fl
     d = (got - want).abs()
     err = d.max().item()
     scale = max(1.0, want.abs().max().item())
-    expect(bool(torch.isfinite(got).all()) and err <= LOGITS_TOL_BF16 * scale,
+    expect(bool(torch.isfinite(got).all()) and err <= tol * scale,
            f"{what} logits {tuple(got.shape)}, kernel path vs plain path: max_abs={err:.3e} "
-           f"(tol {LOGITS_TOL_BF16} x {scale:.2f})")
+           f"(tol {tol} x {scale:.2f})")
     tk, tp = got.argmax(-1), want.argmax(-1)
     row_err = d.amax(-1)
     gap = want.amax(-1) - want.gather(-1, tk.unsqueeze(-1)).squeeze(-1)
@@ -422,26 +531,116 @@ def time_flash(gen) -> dict:
             "library_ms": t["library"], "bound_ms": bound_s * 1e3, "bound_by": bound_by}
 
 
-def phase_timing(errs: dict, serve: dict) -> list[dict]:
+def _qgemm_cost(m, k, n, qk=quant.DEFAULT_BLOCK_K):
+    """Operations and HBM bytes of one w8a8 projection: int8 values and fp32
+    per-row / per-column scales read once, the bf16 output written once."""
+    kb = -(-k // qk)
+    nbytes = m * k + k * n + 4 * (m * kb + kb * n) + m * n * dtype_bytes(BF16)
+    return 2 * m * n * k, nbytes
+
+
+def cycler(items: list):
+    """A function returning the next of ``items`` on each call, round robin."""
+    it = [0]
+
+    def nxt():
+        it[0] = (it[0] + 1) % len(items)
+        return items[it[0]]
+
+    return nxt
+
+
+def time_qgemm(m, k, n, gen) -> dict:
+    """Kernel and plain times of one w8a8 projection (int8, 128-k scale
+    blocks, bf16 out), weights cycled through >= 150 MB of copies as in
+    time_gemm.  No PyTorch call computes a product scaled per k block, so
+    library_ms is null.  For information only: the same kernel with one
+    scale block over all of K (one retire instead of one per 128 k), and two
+    other functions, torch._int_mm (int8 -> int32, no scales; it refuses
+    M <= 16) and the bf16 torch.matmul of the same shape."""
+    qa = quant.quantize_act(randn((m, k), gen, torch.float32))
+    qbs = [quant.quantize_weight(randn((k, n), gen, torch.float32)) for _ in range(math.ceil(150e6 / (k * n)))]
+    nxt = cycler(qbs)
+    iters = 20 if m <= 16 else 10
+    t = {
+        "kernel": time_ms(lambda: mm_ops.quant_matmul(qa, nxt(), out_dtype=BF16), iters),
+        "plain": time_ms(lambda: quant_matmul_ref(qa, nxt(), out_dtype=BF16), iters),
+    }
+    qa0 = quant.quantize(qa.dequantize(), block=(1, 0))
+    nxt0 = cycler([quant.quantize(qb.dequantize(), block=(0, 1)) for qb in qbs])
+    t["whole_k"] = time_ms(lambda: mm_ops.quant_matmul(qa0, nxt0(), out_dtype=BF16), iters)
+    a16 = randn((m, k), gen, BF16)
+    nxt16 = cycler([randn((k, n), gen, BF16) for _ in range(math.ceil(150e6 / (2 * k * n)))])
+    t["bf16_matmul"] = time_ms(lambda: torch.matmul(a16, nxt16()), iters)
+    t["int_mm"] = time_ms(lambda: torch._int_mm(qa.values, nxt().values), iters) if m > 16 else None
+    flops, nbytes = _qgemm_cost(m, k, n)
+    bound_s, bound_by = H100.bound_s(flops, nbytes, "int8")
+    return {"m": m, "k": k, "n": n, "ms": t["kernel"], "plain_ms": t["plain"], "library_ms": None,
+            "info_int_mm_ms": t["int_mm"], "info_bf16_matmul_ms": t["bf16_matmul"],
+            "info_whole_k_scales_ms": t["whole_k"],
+            "bound_ms": bound_s * 1e3, "bound_by": bound_by}
+
+
+def time_gemm_bias(m, k, n, gen) -> dict:
+    """The bias epilogue (TPU kernel _mmm_bias_kernel) at one stated shape:
+    bf16, fp32 bias, no activation; torch.addmm is the one PyTorch call that
+    computes the same function.  The main path passes no bias."""
+    a = randn((m, k), gen, BF16)
+    copies = max(1, math.ceil(150e6 / (k * n * dtype_bytes(BF16))))
+    bs = [randn((k, n), gen, BF16) for _ in range(copies)]
+    bias = randn((n,), gen, torch.float32)
+    bias16 = bias.to(BF16)
+    it = [0]
+
+    def nxt():
+        it[0] = (it[0] + 1) % copies
+        return bs[it[0]]
+
+    t = {
+        "kernel": time_ms(lambda: mm_ops.matmul(a, nxt(), bias), 10),
+        "plain": time_ms(lambda: matmul_ref(a, nxt(), bias), 10),
+        "library": time_ms(lambda: torch.addmm(bias16, a, nxt()), 10),
+    }
+    flops, nbytes = _gemm_cost(m, k, n)
+    bound_s, bound_by = H100.bound_s(flops + m * n, nbytes + 4 * n, "bfloat16")
+    return {"m": m, "k": k, "n": n, "ms": t["kernel"], "plain_ms": t["plain"], "library_ms": t["library"],
+            "bound_ms": bound_s * 1e3, "bound_by": bound_by, "launches": 0}
+
+
+def phase_timing(errs: dict, bf16: dict, w8a8: dict) -> tuple[list[dict], dict]:
     say("[4] kernel times at the main path's shapes (CUDA events; ms per call)")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     shapes = []
-    for m, k, n, n_calls in serve["prefill_shapes"] + serve["decode_shapes"]:
+    for m, k, n, n_calls in bf16["prefill_shapes"] + bf16["decode_shapes"]:
         r = time_gemm(m, k, n, gen)
         r["launches"] = n_calls  # as counted at the launch site on the main path
         shapes.append(r)
         say(f"    systolic_mmm M={m:<5d} K={k:<5d} N={n:<5d} x{r['launches']:<5d} kernel {r['ms']:.4f}  "
             f"plain {r['plain_ms']:.4f}  torch.matmul {r['library_ms']:.4f}  "
             f"bound {r['bound_ms']:.4f} ({r['bound_by']})")
+    qshapes = []
+    for m, k, n, n_calls in w8a8["prefill_shapes"] + w8a8["decode_shapes"]:
+        r = time_qgemm(m, k, n, gen)
+        r["launches"] = n_calls
+        qshapes.append(r)
+        int_mm = "n/a" if r["info_int_mm_ms"] is None else f"{r['info_int_mm_ms']:.4f}"
+        say(f"    systolic_qmm M={m:<5d} K={k:<5d} N={n:<5d} x{r['launches']:<5d} kernel {r['ms']:.4f}  "
+            f"plain {r['plain_ms']:.4f}  library null  bound {r['bound_ms']:.4f} ({r['bound_by']})  "
+            f"[info: whole-K scales {r['info_whole_k_scales_ms']:.4f}; other functions: torch._int_mm {int_mm}, "
+            f"bf16 torch.matmul {r['info_bf16_matmul_ms']:.4f}]")
+    k2 = time_gemm_bias(BATCH * PROMPT, 2048, 8192, gen)
+    say(f"    systolic_mmm + bias (K2) M={k2['m']} K={k2['k']} N={k2['n']} x0 (not on the main path) "
+        f"kernel {k2['ms']:.4f}  plain {k2['plain_ms']:.4f}  torch.addmm {k2['library_ms']:.4f}  "
+        f"bound {k2['bound_ms']:.4f} ({k2['bound_by']})")
     fl = time_flash(gen)
-    fl["launches"] = serve["prefill_launches"][1] + serve["decode_launches"][1]
+    fl["launches"] = bf16["prefill_launches"][2] + bf16["decode_launches"][2]
     say(f"    flash_attn BH={fl['bh']} S={fl['s']} D={fl['d']} causal x{fl['launches']} kernel {fl['ms']:.4f}  "
         f"plain {fl['plain_ms']:.4f}  sdpa {fl['library_ms']:.4f}  bound {fl['bound_ms']:.4f} ({fl['bound_by']})")
 
     def entry(name, rows, launches):
         # Totals over every launch the main path made (prefill + decode).
-        tot = {key: sum(r[key] * r["launches"] for r in rows)
-               for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        tot = {key: sum(r[key] * r["launches"] for r in rows) for key in ("ms", "plain_ms", "bound_ms")}
+        lib = [r["library_ms"] for r in rows]
         by = {}
         for r in rows:
             by[r["bound_by"]] = by.get(r["bound_by"], 0.0) + r["bound_ms"] * r["launches"]
@@ -449,12 +648,17 @@ def phase_timing(errs: dict, serve: dict) -> list[dict]:
         return {"name": name, "route": "cuda", "source": src, "replaces": replaces,
                 "launches": launches, "max_abs_err": errs[name], "ms": tot["ms"],
                 "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
-                "bound_by": max(by, key=by.get), "library_ms": tot["library_ms"],
+                "bound_by": max(by, key=by.get),
+                "library_ms": None if None in lib else sum(x * r["launches"] for x, r in zip(lib, rows)),
                 "shapes": rows}
 
-    mm_launches = serve["prefill_launches"][0] + serve["decode_launches"][0]
-    return [entry("systolic_mmm", shapes, mm_launches),
-            entry("flash_attn", [fl], serve["prefill_launches"][1] + serve["decode_launches"][1])]
+    # Each kernel's launches come from the served path that runs it: the bf16
+    # model for the fp GEMM and flash attention, the w8a8 model for the
+    # block-scaled GEMM (the w8a8 model launches no fp GEMM and the same
+    # flash kernels).
+    return [entry("systolic_mmm", shapes, bf16["prefill_launches"][0] + bf16["decode_launches"][0]),
+            entry("flash_attn", [fl], fl["launches"]),
+            entry("systolic_qmm", qshapes, w8a8["prefill_launches"][1] + w8a8["decode_launches"][1])], k2
 
 
 def main() -> int:
@@ -466,17 +670,22 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full fp32
     torch.backends.cudnn.allow_tf32 = False
+    # The plain GEMMs are fp32 matmuls, which TF32 would round to ~3 digits.
+    expect(not torch.backends.cuda.matmul.allow_tf32 and torch.get_float32_matmul_precision() == "highest",
+           f"fp32 matmuls in full fp32 (allow_tf32={torch.backends.cuda.matmul.allow_tf32}, "
+           f"precision={torch.get_float32_matmul_precision()})")
     t_start = time.perf_counter()
     device = phase_device()
     errs = phase_kernels()
-    serve = phase_serve()
+    bf16, w8a8 = phase_serve()
     phase_small_reference()
-    kernels = phase_timing(errs, serve)
+    kernels, k2 = phase_timing(errs, bf16, w8a8)
     say(f"    wall {time.perf_counter() - t_start:.1f} s")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump({"device": device, "serve": serve, "kernels": kernels, "failures": failures}, f, indent=1)
+            json.dump({"device": device, "serve": bf16, "serve_w8a8": w8a8, "kernels": kernels,
+                       "systolic_mmm_bias": k2, "failures": failures}, f, indent=1)
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed:", file=sys.stderr)
         for f_ in failures:

@@ -3,7 +3,11 @@
 The reference stacks per-layer parameters on a leading axis (for
 ``lax.scan``); the port keeps a list with one dict per layer.  The tree comes
 in as numpy arrays (``jax.tree.map(np.asarray, params)``), so this module
-imports no JAX.
+imports no JAX.  Quantized leaves (the reference's ``QArray``, recognised by
+its ``values`` / ``scales`` / ``block`` / ``qdtype`` fields) become the port's
+``QArray`` with their storage dtype kept: int8 stays int8, and fp8 crosses as
+its ``uint8`` bit pattern (numpy's ``ml_dtypes`` fp8 has no ``torch.from_numpy``
+counterpart) viewed back as ``torch.float8_e4m3fn``.
 """
 
 from __future__ import annotations
@@ -14,6 +18,33 @@ import torch
 from repro_torch.core.device import resolve_device
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.transformer import check_supported
+from repro_torch.quant.qarray import QArray, canonical_qdtype, qdtype_info
+
+_QARRAY_FIELDS = ("values", "scales", "block", "qdtype")
+
+
+def _is_qarray(node) -> bool:
+    return all(hasattr(node, f) for f in _QARRAY_FIELDS)
+
+
+def _qarray(node, layer: int | None, dev: torch.device) -> QArray:
+    qdtype = canonical_qdtype(node.qdtype)
+    storage, _ = qdtype_info(qdtype)
+    values = np.asarray(node.values)
+    scales = np.asarray(node.scales, dtype=np.float32)
+    if layer is not None:
+        values, scales = values[layer], scales[layer]
+    # np.array copies: the tensors must not alias the (read-only) source arrays.
+    if storage == torch.int8:
+        v = torch.from_numpy(np.array(values, dtype=np.int8))
+    else:
+        v = torch.from_numpy(np.array(values).view(np.uint8)).view(storage)
+    return QArray(
+        values=v.to(dev),
+        scales=torch.from_numpy(np.array(scales)).to(dev),
+        block=tuple(int(b) for b in node.block),
+        qdtype=qdtype,
+    )
 
 
 def params_from_jax(
@@ -26,12 +57,14 @@ def params_from_jax(
     (default: the card).  Projection weights and the embedding are cast once
     to ``dtype`` (default: the config's compute dtype) -- the reference casts
     them on every call to the same values; RMSNorm ``scale`` vectors stay
-    fp32, as in the reference."""
+    fp32, as in the reference; quantized weights keep their storage dtype."""
     check_supported(cfg)
     dev = resolve_device(device)
     dt = dtype or getattr(torch, cfg.dtype)
 
     def convert(node, layer: int | None = None):
+        if _is_qarray(node):
+            return _qarray(node, layer, dev)
         if isinstance(node, dict):
             return {
                 k: (_leaf(v, layer, torch.float32) if k == "scale" else convert(v, layer))

@@ -15,7 +15,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class GPU:
     name: str
-    peak_flops: dict[str, float]  # FLOP/s by operand dtype (datasheet)
+    peak_flops: dict[str, float]  # FLOP/s (int8: op/s) by operand dtype (datasheet)
     hbm_bw: float  # bytes/s (datasheet)
     smem_per_block: int  # bytes of shared memory one block may use
     n_sm: int
@@ -34,6 +34,8 @@ H100 = GPU(
         "bfloat16": 989e12,  # datasheet: tensor cores, dense
         "float16": 989e12,  # datasheet: tensor cores, dense
         "float32": 67e12,  # datasheet: CUDA cores (no TF32)
+        "int8": 1979e12,  # datasheet: tensor cores, dense (ops/s)
+        "float8_e4m3fn": 1979e12,  # datasheet: tensor cores, dense
     },
     hbm_bw=3.35e12,  # datasheet: HBM3, 80 GB part
     smem_per_block=232_448,  # 227 KB, opted in per kernel above 48 KB

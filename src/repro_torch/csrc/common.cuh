@@ -80,6 +80,61 @@ __device__ __forceinline__ void load_tile_dyn(T* smem, const T* g, int R, int C,
   }
 }
 
+// Epilogue shared by the GEMM kernels: the reference's ACTIVATIONS ("gelu" is
+// the tanh form, jax.nn.gelu's default), then the cast, masked to the matrix.
+enum Act { ACT_NONE = 0, ACT_RELU = 1, ACT_GELU = 2, ACT_SILU = 3, ACT_TANH = 4 };
+
+// The reference's ACTIVATIONS; "gelu" is the tanh form (jax.nn.gelu's default).
+__device__ __forceinline__ float activate(float x, int act) {
+  switch (act) {
+    case ACT_RELU:
+      return fmaxf(x, 0.f);
+    case ACT_GELU: {
+      const float u = 0.7978845608028654f * (x + 0.044715f * x * x * x);
+      return 0.5f * x * (1.f + tanhf(u));
+    }
+    case ACT_SILU:
+      return x / (1.f + expf(-x));
+    case ACT_TANH:
+      return tanhf(x);
+    default:
+      return x;
+  }
+}
+
+template <typename O>
+__device__ __forceinline__ void store_out(O* out, const float* bias, int act, int M, int N, int r,
+                                          int c, float v) {
+  if (r < M && c < N) {
+    if (bias != nullptr) v += bias[c];
+    out[(size_t)r * N + c] = from_f32<O>(activate(v, act));
+  }
+}
+
+// Split-K epilogue: out = act(sum_z partial[z] + bias), summed in z order.
+template <typename O>
+__global__ void splitk_reduce(const float* __restrict__ partial, int splits,
+                              const float* __restrict__ bias, O* __restrict__ out, int M, int N,
+                              int act) {
+  const size_t mn = (size_t)M * N;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < mn;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float v = 0.f;
+    for (int z = 0; z < splits; ++z) v += partial[z * mn + i];
+    store_out(out, bias, act, M, N, (int)(i / N), (int)(i % N), v);
+  }
+}
+
+// Streaming multiprocessors of the current device (cached per device).
+inline int sm_count() {
+  static int cached[64] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) return 132;
+  if (cached[dev] == 0) cudaDeviceGetAttribute(&cached[dev], cudaDevAttrMultiProcessorCount, dev);
+  return cached[dev] > 0 ? cached[dev] : 132;
+}
+
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 }  // namespace repro

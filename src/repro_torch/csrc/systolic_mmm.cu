@@ -34,39 +34,15 @@
 #include "common.cuh"
 
 using namespace nvcuda;
+using repro::ACT_NONE;
+using repro::ACT_TANH;
 using repro::from_f32;
+using repro::sm_count;
+using repro::splitk_reduce;
+using repro::store_out;
 using repro::to_f32;
 
 namespace {
-
-enum Act { ACT_NONE = 0, ACT_RELU = 1, ACT_GELU = 2, ACT_SILU = 3, ACT_TANH = 4 };
-
-// The reference's ACTIVATIONS; "gelu" is the tanh form (jax.nn.gelu's default).
-__device__ __forceinline__ float activate(float x, int act) {
-  switch (act) {
-    case ACT_RELU:
-      return fmaxf(x, 0.f);
-    case ACT_GELU: {
-      const float u = 0.7978845608028654f * (x + 0.044715f * x * x * x);
-      return 0.5f * x * (1.f + tanhf(u));
-    }
-    case ACT_SILU:
-      return x / (1.f + expf(-x));
-    case ACT_TANH:
-      return tanhf(x);
-    default:
-      return x;
-  }
-}
-
-template <typename O>
-__device__ __forceinline__ void store_out(O* out, const float* bias, int act, int M, int N, int r,
-                                          int c, float v) {
-  if (r < M && c < N) {
-    if (bias != nullptr) v += bias[c];
-    out[(size_t)r * N + c] = from_f32<O>(activate(v, act));
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bf16 operands: tensor cores through WMMA.
@@ -235,20 +211,6 @@ __global__ void __launch_bounds__(F_NT)
       store_out(out, bias, act, M, N, m0 + ty + 16 * i, n0 + tx + 16 * j, acc[i][j]);
 }
 
-// Split-K epilogue: out = act(sum_z partial[z] + bias), summed in z order.
-template <typename O>
-__global__ void splitk_reduce(const float* __restrict__ partial, int splits,
-                              const float* __restrict__ bias, O* __restrict__ out, int M, int N,
-                              int act) {
-  const size_t mn = (size_t)M * N;
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < mn;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float v = 0.f;
-    for (int z = 0; z < splits; ++z) v += partial[z * mn + i];
-    store_out(out, bias, act, M, N, (int)(i / N), (int)(i % N), v);
-  }
-}
-
 // The decode tile (M <= 16, bf16) and how its contraction is split.
 constexpr int D_BM = 16, D_BN = 64, D_BK = 64;
 
@@ -256,15 +218,6 @@ struct Split {
   int splits;   // blocks along K
   int k_chunk;  // contraction per block, a multiple of D_BK
 };
-
-int sm_count() {
-  static int cached[64] = {};
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev < 0 || dev >= 64) return 132;
-  if (cached[dev] == 0) cudaDeviceGetAttribute(&cached[dev], cudaDevAttrMultiProcessorCount, dev);
-  return cached[dev] > 0 ? cached[dev] : 132;
-}
 
 // Enough K slices that about four decode blocks per SM stream B (the
 // N / D_BN column tiles alone may fill a few SMs only); one slice when the

@@ -1,8 +1,10 @@
-"""ctypes binding of the hand-written CUDA systolic GEMM (``csrc/systolic_mmm.cu``).
+"""ctypes bindings of the hand-written CUDA systolic GEMMs.
 
-The counterpart of ``repro.kernels.systolic.kernel.systolic_matmul_call``:
-one launch computes ``act(A @ B [+ bias])`` with an fp32 accumulator.  The
-kernel masks ragged edges itself, so shapes need not divide any block.
+``systolic_matmul_call`` (``csrc/systolic_mmm.cu``) is the counterpart of
+``repro.kernels.systolic.kernel.systolic_matmul_call``: one launch computes
+``act(A @ B [+ bias])`` with an fp32 accumulator.  ``quant_systolic_matmul_call``
+(``csrc/systolic_qmm.cu``) is the block-scaled int8 / fp8 GEMM.  Both
+kernels mask ragged edges themselves, so shapes need not divide any block.
 """
 
 from __future__ import annotations
@@ -10,6 +12,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -97,4 +100,121 @@ def systolic_matmul_call(
     _build.check(lib, "systolic_mmm launch", code)
     launches += 1
     launches_by_shape[(m, k, n)] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Block-scaled int8 / fp8 GEMM (``csrc/systolic_qmm.cu``): the counterpart of
+# ``repro.kernels.systolic.kernel.quant_systolic_matmul_call``.
+# ---------------------------------------------------------------------------
+
+QDTYPE_CODES = {torch.int8: 0, torch.float8_e4m3fn: 1}
+# int8 x int8 products are at most 128^2 = 2^14, so one scale step sums
+# exactly in int32 up to this many k.
+MAX_INT8_STEP = (2**31 - 1) // 2**14
+
+# Launches of the quantized kernel made by this process, in all and by (M, K, N).
+quant_launches = 0
+quant_launches_by_shape: collections.Counter = collections.Counter()
+
+
+@functools.cache
+def _quant_entry():
+    """The loaded library and its C entry point (built on first call)."""
+    lib = _build.library("systolic_qmm")
+    fn = lib.systolic_qmm
+    fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _LL, _P]
+    fn.restype = _I
+    lib.systolic_qmm_workspace.argtypes = [_I, _I, _I]
+    lib.systolic_qmm_workspace.restype = _LL
+    return lib, fn
+
+
+@functools.cache
+def _quant_workspace_bytes(m: int, n: int, k: int, device_index: int | None) -> int:
+    """fp32 scratch bytes of the split-K partials (depends on the card's SM count)."""
+    return _quant_entry()[0].systolic_qmm_workspace(m, n, k)
+
+
+def scale_step(qk_a: int, qk_b: int, k: int) -> int:
+    """The run of k that lies inside one scale block of both operands: the
+    gcd of the non-zero scale blocks (0 = whole K), K when both are whole-K.
+    The reference clamps its k block to the same gcd."""
+    steps = [q for q in (qk_a, qk_b) if q]
+    return math.gcd(*steps) if steps else k
+
+
+def quant_systolic_matmul_call(
+    a: torch.Tensor,
+    a_scales: torch.Tensor,
+    b: torch.Tensor,
+    b_scales: torch.Tensor,
+    *,
+    qk_a: int,
+    qk_b: int,
+    out_dtype: torch.dtype,
+    activation: str = "none",
+) -> torch.Tensor:
+    """a: (M, K), b: (K, N) int8 or float8_e4m3fn (one dtype); a_scales:
+    (M, ceil(K / qk_a)) and b_scales: (ceil(K / qk_b), N) fp32, where a scale
+    block of 0 spans all of K (one scale column / row) -> (M, N) on the card.
+
+    Validates everything the kernel does not take and raises; the checks on
+    dtypes, shapes and the scale step come before the device check, so they
+    hold on any host.
+    """
+    global quant_launches
+    if a.dtype not in QDTYPE_CODES or b.dtype != a.dtype:
+        raise TypeError(f"quantized kernel takes int8 or float8_e4m3fn operands of one dtype, got {a.dtype}, {b.dtype}")
+    if a_scales.dtype != torch.float32 or b_scales.dtype != torch.float32:
+        raise TypeError(f"quantized kernel takes fp32 scales, got {a_scales.dtype}, {b_scales.dtype}")
+    if out_dtype not in DTYPE_CODES:
+        raise TypeError(f"quantized kernel writes bf16 or fp32, not {out_dtype}")
+    if activation not in ACTIVATION_CODES:
+        raise ValueError(f"unknown activation {activation!r}")
+    if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"expected (M, K) @ (K, N), got {tuple(a.shape)} @ {tuple(b.shape)}")
+    m, k = a.shape
+    n = b.shape[1]
+    if k == 0 or qk_a < 0 or qk_b < 0:
+        raise ValueError(f"quantized kernel needs K > 0 and scale blocks >= 0, got K={k}, qk=({qk_a}, {qk_b})")
+    want_a = (m, -(-k // qk_a) if qk_a else 1)
+    want_b = (-(-k // qk_b) if qk_b else 1, n)
+    if tuple(a_scales.shape) != want_a or tuple(b_scales.shape) != want_b:
+        raise ValueError(
+            f"scale shapes {tuple(a_scales.shape)}, {tuple(b_scales.shape)} do not fit "
+            f"({m}, {k}) @ ({k}, {n}) with qk_a={qk_a}, qk_b={qk_b}: want {want_a}, {want_b}"
+        )
+    # A scale block that spans K is whole-K (the kernel's 0).
+    qk_a, qk_b = (q if q < k else 0 for q in (qk_a, qk_b))
+    step = scale_step(qk_a, qk_b, k)
+    if (qk_a or qk_b) and step % 16:
+        raise ValueError(
+            f"scale step {step} (qk_a={qk_a}, qk_b={qk_b}, K={k}) is neither whole-K nor a "
+            "multiple of 16, the kernel's k granularity"
+        )
+    if a.dtype == torch.int8 and step > MAX_INT8_STEP:
+        raise ValueError(f"int8 scale step {step} could overflow the int32 partial (max {MAX_INT8_STEP})")
+    if max(m, n, k) >= 2**31:
+        raise ValueError("quantized kernel dimensions must fit in int32")
+    tensors = (a, a_scales, b, b_scales)
+    if a.device.type != "cuda" or any(t.device != a.device for t in tensors):
+        raise ValueError(f"quantized kernel needs every operand on one CUDA device, got {[str(t.device) for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("quantized kernel needs row-major contiguous operands and scales")
+    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    if m == 0 or n == 0:
+        return out
+    lib, fn = _quant_entry()
+    nbytes = _quant_workspace_bytes(m, n, k, a.device.index)
+    ws = torch.empty(nbytes // 4, dtype=torch.float32, device=a.device) if nbytes else None
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    code = fn(
+        a.data_ptr(), a_scales.data_ptr(), b.data_ptr(), b_scales.data_ptr(), out.data_ptr(),
+        m, n, k, qk_a, qk_b, QDTYPE_CODES[a.dtype], DTYPE_CODES[out_dtype],
+        ACTIVATION_CODES[activation], None if ws is None else ws.data_ptr(), nbytes, stream,
+    )
+    _build.check(lib, "systolic_qmm launch", code)
+    quant_launches += 1
+    quant_launches_by_shape[(m, k, n)] += 1
     return out

@@ -1,9 +1,9 @@
-"""Public wrapper of the systolic GEMM: checks, dtype policy and dispatch.
+"""Public wrappers of the systolic GEMMs: checks, dtype policy and dispatch.
 
-The counterpart of ``repro.kernels.systolic.ops.matmul`` (fp path).  A CPU
-tensor goes to the plain version ``matmul_ref``; a CUDA tensor goes to the
-hand-written kernel, which masks ragged edges itself, so nothing is padded
-and no block plan is chosen here.
+The counterpart of ``repro.kernels.systolic.ops``: ``matmul`` (fp path) and
+``quant_matmul`` (block-scaled int8 / fp8).  A CPU tensor goes to the plain
+version; a CUDA tensor goes to the hand-written kernel, which masks ragged
+edges itself, so nothing is padded and no block plan is chosen here.
 """
 
 from __future__ import annotations
@@ -11,7 +11,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.systolic import kernel as _kernel
-from repro_torch.kernels.systolic.ref import ACTIVATIONS, matmul_ref
+from repro_torch.kernels.systolic.ref import ACTIVATIONS, matmul_ref, quant_systolic_matmul_ref
+from repro_torch.quant.qarray import DEFAULT_BLOCK_K, QArray, quantize_act, quantize_weight
 
 
 def matmul(
@@ -36,6 +37,80 @@ def matmul(
         a.contiguous(),
         b.contiguous(),
         bias,
+        out_dtype=out_dtype,
+        activation=activation,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Quantized matmul: QArray operands (or fp operands quantized on the fly)
+# through the block-scaled kernel.
+# ---------------------------------------------------------------------------
+
+
+def _row_scales(q: QArray, m: int, k: int) -> tuple[torch.Tensor, int]:
+    """A-side scales expanded to per-row: (M, n_kblocks) fp32, plus the
+    k-granularity (0 sentinel = one scale block spans all of K)."""
+    qm, qk = q.block
+    s = q.scales  # (ceil(M/qm), ceil(K/qk))
+    if qm > 1:
+        s = s.repeat_interleave(qm, dim=-2)[:m]
+    return s.float().contiguous(), (0 if s.shape[-1] == 1 else qk)
+
+
+def _col_scales(q: QArray, k: int, n: int) -> tuple[torch.Tensor, int]:
+    """B-side scales expanded to per-column: (n_kblocks, N) fp32."""
+    qk, qn = q.block
+    s = q.scales  # (ceil(K/qk), ceil(N/qn))
+    if qn > 1:
+        s = s.repeat_interleave(qn, dim=-1)[..., :n]
+    return s.float().contiguous(), (0 if s.shape[-2] == 1 else qk)
+
+
+def quant_matmul(
+    a: torch.Tensor | QArray,
+    b: torch.Tensor | QArray,
+    *,
+    qdtype: str = "int8",
+    out_dtype: torch.dtype | None = None,
+    activation: str = "none",
+    block_k: int = DEFAULT_BLOCK_K,
+) -> torch.Tensor:
+    """(M, K) @ (K, N) through the block-scaled quantized GEMM.
+
+    Operands may be ``QArray``s (weights usually are) or fp tensors quantized
+    here (activations: per-row x per-``block_k`` scales; weights: per-
+    ``block_k`` x per-column).  The output dtype defaults to bf16.
+    """
+    if not isinstance(a, QArray):
+        if a.ndim != 2:
+            raise ValueError(f"expected 2D operand, got {tuple(a.shape)}")
+        a = quantize_act(a, qdtype, block_k=block_k)
+    if not isinstance(b, QArray):
+        if b.ndim != 2:
+            raise ValueError(f"expected 2D operand, got {tuple(b.shape)}")
+        b = quantize_weight(b, qdtype, block_k=block_k)
+    if a.ndim != 2 or b.ndim != 2:
+        raise ValueError(f"expected 2D operands, got {tuple(a.shape)} @ {tuple(b.shape)}")
+    if a.shape[1] != b.shape[0]:
+        raise ValueError(f"contraction mismatch: {tuple(a.shape)} @ {tuple(b.shape)}")
+    if a.values.dtype != b.values.dtype:
+        raise ValueError(f"operand qdtypes differ: {a.values.dtype} vs {b.values.dtype}")
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"unknown activation {activation!r}")
+    m, k = a.shape
+    n = b.shape[1]
+    out_dtype = out_dtype or torch.bfloat16
+    a_s, qk_a = _row_scales(a, m, k)
+    b_s, qk_b = _col_scales(b, k, n)
+    call = quant_systolic_matmul_ref if a.values.device.type == "cpu" else _kernel.quant_systolic_matmul_call
+    return call(
+        a.values.contiguous(),
+        a_s,
+        b.values.contiguous(),
+        b_s,
+        qk_a=qk_a,
+        qk_b=qk_b,
         out_dtype=out_dtype,
         activation=activation,
     )

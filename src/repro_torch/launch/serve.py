@@ -6,23 +6,31 @@ Runs on the card by default; ``--device cpu`` runs the plain CPU path::
         --batch 4 --prompt-len 512 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \
         --smoke --device cpu --batch 2 --prompt-len 16 --gen 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \
+        --quantize w8a8 --batch 4 --prompt-len 512 --gen 32
 
-Weights are random, drawn from ``--seed``.  Continuous batching and the
-other modes of ``repro.launch.serve`` belong to later parts of the port.
+Weights are random, drawn from ``--seed``.  ``--quantize w8a16`` keeps the
+projection weights in int8 and dequantizes them at each GEMM; ``w8a8`` also
+quantizes the activations per token and runs every projection on the
+block-scaled int8 kernel.  Continuous batching (and with it the kv8 pool)
+and the other modes of ``repro.launch.serve`` belong to later parts of the
+port.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 import torch
 
-from repro_torch import configs
+from repro_torch import configs, quant
 from repro_torch.core.device import resolve_device
 from repro_torch.data.synthetic import make_batch
 from repro_torch.kernels import _build
 from repro_torch.models.registry import get_model
+from repro_torch.models.transformer import cast_params
 from repro_torch.serving import ServeConfig, ServeEngine
 
 
@@ -72,15 +80,43 @@ def main(argv: list[str] | None = None) -> torch.Tensor:
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="default: cuda (raises without a card)")
+    ap.add_argument(
+        "--quantize",
+        choices=("none", "w8a16", "w8a8", "kv8"),
+        default="none",
+        help="w8a16 = int8 weight-only (weights dequantize at each GEMM), w8a8 = int8 "
+        "weights and per-token int8 activations through the block-scaled kernel; kv8 "
+        "(int8 KV pool) comes with continuous serving, not ported yet",
+    )
     args = ap.parse_args(argv)
+    if args.quantize == "kv8":
+        raise ValueError("--quantize kv8 quantizes the continuous-batching KV pool, which comes "
+                         "with continuous serving; the port serves synchronized batches only so far")
 
     device = resolve_device(args.device)
     if device.type == "cuda":
         print(f"kernel build: {_build.build_all():.1f} s")  # so the prefill time below is the prefill's
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get_config(args.arch)
     model = get_model(cfg)
-    params = model.init(args.seed, device)
-    return run_synchronized(model, params, args, device)
+    params, act_ctx = init_params(model, args.seed, device, args.quantize)
+    with act_ctx:
+        return run_synchronized(model, params, args, device)
+
+
+def init_params(model, seed: int, device: torch.device, quantize: str = "none"):
+    """Random weights from ``seed`` -> (params, the activation-quant context
+    to serve them under).  w8a16 / w8a8 quantize the fp32 masters, as the
+    reference does (it inits in fp32), then cast what stays wide to the
+    compute dtype once; the masters are not kept."""
+    if quantize not in ("none", "w8a16", "w8a8"):
+        raise ValueError(f"unknown quantize mode {quantize!r}")
+    if quantize == "none":
+        return model.init(seed, device), contextlib.nullcontext()
+    params = quant.quantize_params(model.init(seed, device, dtype=torch.float32))
+    n_q, q_bytes = quant.count_quantized(params)
+    print(f"quantize[{quantize}]: {n_q} projection weights -> int8 ({q_bytes / 1e6:.1f} MB resident values)")
+    params = cast_params(params, getattr(torch, model.cfg.dtype))
+    return params, quant.use_act_quant("int8") if quantize == "w8a8" else contextlib.nullcontext()
 
 
 if __name__ == "__main__":

@@ -2,7 +2,7 @@
 prefill and a few decode steps through ``ServeEngine``.
 
     PYTHONPATH=src python -m repro_torch.launch.trace --arch internlm2-1.8b \
-        --batch 4 --prompt-len 512 --steps 3 [--chrome trace.json]
+        --batch 4 --prompt-len 512 --steps 3 [--quantize w8a8] [--chrome trace.json]
 
 Weights are random, drawn from ``--seed``.  For each phase it prints the host
 wall time, the device busy time (union of the kernels' intervals inside the
@@ -23,6 +23,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 from repro_torch import configs
 from repro_torch.core.device import resolve_device
 from repro_torch.data.synthetic import make_batch
+from repro_torch.launch.serve import init_params
 from repro_torch.models.registry import get_model
 from repro_torch.serving import ServeConfig, ServeEngine
 
@@ -90,16 +91,23 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--chrome", default=None, help="also export the Chrome trace here")
     ap.add_argument("--json", default=None, help="also write the tables here")
+    ap.add_argument("--quantize", choices=("none", "w8a16", "w8a8"), default="none",
+                    help="serve quantized weights (as launch.serve --quantize)")
     args = ap.parse_args(argv)
 
     device = resolve_device("cuda")
     cfg = configs.get_config(args.arch)
     model = get_model(cfg)
-    params = model.init(args.seed, device)
+    params, act_ctx = init_params(model, args.seed, device, args.quantize)
     engine = ServeEngine(model, params, ServeConfig(max_len=args.prompt_len + args.steps + 4,
                                                     batch=args.batch), device=device)
     batch = make_batch(cfg, batch=args.batch, seq=args.prompt_len, kind="prefill",
                        seed=args.seed, device=device)
+    with act_ctx:
+        return _trace(engine, batch, args)
+
+
+def _trace(engine: ServeEngine, batch: dict, args) -> dict:
     engine.decode(engine.prefill(batch), 2)  # warm-up
     torch.cuda.synchronize()
 

@@ -87,9 +87,9 @@ def _sdpa_flash(q, k, v, cfg: ArchConfig):
 def _qkv(params: dict, x: torch.Tensor, cfg: ArchConfig):
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = ops.matmul(x, params["wq"].to(x.dtype)).reshape(b, s, cfg.n_heads, hd)
-    k = ops.matmul(x, params["wk"].to(x.dtype)).reshape(b, s, cfg.n_kv_heads, hd)
-    v = ops.matmul(x, params["wv"].to(x.dtype)).reshape(b, s, cfg.n_kv_heads, hd)
+    q = ops.matmul(x, layers.wcast(params["wq"], x.dtype)).reshape(b, s, cfg.n_heads, hd)
+    k = ops.matmul(x, layers.wcast(params["wk"], x.dtype)).reshape(b, s, cfg.n_kv_heads, hd)
+    v = ops.matmul(x, layers.wcast(params["wv"], x.dtype)).reshape(b, s, cfg.n_kv_heads, hd)
     if cfg.qk_norm:
         q = layers.rmsnorm(params["q_norm"], q, cfg.norm_eps)
         k = layers.rmsnorm(params["k_norm"], k, cfg.norm_eps)
@@ -104,7 +104,7 @@ def gqa_fwd(params: dict, x: torch.Tensor, cfg: ArchConfig, positions: torch.Ten
     q = layers.apply_rope(q, positions, cfg.rope_theta)
     k = layers.apply_rope(k, positions, cfg.rope_theta)
     o = _sdpa_flash(q, k, v, cfg)
-    y = ops.matmul(o.reshape(b, s, -1), params["wo"].to(x.dtype))
+    y = ops.matmul(o.reshape(b, s, -1), layers.wcast(params["wo"], x.dtype))
     return y, (k, v)
 
 
@@ -198,5 +198,5 @@ def gqa_decode(params: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict, pos)
     w = torch.softmax(scores, dim=-1)
     o = ops.einsum("bgqst,btgd->bsgqd", w.to(cv.dtype), cv)
     o = o.reshape(b, 1, cfg.n_heads * hd)
-    y = ops.matmul(o, params["wo"].to(x.dtype))
+    y = ops.matmul(o, layers.wcast(params["wo"], x.dtype))
     return y, cache

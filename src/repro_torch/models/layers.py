@@ -7,8 +7,10 @@ dense projections route through ``repro_torch.core.ops.matmul``.
 Projection weights are (d_in, d_out), as in the reference (the systolic
 kernel's B operand is the weight as stored).  They are created in the compute
 dtype once, at init or load, where the reference keeps fp32 and casts on
-every call (``wcast``): the cast values are the same.  RMSNorm scales stay
-fp32, as in the reference.
+every call: the cast values are the same.  RMSNorm scales stay fp32, as in
+the reference.  Every GEMM takes its weight through ``wcast``, which passes a
+quantized ``QArray`` (``repro_torch.quant.quantize_params``) straight to
+``ops.matmul``, so one layer code serves fp, w8a16 and w8a8 weights.
 """
 
 from __future__ import annotations
@@ -17,6 +19,16 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import ops
+from repro_torch.quant.qarray import QArray
+
+
+def wcast(w: torch.Tensor | QArray, dtype: torch.dtype) -> torch.Tensor | QArray:
+    """Cast a (possibly quantized) projection weight for a GEMM: fp weights
+    to the compute dtype; a ``QArray`` passes through unchanged (its compute
+    dtype is decided at the GEMM by ``core.ops.matmul``)."""
+    if isinstance(w, QArray):
+        return w
+    return w.to(dtype)
 
 
 def _dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype: torch.dtype) -> torch.Tensor:
@@ -86,9 +98,9 @@ def init_swiglu(gen: torch.Generator, d: int, d_ff: int, dtype: torch.dtype) -> 
 
 def swiglu(params: dict, x: torch.Tensor) -> torch.Tensor:
     dt = x.dtype
-    gate = ops.matmul(x, params["w_gate"].to(dt))
-    up = ops.matmul(x, params["w_up"].to(dt))
-    return ops.matmul(F.silu(gate.float()).to(dt) * up, params["w_down"].to(dt))
+    gate = ops.matmul(x, wcast(params["w_gate"], dt))
+    up = ops.matmul(x, wcast(params["w_up"], dt))
+    return ops.matmul(F.silu(gate.float()).to(dt) * up, wcast(params["w_down"], dt))
 
 
 # -- Dense (bias-free) projection ---------------------------------------------
@@ -99,4 +111,4 @@ def init_dense(gen: torch.Generator, d_in: int, d_out: int, dtype: torch.dtype) 
 
 
 def dense(params: dict, x: torch.Tensor) -> torch.Tensor:
-    return ops.matmul(x, params["w"].to(x.dtype))
+    return ops.matmul(x, wcast(params["w"], x.dtype))

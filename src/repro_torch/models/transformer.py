@@ -7,7 +7,8 @@ layer, and a Python loop walks them.  MoE, MLA, SSM, hybrid and the
 modality frontends belong to later parts of the port and raise here.
 
 Entry points (functions over dicts of tensors):
-  init_model(cfg, seed, device)             -> params
+  init_model(cfg, seed, device[, dtype])    -> params
+  cast_params(params, dtype)                -> params, floating weights cast once
   forward(params, batch, cfg)               -> logits fp32
   init_cache(cfg, batch, max_len, dt, dev)  -> cache
   decode_step(params, tok, cfg, cache, pos) -> (logits, cache)   [cache updated in place]
@@ -22,6 +23,7 @@ from repro_torch.core.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import layers
 from repro_torch.models.config import ArchConfig
+from repro_torch.quant.qarray import QArray
 
 
 def _cdtype(cfg: ArchConfig) -> torch.dtype:
@@ -76,20 +78,41 @@ def attn_block_decode(p: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict, po
 # ===========================================================================
 
 
-def init_model(cfg: ArchConfig, seed: int = 0, device: str | torch.device | None = None) -> dict:
+def init_model(cfg: ArchConfig, seed: int = 0, device: str | torch.device | None = None,
+               dtype: torch.dtype | None = None) -> dict:
     """Random weights from ``seed`` (a torch Generator on ``device``; the
     reference's ``jax.random`` init gives other numbers -- use
-    ``repro_torch.convert.params_from_jax`` to carry JAX weights over)."""
+    ``repro_torch.convert.params_from_jax`` to carry JAX weights over).
+
+    Weights are drawn in fp32 and created in ``dtype`` (default: the
+    config's compute dtype).  ``dtype=torch.float32`` keeps the fp32 masters,
+    as the reference inits them, for ``quant.quantize_params``; then
+    ``cast_params`` brings what stays wide to the compute dtype.  The same
+    seed gives the same fp32 values in either case.
+    """
     check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    dt = _cdtype(cfg)
+    dt = dtype or _cdtype(cfg)
     return {
         "final_norm": layers.init_rmsnorm(cfg.d_model, dev),
         "embed": layers.init_embedding(gen, cfg.vocab_size, cfg.d_model, dt),
         "lm_head": layers.init_dense(gen, cfg.d_model, cfg.vocab_size, dt),
         "layers": [init_attn_block(gen, cfg, dt) for _ in range(cfg.n_layers)],
     }
+
+
+def cast_params(params, dtype: torch.dtype):
+    """A copy of ``params`` with every floating weight in ``dtype``, once:
+    RMSNorm ``scale`` vectors stay fp32 (as in the reference) and quantized
+    ``QArray`` weights stay as they are."""
+    if isinstance(params, dict):
+        return {k: v if k == "scale" else cast_params(v, dtype) for k, v in params.items()}
+    if isinstance(params, list):
+        return [cast_params(v, dtype) for v in params]
+    if isinstance(params, torch.Tensor) and params.is_floating_point():
+        return params.to(dtype)
+    return params
 
 
 # ===========================================================================
@@ -103,8 +126,11 @@ def _embed_input(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
 
 def _head(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """fp32 logits.  The reference runs the head as an einsum outside any
-    kernel, so it stays a library matmul here: bf16 operands, fp32 output."""
-    w = params["lm_head"]["w"].to(x.dtype)
+    kernel, so it stays a library matmul here: bf16 operands, fp32 output.
+    A quantized head dequantizes to ``x.dtype`` here, as in the reference,
+    and never goes through the quantized kernel."""
+    w = params["lm_head"]["w"]
+    w = w.dequantize(x.dtype) if isinstance(w, QArray) else w.to(x.dtype)
     x2 = x.reshape(-1, x.shape[-1])
     if x.device.type == "cuda" and x.dtype == torch.bfloat16:
         y = torch.mm(x2, w, out_dtype=torch.float32)  # CUDA only: no fp32 copy of the head

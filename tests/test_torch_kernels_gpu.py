@@ -7,7 +7,13 @@ This file imports no JAX, so it runs on the machine with the card:
 
 Tolerances as in the CPU tests against the JAX package: GEMM 2e-2 in bf16
 (one bf16 ulp at the outputs' scale) and rtol 1e-5 with atol 1e-5 * sqrt(K)
-in fp32 (summation order); attention 3e-2 in bf16 and 2e-4 in fp32.
+in fp32 (summation order); attention 3e-2 in bf16 and 2e-4 in fp32.  The
+block-scaled GEMM against its dequantize-then-fp32 plain version: atol
+1e-5 * (max|ref| + 1), the reference's own (same quantized values, other
+summation order), with max|ref| taken before the activation (the
+activations are at most 1.1-Lipschitz, so the sums' error carries through),
+plus rtol 2^-7 where the output is bf16 (the two round fp32 sums that differ
+in the last bits, so they may land one bf16 ulp apart).
 """
 
 import numpy as np
@@ -19,7 +25,8 @@ from repro_torch.kernels.attention import ops as attn_ops
 from repro_torch.kernels.attention.ref import attention_ref
 from repro_torch.kernels.systolic import kernel as mm_kernel
 from repro_torch.kernels.systolic import ops as mm_ops
-from repro_torch.kernels.systolic.ref import ACTIVATIONS, matmul_ref
+from repro_torch.kernels.systolic.ref import ACTIVATIONS, matmul_ref, quant_matmul_ref
+from repro_torch.quant import quantize, quantize_act, quantize_weight
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 GEMM_SHAPES = [
@@ -100,3 +107,73 @@ def test_flash_kernel_matches_plain(cuda, sq, skv, causal, window, dtype, d):
     assert attn_kernel.launches == before + 1
     tol = 3e-2 if dtype == "bfloat16" else 2e-4
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+QGEMM_SHAPES = [
+    (4, 2048, 2048),  # decode projections (M, N, K), contraction split across blocks
+    (4, 1024, 2048),
+    (4, 8192, 2048),
+    (4, 2048, 8192),
+    (2048, 2048, 2048),  # prefill projections
+    (2048, 8192, 2048),
+    (8, 128, 128),  # ragged and small
+    (72, 130, 100),
+    (300, 257, 515),
+    (33, 257, 129),
+    (1, 1000, 300),
+    (9, 4000, 70),
+]
+QDTYPES = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
+
+
+def _qgemm_check(got, qa, qb, act, out_dtype):
+    want = quant_matmul_ref(qa, qb, activation=act, out_dtype=torch.float32)
+    assert got.dtype == out_dtype
+    pre = quant_matmul_ref(qa, qb, out_dtype=torch.float32)  # the sums, before the activation
+    atol = 1e-5 * (pre.abs().max().item() + 1.0)
+    rtol = 2**-7 if out_dtype == torch.bfloat16 else 0.0
+    torch.testing.assert_close(got.float(), want, rtol=rtol, atol=atol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,k", QGEMM_SHAPES)
+@pytest.mark.parametrize("qd", list(QDTYPES))
+def test_quant_kernel_matches_plain(cuda, m, n, k, qd):
+    """Per-token x 128-k activations, 128-k x per-column weights (the serving
+    layout), every activation, bf16 and fp32 outputs."""
+    qa = quantize_act(_rand((m, k), 1).to(cuda), qd)
+    qb = quantize_weight(_rand((k, n), 2).to(cuda), qd)
+    assert qa.values.dtype == QDTYPES[qd]
+    before, shape_before = mm_kernel.quant_launches, mm_kernel.quant_launches_by_shape[(m, k, n)]
+    for act in ACTIVATIONS:
+        for out_dtype in DTYPES.values():
+            got = mm_ops.quant_matmul(qa, qb, out_dtype=out_dtype, activation=act)
+            _qgemm_check(got, qa, qb, act, out_dtype)
+    torch.cuda.synchronize()
+    assert mm_kernel.quant_launches == before + 2 * len(ACTIVATIONS)
+    assert mm_kernel.quant_launches_by_shape[(m, k, n)] == shape_before + 2 * len(ACTIVATIONS)
+
+
+QK_CASES = [(128, 128), (64, 64), (32, 32), (16, 16), (0, 0), (128, 64), (64, 128), (32, 0),
+            (0, 128), (48, 32), (96, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qk_a,qk_b", QK_CASES)
+@pytest.mark.parametrize("m,n,k", [(4, 300, 1000), (100, 130, 520), (256, 256, 2048)])
+@pytest.mark.parametrize("qd", list(QDTYPES))
+def test_quant_kernel_scale_steps_match_plain(cuda, m, n, k, qd, qk_a, qk_b):
+    """Scale blocks of 128, 64, 32, 16 and whole-K (0), mixed between the
+    operands (steps of gcd(qk_a, qk_b)), with a partial last block along K."""
+    qa = quantize(_rand((m, k), 3).to(cuda), qd, block=(1, qk_a))
+    qb = quantize(_rand((k, n), 4).to(cuda), qd, block=(qk_b, 1))
+    got = mm_ops.quant_matmul(qa, qb, out_dtype=torch.float32, activation="silu")
+    _qgemm_check(got, qa, qb, "silu", torch.float32)
+
+
+@pytest.mark.gpu
+def test_quant_kernel_raises_on_a_step_off_the_16_grid(cuda):
+    qa = quantize(_rand((8, 96), 5).to(cuda), "int8", block=(1, 24))
+    qb = quantize(_rand((96, 16), 6).to(cuda), "int8", block=(0, 1))
+    with pytest.raises(ValueError, match="multiple of 16"):
+        mm_ops.quant_matmul(qa, qb)

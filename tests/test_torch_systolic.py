@@ -109,3 +109,22 @@ def test_h100_bound_of_a_projection(m, bound_by):
     secs, by = H100.bound_s(flops, nbytes, "bfloat16")
     assert by == bound_by
     assert secs == pytest.approx(max(flops / 989e12, nbytes / 3.35e12))
+
+
+@pytest.mark.parametrize("m,bound_by", [(4, "bytes"), (2048, "operations")])
+@pytest.mark.parametrize("dtype", ["int8", "float8_e4m3fn"])
+def test_h100_bound_of_a_quantized_projection(m, bound_by, dtype):
+    """A block-scaled projection (1-byte values, fp32 scales per 128 k, bf16
+    out): at decode it is bound by reading the weight, at prefill by the
+    tensor cores at 1979e12 int8 / fp8 op/s (datasheet, dense)."""
+    k = n = 2048
+    kb = k // 128
+    flops = 2 * m * n * k
+    nbytes = (m * k + k * n) * dtype_bytes(dtype) + 4 * (m * kb + kb * n) + m * n * dtype_bytes(torch.bfloat16)
+    secs, by = H100.bound_s(flops, nbytes, dtype)
+    assert by == bound_by
+    assert secs == pytest.approx(max(flops / 1979e12, nbytes / 3.35e12))
+    if m == 2048:
+        assert secs == pytest.approx(8.68e-6, rel=1e-3)  # 2 * 2048^3 / 1979e12
+    else:
+        assert secs == pytest.approx(1.30e-6, rel=1e-2)
