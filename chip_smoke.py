@@ -21,8 +21,9 @@ Phases, each printing its own lines; any failure exits non-zero:
      then the same model served w8a8 (int8 weights quantized from the same
      fp32 masters, per-token int8 activations), every projection on the
      block-scaled kernel, with the same launch, kernel-vs-plain and decode
-     checks, and its logits against the bf16 model's within the reference's
-     bound of 0.15 x the largest logit;
+     checks (each kernel call of the prefill also against its plain version
+     on the model's own inputs), and its logits against the bf16 model's
+     within the reference's bound of 0.15 x the largest logit;
   4. each kernel timed at the main path's shapes (CUDA events) beside its
      bound, its plain version and one PyTorch library call (a yardstick the
      port never calls; none computes the block-scaled product, so the
@@ -89,7 +90,11 @@ QGEMM_RTOL_BF16 = 2**-7
 # w8a8 kernel path vs plain path at full width: bf16 activations rounded at
 # other points (as LOGITS_TOL_BF16), and each layer's per-token int8 rounding
 # turns a one-ulp bf16 difference into a one-step int8 difference where a
-# value sits on a rounding boundary.
+# value sits near a rounding boundary (a bf16 ulp is about a sixth of an int8
+# step at typical magnitudes).  Phase 3 prints the witnesses: every kernel
+# call inside the model against its plain version, the int8 activations that
+# differ between the paths, and how far a one-ulp nudge of the input moves
+# the plain path alone.
 LOGITS_TOL_W8A8 = 5e-2
 W8A8_VS_BF16_TOL = 0.15  # of the bf16 model's largest logit: tests/test_quant.py's w8a8 bound
 # (K, N) of the seven projections of one internlm2-1.8b layer, with multiplicity.
@@ -142,6 +147,48 @@ def plain_versions():
             mock.patch.object(attn_kernel, "flash_attention_call", flash):
         yield
 
+
+@contextlib.contextmanager
+def quantized_activations(record: list, against: list | None = None):
+    """Record each activation that core.ops quantizes for a GEMM, in call
+    order: its int8 values, or, with ``against`` (the values another run
+    recorded), how many of them differ from that run's at the same call, how
+    many by more than one int8 step, and the largest difference in steps."""
+    real = quant.quantize_act
+
+    def rec(x, *args, **kw):
+        q = real(x, *args, **kw)
+        if against is None:
+            record.append(q.values)
+        else:
+            d = (q.values.int() - against[len(record)].int()).abs()
+            record.append((int((d > 0).sum()), int((d > 1).sum()), d.numel(), int(d.max())))
+        return q
+
+    with mock.patch.object(quant, "quantize_act", rec):
+        yield
+
+
+@contextlib.contextmanager
+def checked_quant_calls(worst: list):
+    """Hold every block-scaled kernel call against its plain version on the
+    same inputs -- the model's own activations and scales -- within phase
+    2's tolerance, recording each call's largest error as a share of its
+    tolerance (the comparison itself launches no kernel)."""
+    real = mm_kernel.quant_systolic_matmul_call
+
+    def call(a, a_s, b, b_s, *, qk_a, qk_b, out_dtype, activation="none"):
+        kw = dict(qk_a=qk_a, qk_b=qk_b)
+        got = real(a, a_s, b, b_s, out_dtype=out_dtype, activation=activation, **kw)
+        want = quant_systolic_matmul_ref(a, a_s, b, b_s, out_dtype=out_dtype, activation=activation, **kw)
+        pre = quant_systolic_matmul_ref(a, a_s, b, b_s, out_dtype=torch.float32, **kw)
+        tol = QGEMM_ATOL * (pre.abs().max() + 1.0)
+        tol = tol + (QGEMM_RTOL_BF16 if out_dtype == BF16 else 0.0) * want.float().abs()
+        worst.append(((got.float() - want.float()).abs() / tol).max().item())
+        return got
+
+    with mock.patch.object(mm_kernel, "quant_systolic_matmul_call", call):
+        yield
 
 def _tree(fn, tree):
     if isinstance(tree, dict):
@@ -350,15 +397,30 @@ def serve_path(label: str, model, params, want: dict, batch, feed=None) -> dict:
     expect(dec_shapes == want_dec_shapes, f"{label} decode {want['gemm']} launches by (M, K, N): {sorted(dec_shapes.items())}")
 
     logits = []  # the kernel path's prefill and two decode-step logits
+    # w8a8: each GEMM's int8 activations on the kernel path, the plain path's
+    # differences from them, and each kernel call against its plain version.
+    acts_k, flips, in_model = [], [], []
+    quantized = want["gemm"] == "quant"
     with torch.no_grad():
         reset_counts()
-        got, cache_k = model.prefill(params, batch, max_len=PROMPT + GEN)
+        with contextlib.ExitStack() as stack:
+            if quantized:
+                stack.enter_context(quantized_activations(acts_k))
+                stack.enter_context(checked_quant_calls(in_model))
+            got, cache_k = model.prefill(params, batch, max_len=PROMPT + GEN)
         kernel_counts = counts()
-        with plain_versions():
+        if quantized:
+            expect(len(in_model) == 7 * cfg.n_layers and max(in_model) <= 1.0,
+                   f"{label} prefill: each of the {len(in_model)} block-scaled kernel calls against its plain "
+                   f"version on the model's own inputs: worst error {max(in_model):.3f} of the tolerance")
+        with plain_versions(), quantized_activations(flips, acts_k) if quantized else contextlib.nullcontext():
             want_l, _ = model.prefill(params, batch, max_len=PROMPT + GEN)
         plain_counts = tuple(c - k for c, k in zip(counts(), kernel_counts))
         expect(plain_counts == (0, 0, 0), f"{label} plain-path prefill launched no kernel ({plain_counts})")
         err, scale = compare_logits(f"{label} prefill", got, want_l, want["tol"])
+        if quantized:
+            flips = activation_flips(label, flips, cfg.n_layers)
+        del acts_k
         logits.append(got)
         # Two decode steps from one cache: the kernel path's primed cache, and
         # a copy of it for the plain path; both are fed the same tokens.
@@ -386,6 +448,7 @@ def serve_path(label: str, model, params, want: dict, batch, feed=None) -> dict:
         "decode_shapes": [[*mkn, c] for mkn, c in sorted(dec_shapes.items())],
         "logits_max_abs_err": err,
         "logits_scale": scale,
+        "prefill_activation_flips": flips,
         "decode_logits_max_abs_err": dec_err,
         "logits": logits,
         "fed": fed,
@@ -413,6 +476,7 @@ def phase_serve() -> tuple[dict, dict]:
     with quant.use_act_quant("int8"):
         w8a8 = serve_path("w8a8", model, qparams, {"gemm": "quant", "tol": LOGITS_TOL_W8A8}, batch,
                           feed=bf16["fed"])
+    w8a8["rounding_sensitivity"] = rounding_sensitivity(model, params, qparams, batch)
     # w8a8 against the bf16 model from the same fp32 weights, both on the
     # kernels, prefill and two decode steps fed the same tokens.
     w8a8["vs_bf16_max_abs_err"], w8a8["vs_bf16_bound"] = [], []
@@ -430,6 +494,53 @@ def phase_serve() -> tuple[dict, dict]:
     del params, qparams
     torch.cuda.empty_cache()
     return bf16, w8a8
+
+
+def activation_flips(label: str, flips: list, n_layers: int) -> dict:
+    """Summarise, by layer, the int8 activation values in which the plain
+    path's prefill differs from the kernel path's (seven quantized GEMM
+    inputs per layer: q, k, v, o, gate, up, down).  The first layer's q, k
+    and v inputs come from the same embedding and norm on both paths, so they
+    must agree exactly; every later difference starts from the paths' bf16
+    GEMM outputs differing by rounding."""
+    expect(len(flips) == 7 * n_layers, f"{label} prefill quantized {len(flips)} GEMM inputs per path, "
+                                       f"want {7 * n_layers}")
+    by_layer = [flips[7 * i:7 * i + 7] for i in range(n_layers)]
+    frac = [sum(f[0] for f in lay) / sum(f[2] for f in lay) for lay in by_layer]
+    frac2 = [sum(f[1] for f in lay) / sum(f[2] for f in lay) for lay in by_layer]
+    first_qkv = sum(f[0] for f in flips[:3])
+    expect(first_qkv == 0, f"{label} prefill: layer 0's q/k/v inputs quantize identically on both paths "
+                           f"({first_qkv} values differ)")
+    say(f"    {label} prefill int8 activations differing, plain vs kernel path, share by layer: "
+        f"{' '.join(f'{x:.2e}' for x in frac)}")
+    say(f"    ... by more than one int8 step: {' '.join(f'{x:.2e}' for x in frac2)}; "
+        f"largest difference {max(f[3] for f in flips)} steps; layer 0 by GEMM input (q k v o gate up down): "
+        f"{' '.join(f'{f[0] / f[2]:.2e}' for f in flips[:7])}")
+    return {"share_by_layer": frac, "share_over_one_step_by_layer": frac2, "max_step": max(f[3] for f in flips),
+            "layer0_share_by_input": [f[0] / f[2] for f in flips[:7]],
+            "differing": sum(f[0] for f in flips), "elements": sum(f[2] for f in flips)}
+
+
+def rounding_sensitivity(model, params, qparams, batch) -> dict:
+    """How far the plain path alone moves under a rounding-sized change of
+    its input: the embedding table nudged up by one bf16 ulp on a random half
+    of its elements (from the seed), prefill logits of the nudged against the
+    unchanged model, bf16 and w8a8, as a share of the largest logit.  Read
+    beside each model's kernel-vs-plain error."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    out = {}
+    with torch.no_grad(), plain_versions():
+        for label, p in (("bf16", params), ("w8a8", qparams)):
+            table = p["embed"]["table"]
+            bump = torch.randint(0, 2, table.shape, generator=gen, device="cuda", dtype=torch.int16)
+            nudged = {**p, "embed": {**p["embed"], "table": (table.view(torch.int16) + bump).view(table.dtype)}}
+            with quant.use_act_quant("int8") if label == "w8a8" else contextlib.nullcontext():
+                base, _ = model.prefill(p, batch, max_len=PROMPT + GEN)
+                moved, _ = model.prefill(nudged, batch, max_len=PROMPT + GEN)
+            out[label] = (moved - base).abs().max().item() / max(1.0, base.abs().max().item())
+            expect(math.isfinite(out[label]), f"{label} plain path, embedding nudged by one bf16 ulp: prefill "
+                                              f"logits move by {out[label]:.2%} of the largest")
+    return out
 
 
 def compare_logits(what: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> tuple[float, float]:
@@ -488,19 +599,24 @@ def _gemm_cost(m, k, n):
     return flops, nbytes
 
 
+def cycler(items: list):
+    """A function returning the next of ``items`` on each call, round robin."""
+    it = [0]
+
+    def nxt():
+        it[0] = (it[0] + 1) % len(items)
+        return items[it[0]]
+
+    return nxt
+
+
 def time_gemm(m, k, n, gen) -> dict:
     """Kernel, plain and library times of one bf16 projection.  Weights are
     cycled through enough copies to exceed the 50 MB L2, as the main path
     reads each layer's weights cold."""
     a = randn((m, k), gen, BF16)
     copies = max(1, math.ceil(150e6 / (k * n * dtype_bytes(BF16))))
-    bs = [randn((k, n), gen, BF16) for _ in range(copies)]
-    it = [0]
-
-    def nxt():
-        it[0] = (it[0] + 1) % copies
-        return bs[it[0]]
-
+    nxt = cycler([randn((k, n), gen, BF16) for _ in range(copies)])
     iters = 20 if m <= 16 else 10
     t = {
         "kernel": time_ms(lambda: mm_ops.matmul(a, nxt()), iters),
@@ -537,17 +653,6 @@ def _qgemm_cost(m, k, n, qk=quant.DEFAULT_BLOCK_K):
     kb = -(-k // qk)
     nbytes = m * k + k * n + 4 * (m * kb + kb * n) + m * n * dtype_bytes(BF16)
     return 2 * m * n * k, nbytes
-
-
-def cycler(items: list):
-    """A function returning the next of ``items`` on each call, round robin."""
-    it = [0]
-
-    def nxt():
-        it[0] = (it[0] + 1) % len(items)
-        return items[it[0]]
-
-    return nxt
 
 
 def time_qgemm(m, k, n, gen) -> dict:
@@ -587,15 +692,9 @@ def time_gemm_bias(m, k, n, gen) -> dict:
     computes the same function.  The main path passes no bias."""
     a = randn((m, k), gen, BF16)
     copies = max(1, math.ceil(150e6 / (k * n * dtype_bytes(BF16))))
-    bs = [randn((k, n), gen, BF16) for _ in range(copies)]
+    nxt = cycler([randn((k, n), gen, BF16) for _ in range(copies)])
     bias = randn((n,), gen, torch.float32)
     bias16 = bias.to(BF16)
-    it = [0]
-
-    def nxt():
-        it[0] = (it[0] + 1) % copies
-        return bs[it[0]]
-
     t = {
         "kernel": time_ms(lambda: mm_ops.matmul(a, nxt(), bias), 10),
         "plain": time_ms(lambda: matmul_ref(a, nxt(), bias), 10),
@@ -668,9 +767,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full fp32
-    torch.backends.cudnn.allow_tf32 = False
-    # The plain GEMMs are fp32 matmuls, which TF32 would round to ~3 digits.
+    # The plain GEMMs are fp32 matmuls, which TF32 would round to ~3 digits:
+    # they rely on PyTorch's default of full fp32.
     expect(not torch.backends.cuda.matmul.allow_tf32 and torch.get_float32_matmul_precision() == "highest",
            f"fp32 matmuls in full fp32 (allow_tf32={torch.backends.cuda.matmul.allow_tf32}, "
            f"precision={torch.get_float32_matmul_precision()})")

@@ -13,61 +13,41 @@ import torch
 
 from repro_torch import quant
 from repro_torch.kernels.systolic import ops as systolic_ops
-from repro_torch.quant.qarray import QDTYPES as QUANT_PRECISIONS
 from repro_torch.quant.qarray import QArray
 
 
-def matmul(
-    x: torch.Tensor,
-    w: torch.Tensor | QArray,
-    *,
-    out_dtype: torch.dtype | None = None,
-    precision: str | None = None,
-) -> torch.Tensor:
+def matmul(x: torch.Tensor, w: torch.Tensor | QArray, *, out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """``x @ w`` with x of shape (..., K) and w of shape (K, N), fp32 accumulation.
 
-    Quantized dispatch: ``precision="int8"``/``"fp8"`` quantizes both
-    operands on the fly and runs the block-scaled GEMM; a ``QArray`` weight
-    routes here automatically -- weight-only (w8a16: it dequantizes at the
-    GEMM) unless ``quant.use_act_quant`` or an explicit ``precision`` makes
-    it w8a8.  Any other ``precision`` raises: the reference passes those on
-    to XLA, and the port has no such backend.
+    A ``QArray`` weight goes to the quantized dispatch: weight-only (w8a16:
+    it dequantizes at the GEMM) unless ``quant.use_act_quant`` makes it w8a8.
     """
-    if precision is not None and precision not in QUANT_PRECISIONS:
-        raise ValueError(f"unknown precision {precision!r}; valid: {QUANT_PRECISIONS} or None")
-    if isinstance(w, QArray) or precision is not None:
-        return _quant_matmul(x, w, out_dtype=out_dtype, qprec=precision)
-    out_dtype = out_dtype or x.dtype
     lead = x.shape[:-1]
     k = x.shape[-1]
     if w.shape[0] != k:
         raise ValueError(f"matmul shape mismatch: {tuple(x.shape)} @ {tuple(w.shape)}")
-    y2 = systolic_ops.matmul(x.reshape(-1, k), w, out_dtype=out_dtype)
+    if isinstance(w, QArray):
+        return _quant_matmul(x, w, out_dtype=out_dtype)
+    y2 = systolic_ops.matmul(x.reshape(-1, k), w, out_dtype=out_dtype or x.dtype)
     return y2.reshape(*lead, w.shape[1])
 
 
-def _quant_matmul(x: torch.Tensor, w, *, out_dtype, qprec: str | None) -> torch.Tensor:
-    """Quantized projection dispatch (weight QArray and/or explicit precision).
+def _quant_matmul(x: torch.Tensor, w: QArray, *, out_dtype: torch.dtype | None) -> torch.Tensor:
+    """Quantized projection dispatch (a QArray weight).
 
-      w8a16  weight QArray, activations wide: the weight dequantizes to
-             ``x.dtype`` and the fp path (the systolic kernel) runs as usual.
-      w8a8   activation quant requested -- via ``precision=`` or the
-             ``quant.use_act_quant`` policy: activations quantize per token x
+      w8a16  activations wide: the weight dequantizes to ``x.dtype`` and the
+             fp path (the systolic kernel) runs as usual.
+      w8a8   under ``quant.use_act_quant``: activations quantize per token x
              per 128-k block and go to the block-scaled kernel.
     """
-    lead = x.shape[:-1]
-    k = x.shape[-1]
-    if w.shape[0] != k:
-        raise ValueError(f"matmul shape mismatch: {tuple(x.shape)} @ {tuple(w.shape)}")
-    act_qd = qprec or quant.act_qdtype()
-    wq = w if isinstance(w, QArray) else quant.quantize_weight(w, act_qd or "int8")
+    act_qd = quant.act_qdtype()
     out_dtype = out_dtype or x.dtype
     if act_qd is None:
-        return matmul(x, wq.dequantize(x.dtype), out_dtype=out_dtype)
-    x2 = x.reshape(-1, k)
-    xq = quant.quantize_act(x2, act_qd)
-    y2 = systolic_ops.quant_matmul(xq, wq, out_dtype=out_dtype)
-    return y2.reshape(*lead, w.shape[1])
+        return matmul(x, w.dequantize(x.dtype), out_dtype=out_dtype)
+    k = x.shape[-1]
+    xq = quant.quantize_act(x.reshape(-1, k), act_qd)
+    y2 = systolic_ops.quant_matmul(xq, w, out_dtype=out_dtype)
+    return y2.reshape(*x.shape[:-1], w.shape[1])
 
 
 def einsum(spec: str, *args: torch.Tensor, out_dtype: torch.dtype | None = None) -> torch.Tensor:

@@ -137,8 +137,48 @@ inline int sm_count() {
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
+// The decode tile (M <= 16) of the GEMMs, and how its contraction is split.
+constexpr int D_BM = 16, D_BN = 64, D_BK = 64;
+
+struct Split {
+  int splits;   // blocks along K
+  int k_chunk;  // contraction per block, a multiple of D_BK
+};
+
+// Enough K slices that about four decode blocks per SM stream B (the
+// N / D_BN column tiles alone may fill a few SMs only); one slice when the
+// GEMM is not a splittable decode or the column tiles already fill the card.
+inline Split plan_split(int M, int N, int K, bool splittable) {
+  if (!splittable || M > D_BM || K <= D_BK) return {1, K};
+  const int col_tiles = (N + D_BN - 1) / D_BN;
+  const int k_tiles = (K + D_BK - 1) / D_BK;
+  const int want = (4 * sm_count() + col_tiles - 1) / col_tiles;
+  const int splits = want < k_tiles ? want : k_tiles;
+  if (splits <= 1) return {1, K};
+  const int per = (k_tiles + splits - 1) / splits;  // k tiles per slice
+  return {(k_tiles + per - 1) / per, per * D_BK};
+}
+
+// After a split-K launch: sum its partials in z order into `out`.
+template <typename O>
+void finish_split(const float* partial, Split sp, const float* bias, O* out, int M, int N, int act,
+                  cudaStream_t s) {
+  if (sp.splits <= 1) return;
+  const size_t mn = (size_t)M * N;
+  const int blocks = (int)((mn + 255) / 256 < 4096 ? (mn + 255) / 256 : 4096);
+  splitk_reduce<O><<<blocks, 256, 0, s>>>(partial, sp.splits, bias, out, M, N, act);
+}
+
 }  // namespace repro
 
 extern "C" const char* cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// Bytes of fp32 scratch that a GEMM of this shape needs on the current
+// device (its split-K partials; 0 when the contraction is not split).
+// `splittable`: the kernel splits its decode tile along K.
+extern "C" long long split_workspace(int M, int N, int K, int splittable) {
+  const repro::Split sp = repro::plan_split(M, N, K, splittable != 0);
+  return sp.splits > 1 ? (long long)sp.splits * M * N * (long long)sizeof(float) : 0;
 }

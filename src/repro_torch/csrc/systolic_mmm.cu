@@ -37,8 +37,11 @@ using namespace nvcuda;
 using repro::ACT_NONE;
 using repro::ACT_TANH;
 using repro::from_f32;
-using repro::sm_count;
-using repro::splitk_reduce;
+using repro::D_BK;
+using repro::D_BM;
+using repro::D_BN;
+using repro::plan_split;
+using repro::Split;
 using repro::store_out;
 using repro::to_f32;
 
@@ -211,28 +214,6 @@ __global__ void __launch_bounds__(F_NT)
       store_out(out, bias, act, M, N, m0 + ty + 16 * i, n0 + tx + 16 * j, acc[i][j]);
 }
 
-// The decode tile (M <= 16, bf16) and how its contraction is split.
-constexpr int D_BM = 16, D_BN = 64, D_BK = 64;
-
-struct Split {
-  int splits;   // blocks along K
-  int k_chunk;  // contraction per block, a multiple of D_BK
-};
-
-// Enough K slices that about four decode blocks per SM stream B (the
-// N / D_BN column tiles alone may fill a few SMs only); one slice when the
-// GEMM is not a bf16 decode or the column tiles already fill the card.
-Split plan_split(int M, int N, int K, int in_dtype) {
-  if (in_dtype != repro::DT_BF16 || M > D_BM || K <= D_BK) return {1, K};
-  const int col_tiles = (N + D_BN - 1) / D_BN;
-  const int k_tiles = (K + D_BK - 1) / D_BK;
-  const int want = (4 * sm_count() + col_tiles - 1) / col_tiles;
-  const int splits = want < k_tiles ? want : k_tiles;
-  if (splits <= 1) return {1, K};
-  const int per = (k_tiles + splits - 1) / splits;  // k tiles per slice
-  return {(k_tiles + per - 1) / per, per * D_BK};
-}
-
 template <int BM, int BN, int BK, int WM, int WN, typename O>
 void launch_bf16(const void* a, const void* b, const float* bias, void* out, int M, int N, int K,
                  int act, cudaStream_t s, Split sp = {1, 0}, float* partial = nullptr) {
@@ -243,12 +224,7 @@ void launch_bf16(const void* a, const void* b, const float* bias, void* out, int
       static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b), bias,
       static_cast<O*>(out), M, N, K, act, vec_a, vec_b, sp.splits > 1 ? sp.k_chunk : K,
       sp.splits > 1 ? partial : nullptr);
-  if (sp.splits > 1) {
-    const size_t mn = (size_t)M * N;
-    const int blocks = (int)((mn + 255) / 256 < 4096 ? (mn + 255) / 256 : 4096);
-    splitk_reduce<O><<<blocks, 256, 0, s>>>(partial, sp.splits, bias, static_cast<O*>(out), M,
-                                            N, act);
-  }
+  repro::finish_split<O>(partial, sp, bias, static_cast<O*>(out), M, N, act, s);
 }
 
 template <typename O>
@@ -269,7 +245,7 @@ void launch(const void* a, const void* b, const float* bias, void* out, int M, i
     launch_f32<O>(a, b, bias, out, M, N, K, act, s);
   } else if (M <= D_BM) {  // decode: one 16-row tile, 4 warps side by side over 64 columns
     launch_bf16<D_BM, D_BN, D_BK, 1, 4, O>(a, b, bias, out, M, N, K, act, s,
-                                           plan_split(M, N, K, in_dtype), workspace);
+                                           plan_split(M, N, K, true), workspace);
   } else {  // prefill: 128x128 tile, 8 warps of 64x32
     launch_bf16<128, 128, 32, 2, 4, O>(a, b, bias, out, M, N, K, act, s);
   }
@@ -277,17 +253,10 @@ void launch(const void* a, const void* b, const float* bias, void* out, int M, i
 
 }  // namespace
 
-// Bytes of fp32 scratch that systolic_mmm needs for this problem on the
-// current device (the split-K partials; 0 when the contraction is not split).
-extern "C" long long systolic_mmm_workspace(int M, int N, int K, int in_dtype) {
-  const Split sp = plan_split(M, N, K, in_dtype);
-  return sp.splits > 1 ? (long long)sp.splits * M * N * (long long)sizeof(float) : 0;
-}
-
 // a: (M, K), b: (K, N), both row-major and of dtype `in_dtype`; bias: (N,)
 // fp32 or null; out: (M, N) row-major of dtype `out_dtype`; workspace: at
-// least systolic_mmm_workspace() bytes (null if that is 0).  Launches on
-// `stream` and returns cudaGetLastError() (0 on success).
+// least split_workspace(M, N, K, in_dtype == bf16) bytes (null if that is
+// 0).  Launches on `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int systolic_mmm(const void* a, const void* b, const void* bias, void* out, int M,
                             int N, int K, int in_dtype, int out_dtype, int activation,
                             void* workspace, long long workspace_bytes, void* stream) {
@@ -296,7 +265,7 @@ extern "C" int systolic_mmm(const void* a, const void* b, const void* bias, void
   if ((in_dtype != repro::DT_F32 && in_dtype != repro::DT_BF16) ||
       (out_dtype != repro::DT_F32 && out_dtype != repro::DT_BF16) || activation < ACT_NONE ||
       activation > ACT_TANH || M <= 0 || N <= 0 || K < 0 ||
-      workspace_bytes < systolic_mmm_workspace(M, N, K, in_dtype) ||
+      workspace_bytes < split_workspace(M, N, K, in_dtype == repro::DT_BF16) ||
       (workspace_bytes > 0 && workspace == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   float* ws = static_cast<float*>(workspace);

@@ -50,8 +50,11 @@ using namespace nvcuda;
 using repro::ACT_NONE;
 using repro::ACT_TANH;
 using repro::from_f32;
-using repro::sm_count;
-using repro::splitk_reduce;
+using repro::D_BK;
+using repro::D_BM;
+using repro::D_BN;
+using repro::plan_split;
+using repro::Split;
 using repro::store_out;
 
 namespace {
@@ -268,27 +271,8 @@ __global__ void __launch_bounds__(32 * WARPS_M * WARPS_N)
 // Tiles: prefill 128x128 (8 warps of 64x32), decode (M <= 16) 16x64 (4 warps
 // of 16x16).  The fp8 prefill tile takes k in 32s so the widened bf16 copy
 // still fits the 48 KB of static shared memory.
-constexpr int D_BM = 16, D_BN = 64, D_BK = 64;
 constexpr int P_BM = 128, P_BN = 128;
 constexpr int p_bk(int qd) { return qd == Q_FP8 ? 32 : 64; }
-
-struct Split {
-  int splits;   // blocks along K
-  int k_chunk;  // contraction per block, a multiple of D_BK
-};
-
-// As in systolic_mmm.cu: enough K slices that about four decode blocks per SM
-// stream B; one slice when M > 16 or the column tiles already fill the card.
-Split plan_split(int M, int N, int K) {
-  if (M > D_BM || K <= D_BK) return {1, K};
-  const int col_tiles = (N + D_BN - 1) / D_BN;
-  const int k_tiles = (K + D_BK - 1) / D_BK;
-  const int want = (4 * sm_count() + col_tiles - 1) / col_tiles;
-  const int splits = want < k_tiles ? want : k_tiles;
-  if (splits <= 1) return {1, K};
-  const int per = (k_tiles + splits - 1) / splits;
-  return {(k_tiles + per - 1) / per, per * D_BK};
-}
 
 int gcd(int a, int b) {
   while (b != 0) {
@@ -310,12 +294,7 @@ void launch_tile(const void* a, const float* a_s, const void* b, const float* b_
       static_cast<const uint8_t*>(a), a_s, static_cast<const uint8_t*>(b), b_s,
       static_cast<O*>(out), M, N, K, qk_a, qk_b, n_sa, step, act, vec_a, vec_b,
       sp.splits > 1 ? sp.k_chunk : K, sp.splits > 1 ? partial : nullptr);
-  if (sp.splits > 1) {
-    const size_t mn = (size_t)M * N;
-    const int blocks = (int)((mn + 255) / 256 < 4096 ? (mn + 255) / 256 : 4096);
-    splitk_reduce<O><<<blocks, 256, 0, s>>>(partial, sp.splits, nullptr, static_cast<O*>(out), M,
-                                            N, act);
-  }
+  repro::finish_split<O>(partial, sp, nullptr, static_cast<O*>(out), M, N, act, s);
 }
 
 template <int QD, typename O>
@@ -324,44 +303,37 @@ void launch(const void* a, const float* a_s, const void* b, const float* b_s, vo
             float* workspace) {
   if (M <= D_BM)
     launch_tile<D_BM, D_BN, D_BK, 1, 4, QD, O>(a, a_s, b, b_s, out, M, N, K, qk_a, qk_b, n_sa,
-                                               step, act, s, plan_split(M, N, K), workspace);
+                                               step, act, s, plan_split(M, N, K, true), workspace);
   else
     launch_tile<P_BM, P_BN, p_bk(QD), 2, 4, QD, O>(a, a_s, b, b_s, out, M, N, K, qk_a, qk_b,
                                                    n_sa, step, act, s, {1, K}, nullptr);
 }
 
-}  // namespace
-
 // The scale step for scale blocks qk_a, qk_b (0 = all of K): gcd of the
 // non-zero ones, 0 when both are whole-K.
-extern "C" int systolic_qmm_step(int qk_a, int qk_b) {
+int scale_step(int qk_a, int qk_b) {
   if (qk_a > 0 && qk_b > 0) return gcd(qk_a, qk_b);
   return qk_a > 0 ? qk_a : qk_b;
 }
 
-// Bytes of fp32 scratch that systolic_qmm needs (the split-K partials; 0
-// when the contraction is not split).
-extern "C" long long systolic_qmm_workspace(int M, int N, int K) {
-  const Split sp = plan_split(M, N, K);
-  return sp.splits > 1 ? (long long)sp.splits * M * N * (long long)sizeof(float) : 0;
-}
+}  // namespace
 
 // a: (M, K) and b: (K, N) row-major, 1-byte values of `qdtype` (0 int8, 1
 // e4m3); a_scales: (M, qk_a ? ceil(K / qk_a) : 1) fp32; b_scales:
 // (qk_b ? ceil(K / qk_b) : 1, N) fp32; out: (M, N) row-major of dtype
-// `out_dtype`; workspace: at least systolic_qmm_workspace() bytes.  The scale
-// step must be 0 (whole K) or a multiple of 16.  Launches on `stream` and
-// returns cudaGetLastError() (0 on success).
+// `out_dtype`; workspace: at least split_workspace(M, N, K, 1) bytes.  The
+// scale step must be 0 (whole K) or a multiple of 16.  Launches on `stream`
+// and returns cudaGetLastError() (0 on success).
 extern "C" int systolic_qmm(const void* a, const void* a_scales, const void* b,
                             const void* b_scales, void* out, int M, int N, int K, int qk_a,
                             int qk_b, int qdtype, int out_dtype, int activation, void* workspace,
                             long long workspace_bytes, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int step = systolic_qmm_step(qk_a, qk_b);
+  const int step = scale_step(qk_a, qk_b);
   if ((qdtype != Q_INT8 && qdtype != Q_FP8) ||
       (out_dtype != repro::DT_F32 && out_dtype != repro::DT_BF16) || activation < ACT_NONE ||
       activation > ACT_TANH || M <= 0 || N <= 0 || K <= 0 || qk_a < 0 || qk_b < 0 ||
-      step % 16 != 0 || workspace_bytes < systolic_qmm_workspace(M, N, K) ||
+      step % 16 != 0 || workspace_bytes < split_workspace(M, N, K, 1) ||
       (workspace_bytes > 0 && workspace == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_sa = qk_a > 0 ? (K + qk_a - 1) / qk_a : 1;

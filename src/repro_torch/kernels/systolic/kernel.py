@@ -32,23 +32,38 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 
 
+# Argument types of each library's C entry point, named as the library.
+_ARGTYPES = {
+    "systolic_mmm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _LL, _P],
+    "systolic_qmm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _LL, _P],
+}
+
+
 @functools.cache
-def _entry():
-    """The loaded library and its C entry point (built on first call)."""
-    lib = _build.library("systolic_mmm")
-    fn = lib.systolic_mmm
-    fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _LL, _P]
+def _entry(name: str):
+    """The loaded library ``name`` and its C entry point (built on first call)."""
+    lib = _build.library(name)
+    fn = getattr(lib, name)
+    fn.argtypes = _ARGTYPES[name]
     fn.restype = _I
-    lib.systolic_mmm_workspace.argtypes = [_I, _I, _I, _I]
-    lib.systolic_mmm_workspace.restype = _LL
+    lib.split_workspace.argtypes = [_I, _I, _I, _I]
+    lib.split_workspace.restype = _LL
     return lib, fn
 
 
 @functools.cache
-def _workspace_bytes(m: int, n: int, k: int, dtype_code: int, device_index: int | None) -> int:
-    """fp32 scratch bytes the kernel needs (its split-K partials); depends on
-    the shape and the card's SM count, so it is asked once per shape and card."""
-    return _entry()[0].systolic_mmm_workspace(m, n, k, dtype_code)
+def _workspace_bytes(name: str, m: int, n: int, k: int, splittable: bool, device_index: int | None) -> int:
+    """fp32 scratch bytes of the split-K partials (``csrc/common.cuh``
+    ``plan_split``); depends on the shape and the card's SM count, so it is
+    asked once per shape and card."""
+    return _entry(name)[0].split_workspace(m, n, k, int(splittable))
+
+
+def _workspace(name: str, device: torch.device, m: int, n: int, k: int, splittable: bool):
+    """(scratch tensor or None, its bytes) for one launch of library ``name``."""
+    nbytes = _workspace_bytes(name, m, n, k, splittable, device.index)
+    ws = torch.empty(nbytes // 4, dtype=torch.float32, device=device) if nbytes else None
+    return ws, nbytes
 
 
 def systolic_matmul_call(
@@ -88,9 +103,8 @@ def systolic_matmul_call(
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     if m == 0 or n == 0:
         return out
-    lib, fn = _entry()
-    nbytes = _workspace_bytes(m, n, k, DTYPE_CODES[a.dtype], a.device.index)
-    ws = torch.empty(nbytes // 4, dtype=torch.float32, device=a.device) if nbytes else None
+    lib, fn = _entry("systolic_mmm")
+    ws, nbytes = _workspace("systolic_mmm", a.device, m, n, k, a.dtype == torch.bfloat16)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     code = fn(
         a.data_ptr(), b.data_ptr(), None if bias is None else bias.data_ptr(),
@@ -116,24 +130,6 @@ MAX_INT8_STEP = (2**31 - 1) // 2**14
 # Launches of the quantized kernel made by this process, in all and by (M, K, N).
 quant_launches = 0
 quant_launches_by_shape: collections.Counter = collections.Counter()
-
-
-@functools.cache
-def _quant_entry():
-    """The loaded library and its C entry point (built on first call)."""
-    lib = _build.library("systolic_qmm")
-    fn = lib.systolic_qmm
-    fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _LL, _P]
-    fn.restype = _I
-    lib.systolic_qmm_workspace.argtypes = [_I, _I, _I]
-    lib.systolic_qmm_workspace.restype = _LL
-    return lib, fn
-
-
-@functools.cache
-def _quant_workspace_bytes(m: int, n: int, k: int, device_index: int | None) -> int:
-    """fp32 scratch bytes of the split-K partials (depends on the card's SM count)."""
-    return _quant_entry()[0].systolic_qmm_workspace(m, n, k)
 
 
 def scale_step(qk_a: int, qk_b: int, k: int) -> int:
@@ -205,9 +201,8 @@ def quant_systolic_matmul_call(
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     if m == 0 or n == 0:
         return out
-    lib, fn = _quant_entry()
-    nbytes = _quant_workspace_bytes(m, n, k, a.device.index)
-    ws = torch.empty(nbytes // 4, dtype=torch.float32, device=a.device) if nbytes else None
+    lib, fn = _entry("systolic_qmm")
+    ws, nbytes = _workspace("systolic_qmm", a.device, m, n, k, True)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     code = fn(
         a.data_ptr(), a_scales.data_ptr(), b.data_ptr(), b_scales.data_ptr(), out.data_ptr(),

@@ -12,7 +12,7 @@ import torch
 
 from repro_torch.kernels.systolic import kernel as _kernel
 from repro_torch.kernels.systolic.ref import ACTIVATIONS, matmul_ref, quant_systolic_matmul_ref
-from repro_torch.quant.qarray import DEFAULT_BLOCK_K, QArray, quantize_act, quantize_weight
+from repro_torch.quant.qarray import QArray
 
 
 def matmul(
@@ -43,8 +43,7 @@ def matmul(
 
 
 # ---------------------------------------------------------------------------
-# Quantized matmul: QArray operands (or fp operands quantized on the fly)
-# through the block-scaled kernel.
+# Quantized matmul: QArray operands through the block-scaled kernel.
 # ---------------------------------------------------------------------------
 
 
@@ -68,28 +67,16 @@ def _col_scales(q: QArray, k: int, n: int) -> tuple[torch.Tensor, int]:
 
 
 def quant_matmul(
-    a: torch.Tensor | QArray,
-    b: torch.Tensor | QArray,
+    a: QArray,
+    b: QArray,
     *,
-    qdtype: str = "int8",
     out_dtype: torch.dtype | None = None,
     activation: str = "none",
-    block_k: int = DEFAULT_BLOCK_K,
 ) -> torch.Tensor:
-    """(M, K) @ (K, N) through the block-scaled quantized GEMM.
-
-    Operands may be ``QArray``s (weights usually are) or fp tensors quantized
-    here (activations: per-row x per-``block_k`` scales; weights: per-
-    ``block_k`` x per-column).  The output dtype defaults to bf16.
+    """(M, K) @ (K, N) of two ``QArray``s through the block-scaled quantized
+    GEMM (activations usually per row x per 128-k block, weights per 128-k
+    block x per column).  The output dtype defaults to bf16.
     """
-    if not isinstance(a, QArray):
-        if a.ndim != 2:
-            raise ValueError(f"expected 2D operand, got {tuple(a.shape)}")
-        a = quantize_act(a, qdtype, block_k=block_k)
-    if not isinstance(b, QArray):
-        if b.ndim != 2:
-            raise ValueError(f"expected 2D operand, got {tuple(b.shape)}")
-        b = quantize_weight(b, qdtype, block_k=block_k)
     if a.ndim != 2 or b.ndim != 2:
         raise ValueError(f"expected 2D operands, got {tuple(a.shape)} @ {tuple(b.shape)}")
     if a.shape[1] != b.shape[0]:

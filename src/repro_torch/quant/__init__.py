@@ -2,7 +2,7 @@
 
 The counterpart of ``repro.quant``:
 
-  * ``qarray``  -- ``QArray`` + quantize / dequantize;
+  * ``qarray``  -- ``QArray`` and quantize;
   * ``params``  -- weight-only quantization of parameter trees;
   * the activation-quantization *policy* below: a contextvar deciding
     whether ``core.ops.matmul`` quantizes activations on the fly when the
@@ -23,7 +23,6 @@ from repro_torch.quant.qarray import (
     QDTYPES,
     QArray,
     canonical_qdtype,
-    dequantize,
     quantize,
     quantize_act,
     quantize_weight,
@@ -36,7 +35,6 @@ __all__ = [
     "act_qdtype",
     "canonical_qdtype",
     "count_quantized",
-    "dequantize",
     "quantize",
     "quantize_act",
     "quantize_params",

@@ -59,18 +59,6 @@ def canonical_qdtype(qdtype) -> str:
     raise ValueError(f"unknown quant dtype {qdtype!r}; valid: {QDTYPES}")
 
 
-def is_quant_dtype(dtype) -> bool:
-    """True for any spelling of the narrow quantized dtypes."""
-    name = _dtype_name(dtype)
-    return name in _QDTYPES or name.startswith("float8")
-
-
-def storage_dtype_name(dtype) -> str:
-    """Canonical name of the storage dtype ("int8", "float8_e4m3fn")."""
-    storage, _ = qdtype_info(canonical_qdtype(dtype))
-    return _dtype_name(storage)
-
-
 def _resolve_block(shape, block) -> tuple[int, int]:
     """Normalise ``block`` against the last two axes (0/None = whole axis)."""
     if len(shape) < 2:
@@ -131,19 +119,6 @@ class QArray:
     def ndim(self) -> int:
         return self.values.ndim
 
-    def astype(self, dtype) -> "QArray":
-        """No-op passthrough: the compute dtype is chosen at dequantize time."""
-        del dtype
-        return self
-
-    def to(self, target) -> "QArray":
-        """torch's ``.to``: a dtype passes through (as ``astype``); a device
-        moves values and scales together."""
-        if isinstance(target, torch.dtype):
-            return self
-        dev = torch.device(target)
-        return dataclasses.replace(self, values=self.values.to(dev), scales=self.scales.to(dev))
-
     def dequantize(self, dtype: torch.dtype = torch.float32) -> torch.Tensor:
         qr, qc = self.block
         r, c = self.values.shape[-2:]
@@ -171,10 +146,6 @@ def quantize(
     else:
         values = torch.clamp(scaled, -qmax, qmax).to(storage)
     return QArray(values=_unblocked(values, r, c), scales=scales, block=(qr, qc), qdtype=qdtype)
-
-
-def dequantize(q: QArray, dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    return q.dequantize(dtype)
 
 
 # ---------------------------------------------------------------------------
