@@ -23,7 +23,17 @@ Phases, each printing its own lines; any failure exits non-zero:
      block-scaled kernel, with the same launch, kernel-vs-plain and decode
      checks (each kernel call of the prefill also against its plain version
      on the model's own inputs), and its logits against the bf16 model's
-     within the reference's bound of 0.15 x the largest logit;
+     within the reference's bound of 0.15 x the largest logit; then
+     full-width qwen3-moe-30b-a3b in bf16, every expert GEMM on the grouped
+     kernel, with the same launch and decode checks, kernel-vs-plain logits
+     with the plain path routed to the kernel path's experts (bf16's
+     tolerance) and routing freely (twice it), a routing witness (each
+     grouped call of the prefill against its plain version on the model's
+     own dispatched tokens; the (token, choice) assignments and capacity
+     drops that differ between the paths, by layer; one-ulp nudges of the
+     plain path alone), the same checks and witness on models and prompts
+     from two more seeds, and the SMOKE MoE config in fp32 on the card
+     against the port's CPU path; every path's prefill twice, bit-identical;
   4. each kernel timed at the main path's shapes (CUDA events) beside its
      bound, its plain version and one PyTorch library call (a yardstick the
      port never calls; none computes the block-scaled product, so the
@@ -37,6 +47,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import json
@@ -59,6 +70,9 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.attention import kernel as attn_kernel  # noqa: E402
 from repro_torch.kernels.attention import ops as attn_ops  # noqa: E402
 from repro_torch.kernels.attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.grouped import kernel as grouped_kernel  # noqa: E402
+from repro_torch.kernels.grouped import ops as grouped_ops  # noqa: E402
+from repro_torch.kernels.grouped.ref import grouped_matmul_ref  # noqa: E402
 from repro_torch.kernels.systolic import kernel as mm_kernel  # noqa: E402
 from repro_torch.kernels.systolic import ops as mm_ops  # noqa: E402
 from repro_torch.kernels.systolic.ref import (  # noqa: E402
@@ -67,11 +81,13 @@ from repro_torch.kernels.systolic.ref import (  # noqa: E402
     quant_matmul_ref,
     quant_systolic_matmul_ref,
 )
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.models.transformer import cast_params  # noqa: E402
 from repro_torch.serving import ServeConfig, ServeEngine  # noqa: E402
 
 ARCH = "internlm2-1.8b"
+MOE_ARCH = "qwen3-moe-30b-a3b"
 BATCH, PROMPT, GEN = 4, 512, 32
 SEED = 0
 BF16 = torch.bfloat16
@@ -97,13 +113,63 @@ QGEMM_RTOL_BF16 = 2**-7
 # the plain path alone.
 LOGITS_TOL_W8A8 = 5e-2
 W8A8_VS_BF16_TOL = 0.15  # of the bf16 model's largest logit: tests/test_quant.py's w8a8 bound
-# (K, N) of the seven projections of one internlm2-1.8b layer, with multiplicity.
-PROJECTIONS = {(2048, 2048): 2, (2048, 1024): 2, (2048, 8192): 2, (8192, 2048): 1}
+# MoE kernel path vs plain path at full width: bf16's reason, and routing is
+# discrete, so a rounding difference near a top-k tie sends a token to
+# another expert (and moves which slots overflow capacity), a jump far
+# larger than an ulp.  The kernel gate is the comparison with the plain path
+# routed exactly as the kernel path (same experts per token, its own
+# weights), held at bf16's 5e-2.  Each path routing freely moves as far as
+# the model moves under a one-ulp nudge of its input, so that comparison is
+# held at 1e-1: above the largest nudge reading (8.65 % of the largest
+# logit, over three model seeds x three nudges x prefill and three decode
+# steps, first measured on an H100).  Phase 3 prints the witnesses: every
+# grouped call of the prefill against its plain version on the model's own
+# dispatched tokens, the assignments and drops that differ between the paths
+# by layer, the routed-alike gap, and the nudge readings, for the model of
+# the main path and for models and prompts from two more seeds.
+LOGITS_TOL_MOE = 1e-1
+MOE_WITNESS_SEEDS = (1, 2)  # more models and prompts for the MoE witness
+MOE_NUDGES, MOE_NUDGE_STEPS = 3, 3  # one-ulp nudges per model, decode steps each
 SOURCES = {
     "systolic_mmm": ("src/repro_torch/csrc/systolic_mmm.cu", "src/repro/kernels/systolic/kernel.py:37"),
     "systolic_qmm": ("src/repro_torch/csrc/systolic_qmm.cu", "src/repro/kernels/systolic/kernel.py:174"),
     "flash_attn": ("src/repro_torch/csrc/flash_attn.cu", "src/repro/kernels/attention/kernel.py:30"),
+    "grouped_mmm": ("src/repro_torch/csrc/grouped_mmm.cu", "src/repro/kernels/grouped/kernel.py:26"),
 }
+KERNELS = tuple(SOURCES)
+
+
+def projections(cfg) -> collections.Counter:
+    """(K, N) -> launches per layer of the projection GEMM (fp or block-scaled):
+    q, k, v, o, then the SwiGLU's gate, up and down or the MoE router."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    c = collections.Counter()
+    c[(d, cfg.n_heads * hd)] += 1
+    c[(d, cfg.n_kv_heads * hd)] += 2
+    c[(cfg.n_heads * hd, d)] += 1
+    if cfg.moe is None:
+        c[(d, cfg.d_ff)] += 2
+        c[(cfg.d_ff, d)] += 1
+    else:
+        c[(d, cfg.moe.n_experts)] += 1
+    return c
+
+
+def expert_gemms(cfg) -> collections.Counter:
+    """(K, N) -> grouped launches per MoE layer: gate and up, then down."""
+    if cfg.moe is None:
+        return collections.Counter()
+    d, ff = cfg.d_model, cfg.moe.d_ff_expert
+    c = collections.Counter()
+    c[(d, ff)] += 2
+    c[(ff, d)] += 1
+    return c
+
+
+def gemm_out_dtype(cfg, k: int, n: int) -> torch.dtype:
+    """The router writes fp32 logits; every other projection the compute dtype."""
+    return torch.float32 if cfg.moe is not None and (k, n) == (cfg.d_model, cfg.moe.n_experts) else BF16
+
 
 failures: list[str] = []
 
@@ -124,11 +190,22 @@ def reset_counts() -> None:
     mm_kernel.quant_launches = 0
     mm_kernel.quant_launches_by_shape.clear()
     attn_kernel.launches = 0
+    grouped_kernel.launches = 0
+    grouped_kernel.launches_by_shape.clear()
 
 
-def counts() -> tuple[int, int, int]:
-    """(systolic, quantized systolic, flash) launches since the last reset."""
-    return mm_kernel.launches, mm_kernel.quant_launches, attn_kernel.launches
+def counts() -> dict:
+    """Launches of each kernel since the last reset."""
+    return {"systolic_mmm": mm_kernel.launches, "systolic_qmm": mm_kernel.quant_launches,
+            "flash_attn": attn_kernel.launches, "grouped_mmm": grouped_kernel.launches}
+
+
+def shape_counts() -> dict:
+    """Launches of each GEMM since the last reset, by shape at the launch site:
+    (M, K, N) for the projection GEMMs, (E, C, K, N) for the grouped one."""
+    return {"systolic_mmm": dict(mm_kernel.launches_by_shape),
+            "systolic_qmm": dict(mm_kernel.quant_launches_by_shape),
+            "grouped_mmm": dict(grouped_kernel.launches_by_shape)}
 
 
 @contextlib.contextmanager
@@ -144,7 +221,8 @@ def plain_versions():
 
     with mock.patch.object(mm_kernel, "systolic_matmul_call", mm), \
             mock.patch.object(mm_kernel, "quant_systolic_matmul_call", quant_systolic_matmul_ref), \
-            mock.patch.object(attn_kernel, "flash_attention_call", flash):
+            mock.patch.object(attn_kernel, "flash_attention_call", flash), \
+            mock.patch.object(grouped_kernel, "grouped_matmul_call", grouped_matmul_ref):
         yield
 
 
@@ -189,6 +267,72 @@ def checked_quant_calls(worst: list):
 
     with mock.patch.object(mm_kernel, "quant_systolic_matmul_call", call):
         yield
+
+@contextlib.contextmanager
+def checked_grouped_calls(worst: list):
+    """Hold every grouped kernel call against its plain version on the same
+    inputs -- the model's own dispatched tokens -- within phase 2's bf16
+    tolerance, recording each call's largest error as a share of it."""
+    real = grouped_kernel.grouped_matmul_call
+    atol, rtol = GEMM_TOL_BF16
+
+    def call(x, w):
+        got = real(x, w)
+        want = grouped_matmul_ref(x, w)
+        worst.append(((got.float() - want.float()).abs() / (atol + rtol * want.float().abs())).max().item())
+        return got
+
+    with mock.patch.object(grouped_kernel, "grouped_matmul_call", call):
+        yield
+
+
+@contextlib.contextmanager
+def topk_choices(record: list, replay: bool = False):
+    """Record each MoE layer's top-k experts in call order; or, with
+    ``replay``, route each layer to the recorded experts instead, weighting
+    them by this run's own router probabilities (the run then dispatches
+    and drops exactly as the recorded one did)."""
+    real = moe._topk_shardable
+    recorded = iter(record)
+
+    def topk(probs, k):
+        if replay:
+            e = next(recorded)
+            return probs.gather(-1, e), e
+        w, e = real(probs, k)
+        record.append(e.clone())
+        return w, e
+
+    with mock.patch.object(moe, "_topk_shardable", topk):
+        yield
+
+
+@contextlib.contextmanager
+def recorded_routing(record: list):
+    """Record each MoE layer's routing, in call order: the (token, choice)
+    experts (G, T, k) and which of those slots were dropped past capacity."""
+    real = moe._dispatch_group
+
+    def dispatch(xf, top_e, top_w, cap, cfg):
+        out = real(xf, top_e, top_w, cap, cfg)
+        _, _, pos, order, _ = out
+        dropped = torch.zeros_like(pos, dtype=torch.bool).scatter_(-1, order, pos >= cap)
+        record.append((top_e.clone(), dropped.reshape(top_e.shape)))
+        return out
+
+    with mock.patch.object(moe, "_dispatch_group", dispatch):
+        yield
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
 
 def _tree(fn, tree):
     if isinstance(tree, dict):
@@ -306,13 +450,29 @@ def check_qgemm(m, k, n, qd, gen, *, qk=(128, 128), act="none", out_dtype=BF16) 
     return err
 
 
+def check_grouped(e, c, k, n, dtype, gen) -> float:
+    """The grouped expert GEMM against its plain version (output in the
+    operands' dtype)."""
+    x, w = randn((e, c, k), gen, dtype), randn((e, k, n), gen, dtype)
+    got = grouped_ops.grouped_matmul(x, w)
+    want = grouped_matmul_ref(x, w)
+    atol, rtol = GEMM_TOL_BF16 if dtype == BF16 else (1e-5 * math.sqrt(k), GEMM_RTOL_FP32)
+    ok, err, rel = close(got, want, atol, rtol)
+    expect(ok and tuple(got.shape) == (e, c, n) and got.dtype == dtype,
+           f"grouped {str(dtype)[6:]:8s} E={e:<4d} C={c:<4d} K={k:<5d} N={n:<5d} "
+           f"max_abs={err:.3e} max_rel={rel:.3e} (atol {atol:.1e}, rtol {rtol:.0e})")
+    return err
+
+
 def phase_kernels() -> dict:
     say("[2] kernels against their plain versions on the card")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     mm_err = 0.0
-    for m in (4, BATCH * PROMPT):
-        for k, n in PROJECTIONS:
-            mm_err = max(mm_err, check_gemm(m, k, n, BF16, gen))
+    for arch in (ARCH, MOE_ARCH):
+        cfg = configs.get_config(arch)
+        for m in (4, BATCH * PROMPT):
+            for k, n in projections(cfg):
+                mm_err = max(mm_err, check_gemm(m, k, n, BF16, gen, out_dtype=gemm_out_dtype(cfg, k, n)))
     for m, n, k in ((33, 257, 129), (100, 130, 70)):
         for dt in (torch.float32, BF16):
             check_gemm(m, k, n, dt, gen)
@@ -325,7 +485,7 @@ def phase_kernels() -> dict:
     q_err = 0.0
     for qd in quant.QDTYPES:
         for m in (4, BATCH * PROMPT):
-            for k, n in PROJECTIONS:
+            for k, n in projections(configs.get_config(ARCH)):
                 err = check_qgemm(m, k, n, qd, gen)
                 q_err = max(q_err, err) if qd == "int8" else q_err  # the main path's dtype
         for m, k, n in ((72, 100, 130), (300, 515, 257), (1, 300, 1000), (9, 70, 4000)):
@@ -339,10 +499,22 @@ def phase_kernels() -> dict:
     attn_err = 0.0
     for s, window in ((512, None), (512, 128), (500, None)):
         attn_err = max(attn_err, check_flash(BATCH, 16, s, 128, BF16, gen, window=window))
+    attn_err = max(attn_err, check_flash(BATCH, 32, PROMPT, 128, BF16, gen))  # qwen3-moe's 32 heads
     check_flash(2, 2, 130, 64, torch.float32, gen, window=32)
     check_flash(2, 2, 100, 16, BF16, gen, causal=False)
+    g_err = 0.0
+    moe_cfg = configs.get_config(MOE_ARCH)
+    for t in (BATCH * PROMPT, BATCH):  # prefill and decode capacity: 160 and 8 rows per expert
+        for k, n in expert_gemms(moe_cfg):
+            c = moe.capacity(t, moe_cfg)
+            g_err = max(g_err, check_grouped(moe_cfg.moe.n_experts, c, k, n, BF16, gen))
+    for c in (1, 13, 100):  # ragged C (both tiles), K and N
+        check_grouped(4, c, 70, 130, BF16, gen)
+        check_grouped(4, c, 70, 130, torch.float32, gen)
+    check_grouped(1, 160, 2048, 768, BF16, gen)  # one expert
+    check_grouped(1, 8, 768, 2048, torch.float32, gen)
     torch.cuda.synchronize()
-    return {"systolic_mmm": mm_err, "systolic_qmm": q_err, "flash_attn": attn_err}
+    return {"systolic_mmm": mm_err, "systolic_qmm": q_err, "flash_attn": attn_err, "grouped_mmm": g_err}
 
 
 # ---------------------------------------------------------------------------
@@ -350,12 +522,33 @@ def phase_kernels() -> dict:
 # ---------------------------------------------------------------------------
 
 
+def expected_launches(cfg, gemm: str, prefill: bool) -> tuple[dict, dict]:
+    """(launches per kernel, launches per kernel and shape) that a synchronized
+    prefill, or the GEN - 1 decode steps, must make: every projection on
+    ``gemm`` ("systolic_mmm" or "systolic_qmm"), every expert GEMM on the
+    grouped kernel at the dispatch capacity, flash attention once per layer
+    in prefill only."""
+    n_layers, steps = cfg.n_layers, 1 if prefill else GEN - 1
+    tokens = BATCH * PROMPT if prefill else BATCH
+    shapes = {"systolic_mmm": {}, "systolic_qmm": {}, "grouped_mmm": {}}
+    shapes[gemm] = {(tokens, k, n): mult * n_layers * steps for (k, n), mult in projections(cfg).items()}
+    if cfg.moe is not None:
+        g = cfg.moe.dispatch_groups
+        rows = g * moe.capacity(tokens // g, cfg)  # the groups fold into one launch
+        shapes["grouped_mmm"] = {(cfg.moe.n_experts, rows, k, n): mult * n_layers * steps
+                                 for (k, n), mult in expert_gemms(cfg).items()}
+    total = {name: sum(by.values()) for name, by in shapes.items()}
+    total["flash_attn"] = n_layers if prefill else 0
+    return total, shapes
+
+
 def serve_path(label: str, model, params, want: dict, batch, feed=None) -> dict:
     """Serve one synchronized batch through ServeEngine on the kernels, with
     the counts set to 0 just before prefill and decode and read just after;
     then hold the kernel path's prefill logits and two decode steps from one
-    cache against the plain path.  ``want``: the GEMM counter that the
-    projections must hit ("systolic" or "quant") and the logits tolerance.
+    cache against the plain path, and a second kernel-path prefill against
+    the first, bit for bit.  ``want``: the kernel that the projections must
+    hit ("systolic_mmm" or "systolic_qmm") and the logits tolerance.
     ``feed``: the tokens to feed the two decode steps (default: the kernel
     path's own greedy tokens)."""
     cfg = model.cfg
@@ -368,91 +561,150 @@ def serve_path(label: str, model, params, want: dict, batch, feed=None) -> dict:
     first = engine.prefill(batch)
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
-    pf_counts = counts()
-    pf_shapes = dict(mm_kernel.launches_by_shape if want["gemm"] == "systolic" else mm_kernel.quant_launches_by_shape)
+    pf_counts, pf_shapes = counts(), shape_counts()
     reset_counts()
     t0 = time.perf_counter()
     rest = engine.decode(first, GEN - 1)
     torch.cuda.synchronize()
     t_decode = time.perf_counter() - t0
-    dec_counts = counts()
-    dec_shapes = dict(mm_kernel.launches_by_shape if want["gemm"] == "systolic" else mm_kernel.quant_launches_by_shape)
+    dec_counts, dec_shapes = counts(), shape_counts()
     tokens = torch.cat([first, rest], dim=1)
-    n_proj = 7 * cfg.n_layers
     say(f"    {label}: prefill {t_prefill * 1e3:.3f} ms; decode {t_decode / (GEN - 1) * 1e3:.3f} ms/step, "
         f"{BATCH * (GEN - 1) / t_decode:.1f} tok/s over {GEN - 1} steps")
-    gemm = (n_proj, 0) if want["gemm"] == "systolic" else (0, n_proj)
-    want_pf = (*gemm, cfg.n_layers)
-    want_dec = (gemm[0] * (GEN - 1), gemm[1] * (GEN - 1), 0)
-    expect(pf_counts == want_pf, f"{label} prefill launches (systolic, quant, flash): {pf_counts}, want {want_pf}")
-    expect(dec_counts == want_dec,
-           f"{label} decode launches over {GEN - 1} steps (systolic, quant, flash): {dec_counts}, want {want_dec}")
+    want_pf, want_pf_shapes = expected_launches(cfg, want["gemm"], prefill=True)
+    want_dec, want_dec_shapes = expected_launches(cfg, want["gemm"], prefill=False)
+    expect(pf_counts == want_pf, f"{label} prefill launches: {pf_counts}, want {want_pf}")
+    expect(dec_counts == want_dec, f"{label} decode launches over {GEN - 1} steps: {dec_counts}, want {want_dec}")
     expect(tuple(tokens.shape) == (BATCH, GEN) and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
            f"{label} tokens {tuple(tokens.shape)} in [0, {cfg.vocab_size}): {tokens[0, :12].tolist()}")
     # Per-shape counts, from the launch site: the timing phase weights each
-    # shape's time by these, so they must be the model's seven projections.
-    want_pf_shapes = {(BATCH * PROMPT, k, n): mult * cfg.n_layers for (k, n), mult in PROJECTIONS.items()}
-    want_dec_shapes = {(BATCH, k, n): mult * cfg.n_layers * (GEN - 1) for (k, n), mult in PROJECTIONS.items()}
-    expect(pf_shapes == want_pf_shapes, f"{label} prefill {want['gemm']} launches by (M, K, N): {sorted(pf_shapes.items())}")
-    expect(dec_shapes == want_dec_shapes, f"{label} decode {want['gemm']} launches by (M, K, N): {sorted(dec_shapes.items())}")
+    # shape's time by these, so they must be the model's own GEMMs.
+    for name, by in pf_shapes.items():
+        expect(by == want_pf_shapes[name], f"{label} prefill {name} launches by shape: {sorted(by.items())}")
+        expect(dec_shapes[name] == want_dec_shapes[name],
+               f"{label} decode {name} launches by shape: {sorted(dec_shapes[name].items())}")
 
     logits = []  # the kernel path's prefill and two decode-step logits
     # w8a8: each GEMM's int8 activations on the kernel path, the plain path's
     # differences from them, and each kernel call against its plain version.
-    acts_k, flips, in_model = [], [], []
-    quantized = want["gemm"] == "quant"
+    # MoE: each grouped call against its plain version, and each layer's
+    # routing on both paths.
+    acts_k, flips, in_model, routing_k, routing_p, choices = [], [], [], [], [], []
+    quantized = want["gemm"] == "systolic_qmm"
+    is_moe = cfg.moe is not None
     with torch.no_grad():
         reset_counts()
         with contextlib.ExitStack() as stack:
             if quantized:
                 stack.enter_context(quantized_activations(acts_k))
                 stack.enter_context(checked_quant_calls(in_model))
+            if is_moe:
+                stack.enter_context(checked_grouped_calls(in_model))
+                stack.enter_context(recorded_routing(routing_k))
+                stack.enter_context(topk_choices(choices))
             got, cache_k = model.prefill(params, batch, max_len=PROMPT + GEN)
+        again, _ = model.prefill(params, batch, max_len=PROMPT + GEN)
+        expect(torch.equal(got, again), f"{label} two kernel-path prefills give bit-identical logits")
+        del again
         kernel_counts = counts()
-        if quantized:
-            expect(len(in_model) == 7 * cfg.n_layers and max(in_model) <= 1.0,
-                   f"{label} prefill: each of the {len(in_model)} block-scaled kernel calls against its plain "
-                   f"version on the model's own inputs: worst error {max(in_model):.3f} of the tolerance")
-        with plain_versions(), quantized_activations(flips, acts_k) if quantized else contextlib.nullcontext():
+        if quantized or is_moe:
+            n_calls = sum(want_pf_shapes["grouped_mmm" if is_moe else "systolic_qmm"].values())
+            expect(len(in_model) == n_calls and max(in_model) <= 1.0,
+                   f"{label} prefill: each of the {len(in_model)} {'grouped' if is_moe else 'block-scaled'} kernel "
+                   f"calls against its plain version on the model's own inputs: worst error "
+                   f"{max(in_model):.3f} of the tolerance")
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(plain_versions())
+            if quantized:
+                stack.enter_context(quantized_activations(flips, acts_k))
+            if is_moe:
+                stack.enter_context(recorded_routing(routing_p))
             want_l, _ = model.prefill(params, batch, max_len=PROMPT + GEN)
-        plain_counts = tuple(c - k for c, k in zip(counts(), kernel_counts))
-        expect(plain_counts == (0, 0, 0), f"{label} plain-path prefill launched no kernel ({plain_counts})")
+        plain_counts = {k: c - kernel_counts[k] for k, c in counts().items()}
+        expect(not any(plain_counts.values()), f"{label} plain-path prefill launched no kernel ({plain_counts})")
         err, scale = compare_logits(f"{label} prefill", got, want_l, want["tol"])
         if quantized:
             flips = activation_flips(label, flips, cfg.n_layers)
-        del acts_k
+        routing = routing_witness(label, routing_k, routing_p) if is_moe else None
+        alike = []  # MoE: the gaps with the plain path routed as the kernel path
+        if is_moe:
+            with plain_versions(), topk_choices(choices, replay=True):
+                want_r, _ = model.prefill(params, batch, max_len=PROMPT + GEN)
+            alike.append(compare_logits(f"{label} prefill, plain path routed as the kernel path", got, want_r,
+                                        LOGITS_TOL_BF16)[0])
+        del acts_k, routing_k, routing_p, choices
         logits.append(got)
         # Two decode steps from one cache: the kernel path's primed cache, and
-        # a copy of it for the plain path; both are fed the same tokens.
+        # a copy of it for the plain path (and, MoE, another for the plain
+        # path routed as the kernel path); all are fed the same tokens.
         cache_p = _tree(torch.clone, cache_k)
+        cache_r = _tree(torch.clone, cache_k) if is_moe else None
         tok, dec_err, fed = got.argmax(-1).to(torch.int32), 0.0, []
         for step in range(2):
             tok = tok if feed is None else feed[step]
             fed.append(tok)
-            lk, cache_k = model.decode_step(params, tok, cache=cache_k, pos=PROMPT + step)
+            choices = []
+            with topk_choices(choices) if is_moe else contextlib.nullcontext():
+                lk, cache_k = model.decode_step(params, tok, cache=cache_k, pos=PROMPT + step)
             n0 = counts()
             with plain_versions():
                 lp, cache_p = model.decode_step(params, tok, cache=cache_p, pos=PROMPT + step)
+                if is_moe:
+                    with topk_choices(choices, replay=True):
+                        lr, cache_r = model.decode_step(params, tok, cache=cache_r, pos=PROMPT + step)
+                    alike.append(compare_logits(f"{label} decode step {step}, plain path routed as the kernel path",
+                                                lk, lr, LOGITS_TOL_BF16)[0])
             expect(counts() == n0, f"{label} plain-path decode step {step} launched no kernel")
             dec_err = max(dec_err, compare_logits(f"{label} decode step {step}", lk, lp, want["tol"])[0])
             logits.append(lk)
             tok = lk.argmax(-1).to(torch.int32)
-    del engine, cache_k, cache_p
+    del engine, cache_k, cache_p, cache_r
+
+    def listed(shapes):  # {kernel: [[*shape, launches], ...]}
+        return {name: [[*key, c] for key, c in sorted(by.items())] for name, by in shapes.items() if by}
+
     return {
         "prefill_ms": t_prefill * 1e3,
         "decode_ms_per_step": t_decode / (GEN - 1) * 1e3,
         "decode_tok_s": BATCH * (GEN - 1) / t_decode,
-        "prefill_launches": list(pf_counts),  # (systolic, quant, flash)
-        "decode_launches": list(dec_counts),
-        "prefill_shapes": [[*mkn, c] for mkn, c in sorted(pf_shapes.items())],  # [M, K, N, launches]
-        "decode_shapes": [[*mkn, c] for mkn, c in sorted(dec_shapes.items())],
+        "prefill_launches": pf_counts,
+        "decode_launches": dec_counts,
+        "prefill_shapes": listed(pf_shapes),
+        "decode_shapes": listed(dec_shapes),
         "logits_max_abs_err": err,
         "logits_scale": scale,
         "prefill_activation_flips": flips,
+        "prefill_routing": routing,
+        "routed_alike_max_abs_err": alike,  # MoE: prefill, decode step 0, decode step 1
+        "prefill_kernel_calls_worst_share_of_tol": max(in_model) if in_model else None,
         "decode_logits_max_abs_err": dec_err,
         "logits": logits,
         "fed": fed,
     }
+
+
+def routing_witness(label: str, kernel: list, plain: list) -> dict:
+    """By layer, the (token, choice) expert assignments in which the plain
+    path's prefill differs from the kernel path's, the tokens whose set of
+    experts differs, and the slots dropped past capacity on each path and on
+    one path only.  Layer 0 routes the same normed embedding after one
+    attention block on both paths, so any difference there comes from the
+    attention and projection kernels' rounding."""
+    expect(len(kernel) == len(plain), f"{label} prefill routed {len(kernel)} layers on the kernel path, "
+                                      f"{len(plain)} on the plain path")
+    rows = []
+    for (ek, dk), (ep, dp) in zip(kernel, plain):
+        sets_differ = (ek.sort(dim=-1).values != ep.sort(dim=-1).values).any(dim=-1)
+        rows.append({"assignments_differ": int((ek != ep).sum()), "tokens_other_experts": int(sets_differ.sum()),
+                     "dropped_kernel": int(dk.sum()), "dropped_plain": int(dp.sum()),
+                     "drops_differ": int((dk != dp).sum())})
+    n = kernel[0][0].numel() if kernel else 0
+    say(f"    {label} prefill routing, plain vs kernel path, by layer ((token, choice) assignments that differ of "
+        f"{n}): {' '.join(str(r['assignments_differ']) for r in rows)}")
+    say(f"    ... tokens routed to another set of experts: {' '.join(str(r['tokens_other_experts']) for r in rows)}")
+    say(f"    ... slots dropped past capacity (kernel path): {' '.join(str(r['dropped_kernel']) for r in rows)}; "
+        f"dropped on one path only: {' '.join(str(r['drops_differ']) for r in rows)}")
+    return {"slots_per_layer": n, "by_layer": rows}
 
 
 def phase_serve() -> tuple[dict, dict]:
@@ -472,11 +724,13 @@ def phase_serve() -> tuple[dict, dict]:
     say(f"    init {time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB on the card; "
         f"w8a8: {n_q} projection weights -> int8 ({q_bytes / 1e6:.1f} MB resident values)")
     batch = make_batch(cfg, batch=BATCH, seq=PROMPT, kind="prefill", seed=SEED, device="cuda")
-    bf16 = serve_path("bf16", model, params, {"gemm": "systolic", "tol": LOGITS_TOL_BF16}, batch)
+    bf16 = serve_path("bf16", model, params, {"gemm": "systolic_mmm", "tol": LOGITS_TOL_BF16}, batch)
     with quant.use_act_quant("int8"):
-        w8a8 = serve_path("w8a8", model, qparams, {"gemm": "quant", "tol": LOGITS_TOL_W8A8}, batch,
+        w8a8 = serve_path("w8a8", model, qparams, {"gemm": "systolic_qmm", "tol": LOGITS_TOL_W8A8}, batch,
                           feed=bf16["fed"])
-    w8a8["rounding_sensitivity"] = rounding_sensitivity(model, params, qparams, batch)
+    w8a8["rounding_sensitivity"] = rounding_sensitivity(
+        model, batch, [("bf16", params, contextlib.nullcontext()), ("w8a8", qparams, quant.use_act_quant("int8"))]
+    )
     # w8a8 against the bf16 model from the same fp32 weights, both on the
     # kernels, prefill and two decode steps fed the same tokens.
     w8a8["vs_bf16_max_abs_err"], w8a8["vs_bf16_bound"] = [], []
@@ -491,9 +745,65 @@ def phase_serve() -> tuple[dict, dict]:
         w8a8["vs_bf16_bound"].append(bound)
     for r in (bf16, w8a8):
         del r["logits"], r["fed"]
-    del params, qparams
+    del params, qparams, model, batch
     torch.cuda.empty_cache()
     return bf16, w8a8
+
+
+def phase_serve_moe() -> dict:
+    """The MoE model in bf16, built directly in bf16 (fp32 drawn one tensor
+    at a time), after the dense models' memory has been given back."""
+    cfg = configs.get_config(MOE_ARCH)
+    m = cfg.moe
+    say(f"[3] serve {MOE_ARCH} (full width: {cfg.n_layers}L d={cfg.d_model} H={cfg.n_heads}/{cfg.n_kv_heads} "
+        f"qk_norm={cfg.qk_norm} experts {m.n_experts} top-{m.top_k} d_ff_expert={m.d_ff_expert} "
+        f"V={cfg.vocab_size}) in {cfg.dtype}, batch {BATCH}, prompt {PROMPT}, {GEN} tokens")
+    model = get_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(SEED, "cuda")
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    say(f"    init {time.perf_counter() - t0:.1f} s: {n:,} parameters, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card (peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB)")
+    qk_scales = 2 * cfg.resolved_head_dim * cfg.n_layers if cfg.qk_norm else 0  # count_params leaves them out
+    expect(n == model.n_params + qk_scales,
+           f"{MOE_ARCH} parameters {n} = the config's count {model.n_params} + {qk_scales} qk-norm scales")
+    want = {"gemm": "systolic_mmm", "tol": LOGITS_TOL_MOE}
+    out, seeds = None, {}
+    # The model of the main path, then the same checks and witnesses on
+    # models and prompts drawn from other seeds (the MoE tolerance rests on
+    # the largest readings over all of them).
+    for seed in (SEED, *MOE_WITNESS_SEEDS):
+        if seed != SEED:
+            del params
+            torch.cuda.empty_cache()
+            params = model.init(seed, "cuda")
+        batch = make_batch(cfg, batch=BATCH, seq=PROMPT, kind="prefill", seed=seed, device="cuda")
+        label = "moe" if seed == SEED else f"moe seed {seed}"
+        r = serve_path(label, model, params, want, batch)
+        r["rounding_sensitivity"] = rounding_sensitivity(model, batch, [(label, params, contextlib.nullcontext())],
+                                                         nudges=MOE_NUDGES, steps=MOE_NUDGE_STEPS, seed=seed)
+        del r["logits"], r["fed"], batch
+        seeds[seed] = r
+        out = out or r
+    out["witness_seeds"] = {seed: {k: r[k] for k in ("logits_max_abs_err", "logits_scale", "decode_logits_max_abs_err",
+                                                     "routed_alike_max_abs_err", "rounding_sensitivity")}
+                            for seed, r in seeds.items()}
+    free = max(max(r["logits_max_abs_err"] / r["logits_scale"], r["decode_logits_max_abs_err"] / r["logits_scale"])
+               for r in seeds.values())
+    alike = max(max(r["routed_alike_max_abs_err"]) / r["logits_scale"] for r in seeds.values())
+    nudge = max(max(v["prefill"], v["decode_step"]) for r in seeds.values() for v in r["rounding_sensitivity"].values())
+    say(f"    MoE witness over seeds {[SEED, *MOE_WITNESS_SEEDS]}: kernel vs plain path, largest gap as a share of "
+        f"the prefill's largest logit: {free:.2%} routing freely (tol {LOGITS_TOL_MOE:.0%}), {alike:.2%} routed alike "
+        f"(tol {LOGITS_TOL_BF16:.0%}); one-ulp nudge of the plain path alone, largest reading {nudge:.2%}")
+    out["witness_max"] = {"free": free, "routed_alike": alike, "nudge": nudge}
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    say(f"    peak device memory over the MoE phase: {out['peak_gb']:.2f} GB")
+    del params, model
+    torch.cuda.empty_cache()
+    return out
 
 
 def activation_flips(label: str, flips: list, n_layers: int) -> dict:
@@ -521,25 +831,50 @@ def activation_flips(label: str, flips: list, n_layers: int) -> dict:
             "differing": sum(f[0] for f in flips), "elements": sum(f[2] for f in flips)}
 
 
-def rounding_sensitivity(model, params, qparams, batch) -> dict:
+def rounding_sensitivity(model, batch, variants: list, nudges: int = 1, steps: int = 1, seed: int = SEED) -> dict:
     """How far the plain path alone moves under a rounding-sized change of
     its input: the embedding table nudged up by one bf16 ulp on a random half
-    of its elements (from the seed), prefill logits of the nudged against the
-    unchanged model, bf16 and w8a8, as a share of the largest logit.  Read
-    beside each model's kernel-vs-plain error."""
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    of its elements (``nudges`` draws from ``seed``), prefill logits of each
+    nudged against the unchanged model, as a share of the largest logit, for
+    each (label, params, activation-quant context) variant in turn; then
+    ``steps`` greedy decode steps of the unchanged model from its primed
+    cache, each step also run by every nudged model from a copy of the
+    unchanged cache (so only that step's own token is nudged).  Read beside
+    each model's kernel-vs-plain error."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+
+    def share(a, b):
+        return (b - a).abs().max().item() / max(1.0, a.abs().max().item())
+
     out = {}
     with torch.no_grad(), plain_versions():
-        for label, p in (("bf16", params), ("w8a8", qparams)):
+        for label, p, ctx in variants:
             table = p["embed"]["table"]
-            bump = torch.randint(0, 2, table.shape, generator=gen, device="cuda", dtype=torch.int16)
-            nudged = {**p, "embed": {**p["embed"], "table": (table.view(torch.int16) + bump).view(table.dtype)}}
-            with quant.use_act_quant("int8") if label == "w8a8" else contextlib.nullcontext():
-                base, _ = model.prefill(p, batch, max_len=PROMPT + GEN)
-                moved, _ = model.prefill(nudged, batch, max_len=PROMPT + GEN)
-            out[label] = (moved - base).abs().max().item() / max(1.0, base.abs().max().item())
-            expect(math.isfinite(out[label]), f"{label} plain path, embedding nudged by one bf16 ulp: prefill "
-                                              f"logits move by {out[label]:.2%} of the largest")
+            nudged = []
+            for _ in range(nudges):
+                bump = torch.randint(0, 2, table.shape, generator=gen, device="cuda", dtype=torch.int16)
+                nudged.append({**p, "embed": {**p["embed"], "table": (table.view(torch.int16) + bump).view(table.dtype)}})
+                del bump
+            readings = []  # per nudge: the prefill's share, then each decode step's
+            with ctx:
+                base, cache = model.prefill(p, batch, max_len=PROMPT + GEN)
+                for q in nudged:
+                    readings.append([share(base, model.prefill(q, batch, max_len=PROMPT + GEN)[0])])
+                tok = base.argmax(-1).to(torch.int32)
+                for step in range(steps):
+                    moved = [model.decode_step(q, tok, cache=_tree(torch.clone, cache), pos=PROMPT + step)[0]
+                             for q in nudged]
+                    logits, cache = model.decode_step(p, tok, cache=cache, pos=PROMPT + step)
+                    for r, m in zip(readings, moved):
+                        r.append(share(logits, m))
+                    tok = logits.argmax(-1).to(torch.int32)
+            del cache, nudged
+            out[label] = {"prefill": max(r[0] for r in readings), "decode_step": max(x for r in readings for x in r[1:]),
+                          "readings": readings}
+            expect(all(math.isfinite(x) for r in readings for x in r),
+                   f"{label} plain path, embedding nudged by one bf16 ulp: logits move by "
+                   f"{out[label]['prefill']:.2%} of the largest at prefill, {out[label]['decode_step']:.2%} "
+                   f"in a decode step" + (f" (largest of {nudges} nudges x {steps} steps)" if nudges * steps > 1 else ""))
     return out
 
 
@@ -566,10 +901,11 @@ def compare_logits(what: str, got: torch.Tensor, want: torch.Tensor, tol: float)
     return err, scale
 
 
-def phase_small_reference() -> None:
-    """SMOKE internlm2 in fp32: the card (kernels) against the port's CPU path,
-    which tests/test_torch_serve.py holds against the JAX package."""
-    cfg = dataclasses.replace(configs.get_smoke(ARCH), dtype="float32")
+def phase_small_reference(arch: str) -> None:
+    """SMOKE config in fp32: the card (kernels) against the port's CPU path,
+    which tests/test_torch_serve.py and tests/test_torch_moe.py hold against
+    the JAX package."""
+    cfg = dataclasses.replace(configs.get_smoke(arch), dtype="float32")
     model = get_model(cfg)
     cpu = model.init(SEED, "cpu")
     gpu = _tree(lambda t: t.to("cuda"), cpu)
@@ -581,9 +917,10 @@ def phase_small_reference() -> None:
             logits, _ = model.prefill(params, b, max_len=40)
         out[dev] = (logits.cpu(), eng.generate(b, 8).cpu())
     err = (out["cpu"][0] - out["cuda"][0]).abs().max().item()
-    expect(err <= LOGITS_TOL_FP32, f"SMOKE fp32 prefill logits, card vs CPU: max_abs={err:.3e} (tol {LOGITS_TOL_FP32})")
+    expect(err <= LOGITS_TOL_FP32,
+           f"{arch} SMOKE fp32 prefill logits, card vs CPU: max_abs={err:.3e} (tol {LOGITS_TOL_FP32})")
     expect(torch.equal(out["cpu"][1], out["cuda"][1]),
-           f"SMOKE fp32 8 greedy tokens, card vs CPU identical: {out['cuda'][1][0].tolist()}")
+           f"{arch} SMOKE fp32 8 greedy tokens, card vs CPU identical: {out['cuda'][1][0].tolist()}")
 
 
 # ---------------------------------------------------------------------------
@@ -591,11 +928,11 @@ def phase_small_reference() -> None:
 # ---------------------------------------------------------------------------
 
 
-def _gemm_cost(m, k, n):
+def _gemm_cost(m, k, n, out_dtype=BF16):
     """Operations and HBM bytes of one bf16 projection: each input read once,
     the output written once."""
     flops = 2 * m * n * k
-    nbytes = (m * k + k * n + m * n) * dtype_bytes(BF16)
+    nbytes = (m * k + k * n) * dtype_bytes(BF16) + m * n * dtype_bytes(out_dtype)
     return flops, nbytes
 
 
@@ -610,7 +947,7 @@ def cycler(items: list):
     return nxt
 
 
-def time_gemm(m, k, n, gen) -> dict:
+def time_gemm(m, k, n, gen, out_dtype=BF16) -> dict:
     """Kernel, plain and library times of one bf16 projection.  Weights are
     cycled through enough copies to exceed the 50 MB L2, as the main path
     reads each layer's weights cold."""
@@ -618,19 +955,41 @@ def time_gemm(m, k, n, gen) -> dict:
     copies = max(1, math.ceil(150e6 / (k * n * dtype_bytes(BF16))))
     nxt = cycler([randn((k, n), gen, BF16) for _ in range(copies)])
     iters = 20 if m <= 16 else 10
+    lib = (lambda: torch.mm(a, nxt(), out_dtype=torch.float32)) if out_dtype == torch.float32 \
+        else (lambda: torch.matmul(a, nxt()))
     t = {
-        "kernel": time_ms(lambda: mm_ops.matmul(a, nxt()), iters),
-        "plain": time_ms(lambda: matmul_ref(a, nxt()), iters),
-        "library": time_ms(lambda: torch.matmul(a, nxt()), iters),
+        "kernel": time_ms(lambda: mm_ops.matmul(a, nxt(), out_dtype=out_dtype), iters),
+        "plain": time_ms(lambda: matmul_ref(a, nxt(), out_dtype=out_dtype), iters),
+        "library": time_ms(lib, iters),
     }
-    flops, nbytes = _gemm_cost(m, k, n)
+    flops, nbytes = _gemm_cost(m, k, n, out_dtype)
     bound_s, bound_by = H100.bound_s(flops, nbytes, "bfloat16")
-    return {"m": m, "k": k, "n": n, "ms": t["kernel"], "plain_ms": t["plain"], "library_ms": t["library"],
+    return {"m": m, "k": k, "n": n, "out": str(out_dtype)[6:], "ms": t["kernel"], "plain_ms": t["plain"],
+            "library_ms": t["library"], "bound_ms": bound_s * 1e3, "bound_by": bound_by}
+
+
+def time_grouped(e, c, k, n, gen) -> dict:
+    """Kernel, plain and library (torch.bmm, bf16 in and out) times of one
+    expert GEMM; the expert weights are cycled through >= 150 MB of copies
+    (one copy at the path's shapes, 403 MB), as the main path reads each
+    layer's experts cold."""
+    x = randn((e, c, k), gen, BF16)
+    copies = max(1, math.ceil(150e6 / (e * k * n * dtype_bytes(BF16))))
+    nxt = cycler([randn((e, k, n), gen, BF16) for _ in range(copies)])
+    t = {
+        "kernel": time_ms(lambda: grouped_ops.grouped_matmul(x, nxt()), 10),
+        "plain": time_ms(lambda: grouped_matmul_ref(x, nxt()), 5),
+        "library": time_ms(lambda: torch.bmm(x, nxt()), 10),
+    }
+    flops = 2 * e * c * k * n
+    nbytes = (e * c * k + e * k * n + e * c * n) * dtype_bytes(BF16)
+    bound_s, bound_by = H100.bound_s(flops, nbytes, "bfloat16")
+    return {"e": e, "c": c, "k": k, "n": n, "ms": t["kernel"], "plain_ms": t["plain"], "library_ms": t["library"],
             "bound_ms": bound_s * 1e3, "bound_by": bound_by}
 
 
-def time_flash(gen) -> dict:
-    b, h, s, d = BATCH, 16, PROMPT, 128
+def time_flash(gen, h: int) -> dict:
+    b, s, d = BATCH, PROMPT, 128
     q, k, v = (randn((b, h, s, d), gen, BF16) for _ in range(3))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     t = {
@@ -706,19 +1065,30 @@ def time_gemm_bias(m, k, n, gen) -> dict:
             "bound_ms": bound_s * 1e3, "bound_by": bound_by, "launches": 0}
 
 
-def phase_timing(errs: dict, bf16: dict, w8a8: dict) -> tuple[list[dict], dict]:
+def _merged(paths: list, kernel: str) -> dict:
+    """shape -> launches of ``kernel`` over prefill and decode of every path."""
+    out = collections.Counter()
+    for r in paths:
+        for phase in ("prefill_shapes", "decode_shapes"):
+            for *shape, c in r[phase].get(kernel, []):
+                out[tuple(shape)] += c
+    return dict(out)
+
+
+def phase_timing(errs: dict, bf16: dict, w8a8: dict, moe_r: dict) -> tuple[list[dict], dict]:
     say("[4] kernel times at the main path's shapes (CUDA events; ms per call)")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    moe_cfg = configs.get_config(MOE_ARCH)
     shapes = []
-    for m, k, n, n_calls in bf16["prefill_shapes"] + bf16["decode_shapes"]:
-        r = time_gemm(m, k, n, gen)
-        r["launches"] = n_calls  # as counted at the launch site on the main path
+    for (m, k, n), n_calls in _merged([bf16, moe_r], "systolic_mmm").items():
+        r = time_gemm(m, k, n, gen, gemm_out_dtype(moe_cfg, k, n))
+        r["launches"] = n_calls  # as counted at the launch site on the served paths
         shapes.append(r)
-        say(f"    systolic_mmm M={m:<5d} K={k:<5d} N={n:<5d} x{r['launches']:<5d} kernel {r['ms']:.4f}  "
-            f"plain {r['plain_ms']:.4f}  torch.matmul {r['library_ms']:.4f}  "
+        say(f"    systolic_mmm M={m:<5d} K={k:<5d} N={n:<5d} out={r['out']:8s} x{r['launches']:<5d} "
+            f"kernel {r['ms']:.4f}  plain {r['plain_ms']:.4f}  torch.matmul {r['library_ms']:.4f}  "
             f"bound {r['bound_ms']:.4f} ({r['bound_by']})")
     qshapes = []
-    for m, k, n, n_calls in w8a8["prefill_shapes"] + w8a8["decode_shapes"]:
+    for (m, k, n), n_calls in _merged([w8a8], "systolic_qmm").items():
         r = time_qgemm(m, k, n, gen)
         r["launches"] = n_calls
         qshapes.append(r)
@@ -727,17 +1097,30 @@ def phase_timing(errs: dict, bf16: dict, w8a8: dict) -> tuple[list[dict], dict]:
             f"plain {r['plain_ms']:.4f}  library null  bound {r['bound_ms']:.4f} ({r['bound_by']})  "
             f"[info: whole-K scales {r['info_whole_k_scales_ms']:.4f}; other functions: torch._int_mm {int_mm}, "
             f"bf16 torch.matmul {r['info_bf16_matmul_ms']:.4f}]")
+    gshapes = []
+    for (e, c, k, n), n_calls in _merged([moe_r], "grouped_mmm").items():
+        r = time_grouped(e, c, k, n, gen)
+        r["launches"] = n_calls
+        gshapes.append(r)
+        say(f"    grouped_mmm E={e:<4d} C={c:<4d} K={k:<5d} N={n:<5d} x{r['launches']:<5d} kernel {r['ms']:.4f}  "
+            f"plain {r['plain_ms']:.4f}  torch.bmm {r['library_ms']:.4f}  "
+            f"bound {r['bound_ms']:.4f} ({r['bound_by']})")
     k2 = time_gemm_bias(BATCH * PROMPT, 2048, 8192, gen)
     say(f"    systolic_mmm + bias (K2) M={k2['m']} K={k2['k']} N={k2['n']} x0 (not on the main path) "
         f"kernel {k2['ms']:.4f}  plain {k2['plain_ms']:.4f}  torch.addmm {k2['library_ms']:.4f}  "
         f"bound {k2['bound_ms']:.4f} ({k2['bound_by']})")
-    fl = time_flash(gen)
-    fl["launches"] = bf16["prefill_launches"][2] + bf16["decode_launches"][2]
-    say(f"    flash_attn BH={fl['bh']} S={fl['s']} D={fl['d']} causal x{fl['launches']} kernel {fl['ms']:.4f}  "
-        f"plain {fl['plain_ms']:.4f}  sdpa {fl['library_ms']:.4f}  bound {fl['bound_ms']:.4f} ({fl['bound_by']})")
+    flash = []
+    # Flash launches are not counted by shape: each path's prefill launches
+    # are at its model's head count (internlm2 16 heads, qwen3-moe 32).
+    for h, paths in ((configs.get_config(ARCH).n_heads, [bf16, w8a8]), (moe_cfg.n_heads, [moe_r])):
+        fl = time_flash(gen, h)
+        fl["launches"] = sum(r["prefill_launches"]["flash_attn"] + r["decode_launches"]["flash_attn"] for r in paths)
+        flash.append(fl)
+        say(f"    flash_attn BH={fl['bh']} S={fl['s']} D={fl['d']} causal x{fl['launches']} kernel {fl['ms']:.4f}  "
+            f"plain {fl['plain_ms']:.4f}  sdpa {fl['library_ms']:.4f}  bound {fl['bound_ms']:.4f} ({fl['bound_by']})")
 
-    def entry(name, rows, launches):
-        # Totals over every launch the main path made (prefill + decode).
+    def entry(name, rows):
+        # Totals over every launch the served paths made (prefill + decode).
         tot = {key: sum(r[key] * r["launches"] for r in rows) for key in ("ms", "plain_ms", "bound_ms")}
         lib = [r["library_ms"] for r in rows]
         by = {}
@@ -745,19 +1128,17 @@ def phase_timing(errs: dict, bf16: dict, w8a8: dict) -> tuple[list[dict], dict]:
             by[r["bound_by"]] = by.get(r["bound_by"], 0.0) + r["bound_ms"] * r["launches"]
         src, replaces = SOURCES[name]
         return {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                "launches": launches, "max_abs_err": errs[name], "ms": tot["ms"],
+                "launches": sum(r["launches"] for r in rows), "max_abs_err": errs[name], "ms": tot["ms"],
                 "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
                 "bound_by": max(by, key=by.get),
                 "library_ms": None if None in lib else sum(x * r["launches"] for x, r in zip(lib, rows)),
                 "shapes": rows}
 
-    # Each kernel's launches come from the served path that runs it: the bf16
-    # model for the fp GEMM and flash attention, the w8a8 model for the
-    # block-scaled GEMM (the w8a8 model launches no fp GEMM and the same
-    # flash kernels).
-    return [entry("systolic_mmm", shapes, bf16["prefill_launches"][0] + bf16["decode_launches"][0]),
-            entry("flash_attn", [fl], fl["launches"]),
-            entry("systolic_qmm", qshapes, w8a8["prefill_launches"][1] + w8a8["decode_launches"][1])], k2
+    # Each kernel's launches are those of every served path that runs it: the
+    # fp GEMM on the bf16 and MoE models, flash attention on all three, the
+    # block-scaled GEMM on the w8a8 model, the grouped GEMM on the MoE model.
+    return [entry("systolic_mmm", shapes), entry("flash_attn", flash), entry("systolic_qmm", qshapes),
+            entry("grouped_mmm", gshapes)], k2
 
 
 def main() -> int:
@@ -776,14 +1157,16 @@ def main() -> int:
     device = phase_device()
     errs = phase_kernels()
     bf16, w8a8 = phase_serve()
-    phase_small_reference()
-    kernels, k2 = phase_timing(errs, bf16, w8a8)
+    phase_small_reference(ARCH)
+    moe_r = phase_serve_moe()
+    phase_small_reference(MOE_ARCH)
+    kernels, k2 = phase_timing(errs, bf16, w8a8, moe_r)
     say(f"    wall {time.perf_counter() - t_start:.1f} s")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump({"device": device, "serve": bf16, "serve_w8a8": w8a8, "kernels": kernels,
-                       "systolic_mmm_bias": k2, "failures": failures}, f, indent=1)
+            json.dump({"device": device, "serve": bf16, "serve_w8a8": w8a8, "serve_moe": moe_r,
+                       "kernels": kernels, "systolic_mmm_bias": k2, "failures": failures}, f, indent=1)
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed:", file=sys.stderr)
         for f_ in failures:

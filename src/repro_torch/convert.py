@@ -7,7 +7,10 @@ imports no JAX.  Quantized leaves (the reference's ``QArray``, recognised by
 its ``values`` / ``scales`` / ``block`` / ``qdtype`` fields) become the port's
 ``QArray`` with their storage dtype kept: int8 stays int8, and fp8 crosses as
 its ``uint8`` bit pattern (numpy's ``ml_dtypes`` fp8 has no ``torch.from_numpy``
-counterpart) viewed back as ``torch.float8_e4m3fn``.
+counterpart) viewed back as ``torch.float8_e4m3fn``.  A MoE layer's
+``ffn`` (``router`` (L, d, E), ``w_gate`` / ``w_up`` (L, E, d, ff), ``w_down``
+(L, E, ff, d), an optional ``shared`` SwiGLU) crosses like any other stacked
+weight, and the qk-norm scales like every RMSNorm scale.
 """
 
 from __future__ import annotations

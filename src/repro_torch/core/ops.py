@@ -1,10 +1,11 @@
-"""The matmul every model projection goes through, and the fp32-accumulating einsum.
+"""The matmuls every model projection and expert GEMM go through, and the
+fp32-accumulating einsum.
 
 The counterpart of ``repro.core.ops``.  There is no backend switch: on the
-card every fp projection *is* the hand-written systolic kernel and every
-w8a8 projection the block-scaled one; on the CPU their plain versions.  The
-reference's grouped matmul, TP hook and profiling belong to later parts of
-the port.
+card every fp projection *is* the hand-written systolic kernel, every w8a8
+projection the block-scaled one and every MoE expert GEMM the grouped one;
+on the CPU their plain versions.  The reference's TP hook and profiling
+belong to later parts of the port.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch import quant
+from repro_torch.kernels.grouped import ops as grouped_ops
 from repro_torch.kernels.systolic import ops as systolic_ops
 from repro_torch.quant.qarray import QArray
 
@@ -48,6 +50,20 @@ def _quant_matmul(x: torch.Tensor, w: QArray, *, out_dtype: torch.dtype | None) 
     xq = quant.quantize_act(x.reshape(-1, k), act_qd)
     y2 = systolic_ops.quant_matmul(xq, w, out_dtype=out_dtype)
     return y2.reshape(*x.shape[:-1], w.shape[1])
+
+
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Per-expert batched matmul (E, C, K) @ (E, K, N) -> (E, C, N) in x's dtype.
+
+    Also takes dispatch-grouped input (G, E, C, K) -> (G, E, C, N): every
+    group shares ``w``, so the groups fold exactly into one launch over
+    (E, G * C, K) rows (a copy when G > 1) and the result unfolds as a view.
+    """
+    if x.ndim != 4:
+        return grouped_ops.grouped_matmul(x, w)
+    g, e, c, k = x.shape
+    y = grouped_ops.grouped_matmul(x.transpose(0, 1).reshape(e, g * c, k), w)
+    return y.reshape(e, g, c, y.shape[-1]).transpose(0, 1)
 
 
 def einsum(spec: str, *args: torch.Tensor, out_dtype: torch.dtype | None = None) -> torch.Tensor:

@@ -23,7 +23,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent / "_build"
-SOURCES = ("systolic_mmm", "systolic_qmm", "flash_attn")
+SOURCES = ("systolic_mmm", "systolic_qmm", "flash_attn", "grouped_mmm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-lineinfo", "-Xptxas=-v",

@@ -1,0 +1,28 @@
+"""Public wrapper of the grouped (per-expert) GEMM: checks and dispatch.
+
+The counterpart of ``repro.kernels.grouped.ops.grouped_matmul``.  A CPU tensor
+goes to the plain version; a CUDA tensor goes to the hand-written kernel,
+which masks ragged edges itself, so nothing is padded and no block plan is
+chosen here (the reference's tuner lookup comes with the port's tuner).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.grouped import kernel as _kernel
+from repro_torch.kernels.grouped.ref import grouped_matmul_ref
+
+
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """y[e] = x[e] @ w[e] for all experts e, in x's dtype.
+
+    x: (E, C, K) capacity-dispatched tokens; w: (E, K, N) expert weights.
+    """
+    if x.ndim != 3 or w.ndim != 3 or x.shape[0] != w.shape[0]:
+        raise ValueError(f"bad grouped shapes {tuple(x.shape)} @ {tuple(w.shape)}")
+    if x.shape[2] != w.shape[1]:
+        raise ValueError(f"contraction mismatch {tuple(x.shape)} @ {tuple(w.shape)}")
+    if x.device.type == "cpu":
+        return grouped_matmul_ref(x, w)
+    return _kernel.grouped_matmul_call(x.contiguous(), w.contiguous())

@@ -36,6 +36,7 @@ _LL = ctypes.c_longlong
 _ARGTYPES = {
     "systolic_mmm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _LL, _P],
     "systolic_qmm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _LL, _P],
+    "grouped_mmm": [_P, _P, _P, _I, _I, _I, _I, _I, _P],  # bound in kernels/grouped/kernel.py
 }
 
 

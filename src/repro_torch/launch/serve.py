@@ -8,13 +8,16 @@ Runs on the card by default; ``--device cpu`` runs the plain CPU path::
         --smoke --device cpu --batch 2 --prompt-len 16 --gen 8
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \
         --quantize w8a8 --batch 4 --prompt-len 512 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b \
+        --batch 4 --prompt-len 512 --gen 32
 
-Weights are random, drawn from ``--seed``.  ``--quantize w8a16`` keeps the
-projection weights in int8 and dequantizes them at each GEMM; ``w8a8`` also
-quantizes the activations per token and runs every projection on the
-block-scaled int8 kernel.  Continuous batching (and with it the kv8 pool)
-and the other modes of ``repro.launch.serve`` belong to later parts of the
-port.
+Weights are random, drawn from ``--seed``.  A MoE config (qwen3-moe-30b-a3b)
+runs its expert GEMMs on the grouped kernel, in bf16 only.  ``--quantize
+w8a16`` keeps the projection weights in int8 and dequantizes them at each
+GEMM; ``w8a8`` also quantizes the activations per token and runs every
+projection on the block-scaled int8 kernel.  Continuous batching (and with
+it the kv8 pool) and the other modes of ``repro.launch.serve`` belong to
+later parts of the port.
 """
 
 from __future__ import annotations
@@ -110,6 +113,11 @@ def init_params(model, seed: int, device: torch.device, quantize: str = "none"):
     compute dtype once; the masters are not kept."""
     if quantize not in ("none", "w8a16", "w8a8"):
         raise ValueError(f"unknown quantize mode {quantize!r}")
+    if quantize != "none" and model.cfg.moe is not None:
+        raise NotImplementedError(
+            f"{model.cfg.name}: --quantize {quantize} on a MoE config is not ported "
+            "(ROADMAP.md Queue 3, quantized MoE serving)"
+        )
     if quantize == "none":
         return model.init(seed, device), contextlib.nullcontext()
     params = quant.quantize_params(model.init(seed, device, dtype=torch.float32))

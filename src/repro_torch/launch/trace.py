@@ -3,6 +3,7 @@ prefill and a few decode steps through ``ServeEngine``.
 
     PYTHONPATH=src python -m repro_torch.launch.trace --arch internlm2-1.8b \
         --batch 4 --prompt-len 512 --steps 3 [--quantize w8a8] [--chrome trace.json]
+    PYTHONPATH=src python -m repro_torch.launch.trace --arch qwen3-moe-30b-a3b --steps 3
 
 Weights are random, drawn from ``--seed``.  For each phase it prints the host
 wall time, the device busy time (union of the kernels' intervals inside the

@@ -31,8 +31,12 @@ def wcast(w: torch.Tensor | QArray, dtype: torch.dtype) -> torch.Tensor | QArray
     return w.to(dtype)
 
 
-def _dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype: torch.dtype) -> torch.Tensor:
-    w = torch.randn((d_in, d_out), generator=gen, device=gen.device, dtype=torch.float32)
+def _dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype: torch.dtype,
+                lead: tuple[int, ...] = ()) -> torch.Tensor:
+    """(*lead, d_in, d_out) weights: drawn in fp32 one tensor at a time, scaled
+    by d_in^-0.5, created in ``dtype`` (so a bf16 model never holds its fp32
+    draw whole)."""
+    w = torch.randn((*lead, d_in, d_out), generator=gen, device=gen.device, dtype=torch.float32)
     return (w * d_in**-0.5).to(dtype)
 
 

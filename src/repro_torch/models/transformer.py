@@ -1,9 +1,10 @@
-"""Decoder assembly for the dense attention family (GQA / SWA + SwiGLU).
+"""Decoder assembly for the attention families: GQA / SWA attention with a
+SwiGLU FFN (dense) or a mixture of experts (moe).
 
-The counterpart of the dense family of ``repro.models.transformer``.  The
-reference stacks layer parameters on a leading axis and runs ``lax.scan``;
-here ``params["layers"]`` and ``cache["layers"]`` are lists, one dict per
-layer, and a Python loop walks them.  MoE, MLA, SSM, hybrid and the
+The counterpart of the dense and MoE families of ``repro.models.transformer``.
+The reference stacks layer parameters on a leading axis and runs
+``lax.scan``; here ``params["layers"]`` and ``cache["layers"]`` are lists,
+one dict per layer, and a Python loop walks them.  MLA, SSM, hybrid and the
 modality frontends belong to later parts of the port and raise here.
 
 Entry points (functions over dicts of tensors):
@@ -21,7 +22,7 @@ import torch
 
 from repro_torch.core.device import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models import layers
+from repro_torch.models import layers, moe
 from repro_torch.models.config import ArchConfig
 from repro_torch.quant.qarray import QArray
 
@@ -33,9 +34,9 @@ def _cdtype(cfg: ArchConfig) -> torch.dtype:
 def check_supported(cfg: ArchConfig) -> None:
     """Raise for architectures this part of the port does not build yet."""
     cfg.validate()
-    if cfg.family != "dense" or cfg.attention not in ("gqa", "swa") or cfg.moe is not None:
+    if cfg.family not in ("dense", "moe") or cfg.attention not in ("gqa", "swa"):
         raise NotImplementedError(
-            f"{cfg.name}: the port builds dense GQA/SWA decoders only so far "
+            f"{cfg.name}: the port builds dense and MoE GQA/SWA decoders only so far "
             f"(family={cfg.family!r}, attention={cfg.attention!r})"
         )
     if cfg.frontend is not None or cfg.tie_embeddings:
@@ -52,17 +53,26 @@ def init_attn_block(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype) -
         "attn_norm": layers.init_rmsnorm(cfg.d_model, gen.device),
         "ffn_norm": layers.init_rmsnorm(cfg.d_model, gen.device),
         "attn": attn.init_gqa(gen, cfg, dtype),
-        "ffn": layers.init_swiglu(gen, cfg.d_model, cfg.d_ff, dtype),
+        "ffn": (moe.init_moe(gen, cfg, dtype) if cfg.moe is not None
+                else layers.init_swiglu(gen, cfg.d_model, cfg.d_ff, dtype)),
     }
 
 
+def _ffn(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """SwiGLU, or the MoE block with its aux loss dropped (the serve path
+    drops it, as the reference's does)."""
+    if cfg.moe is not None:
+        return moe.moe_fwd(p, x, cfg)[0]
+    return layers.swiglu(p, x)
+
+
 def attn_block_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor):
-    """Pre-norm attn + residual, pre-norm SwiGLU + residual -> (x, (k, v))."""
+    """Pre-norm attn + residual, pre-norm FFN / MoE + residual -> (x, (k, v))."""
     xin = layers.rmsnorm(p["attn_norm"], x, cfg.norm_eps)
     a, kv = attn.gqa_fwd(p["attn"], xin, cfg, positions)
     x = x + a
     hin = layers.rmsnorm(p["ffn_norm"], x, cfg.norm_eps)
-    return x + layers.swiglu(p["ffn"], hin), kv
+    return x + _ffn(p["ffn"], hin, cfg), kv
 
 
 def attn_block_decode(p: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict, pos):
@@ -70,7 +80,7 @@ def attn_block_decode(p: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict, po
     a, cache = attn.gqa_decode(p["attn"], xin, cfg, cache, pos)
     x = x + a
     hin = layers.rmsnorm(p["ffn_norm"], x, cfg.norm_eps)
-    return x + layers.swiglu(p["ffn"], hin), cache
+    return x + _ffn(p["ffn"], hin, cfg), cache
 
 
 # ===========================================================================

@@ -50,6 +50,8 @@ def test_port_and_chip_smoke_import_no_jax_or_repro():
     assert "repro_torch.serving.engine" in res["modules"]
     assert "repro_torch.kernels.systolic.kernel" in res["modules"]
     assert {"repro_torch.quant", "repro_torch.quant.qarray", "repro_torch.quant.params"} <= set(res["modules"])
+    assert {"repro_torch.models.moe", "repro_torch.kernels.grouped.kernel", "repro_torch.kernels.grouped.ops",
+            "repro_torch.kernels.grouped.ref"} <= set(res["modules"])
     assert res["bad"] == []
 
 
@@ -87,6 +89,8 @@ ENTRY_POINTS = {
     "launch.serve --quantize w8a8": lambda: serve.main(
         ["--arch", "internlm2-1.8b", "--smoke", "--gen", "2", "--quantize", "w8a8"]
     ),
+    "launch.serve qwen3-moe-30b-a3b": lambda: serve.main(["--arch", "qwen3-moe-30b-a3b", "--gen", "2"]),
+    "moe model.init": lambda: get_model(configs.get_smoke("qwen3-moe-30b-a3b")).init(0),
 }
 
 
@@ -112,6 +116,21 @@ def test_quantized_launcher_runs_on_cpu_when_asked(capsys, mode):
     assert tuple(out.shape) == (2, 3)
     printed = capsys.readouterr().out
     assert f"quantize[{mode}]: 15 projection weights -> int8" in printed and "prefill 2x8" in printed
+
+
+def test_moe_launcher_runs_on_cpu_when_asked(capsys):
+    out = serve.main(["--arch", "qwen3-moe-30b-a3b", "--smoke", "--device", "cpu",
+                      "--batch", "2", "--prompt-len", "8", "--gen", "3"])
+    assert tuple(out.shape) == (2, 3)
+    assert "prefill 2x8" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("mode", ["w8a16", "w8a8"])
+def test_moe_launcher_refuses_quantize(mode):
+    """The reference skips the expert block when it quantizes; quantized MoE
+    serving is not ported."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 3"):
+        serve.main(["--arch", "qwen3-moe-30b-a3b", "--smoke", "--device", "cpu", "--quantize", mode])
 
 
 def test_launcher_refuses_kv8():

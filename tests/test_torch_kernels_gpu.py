@@ -13,7 +13,8 @@ block-scaled GEMM against its dequantize-then-fp32 plain version: atol
 summation order), with max|ref| taken before the activation (the
 activations are at most 1.1-Lipschitz, so the sums' error carries through),
 plus rtol 2^-7 where the output is bf16 (the two round fp32 sums that differ
-in the last bits, so they may land one bf16 ulp apart).
+in the last bits, so they may land one bf16 ulp apart).  The grouped expert
+GEMM takes the GEMM's tolerances.
 """
 
 import numpy as np
@@ -23,6 +24,9 @@ import torch
 from repro_torch.kernels.attention import kernel as attn_kernel
 from repro_torch.kernels.attention import ops as attn_ops
 from repro_torch.kernels.attention.ref import attention_ref
+from repro_torch.kernels.grouped import kernel as grouped_kernel
+from repro_torch.kernels.grouped import ops as grouped_ops
+from repro_torch.kernels.grouped.ref import grouped_matmul_ref
 from repro_torch.kernels.systolic import kernel as mm_kernel
 from repro_torch.kernels.systolic import ops as mm_ops
 from repro_torch.kernels.systolic.ref import ACTIVATIONS, matmul_ref, quant_matmul_ref
@@ -177,3 +181,61 @@ def test_quant_kernel_raises_on_a_step_off_the_16_grid(cuda):
     qb = quantize(_rand((96, 16), 6).to(cuda), "int8", block=(0, 1))
     with pytest.raises(ValueError, match="multiple of 16"):
         mm_ops.quant_matmul(qa, qb)
+
+
+GROUPED_SHAPES = [
+    (128, 160, 2048, 768),  # prefill gate / up (E, C, K, N): the 128-row tile
+    (128, 160, 768, 2048),  # prefill down
+    (128, 8, 2048, 768),  # decode: the 16-row tile
+    (128, 8, 768, 2048),
+    (1, 160, 2048, 768),  # one expert
+    (4, 1, 70, 130),  # ragged C, K and N
+    (4, 13, 70, 130),
+    (3, 100, 70, 130),
+    (2, 16, 64, 64),  # the largest C of the small tile
+    (2, 17, 64, 64),  # the smallest of the large
+    (8, 64, 96, 160),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("e,c,k,n", GROUPED_SHAPES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_grouped_kernel_matches_plain(cuda, e, c, k, n, dtype):
+    x = _rand((e, c, k), 1).to(cuda, DTYPES[dtype])
+    w = _rand((e, k, n), 2).to(cuda, DTYPES[dtype])
+    before, shape_before = grouped_kernel.launches, grouped_kernel.launches_by_shape[(e, c, k, n)]
+    got = grouped_ops.grouped_matmul(x, w)
+    want = grouped_matmul_ref(x, w)
+    assert got.dtype == x.dtype and tuple(got.shape) == (e, c, n)
+    torch.testing.assert_close(got.float(), want.float(), **_gemm_tol(dtype, k, x.dtype))
+    torch.cuda.synchronize()
+    assert grouped_kernel.launches == before + 1
+    assert grouped_kernel.launches_by_shape[(e, c, k, n)] == shape_before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [8, 100])  # both tiles
+def test_grouped_kernel_experts_independent(cuda, c):
+    """Zeroing one expert's weights zeroes only its slice."""
+    x = _rand((3, c, 32), 3).to(cuda, torch.bfloat16)
+    w = _rand((3, 32, 48), 4).to(cuda, torch.bfloat16)
+    w[1] = 0
+    y = grouped_ops.grouped_matmul(x, w)
+    torch.cuda.synchronize()
+    assert bool((y[1] == 0).all())
+    assert not bool((y[0] == 0).all()) and not bool((y[2] == 0).all())
+    torch.testing.assert_close(y[2].float(), (x[2].float() @ w[2].float()).bfloat16().float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.gpu
+def test_grouped_kernel_shape_errors(cuda):
+    x = torch.ones(2, 4, 8, device=cuda)
+    with pytest.raises(ValueError):
+        grouped_ops.grouped_matmul(x, torch.ones(3, 8, 4, device=cuda))
+    with pytest.raises(ValueError):
+        grouped_ops.grouped_matmul(x, torch.ones(2, 9, 4, device=cuda))
+    with pytest.raises(TypeError):
+        grouped_kernel.grouped_matmul_call(x, torch.ones(2, 8, 4, device=cuda, dtype=torch.bfloat16))
+    with pytest.raises(ValueError):
+        grouped_kernel.grouped_matmul_call(x.transpose(1, 2), torch.ones(2, 4, 4, device=cuda))
