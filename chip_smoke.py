@@ -10,11 +10,17 @@ Phases, each printing its own lines; any failure exits non-zero:
      build of the CUDA kernels from csrc/ (one nvcc per source, in parallel);
   2. each hand-written kernel against its plain PyTorch version on the card,
      at the main path's shapes and on ragged ones, max errors beside the
-     tolerance (the block-scaled int8 / fp8 GEMM also over scale blocks of
+     tolerance (the systolic GEMM on each of its wgmma tiles, with ragged
+     M, N and K that TMA zero-fills; flash attention at head dims 16, 64,
+     120 and 128, K/V at 1/1, 1/2 and 1/8 of the query heads, in the
+     model's strided layout, with windows, a masked tail and without the
+     causal mask; the block-scaled int8 / fp8 GEMM also over scale blocks of
      128, 64, 32 and whole-K);
   3. full-width internlm2-1.8b in bf16 (random weights from a seed) served
      through ServeEngine: batch 4, prompt 512, 32 greedy tokens, with the
-     kernels' launch counts checked exactly, in all and per GEMM shape; the
+     kernels' launch counts checked exactly, in all and per GEMM shape, every
+     prefill projection on a wgmma path of the systolic GEMM and every flash
+     launch given K/V at the model's own KV heads; the
      kernel path's prefill logits and two decode steps from the same cache
      against the same model run through the plain versions on the card; and
      the SMOKE config in fp32 on the card against the port's CPU path;
@@ -37,8 +43,10 @@ Phases, each printing its own lines; any failure exits non-zero:
   4. each kernel timed at the main path's shapes (CUDA events) beside its
      bound, its plain version and one PyTorch library call (a yardstick the
      port never calls; none computes the block-scaled product, so the
-     quantized kernel's is null); one JSON line lists the kernels, each
-     shape's time weighted by the launches the main path made at that shape;
+     quantized kernel's is null); the systolic GEMM's prefill shapes also on
+     each wgmma tile; flash attention in each model's layout, K/V at its KV
+     heads; one JSON line lists the kernels, each shape's time weighted by
+     the launches the main path made at that shape;
   5. the last line: {"ok": true, "device": {...}}.
 Without a card, or without the rest of the repository beside it, it exits
 non-zero and prints no result.
@@ -69,7 +77,7 @@ from repro_torch.data.synthetic import make_batch  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.attention import kernel as attn_kernel  # noqa: E402
 from repro_torch.kernels.attention import ops as attn_ops  # noqa: E402
-from repro_torch.kernels.attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.attention.ref import flash_attention_call_ref  # noqa: E402
 from repro_torch.kernels.grouped import kernel as grouped_kernel  # noqa: E402
 from repro_torch.kernels.grouped import ops as grouped_ops  # noqa: E402
 from repro_torch.kernels.grouped.ref import grouped_matmul_ref  # noqa: E402
@@ -187,9 +195,11 @@ def expect(ok: bool, what: str) -> None:
 def reset_counts() -> None:
     mm_kernel.launches = 0
     mm_kernel.launches_by_shape.clear()
+    mm_kernel.launches_by_path.clear()
     mm_kernel.quant_launches = 0
     mm_kernel.quant_launches_by_shape.clear()
     attn_kernel.launches = 0
+    attn_kernel.launches_by_heads.clear()
     grouped_kernel.launches = 0
     grouped_kernel.launches_by_shape.clear()
 
@@ -208,6 +218,13 @@ def shape_counts() -> dict:
             "grouped_mmm": dict(grouped_kernel.launches_by_shape)}
 
 
+def route_counts() -> dict:
+    """Since the last reset: the systolic GEMM's launches by path, and flash
+    attention's by the (H, Hkv) head counts it was given."""
+    return {"systolic_mmm_paths": dict(mm_kernel.launches_by_path),
+            "flash_attn_heads": dict(attn_kernel.launches_by_heads)}
+
+
 @contextlib.contextmanager
 def plain_versions():
     """Route the kernel wrappers' CUDA calls to their plain versions (for the
@@ -216,12 +233,9 @@ def plain_versions():
     def mm(a, b, bias, *, out_dtype, activation="none"):
         return matmul_ref(a, b, bias, activation=activation, out_dtype=out_dtype)
 
-    def flash(q, k, v, *, scale, causal, window, kv_valid):
-        return attention_ref(q, k, v, causal=causal, window=window, scale=scale, kv_valid=kv_valid)
-
     with mock.patch.object(mm_kernel, "systolic_matmul_call", mm), \
             mock.patch.object(mm_kernel, "quant_systolic_matmul_call", quant_systolic_matmul_ref), \
-            mock.patch.object(attn_kernel, "flash_attention_call", flash), \
+            mock.patch.object(attn_kernel, "flash_attention_call", flash_attention_call_ref), \
             mock.patch.object(grouped_kernel, "grouped_matmul_call", grouped_matmul_ref):
         yield
 
@@ -413,24 +427,42 @@ def phase_device() -> dict:
 def check_gemm(m, k, n, dtype, gen, *, bias=False, act="none", out_dtype=None) -> float:
     a, b = randn((m, k), gen, dtype), randn((k, n), gen, dtype)
     bv = randn((n,), gen, torch.float32) if bias else None
+    before = collections.Counter(mm_kernel.launches_by_path)
     got = mm_ops.matmul(a, b, bv, activation=act, out_dtype=out_dtype)
+    path = next(iter(mm_kernel.launches_by_path - before))
     want = matmul_ref(a, b, bv, activation=act, out_dtype=out_dtype)
     atol, rtol = GEMM_TOL_BF16 if dtype == BF16 else (1e-5 * math.sqrt(k), GEMM_RTOL_FP32)
     ok, err, rel = close(got, want, atol, rtol)
     expect(ok, f"gemm {str(dtype)[6:]:8s} M={m:<5d} K={k:<5d} N={n:<5d} bias={bias!s:5s} act={act:5s} "
-               f"max_abs={err:.3e} max_rel={rel:.3e} (atol {atol:.1e}, rtol {rtol:.0e})")
+               f"{path:13s} max_abs={err:.3e} max_rel={rel:.3e} (atol {atol:.1e}, rtol {rtol:.0e})")
     return err
 
 
-def check_flash(b, h, s, d, dtype, gen, *, window=None, causal=True) -> float:
-    q, k, v = (randn((b, h, s, d), gen, dtype) for _ in range(3))
-    got = attn_ops.flash_attention(q, k, v, causal=causal, window=window)
-    want = attention_ref(q.reshape(b * h, s, d), k.reshape(b * h, s, d), v.reshape(b * h, s, d),
-                         causal=causal, window=window).reshape(got.shape)
+def flash_operand(b, s, h, d, dtype, gen, layout):
+    """A (B, H, S, D) operand: contiguous ("bhsd"), the transposed view of a
+    (B, S, H, D) tensor ("bshd", as the models hold q, k and v), or that of
+    every other head of a wider one ("sliced": uneven head and row strides)."""
+    if layout == "bhsd":
+        return randn((b, h, s, d), gen, dtype)
+    if layout == "bshd":
+        return randn((b, s, h, d), gen, dtype).transpose(1, 2)
+    return randn((b, s, 2 * h, d), gen, dtype)[:, :, ::2].transpose(1, 2)
+
+
+def check_flash(b, h, s, d, dtype, gen, *, hkv=None, window=None, causal=True, kv_valid=None, skv=None,
+                layout="bshd") -> float:
+    """Flash attention, K/V at ``hkv`` heads (default ``h``), against its
+    plain version (K/V repeated to the query heads) on the same operands."""
+    hkv, skv = hkv or h, skv or s
+    q = flash_operand(b, s, h, d, dtype, gen, layout)
+    k, v = (flash_operand(b, skv, hkv, d, dtype, gen, layout) for _ in range(2))
+    got = attn_ops.flash_attention(q, k, v, causal=causal, window=window, kv_valid=kv_valid)
+    kw = dict(scale=d**-0.5, causal=causal, window=window, kv_valid=skv if kv_valid is None else kv_valid)
+    want = flash_attention_call_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), **kw).transpose(1, 2)
     tol = ATTN_TOL[dtype]
     ok, err, rel = close(got, want, tol, tol)
-    expect(ok, f"flash {str(dtype)[6:]:8s} BH={b * h} S={s} D={d} causal={causal} window={window} "
-               f"max_abs={err:.3e} max_rel={rel:.3e} (tol {tol:.0e})")
+    expect(ok, f"flash {str(dtype)[6:]:8s} B={b} H={h}/{hkv} Sq={s} Skv={skv} D={d} {layout} causal={causal} "
+               f"window={window} kv_valid={kv_valid} max_abs={err:.3e} max_rel={rel:.3e} (tol {tol:.0e})")
     return err
 
 
@@ -482,6 +514,11 @@ def phase_kernels() -> dict:
         check_gemm(4, 1000, 300, BF16, gen, bias=True, act=act)  # epilogue after the split-K sum
         check_gemm(100, 130, 70, BF16, gen, bias=True, act=act, out_dtype=torch.float32)
     check_gemm(BATCH * PROMPT, 2048, 8192, BF16, gen, bias=True)  # the shape K2 is timed at
+    # Ragged M, N and K (multiples of 8) that TMA zero-fills, on each wgmma
+    # tile the path rule picks (128x256, 128x128, 64x128), every epilogue.
+    for m, n, k in ((2000, 8184, 2040), (1000, 2040, 1000), (300, 264, 200), (17, 8, 8)):
+        for act in ACTIVATIONS:
+            check_gemm(m, k, n, BF16, gen, bias=True, act=act, out_dtype=torch.float32 if act == "gelu" else None)
     q_err = 0.0
     for qd in quant.QDTYPES:
         for m in (4, BATCH * PROMPT):
@@ -497,11 +534,18 @@ def phase_kernels() -> dict:
             check_qgemm(4, 1000, 300, qd, gen, act=act)
             check_qgemm(100, 520, 130, qd, gen, act=act, out_dtype=torch.float32)
     attn_err = 0.0
-    for s, window in ((512, None), (512, 128), (500, None)):
-        attn_err = max(attn_err, check_flash(BATCH, 16, s, 128, BF16, gen, window=window))
-    attn_err = max(attn_err, check_flash(BATCH, 32, PROMPT, 128, BF16, gen))  # qwen3-moe's 32 heads
-    check_flash(2, 2, 130, 64, torch.float32, gen, window=32)
-    check_flash(2, 2, 100, 16, BF16, gen, causal=False)
+    for arch in (ARCH, MOE_ARCH):  # each model's heads, in its own (B, S, H, D) layout
+        cfg = configs.get_config(arch)
+        for s, window in ((PROMPT, None), (PROMPT, 128), (500, None)):
+            attn_err = max(attn_err, check_flash(BATCH, cfg.n_heads, s, cfg.resolved_head_dim, BF16, gen,
+                                                 hkv=cfg.n_kv_heads, window=window))
+    for d in (16, 64, 120, 128):  # head dims of the zoo (120: h2o-danube3; 16 and 64: SMOKE configs)
+        for hkv in (8, 4, 1):  # 1, 2 and 8 query heads per KV head
+            for layout in ("bshd", "bhsd", "sliced"):
+                check_flash(2, 8, 200, d, BF16, gen, hkv=hkv, layout=layout)
+            check_flash(2, 8, 190, d, BF16, gen, hkv=hkv, window=64, kv_valid=150)
+            check_flash(2, 8, 100, d, BF16, gen, hkv=hkv, causal=False, kv_valid=70)
+            check_flash(2, 8, 130, d, torch.float32, gen, hkv=hkv, window=32, skv=230, layout="sliced")
     g_err = 0.0
     moe_cfg = configs.get_config(MOE_ARCH)
     for t in (BATCH * PROMPT, BATCH):  # prefill and decode capacity: 160 and 8 rows per expert
@@ -542,6 +586,19 @@ def expected_launches(cfg, gemm: str, prefill: bool) -> tuple[dict, dict]:
     return total, shapes
 
 
+def expected_routes(cfg, shapes: dict, prefill: bool) -> dict:
+    """The systolic GEMM's launches by path that the shapes ``shapes`` (from
+    expected_launches) must make with operands the model hands over aligned
+    (every prefill projection on a wgmma tile, every decode one on the
+    split-K tile), and flash attention's by the model's (H, Hkv)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    paths = collections.Counter()
+    for (m, k, n), c in shapes["systolic_mmm"].items():
+        paths[mm_kernel.gemm_path(m, n, k, BF16, True, sms)] += c
+    return {"systolic_mmm_paths": dict(paths),
+            "flash_attn_heads": {(cfg.n_heads, cfg.n_kv_heads): cfg.n_layers} if prefill else {}}
+
+
 def serve_path(label: str, model, params, want: dict, batch, feed=None) -> dict:
     """Serve one synchronized batch through ServeEngine on the kernels, with
     the counts set to 0 just before prefill and decode and read just after;
@@ -561,13 +618,13 @@ def serve_path(label: str, model, params, want: dict, batch, feed=None) -> dict:
     first = engine.prefill(batch)
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
-    pf_counts, pf_shapes = counts(), shape_counts()
+    pf_counts, pf_shapes, pf_routes = counts(), shape_counts(), route_counts()
     reset_counts()
     t0 = time.perf_counter()
     rest = engine.decode(first, GEN - 1)
     torch.cuda.synchronize()
     t_decode = time.perf_counter() - t0
-    dec_counts, dec_shapes = counts(), shape_counts()
+    dec_counts, dec_shapes, dec_routes = counts(), shape_counts(), route_counts()
     tokens = torch.cat([first, rest], dim=1)
     say(f"    {label}: prefill {t_prefill * 1e3:.3f} ms; decode {t_decode / (GEN - 1) * 1e3:.3f} ms/step, "
         f"{BATCH * (GEN - 1) / t_decode:.1f} tok/s over {GEN - 1} steps")
@@ -583,6 +640,15 @@ def serve_path(label: str, model, params, want: dict, batch, feed=None) -> dict:
         expect(by == want_pf_shapes[name], f"{label} prefill {name} launches by shape: {sorted(by.items())}")
         expect(dec_shapes[name] == want_dec_shapes[name],
                f"{label} decode {name} launches by shape: {sorted(dec_shapes[name].items())}")
+    # Routes: the systolic GEMM's path of every launch (a prefill operand off
+    # TMA's alignment would land on the WMMA tile), flash's K/V heads.
+    pf_paths = pf_routes["systolic_mmm_paths"]
+    expect(all(p.startswith("wgmma") for p in pf_paths) and sum(pf_paths.values()) == pf_counts["systolic_mmm"],
+           f"{label} prefill: all {pf_counts['systolic_mmm']} systolic GEMM launches on a wgmma tile: {pf_paths}")
+    for phase, got_r, want_r in (("prefill", pf_routes, expected_routes(cfg, want_pf_shapes, True)),
+                                 ("decode", dec_routes, expected_routes(cfg, want_dec_shapes, False))):
+        for key in got_r:
+            expect(got_r[key] == want_r[key], f"{label} {phase} {key}: {got_r[key]}, want {want_r[key]}")
 
     logits = []  # the kernel path's prefill and two decode-step logits
     # w8a8: each GEMM's int8 activations on the kernel path, the plain path's
@@ -671,6 +737,8 @@ def serve_path(label: str, model, params, want: dict, batch, feed=None) -> dict:
         "decode_launches": dec_counts,
         "prefill_shapes": listed(pf_shapes),
         "decode_shapes": listed(dec_shapes),
+        "prefill_routes": {k: {str(kk): c for kk, c in v.items()} for k, v in pf_routes.items()},
+        "decode_routes": {k: {str(kk): c for kk, c in v.items()} for k, v in dec_routes.items()},
         "logits_max_abs_err": err,
         "logits_scale": scale,
         "prefill_activation_flips": flips,
@@ -950,7 +1018,9 @@ def cycler(items: list):
 def time_gemm(m, k, n, gen, out_dtype=BF16) -> dict:
     """Kernel, plain and library times of one bf16 projection.  Weights are
     cycled through enough copies to exceed the 50 MB L2, as the main path
-    reads each layer's weights cold."""
+    reads each layer's weights cold.  Prefill shapes are also timed on each
+    wgmma tile through the C entry (launches that no counter sees), for the
+    path rule's record."""
     a = randn((m, k), gen, BF16)
     copies = max(1, math.ceil(150e6 / (k * n * dtype_bytes(BF16))))
     nxt = cycler([randn((k, n), gen, BF16) for _ in range(copies)])
@@ -962,10 +1032,24 @@ def time_gemm(m, k, n, gen, out_dtype=BF16) -> dict:
         "plain": time_ms(lambda: matmul_ref(a, nxt(), out_dtype=out_dtype), iters),
         "library": time_ms(lib, iters),
     }
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    path = mm_kernel.gemm_path(m, n, k, BF16, True, sms)
+    by_path = {}
+    if path.startswith("wgmma"):
+        lib_, fn = mm_kernel._entry("systolic_mmm")
+        out = torch.empty((m, n), dtype=out_dtype, device="cuda")
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def on(tile):
+            code = fn(a.data_ptr(), nxt().data_ptr(), None, out.data_ptr(), m, n, k, mm_kernel.DTYPE_CODES[BF16],
+                      mm_kernel.DTYPE_CODES[out_dtype], 0, mm_kernel.PATHS.index(tile), None, 0, stream)
+            _build.check(lib_, "systolic_mmm launch", code)
+
+        by_path = {tile: time_ms(lambda: on(tile), iters) for tile, _, _ in mm_kernel.WGMMA_TILES}
     flops, nbytes = _gemm_cost(m, k, n, out_dtype)
     bound_s, bound_by = H100.bound_s(flops, nbytes, "bfloat16")
-    return {"m": m, "k": k, "n": n, "out": str(out_dtype)[6:], "ms": t["kernel"], "plain_ms": t["plain"],
-            "library_ms": t["library"], "bound_ms": bound_s * 1e3, "bound_by": bound_by}
+    return {"m": m, "k": k, "n": n, "out": str(out_dtype)[6:], "path": path, "ms": t["kernel"], "plain_ms": t["plain"],
+            "library_ms": t["library"], "bound_ms": bound_s * 1e3, "bound_by": bound_by, "ms_by_path": by_path}
 
 
 def time_grouped(e, c, k, n, gen) -> dict:
@@ -988,21 +1072,27 @@ def time_grouped(e, c, k, n, gen) -> dict:
             "bound_ms": bound_s * 1e3, "bound_by": bound_by}
 
 
-def time_flash(gen, h: int) -> dict:
-    b, s, d = BATCH, PROMPT, 128
-    q, k, v = (randn((b, h, s, d), gen, BF16) for _ in range(3))
+def time_flash(gen, cfg) -> dict:
+    """Flash attention as the model calls it: q (B, S, H, D) and k, v (B, S,
+    Hkv, D), handed over as (B, H, S, D) views; the plain version repeats
+    K/V; SDPA (the yardstick) takes the same views with enable_gqa.  The
+    bound reads K and V at Hkv heads."""
+    b, s, h, hkv, d = BATCH, PROMPT, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q = randn((b, s, h, d), gen, BF16).transpose(1, 2)
+    k, v = (randn((b, s, hkv, d), gen, BF16).transpose(1, 2) for _ in range(2))
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    kw = dict(scale=d**-0.5, causal=True, window=None, kv_valid=s)
     t = {
         "kernel": time_ms(lambda: attn_ops.flash_attention(q, k, v, causal=True), 20),
-        "plain": time_ms(lambda: attention_ref(q.reshape(b * h, s, d), k.reshape(b * h, s, d),
-                                               v.reshape(b * h, s, d), causal=True), 10),
-        "library": time_ms(lambda: sdpa(q, k, v, is_causal=True), 20),
+        "plain": time_ms(lambda: flash_attention_call_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                                          **kw), 10),
+        "library": time_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), 20),
     }
     pairs = s * (s + 1) // 2  # causal: the (q, k) pairs this run's mask keeps
     flops = 4 * b * h * pairs * d
-    nbytes = 4 * b * h * s * d * dtype_bytes(BF16)  # q, k, v read, o written
+    nbytes = 2 * b * s * (h + hkv) * d * dtype_bytes(BF16)  # q and k, v read, o written
     bound_s, bound_by = H100.bound_s(flops, nbytes, "bfloat16")
-    return {"bh": b * h, "s": s, "d": d, "ms": t["kernel"], "plain_ms": t["plain"],
+    return {"b": b, "h": h, "hkv": hkv, "s": s, "d": d, "ms": t["kernel"], "plain_ms": t["plain"],
             "library_ms": t["library"], "bound_ms": bound_s * 1e3, "bound_by": bound_by}
 
 
@@ -1084,9 +1174,10 @@ def phase_timing(errs: dict, bf16: dict, w8a8: dict, moe_r: dict) -> tuple[list[
         r = time_gemm(m, k, n, gen, gemm_out_dtype(moe_cfg, k, n))
         r["launches"] = n_calls  # as counted at the launch site on the served paths
         shapes.append(r)
+        tiles = "".join(f"  {p[6:]} {t:.4f}" for p, t in r["ms_by_path"].items())
         say(f"    systolic_mmm M={m:<5d} K={k:<5d} N={n:<5d} out={r['out']:8s} x{r['launches']:<5d} "
-            f"kernel {r['ms']:.4f}  plain {r['plain_ms']:.4f}  torch.matmul {r['library_ms']:.4f}  "
-            f"bound {r['bound_ms']:.4f} ({r['bound_by']})")
+            f"{r['path']:13s} kernel {r['ms']:.4f}  plain {r['plain_ms']:.4f}  torch.matmul {r['library_ms']:.4f}  "
+            f"bound {r['bound_ms']:.4f} ({r['bound_by']})" + (f"  [each wgmma tile:{tiles}]" if tiles else ""))
     qshapes = []
     for (m, k, n), n_calls in _merged([w8a8], "systolic_qmm").items():
         r = time_qgemm(m, k, n, gen)
@@ -1110,14 +1201,15 @@ def phase_timing(errs: dict, bf16: dict, w8a8: dict, moe_r: dict) -> tuple[list[
         f"kernel {k2['ms']:.4f}  plain {k2['plain_ms']:.4f}  torch.addmm {k2['library_ms']:.4f}  "
         f"bound {k2['bound_ms']:.4f} ({k2['bound_by']})")
     flash = []
-    # Flash launches are not counted by shape: each path's prefill launches
-    # are at its model's head count (internlm2 16 heads, qwen3-moe 32).
-    for h, paths in ((configs.get_config(ARCH).n_heads, [bf16, w8a8]), (moe_cfg.n_heads, [moe_r])):
-        fl = time_flash(gen, h)
+    # Flash launches are counted by head counts: each path's prefill launches
+    # are at its model's (H, Hkv), phase 3 checks (16, 8) and (32, 4).
+    for cfg, paths in ((configs.get_config(ARCH), [bf16, w8a8]), (moe_cfg, [moe_r])):
+        fl = time_flash(gen, cfg)
         fl["launches"] = sum(r["prefill_launches"]["flash_attn"] + r["decode_launches"]["flash_attn"] for r in paths)
         flash.append(fl)
-        say(f"    flash_attn BH={fl['bh']} S={fl['s']} D={fl['d']} causal x{fl['launches']} kernel {fl['ms']:.4f}  "
-            f"plain {fl['plain_ms']:.4f}  sdpa {fl['library_ms']:.4f}  bound {fl['bound_ms']:.4f} ({fl['bound_by']})")
+        say(f"    flash_attn B={fl['b']} H={fl['h']}/{fl['hkv']} S={fl['s']} D={fl['d']} causal x{fl['launches']} "
+            f"kernel {fl['ms']:.4f}  plain {fl['plain_ms']:.4f}  sdpa(enable_gqa) {fl['library_ms']:.4f}  "
+            f"bound {fl['bound_ms']:.4f} ({fl['bound_by']})")
 
     def entry(name, rows):
         # Totals over every launch the served paths made (prefill + decode).

@@ -2,7 +2,8 @@
 
 ``systolic_matmul_call`` (``csrc/systolic_mmm.cu``) is the counterpart of
 ``repro.kernels.systolic.kernel.systolic_matmul_call``: one launch computes
-``act(A @ B [+ bias])`` with an fp32 accumulator.  ``quant_systolic_matmul_call``
+``act(A @ B [+ bias])`` with an fp32 accumulator, on the path that
+``gemm_path`` picks by shape, dtype and alignment.  ``quant_systolic_matmul_call``
 (``csrc/systolic_qmm.cu``) is the block-scaled int8 / fp8 GEMM.  Both
 kernels mask ragged edges themselves, so shapes need not divide any block.
 """
@@ -22,10 +23,26 @@ from repro_torch.kernels.systolic.ref import ACTIVATIONS
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 ACTIVATION_CODES = {name: i for i, name in enumerate(ACTIVATIONS)}
 
-# Kernel launches made by this process, in all and by (M, K, N) (read and
-# reset by chip_smoke.py).
+# The systolic GEMM's paths, numbered as in csrc/systolic_mmm.cu:
+#   fma            fp32 operands, CUDA-core FMA (the reference's full fp32);
+#   decode         bf16, M <= 16: the WMMA 16-row tile, contraction split across blocks;
+#   wmma           bf16 shapes TMA cannot take: the WMMA 128x128 tile;
+#   wgmma_128x128  bf16 prefill: TMA ring + wgmma, two consumer warpgroups;
+#   wgmma_64x128   the same with one consumer warpgroup;
+#   wgmma_128x256  two consumer warpgroups of 64 x 256.
+# Of the wgmma tiles the widest whose grid has a tile for at least half the
+# SMs is taken (the 64x128 tile when none has): a wider tile re-reads fewer
+# operand bytes per product, and on the H100 it was the fastest of the three
+# at every served prefill shape so chosen (measured on the H100, PERF.md).
+PATHS = ("fma", "decode", "wmma", "wgmma_128x128", "wgmma_64x128", "wgmma_128x256")
+WGMMA_TILES = (("wgmma_128x256", 128, 256), ("wgmma_128x128", 128, 128), ("wgmma_64x128", 64, 128))
+DECODE_MAX_M = 16  # csrc/common.cuh D_BM
+
+# Kernel launches made by this process, in all, by (M, K, N) and by path
+# (read and reset by chip_smoke.py).
 launches = 0
 launches_by_shape: collections.Counter = collections.Counter()
+launches_by_path: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -34,7 +51,7 @@ _LL = ctypes.c_longlong
 
 # Argument types of each library's C entry point, named as the library.
 _ARGTYPES = {
-    "systolic_mmm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _LL, _P],
+    "systolic_mmm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _LL, _P],
     "systolic_qmm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _LL, _P],
     "grouped_mmm": [_P, _P, _P, _I, _I, _I, _I, _I, _P],  # bound in kernels/grouped/kernel.py
 }
@@ -65,6 +82,29 @@ def _workspace(name: str, device: torch.device, m: int, n: int, k: int, splittab
     nbytes = _workspace_bytes(name, m, n, k, splittable, device.index)
     ws = torch.empty(nbytes // 4, dtype=torch.float32, device=device) if nbytes else None
     return ws, nbytes
+
+
+def gemm_path(m: int, n: int, k: int, dtype: torch.dtype, aligned: bool, sms: int) -> str:
+    """The systolic GEMM's path for an (M, K) @ (K, N) product of ``dtype``
+    operands whose bases are 16-byte aligned (``aligned``) on a card of
+    ``sms`` SMs.  A choice by shape: TMA needs 16-byte rows (K and N
+    multiples of 8) and aligned bases; of the wgmma tiles, the widest whose
+    grid has at least ``sms / 2`` tiles."""
+    if dtype == torch.float32:
+        return "fma"
+    if m <= DECODE_MAX_M:
+        return "decode"
+    if k == 0 or k % 8 or n % 8 or not aligned:
+        return "wmma"
+    for path, bm, bn in WGMMA_TILES[:-1]:
+        if 2 * math.ceil(m / bm) * math.ceil(n / bn) >= sms:
+            return path
+    return WGMMA_TILES[-1][0]
+
+
+@functools.cache
+def _sm_count(device_index: int | None) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def systolic_matmul_call(
@@ -105,16 +145,19 @@ def systolic_matmul_call(
     if m == 0 or n == 0:
         return out
     lib, fn = _entry("systolic_mmm")
-    ws, nbytes = _workspace("systolic_mmm", a.device, m, n, k, a.dtype == torch.bfloat16)
+    aligned = a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+    path = gemm_path(m, n, k, a.dtype, aligned, _sm_count(a.device.index))
+    ws, nbytes = _workspace("systolic_mmm", a.device, m, n, k, path == "decode")
     stream = torch.cuda.current_stream(a.device).cuda_stream
     code = fn(
         a.data_ptr(), b.data_ptr(), None if bias is None else bias.data_ptr(),
         out.data_ptr(), m, n, k, DTYPE_CODES[a.dtype], DTYPE_CODES[out_dtype],
-        ACTIVATION_CODES[activation], None if ws is None else ws.data_ptr(), nbytes, stream,
+        ACTIVATION_CODES[activation], PATHS.index(path), None if ws is None else ws.data_ptr(), nbytes, stream,
     )
     _build.check(lib, "systolic_mmm launch", code)
     launches += 1
     launches_by_shape[(m, k, n)] += 1
+    launches_by_path[path] += 1
     return out
 
 

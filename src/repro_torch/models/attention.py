@@ -70,17 +70,12 @@ def _sdpa(q, k, v, mask, q_per_kv: int):
 
 
 def _sdpa_flash(q, k, v, cfg: ArchConfig):
-    """Prefill attention through the flash kernel (KV repeated to the Q heads,
-    as the reference does)."""
-    kq = k.repeat_interleave(cfg.q_per_kv, dim=2)
-    vq = v.repeat_interleave(cfg.q_per_kv, dim=2)
-    o = flash_attention(
-        q.transpose(1, 2),
-        kq.transpose(1, 2),
-        vq.transpose(1, 2),
-        causal=True,
-        window=_window(cfg),
-    )
+    """Prefill attention through the flash kernel.  q: (B,S,Hq,hd), k/v:
+    (B,S,Hkv,hd) as the model holds them -> (B,S,Hq,hd).  The kernel reads
+    each query head's KV head in place (the reference repeats KV first) and
+    takes the transposed views without a copy; on the card its output is
+    (B,S,Hq,hd) contiguous."""
+    o = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True, window=_window(cfg))
     return o.transpose(1, 2)
 
 

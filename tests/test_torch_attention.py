@@ -5,20 +5,31 @@ side runs the Pallas kernel in interpret mode.  Inputs are drawn with numpy
 and given to both.  Tolerances are the reference's own
 (``tests/kernels/test_attention.py``): 2e-4 in fp32 (online vs direct
 softmax sum in other orders) and 3e-2 in bf16 (P is rounded to bf16 before
-P @ V, at other points in the two versions).
+P @ V, at other points in the two versions).  The port's wrapper also takes
+K/V at fewer heads than Q (grouped-query attention) and transposed views; the
+reference takes K/V repeated to the query heads, which is what it is given
+here, and the model layer ``gqa_fwd`` is held against the reference's at
+one, two and four query heads per KV head.
 
 ``tests/test_torch_kernels_gpu.py`` holds the CUDA kernels against these
 plain versions on the card.
 """
 
+import dataclasses
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.configs import get_smoke as jax_get_smoke
 from repro.kernels.attention import ops as jax_ops
+from repro.models import attention as jax_attn
+from repro_torch import configs
 from repro_torch.kernels.attention import kernel as t_kernel
 from repro_torch.kernels.attention import ops
+from repro_torch.models import attention as t_attn
 
 CASES = [
     (128, 128, True, None),
@@ -41,8 +52,6 @@ def _qkv(b, h, sq, skv, d, seed=0):
     k = rng.standard_normal((b, h, skv, d)).astype(np.float32)
     v = rng.standard_normal((b, h, skv, d)).astype(np.float32)
     return q, k, v
-
-
 
 
 @pytest.mark.parametrize("sq,skv,causal,window", CASES)
@@ -94,3 +103,74 @@ def test_kernel_call_refuses_cpu_tensors():
     q = torch.zeros(2, 8, 16)
     with pytest.raises(ValueError, match="CUDA"):
         t_kernel.flash_attention_call(q, q, q, scale=0.25, causal=True, window=None, kv_valid=8)
+
+
+# (H, Hkv): KV heads equal to, half and an eighth of the query heads.
+GQA_HEADS = [(8, 8), (8, 4), (8, 1)]
+# (Sq, Skv, causal, window): the served case, a window, and non-causal.
+GQA_CASES = [(100, 100, True, None), (130, 130, True, 32), (60, 90, False, None)]
+
+
+def _torch_layout(x: np.ndarray, layout: str, dtype) -> torch.Tensor:
+    """A (B, H, S, D) array as a contiguous tensor ("bhsd") or as the
+    (B, H, S, D) view of a (B, S, H, D) tensor ("bshd"), as a model hands it over."""
+    if layout == "bhsd":
+        return torch.from_numpy(x).to(dtype)
+    return torch.from_numpy(np.ascontiguousarray(x.transpose(0, 2, 1, 3))).to(dtype).transpose(1, 2)
+
+
+@pytest.mark.parametrize("h,hkv", GQA_HEADS)
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("sq,skv,causal,window", GQA_CASES)
+def test_gqa_flash_matches_pallas_on_repeated_kv(h, hkv, layout, dtype, sq, skv, causal, window):
+    """K/V at Hkv heads (query head h reads KV head h // (H // Hkv)), given
+    as contiguous tensors or as transposed views, equal the reference's flash
+    attention on K/V repeated to the H query heads."""
+    jdt, tdt = DTYPES[dtype]
+    rng = np.random.default_rng(h * 10 + hkv)
+    q = rng.standard_normal((2, h, sq, 32)).astype(np.float32)
+    k = rng.standard_normal((2, hkv, skv, 32)).astype(np.float32)
+    v = rng.standard_normal((2, hkv, skv, 32)).astype(np.float32)
+    rep = h // hkv
+    want = jax_ops.flash_attention(
+        jnp.asarray(q, jdt), jnp.asarray(np.repeat(k, rep, axis=1), jdt), jnp.asarray(np.repeat(v, rep, axis=1), jdt),
+        causal=causal, window=window, interpret=True,
+    )
+    qt, kt, vt = (_torch_layout(x, layout, tdt) for x in (q, k, v))
+    got = ops.flash_attention(qt, kt, vt, causal=causal, window=window)
+    assert got.dtype == tdt and tuple(got.shape) == q.shape
+    tol = TOL[dtype]
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("hkv", [3, 0])
+def test_kv_heads_must_divide_query_heads(hkv):
+    q = torch.zeros(1, 8, 16, 16)
+    k = torch.zeros(1, hkv, 16, 16)
+    with pytest.raises(ValueError, match="KV heads"):
+        ops.flash_attention(q, k, k)
+
+
+@pytest.mark.parametrize("n_kv_heads", [4, 2, 1])  # 1, 2 and 4 query heads per KV head
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_gqa_fwd_matches_jax(n_kv_heads, dtype):
+    """The model's prefill attention (projections, rope, flash with K/V at
+    the model's KV heads, output projection) against the reference's
+    ``gqa_fwd`` on its flash path, on the internlm2 SMOKE config with 4
+    query heads; the K/V it returns for the cache too."""
+    jdt, tdt = DTYPES[dtype]
+    jcfg = dataclasses.replace(jax_get_smoke("internlm2-1.8b"), n_kv_heads=n_kv_heads, dtype=dtype)
+    tcfg = dataclasses.replace(configs.get_smoke("internlm2-1.8b"), n_kv_heads=n_kv_heads, dtype=dtype)
+    assert tcfg.q_per_kv == 4 // n_kv_heads
+    jparams = jax_attn.init_gqa(jax.random.PRNGKey(0), jcfg)
+    tparams = {name: torch.from_numpy(np.array(w, np.float32)) for name, w in jparams.items()}
+    b, s = 2, 40
+    x = np.random.default_rng(n_kv_heads).standard_normal((b, s, jcfg.d_model)).astype(np.float32)
+    with jax_attn.use_attn_impl("flash"):
+        jy, (jk, jv) = jax_attn.gqa_fwd(jparams, jnp.asarray(x, jdt), jcfg, jnp.arange(s))
+    ty, (tk, tv) = t_attn.gqa_fwd(tparams, torch.from_numpy(x).to(tdt), tcfg, torch.arange(s))
+    assert tuple(ty.shape) == (b, s, tcfg.d_model) and tuple(tk.shape) == (b, s, n_kv_heads, tcfg.resolved_head_dim)
+    tol = TOL[dtype]
+    for got, want in ((ty, jy), (tk, jk), (tv, jv)):
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), rtol=tol, atol=tol)

@@ -7,7 +7,8 @@ This file imports no JAX, so it runs on the machine with the card:
 
 Tolerances as in the CPU tests against the JAX package: GEMM 2e-2 in bf16
 (one bf16 ulp at the outputs' scale) and rtol 1e-5 with atol 1e-5 * sqrt(K)
-in fp32 (summation order); attention 3e-2 in bf16 and 2e-4 in fp32.  The
+in fp32 (summation order); attention 3e-2 in bf16 and 2e-4 in fp32, its plain
+version repeating K/V to the query heads.  The
 block-scaled GEMM against its dequantize-then-fp32 plain version: atol
 1e-5 * (max|ref| + 1), the reference's own (same quantized values, other
 summation order), with max|ref| taken before the activation (the
@@ -23,7 +24,7 @@ import torch
 
 from repro_torch.kernels.attention import kernel as attn_kernel
 from repro_torch.kernels.attention import ops as attn_ops
-from repro_torch.kernels.attention.ref import attention_ref
+from repro_torch.kernels.attention.ref import attention_ref, flash_attention_call_ref
 from repro_torch.kernels.grouped import kernel as grouped_kernel
 from repro_torch.kernels.grouped import ops as grouped_ops
 from repro_torch.kernels.grouped.ref import grouped_matmul_ref
@@ -111,6 +112,153 @@ def test_flash_kernel_matches_plain(cuda, sq, skv, causal, window, dtype, d):
     assert attn_kernel.launches == before + 1
     tol = 3e-2 if dtype == "bfloat16" else 2e-4
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+# The systolic GEMM's wgmma tiles: every served prefill shape (M, N, K),
+# then ragged M, N and K (multiples of 8, TMA zero-fills the rest of each
+# tile) on each of the three tiles the path rule picks.
+WGMMA_SHAPES = [
+    (2048, 2048, 2048), (2048, 1024, 2048), (2048, 8192, 2048), (2048, 2048, 8192),  # internlm2-1.8b
+    (2048, 4096, 2048), (2048, 512, 2048), (2048, 2048, 4096), (2048, 128, 2048),  # qwen3-moe-30b-a3b
+    (2000, 8184, 2040),  # 128x256, ragged everywhere
+    (1000, 2040, 1000),  # 128x128
+    (300, 264, 200), (17, 8, 8), (129, 1032, 1000),  # 64x128
+]
+
+
+def _path(cuda, m, n, k):
+    return mm_kernel.gemm_path(m, n, k, torch.bfloat16, True, mm_kernel._sm_count(cuda.index))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,k", WGMMA_SHAPES)
+def test_wgmma_gemm_matches_plain(cuda, m, n, k):
+    """Every activation, with and without the bias, bf16 and fp32 out, on the
+    wgmma tile the path rule picks for the shape."""
+    a = _rand((m, k), 1).to(cuda, torch.bfloat16)
+    b = _rand((k, n), 2).to(cuda, torch.bfloat16)
+    bias = _rand((n,), 3).to(cuda)
+    path = _path(cuda, m, n, k)
+    assert path.startswith("wgmma")
+    before = mm_kernel.launches_by_path[path]
+    for bv in (None, bias):
+        for act in ACTIVATIONS:
+            for out_dtype in DTYPES.values():
+                got = mm_ops.matmul(a, b, bv, activation=act, out_dtype=out_dtype)
+                want = matmul_ref(a, b, bv, activation=act, out_dtype=out_dtype)
+                assert got.dtype == out_dtype
+                torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+    torch.cuda.synchronize()
+    assert mm_kernel.launches_by_path[path] == before + 4 * len(ACTIVATIONS)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["wgmma_128x256", "wgmma_128x128", "wgmma_64x128"])
+@pytest.mark.parametrize("m,n,k", [(300, 264, 200), (129, 1032, 1000), (2048, 512, 2048)])
+def test_each_wgmma_tile_matches_plain(cuda, path, m, n, k):
+    """Each wgmma tile through the C entry directly, whatever the rule would
+    pick: ragged shapes cover every tile's edges."""
+    lib, fn = mm_kernel._entry("systolic_mmm")
+    a = _rand((m, k), 4).to(cuda, torch.bfloat16)
+    b = _rand((k, n), 5).to(cuda, torch.bfloat16)
+    bias = _rand((n,), 6).to(cuda)
+    for act in ("none", "gelu"):
+        for out_dtype in DTYPES.values():
+            out = torch.empty((m, n), dtype=out_dtype, device=cuda)
+            code = fn(a.data_ptr(), b.data_ptr(), bias.data_ptr(), out.data_ptr(), m, n, k, 1,
+                      mm_kernel.DTYPE_CODES[out_dtype], mm_kernel.ACTIVATION_CODES[act], mm_kernel.PATHS.index(path),
+                      None, 0, torch.cuda.current_stream().cuda_stream)
+            assert code == 0
+            want = matmul_ref(a, b, bias, activation=act, out_dtype=out_dtype)
+            torch.testing.assert_close(out.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.gpu
+def test_unaligned_operand_takes_the_wmma_tile(cuda):
+    """A base off 16 bytes cannot be a TMA source: the shape goes to the WMMA
+    tile (a choice by shape and alignment, made before the launch)."""
+    m = n = k = 256
+    a = _rand((m * k + 1,), 7).to(cuda, torch.bfloat16)[1:].view(m, k)
+    b = _rand((k, n), 8).to(cuda, torch.bfloat16)
+    assert a.is_contiguous() and a.data_ptr() % 16
+    before = mm_kernel.launches_by_path["wmma"]
+    got = mm_ops.matmul(a, b)
+    torch.testing.assert_close(got.float(), matmul_ref(a, b).float(), rtol=2e-2, atol=2e-2)
+    assert mm_kernel.launches_by_path["wmma"] == before + 1
+
+
+@pytest.mark.gpu
+def test_wgmma_gemm_is_deterministic(cuda):
+    a = _rand((2048, 2048), 9).to(cuda, torch.bfloat16)
+    b = _rand((2048, 8192), 10).to(cuda, torch.bfloat16)
+    assert torch.equal(mm_ops.matmul(a, b), mm_ops.matmul(a, b))
+
+
+FLASH_HEADS = [(8, 8), (8, 4), (8, 1)]  # (H, Hkv): GQA ratios 1, 2 and 8
+# (Sq, Skv, causal, window, kv_valid): S not a multiple of 64, windows, a
+# masked tail, non-causal.
+FLASH_MASKS = [
+    (200, 200, True, None, None),
+    (130, 230, True, 32, None),
+    (100, 100, False, None, 70),
+    (190, 190, True, 64, 150),
+]
+
+
+def _flash_operand(cuda, dtype, b, s, h, d, layout, seed):
+    """A (B, H, S, D) operand: contiguous ("bhsd"), the transposed view of a
+    (B, S, H, D) tensor ("bshd", as the model holds it), or that of every
+    other head of a wider one ("sliced": head and sequence strides both
+    uneven)."""
+    if layout == "bhsd":
+        return _rand((b, h, s, d), seed).to(cuda, dtype)
+    if layout == "bshd":
+        return _rand((b, s, h, d), seed).to(cuda, dtype).transpose(1, 2)
+    return _rand((b, s, 2 * h, d), seed).to(cuda, dtype)[:, :, ::2].transpose(1, 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq,skv,causal,window,kv_valid", FLASH_MASKS)
+@pytest.mark.parametrize("h,hkv", FLASH_HEADS)
+@pytest.mark.parametrize("layout", ["bhsd", "bshd", "sliced"])
+@pytest.mark.parametrize("d", [16, 64, 120, 128])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_kernel_gqa_layouts_match_plain(cuda, sq, skv, causal, window, kv_valid, h, hkv, layout, d, dtype):
+    dt = DTYPES[dtype]
+    q = _flash_operand(cuda, dt, 2, sq, h, d, layout, 11)
+    k = _flash_operand(cuda, dt, 2, skv, hkv, d, layout, 12)
+    v = _flash_operand(cuda, dt, 2, skv, hkv, d, layout, 13)
+    before = attn_kernel.launches_by_heads[(h, hkv)]
+    got = attn_ops.flash_attention(q, k, v, causal=causal, window=window, kv_valid=kv_valid)
+    kw = dict(scale=d**-0.5, causal=causal, window=window, kv_valid=skv if kv_valid is None else kv_valid)
+    want = flash_attention_call_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), **kw).transpose(1, 2)
+    torch.cuda.synchronize()
+    assert attn_kernel.launches_by_heads[(h, hkv)] == before + 1
+    assert got.dtype == dt and got.shape == q.shape and got.transpose(1, 2).is_contiguous()
+    tol = 3e-2 if dtype == "bfloat16" else 2e-4
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_flash_kernel_is_deterministic(cuda):
+    q = _rand((4, 512, 32, 128), 14).to(cuda, torch.bfloat16)
+    k, v = (_rand((4, 512, 4, 128), i).to(cuda, torch.bfloat16) for i in (15, 16))
+    kw = dict(scale=128**-0.5, causal=True, window=None, kv_valid=512)
+    assert torch.equal(attn_kernel.flash_attention_call(q, k, v, **kw), attn_kernel.flash_attention_call(q, k, v, **kw))
+
+
+@pytest.mark.gpu
+def test_flash_kernel_refuses_what_it_cannot_read(cuda):
+    q = torch.zeros(1, 16, 2, 12, device=cuda, dtype=torch.bfloat16)  # rows of 24 bytes
+    with pytest.raises(ValueError, match="16-byte"):
+        attn_kernel.flash_attention_call(q, q, q, scale=1.0, causal=True, window=None, kv_valid=16)
+    q = torch.zeros(1, 16, 2, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):  # last dimension strided
+        attn_kernel.flash_attention_call(q[..., ::2], q[..., ::2], q[..., ::2], scale=1.0, causal=True, window=None,
+                                         kv_valid=16)
+    kv = torch.zeros(1, 16, 3, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="dividing"):  # 3 KV heads for 2 query heads
+        attn_kernel.flash_attention_call(q, kv, kv, scale=1.0, causal=True, window=None, kv_valid=16)
 
 
 QGEMM_SHAPES = [

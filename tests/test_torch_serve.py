@@ -204,8 +204,9 @@ def test_swiglu_matches_jax():
 
 @pytest.mark.parametrize("arch", ["internlm2-1.8b", "h2o-danube-3-4b"])
 def test_flash_prefill_attention_matches_plain_gqa(arch):
-    """The prefill route (KV repeated, (B,H,S,D) flash call) against the
-    plain GQA attention with an explicit causal / window mask."""
+    """The prefill route (the head-aware flash call, K/V at the model's KV
+    heads) against the plain GQA attention with an explicit causal / window
+    mask."""
     cfg = configs.get_smoke(arch)
     b, s, hd = 2, 40, cfg.resolved_head_dim
     q = torch.from_numpy(_x((b, s, cfg.n_heads, hd), 1))

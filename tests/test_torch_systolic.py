@@ -15,12 +15,16 @@ exact fp64 product the Pallas result is off by the same amounts).  In bf16,
 plain versions on the card.
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels.systolic import ops as jax_ops
+from repro_torch import configs
 from repro_torch.kernels.systolic import kernel as t_kernel
 from repro_torch.core.hw import H100, dtype_bytes
 from repro_torch.kernels.systolic import ops
@@ -43,8 +47,6 @@ def _tol(name, k):
 
 def _rand(shape, seed):
     return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
-
-
 
 
 @pytest.mark.parametrize("m,n,k", SHAPES)
@@ -128,3 +130,58 @@ def test_h100_bound_of_a_quantized_projection(m, bound_by, dtype):
         assert secs == pytest.approx(8.68e-6, rel=1e-3)  # 2 * 2048^3 / 1979e12
     else:
         assert secs == pytest.approx(1.30e-6, rel=1e-2)
+
+
+BF16 = torch.bfloat16
+
+
+@pytest.mark.parametrize("m,k,n,dtype,aligned,want", [
+    # internlm2-1.8b's prefill projections (M = 4 x 512 tokens)
+    (2048, 2048, 2048, BF16, True, "wgmma_128x256"),  # q, o: 128 tiles of 128x256
+    (2048, 2048, 1024, BF16, True, "wgmma_128x128"),  # k, v: 128 tiles of 128x128
+    (2048, 2048, 8192, BF16, True, "wgmma_128x256"),  # gate, up
+    (2048, 8192, 2048, BF16, True, "wgmma_128x256"),  # down
+    # qwen3-moe-30b-a3b's
+    (2048, 2048, 4096, BF16, True, "wgmma_128x256"),  # q
+    (2048, 2048, 512, BF16, True, "wgmma_64x128"),  # k, v
+    (2048, 4096, 2048, BF16, True, "wgmma_128x256"),  # o
+    (2048, 2048, 128, BF16, True, "wgmma_64x128"),  # the router: 32 tiles of 64 rows
+    # shapes TMA cannot take keep the WMMA tile
+    (2048, 2044, 2048, BF16, True, "wmma"),  # K % 8: rows of A not 16-byte multiples
+    (2048, 2048, 2044, BF16, True, "wmma"),  # N % 8: rows of B
+    (2048, 2048, 2048, BF16, False, "wmma"),  # an operand's base off 16 bytes
+    (100, 130, 70, BF16, True, "wmma"),
+    (2048, 0, 2048, BF16, True, "wmma"),  # no contraction: nothing to load
+    # decode keeps the split-K tile, fp32 the FMA tile
+    (16, 2048, 2048, BF16, True, "decode"),
+    (4, 8192, 2048, BF16, True, "decode"),
+    (17, 8, 8, BF16, True, "wgmma_64x128"),  # the smallest M past the decode tile
+    (2048, 2048, 2048, torch.float32, True, "fma"),
+    (4, 2048, 2048, torch.float32, True, "fma"),
+])
+def test_gemm_path_choice(m, k, n, dtype, aligned, want):
+    assert t_kernel.gemm_path(m, n, k, dtype, aligned, sms=132) == want
+
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "qwen3-moe-30b-a3b"])
+def test_every_served_prefill_projection_takes_wgmma(arch):
+    """At batch 4 x 512 tokens every projection of the served models (q, k,
+    v, o, then the MLP or the router) is a wgmma shape on a 132-SM card."""
+    cfg = configs.get_config(arch)
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    kn = [(d, cfg.n_heads * hd), (d, cfg.n_kv_heads * hd), (cfg.n_heads * hd, d)]
+    kn += [(d, cfg.d_ff), (cfg.d_ff, d)] if cfg.moe is None else [(d, cfg.moe.n_experts)]
+    for k, n in kn:
+        assert t_kernel.gemm_path(4 * 512, n, k, BF16, True, sms=132).startswith("wgmma"), (k, n)
+
+
+def test_path_numbers_follow_the_kernel():
+    """The binding passes PATHS.index(path) to csrc/systolic_mmm.cu: its Path
+    enum must number the paths in the same order."""
+    src = (Path(t_kernel.__file__).resolve().parents[2] / "csrc" / "systolic_mmm.cu").read_text()
+    enum = re.search(r"enum Path \{([^}]*)\}", src).group(1)
+    numbered = {name.strip(): int(num) for name, num in (item.split("=") for item in enum.split(","))}
+    c_names = {"P_FMA": "fma", "P_DECODE": "decode", "P_WMMA": "wmma", "P_WGMMA_128": "wgmma_128x128",
+               "P_WGMMA_64": "wgmma_64x128", "P_WGMMA_256": "wgmma_128x256"}
+    assert {c_names[name]: num for name, num in numbered.items()} == {p: i for i, p in enumerate(t_kernel.PATHS)}
+    assert {p for p, _, _ in t_kernel.WGMMA_TILES} <= set(t_kernel.PATHS)
