@@ -14,13 +14,17 @@ Phases, each printing its own lines; any failure exits non-zero:
      M, N and K that TMA zero-fills; flash attention at head dims 16, 64,
      120 and 128, K/V at 1/1, 1/2 and 1/8 of the query heads, in the
      model's strided layout, with windows, a masked tail and without the
-     causal mask; the block-scaled int8 / fp8 GEMM also over scale blocks of
-     128, 64, 32 and whole-K);
+     causal mask; the block-scaled int8 / fp8 GEMM on K-major weights, as
+     w8a8 serves them, also over scale blocks of 256, 128, 64, 32, 16 and
+     whole-K, int8 bit-identical to the same weights row-major; the grouped
+     GEMM at capacities 8, 100, 160 and 200 with each expert's token rows
+     empty, partial, full or as a decode step routes them);
   3. full-width internlm2-1.8b in bf16 (random weights from a seed) served
      through ServeEngine: batch 4, prompt 512, 32 greedy tokens, with the
      kernels' launch counts checked exactly, in all and per GEMM shape, every
-     prefill projection on a wgmma path of the systolic GEMM and every flash
-     launch given K/V at the model's own KV heads; the
+     prefill launch of each GEMM on a wgmma path and every decode one on its
+     decode tile, and every flash launch given K/V at the model's own KV
+     heads; the
      kernel path's prefill logits and two decode steps from the same cache
      against the same model run through the plain versions on the card; and
      the SMOKE config in fp32 on the card against the port's CPU path;
@@ -43,10 +47,12 @@ Phases, each printing its own lines; any failure exits non-zero:
   4. each kernel timed at the main path's shapes (CUDA events) beside its
      bound, its plain version and one PyTorch library call (a yardstick the
      port never calls; none computes the block-scaled product, so the
-     quantized kernel's is null); the systolic GEMM's prefill shapes also on
-     each wgmma tile; flash attention in each model's layout, K/V at its KV
-     heads; one JSON line lists the kernels, each shape's time weighted by
-     the launches the main path made at that shape;
+     quantized kernel's is null; it is also timed beside K1 and with whole-K
+     scales); the systolic GEMM's prefill shapes also on each wgmma tile; the
+     grouped GEMM at all rows and with the rows the MoE model's routing gave
+     in phase 3, each with its own bound; flash attention in each model's
+     layout, K/V at its KV heads; one JSON line lists the kernels, each
+     shape's time weighted by the launches the main path made at that shape;
   5. the last line: {"ok": true, "device": {...}}.
 Without a card, or without the rest of the repository beside it, it exits
 non-zero and prints no result.
@@ -198,10 +204,12 @@ def reset_counts() -> None:
     mm_kernel.launches_by_path.clear()
     mm_kernel.quant_launches = 0
     mm_kernel.quant_launches_by_shape.clear()
+    mm_kernel.quant_launches_by_path.clear()
     attn_kernel.launches = 0
     attn_kernel.launches_by_heads.clear()
     grouped_kernel.launches = 0
     grouped_kernel.launches_by_shape.clear()
+    grouped_kernel.launches_by_path.clear()
 
 
 def counts() -> dict:
@@ -219,9 +227,11 @@ def shape_counts() -> dict:
 
 
 def route_counts() -> dict:
-    """Since the last reset: the systolic GEMM's launches by path, and flash
+    """Since the last reset: the launches of each GEMM by path, and flash
     attention's by the (H, Hkv) head counts it was given."""
     return {"systolic_mmm_paths": dict(mm_kernel.launches_by_path),
+            "systolic_qmm_paths": dict(mm_kernel.quant_launches_by_path),
+            "grouped_mmm_paths": dict(grouped_kernel.launches_by_path),
             "flash_attn_heads": dict(attn_kernel.launches_by_heads)}
 
 
@@ -236,7 +246,7 @@ def plain_versions():
     with mock.patch.object(mm_kernel, "systolic_matmul_call", mm), \
             mock.patch.object(mm_kernel, "quant_systolic_matmul_call", quant_systolic_matmul_ref), \
             mock.patch.object(attn_kernel, "flash_attention_call", flash_attention_call_ref), \
-            mock.patch.object(grouped_kernel, "grouped_matmul_call", grouped_matmul_ref):
+            mock.patch.object(grouped_kernel, "grouped_matmul_call", lambda x, w, rows=None: grouped_matmul_ref(x, w)):
         yield
 
 
@@ -290,9 +300,9 @@ def checked_grouped_calls(worst: list):
     real = grouped_kernel.grouped_matmul_call
     atol, rtol = GEMM_TOL_BF16
 
-    def call(x, w):
-        got = real(x, w)
-        want = grouped_matmul_ref(x, w)
+    def call(x, w, rows=None):
+        got = real(x, w, rows)
+        want = grouped_matmul_ref(x, w)  # every row, as the reference computes them
         worst.append(((got.float() - want.float()).abs() / (atol + rtol * want.float().abs())).max().item())
         return got
 
@@ -324,14 +334,15 @@ def topk_choices(record: list, replay: bool = False):
 @contextlib.contextmanager
 def recorded_routing(record: list):
     """Record each MoE layer's routing, in call order: the (token, choice)
-    experts (G, T, k) and which of those slots were dropped past capacity."""
+    experts (G, T, k), which of those slots were dropped past capacity, and
+    each expert's rows that hold a token (G, E), as the grouped kernel gets them."""
     real = moe._dispatch_group
 
     def dispatch(xf, top_e, top_w, cap, cfg):
         out = real(xf, top_e, top_w, cap, cfg)
-        _, _, pos, order, _ = out
+        _, _, pos, order, _, rows = out
         dropped = torch.zeros_like(pos, dtype=torch.bool).scatter_(-1, order, pos >= cap)
-        record.append((top_e.clone(), dropped.reshape(top_e.shape)))
+        record.append((top_e.clone(), dropped.reshape(top_e.shape), rows.clone()))
         return out
 
     with mock.patch.object(moe, "_dispatch_group", dispatch):
@@ -467,32 +478,64 @@ def check_flash(b, h, s, d, dtype, gen, *, hkv=None, window=None, causal=True, k
 
 
 def check_qgemm(m, k, n, qd, gen, *, qk=(128, 128), act="none", out_dtype=BF16) -> float:
-    """The block-scaled kernel against its plain version on one quantized pair."""
+    """The block-scaled kernel against its plain version on one quantized
+    pair, the weight K-major as the served w8a8 weights are; int8 also
+    bit-identical to the same weight row-major (which takes the WMMA tiles)."""
     qa = quant.quantize(randn((m, k), gen, torch.float32), qd, block=(1, qk[0]))
     qb = quant.quantize(randn((k, n), gen, torch.float32), qd, block=(qk[1], 1))
-    got = mm_ops.quant_matmul(qa, qb, out_dtype=out_dtype, activation=act)
+    qbk = quant.k_major({"w": qb})["w"]
+    before = collections.Counter(mm_kernel.quant_launches_by_path)
+    got = mm_ops.quant_matmul(qa, qbk, out_dtype=out_dtype, activation=act)
+    path = next(iter(mm_kernel.quant_launches_by_path - before))
     want = quant_matmul_ref(qa, qb, activation=act, out_dtype=out_dtype)
     pre = quant_matmul_ref(qa, qb, out_dtype=torch.float32)
     atol = QGEMM_ATOL * (pre.abs().max().item() + 1.0)
     rtol = QGEMM_RTOL_BF16 if out_dtype == BF16 else 0.0
     ok, err, rel = close(got, want, atol, rtol)
-    expect(ok and got.dtype == out_dtype,
+    same = "" if qd != "int8" else (
+        " bits = row-major B" if torch.equal(got, mm_ops.quant_matmul(qa, qb, out_dtype=out_dtype, activation=act))
+        else " BITS DIFFER from row-major B")
+    expect(ok and got.dtype == out_dtype and "DIFFER" not in same,
            f"qgemm {qd:4s} M={m:<5d} K={k:<5d} N={n:<5d} qk={qk!s:9s} act={act:5s} out={str(out_dtype)[6:]:8s} "
-           f"max_abs={err:.3e} max_rel={rel:.3e} (atol {atol:.1e}, rtol {rtol:.1e})")
+           f"{path:6s} max_abs={err:.3e} max_rel={rel:.3e} (atol {atol:.1e}, rtol {rtol:.1e}){same}")
     return err
 
 
-def check_grouped(e, c, k, n, dtype, gen) -> float:
+def rows_pattern(name: str, e: int, c: int, gen) -> list | None:
+    """Rows that can hold a token, per expert: None (the kernel computes all
+    C), "empty" (0), "partial" (random counts in [0, C]), "full" (C), or
+    "decode" (a batch-4 top-8 decode step: 32 slots on random experts)."""
+    if name == "none":
+        return None
+    if name == "decode":
+        picks = torch.randint(0, e, (BATCH * 8,), generator=gen, device="cuda")
+        return torch.bincount(picks, minlength=e).clamp(max=c).tolist()
+    if name == "partial":
+        return torch.randint(0, c + 1, (e,), generator=gen, device="cuda").tolist()
+    return [0 if name == "empty" else c] * e
+
+
+def check_grouped(e, c, k, n, dtype, gen, rows: str = "none") -> float:
     """The grouped expert GEMM against its plain version (output in the
-    operands' dtype)."""
+    operands' dtype), with the rows of a ``rows_pattern`` (x zero past each
+    expert's count, as the dispatch leaves it)."""
     x, w = randn((e, c, k), gen, dtype), randn((e, k, n), gen, dtype)
-    got = grouped_ops.grouped_matmul(x, w)
+    counts = rows_pattern(rows, e, c, gen)
+    r = None
+    if counts is not None:
+        r = torch.tensor(counts, dtype=torch.int32, device="cuda")
+        x = x * (torch.arange(c, device="cuda")[None, :, None] < r[:, None, None]).to(dtype)
+    before = collections.Counter(grouped_kernel.launches_by_path)
+    got = grouped_ops.grouped_matmul(x, w, rows=r)
+    path = next(iter(grouped_kernel.launches_by_path - before))
     want = grouped_matmul_ref(x, w)
     atol, rtol = GEMM_TOL_BF16 if dtype == BF16 else (1e-5 * math.sqrt(k), GEMM_RTOL_FP32)
     ok, err, rel = close(got, want, atol, rtol)
-    expect(ok and tuple(got.shape) == (e, c, n) and got.dtype == dtype,
-           f"grouped {str(dtype)[6:]:8s} E={e:<4d} C={c:<4d} K={k:<5d} N={n:<5d} "
-           f"max_abs={err:.3e} max_rel={rel:.3e} (atol {atol:.1e}, rtol {rtol:.0e})")
+    same = "" if r is None else (" bits = all rows" if torch.equal(got, grouped_ops.grouped_matmul(x, w))
+                                 else " BITS DIFFER from all rows")
+    expect(ok and tuple(got.shape) == (e, c, n) and got.dtype == dtype and "DIFFER" not in same,
+           f"grouped {str(dtype)[6:]:8s} E={e:<4d} C={c:<4d} K={k:<5d} N={n:<5d} rows={rows:7s} {path:13s} "
+           f"max_abs={err:.3e} max_rel={rel:.3e} (atol {atol:.1e}, rtol {rtol:.0e}){same}")
     return err
 
 
@@ -525,14 +568,20 @@ def phase_kernels() -> dict:
             for k, n in projections(configs.get_config(ARCH)):
                 err = check_qgemm(m, k, n, qd, gen)
                 q_err = max(q_err, err) if qd == "int8" else q_err  # the main path's dtype
-        for m, k, n in ((72, 100, 130), (300, 515, 257), (1, 300, 1000), (9, 70, 4000)):
+        # Ragged: the WMMA tiles (K off the 16 grid, N off the 8 grid, the
+        # decode tile) and the wgmma tile (K a multiple of 16, N of 8).
+        for m, k, n in ((72, 100, 130), (300, 515, 257), (1, 300, 1000), (9, 70, 4000),
+                        (300, 528, 264), (2000, 2064, 1032), (17, 16, 8)):
             check_qgemm(m, k, n, qd, gen, out_dtype=torch.float32)
-        for qk in ((64, 64), (32, 32), (0, 0), (128, 64), (32, 0), (48, 32)):
+        for qk in ((64, 64), (32, 32), (0, 0), (128, 64), (32, 0), (48, 32), (256, 256)):
             check_qgemm(4, 1000, 300, qd, gen, qk=qk, out_dtype=torch.float32)  # split-K, partial last block
             check_qgemm(100, 520, 130, qd, gen, qk=qk, out_dtype=torch.float32)
+            check_qgemm(100, 528, 136, qd, gen, qk=qk, out_dtype=torch.float32)  # int8 whole-K: the wgmma tile
         for act in ACTIVATIONS:
             check_qgemm(4, 1000, 300, qd, gen, act=act)
             check_qgemm(100, 520, 130, qd, gen, act=act, out_dtype=torch.float32)
+            check_qgemm(300, 528, 264, qd, gen, act=act)
+            check_qgemm(300, 528, 264, qd, gen, act=act, out_dtype=torch.float32)
     attn_err = 0.0
     for arch in (ARCH, MOE_ARCH):  # each model's heads, in its own (B, S, H, D) layout
         cfg = configs.get_config(arch)
@@ -548,13 +597,24 @@ def phase_kernels() -> dict:
             check_flash(2, 8, 130, d, torch.float32, gen, hkv=hkv, window=32, skv=230, layout="sliced")
     g_err = 0.0
     moe_cfg = configs.get_config(MOE_ARCH)
+    e_moe = moe_cfg.moe.n_experts
     for t in (BATCH * PROMPT, BATCH):  # prefill and decode capacity: 160 and 8 rows per expert
+        c = moe.capacity(t, moe_cfg)
         for k, n in expert_gemms(moe_cfg):
-            c = moe.capacity(t, moe_cfg)
-            g_err = max(g_err, check_grouped(moe_cfg.moe.n_experts, c, k, n, BF16, gen))
-    for c in (1, 13, 100):  # ragged C (both tiles), K and N
+            for rows in ("none", "full", "partial", "empty", "decode"):
+                g_err = max(g_err, check_grouped(e_moe, c, k, n, BF16, gen, rows))
+    for c in (100, 200):  # the 128-row wgmma tile, one and two row tiles per expert
+        for k, n in expert_gemms(moe_cfg):
+            for rows in ("none", "partial", "decode"):
+                check_grouped(16, c, k, n, BF16, gen, rows)
+    for c in (100, 160, 200):  # K and N not multiples of 64, multiples of 8 (TMA zero-fills)
+        for rows in ("none", "empty", "partial", "full"):
+            check_grouped(5, c, 200, 136, BF16, gen, rows)
+    for c in (1, 13, 100):  # ragged C (the decode and WMMA tiles), K and N
         check_grouped(4, c, 70, 130, BF16, gen)
+        check_grouped(4, c, 70, 130, BF16, gen, "partial")
         check_grouped(4, c, 70, 130, torch.float32, gen)
+        check_grouped(4, c, 70, 130, torch.float32, gen, "partial")
     check_grouped(1, 160, 2048, 768, BF16, gen)  # one expert
     check_grouped(1, 8, 768, 2048, torch.float32, gen)
     torch.cuda.synchronize()
@@ -587,15 +647,20 @@ def expected_launches(cfg, gemm: str, prefill: bool) -> tuple[dict, dict]:
 
 
 def expected_routes(cfg, shapes: dict, prefill: bool) -> dict:
-    """The systolic GEMM's launches by path that the shapes ``shapes`` (from
-    expected_launches) must make with operands the model hands over aligned
-    (every prefill projection on a wgmma tile, every decode one on the
-    split-K tile), and flash attention's by the model's (H, Hkv)."""
+    """Each GEMM's launches by path that the shapes ``shapes`` (from
+    expected_launches) must make with operands the model hands over aligned,
+    int8 weights K-major and 128-k scale blocks (every prefill launch on a
+    wgmma tile, every decode one on the decode tile), and flash attention's
+    by the model's (H, Hkv)."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    paths = collections.Counter()
+    mm, qmm, grouped = collections.Counter(), collections.Counter(), collections.Counter()
     for (m, k, n), c in shapes["systolic_mmm"].items():
-        paths[mm_kernel.gemm_path(m, n, k, BF16, True, sms)] += c
-    return {"systolic_mmm_paths": dict(paths),
+        mm[mm_kernel.gemm_path(m, n, k, BF16, True, sms)] += c
+    for (m, k, n), c in shapes["systolic_qmm"].items():
+        qmm[mm_kernel.qgemm_path(m, n, k, quant.DEFAULT_BLOCK_K, torch.int8, True, True)] += c
+    for (e, rows, k, n), c in shapes["grouped_mmm"].items():
+        grouped[grouped_kernel.grouped_path(rows, k, n, BF16, True)] += c
+    return {"systolic_mmm_paths": dict(mm), "systolic_qmm_paths": dict(qmm), "grouped_mmm_paths": dict(grouped),
             "flash_attn_heads": {(cfg.n_heads, cfg.n_kv_heads): cfg.n_layers} if prefill else {}}
 
 
@@ -640,11 +705,14 @@ def serve_path(label: str, model, params, want: dict, batch, feed=None) -> dict:
         expect(by == want_pf_shapes[name], f"{label} prefill {name} launches by shape: {sorted(by.items())}")
         expect(dec_shapes[name] == want_dec_shapes[name],
                f"{label} decode {name} launches by shape: {sorted(dec_shapes[name].items())}")
-    # Routes: the systolic GEMM's path of every launch (a prefill operand off
-    # TMA's alignment would land on the WMMA tile), flash's K/V heads.
-    pf_paths = pf_routes["systolic_mmm_paths"]
-    expect(all(p.startswith("wgmma") for p in pf_paths) and sum(pf_paths.values()) == pf_counts["systolic_mmm"],
-           f"{label} prefill: all {pf_counts['systolic_mmm']} systolic GEMM launches on a wgmma tile: {pf_paths}")
+    # Routes: each GEMM's path of every launch (a prefill operand off TMA's
+    # alignment, or a row-major int8 weight, would land on a WMMA tile),
+    # flash's K/V heads.
+    for name in ("systolic_mmm", "systolic_qmm", "grouped_mmm"):
+        pf_paths = pf_routes[f"{name}_paths"]
+        if pf_counts[name]:
+            expect(all(p.startswith("wgmma") for p in pf_paths) and sum(pf_paths.values()) == pf_counts[name],
+                   f"{label} prefill: all {pf_counts[name]} {name} launches on a wgmma tile: {pf_paths}")
     for phase, got_r, want_r in (("prefill", pf_routes, expected_routes(cfg, want_pf_shapes, True)),
                                  ("decode", dec_routes, expected_routes(cfg, want_dec_shapes, False))):
         for key in got_r:
@@ -692,6 +760,8 @@ def serve_path(label: str, model, params, want: dict, batch, feed=None) -> dict:
         if quantized:
             flips = activation_flips(label, flips, cfg.n_layers)
         routing = routing_witness(label, routing_k, routing_p) if is_moe else None
+        # MoE: each layer's rows per expert (G = 1), for phase 4's timing at the model's routing.
+        prefill_rows = [r[2][0].tolist() for r in routing_k]
         alike = []  # MoE: the gaps with the plain path routed as the kernel path
         if is_moe:
             with plain_versions(), topk_choices(choices, replay=True):
@@ -705,12 +775,16 @@ def serve_path(label: str, model, params, want: dict, batch, feed=None) -> dict:
         # path routed as the kernel path); all are fed the same tokens.
         cache_p = _tree(torch.clone, cache_k)
         cache_r = _tree(torch.clone, cache_k) if is_moe else None
-        tok, dec_err, fed = got.argmax(-1).to(torch.int32), 0.0, []
+        tok, dec_err, fed, routing_dec = got.argmax(-1).to(torch.int32), 0.0, [], []
         for step in range(2):
             tok = tok if feed is None else feed[step]
             fed.append(tok)
             choices = []
-            with topk_choices(choices) if is_moe else contextlib.nullcontext():
+            with contextlib.ExitStack() as stack:
+                if is_moe:
+                    stack.enter_context(topk_choices(choices))
+                    if step == 0:
+                        stack.enter_context(recorded_routing(routing_dec))
                 lk, cache_k = model.decode_step(params, tok, cache=cache_k, pos=PROMPT + step)
             n0 = counts()
             with plain_versions():
@@ -745,6 +819,8 @@ def serve_path(label: str, model, params, want: dict, batch, feed=None) -> dict:
         "prefill_routing": routing,
         "routed_alike_max_abs_err": alike,  # MoE: prefill, decode step 0, decode step 1
         "prefill_kernel_calls_worst_share_of_tol": max(in_model) if in_model else None,
+        "prefill_rows": prefill_rows,  # MoE: rows per expert by layer, prefill and decode step 0
+        "decode_rows": [r[2][0].tolist() for r in routing_dec],
         "decode_logits_max_abs_err": dec_err,
         "logits": logits,
         "fed": fed,
@@ -761,7 +837,7 @@ def routing_witness(label: str, kernel: list, plain: list) -> dict:
     expect(len(kernel) == len(plain), f"{label} prefill routed {len(kernel)} layers on the kernel path, "
                                       f"{len(plain)} on the plain path")
     rows = []
-    for (ek, dk), (ep, dp) in zip(kernel, plain):
+    for (ek, dk, _), (ep, dp, _) in zip(kernel, plain):
         sets_differ = (ek.sort(dim=-1).values != ep.sort(dim=-1).values).any(dim=-1)
         rows.append({"assignments_differ": int((ek != ep).sum()), "tokens_other_experts": int(sets_differ.sum()),
                      "dropped_kernel": int(dk.sum()), "dropped_plain": int(dp.sum()),
@@ -784,7 +860,7 @@ def phase_serve() -> tuple[dict, dict]:
     t0 = time.perf_counter()
     masters = model.init(SEED, "cuda", dtype=torch.float32)  # the fp32 values both models come from
     params = cast_params(masters, BF16)
-    qparams = cast_params(quant.quantize_params(masters), BF16)
+    qparams = quant.k_major(cast_params(quant.quantize_params(masters), BF16))  # as launch/serve.py lays them out
     del masters
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1052,11 +1128,24 @@ def time_gemm(m, k, n, gen, out_dtype=BF16) -> dict:
             "library_ms": t["library"], "bound_ms": bound_s * 1e3, "bound_by": bound_by, "ms_by_path": by_path}
 
 
-def time_grouped(e, c, k, n, gen) -> dict:
+def _grouped_cost(k, n, c, rows):
+    """Operations and HBM bytes one expert GEMM must move with each expert's
+    rows that hold a token (``rows``, one count per expert): the weights of
+    the experts that hold any, those rows of x read once, all of y written."""
+    used = sum(rows)
+    nbytes = (sum(1 for r in rows if r) * k * n + used * k + len(rows) * c * n) * dtype_bytes(BF16)
+    return 2 * used * k * n, nbytes
+
+
+def time_grouped(e, c, k, n, gen, patterns: list) -> dict:
     """Kernel, plain and library (torch.bmm, bf16 in and out) times of one
-    expert GEMM; the expert weights are cycled through >= 150 MB of copies
-    (one copy at the path's shapes, 403 MB), as the main path reads each
-    layer's experts cold."""
+    expert GEMM over all C rows (the reference's work), the expert weights
+    cycled through >= 150 MB of copies (one copy at the path's shapes, 403
+    MB), as the main path reads each layer's experts cold; then the kernel
+    given the model's rows: ``patterns``, one per MoE layer of the served
+    run (recorded in phase 3), cycled with the weights (which tiles the
+    kernel computes depends on the rows alone, not on x's values).  Each
+    time has its own bound, over the experts and rows it reads."""
     x = randn((e, c, k), gen, BF16)
     copies = max(1, math.ceil(150e6 / (e * k * n * dtype_bytes(BF16))))
     nxt = cycler([randn((e, k, n), gen, BF16) for _ in range(copies)])
@@ -1065,11 +1154,18 @@ def time_grouped(e, c, k, n, gen) -> dict:
         "plain": time_ms(lambda: grouped_matmul_ref(x, nxt()), 5),
         "library": time_ms(lambda: torch.bmm(x, nxt()), 10),
     }
-    flops = 2 * e * c * k * n
-    nbytes = (e * c * k + e * k * n + e * c * n) * dtype_bytes(BF16)
+    rows = cycler([torch.tensor(p, dtype=torch.int32, device="cuda") for p in patterns])
+    t["routed"] = time_ms(lambda: grouped_ops.grouped_matmul(x, nxt(), rows=rows()), max(10, len(patterns)))
+    flops, nbytes = _grouped_cost(k, n, c, [c] * e)
     bound_s, bound_by = H100.bound_s(flops, nbytes, "bfloat16")
-    return {"e": e, "c": c, "k": k, "n": n, "ms": t["kernel"], "plain_ms": t["plain"], "library_ms": t["library"],
-            "bound_ms": bound_s * 1e3, "bound_by": bound_by}
+    routed_bounds = [H100.bound_s(*_grouped_cost(k, n, c, p), "bfloat16") for p in patterns]
+    routed_bound_s = sum(b for b, _ in routed_bounds) / len(routed_bounds)
+    return {"e": e, "c": c, "k": k, "n": n, "path": grouped_kernel.grouped_path(c, k, n, BF16, True),
+            "ms": t["routed"], "plain_ms": t["plain"], "library_ms": t["library"],
+            "bound_ms": routed_bound_s * 1e3, "bound_by": routed_bounds[0][1],
+            "experts_with_tokens": sum(sum(1 for r in p if r) for p in patterns) / len(patterns),
+            "rows_with_tokens": sum(sum(p) for p in patterns) / len(patterns),
+            "all_rows_ms": t["kernel"], "all_rows_bound_ms": bound_s * 1e3, "all_rows_bound_by": bound_by}
 
 
 def time_flash(gen, cfg) -> dict:
@@ -1106,14 +1202,16 @@ def _qgemm_cost(m, k, n, qk=quant.DEFAULT_BLOCK_K):
 
 def time_qgemm(m, k, n, gen) -> dict:
     """Kernel and plain times of one w8a8 projection (int8, 128-k scale
-    blocks, bf16 out), weights cycled through >= 150 MB of copies as in
-    time_gemm.  No PyTorch call computes a product scaled per k block, so
-    library_ms is null.  For information only: the same kernel with one
-    scale block over all of K (one retire instead of one per 128 k), and two
+    blocks, bf16 out, the weights K-major as served), weights cycled through
+    >= 150 MB of copies as in time_gemm.  No PyTorch call computes a product
+    scaled per k block, so library_ms is null.  For information only: the
+    same kernel with one scale block over all of K (one retire instead of
+    one per 128 k), K1 (the bf16 systolic GEMM) at the same shape, and two
     other functions, torch._int_mm (int8 -> int32, no scales; it refuses
     M <= 16) and the bf16 torch.matmul of the same shape."""
     qa = quant.quantize_act(randn((m, k), gen, torch.float32))
     qbs = [quant.quantize_weight(randn((k, n), gen, torch.float32)) for _ in range(math.ceil(150e6 / (k * n)))]
+    qbs = [quant.k_major({"w": qb})["w"] for qb in qbs]
     nxt = cycler(qbs)
     iters = 20 if m <= 16 else 10
     t = {
@@ -1121,16 +1219,18 @@ def time_qgemm(m, k, n, gen) -> dict:
         "plain": time_ms(lambda: quant_matmul_ref(qa, nxt(), out_dtype=BF16), iters),
     }
     qa0 = quant.quantize(qa.dequantize(), block=(1, 0))
-    nxt0 = cycler([quant.quantize(qb.dequantize(), block=(0, 1)) for qb in qbs])
+    nxt0 = cycler([quant.k_major({"w": quant.quantize(qb.dequantize(), block=(0, 1))})["w"] for qb in qbs])
     t["whole_k"] = time_ms(lambda: mm_ops.quant_matmul(qa0, nxt0(), out_dtype=BF16), iters)
     a16 = randn((m, k), gen, BF16)
     nxt16 = cycler([randn((k, n), gen, BF16) for _ in range(math.ceil(150e6 / (2 * k * n)))])
+    t["k1_bf16"] = time_ms(lambda: mm_ops.matmul(a16, nxt16()), iters)
     t["bf16_matmul"] = time_ms(lambda: torch.matmul(a16, nxt16()), iters)
     t["int_mm"] = time_ms(lambda: torch._int_mm(qa.values, nxt().values), iters) if m > 16 else None
     flops, nbytes = _qgemm_cost(m, k, n)
     bound_s, bound_by = H100.bound_s(flops, nbytes, "int8")
-    return {"m": m, "k": k, "n": n, "ms": t["kernel"], "plain_ms": t["plain"], "library_ms": None,
-            "info_int_mm_ms": t["int_mm"], "info_bf16_matmul_ms": t["bf16_matmul"],
+    path = mm_kernel.qgemm_path(m, n, k, quant.DEFAULT_BLOCK_K, torch.int8, True, True)
+    return {"m": m, "k": k, "n": n, "path": path, "ms": t["kernel"], "plain_ms": t["plain"], "library_ms": None,
+            "info_int_mm_ms": t["int_mm"], "info_bf16_matmul_ms": t["bf16_matmul"], "info_k1_bf16_ms": t["k1_bf16"],
             "info_whole_k_scales_ms": t["whole_k"],
             "bound_ms": bound_s * 1e3, "bound_by": bound_by}
 
@@ -1184,18 +1284,21 @@ def phase_timing(errs: dict, bf16: dict, w8a8: dict, moe_r: dict) -> tuple[list[
         r["launches"] = n_calls
         qshapes.append(r)
         int_mm = "n/a" if r["info_int_mm_ms"] is None else f"{r['info_int_mm_ms']:.4f}"
-        say(f"    systolic_qmm M={m:<5d} K={k:<5d} N={n:<5d} x{r['launches']:<5d} kernel {r['ms']:.4f}  "
+        say(f"    systolic_qmm M={m:<5d} K={k:<5d} N={n:<5d} x{r['launches']:<5d} {r['path']:6s} kernel {r['ms']:.4f}  "
             f"plain {r['plain_ms']:.4f}  library null  bound {r['bound_ms']:.4f} ({r['bound_by']})  "
-            f"[info: whole-K scales {r['info_whole_k_scales_ms']:.4f}; other functions: torch._int_mm {int_mm}, "
-            f"bf16 torch.matmul {r['info_bf16_matmul_ms']:.4f}]")
+            f"[info: whole-K scales {r['info_whole_k_scales_ms']:.4f}; K1 bf16 {r['info_k1_bf16_ms']:.4f}; other "
+            f"functions: torch._int_mm {int_mm}, bf16 torch.matmul {r['info_bf16_matmul_ms']:.4f}]")
     gshapes = []
     for (e, c, k, n), n_calls in _merged([moe_r], "grouped_mmm").items():
-        r = time_grouped(e, c, k, n, gen)
+        patterns = moe_r["prefill_rows"] if c > grouped_kernel.DECODE_MAX_M else moe_r["decode_rows"]
+        r = time_grouped(e, c, k, n, gen, patterns)
         r["launches"] = n_calls
         gshapes.append(r)
-        say(f"    grouped_mmm E={e:<4d} C={c:<4d} K={k:<5d} N={n:<5d} x{r['launches']:<5d} kernel {r['ms']:.4f}  "
-            f"plain {r['plain_ms']:.4f}  torch.bmm {r['library_ms']:.4f}  "
-            f"bound {r['bound_ms']:.4f} ({r['bound_by']})")
+        say(f"    grouped_mmm E={e:<4d} C={c:<4d} K={k:<5d} N={n:<5d} x{r['launches']:<5d} {r['path']:13s} all rows: "
+            f"kernel {r['all_rows_ms']:.4f}  plain {r['plain_ms']:.4f}  torch.bmm {r['library_ms']:.4f}  bound "
+            f"{r['all_rows_bound_ms']:.4f} ({r['all_rows_bound_by']}); the model's rows ({r['experts_with_tokens']:.1f} "
+            f"experts, {r['rows_with_tokens']:.1f} rows with tokens, mean of {len(patterns)} layers): kernel "
+            f"{r['ms']:.4f}  bound {r['bound_ms']:.4f} ({r['bound_by']})")
     k2 = time_gemm_bias(BATCH * PROMPT, 2048, 8192, gen)
     say(f"    systolic_mmm + bias (K2) M={k2['m']} K={k2['k']} N={k2['n']} x0 (not on the main path) "
         f"kernel {k2['ms']:.4f}  plain {k2['plain_ms']:.4f}  torch.addmm {k2['library_ms']:.4f}  "

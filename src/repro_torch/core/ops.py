@@ -52,17 +52,23 @@ def _quant_matmul(x: torch.Tensor, w: QArray, *, out_dtype: torch.dtype | None) 
     return y2.reshape(*x.shape[:-1], w.shape[1])
 
 
-def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor, *, rows: torch.Tensor | None = None) -> torch.Tensor:
     """Per-expert batched matmul (E, C, K) @ (E, K, N) -> (E, C, N) in x's dtype.
 
     Also takes dispatch-grouped input (G, E, C, K) -> (G, E, C, N): every
     group shares ``w``, so the groups fold exactly into one launch over
     (E, G * C, K) rows (a copy when G > 1) and the result unfolds as a view.
+    ``rows``: each expert's number of leading rows of x that can be nonzero,
+    (E,) or, for grouped input, (G, E) int32 (``moe._dispatch_group``), or
+    None.  It lets the kernel skip the empty rows; the result is the same.
+    The fold interleaves the groups' rows, so it is forwarded for G = 1
+    only.
     """
     if x.ndim != 4:
-        return grouped_ops.grouped_matmul(x, w)
+        return grouped_ops.grouped_matmul(x, w, rows=rows)
     g, e, c, k = x.shape
-    y = grouped_ops.grouped_matmul(x.transpose(0, 1).reshape(e, g * c, k), w)
+    y = grouped_ops.grouped_matmul(x.transpose(0, 1).reshape(e, g * c, k), w,
+                                   rows=rows[0] if rows is not None and g == 1 else None)
     return y.reshape(e, g, c, y.shape[-1]).transpose(0, 1)
 
 

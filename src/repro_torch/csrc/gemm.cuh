@@ -11,9 +11,12 @@
 // BATCHED selects what the grid's z axis means.  Unbatched, block z
 // contracts K slice z (split-K, decode tile only).  Batched, block z computes
 // matrix z of the batch, all of K, from operands offset by z matrices; there
-// is no split.  The unbatched instantiations are the systolic GEMM's code as
-// it was before the batch existed: `if constexpr` and constant-folded
-// ternaries leave them token for token what they were.
+// is no split; and `rows`, when given, holds for each matrix the number of
+// leading rows of A that can be nonzero: a block whose rows all lie at or
+// past it loads nothing and writes zeros (the product of zero rows).  The
+// unbatched instantiations are the systolic GEMM's code as it was before the
+// batch existed: `if constexpr` and constant-folded ternaries leave them
+// token for token what they were.
 #pragma once
 
 #include <mma.h>
@@ -39,11 +42,22 @@ struct TcCfg {
   static constexpr int B_ELEMS = BK * LDB;
 };
 
+// Batched: zero the (BM, BN) output tile at (m0, n0) of one matrix, masked
+// to the matrix (the tile of a block whose A rows are all zero).
+template <int BM, int BN, int NT, typename O>
+__device__ __forceinline__ void zero_tile(O* out, int M, int N, int m0, int n0) {
+  for (int e = threadIdx.x; e < BM * BN; e += NT) {
+    const int r = m0 + e / BN, c = n0 + e % BN;
+    if (r < M && c < N) out[(size_t)r * N + c] = from_f32<O>(0.f);
+  }
+}
+
 template <bool BATCHED, int BM, int BN, int BK, int WARPS_M, int WARPS_N, typename O>
 __global__ void __launch_bounds__(32 * WARPS_M * WARPS_N)
     mmm_bf16_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ B,
                     const float* __restrict__ bias, O* __restrict__ out, int M, int N, int K,
-                    int act, bool vec_a, bool vec_b, int k_chunk, float* __restrict__ partial) {
+                    int act, bool vec_a, bool vec_b, int k_chunk, float* __restrict__ partial,
+                    const int* __restrict__ rows) {
   // Unbatched: block z of the grid contracts K slice [z * k_chunk, (z + 1) *
   // k_chunk); k_chunk is a multiple of BK, so only the last slice meets K's
   // ragged end.  With `partial` set, the raw fp32 sums go to partial[z]
@@ -54,6 +68,10 @@ __global__ void __launch_bounds__(32 * WARPS_M * WARPS_N)
     A += z * M * K;
     B += z * K * N;
     out += z * M * N;
+    if (rows != nullptr && (int)blockIdx.y * BM >= rows[z]) {
+      zero_tile<BM, BN, 32 * WARPS_M * WARPS_N>(out, M, N, blockIdx.y * BM, blockIdx.x * BN);
+      return;
+    }
   }
   using C = TcCfg<BM, BN, BK, WARPS_M, WARPS_N>;
   __shared__ __align__(128) __nv_bfloat16 As[2][C::A_ELEMS];
@@ -148,12 +166,16 @@ template <bool BATCHED, typename O>
 __global__ void __launch_bounds__(F_NT)
     mmm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
                    const float* __restrict__ bias, O* __restrict__ out, int M, int N, int K,
-                   int act, bool vec_a, bool vec_b) {
+                   int act, bool vec_a, bool vec_b, const int* __restrict__ rows) {
   if constexpr (BATCHED) {  // block z: matrix z
     const size_t z = blockIdx.z;
     A += z * M * K;
     B += z * K * N;
     out += z * M * N;
+    if (rows != nullptr && (int)blockIdx.y * F_BM >= rows[z]) {
+      zero_tile<F_BM, F_BN, F_NT>(out, M, N, blockIdx.y * F_BM, blockIdx.x * F_BN);
+      return;
+    }
   }
   constexpr int LDA = F_BK + 4, LDB = F_BN + 4;
   __shared__ __align__(128) float As[2][F_BM * LDA];
@@ -210,39 +232,41 @@ __global__ void __launch_bounds__(F_NT)
 
 template <bool BATCHED, int BM, int BN, int BK, int WM, int WN, typename O>
 void launch_bf16(const void* a, const void* b, const float* bias, void* out, int M, int N, int K,
-                 int act, int batch, cudaStream_t s, Split sp = {1, 0}, float* partial = nullptr) {
+                 int act, int batch, cudaStream_t s, Split sp = {1, 0}, float* partial = nullptr,
+                 const int* rows = nullptr) {
   const bool vec_a = aligned16(a) && K % 8 == 0;
   const bool vec_b = aligned16(b) && N % 8 == 0;
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, BATCHED ? batch : sp.splits);
   mmm_bf16_kernel<BATCHED, BM, BN, BK, WM, WN, O><<<grid, 32 * WM * WN, 0, s>>>(
       static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b), bias,
       static_cast<O*>(out), M, N, K, act, vec_a, vec_b, sp.splits > 1 ? sp.k_chunk : K,
-      sp.splits > 1 ? partial : nullptr);
+      sp.splits > 1 ? partial : nullptr, rows);
   finish_split<O>(partial, sp, bias, static_cast<O*>(out), M, N, act, s);
 }
 
 template <bool BATCHED, typename O>
 void launch_f32(const void* a, const void* b, const float* bias, void* out, int M, int N, int K,
-                int act, int batch, cudaStream_t s) {
+                int act, int batch, cudaStream_t s, const int* rows = nullptr) {
   const bool vec_a = aligned16(a) && K % 4 == 0;
   const bool vec_b = aligned16(b) && N % 4 == 0;
   dim3 grid((N + F_BN - 1) / F_BN, (M + F_BM - 1) / F_BM, batch);
   mmm_f32_kernel<BATCHED, O><<<grid, F_NT, 0, s>>>(static_cast<const float*>(a),
                                                    static_cast<const float*>(b), bias,
                                                    static_cast<O*>(out), M, N, K, act, vec_a,
-                                                   vec_b);
+                                                   vec_b, rows);
 }
 
 template <bool BATCHED, typename O>
 void launch(const void* a, const void* b, const float* bias, void* out, int M, int N, int K,
-            int in_dtype, int act, int batch, cudaStream_t s, float* workspace) {
+            int in_dtype, int act, int batch, cudaStream_t s, float* workspace, const int* rows) {
   if (in_dtype == DT_F32) {
-    launch_f32<BATCHED, O>(a, b, bias, out, M, N, K, act, batch, s);
+    launch_f32<BATCHED, O>(a, b, bias, out, M, N, K, act, batch, s, rows);
   } else if (M <= D_BM) {  // decode: one 16-row tile, 4 warps side by side over 64 columns
     launch_bf16<BATCHED, D_BM, D_BN, D_BK, 1, 4, O>(a, b, bias, out, M, N, K, act, batch, s,
-                                                    plan_split(M, N, K, !BATCHED), workspace);
+                                                    plan_split(M, N, K, !BATCHED), workspace, rows);
   } else {  // prefill: 128x128 tile, 8 warps of 64x32
-    launch_bf16<BATCHED, 128, 128, 32, 2, 4, O>(a, b, bias, out, M, N, K, act, batch, s);
+    launch_bf16<BATCHED, 128, 128, 32, 2, 4, O>(a, b, bias, out, M, N, K, act, batch, s, {1, 0},
+                                                nullptr, rows);
   }
 }
 
@@ -251,11 +275,12 @@ void launch(const void* a, const void* b, const float* bias, void* out, int M, i
 // bias (N,) fp32 or null and the activation applied.  Unbatched (batch 1)
 // the decode tile splits K, and `workspace` holds at least
 // split_workspace(M, N, K, in_dtype == bf16) bytes (null if that is 0).
+// Batched, `rows` (batch,) on the device or null: see BATCHED above.
 // Launches on `s` and returns cudaGetLastError() (0 on success).
 template <bool BATCHED>
 int gemm(const void* a, const void* b, const float* bias, void* out, int M, int N, int K,
          int batch, int in_dtype, int out_dtype, int act, void* workspace,
-         long long workspace_bytes, cudaStream_t s) {
+         long long workspace_bytes, cudaStream_t s, const int* rows = nullptr) {
   if ((in_dtype != DT_F32 && in_dtype != DT_BF16) || (out_dtype != DT_F32 && out_dtype != DT_BF16) ||
       act < ACT_NONE || act > ACT_TANH || M <= 0 || N <= 0 || K < 0 || batch <= 0 ||
       batch > (BATCHED ? 65535 : 1) ||
@@ -264,9 +289,9 @@ int gemm(const void* a, const void* b, const float* bias, void* out, int M, int 
     return static_cast<int>(cudaErrorInvalidValue);
   float* ws = static_cast<float*>(workspace);
   if (out_dtype == DT_F32)
-    launch<BATCHED, float>(a, b, bias, out, M, N, K, in_dtype, act, batch, s, ws);
+    launch<BATCHED, float>(a, b, bias, out, M, N, K, in_dtype, act, batch, s, ws, rows);
   else
-    launch<BATCHED, __nv_bfloat16>(a, b, bias, out, M, N, K, in_dtype, act, batch, s, ws);
+    launch<BATCHED, __nv_bfloat16>(a, b, bias, out, M, N, K, in_dtype, act, batch, s, ws, rows);
   return static_cast<int>(cudaGetLastError());
 }
 

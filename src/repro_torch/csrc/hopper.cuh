@@ -1,36 +1,41 @@
 // Hopper (sm_90a) building blocks of the port's wgmma kernels: the
-// systolic GEMM's prefill tile (systolic_mmm.cu) and flash attention
-// (flash_attn.cu).  Inline PTX only; nothing here links libcuda (the tensor
-// map encoder is looked up through the runtime at first use).
+// systolic GEMM's prefill tile and the grouped expert GEMM's tile
+// (wgmma_gemm.cuh), the block-scaled GEMM's int8 prefill tile (systolic_qmm.cu)
+// and flash attention (flash_attn.cu).  Inline PTX only; nothing here links
+// libcuda (the tensor map encoder is looked up through the runtime at first
+// use).
 //
-//   * wgmma shared-memory descriptors for 128-byte-swizzled tiles, and the
+//   * wgmma shared-memory descriptors for 128-byte-swizzled tiles, the
 //     m64nNk16 bf16 -> fp32 instructions for N = 64, 128 and 256, with A from
-//     shared memory or from registers;
+//     shared memory or from registers, and four m64n128k32 int8 -> int32
+//     steps in one block (both operands K-major in shared memory);
 //   * wgmma fence / commit / wait, and an operand fence that keeps the
 //     compiler from moving accumulator registers across an async product;
 //   * mbarrier init, arrive, arrive + expect-tx and try-wait on a phase parity;
-//   * TMA 2-D and 4-D tile loads that complete on an mbarrier, and the host
-//     side encoding of bf16 tensor maps with the 128-byte swizzle;
+//   * TMA 2-D, 3-D and 4-D tile loads that complete on an mbarrier, and the
+//     host side encoding of bf16 and 1-byte tensor maps with the 128-byte
+//     swizzle;
 //   * setmaxnreg, to move registers from a producer warpgroup to consumers;
 //   * the 128-byte swizzle for tiles that threads write and read themselves
 //     (the kernels' staged epilogues), and named barriers.
 //
-// Layout conventions (bf16).  Every tile is staged by TMA with
-// CU_TENSOR_MAP_SWIZZLE_128B in boxes 64 elements (128 bytes) wide, so a
-// box of R rows is R rows of 128 bytes, the 16-byte chunk c of row r stored
-// at chunk c ^ (r % 8), in 1024-byte-aligned atoms of 8 rows.
-//   * K-major operand (rows along M or N, 64 k per row): one 16-deep k step
-//     starts 32 bytes further into the row; 8-row groups are 1024 bytes apart
-//     (SBO); LBO is unused (16).
-//   * MN-major operand (rows along k, 64 M/N elements per row; wgmma's
-//     transpose bit): a 16-deep k step starts 16 rows = 2048 bytes further;
-//     8-row k groups are 1024 bytes apart (SBO) and 64-wide M/N atoms, one
-//     box each, are LBO bytes apart.
-// Accumulator layout of m64nNk16 (fp32), thread t of the warpgroup, warp
-// w = t / 32, lane l: d[4c + 2i + j] is row 16w + l/4 + 8i, column
-// 8c + 2(l%4) + j.  A from registers (bf16 pairs) takes the same layout per
-// 16-wide k step: {d[8s], d[8s+1]}, {d[8s+2], d[8s+3]}, {d[8s+4], d[8s+5]},
-// {d[8s+6], d[8s+7]} of an accumulator are the A fragment of k step s.
+// Layout conventions.  Every tile is staged by TMA with
+// CU_TENSOR_MAP_SWIZZLE_128B in boxes 128 bytes wide (64 bf16 or 128 8-bit
+// elements), so a box of R rows is R rows of 128 bytes, the 16-byte chunk c
+// of row r stored at chunk c ^ (r % 8), in 1024-byte-aligned atoms of 8 rows.
+//   * K-major operand (rows along M or N, 128 bytes of k per row): one k
+//     step (16 bf16 or 32 8-bit values) starts 32 bytes further into the
+//     row; 8-row groups are 1024 bytes apart (SBO); LBO is unused (16).
+//   * MN-major operand (bf16 only; rows along k, 64 M/N elements per row;
+//     wgmma's transpose bit): a 16-deep k step starts 16 rows = 2048 bytes
+//     further; 8-row k groups are 1024 bytes apart (SBO) and 64-wide M/N
+//     atoms, one box each, are LBO bytes apart.
+// Accumulator layout of m64nNk16 and m64nNk32 (fp32 or int32), thread t of
+// the warpgroup, warp w = t / 32, lane l: d[4c + 2i + j] is row
+// 16w + l/4 + 8i, column 8c + 2(l%4) + j.  A from registers (bf16 pairs)
+// takes the same layout per 16-wide k step: {d[8s], d[8s+1]}, {d[8s+2],
+// d[8s+3]}, {d[8s+4], d[8s+5]}, {d[8s+6], d[8s+7]} of an accumulator are the
+// A fragment of k step s.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only)
@@ -76,6 +81,11 @@ template <int N>
 __device__ __forceinline__ void fence_operand(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_operand(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 // d (+)= A @ B over one 16-deep k step.  `ss`: A and B from shared memory,
@@ -214,6 +224,64 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2], const uint32_t (&
     wgmma_m64n128k16_rs_tb(d, a, desc_b, scale_d);
 }
 
+// d (+)= A @ B of int8 operands into int32 (exact), 128 columns, both
+// operands K-major in shared memory (8-bit wgmma has no transpose bit; its
+// 32-deep k step is 32 bytes of a 128-byte row, as a 16-deep bf16 step is).
+// The accumulator layout is the fp32 one above.  scale_d = 0 overwrites d
+// with the first step's product, 1 accumulates.
+// Four k32 steps in one block: d (+)= A @ B over the 128 bytes of k of a
+// 128-byte-swizzled row (each step's descriptors 32 bytes, i.e. 2 in the
+// address field, further), with nothing between the instructions that could
+// touch the accumulator.
+__device__ __forceinline__ void wgmma_m64n128k128_s8(int (&d)[64], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p, t;\n.reg .b64 da, db;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "setp.eq.b32 t, 0, 0;\n"
+      "mov.b64 da, %64;\n"
+      "mov.b64 db, %65;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "da, db, p;\n"
+      "add.s64 da, da, 2;\n"
+      "add.s64 db, db, 2;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "da, db, t;\n"
+      "add.s64 da, da, 2;\n"
+      "add.s64 db, db, 2;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "da, db, t;\n"
+      "add.s64 da, da, 2;\n"
+      "add.s64 db, db, 2;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "da, db, t;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // Two fp32 values as a bf16 pair (round to nearest even), lo in the low half.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -285,6 +353,13 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
       : "memory");
 }
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1, int c2,
                                             int c3) {
   asm volatile(
@@ -313,19 +388,30 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// Host: a bf16 tensor map of `rank` dimensions (sizes innermost first;
-// byte strides of dimensions 1.. in `strides`) read in boxes of `box`
-// elements, 128-byte swizzle, zeros outside the tensor.  Returns a CUDA
-// error code (0 = ok).
-inline int encode_bf16_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-                           const cuuint64_t* strides, const cuuint32_t* box) {
+// Host: a tensor map of `rank` dimensions of `type` elements (sizes
+// innermost first; byte strides of dimensions 1.. in `strides`) read in
+// boxes of `box` elements, 128-byte swizzle, zeros outside the tensor.
+// Returns a CUDA error code (0 = ok).
+inline int encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rank, const cuuint64_t* dims,
+                      const cuuint64_t* strides, const cuuint32_t* box) {
   const EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, static_cast<cuuint32_t>(rank), const_cast<void*>(base),
-                        dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = fn(map, type, static_cast<cuuint32_t>(rank), const_cast<void*>(base), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+inline int encode_bf16_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                           const cuuint64_t* strides, const cuuint32_t* box) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims, strides, box);
+}
+
+// 1-byte elements (int8).
+inline int encode_u8_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                         const cuuint64_t* strides, const cuuint32_t* box) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, base, rank, dims, strides, box);
 }
 
 }  // namespace hopper

@@ -91,10 +91,12 @@ def quant_matmul(
     a_s, qk_a = _row_scales(a, m, k)
     b_s, qk_b = _col_scales(b, k, n)
     call = quant_systolic_matmul_ref if a.values.device.type == "cpu" else _kernel.quant_systolic_matmul_call
+    # K-major weights (``quant.k_major``) go as they are: the prefill tile reads them so.
+    bv = b.values if _kernel.is_k_major(b.values) else b.values.contiguous()
     return call(
         a.values.contiguous(),
         a_s,
-        b.values.contiguous(),
+        bv,
         b_s,
         qk_a=qk_a,
         qk_b=qk_b,

@@ -124,7 +124,9 @@ def init_params(model, seed: int, device: torch.device, quantize: str = "none"):
     n_q, q_bytes = quant.count_quantized(params)
     print(f"quantize[{quantize}]: {n_q} projection weights -> int8 ({q_bytes / 1e6:.1f} MB resident values)")
     params = cast_params(params, getattr(torch, model.cfg.dtype))
-    return params, quant.use_act_quant("int8") if quantize == "w8a8" else contextlib.nullcontext()
+    if quantize == "w8a16":
+        return params, contextlib.nullcontext()
+    return quant.k_major(params), quant.use_act_quant("int8")  # the layout the block-scaled kernel reads
 
 
 if __name__ == "__main__":

@@ -57,10 +57,13 @@ def capacity(tokens_per_group: int, cfg: ArchConfig) -> int:
 
 def _dispatch_group(xf: torch.Tensor, top_e: torch.Tensor, top_w: torch.Tensor, cap: int, cfg: ArchConfig):
     """Sort-based dispatch of G groups at once.  xf: (G, T, d); top_e, top_w:
-    (G, T, k).  -> (xdisp (G, E, C, d), se, pos, order, sw), each of the last
-    four (G, T*k) in expert-sorted slot order: the slot's expert, its place
-    within the expert, its index in the flat (token, choice) order (so its
-    token is ``order // k``), and its router weight in ``xf.dtype``."""
+    (G, T, k).  -> (xdisp (G, E, C, d), se, pos, order, sw, rows): se, pos,
+    order and sw are (G, T*k) in expert-sorted slot order: the slot's expert,
+    its place within the expert, its index in the flat (token, choice) order
+    (so its token is ``order // k``), and its router weight in ``xf.dtype``;
+    rows (G, E) int32 is min(count, C), each expert's number of leading
+    capacity rows that hold a token (the rest of xdisp is zeros), which lets
+    the grouped kernel skip empty rows."""
     m = cfg.moe
     g, t, d = xf.shape
     k, e = m.top_k, m.n_experts
@@ -73,6 +76,8 @@ def _dispatch_group(xf: torch.Tensor, top_e: torch.Tensor, top_w: torch.Tensor, 
     # Place within the expert: rank minus the expert's first rank.
     starts = torch.searchsorted(se, torch.arange(e, device=dev).expand(g, e).contiguous())
     pos = torch.arange(t * k, device=dev) - starts.gather(-1, se)
+    ends = torch.cat([starts[:, 1:], starts.new_full((g, 1), t * k)], dim=-1)
+    rows = (ends - starts).clamp(max=cap).to(torch.int32)
 
     # Kept slots go to row (group, expert, pos) of a flat buffer, dropped ones
     # all to one spare last row, which is cut off (its value is not defined).
@@ -82,7 +87,7 @@ def _dispatch_group(xf: torch.Tensor, top_e: torch.Tensor, top_w: torch.Tensor, 
     buf = xf.new_zeros((g * e * cap + 1, d))
     buf.index_copy_(0, dest.reshape(-1), src)
     xdisp = buf[:-1].view(g, e, cap, d)
-    return xdisp, se, pos, order, flat_w.gather(-1, order)
+    return xdisp, se, pos, order, flat_w.gather(-1, order), rows
 
 
 def _combine_group(out: torch.Tensor, se: torch.Tensor, pos: torch.Tensor, order: torch.Tensor,
@@ -148,16 +153,18 @@ def moe_fwd(params: dict, x: torch.Tensor, cfg: ArchConfig):
 
     # --- grouped sort-based dispatch ----------------------------------------
     cap = capacity(tg, cfg)
-    xdisp, se, pos, order, sw = _dispatch_group(
+    xdisp, se, pos, order, sw, rows = _dispatch_group(
         xf.reshape(g, tg, d), top_e.reshape(g, tg, m.top_k), top_w.reshape(g, tg, m.top_k), cap, cfg
     )
 
     # --- expert compute: grouped GEMMs --------------------------------------
+    # Rows past an expert's count are zero in xdisp, so in gate and up, and
+    # silu(0) * 0 = 0 keeps them zero in h: all three products may skip them.
     wdt = x.dtype
-    gate = ops.grouped_matmul(xdisp, params["w_gate"].to(wdt))
-    up = ops.grouped_matmul(xdisp, params["w_up"].to(wdt))
+    gate = ops.grouped_matmul(xdisp, params["w_gate"].to(wdt), rows=rows)
+    up = ops.grouped_matmul(xdisp, params["w_up"].to(wdt), rows=rows)
     h = F.silu(gate.float()).to(wdt) * up
-    out = ops.grouped_matmul(h, params["w_down"].to(wdt))  # (G, E, C, d)
+    out = ops.grouped_matmul(h, params["w_down"].to(wdt), rows=rows)  # (G, E, C, d)
 
     # --- combine --------------------------------------------------------------
     y = _combine_group(out, se, pos, order, sw, tg, cap, x.dtype).reshape(t, d)

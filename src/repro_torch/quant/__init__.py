@@ -17,7 +17,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 
-from repro_torch.quant.params import count_quantized, quantize_params
+from repro_torch.quant.params import count_quantized, k_major, quantize_params
 from repro_torch.quant.qarray import (
     DEFAULT_BLOCK_K,
     QDTYPES,
@@ -35,6 +35,7 @@ __all__ = [
     "act_qdtype",
     "canonical_qdtype",
     "count_quantized",
+    "k_major",
     "quantize",
     "quantize_act",
     "quantize_params",

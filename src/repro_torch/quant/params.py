@@ -14,6 +14,7 @@ holding a ``router`` (MoE experts), and a ``w`` that is not 2-D.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import torch
@@ -74,3 +75,25 @@ def count_quantized(params: Any) -> tuple[int, int]:
 
     walk(params)
     return n, nbytes
+
+
+def k_major(params: Any) -> Any:
+    """Lay every 2-D quantized projection weight out K-major, once: its
+    ``values`` stay the same (K, N) tensor of the same values, as a view with
+    strides (1, K) over (N, K) row-major storage; ``scales`` are untouched.
+    The block-scaled kernel's prefill tile reads 8-bit weights only K-major
+    (Hopper's 8-bit ``wgmma`` has no transpose), so the w8a8 weights are laid
+    out so when they are quantized for the card; one copy is kept.  The
+    ``lm_head`` stays row-major: it is dequantized, never a kernel operand.
+    w8a16, which dequantizes every weight, keeps them row-major too."""
+
+    def walk(node):
+        if isinstance(node, QArray):
+            return dataclasses.replace(node, values=node.values.t().contiguous().t()) if node.ndim == 2 else node
+        if isinstance(node, dict):
+            return {k: v if k == "lm_head" else walk(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        return node
+
+    return walk(params)

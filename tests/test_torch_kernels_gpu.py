@@ -31,7 +31,7 @@ from repro_torch.kernels.grouped.ref import grouped_matmul_ref
 from repro_torch.kernels.systolic import kernel as mm_kernel
 from repro_torch.kernels.systolic import ops as mm_ops
 from repro_torch.kernels.systolic.ref import ACTIVATIONS, matmul_ref, quant_matmul_ref
-from repro_torch.quant import quantize, quantize_act, quantize_weight
+from repro_torch.quant import k_major, quantize, quantize_act, quantize_weight
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 GEMM_SHAPES = [
@@ -332,7 +332,7 @@ def test_quant_kernel_raises_on_a_step_off_the_16_grid(cuda):
 
 
 GROUPED_SHAPES = [
-    (128, 160, 2048, 768),  # prefill gate / up (E, C, K, N): the 128-row tile
+    (128, 160, 2048, 768),  # prefill gate / up (E, C, K, N): the 192-row wgmma tile
     (128, 160, 768, 2048),  # prefill down
     (128, 8, 2048, 768),  # decode: the 16-row tile
     (128, 8, 768, 2048),
@@ -341,7 +341,7 @@ GROUPED_SHAPES = [
     (4, 13, 70, 130),
     (3, 100, 70, 130),
     (2, 16, 64, 64),  # the largest C of the small tile
-    (2, 17, 64, 64),  # the smallest of the large
+    (2, 17, 64, 64),  # the smallest of the wgmma tiles
     (8, 64, 96, 160),
 ]
 
@@ -363,7 +363,7 @@ def test_grouped_kernel_matches_plain(cuda, e, c, k, n, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("c", [8, 100])  # both tiles
+@pytest.mark.parametrize("c", [8, 100])  # the decode and a wgmma tile
 def test_grouped_kernel_experts_independent(cuda, c):
     """Zeroing one expert's weights zeroes only its slice."""
     x = _rand((3, c, 32), 3).to(cuda, torch.bfloat16)
@@ -387,3 +387,171 @@ def test_grouped_kernel_shape_errors(cuda):
         grouped_kernel.grouped_matmul_call(x, torch.ones(2, 8, 4, device=cuda, dtype=torch.bfloat16))
     with pytest.raises(ValueError):
         grouped_kernel.grouped_matmul_call(x.transpose(1, 2), torch.ones(2, 4, 4, device=cuda))
+
+
+# The grouped GEMM's wgmma tiles: both served prefill shapes at C of 100,
+# 160 and 200 (one, one and two row tiles), and K and N not multiples of 64
+# (multiples of 8: TMA zero-fills the rest).  Each with ``rows`` of every
+# kind: None (all rows), all C, none, partial counts (inside the first tile,
+# on a tile edge, past it), and the decode routing (most experts empty).
+GROUPED_WGMMA_SHAPES = [(e, c, k, n) for c in (100, 160, 200) for e, k, n in ((16, 2048, 768), (16, 768, 2048))]
+GROUPED_WGMMA_SHAPES += [(5, 160, 200, 136), (5, 100, 72, 264), (5, 200, 520, 8), (3, 40, 8, 1000)]
+
+
+def _rows_patterns(e, c):
+    full = [c] * e
+    partial = [(7 * i + 3) % (c + 1) for i in range(e)]
+    edges = [min(c, v) for v in (0, 1, 63, 64, 65, 127, 128, 129, 191, 192)][:e] + [c] * max(0, e - 10)
+    decode = [1 if i % 4 == 0 else 0 for i in range(e)]
+    return {"none": None, "all": full, "empty": [0] * e, "partial": partial, "edges": edges, "decode": decode}
+
+
+def _grouped_case(cuda, e, c, k, n, rows, seed):
+    x = _rand((e, c, k), seed).to(cuda, torch.bfloat16)
+    w = _rand((e, k, n), seed + 1).to(cuda, torch.bfloat16)
+    r = None
+    if rows is not None:
+        r = torch.tensor(rows, dtype=torch.int32, device=cuda)
+        for i, v in enumerate(rows):
+            x[i, v:] = 0  # the dispatch leaves rows past an expert's count zero
+    return x, w, r
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pattern", ["none", "all", "empty", "partial", "edges", "decode"])
+@pytest.mark.parametrize("e,c,k,n", GROUPED_WGMMA_SHAPES)
+def test_grouped_wgmma_tile_matches_plain(cuda, e, c, k, n, pattern):
+    x, w, r = _grouped_case(cuda, e, c, k, n, _rows_patterns(e, c)[pattern], 21)
+    path = grouped_kernel.grouped_path(c, k, n, torch.bfloat16, True)
+    assert path.startswith("wgmma")
+    before = grouped_kernel.launches_by_path[path]
+    got = grouped_ops.grouped_matmul(x, w, rows=r)
+    want = grouped_matmul_ref(x, w)
+    torch.cuda.synchronize()
+    assert grouped_kernel.launches_by_path[path] == before + 1
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+    if r is not None:  # skipped tiles and computed ones give the same bits as no rows at all
+        assert torch.equal(got, grouped_ops.grouped_matmul(x, w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pattern", ["all", "empty", "partial", "decode"])
+@pytest.mark.parametrize("e,c,k,n,dtype", [(128, 8, 2048, 768, "bfloat16"), (128, 8, 768, 2048, "bfloat16"),
+                                           (6, 13, 70, 130, "bfloat16"), (6, 100, 70, 130, "bfloat16"),
+                                           (6, 100, 72, 136, "float32"), (6, 8, 72, 136, "float32")])
+def test_grouped_other_tiles_skip_rows(cuda, e, c, k, n, dtype, pattern):
+    """rows on the decode, WMMA and FMA tiles: the same result as without."""
+    rows = _rows_patterns(e, c)[pattern]
+    x, w, r = _grouped_case(cuda, e, c, k, n, rows, 23)
+    x, w = x.to(DTYPES[dtype]), w.to(DTYPES[dtype])
+    got = grouped_ops.grouped_matmul(x, w, rows=r)
+    torch.testing.assert_close(got.float(), grouped_matmul_ref(x, w).float(), **_gemm_tol(dtype, k, x.dtype))
+    assert torch.equal(got, grouped_ops.grouped_matmul(x, w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["wgmma_64x128", "wgmma_128x128", "wgmma_192x128"])
+@pytest.mark.parametrize("e,c,k,n", [(4, 100, 200, 136), (4, 17, 64, 8), (4, 250, 520, 264)])
+def test_each_grouped_wgmma_tile_matches_plain(cuda, path, e, c, k, n):
+    """Each wgmma tile through the C entry directly, whatever the rule would
+    pick, with partial rows."""
+    lib, fn = mm_kernel._entry("grouped_mmm")
+    x, w, r = _grouped_case(cuda, e, c, k, n, [c, 0, c // 2, 1], 25)
+    for rows in (None, r):
+        y = torch.empty((e, c, n), dtype=torch.bfloat16, device=cuda)
+        code = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), e, c, k, n, 1, None if rows is None else rows.data_ptr(),
+                  grouped_kernel.PATHS.index(path), torch.cuda.current_stream().cuda_stream)
+        assert code == 0
+        torch.testing.assert_close(y.float(), grouped_matmul_ref(x, w).float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.gpu
+def test_grouped_wgmma_is_deterministic(cuda):
+    x = _rand((128, 160, 2048), 26).to(cuda, torch.bfloat16)
+    w = _rand((128, 2048, 768), 27).to(cuda, torch.bfloat16)
+    assert torch.equal(grouped_ops.grouped_matmul(x, w), grouped_ops.grouped_matmul(x, w))
+
+
+@pytest.mark.gpu
+def test_grouped_binding_checks_rows(cuda):
+    x = torch.ones(2, 32, 8, device=cuda, dtype=torch.bfloat16)
+    w = torch.ones(2, 8, 8, device=cuda, dtype=torch.bfloat16)
+    for bad in (torch.zeros(2, device=cuda), torch.zeros(3, dtype=torch.int32, device=cuda),
+                torch.zeros(2, dtype=torch.int32)):
+        with pytest.raises(ValueError, match="rows"):
+            grouped_kernel.grouped_matmul_call(x, w, bad)
+
+
+# The block-scaled GEMM's int8 wgmma tile: K-major B (the serving layout) at
+# the four served prefill shapes and ragged ones (K a multiple of 16, N of
+# 8), every activation, bf16 and fp32 out, then every scale block (steps of
+# whole K or multiples of 128 on the wgmma tile, finer ones on the WMMA
+# tile, both on K-major B); bit-identical to the WMMA tile on row-major B
+# (exact int32 sums, the same retire order).  fp8 takes the WMMA tile on
+# the same operands.
+QGEMM_WGMMA_SHAPES = [
+    (2048, 2048, 2048), (2048, 1024, 2048), (2048, 8192, 2048), (2048, 2048, 8192),  # (M, N, K)
+    (300, 264, 528), (17, 8, 16), (129, 1032, 1040), (2000, 1032, 2064),
+]
+QK_WGMMA = [(128, 128), (64, 64), (32, 32), (0, 0), (128, 64), (32, 0), (0, 128), (96, 64), (256, 256), (48, 32)]
+
+
+def _kmajor_pair(cuda, m, n, k, qd, qk, seed):
+    qa = quantize(_rand((m, k), seed).to(cuda), qd, block=(1, qk[0]))
+    qb = quantize(_rand((k, n), seed + 1).to(cuda), qd, block=(qk[1], 1))
+    return qa, qb, k_major({"w": qb})["w"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,k", QGEMM_WGMMA_SHAPES)
+@pytest.mark.parametrize("qd", list(QDTYPES))
+def test_quant_prefill_tiles_on_k_major_b_match_plain(cuda, m, n, k, qd):
+    qa, qb, qbk = _kmajor_pair(cuda, m, n, k, qd, (128, 128), 31)
+    path = "wgmma" if qd == "int8" else "wmma"
+    before = mm_kernel.quant_launches_by_path[path]
+    for act in ACTIVATIONS:
+        for out_dtype in DTYPES.values():
+            got = mm_ops.quant_matmul(qa, qbk, out_dtype=out_dtype, activation=act)
+            _qgemm_check(got, qa, qb, act, out_dtype)
+            if qd == "int8":
+                assert torch.equal(got, mm_ops.quant_matmul(qa, qb, out_dtype=out_dtype, activation=act))
+    torch.cuda.synchronize()
+    assert mm_kernel.quant_launches_by_path[path] == before + 2 * len(ACTIVATIONS)  # row-major B: the WMMA tile
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qk_a,qk_b", QK_WGMMA)
+@pytest.mark.parametrize("m,n,k", [(100, 136, 512), (300, 264, 528), (256, 256, 2048)])
+@pytest.mark.parametrize("qd", list(QDTYPES))
+def test_quant_prefill_tiles_scale_steps_match_plain(cuda, m, n, k, qd, qk_a, qk_b):
+    qa, qb, qbk = _kmajor_pair(cuda, m, n, k, qd, (qk_a, qk_b), 33)
+    step = mm_kernel.scale_step(*(q if q < k else 0 for q in (qk_a, qk_b)), k)
+    whole = not any(0 < q < k for q in (qk_a, qk_b))
+    path = "wgmma" if qd == "int8" and (whole or step % mm_kernel.WGMMA_QK == 0) else "wmma"
+    before = mm_kernel.quant_launches_by_path[path]
+    got = mm_ops.quant_matmul(qa, qbk, out_dtype=torch.float32, activation="silu")
+    assert mm_kernel.quant_launches_by_path[path] == before + 1
+    _qgemm_check(got, qa, qb, "silu", torch.float32)
+    if qd == "int8":
+        assert torch.equal(got, mm_ops.quant_matmul(qa, qb, out_dtype=torch.float32, activation="silu"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,k", [(4, 2048, 2048), (4, 1024, 2048), (4, 8192, 2048), (4, 2048, 8192),
+                                   (1, 1000, 300), (9, 4000, 70), (16, 136, 520), (100, 130, 520)])
+@pytest.mark.parametrize("qd", list(QDTYPES))
+def test_quant_wmma_tiles_take_k_major_b(cuda, m, n, k, qd):
+    """The decode tile (split-K) and the WMMA prefill tile read K-major B:
+    within the tolerance, and bit-identical to row-major B."""
+    for qk in ((128, 128), (48, 32), (0, 0)):
+        qa, qb, qbk = _kmajor_pair(cuda, m, n, k, qd, qk, 35)
+        for out_dtype in DTYPES.values():
+            got = mm_ops.quant_matmul(qa, qbk, out_dtype=out_dtype, activation="gelu")
+            _qgemm_check(got, qa, qb, "gelu", out_dtype)
+            assert torch.equal(got, mm_ops.quant_matmul(qa, qb, out_dtype=out_dtype, activation="gelu"))
+
+
+@pytest.mark.gpu
+def test_quant_wgmma_is_deterministic(cuda):
+    qa, _, qbk = _kmajor_pair(cuda, 2048, 8192, 2048, "int8", (128, 128), 37)
+    assert torch.equal(mm_ops.quant_matmul(qa, qbk), mm_ops.quant_matmul(qa, qbk))

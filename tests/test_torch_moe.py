@@ -19,6 +19,7 @@ Tolerances:
 """
 
 import dataclasses
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -122,7 +123,7 @@ def test_dispatch_and_combine_equal_reference(cf, ties):
     top_e, top_w = _routing(t, e, k, seed=3, ties=ties)
     xf = _x((t, d), 1)
     jd = jax_moe._dispatch_group(jnp.asarray(xf), jnp.asarray(top_e), jnp.asarray(top_w), cap, jcfg)
-    xdisp, se, pos, order, sw = moe._dispatch_group(
+    xdisp, se, pos, order, sw, _ = moe._dispatch_group(
         torch.from_numpy(xf)[None], torch.from_numpy(top_e)[None], torch.from_numpy(top_w)[None], cap, tcfg
     )
     np.testing.assert_array_equal(xdisp[0].numpy(), np.asarray(jd[0]))
@@ -160,6 +161,84 @@ def test_dispatch_groups_equal_reference_per_group():
     np.testing.assert_allclose(got.numpy(), _np(want), rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("cf", [1.25, 0.5, 2.0])  # 0.5 drops slots
+@pytest.mark.parametrize("groups", [1, 2])
+def test_dispatch_rows_are_each_experts_kept_slots(cf, groups):
+    """rows = min(bincount(experts), cap) per group, and equals the number of
+    kept slots the reference's dispatch places in each expert (positions
+    below capacity), on the same routing; rows past it are zero in xdisp."""
+    e, k, t, d = 8, 2, 24, 8
+    jcfg, tcfg = _cfgs(n_experts=e, top_k=k, capacity_factor=cf)
+    cap = moe.capacity(t, tcfg)
+    top_e, top_w = _routing(groups * t, e, k, seed=7)
+    top_e, top_w = top_e.reshape(groups, t, k), top_w.reshape(groups, t, k)
+    xf = _x((groups, t, d), 8)
+    xdisp, _, _, _, _, rows = moe._dispatch_group(torch.from_numpy(xf), torch.from_numpy(top_e),
+                                                  torch.from_numpy(top_w), cap, tcfg)
+    assert rows.dtype == torch.int32 and tuple(rows.shape) == (groups, e)
+    for gi in range(groups):
+        counts = np.bincount(top_e[gi].reshape(-1), minlength=e)
+        np.testing.assert_array_equal(rows[gi].numpy(), np.minimum(counts, cap))
+        jd = jax_moe._dispatch_group(jnp.asarray(xf[gi]), jnp.asarray(top_e[gi]), jnp.asarray(top_w[gi]), cap, jcfg)
+        se, pos = np.asarray(jd[1]), np.asarray(jd[2])
+        np.testing.assert_array_equal(rows[gi].numpy(), [int(((se == x) & (pos < cap)).sum()) for x in range(e)])
+        for x in range(e):
+            assert not xdisp[gi, x, int(rows[gi, x]):].any()
+
+
+@pytest.mark.parametrize(
+    "overrides", [{}, {"dispatch_groups": 2}, {"capacity_factor": 0.5}, {"capacity_factor": 4.0}],
+    ids=["plain", "groups2", "dropping", "roomy"],
+)
+def test_moe_fwd_with_and_without_rows_identical(overrides):
+    """The MoE block with ``rows`` handed to the grouped GEMMs and with them
+    withheld: bit-identical, and both within the existing tolerance of the
+    JAX package."""
+    jcfg, tcfg = _cfgs(**overrides)
+    jp = jax_moe.init_moe(jax.random.PRNGKey(11), jcfg)
+    tp = jax.tree.map(lambda a: torch.from_numpy(np.array(a)), jp)
+    x = _x((2, 12, tcfg.d_model), 5)
+    seen = []
+    real = ops.grouped_matmul
+
+    def spy(xd, w, *, rows=None):
+        seen.append(rows)
+        return real(xd, w, rows=rows)
+
+    with mock.patch.object(ops, "grouped_matmul", spy):
+        with_rows, _ = moe.moe_fwd(tp, torch.from_numpy(x), tcfg)
+    with mock.patch.object(ops, "grouped_matmul", lambda xd, w, *, rows=None: real(xd, w)):
+        without, _ = moe.moe_fwd(tp, torch.from_numpy(x), tcfg)
+    assert len(seen) == 3 and all(r is not None for r in seen)
+    assert torch.equal(with_rows, without)
+    want, _ = jax_moe.moe_fwd(jp, jnp.asarray(x), jcfg)
+    np.testing.assert_allclose(with_rows.numpy(), _np(want), rtol=0, atol=FP32_TOL)
+
+
+def test_core_grouped_matmul_forwards_rows_for_one_group():
+    """rows reach the grouped GEMM for (E, C, K) and (1, E, C, K) input, and
+    are withheld for G > 1 (the fold interleaves the groups' rows); the
+    result does not change either way."""
+    from repro_torch.kernels.grouped import ops as gops
+
+    seen = []
+    real = gops.grouped_matmul
+
+    def spy(x, w, *, rows=None):
+        seen.append(rows)
+        return real(x, w, rows=rows)
+
+    w = torch.from_numpy(_x((4, 32, 40), 2))
+    with mock.patch.object(gops, "grouped_matmul", spy):
+        for shape, r in (((4, 24, 32), torch.tensor([3, 0, 24, 9], dtype=torch.int32)),
+                         ((1, 4, 24, 32), torch.tensor([[3, 0, 24, 9]], dtype=torch.int32)),
+                         ((2, 4, 24, 32), torch.zeros(2, 4, dtype=torch.int32))):
+            x = torch.from_numpy(_x(shape, 1))
+            torch.testing.assert_close(ops.grouped_matmul(x, w, rows=r), ops.grouped_matmul(x, w), rtol=0, atol=0)
+    assert seen[0] is not None and seen[2] is not None and seen[4] is None
+    assert torch.equal(seen[2], torch.tensor([3, 0, 24, 9], dtype=torch.int32))
+
+
 # -- grouped GEMM ---------------------------------------------------------------
 
 
@@ -180,6 +259,8 @@ def test_grouped_matmul_out_dtype_and_shape_errors():
     x, w = torch.from_numpy(_x((2, 4, 8))), torch.from_numpy(_x((2, 8, 4)))
     assert grouped_matmul(x.bfloat16(), w.bfloat16()).dtype == torch.bfloat16  # the output takes x's dtype
     torch.testing.assert_close(grouped_matmul(x, w), grouped_matmul_ref(x, w))
+    # The plain version ignores rows: the same result with or without them.
+    assert torch.equal(grouped_matmul(x, w, rows=torch.tensor([1, 0], dtype=torch.int32)), grouped_matmul(x, w))
     with pytest.raises(ValueError):
         grouped_matmul(torch.ones(2, 4, 8), torch.ones(3, 8, 4))
     with pytest.raises(ValueError):
@@ -313,6 +394,34 @@ def test_served_smoke_moe_close_bf16():
         if step < 2:
             want, jcache = jmodel.decode_step(jparams, jnp.asarray(tok), cache=jcache, pos=16 + step)
             got, tcache = tmodel.decode_step(tparams, torch.from_numpy(tok), cache=tcache, pos=16 + step)
+
+
+@pytest.mark.parametrize(
+    "c,k,n,dtype,aligned,want",
+    [
+        (160, 2048, 768, torch.bfloat16, True, "wgmma_192x128"),  # prefill: one tile covers C
+        (160, 768, 2048, torch.bfloat16, True, "wgmma_192x128"),
+        (8, 2048, 768, torch.bfloat16, True, "decode"),  # decode capacity
+        (16, 64, 64, torch.bfloat16, True, "decode"),
+        (17, 64, 64, torch.bfloat16, True, "wgmma_64x128"),
+        (64, 64, 64, torch.bfloat16, True, "wgmma_64x128"),
+        (100, 72, 136, torch.bfloat16, True, "wgmma_128x128"),
+        (128, 64, 64, torch.bfloat16, True, "wgmma_128x128"),
+        (200, 64, 64, torch.bfloat16, True, "wgmma_128x128"),  # two row tiles either way: fewer padding rows
+        (320, 64, 64, torch.bfloat16, True, "wgmma_192x128"),
+        (160, 70, 64, torch.bfloat16, True, "wmma"),  # rows TMA cannot read
+        (160, 64, 130, torch.bfloat16, True, "wmma"),
+        (160, 64, 64, torch.bfloat16, False, "wmma"),
+        (160, 0, 64, torch.bfloat16, True, "wmma"),
+        (160, 2048, 768, torch.float32, True, "fma"),
+        (8, 2048, 768, torch.float32, True, "fma"),
+    ],
+)
+def test_grouped_path_by_shape(c, k, n, dtype, aligned, want):
+    from repro_torch.kernels.grouped import kernel
+
+    assert kernel.grouped_path(c, k, n, dtype, aligned) == want
+    assert want in kernel.PATHS
 
 
 def test_kernel_binding_refuses_cpu_tensors():

@@ -451,3 +451,87 @@ def test_plain_kernel_version_on_whole_k_scales():
     got = quant_systolic_matmul_ref(qa.values, qa.scales, qb.values, qb.scales, qk_a=0, qk_b=0,
                                     out_dtype=torch.float32)
     torch.testing.assert_close(got, quant_matmul_ref(qa, qb), rtol=0, atol=0)
+
+
+# -- K-major w8a8 weights ------------------------------------------------------------
+
+
+def test_k_major_weights_keep_values_and_scales_bit_equal_to_jax():
+    """quant.k_major lays the projection weights out K-major (strides (1, K)
+    over (N, K) storage) and changes no value: values and scales stay bit-equal
+    to the reference's quantization of the same fp32 masters; the head stays
+    row-major."""
+    jmodel, jparams, tmodel = _jax_fp32_pair()
+    masters = params_from_jax(_np_tree(jparams), tmodel.cfg, device=CPU, dtype=torch.float32)
+    tq = quant.k_major(quant.quantize_params(masters))
+    jq = jquant.quantize_params(jparams)
+    for i, layer in enumerate(tq["layers"]):
+        for group, key in [("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
+                           ("ffn", "w_gate"), ("ffn", "w_up"), ("ffn", "w_down")]:
+            got, jleaf = layer[group][key], jq["layers"][group][key]
+            k = got.shape[0]
+            assert got.values.stride() == (1, k) and t_kernel.is_k_major(got.values)
+            np.testing.assert_array_equal(_values(got), _values(jleaf)[i])
+            np.testing.assert_array_equal(got.scales.numpy(), np.asarray(jleaf.scales)[i])
+    assert tq["lm_head"]["w"].values.is_contiguous()
+    _assert_same_qarray(tq["lm_head"]["w"], jq["lm_head"]["w"])
+
+
+@pytest.mark.parametrize("qd", QDTYPES)
+@pytest.mark.parametrize("qk", [128, 64, 0])
+def test_plain_quant_matmul_identical_on_k_major_weights(qd, qk):
+    """The plain versions give the same bits on K-major weights as on the
+    row-major ones (the same values), through QArrays and through the
+    kernel-interface plain version that ops.quant_matmul calls."""
+    from repro_torch.kernels.systolic.ref import quant_matmul_ref
+
+    qa = quant.quantize_act(torch.from_numpy(_rand((9, 200), 21)), qd)
+    qb = quant.quantize(torch.from_numpy(_rand((200, 72), 22)), qd, block=(qk, 1))
+    qbk = quant.k_major({"w": qb})["w"]
+    assert t_kernel.is_k_major(qbk.values) and not t_kernel.is_k_major(qb.values)
+    assert torch.equal(quant_matmul_ref(qa, qbk), quant_matmul_ref(qa, qb))
+    assert torch.equal(sops.quant_matmul(qa, qbk, out_dtype=torch.float32),
+                       sops.quant_matmul(qa, qb, out_dtype=torch.float32))
+
+
+def test_quant_kernel_call_takes_k_major_b_and_refuses_other_strides():
+    """The binding accepts B as a K-major view (strides (1, K)): it passes
+    every check and reaches the device check; any other non-contiguous B is
+    refused before it."""
+    a, a_s, b, b_s, kw = _kernel_args(k=64, n=32)
+    kmajor = b.t().contiguous().t()
+    assert kmajor.stride() == (1, 64)
+    with pytest.raises(ValueError, match="CUDA device"):
+        t_kernel.quant_systolic_matmul_call(a, a_s, kmajor, b_s, **kw)
+    wide = torch.zeros((64, 64), dtype=torch.int8)
+    pitched = torch.zeros((32, 128), dtype=torch.int8).t()[:64]  # K-major rows 128 bytes apart, not K
+    for bad in (wide[:, ::2], wide[:, :32], pitched):
+        assert not bad.is_contiguous() and not t_kernel.is_k_major(bad)
+        with pytest.raises(ValueError, match="K-major"):
+            t_kernel.quant_systolic_matmul_call(a, a_s, bad, b_s, **kw)
+
+
+@pytest.mark.parametrize(
+    "m,n,k,step,dtype,kmajor,aligned,want",
+    [
+        (2048, 2048, 2048, 128, torch.int8, True, True, "wgmma"),  # the served prefill shapes
+        (2048, 2048, 8192, 128, torch.int8, True, True, "wgmma"),
+        (4, 2048, 2048, 128, torch.int8, True, True, "decode"),  # the served decode shapes
+        (16, 2048, 2048, 128, torch.int8, True, True, "decode"),
+        (17, 2048, 2048, 128, torch.int8, True, True, "wgmma"),
+        (300, 264, 528, 0, torch.int8, True, True, "wgmma"),  # whole-K scales
+        (300, 264, 528, 256, torch.int8, True, True, "wgmma"),
+        (300, 264, 528, 32, torch.int8, True, True, "wmma"),  # steps inside the tile's 128-deep k stage
+        (300, 264, 528, 64, torch.int8, True, True, "wmma"),
+        (100, 130, 520, 16, torch.int8, True, True, "wmma"),
+        (100, 136, 520, 128, torch.int8, True, True, "wmma"),  # K not a multiple of 16: no TMA rows
+        (100, 130, 512, 128, torch.int8, True, True, "wmma"),  # N not a multiple of 8
+        (2048, 2048, 2048, 128, torch.int8, False, True, "wmma"),  # row-major B: 8-bit wgmma reads B K-major only
+        (2048, 2048, 2048, 128, torch.int8, True, False, "wmma"),
+        (2048, 2048, 2048, 128, torch.float8_e4m3fn, True, True, "wmma"),  # fp8: the WMMA tiles
+        (4, 2048, 2048, 128, torch.float8_e4m3fn, True, True, "decode"),
+    ],
+)
+def test_qgemm_path_by_shape_and_layout(m, n, k, step, dtype, kmajor, aligned, want):
+    assert t_kernel.qgemm_path(m, n, k, step, dtype, kmajor, aligned) == want
+    assert want in t_kernel.QPATHS

@@ -5,8 +5,9 @@ Run from the root of the repository on a machine with the card and nvcc:
 
     python3 tools/ab_systolic.py --base <root of another checkout> [--rounds 9] [--out ab.json]
 
-Both trees' ``systolic_mmm.cu`` (K1), ``grouped_mmm.cu`` (K4) and
-``flash_attn.cu`` (K3) under ``src/repro_torch/csrc/`` are built with this
+Both trees' ``systolic_mmm.cu`` (K1), ``grouped_mmm.cu`` (K4),
+``flash_attn.cu`` (K3) and ``systolic_qmm.cu`` (K5, the block-scaled int8 GEMM)
+under ``src/repro_torch/csrc/`` are built with this
 tree's nvcc flags into ``src/repro_torch/_build/ab/`` and loaded side by side
 through their C entry points (ctypes keeps each library's symbols local).
 Printed: ptxas's register and spill lines of every build; per source, how many
@@ -18,15 +19,21 @@ turn (the base first in even rounds, this tree first in odd ones), with
 ``chip_smoke.py``'s CUDA-event timer and its weights cycled from HBM, and
 whether the two sides' outputs on the same operands are bit-identical.
 Shapes: internlm2-1.8b's projections at M = 2048 (prefill) and M = 4
-(decode), qwen3-moe-30b-a3b's attention and router projections, its expert
-GEMMs at prefill and decode capacity, and both models' prefill attention.
+(decode), on K1 in bf16 and on K5 in int8 (128-k scale blocks, bf16 out, as
+w8a8 serves them), qwen3-moe-30b-a3b's attention and router projections, its
+expert GEMMs at prefill and decode capacity (all rows), and both models'
+prefill attention.
 
 The entry points' signatures are read from each tree's source, so either
 side may predate this tree: a systolic entry without a ``path`` argument
-picks its tile itself (this tree passes the path ``gemm_path`` picks), and a
-flash entry over (BH, S, D) is given contiguous K/V repeated to the query
-heads while the head-aware entry is given the model's (B, S, H, D) layout
-with K/V at the model's KV heads.
+picks its tile itself (this tree passes the path ``gemm_path`` picks), a
+grouped entry without ``rows`` and ``path`` picks its tile itself (this tree
+passes ``grouped_path``'s and no rows), a block-scaled entry without
+``b_kmajor`` and ``path`` is given the int8 weight row-major while one with
+them is given the same values K-major (``quant.k_major``, as w8a8 serves
+them) and the path ``qgemm_path`` picks, and a flash entry over (BH, S, D) is
+given contiguous K/V repeated to the query heads while the head-aware entry
+is given the model's (B, S, H, D) layout with K/V at the model's KV heads.
 """
 
 from __future__ import annotations
@@ -48,13 +55,16 @@ sys.path.insert(0, ROOT)
 import torch  # noqa: E402
 
 from chip_smoke import cycler, randn, time_ms  # noqa: E402
+from repro_torch import quant  # noqa: E402
 from repro_torch.core.hw import dtype_bytes  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.grouped import kernel as grouped_kernel  # noqa: E402
+from repro_torch.kernels.systolic import kernel as mm_kernel  # noqa: E402
 from repro_torch.kernels.systolic.kernel import DTYPE_CODES, PATHS, gemm_path  # noqa: E402
 
 CSRC = os.path.join("src", "repro_torch", "csrc")
 OUT_DIR = os.path.join(ROOT, "src", "repro_torch", "_build", "ab")
-SOURCES = ("systolic_mmm", "grouped_mmm", "flash_attn")
+SOURCES = ("systolic_mmm", "grouped_mmm", "flash_attn", "systolic_qmm")
 BF16, F32 = torch.bfloat16, torch.float32
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # systolic (M, K, N, out dtype)
@@ -62,6 +72,7 @@ SHAPES = [(m, k, n, BF16) for m in (2048, 4) for k, n in ((2048, 2048), (2048, 1
 SHAPES += [(m, k, n, BF16) for m in (2048, 4) for k, n in ((2048, 4096), (2048, 512), (4096, 2048))]
 SHAPES += [(m, 2048, 128, F32) for m in (2048, 4)]
 GROUPED_SHAPES = [(128, c, k, n) for c in (160, 8) for k, n in ((2048, 768), (768, 2048))]  # (E, C, K, N)
+QGEMM_SHAPES = [(m, k, n) for m in (2048, 4) for k, n in ((2048, 2048), (2048, 1024), (2048, 8192), (8192, 2048))]
 FLASH_SHAPES = [(4, 512, 16, 8, 128), (4, 512, 32, 4, 128)]  # (B, S, H, Hkv, D), causal
 
 
@@ -115,7 +126,7 @@ def checked(rc: int, what: str) -> None:
 
 
 class Side:
-    """One tree's three libraries, bound by the signatures in its source."""
+    """One tree's four libraries, bound by the signatures in its source."""
 
     def __init__(self, tree: str, paths: dict[str, str]):
         self.systolic = ctypes.CDLL(paths["systolic_mmm"])
@@ -125,9 +136,18 @@ class Side:
         self.mm.restype = _I
         self.systolic.split_workspace.argtypes = [_I] * 4
         self.systolic.split_workspace.restype = _LL
+        self.gm_paths = n_params(tree, "grouped_mmm", "grouped_mmm") == 11
         self.gm = ctypes.CDLL(paths["grouped_mmm"]).grouped_mmm
-        self.gm.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _P]
+        self.gm.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, *([_P, _I] if self.gm_paths else []), _P]
         self.gm.restype = _I
+        qlib = ctypes.CDLL(paths["systolic_qmm"])
+        self.q_kmajor = n_params(tree, "systolic_qmm", "systolic_qmm") == 18
+        self.qm = qlib.systolic_qmm
+        self.qm.argtypes = [_P] * 5 + [_I] * (10 if self.q_kmajor else 8) + [_P, _LL, _P]
+        self.qm.restype = _I
+        qlib.split_workspace.argtypes = [_I] * 4
+        qlib.split_workspace.restype = _LL
+        self.q_ws = qlib.split_workspace
         self.head_aware = n_params(tree, "flash_attn", "flash_attn_fwd") > 14
         self.fa = ctypes.CDLL(paths["flash_attn"]).flash_attn_fwd
         self.fa.argtypes = ([_P] * 4 + [_I] * 6 + [_LL] * 9 + [ctypes.c_float, _I, _I, _I, _I, _P]
@@ -148,9 +168,28 @@ class Side:
         return call
 
     def grouped(self, x, nxt, y, e, c, k, n):
+        path = [None, grouped_kernel.PATHS.index(grouped_kernel.grouped_path(c, k, n, BF16, True))]
+
         def call():
-            checked(self.gm(x.data_ptr(), nxt().data_ptr(), y.data_ptr(), e, c, k, n, DTYPE_CODES[BF16], stream()),
-                    "grouped_mmm")
+            checked(self.gm(x.data_ptr(), nxt().data_ptr(), y.data_ptr(), e, c, k, n, DTYPE_CODES[BF16],
+                            *(path if self.gm_paths else []), stream()), "grouped_mmm")
+
+        return call
+
+    def qgemm(self, qa, nxt, out, m, k, n):
+        """int8, 128-k scale blocks, bf16 out; ``nxt()`` gives (row-major QArray, its K-major twin)."""
+        nbytes = self.q_ws(m, n, k, 1)
+        ws = torch.empty(max(1, nbytes // 4), dtype=F32, device="cuda")
+        a_s = qa.scales.contiguous()
+        path = mm_kernel.QPATHS.index(mm_kernel.qgemm_path(m, n, k, 128, torch.int8, True, True))
+
+        def call():
+            row, kmaj = nxt()
+            b = kmaj if self.q_kmajor else row
+            checked(self.qm(qa.values.data_ptr(), a_s.data_ptr(), b.values.data_ptr(), b.scales.data_ptr(),
+                            out.data_ptr(), m, n, k, 128, 128, 0, DTYPE_CODES[BF16], 0,
+                            *([1, path] if self.q_kmajor else []), ws.data_ptr() if nbytes else None, nbytes,
+                            stream()), "systolic_qmm")
 
         return call
 
@@ -256,6 +295,19 @@ def main() -> int:
         torch.cuda.synchronize()
         row = row_of(f"grouped E={e} C={c:<4d} K={k:<5d} N={n:<5d}", times, torch.equal(ys["base"], ys["change"]))
         report["shapes"].append({"kernel": "grouped_mmm", "e": e, "c": c, "k": k, "n": n, **row})
+    for m, k, n in QGEMM_SHAPES:
+        qa = quant.quantize_act(randn((m, k), gen, F32))
+        qbs = [quant.quantize_weight(randn((k, n), gen, F32)) for _ in range(math.ceil(150e6 / (k * n)))]
+        nxt = cycler([(qb, quant.k_major({"w": qb})["w"]) for qb in qbs])
+        outs = {s: torch.empty((m, n), dtype=BF16, device="cuda") for s in sides}
+        times = alternate({s: sides[s].qgemm(qa, nxt, outs[s], m, k, n) for s in sides}, args.rounds,
+                          50 if m <= 16 else 20)
+        pair = nxt()
+        for s in sides:  # one product on the same values: bit-identical if the int8 arithmetic is
+            sides[s].qgemm(qa, lambda: pair, outs[s], m, k, n)()
+        torch.cuda.synchronize()
+        row = row_of(f"qgemm int8 M={m:<5d} K={k:<5d} N={n:<5d}", times, torch.equal(outs["base"], outs["change"]))
+        report["shapes"].append({"kernel": "systolic_qmm", "m": m, "k": k, "n": n, **row})
     for b, s_len, h, hkv, d in FLASH_SHAPES:
         q = randn((b, s_len, h, d), gen, BF16)
         k, v = (randn((b, s_len, hkv, d), gen, BF16) for _ in range(2))
@@ -272,7 +324,7 @@ def main() -> int:
                      f"  max |base - change| {diff:.3e}")
         report["shapes"].append({"kernel": "flash_attn", "b": b, "s": s_len, "h": h, "hkv": hkv, "d": d,
                                  "max_abs_diff": diff, **row})
-    for kernel in ("systolic_mmm", "grouped_mmm", "flash_attn"):
+    for kernel in ("systolic_mmm", "grouped_mmm", "systolic_qmm", "flash_attn"):
         ratios = [r["change_over_base"] for r in report["shapes"] if r["kernel"] == kernel]
         print(f"{kernel} change/base over {len(ratios)} shapes: median {statistics.median(ratios):.4f}, "
               f"min {min(ratios):.4f}, max {max(ratios):.4f}")
