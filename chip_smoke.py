@@ -16,7 +16,7 @@ Phases, each printing its own lines; any failure exits non-zero:
      model's strided layout, with windows, a masked tail and without the
      causal mask; the block-scaled int8 / fp8 GEMM on K-major weights, as
      w8a8 serves them, also over scale blocks of 256, 128, 64, 32, 16 and
-     whole-K, int8 bit-identical to the same weights row-major; the grouped
+     whole-K; the grouped
      GEMM at capacities 8, 100, 160 and 200 with each expert's token rows
      empty, partial, full or as a decode step routes them);
   3. full-width internlm2-1.8b in bf16 (random weights from a seed) served
@@ -479,8 +479,7 @@ def check_flash(b, h, s, d, dtype, gen, *, hkv=None, window=None, causal=True, k
 
 def check_qgemm(m, k, n, qd, gen, *, qk=(128, 128), act="none", out_dtype=BF16) -> float:
     """The block-scaled kernel against its plain version on one quantized
-    pair, the weight K-major as the served w8a8 weights are; int8 also
-    bit-identical to the same weight row-major (which takes the WMMA tiles)."""
+    pair, the weight K-major as the served w8a8 weights are."""
     qa = quant.quantize(randn((m, k), gen, torch.float32), qd, block=(1, qk[0]))
     qb = quant.quantize(randn((k, n), gen, torch.float32), qd, block=(qk[1], 1))
     qbk = quant.k_major({"w": qb})["w"]
@@ -492,12 +491,9 @@ def check_qgemm(m, k, n, qd, gen, *, qk=(128, 128), act="none", out_dtype=BF16) 
     atol = QGEMM_ATOL * (pre.abs().max().item() + 1.0)
     rtol = QGEMM_RTOL_BF16 if out_dtype == BF16 else 0.0
     ok, err, rel = close(got, want, atol, rtol)
-    same = "" if qd != "int8" else (
-        " bits = row-major B" if torch.equal(got, mm_ops.quant_matmul(qa, qb, out_dtype=out_dtype, activation=act))
-        else " BITS DIFFER from row-major B")
-    expect(ok and got.dtype == out_dtype and "DIFFER" not in same,
+    expect(ok and got.dtype == out_dtype,
            f"qgemm {qd:4s} M={m:<5d} K={k:<5d} N={n:<5d} qk={qk!s:9s} act={act:5s} out={str(out_dtype)[6:]:8s} "
-           f"{path:6s} max_abs={err:.3e} max_rel={rel:.3e} (atol {atol:.1e}, rtol {rtol:.1e}){same}")
+           f"{path:6s} max_abs={err:.3e} max_rel={rel:.3e} (atol {atol:.1e}, rtol {rtol:.1e})")
     return err
 
 
@@ -657,7 +653,7 @@ def expected_routes(cfg, shapes: dict, prefill: bool) -> dict:
     for (m, k, n), c in shapes["systolic_mmm"].items():
         mm[mm_kernel.gemm_path(m, n, k, BF16, True, sms)] += c
     for (m, k, n), c in shapes["systolic_qmm"].items():
-        qmm[mm_kernel.qgemm_path(m, n, k, quant.DEFAULT_BLOCK_K, torch.int8, True, True)] += c
+        qmm[mm_kernel.qgemm_path(m, n, k, quant.DEFAULT_BLOCK_K, torch.int8, True)] += c
     for (e, rows, k, n), c in shapes["grouped_mmm"].items():
         grouped[grouped_kernel.grouped_path(rows, k, n, BF16, True)] += c
     return {"systolic_mmm_paths": dict(mm), "systolic_qmm_paths": dict(qmm), "grouped_mmm_paths": dict(grouped),
@@ -706,7 +702,7 @@ def serve_path(label: str, model, params, want: dict, batch, feed=None) -> dict:
         expect(dec_shapes[name] == want_dec_shapes[name],
                f"{label} decode {name} launches by shape: {sorted(dec_shapes[name].items())}")
     # Routes: each GEMM's path of every launch (a prefill operand off TMA's
-    # alignment, or a row-major int8 weight, would land on a WMMA tile),
+    # alignment would land on a WMMA tile),
     # flash's K/V heads.
     for name in ("systolic_mmm", "systolic_qmm", "grouped_mmm"):
         pf_paths = pf_routes[f"{name}_paths"]
@@ -1139,13 +1135,14 @@ def _grouped_cost(k, n, c, rows):
 
 def time_grouped(e, c, k, n, gen, patterns: list) -> dict:
     """Kernel, plain and library (torch.bmm, bf16 in and out) times of one
-    expert GEMM over all C rows (the reference's work), the expert weights
-    cycled through >= 150 MB of copies (one copy at the path's shapes, 403
-    MB), as the main path reads each layer's experts cold; then the kernel
-    given the model's rows: ``patterns``, one per MoE layer of the served
-    run (recorded in phase 3), cycled with the weights (which tiles the
-    kernel computes depends on the rows alone, not on x's values).  Each
-    time has its own bound, over the experts and rows it reads."""
+    expert GEMM over all C rows (the reference's work, the bound's too), the
+    expert weights cycled through >= 150 MB of copies (one copy at the
+    path's shapes, 403 MB), as the main path reads each layer's experts
+    cold; then, apart (``routed_*``), the kernel given the model's rows:
+    ``patterns``, one per MoE layer of the served run (recorded in phase 3),
+    cycled with the weights (which tiles the kernel computes depends on the
+    rows alone, not on x's values), with its own bound over the experts and
+    rows it reads."""
     x = randn((e, c, k), gen, BF16)
     copies = max(1, math.ceil(150e6 / (e * k * n * dtype_bytes(BF16))))
     nxt = cycler([randn((e, k, n), gen, BF16) for _ in range(copies)])
@@ -1161,11 +1158,11 @@ def time_grouped(e, c, k, n, gen, patterns: list) -> dict:
     routed_bounds = [H100.bound_s(*_grouped_cost(k, n, c, p), "bfloat16") for p in patterns]
     routed_bound_s = sum(b for b, _ in routed_bounds) / len(routed_bounds)
     return {"e": e, "c": c, "k": k, "n": n, "path": grouped_kernel.grouped_path(c, k, n, BF16, True),
-            "ms": t["routed"], "plain_ms": t["plain"], "library_ms": t["library"],
-            "bound_ms": routed_bound_s * 1e3, "bound_by": routed_bounds[0][1],
+            "ms": t["kernel"], "plain_ms": t["plain"], "library_ms": t["library"],
+            "bound_ms": bound_s * 1e3, "bound_by": bound_by,
             "experts_with_tokens": sum(sum(1 for r in p if r) for p in patterns) / len(patterns),
             "rows_with_tokens": sum(sum(p) for p in patterns) / len(patterns),
-            "all_rows_ms": t["kernel"], "all_rows_bound_ms": bound_s * 1e3, "all_rows_bound_by": bound_by}
+            "routed_ms": t["routed"], "routed_bound_ms": routed_bound_s * 1e3, "routed_bound_by": routed_bounds[0][1]}
 
 
 def time_flash(gen, cfg) -> dict:
@@ -1228,7 +1225,7 @@ def time_qgemm(m, k, n, gen) -> dict:
     t["int_mm"] = time_ms(lambda: torch._int_mm(qa.values, nxt().values), iters) if m > 16 else None
     flops, nbytes = _qgemm_cost(m, k, n)
     bound_s, bound_by = H100.bound_s(flops, nbytes, "int8")
-    path = mm_kernel.qgemm_path(m, n, k, quant.DEFAULT_BLOCK_K, torch.int8, True, True)
+    path = mm_kernel.qgemm_path(m, n, k, quant.DEFAULT_BLOCK_K, torch.int8, True)
     return {"m": m, "k": k, "n": n, "path": path, "ms": t["kernel"], "plain_ms": t["plain"], "library_ms": None,
             "info_int_mm_ms": t["int_mm"], "info_bf16_matmul_ms": t["bf16_matmul"], "info_k1_bf16_ms": t["k1_bf16"],
             "info_whole_k_scales_ms": t["whole_k"],
@@ -1295,10 +1292,10 @@ def phase_timing(errs: dict, bf16: dict, w8a8: dict, moe_r: dict) -> tuple[list[
         r["launches"] = n_calls
         gshapes.append(r)
         say(f"    grouped_mmm E={e:<4d} C={c:<4d} K={k:<5d} N={n:<5d} x{r['launches']:<5d} {r['path']:13s} all rows: "
-            f"kernel {r['all_rows_ms']:.4f}  plain {r['plain_ms']:.4f}  torch.bmm {r['library_ms']:.4f}  bound "
-            f"{r['all_rows_bound_ms']:.4f} ({r['all_rows_bound_by']}); the model's rows ({r['experts_with_tokens']:.1f} "
+            f"kernel {r['ms']:.4f}  plain {r['plain_ms']:.4f}  torch.bmm {r['library_ms']:.4f}  bound "
+            f"{r['bound_ms']:.4f} ({r['bound_by']}); the model's rows ({r['experts_with_tokens']:.1f} "
             f"experts, {r['rows_with_tokens']:.1f} rows with tokens, mean of {len(patterns)} layers): kernel "
-            f"{r['ms']:.4f}  bound {r['bound_ms']:.4f} ({r['bound_by']})")
+            f"{r['routed_ms']:.4f}  bound {r['routed_bound_ms']:.4f} ({r['routed_bound_by']})")
     k2 = time_gemm_bias(BATCH * PROMPT, 2048, 8192, gen)
     say(f"    systolic_mmm + bias (K2) M={k2['m']} K={k2['k']} N={k2['n']} x0 (not on the main path) "
         f"kernel {k2['ms']:.4f}  plain {k2['plain_ms']:.4f}  torch.addmm {k2['library_ms']:.4f}  "
@@ -1315,8 +1312,10 @@ def phase_timing(errs: dict, bf16: dict, w8a8: dict, moe_r: dict) -> tuple[list[
             f"bound {fl['bound_ms']:.4f} ({fl['bound_by']})")
 
     def entry(name, rows):
-        # Totals over every launch the served paths made (prefill + decode).
-        tot = {key: sum(r[key] * r["launches"] for r in rows) for key in ("ms", "plain_ms", "bound_ms")}
+        # Totals over every launch the served paths made (prefill + decode);
+        # the grouped GEMM's also at the model's own rows, apart.
+        keys = ("ms", "plain_ms", "bound_ms") + (("routed_ms", "routed_bound_ms") if "routed_ms" in rows[0] else ())
+        tot = {key: sum(r[key] * r["launches"] for r in rows) for key in keys}
         lib = [r["library_ms"] for r in rows]
         by = {}
         for r in rows:
@@ -1327,7 +1326,7 @@ def phase_timing(errs: dict, bf16: dict, w8a8: dict, moe_r: dict) -> tuple[list[
                 "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
                 "bound_by": max(by, key=by.get),
                 "library_ms": None if None in lib else sum(x * r["launches"] for x, r in zip(lib, rows)),
-                "shapes": rows}
+                **{key: tot[key] for key in keys[3:]}, "shapes": rows}
 
     # Each kernel's launches are those of every served path that runs it: the
     # fp GEMM on the bf16 and MoE models, flash attention on all three, the

@@ -137,6 +137,24 @@ inline int sm_count() {
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
+// Batched GEMMs: zero the (BM, BN) output tile at (m0, n0) of one matrix,
+// masked to the matrix (the tile of a block whose A rows are all zero), one
+// element a store, or with VEC 16 bytes a store (N a multiple of 16 bytes,
+// `out` 16-byte aligned; a chunk then lies wholly in or out).
+template <int BM, int BN, int NT, bool VEC, typename O>
+__device__ __forceinline__ void zero_tile(O* out, int M, int N, int m0, int n0) {
+  constexpr int EPC = VEC ? 16 / sizeof(O) : 1;
+  for (int e = threadIdx.x; e < BM * BN / EPC; e += NT) {
+    const int r = m0 + e / (BN / EPC), c = n0 + e % (BN / EPC) * EPC;
+    if (r < M && c < N) {
+      if constexpr (VEC)
+        *reinterpret_cast<uint4*>(out + (size_t)r * N + c) = make_uint4(0, 0, 0, 0);
+      else
+        out[(size_t)r * N + c] = from_f32<O>(0.f);
+    }
+  }
+}
+
 // The decode tile (M <= 16) of the GEMMs, and how its contraction is split.
 constexpr int D_BM = 16, D_BN = 64, D_BK = 64;
 

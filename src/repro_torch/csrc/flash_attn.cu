@@ -290,7 +290,7 @@ int map_bshd(CUtensorMap* map, const void* base, int B, int S, int heads, int D,
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2, (cuuint64_t)sb * 2};
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  return hp::encode_bf16_map(map, base, 4, dims, strides, box);
+  return hp::encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, 4, dims, strides, box);
 }
 
 template <int DP>

@@ -42,16 +42,6 @@ struct TcCfg {
   static constexpr int B_ELEMS = BK * LDB;
 };
 
-// Batched: zero the (BM, BN) output tile at (m0, n0) of one matrix, masked
-// to the matrix (the tile of a block whose A rows are all zero).
-template <int BM, int BN, int NT, typename O>
-__device__ __forceinline__ void zero_tile(O* out, int M, int N, int m0, int n0) {
-  for (int e = threadIdx.x; e < BM * BN; e += NT) {
-    const int r = m0 + e / BN, c = n0 + e % BN;
-    if (r < M && c < N) out[(size_t)r * N + c] = from_f32<O>(0.f);
-  }
-}
-
 template <bool BATCHED, int BM, int BN, int BK, int WARPS_M, int WARPS_N, typename O>
 __global__ void __launch_bounds__(32 * WARPS_M * WARPS_N)
     mmm_bf16_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ B,
@@ -69,7 +59,7 @@ __global__ void __launch_bounds__(32 * WARPS_M * WARPS_N)
     B += z * K * N;
     out += z * M * N;
     if (rows != nullptr && (int)blockIdx.y * BM >= rows[z]) {
-      zero_tile<BM, BN, 32 * WARPS_M * WARPS_N>(out, M, N, blockIdx.y * BM, blockIdx.x * BN);
+      zero_tile<BM, BN, 32 * WARPS_M * WARPS_N, false>(out, M, N, blockIdx.y * BM, blockIdx.x * BN);
       return;
     }
   }
@@ -173,7 +163,7 @@ __global__ void __launch_bounds__(F_NT)
     B += z * K * N;
     out += z * M * N;
     if (rows != nullptr && (int)blockIdx.y * F_BM >= rows[z]) {
-      zero_tile<F_BM, F_BN, F_NT>(out, M, N, blockIdx.y * F_BM, blockIdx.x * F_BN);
+      zero_tile<F_BM, F_BN, F_NT, false>(out, M, N, blockIdx.y * F_BM, blockIdx.x * F_BN);
       return;
     }
   }

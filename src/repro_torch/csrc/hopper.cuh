@@ -403,16 +403,5 @@ inline int encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* ba
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-inline int encode_bf16_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-                           const cuuint64_t* strides, const cuuint32_t* box) {
-  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims, strides, box);
-}
-
-// 1-byte elements (int8).
-inline int encode_u8_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-                         const cuuint64_t* strides, const cuuint32_t* box) {
-  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, base, rank, dims, strides, box);
-}
-
 }  // namespace hopper
 }  // namespace repro

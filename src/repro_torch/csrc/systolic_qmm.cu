@@ -19,14 +19,17 @@
 // above the H100's ~590 int8 op/byte balance, so it is bound by tensor-core
 // operations (1979e12 int8/fp8 op/s, datasheet).
 // What the design does about that:
-//   * int8 prefill (M > 16; B K-major, K a multiple of 16, N of 8, aligned
-//     bases, a scale step of whole K or a multiple of 128, as served): a
-//     warp-specialised wgmma tile (below).  8-bit wgmma runs m64nNk32, twice bf16's k per
-//     instruction, which is what reaches the int8 tensor-core rate, and
-//     takes 8-bit operands only K-major: there is no transpose bit for
-//     them.  So the w8a8 weights are laid out K-major once, when they are
-//     quantized for the card (quant.k_major): the same (K, N) values over
-//     (N, K) storage.  TMA loads A and B in 128-byte-swizzled 128-deep k
+//   * B is read K-major on every tile: the (K, N) values stored as an
+//     (N, K) row-major matrix.  8-bit wgmma takes 8-bit operands only
+//     K-major (there is no transpose bit for them), so the w8a8 weights are
+//     laid out so once, when they are quantized for the card
+//     (quant.k_major), and ops.quant_matmul lays out any other weight so
+//     before the call.
+//   * int8 prefill (M > 16; K a multiple of 16, N of 8, aligned bases, a
+//     scale step of whole K or a multiple of 128, as served): a
+//     warp-specialised wgmma tile (below).  8-bit wgmma runs m64nNk32, twice
+//     bf16's k per instruction, which is what reaches the int8 tensor-core
+//     rate.  TMA loads A and B in 128-byte-swizzled 128-deep k
 //     stages; the narrow partial stays in wgmma's accumulator registers,
 //     whose row and column are known from its layout, so a step's retire is
 //     done in registers (the WMMA tile below sends every fragment through
@@ -36,7 +39,8 @@
 //     retiring every scale step into fp32 as DeepSeek's DeepGEMM promotes,
 //     missed the plain version's tolerance (1e-5 of the largest sum) at
 //     every scale block tried on the H100, whole-K, 128 and 32: Hopper's
-//     fp8 tensor cores keep fewer bits while they accumulate (PERF.md).
+//     fp8 tensor cores keep fewer bits while they accumulate (PERF.md;
+//     tools/fp8_wgmma_error.py measures it).
 //     The widened bf16 products below are exact and summed in fp32.
 //   * decode (M <= 16) and shapes the wgmma tile does not take: tensor cores
 //     through WMMA.  int8: signed-char 16x16x16 fragments into int32
@@ -45,10 +49,8 @@
 //     exponent range, subnormals included, fit bf16) and go through bf16
 //     WMMA with fp32 accumulation.  Tiles are staged with cp.async, two
 //     stages deep, in 16-byte k panels (panel p holds k [16p, 16p + 16) of
-//     every row of A, and of B stored K-major, 16 bytes a row; of B stored
-//     (K, N), columns [16p, 16p + 16) of every k row), so every WMMA
-//     fragment is one contiguous, 256-byte-aligned block (K-major B as
-//     col_major fragments).  WMMA's accumulator layout is opaque: at each
+//     every row of A and every column of B, 16 bytes each), so every WMMA
+//     fragment is one contiguous, 256-byte-aligned block (B's col_major).  WMMA's accumulator layout is opaque: at each
 //     scale-step boundary every warp stores its narrow partial to a
 //     per-warp 16x16 scratch, reads back the 8 values of each fragment it
 //     owns, scales them by row and column and adds them into fp32
@@ -56,20 +58,18 @@
 //     and the contraction is split across blocks (split-K) so about four
 //     blocks per SM read B; each slice retires its own steps and writes an
 //     fp32 partial, and a second kernel sums the partials in a fixed order
-//     and applies the activation / cast.  The decode tile is bound by bytes
-//     and reads the K-major weights as it read row-major ones.
+//     and applies the activation / cast.
 //   * ragged M, N and K are zero-filled while staging (0 under any scale);
 //     scale reads outside the matrix are masked; the last, partial scale
 //     block along K uses its own scale.  Nothing is padded in HBM.
 //   * int8 sums within a step are exact in int32 and both prefill tiles
 //     retire the steps in the same order, so they give the same int8 output
-//     bit for bit, and B's layout changes no bit on any tile.
+//     bit for bit (and the same as the earlier tiles on row-major B:
+//     tools/ab_systolic.py).
 // Not yet done (later work): fusing the activation quantization into the A
 // load.
 
 #include <mma.h>
-
-#include <type_traits>
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -155,7 +155,7 @@ template <> struct QTraits<Q_FP8> {
   using Acc = float;
 };
 
-template <int BM, int BN, int BK, int WARPS_M, int WARPS_N, int QD, bool KMAJOR_B, typename O>
+template <int BM, int BN, int BK, int WARPS_M, int WARPS_N, int QD, typename O>
 __global__ void __launch_bounds__(32 * WARPS_M * WARPS_N)
     qmm_kernel(const uint8_t* __restrict__ A, const float* __restrict__ A_s,
                const uint8_t* __restrict__ B, const float* __restrict__ B_s, O* __restrict__ out,
@@ -165,11 +165,9 @@ __global__ void __launch_bounds__(32 * WARPS_M * WARPS_N)
   // scale step (0: all of K).  Block z contracts K slice [z k_chunk,
   // (z + 1) k_chunk), k_chunk a multiple of BK; with `partial` set the raw
   // fp32 sums go to partial[z] (M x N) and the epilogue to splitk_reduce.
-  // KMAJOR_B: B is stored (N, K) row-major (the same (K, N) values, K-major)
-  // and staged as A is, in 16-byte k panels of BN rows; its fragments are
-  // then col_major.
+  // B is stored (N, K) row-major (the (K, N) values, K-major) and staged as
+  // A is, in 16-byte k panels of BN rows; its fragments are col_major.
   using Tr = QTraits<QD>;
-  using BLayout = std::conditional_t<KMAJOR_B, wmma::col_major, wmma::row_major>;
   constexpr int NT = 32 * WARPS_M * WARPS_N;
   constexpr int WTM = BM / WARPS_M;
   constexpr int WTN = BN / WARPS_N;
@@ -208,10 +206,7 @@ __global__ void __launch_bounds__(32 * WARPS_M * WARPS_N)
   const int nk = (kend - kb + BK - 1) / BK;
   if (nk > 0) {
     load_panels<BM, BK, NT>(As[0], A, M, K, m0, kb, vec_a);
-    if constexpr (KMAJOR_B)
-      load_panels<BN, BK, NT>(Bs[0], B, N, K, n0, kb, vec_b);
-    else
-      load_panels<BK, BN, NT>(Bs[0], B, K, N, kb, n0, vec_b);
+    load_panels<BN, BK, NT>(Bs[0], B, N, K, n0, kb, vec_b);
   }
   repro::cp_async_commit();
 
@@ -220,10 +215,7 @@ __global__ void __launch_bounds__(32 * WARPS_M * WARPS_N)
     if (kt + 1 < nk) {  // prefetch the next k tile into the other stage
       const int k1 = kb + (kt + 1) * BK;
       load_panels<BM, BK, NT>(As[cur ^ 1], A, M, K, m0, k1, vec_a);
-      if constexpr (KMAJOR_B)
-        load_panels<BN, BK, NT>(Bs[cur ^ 1], B, N, K, n0, k1, vec_b);
-      else
-        load_panels<BK, BN, NT>(Bs[cur ^ 1], B, K, N, k1, n0, vec_b);
+      load_panels<BN, BK, NT>(Bs[cur ^ 1], B, N, K, n0, k1, vec_b);
     }
     repro::cp_async_commit();
     repro::cp_async_wait<1>();  // the current stage has landed
@@ -246,19 +238,14 @@ __global__ void __launch_bounds__(32 * WARPS_M * WARPS_N)
       const int k0 = kb + kt * BK + kk;
       if (k0 >= kend) break;  // the same for every thread of the block
       wmma::fragment<wmma::matrix_a, 16, 16, 16, typename Tr::Frag, wmma::row_major> af[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, typename Tr::Frag, BLayout> bf[FN];
-      // A panel kk/16 holds rows [0, BM) x 16 k; B panel c holds k rows [0, BK) x 16 columns
-      // (K-major: B panel kk/16 holds columns [0, BN) x 16 k, as A's).
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, typename Tr::Frag, wmma::col_major> bf[FN];
+      // A panel kk/16 holds rows [0, BM) x 16 k; B panel kk/16 columns [0, BN) x 16 k.
 #pragma unroll
       for (int i = 0; i < FM; ++i)
         wmma::load_matrix_sync(af[i], a_t + ((kk / 16) * BM + wm * WTM + 16 * i) * 16, 16);
 #pragma unroll
-      for (int j = 0; j < FN; ++j) {
-        if constexpr (KMAJOR_B)
-          wmma::load_matrix_sync(bf[j], b_t + ((kk / 16) * BN + wn * WTN + 16 * j) * 16, 16);
-        else
-          wmma::load_matrix_sync(bf[j], b_t + (((wn * WTN + 16 * j) / 16) * BK + kk) * 16, 16);
-      }
+      for (int j = 0; j < FN; ++j)
+        wmma::load_matrix_sync(bf[j], b_t + ((kk / 16) * BN + wn * WTN + 16 * j) * 16, 16);
 #pragma unroll
       for (int i = 0; i < FM; ++i)
 #pragma unroll
@@ -499,7 +486,7 @@ __global__ void __launch_bounds__(QTile::NT, 1)
 //   wmma    the WMMA 128x128 tile (8 warps of 64x32), for shapes the wgmma
 //           tile does not take; the fp8 one takes k in 32s so the widened
 //           bf16 copy still fits the 48 KB of static shared memory;
-//   wgmma   the tile above (int8): B K-major, K a multiple of 16, N of 8,
+//   wgmma   the tile above (int8): K a multiple of 16, N of 8,
 //           16-byte-aligned bases, a scale step of whole K or a multiple of 128.
 enum QPath { QP_DECODE = 0, QP_WMMA = 1, QP_WGMMA = 2 };
 constexpr int P_BM = 128, P_BN = 128;
@@ -514,14 +501,14 @@ int gcd(int a, int b) {
   return a;
 }
 
-template <int BM, int BN, int BK, int WM, int WN, int QD, bool KMAJOR_B, typename O>
+template <int BM, int BN, int BK, int WM, int WN, int QD, typename O>
 void launch_tile(const void* a, const float* a_s, const void* b, const float* b_s, void* out,
                  int M, int N, int K, int qk_a, int qk_b, int n_sa, int step, int act,
                  cudaStream_t s, Split sp, float* partial) {
   const bool vec_a = repro::aligned16(a) && K % 16 == 0;
-  const bool vec_b = repro::aligned16(b) && (KMAJOR_B ? K : N) % 16 == 0;
+  const bool vec_b = repro::aligned16(b) && K % 16 == 0;
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, sp.splits);
-  qmm_kernel<BM, BN, BK, WM, WN, QD, KMAJOR_B, O><<<grid, 32 * WM * WN, 0, s>>>(
+  qmm_kernel<BM, BN, BK, WM, WN, QD, O><<<grid, 32 * WM * WN, 0, s>>>(
       static_cast<const uint8_t*>(a), a_s, static_cast<const uint8_t*>(b), b_s,
       static_cast<O*>(out), M, N, K, qk_a, qk_b, n_sa, step, act, vec_a, vec_b,
       sp.splits > 1 ? sp.k_chunk : K, sp.splits > 1 ? partial : nullptr);
@@ -535,8 +522,8 @@ int launch_wgmma(const void* a, const float* a_s, const void* b, const float* b_
   const cuuint64_t a_dims[2] = {(cuuint64_t)K, (cuuint64_t)M}, b_dims[2] = {(cuuint64_t)K, (cuuint64_t)N};
   const cuuint64_t pitch[1] = {(cuuint64_t)K};
   const cuuint32_t a_box[2] = {Q_BK, Q_BM}, b_box[2] = {Q_BK, Q_BN};
-  int e = hp::encode_u8_map(&ta, a, 2, a_dims, pitch, a_box);
-  if (e == 0) e = hp::encode_u8_map(&tb, b, 2, b_dims, pitch, b_box);
+  int e = hp::encode_map(&ta, CU_TENSOR_MAP_DATA_TYPE_UINT8, a, 2, a_dims, pitch, a_box);
+  if (e == 0) e = hp::encode_map(&tb, CU_TENSOR_MAP_DATA_TYPE_UINT8, b, 2, b_dims, pitch, b_box);
   if (e != 0) return e;
   auto kern = qmm_wgmma_kernel<O>;
   const cudaError_t attr = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, QTile::SMEM);
@@ -547,27 +534,19 @@ int launch_wgmma(const void* a, const float* a_s, const void* b, const float* b_
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int QD, bool KMAJOR_B, typename O>
-int launch_wmma(int path, const void* a, const float* a_s, const void* b, const float* b_s, void* out, int M, int N,
-                int K, int qk_a, int qk_b, int n_sa, int step, int act, cudaStream_t s, float* workspace) {
-  if (path == QP_DECODE)
-    launch_tile<D_BM, D_BN, D_BK, 1, 4, QD, KMAJOR_B, O>(a, a_s, b, b_s, out, M, N, K, qk_a, qk_b, n_sa, step, act,
-                                                         s, plan_split(M, N, K, true), workspace);
-  else
-    launch_tile<P_BM, P_BN, p_bk(QD), 2, 4, QD, KMAJOR_B, O>(a, a_s, b, b_s, out, M, N, K, qk_a, qk_b, n_sa, step,
-                                                             act, s, {1, K}, nullptr);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <int QD, typename O>
-int launch(int path, bool kmajor_b, const void* a, const float* a_s, const void* b, const float* b_s, void* out,
-           int M, int N, int K, int qk_a, int qk_b, int n_sa, int step, int act, cudaStream_t s, float* workspace) {
+int launch(int path, const void* a, const float* a_s, const void* b, const float* b_s, void* out, int M, int N,
+           int K, int qk_a, int qk_b, int n_sa, int step, int act, cudaStream_t s, float* workspace) {
   if constexpr (QD == Q_INT8) {
     if (path == QP_WGMMA) return launch_wgmma<O>(a, a_s, b, b_s, out, M, N, K, qk_a, qk_b, n_sa, step, act, s);
   }
-  if (kmajor_b)
-    return launch_wmma<QD, true, O>(path, a, a_s, b, b_s, out, M, N, K, qk_a, qk_b, n_sa, step, act, s, workspace);
-  return launch_wmma<QD, false, O>(path, a, a_s, b, b_s, out, M, N, K, qk_a, qk_b, n_sa, step, act, s, workspace);
+  if (path == QP_DECODE)
+    launch_tile<D_BM, D_BN, D_BK, 1, 4, QD, O>(a, a_s, b, b_s, out, M, N, K, qk_a, qk_b, n_sa, step, act, s,
+                                               plan_split(M, N, K, true), workspace);
+  else
+    launch_tile<P_BM, P_BN, p_bk(QD), 2, 4, QD, O>(a, a_s, b, b_s, out, M, N, K, qk_a, qk_b, n_sa, step, act, s,
+                                                   {1, K}, nullptr);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The scale step for scale blocks qk_a, qk_b (0 = all of K): gcd of the
@@ -579,8 +558,8 @@ int scale_step(int qk_a, int qk_b) {
 
 }  // namespace
 
-// a: (M, K) row-major; b: (K, N) row-major, or with `b_kmajor` the same
-// values stored (N, K) row-major; 1-byte values of `qdtype` (0 int8, 1
+// a: (M, K) row-major; b: the (K, N) values stored K-major, as an (N, K)
+// row-major matrix; 1-byte values of `qdtype` (0 int8, 1
 // e4m3); a_scales: (M, qk_a ? ceil(K / qk_a) : 1) fp32; b_scales:
 // (qk_b ? ceil(K / qk_b) : 1, N) fp32; out: (M, N) row-major of dtype
 // `out_dtype`; `path`: one of QPath, which must fit the operands (decode
@@ -590,7 +569,7 @@ int scale_step(int qk_a, int qk_b) {
 // cudaGetLastError() (0 on success).
 extern "C" int systolic_qmm(const void* a, const void* a_scales, const void* b,
                             const void* b_scales, void* out, int M, int N, int K, int qk_a,
-                            int qk_b, int qdtype, int out_dtype, int activation, int b_kmajor, int path,
+                            int qk_b, int qdtype, int out_dtype, int activation, int path,
                             void* workspace, long long workspace_bytes, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int step = scale_step(qk_a, qk_b);
@@ -598,7 +577,7 @@ extern "C" int systolic_qmm(const void* a, const void* a_scales, const void* b,
       (out_dtype != repro::DT_F32 && out_dtype != repro::DT_BF16) || activation < ACT_NONE ||
       activation > ACT_TANH || M <= 0 || N <= 0 || K <= 0 || qk_a < 0 || qk_b < 0 ||
       step % 16 != 0 || path < QP_DECODE || path > QP_WGMMA || (path == QP_DECODE) != (M <= D_BM) ||
-      (path == QP_WGMMA && (qdtype != Q_INT8 || !b_kmajor || K % 16 != 0 || N % 8 != 0 || step % Q_BK != 0 ||
+      (path == QP_WGMMA && (qdtype != Q_INT8 || K % 16 != 0 || N % 8 != 0 || step % Q_BK != 0 ||
                             !repro::aligned16(a) || !repro::aligned16(b))) ||
       workspace_bytes < split_workspace(M, N, K, 1) ||
       (workspace_bytes > 0 && workspace == nullptr))
@@ -607,14 +586,13 @@ extern "C" int systolic_qmm(const void* a, const void* a_scales, const void* b,
   const float* as = static_cast<const float*>(a_scales);
   const float* bs = static_cast<const float*>(b_scales);
   float* ws = static_cast<float*>(workspace);
-  const bool km = b_kmajor != 0;
   if (qdtype == Q_INT8)
     return out_dtype == repro::DT_F32
-               ? launch<Q_INT8, float>(path, km, a, as, b, bs, out, M, N, K, qk_a, qk_b, n_sa, step, activation, s, ws)
-               : launch<Q_INT8, __nv_bfloat16>(path, km, a, as, b, bs, out, M, N, K, qk_a, qk_b, n_sa, step,
+               ? launch<Q_INT8, float>(path, a, as, b, bs, out, M, N, K, qk_a, qk_b, n_sa, step, activation, s, ws)
+               : launch<Q_INT8, __nv_bfloat16>(path, a, as, b, bs, out, M, N, K, qk_a, qk_b, n_sa, step,
                                                activation, s, ws);
   return out_dtype == repro::DT_F32
-             ? launch<Q_FP8, float>(path, km, a, as, b, bs, out, M, N, K, qk_a, qk_b, n_sa, step, activation, s, ws)
-             : launch<Q_FP8, __nv_bfloat16>(path, km, a, as, b, bs, out, M, N, K, qk_a, qk_b, n_sa, step,
+             ? launch<Q_FP8, float>(path, a, as, b, bs, out, M, N, K, qk_a, qk_b, n_sa, step, activation, s, ws)
+             : launch<Q_FP8, __nv_bfloat16>(path, a, as, b, bs, out, M, N, K, qk_a, qk_b, n_sa, step,
                                             activation, s, ws);
 }

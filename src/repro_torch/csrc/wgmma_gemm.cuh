@@ -113,11 +113,7 @@ __global__ void __launch_bounds__(128 * (NCONS + 1), 1)
   if constexpr (BATCHED) {  // block z: matrix z
     out += (size_t)blockIdx.z * M * N;
     if (rows != nullptr && m0 >= rows[blockIdx.z]) {  // every row of the tile is zero in A: so is the product
-      constexpr int EPC = 16 / sizeof(O);
-      for (int e = threadIdx.x; e < T::BM * BN / EPC; e += T::NT) {
-        const int gr = m0 + e / (BN / EPC), gc = n0 + e % (BN / EPC) * EPC;
-        if (gr < M && gc < N) *reinterpret_cast<uint4*>(out + (size_t)gr * N + gc) = make_uint4(0, 0, 0, 0);
-      }
+      zero_tile<T::BM, BN, T::NT, true>(out, M, N, m0, n0);
       return;
     }
   }
@@ -199,14 +195,14 @@ int launch_wgmma(const void* a, const void* b, const float* bias, void* out, int
     const cuuint64_t b_dims[3] = {(cuuint64_t)N, (cuuint64_t)K, (cuuint64_t)batch};
     const cuuint64_t b_strides[2] = {(cuuint64_t)N * 2, (cuuint64_t)K * N * 2};
     const cuuint32_t a_box[3] = {W_BK, T::BM, 1}, b_box[3] = {64, W_BK, 1};
-    e = hp::encode_bf16_map(&ta, a, 3, a_dims, a_strides, a_box);
-    if (e == 0) e = hp::encode_bf16_map(&tb, b, 3, b_dims, b_strides, b_box);
+    e = hp::encode_map(&ta, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a, 3, a_dims, a_strides, a_box);
+    if (e == 0) e = hp::encode_map(&tb, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, b, 3, b_dims, b_strides, b_box);
   } else {
     const cuuint64_t a_dims[2] = {(cuuint64_t)K, (cuuint64_t)M}, a_strides[1] = {(cuuint64_t)K * 2};
     const cuuint64_t b_dims[2] = {(cuuint64_t)N, (cuuint64_t)K}, b_strides[1] = {(cuuint64_t)N * 2};
     const cuuint32_t a_box[2] = {W_BK, T::BM}, b_box[2] = {64, W_BK};
-    e = hp::encode_bf16_map(&ta, a, 2, a_dims, a_strides, a_box);
-    if (e == 0) e = hp::encode_bf16_map(&tb, b, 2, b_dims, b_strides, b_box);
+    e = hp::encode_map(&ta, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a, 2, a_dims, a_strides, a_box);
+    if (e == 0) e = hp::encode_map(&tb, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, b, 2, b_dims, b_strides, b_box);
   }
   if (e != 0) return e;
   auto kern = mmm_wgmma_kernel<BATCHED, NCONS, BN, O>;

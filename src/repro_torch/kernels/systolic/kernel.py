@@ -52,7 +52,7 @@ _LL = ctypes.c_longlong
 # Argument types of each library's C entry point, named as the library.
 _ARGTYPES = {
     "systolic_mmm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _LL, _P],
-    "systolic_qmm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _LL, _P],
+    "systolic_qmm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _LL, _P],
     "grouped_mmm": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P],  # bound in kernels/grouped/kernel.py
 }
 
@@ -175,7 +175,8 @@ MAX_INT8_STEP = (2**31 - 1) // 2**14
 #   decode  M <= 16: the WMMA 16-row tile, contraction split across blocks;
 #   wmma    the WMMA 128x128 tile, for prefill shapes the wgmma tile does not take;
 #   wgmma   int8 prefill: TMA ring + 8-bit wgmma (m64n128k32), partials
-#           retired in registers; B K-major (8-bit wgmma has no transpose).
+#           retired in registers.
+# Every path reads B K-major (8-bit wgmma has no transpose for it).
 #           fp8 stays on the WMMA tiles: e4m3 wgmma accumulates with fewer
 #           bits than the plain version's tolerance allows (csrc/systolic_qmm.cu).
 QPATHS = ("decode", "wmma", "wgmma")
@@ -189,25 +190,23 @@ quant_launches_by_path: collections.Counter = collections.Counter()
 
 
 def is_k_major(b: torch.Tensor) -> bool:
-    """A (K, N) operand stored K-major: a view with strides (1, K) over (N,
-    K) row-major storage (``quant.k_major`` lays the w8a8 weights out so).
-    A matrix that is also row-major contiguous (N or K of 1) counts as
-    row-major."""
-    k, n = b.shape
-    return not b.is_contiguous() and b.stride() == (1, k)
+    """A (K, N) operand stored K-major: the transpose of an (N, K) row-major
+    matrix, strides (1, K) (``quant.k_major`` lays the w8a8 weights out
+    so).  The block-scaled kernel reads B only so."""
+    return b.t().is_contiguous()
 
 
-def qgemm_path(m: int, n: int, k: int, step: int, dtype: torch.dtype, b_kmajor: bool, aligned: bool) -> str:
+def qgemm_path(m: int, n: int, k: int, step: int, dtype: torch.dtype, aligned: bool) -> str:
     """The block-scaled GEMM's path for an (M, K) @ (K, N) product of
     ``dtype`` values with scale step ``step`` (0: one scale block over all of
-    K) and operand bases 16-byte aligned (``aligned``).  A choice by shape,
-    dtype and layout: the wgmma tile is int8's; TMA needs 16-byte rows (K a
-    multiple of 16) and aligned bases, 8-bit wgmma a K-major B, the tile's
-    retire at the ends of its 128-deep k stages a step of whole K or a
-    multiple of 128 (served: 128), the staged epilogue N a multiple of 8."""
+    K) and operand bases 16-byte aligned (``aligned``).  A choice by shape
+    and dtype: the wgmma tile is int8's; TMA needs 16-byte rows (K a
+    multiple of 16) and aligned bases, the tile's retire at the ends of its
+    128-deep k stages a step of whole K or a multiple of 128 (served: 128),
+    the staged epilogue N a multiple of 8."""
     if m <= DECODE_MAX_M:
         return "decode"
-    if dtype == torch.int8 and b_kmajor and aligned and k % 16 == 0 and n % 8 == 0 and step % WGMMA_QK == 0:
+    if dtype == torch.int8 and aligned and k % 16 == 0 and n % 8 == 0 and step % WGMMA_QK == 0:
         return "wgmma"
     return "wmma"
 
@@ -234,8 +233,8 @@ def quant_systolic_matmul_call(
     """a: (M, K), b: (K, N) int8 or float8_e4m3fn (one dtype); a_scales:
     (M, ceil(K / qk_a)) and b_scales: (ceil(K / qk_b), N) fp32, where a scale
     block of 0 spans all of K (one scale column / row) -> (M, N) on the card.
-    a and the scales are row-major contiguous; b is row-major contiguous or
-    K-major (``is_k_major``), the layout the prefill tile reads.
+    a and the scales are row-major contiguous; b is K-major (``is_k_major``),
+    the one layout the kernel reads.
 
     Validates everything the kernel does not take and raises; the checks on
     dtypes, shapes, layouts and the scale step come before the device check,
@@ -275,10 +274,9 @@ def quant_systolic_matmul_call(
         raise ValueError(f"int8 scale step {step} could overflow the int32 partial (max {MAX_INT8_STEP})")
     if max(m, n, k) >= 2**31:
         raise ValueError("quantized kernel dimensions must fit in int32")
-    b_kmajor = is_k_major(b)
-    if not (all(t.is_contiguous() for t in (a, a_scales, b_scales)) and (b.is_contiguous() or b_kmajor)):
-        raise ValueError(f"quantized kernel needs row-major contiguous operands and scales, B row-major or "
-                         f"K-major (strides (1, {k})); got B strides {b.stride()}")
+    if not (all(t.is_contiguous() for t in (a, a_scales, b_scales)) and is_k_major(b)):
+        raise ValueError(f"quantized kernel needs A and the scales row-major contiguous and B K-major "
+                         f"(strides (1, {k})); got A strides {a.stride()}, B strides {b.stride()}")
     tensors = (a, a_scales, b, b_scales)
     if a.device.type != "cuda" or any(t.device != a.device for t in tensors):
         raise ValueError(f"quantized kernel needs every operand on one CUDA device, got {[str(t.device) for t in tensors]}")
@@ -287,13 +285,13 @@ def quant_systolic_matmul_call(
         return out
     lib, fn = _entry("systolic_qmm")
     aligned = a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
-    path = qgemm_path(m, n, k, step if (qk_a or qk_b) else 0, a.dtype, b_kmajor, aligned)
+    path = qgemm_path(m, n, k, step if (qk_a or qk_b) else 0, a.dtype, aligned)
     ws, nbytes = _workspace("systolic_qmm", a.device, m, n, k, True)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     code = fn(
         a.data_ptr(), a_scales.data_ptr(), b.data_ptr(), b_scales.data_ptr(), out.data_ptr(),
         m, n, k, qk_a, qk_b, QDTYPE_CODES[a.dtype], DTYPE_CODES[out_dtype],
-        ACTIVATION_CODES[activation], int(b_kmajor), QPATHS.index(path), None if ws is None else ws.data_ptr(),
+        ACTIVATION_CODES[activation], QPATHS.index(path), None if ws is None else ws.data_ptr(),
         nbytes, stream,
     )
     _build.check(lib, "systolic_qmm launch", code)

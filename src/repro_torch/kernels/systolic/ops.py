@@ -91,12 +91,10 @@ def quant_matmul(
     a_s, qk_a = _row_scales(a, m, k)
     b_s, qk_b = _col_scales(b, k, n)
     call = quant_systolic_matmul_ref if a.values.device.type == "cpu" else _kernel.quant_systolic_matmul_call
-    # K-major weights (``quant.k_major``) go as they are: the prefill tile reads them so.
-    bv = b.values if _kernel.is_k_major(b.values) else b.values.contiguous()
     return call(
         a.values.contiguous(),
         a_s,
-        bv,
+        b.values.t().contiguous().t(),  # K-major, the kernel's one B layout; no copy if laid out so (quant.k_major)
         b_s,
         qk_a=qk_a,
         qk_b=qk_b,

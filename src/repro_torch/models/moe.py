@@ -73,11 +73,11 @@ def _dispatch_group(xf: torch.Tensor, top_e: torch.Tensor, top_w: torch.Tensor, 
 
     order = torch.argsort(flat_e, dim=-1, stable=True)  # jnp.argsort is stable too
     se = flat_e.gather(-1, order)
-    # Place within the expert: rank minus the expert's first rank.
-    starts = torch.searchsorted(se, torch.arange(e, device=dev).expand(g, e).contiguous())
-    pos = torch.arange(t * k, device=dev) - starts.gather(-1, se)
-    ends = torch.cat([starts[:, 1:], starts.new_full((g, 1), t * k)], dim=-1)
-    rows = (ends - starts).clamp(max=cap).to(torch.int32)
+    # Place within the expert: rank minus the expert's first rank; the
+    # expert's count: the next expert's first rank minus its own.
+    bounds = torch.searchsorted(se, torch.arange(e + 1, device=dev).expand(g, e + 1).contiguous(), out_int32=True)
+    pos = torch.arange(t * k, device=dev) - bounds[:, :-1].gather(-1, se)
+    rows = bounds.diff(dim=-1).clamp_(max=cap)
 
     # Kept slots go to row (group, expert, pos) of a flat buffer, dropped ones
     # all to one spare last row, which is cut off (its value is not defined).

@@ -18,6 +18,8 @@ in the last bits, so they may land one bf16 ulp apart).  The grouped expert
 GEMM takes the GEMM's tolerances.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -482,13 +484,13 @@ def test_grouped_binding_checks_rows(cuda):
             grouped_kernel.grouped_matmul_call(x, w, bad)
 
 
-# The block-scaled GEMM's int8 wgmma tile: K-major B (the serving layout) at
-# the four served prefill shapes and ragged ones (K a multiple of 16, N of
-# 8), every activation, bf16 and fp32 out, then every scale block (steps of
-# whole K or multiples of 128 on the wgmma tile, finer ones on the WMMA
-# tile, both on K-major B); bit-identical to the WMMA tile on row-major B
-# (exact int32 sums, the same retire order).  fp8 takes the WMMA tile on
-# the same operands.
+# The block-scaled GEMM's int8 wgmma tile on K-major B (the kernel's one
+# layout, as the w8a8 weights are served) at the four served prefill shapes
+# and ragged ones (K a multiple of 16, N of 8), every activation, bf16 and
+# fp32 out, then every scale block (steps of whole K or multiples of 128 on
+# the wgmma tile, finer ones on the WMMA tile); bit-identical to the WMMA
+# tile on the same operands (exact int32 sums, the same retire order), which
+# an unaligned A forces.  fp8 takes the WMMA tile.
 QGEMM_WGMMA_SHAPES = [
     (2048, 2048, 2048), (2048, 1024, 2048), (2048, 8192, 2048), (2048, 2048, 8192),  # (M, N, K)
     (300, 264, 528), (17, 8, 16), (129, 1032, 1040), (2000, 1032, 2064),
@@ -500,6 +502,16 @@ def _kmajor_pair(cuda, m, n, k, qd, qk, seed):
     qa = quantize(_rand((m, k), seed).to(cuda), qd, block=(1, qk[0]))
     qb = quantize(_rand((k, n), seed + 1).to(cuda), qd, block=(qk[1], 1))
     return qa, qb, k_major({"w": qb})["w"]
+
+
+def _unaligned(q):
+    """The same QArray with its values one byte past a 16-byte boundary: TMA
+    cannot load them, so the kernel takes its WMMA tile."""
+    buf = torch.empty(q.values.numel() + 1, dtype=q.values.dtype, device=q.values.device)
+    values = buf[1:].view(q.values.shape)
+    values.copy_(q.values)
+    assert values.data_ptr() % 16 != 0
+    return dataclasses.replace(q, values=values)
 
 
 @pytest.mark.gpu
@@ -514,9 +526,9 @@ def test_quant_prefill_tiles_on_k_major_b_match_plain(cuda, m, n, k, qd):
             got = mm_ops.quant_matmul(qa, qbk, out_dtype=out_dtype, activation=act)
             _qgemm_check(got, qa, qb, act, out_dtype)
             if qd == "int8":
-                assert torch.equal(got, mm_ops.quant_matmul(qa, qb, out_dtype=out_dtype, activation=act))
+                assert torch.equal(got, mm_ops.quant_matmul(_unaligned(qa), qbk, out_dtype=out_dtype, activation=act))
     torch.cuda.synchronize()
-    assert mm_kernel.quant_launches_by_path[path] == before + 2 * len(ACTIVATIONS)  # row-major B: the WMMA tile
+    assert mm_kernel.quant_launches_by_path[path] == before + 2 * len(ACTIVATIONS)  # unaligned A: the WMMA tile
 
 
 @pytest.mark.gpu
@@ -533,7 +545,7 @@ def test_quant_prefill_tiles_scale_steps_match_plain(cuda, m, n, k, qd, qk_a, qk
     assert mm_kernel.quant_launches_by_path[path] == before + 1
     _qgemm_check(got, qa, qb, "silu", torch.float32)
     if qd == "int8":
-        assert torch.equal(got, mm_ops.quant_matmul(qa, qb, out_dtype=torch.float32, activation="silu"))
+        assert torch.equal(got, mm_ops.quant_matmul(_unaligned(qa), qbk, out_dtype=torch.float32, activation="silu"))
 
 
 @pytest.mark.gpu
@@ -541,8 +553,9 @@ def test_quant_prefill_tiles_scale_steps_match_plain(cuda, m, n, k, qd, qk_a, qk
                                    (1, 1000, 300), (9, 4000, 70), (16, 136, 520), (100, 130, 520)])
 @pytest.mark.parametrize("qd", list(QDTYPES))
 def test_quant_wmma_tiles_take_k_major_b(cuda, m, n, k, qd):
-    """The decode tile (split-K) and the WMMA prefill tile read K-major B:
-    within the tolerance, and bit-identical to row-major B."""
+    """The decode tile (split-K) and the WMMA prefill tile read K-major B
+    within the tolerance; a row-major weight, which quant_matmul lays out
+    K-major for the call, gives the same bits."""
     for qk in ((128, 128), (48, 32), (0, 0)):
         qa, qb, qbk = _kmajor_pair(cuda, m, n, k, qd, qk, 35)
         for out_dtype in DTYPES.values():

@@ -397,8 +397,9 @@ def test_cast_params_keeps_norms_and_qarrays(quant_models):
 
 
 def _kernel_args(m=4, k=64, n=32, qk_a=16, qk_b=32, dtype=torch.int8):
-    a = torch.zeros((m, k), dtype=torch.int8).view(dtype) if dtype != torch.int8 else torch.zeros((m, k), dtype=dtype)
-    b = torch.zeros((k, n), dtype=torch.int8).view(dtype) if dtype != torch.int8 else torch.zeros((k, n), dtype=dtype)
+    """Operands of the binding's layouts: A (M, K) row-major, B (K, N) K-major."""
+    a = torch.zeros((m, k), dtype=torch.int8).view(dtype)
+    b = torch.zeros((n, k), dtype=torch.int8).view(dtype).t()
     a_s = torch.ones((m, -(-k // qk_a) if qk_a else 1))
     b_s = torch.ones((-(-k // qk_b) if qk_b else 1, n))
     return a, a_s, b, b_s, dict(qk_a=qk_a, qk_b=qk_b, out_dtype=torch.bfloat16)
@@ -495,43 +496,44 @@ def test_plain_quant_matmul_identical_on_k_major_weights(qd, qk):
 
 
 def test_quant_kernel_call_takes_k_major_b_and_refuses_other_strides():
-    """The binding accepts B as a K-major view (strides (1, K)): it passes
-    every check and reaches the device check; any other non-contiguous B is
-    refused before it."""
+    """The binding takes B only as a K-major view (strides (1, K)): it passes
+    every check and reaches the device check; a row-major B and any other
+    strides are refused before it.  B of one column or one k row is both."""
     a, a_s, b, b_s, kw = _kernel_args(k=64, n=32)
-    kmajor = b.t().contiguous().t()
-    assert kmajor.stride() == (1, 64)
+    assert b.stride() == (1, 64) and t_kernel.is_k_major(b)
     with pytest.raises(ValueError, match="CUDA device"):
-        t_kernel.quant_systolic_matmul_call(a, a_s, kmajor, b_s, **kw)
+        t_kernel.quant_systolic_matmul_call(a, a_s, b, b_s, **kw)
     wide = torch.zeros((64, 64), dtype=torch.int8)
     pitched = torch.zeros((32, 128), dtype=torch.int8).t()[:64]  # K-major rows 128 bytes apart, not K
-    for bad in (wide[:, ::2], wide[:, :32], pitched):
-        assert not bad.is_contiguous() and not t_kernel.is_k_major(bad)
+    for bad in (b.contiguous(), wide[:, ::2], wide[:, :32], pitched):
+        assert not t_kernel.is_k_major(bad)
         with pytest.raises(ValueError, match="K-major"):
             t_kernel.quant_systolic_matmul_call(a, a_s, bad, b_s, **kw)
+    for k, n in ((64, 1), (1, 32)):
+        assert t_kernel.is_k_major(torch.zeros((k, n), dtype=torch.int8))
 
 
 @pytest.mark.parametrize(
-    "m,n,k,step,dtype,kmajor,aligned,want",
+    "m,n,k,step,dtype,aligned,want",
     [
-        (2048, 2048, 2048, 128, torch.int8, True, True, "wgmma"),  # the served prefill shapes
-        (2048, 2048, 8192, 128, torch.int8, True, True, "wgmma"),
-        (4, 2048, 2048, 128, torch.int8, True, True, "decode"),  # the served decode shapes
-        (16, 2048, 2048, 128, torch.int8, True, True, "decode"),
-        (17, 2048, 2048, 128, torch.int8, True, True, "wgmma"),
-        (300, 264, 528, 0, torch.int8, True, True, "wgmma"),  # whole-K scales
-        (300, 264, 528, 256, torch.int8, True, True, "wgmma"),
-        (300, 264, 528, 32, torch.int8, True, True, "wmma"),  # steps inside the tile's 128-deep k stage
-        (300, 264, 528, 64, torch.int8, True, True, "wmma"),
-        (100, 130, 520, 16, torch.int8, True, True, "wmma"),
-        (100, 136, 520, 128, torch.int8, True, True, "wmma"),  # K not a multiple of 16: no TMA rows
-        (100, 130, 512, 128, torch.int8, True, True, "wmma"),  # N not a multiple of 8
-        (2048, 2048, 2048, 128, torch.int8, False, True, "wmma"),  # row-major B: 8-bit wgmma reads B K-major only
-        (2048, 2048, 2048, 128, torch.int8, True, False, "wmma"),
-        (2048, 2048, 2048, 128, torch.float8_e4m3fn, True, True, "wmma"),  # fp8: the WMMA tiles
-        (4, 2048, 2048, 128, torch.float8_e4m3fn, True, True, "decode"),
+        (2048, 2048, 2048, 128, torch.int8, True, "wgmma"),  # the served prefill shapes
+        (2048, 2048, 8192, 128, torch.int8, True, "wgmma"),
+        (4, 2048, 2048, 128, torch.int8, True, "decode"),  # the served decode shapes
+        (16, 2048, 2048, 128, torch.int8, True, "decode"),
+        (17, 2048, 2048, 128, torch.int8, True, "wgmma"),
+        (300, 264, 528, 0, torch.int8, True, "wgmma"),  # whole-K scales
+        (300, 264, 528, 256, torch.int8, True, "wgmma"),
+        (300, 264, 528, 32, torch.int8, True, "wmma"),  # steps inside the tile's 128-deep k stage
+        (300, 264, 528, 64, torch.int8, True, "wmma"),
+        (100, 130, 520, 16, torch.int8, True, "wmma"),
+        (100, 136, 520, 128, torch.int8, True, "wmma"),  # K not a multiple of 16: no TMA rows
+        (100, 130, 512, 128, torch.int8, True, "wmma"),  # N not a multiple of 8
+        (17, 8, 16, 0, torch.int8, True, "wgmma"),  # the smallest shape TMA takes
+        (2048, 2048, 2048, 128, torch.int8, False, "wmma"),  # unaligned bases: no TMA
+        (2048, 2048, 2048, 128, torch.float8_e4m3fn, True, "wmma"),  # fp8: the WMMA tiles
+        (4, 2048, 2048, 128, torch.float8_e4m3fn, True, "decode"),
     ],
 )
-def test_qgemm_path_by_shape_and_layout(m, n, k, step, dtype, kmajor, aligned, want):
-    assert t_kernel.qgemm_path(m, n, k, step, dtype, kmajor, aligned) == want
+def test_qgemm_path_by_shape_and_layout(m, n, k, step, dtype, aligned, want):
+    assert t_kernel.qgemm_path(m, n, k, step, dtype, aligned) == want
     assert want in t_kernel.QPATHS

@@ -185,3 +185,13 @@ def test_path_numbers_follow_the_kernel():
                "P_WGMMA_64": "wgmma_64x128", "P_WGMMA_256": "wgmma_128x256"}
     assert {c_names[name]: num for name, num in numbered.items()} == {p: i for i, p in enumerate(t_kernel.PATHS)}
     assert {p for p, _, _ in t_kernel.WGMMA_TILES} <= set(t_kernel.PATHS)
+
+
+@pytest.mark.parametrize("name", sorted(t_kernel._ARGTYPES))
+def test_c_entry_argtypes_match_the_sources(name):
+    """The ctypes argument list of each C entry point has one type per
+    parameter of ``extern "C" int <name>(...)`` in ``csrc/<name>.cu``: a
+    mismatch shows only on the card, as a TypeError at the first launch."""
+    src = (Path(t_kernel.__file__).resolve().parents[2] / "csrc" / f"{name}.cu").read_text()
+    params = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src).group(1)
+    assert len(t_kernel._ARGTYPES[name]) == params.count(",") + 1

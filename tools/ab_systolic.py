@@ -29,9 +29,11 @@ side may predate this tree: a systolic entry without a ``path`` argument
 picks its tile itself (this tree passes the path ``gemm_path`` picks), a
 grouped entry without ``rows`` and ``path`` picks its tile itself (this tree
 passes ``grouped_path``'s and no rows), a block-scaled entry without
-``b_kmajor`` and ``path`` is given the int8 weight row-major while one with
-them is given the same values K-major (``quant.k_major``, as w8a8 serves
-them) and the path ``qgemm_path`` picks, and a flash entry over (BH, S, D) is
+``path`` (which reads B row-major) is given the int8 weight row-major while
+one with it (which reads B only K-major) is given the same values K-major
+(``quant.k_major``, as w8a8 serves them) and the path ``qgemm_path`` picks,
+so the bit-equality of the K5 rows holds the K-major kernel to the
+row-major one, and a flash entry over (BH, S, D) is
 given contiguous K/V repeated to the query heads while the head-aware entry
 is given the model's (B, S, H, D) layout with K/V at the model's KV heads.
 """
@@ -141,9 +143,9 @@ class Side:
         self.gm.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, *([_P, _I] if self.gm_paths else []), _P]
         self.gm.restype = _I
         qlib = ctypes.CDLL(paths["systolic_qmm"])
-        self.q_kmajor = n_params(tree, "systolic_qmm", "systolic_qmm") == 18
+        self.q_kmajor = n_params(tree, "systolic_qmm", "systolic_qmm") == 17  # with `path`: B K-major
         self.qm = qlib.systolic_qmm
-        self.qm.argtypes = [_P] * 5 + [_I] * (10 if self.q_kmajor else 8) + [_P, _LL, _P]
+        self.qm.argtypes = [_P] * 5 + [_I] * (9 if self.q_kmajor else 8) + [_P, _LL, _P]
         self.qm.restype = _I
         qlib.split_workspace.argtypes = [_I] * 4
         qlib.split_workspace.restype = _LL
@@ -181,14 +183,14 @@ class Side:
         nbytes = self.q_ws(m, n, k, 1)
         ws = torch.empty(max(1, nbytes // 4), dtype=F32, device="cuda")
         a_s = qa.scales.contiguous()
-        path = mm_kernel.QPATHS.index(mm_kernel.qgemm_path(m, n, k, 128, torch.int8, True, True))
+        path = mm_kernel.QPATHS.index(mm_kernel.qgemm_path(m, n, k, 128, torch.int8, True))
 
         def call():
             row, kmaj = nxt()
             b = kmaj if self.q_kmajor else row
             checked(self.qm(qa.values.data_ptr(), a_s.data_ptr(), b.values.data_ptr(), b.scales.data_ptr(),
                             out.data_ptr(), m, n, k, 128, 128, 0, DTYPE_CODES[BF16], 0,
-                            *([1, path] if self.q_kmajor else []), ws.data_ptr() if nbytes else None, nbytes,
+                            *([path] if self.q_kmajor else []), ws.data_ptr() if nbytes else None, nbytes,
                             stream()), "systolic_qmm")
 
         return call
