@@ -28,6 +28,15 @@ Phases, each printing its own lines; any failure exits non-zero:
      kernel path's prefill logits and two decode steps from the same cache
      against the same model run through the plain versions on the card; and
      the SMOKE config in fp32 on the card against the port's CPU path;
+     then the same parameters served continuously: 16 requests of a
+     Poisson trace (prompts up to 512 tokens, generations up to 64) through
+     ContinuousScheduler over 8 slots, with the lifecycle checked (every
+     request finished with all its tokens, the pool drained, slots reused,
+     slots at different positions in one tick), launch counts exact per
+     kernel, per GEMM shape and path and per flash shape and head count
+     (warmup included), every request's prefill and decode-step logits
+     against the same request served alone at batch 1 with the scheduler's
+     tokens fed back, and the continuous serving numbers;
      then the same model served w8a8 (int8 weights quantized from the same
      fp32 masters, per-token int8 activations), every projection on the
      block-scaled kernel, with the same launch, kernel-vs-plain and decode
@@ -44,7 +53,7 @@ Phases, each printing its own lines; any failure exits non-zero:
      plain path alone), the same checks and witness on models and prompts
      from two more seeds, and the SMOKE MoE config in fp32 on the card
      against the port's CPU path; every path's prefill twice, bit-identical;
-  4. each kernel timed at the main path's shapes (CUDA events) beside its
+  4. each kernel timed at the served paths' shapes (CUDA events) beside its
      bound, its plain version and one PyTorch library call (a yardstick the
      port never calls; none computes the block-scaled product, so the
      quantized kernel's is null; it is also timed beside K1 and with whole-K
@@ -79,7 +88,7 @@ import torch  # noqa: E402
 
 from repro_torch import configs, quant  # noqa: E402
 from repro_torch.core.hw import H100, dtype_bytes  # noqa: E402
-from repro_torch.data.synthetic import make_batch  # noqa: E402
+from repro_torch.data.synthetic import make_batch, make_request_trace  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.attention import kernel as attn_kernel  # noqa: E402
 from repro_torch.kernels.attention import ops as attn_ops  # noqa: E402
@@ -98,12 +107,18 @@ from repro_torch.kernels.systolic.ref import (  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.models.transformer import cast_params  # noqa: E402
-from repro_torch.serving import ServeConfig, ServeEngine  # noqa: E402
+from repro_torch.serving import ContinuousScheduler, ServeConfig, ServeEngine, requests_from_trace  # noqa: E402
+from repro_torch.serving.scheduler import FINISHED  # noqa: E402
 
 ARCH = "internlm2-1.8b"
 MOE_ARCH = "qwen3-moe-30b-a3b"
 BATCH, PROMPT, GEN = 4, 512, 32
 SEED = 0
+# The continuous path: a Poisson request trace (0.5 arrivals per tick,
+# prompts geometric around 128 tokens in [4, 512], generations around 24 in
+# [1, 64]) over 8 slots.
+CONT_SLOTS = 8
+CONT_TRACE = dict(n_requests=16, mean_prompt=128, mean_gen=24, rate=0.5, seed=SEED, max_prompt=512, max_gen=64)
 BF16 = torch.bfloat16
 # Tolerances (|got - want| <= atol + rtol * |want|), with their reasons:
 GEMM_TOL_BF16 = (2e-2, 2e-2)  # one bf16 ulp where kernel and plain round the fp32 sum
@@ -207,6 +222,7 @@ def reset_counts() -> None:
     mm_kernel.quant_launches_by_path.clear()
     attn_kernel.launches = 0
     attn_kernel.launches_by_heads.clear()
+    attn_kernel.launches_by_shape.clear()
     grouped_kernel.launches = 0
     grouped_kernel.launches_by_shape.clear()
     grouped_kernel.launches_by_path.clear()
@@ -224,6 +240,11 @@ def shape_counts() -> dict:
     return {"systolic_mmm": dict(mm_kernel.launches_by_shape),
             "systolic_qmm": dict(mm_kernel.quant_launches_by_shape),
             "grouped_mmm": dict(grouped_kernel.launches_by_shape)}
+
+
+def flash_shape_counts() -> dict:
+    """Flash launches since the last reset by (B, Sq, Skv)."""
+    return dict(attn_kernel.launches_by_shape)
 
 
 def route_counts() -> dict:
@@ -535,6 +556,11 @@ def check_grouped(e, c, k, n, dtype, gen, rows: str = "none") -> float:
     return err
 
 
+def continuous_trace(cfg) -> list[dict]:
+    """The continuous path's request trace, on the card."""
+    return make_request_trace(cfg, device="cuda", **CONT_TRACE)
+
+
 def phase_kernels() -> dict:
     say("[2] kernels against their plain versions on the card")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -544,6 +570,13 @@ def phase_kernels() -> dict:
         for m in (4, BATCH * PROMPT):
             for k, n in projections(cfg):
                 mm_err = max(mm_err, check_gemm(m, k, n, BF16, gen, out_dtype=gemm_out_dtype(cfg, k, n)))
+    # The continuous path's GEMMs: the decode step over the slots, and each
+    # request's batch-1 prefill at its prompt length.
+    cfg = configs.get_config(ARCH)
+    cont_lens = sorted({t["prompt"]["tokens"].shape[1] for t in continuous_trace(cfg)})
+    for m in (CONT_SLOTS, *cont_lens):
+        for k, n in projections(cfg):
+            mm_err = max(mm_err, check_gemm(m, k, n, BF16, gen))
     for m, n, k in ((33, 257, 129), (100, 130, 70)):
         for dt in (torch.float32, BF16):
             check_gemm(m, k, n, dt, gen)
@@ -584,6 +617,9 @@ def phase_kernels() -> dict:
         for s, window in ((PROMPT, None), (PROMPT, 128), (500, None)):
             attn_err = max(attn_err, check_flash(BATCH, cfg.n_heads, s, cfg.resolved_head_dim, BF16, gen,
                                                  hkv=cfg.n_kv_heads, window=window))
+    cfg = configs.get_config(ARCH)
+    for s in cont_lens:  # the continuous path's batch-1 prefills
+        attn_err = max(attn_err, check_flash(1, cfg.n_heads, s, cfg.resolved_head_dim, BF16, gen, hkv=cfg.n_kv_heads))
     for d in (16, 64, 120, 128):  # head dims of the zoo (120: h2o-danube3; 16 and 64: SMOKE configs)
         for hkv in (8, 4, 1):  # 1, 2 and 8 query heads per KV head
             for layout in ("bshd", "bhsd", "sliced"):
@@ -622,14 +658,13 @@ def phase_kernels() -> dict:
 # ---------------------------------------------------------------------------
 
 
-def expected_launches(cfg, gemm: str, prefill: bool) -> tuple[dict, dict]:
-    """(launches per kernel, launches per kernel and shape) that a synchronized
-    prefill, or the GEN - 1 decode steps, must make: every projection on
-    ``gemm`` ("systolic_mmm" or "systolic_qmm"), every expert GEMM on the
-    grouped kernel at the dispatch capacity, flash attention once per layer
-    in prefill only."""
-    n_layers, steps = cfg.n_layers, 1 if prefill else GEN - 1
-    tokens = BATCH * PROMPT if prefill else BATCH
+def launches_at(cfg, gemm: str, tokens: int, steps: int, prefill: bool) -> tuple[dict, dict]:
+    """(launches per kernel, launches per kernel and shape) that ``steps``
+    forward passes over ``tokens`` rows (M) must make, each a prefill or a
+    decode step: every projection on ``gemm`` ("systolic_mmm" or
+    "systolic_qmm"), every expert GEMM on the grouped kernel at the dispatch
+    capacity, flash attention once per layer in prefill only."""
+    n_layers = cfg.n_layers
     shapes = {"systolic_mmm": {}, "systolic_qmm": {}, "grouped_mmm": {}}
     shapes[gemm] = {(tokens, k, n): mult * n_layers * steps for (k, n), mult in projections(cfg).items()}
     if cfg.moe is not None:
@@ -638,16 +673,25 @@ def expected_launches(cfg, gemm: str, prefill: bool) -> tuple[dict, dict]:
         shapes["grouped_mmm"] = {(cfg.moe.n_experts, rows, k, n): mult * n_layers * steps
                                  for (k, n), mult in expert_gemms(cfg).items()}
     total = {name: sum(by.values()) for name, by in shapes.items()}
-    total["flash_attn"] = n_layers if prefill else 0
+    total["flash_attn"] = n_layers * steps if prefill else 0
     return total, shapes
 
 
-def expected_routes(cfg, shapes: dict, prefill: bool) -> dict:
+def expected_launches(cfg, gemm: str, prefill: bool) -> tuple[dict, dict]:
+    """``launches_at`` for a synchronized prefill (BATCH x PROMPT rows) or
+    its GEN - 1 decode steps (BATCH rows)."""
+    if prefill:
+        return launches_at(cfg, gemm, BATCH * PROMPT, 1, True)
+    return launches_at(cfg, gemm, BATCH, GEN - 1, False)
+
+
+def expected_routes(cfg, shapes: dict, prefills: int) -> dict:
     """Each GEMM's launches by path that the shapes ``shapes`` (from
-    expected_launches) must make with operands the model hands over aligned,
-    int8 weights K-major and 128-k scale blocks (every prefill launch on a
-    wgmma tile, every decode one on the decode tile), and flash attention's
-    by the model's (H, Hkv)."""
+    launches_at) must make with operands the model hands over aligned, int8
+    weights K-major and 128-k scale blocks (every launch at M > 16 on a
+    wgmma tile, every one at M <= 16 on the decode tile), and flash
+    attention's by the model's (H, Hkv), once per layer in each of
+    ``prefills`` prefills."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     mm, qmm, grouped = collections.Counter(), collections.Counter(), collections.Counter()
     for (m, k, n), c in shapes["systolic_mmm"].items():
@@ -657,7 +701,7 @@ def expected_routes(cfg, shapes: dict, prefill: bool) -> dict:
     for (e, rows, k, n), c in shapes["grouped_mmm"].items():
         grouped[grouped_kernel.grouped_path(rows, k, n, BF16, True)] += c
     return {"systolic_mmm_paths": dict(mm), "systolic_qmm_paths": dict(qmm), "grouped_mmm_paths": dict(grouped),
-            "flash_attn_heads": {(cfg.n_heads, cfg.n_kv_heads): cfg.n_layers} if prefill else {}}
+            "flash_attn_heads": {(cfg.n_heads, cfg.n_kv_heads): cfg.n_layers * prefills} if prefills else {}}
 
 
 def serve_path(label: str, model, params, want: dict, batch, feed=None) -> dict:
@@ -709,8 +753,8 @@ def serve_path(label: str, model, params, want: dict, batch, feed=None) -> dict:
         if pf_counts[name]:
             expect(all(p.startswith("wgmma") for p in pf_paths) and sum(pf_paths.values()) == pf_counts[name],
                    f"{label} prefill: all {pf_counts[name]} {name} launches on a wgmma tile: {pf_paths}")
-    for phase, got_r, want_r in (("prefill", pf_routes, expected_routes(cfg, want_pf_shapes, True)),
-                                 ("decode", dec_routes, expected_routes(cfg, want_dec_shapes, False))):
+    for phase, got_r, want_r in (("prefill", pf_routes, expected_routes(cfg, want_pf_shapes, 1)),
+                                 ("decode", dec_routes, expected_routes(cfg, want_dec_shapes, 0))):
         for key in got_r:
             expect(got_r[key] == want_r[key], f"{label} {phase} {key}: {got_r[key]}, want {want_r[key]}")
 
@@ -847,8 +891,151 @@ def routing_witness(label: str, kernel: list, plain: list) -> dict:
     return {"slots_per_layer": n, "by_layer": rows}
 
 
-def phase_serve() -> tuple[dict, dict]:
-    """The bf16 model, then the w8a8 model quantized from the same fp32 masters."""
+def continuous_expected(cfg, prompt_lens: list, decode_steps: int) -> tuple[dict, dict, dict, dict]:
+    """(launches per kernel, per kernel and shape, by route, flash launches by
+    (B, Sq, Skv)) that a continuous run must make: a batch-1 prefill per
+    request at M = its prompt length, one more per distinct prompt length in
+    warmup, and ``decode_steps`` + 1 (warmup's all-empty step) decode steps
+    at M = the slot count."""
+    prefills = collections.Counter(prompt_lens) + collections.Counter(set(prompt_lens))
+    runs = [launches_at(cfg, "systolic_mmm", m, c, True) for m, c in prefills.items()]
+    runs.append(launches_at(cfg, "systolic_mmm", CONT_SLOTS, decode_steps + 1, False))
+    total, shapes = collections.Counter(), {"systolic_mmm": {}, "systolic_qmm": {}, "grouped_mmm": {}}
+    for t, by in runs:
+        total.update(t)
+        for name, sh in by.items():
+            for key, c in sh.items():
+                shapes[name][key] = shapes[name].get(key, 0) + c
+    total = {name: total[name] for name in KERNELS}
+    flash = {(1, m, m): cfg.n_layers * c for m, c in prefills.items()}
+    return total, shapes, expected_routes(cfg, shapes, sum(prefills.values())), flash
+
+
+def phase_continuous(model, params, smi: str) -> dict:
+    """Serve the continuous trace through ContinuousScheduler with the counts
+    set to 0 just before the run and read just after; check the lifecycle
+    and the launches; then replay each request alone at batch 1 (prefill,
+    then decode with the scheduler's tokens fed back) and hold the
+    scheduler's prefill and decode-step logits against the replay's.  The
+    model's prefill and decode_step are wrapped here, in the script, to
+    record what the scheduler's engine computed."""
+    cfg = model.cfg
+    trace = continuous_trace(cfg)
+    lens = [t["prompt"]["tokens"].shape[1] for t in trace]
+    gens = [t["max_new_tokens"] for t in trace]
+    max_len = max(p + g for p, g in zip(lens, gens))
+    say(f"[3] continuous serving of {ARCH} bf16: {len(trace)} requests arriving over "
+        f"{trace[-1]['arrival']:.1f} ticks, prompts {min(lens)}-{max(lens)} (mean {sum(lens) / len(lens):.1f}), "
+        f"generations {min(gens)}-{max(gens)} (mean {sum(gens) / len(gens):.1f}), {CONT_SLOTS} slots, max_len {max_len}")
+    rid_of = {id(t["prompt"]): t["rid"] for t in trace}
+    first_logits, steps, sched = {}, [], None
+
+    def prefill(p, batch, max_len):
+        logits, cache = model.prefill(p, batch, max_len=max_len)
+        if id(batch) in rid_of:  # warmup's call comes first; the admission's overwrites it
+            first_logits[rid_of[id(batch)]] = logits.clone()
+        return logits, cache
+
+    def decode_step(p, tok, cache, pos):
+        logits, cache = model.decode_step(p, tok, cache=cache, pos=pos)
+        rids = {slot: r.rid for slot, r in sched._slot_req.items()}
+        if rids:  # warmup's all-empty step serves no request
+            steps.append((sched.pool.positions.copy(), logits.clone(), rids))  # the host's copy of pos
+        return logits, cache
+
+    recorded = dataclasses.replace(model, prefill=prefill, decode_step=decode_step)
+    engine = ServeEngine(recorded, params, ServeConfig(max_len=max_len, batch=CONT_SLOTS), device="cuda")
+    sched = ContinuousScheduler(engine, policy="continuous")
+    reqs = requests_from_trace(trace)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    results = sched.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got, got_shapes, got_routes, got_flash = counts(), shape_counts(), route_counts(), flash_shape_counts()
+    st = sched.stats.summary()
+
+    # Lifecycle.
+    expect(all(r.state == FINISHED and len(results[r.rid]) == r.max_new_tokens for r in reqs),
+           f"continuous: all {len(reqs)} requests finished with exactly max_new_tokens tokens "
+           f"({st['tokens_out']} tokens, want {sum(gens)})")
+    expect(sched.pool.n_free == CONT_SLOTS and (sched.pool.positions == -1).all(),
+           f"continuous: the pool drained ({sched.pool.n_free} of {CONT_SLOTS} slots free)")
+    rids_by_slot = collections.defaultdict(set)
+    for _, _, rids in steps:
+        for slot, rid in rids.items():
+            rids_by_slot[slot].add(rid)
+    admitted = int(sched.stats.registry.counter_value("sched.admitted"))
+    reused = sum(len(v) > 1 for v in rids_by_slot.values())
+    expect(admitted == len(reqs) > CONT_SLOTS and reused > 0,
+           f"continuous: {admitted} admissions into {CONT_SLOTS} slots, {reused} slots served more than one request")
+    ragged = sum(len({int(pos[s]) for s in rids}) > 1 for pos, _, rids in steps)
+    expect(ragged > 0, f"continuous: {ragged} of {len(steps)} decode ticks decoded slots at different positions")
+
+    # Launches: exact per kernel, GEMM shape and path, flash shape and heads.
+    want, want_shapes, want_routes, want_flash = continuous_expected(cfg, lens, st["decode_steps"])
+    expect(got == want, f"continuous launches (warmup included): {got}, want {want}")
+    for name, by in got_shapes.items():
+        expect(by == want_shapes[name], f"continuous {name} launches by shape: {len(by)} shapes, "
+                                        f"{sum(by.values())} launches" + ("" if by == want_shapes[name] else
+                                                                          f": {sorted(by.items())}"))
+    for key in got_routes:
+        expect(got_routes[key] == want_routes[key], f"continuous {key}: {got_routes[key]}, want {want_routes[key]}")
+    expect(got_flash == want_flash, f"continuous flash_attn launches by (B, Sq, Skv): {len(got_flash)} shapes, "
+                                    f"{sum(got_flash.values())} launches")
+
+    # Each request alone at batch 1, the scheduler's tokens fed back.
+    pf_err, dec_err, same, rows_seen = 0.0, 0.0, 0, 0
+    with torch.no_grad():
+        for t, r in zip(trace, reqs):
+            out, p = results[r.rid], lens[r.rid]
+            rows = {int(pos[s]): logits[s:s + 1] for pos, logits, rids in steps for s, rid in rids.items()
+                    if rid == r.rid}
+            alone, cache = model.prefill(params, t["prompt"], max_len=max_len)
+            errs = [(alone - first_logits[r.rid]).abs().max().item() / max(1.0, alone.abs().max().item())]
+            argmax = [int(alone.argmax())]
+            taken = [int(first_logits[r.rid].argmax())]
+            for j in range(len(out) - 1):
+                tok = torch.tensor([[int(out[j])]], dtype=torch.int32, device="cuda")
+                alone, cache = model.decode_step(params, tok, cache=cache, pos=p + j)
+                row = rows[p + j]
+                errs.append((alone - row).abs().max().item() / max(1.0, alone.abs().max().item()))
+                argmax.append(int(alone.argmax()))
+                taken.append(int(row.argmax()))
+            rows_seen += len(rows)
+            pf_err, dec_err = max(pf_err, errs[0]), max([dec_err, *errs[1:]])
+            same += argmax == [int(x) for x in out]
+            expect(len(rows) == len(out) - 1 and taken == [int(x) for x in out] and max(errs) <= LOGITS_TOL_BF16,
+                   f"continuous request {r.rid} (prompt {p}, {len(out)} tokens, slot ticks {len(rows)}): logits vs "
+                   f"alone at batch 1, largest error {max(errs):.2%} of the largest logit (tol "
+                   f"{LOGITS_TOL_BF16:.0%}); its tokens are the argmax of its own logits")
+            del cache
+    say(f"    continuous vs alone: prefill logits within {pf_err:.2%}, decode-step rows within {dec_err:.2%} of the "
+        f"largest logit over {rows_seen} rows; {same} of {len(reqs)} requests' greedy tokens equal their isolated "
+        f"generate() exactly (bf16 near-ties may flip; for information only)")
+    say(f"    continuous numbers ({smi}): {len(reqs)} requests, {st['ticks']} ticks ({st['idle_ticks']} idle), "
+        f"{st['decode_steps']} decode steps, {st['tokens_out']} tokens; {st['tok_per_s']} tok/s; step p50 "
+        f"{st['p50_step_ms']} / p99 {st['p99_step_ms']} ms; tick p50 {st['p50_tick_ms']} / p99 {st['p99_tick_ms']} ms; "
+        f"TTFT p50 {st['ttft_p50_ms']} / p99 {st['ttft_p99_ms']} ms; mean occupancy {st['mean_occupancy']}; "
+        f"kv_bytes_resident {st['kv_bytes_resident']}; prefill {st['prefill_s']} s + decode {st['decode_s']} s; "
+        f"run wall {st['run_wall_s']} s ({wall:.3f} s with warmup)")
+    del engine, sched, steps, first_logits
+
+    def listed(shapes):  # {kernel: [[*shape, launches], ...]}
+        return {name: [[*key, c] for key, c in sorted(by.items())] for name, by in shapes.items() if by}
+
+    return {"summary": st, "wall_s_with_warmup": wall, "prompt_lens": lens, "max_new_tokens": gens,
+            "launches": got, "shapes": listed(got_shapes),
+            "routes": {k: {str(kk): c for kk, c in v.items()} for k, v in got_routes.items()},
+            "flash_shapes": [[*key, c] for key, c in sorted(got_flash.items())],
+            "prefill_logits_max_share": pf_err, "decode_logits_max_share": dec_err,
+            "requests_tokens_equal_alone": same}
+
+
+def phase_serve(smi: str) -> tuple[dict, dict, dict]:
+    """The bf16 model, the same parameters served continuously, then the
+    w8a8 model quantized from the same fp32 masters."""
     cfg = configs.get_config(ARCH)
     say(f"[3] serve {ARCH} (full width: {cfg.n_layers}L d={cfg.d_model} H={cfg.n_heads}/{cfg.n_kv_heads} "
         f"d_ff={cfg.d_ff} V={cfg.vocab_size}) in {cfg.dtype}, batch {BATCH}, prompt {PROMPT}, {GEN} tokens")
@@ -865,6 +1052,7 @@ def phase_serve() -> tuple[dict, dict]:
         f"w8a8: {n_q} projection weights -> int8 ({q_bytes / 1e6:.1f} MB resident values)")
     batch = make_batch(cfg, batch=BATCH, seq=PROMPT, kind="prefill", seed=SEED, device="cuda")
     bf16 = serve_path("bf16", model, params, {"gemm": "systolic_mmm", "tol": LOGITS_TOL_BF16}, batch)
+    cont = phase_continuous(model, params, smi)
     with quant.use_act_quant("int8"):
         w8a8 = serve_path("w8a8", model, qparams, {"gemm": "systolic_qmm", "tol": LOGITS_TOL_W8A8}, batch,
                           feed=bf16["fed"])
@@ -887,7 +1075,7 @@ def phase_serve() -> tuple[dict, dict]:
         del r["logits"], r["fed"]
     del params, qparams, model, batch
     torch.cuda.empty_cache()
-    return bf16, w8a8
+    return bf16, w8a8, cont
 
 
 def phase_serve_moe() -> dict:
@@ -1087,12 +1275,12 @@ def cycler(items: list):
     return nxt
 
 
-def time_gemm(m, k, n, gen, out_dtype=BF16) -> dict:
+def time_gemm(m, k, n, gen, out_dtype=BF16, tiles: bool = True) -> dict:
     """Kernel, plain and library times of one bf16 projection.  Weights are
     cycled through enough copies to exceed the 50 MB L2, as the main path
-    reads each layer's weights cold.  Prefill shapes are also timed on each
-    wgmma tile through the C entry (launches that no counter sees), for the
-    path rule's record."""
+    reads each layer's weights cold.  With ``tiles``, a shape on a wgmma path
+    is also timed on each wgmma tile through the C entry (launches that no
+    counter sees), for the path rule's record."""
     a = randn((m, k), gen, BF16)
     copies = max(1, math.ceil(150e6 / (k * n * dtype_bytes(BF16))))
     nxt = cycler([randn((k, n), gen, BF16) for _ in range(copies)])
@@ -1107,7 +1295,7 @@ def time_gemm(m, k, n, gen, out_dtype=BF16) -> dict:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     path = mm_kernel.gemm_path(m, n, k, BF16, True, sms)
     by_path = {}
-    if path.startswith("wgmma"):
+    if tiles and path.startswith("wgmma"):
         lib_, fn = mm_kernel._entry("systolic_mmm")
         out = torch.empty((m, n), dtype=out_dtype, device="cuda")
         stream = torch.cuda.current_stream().cuda_stream
@@ -1165,12 +1353,12 @@ def time_grouped(e, c, k, n, gen, patterns: list) -> dict:
             "routed_ms": t["routed"], "routed_bound_ms": routed_bound_s * 1e3, "routed_bound_by": routed_bounds[0][1]}
 
 
-def time_flash(gen, cfg) -> dict:
+def time_flash(gen, cfg, b: int = BATCH, s: int = PROMPT) -> dict:
     """Flash attention as the model calls it: q (B, S, H, D) and k, v (B, S,
     Hkv, D), handed over as (B, H, S, D) views; the plain version repeats
     K/V; SDPA (the yardstick) takes the same views with enable_gqa.  The
     bound reads K and V at Hkv heads."""
-    b, s, h, hkv, d = BATCH, PROMPT, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     q = randn((b, s, h, d), gen, BF16).transpose(1, 2)
     k, v = (randn((b, s, hkv, d), gen, BF16).transpose(1, 2) for _ in range(2))
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1253,22 +1441,25 @@ def time_gemm_bias(m, k, n, gen) -> dict:
 
 
 def _merged(paths: list, kernel: str) -> dict:
-    """shape -> launches of ``kernel`` over prefill and decode of every path."""
+    """shape -> launches of ``kernel`` over prefill and decode of every path
+    (a continuous run lists its launches under "shapes")."""
     out = collections.Counter()
     for r in paths:
-        for phase in ("prefill_shapes", "decode_shapes"):
-            for *shape, c in r[phase].get(kernel, []):
+        for phase in ("prefill_shapes", "decode_shapes", "shapes"):
+            for *shape, c in r.get(phase, {}).get(kernel, []):
                 out[tuple(shape)] += c
     return dict(out)
 
 
-def phase_timing(errs: dict, bf16: dict, w8a8: dict, moe_r: dict) -> tuple[list[dict], dict]:
-    say("[4] kernel times at the main path's shapes (CUDA events; ms per call)")
+def phase_timing(errs: dict, bf16: dict, w8a8: dict, moe_r: dict, cont: dict) -> tuple[list[dict], dict]:
+    say("[4] kernel times at the served paths' shapes (CUDA events; ms per call)")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     moe_cfg = configs.get_config(MOE_ARCH)
     shapes = []
-    for (m, k, n), n_calls in _merged([bf16, moe_r], "systolic_mmm").items():
-        r = time_gemm(m, k, n, gen, gemm_out_dtype(moe_cfg, k, n))
+    synchronized = _merged([bf16, moe_r], "systolic_mmm")
+    for (m, k, n), n_calls in _merged([bf16, moe_r, cont], "systolic_mmm").items():
+        # each wgmma tile timed at the synchronized paths' shapes only
+        r = time_gemm(m, k, n, gen, gemm_out_dtype(moe_cfg, k, n), tiles=(m, k, n) in synchronized)
         r["launches"] = n_calls  # as counted at the launch site on the served paths
         shapes.append(r)
         tiles = "".join(f"  {p[6:]} {t:.4f}" for p, t in r["ms_by_path"].items())
@@ -1302,10 +1493,15 @@ def phase_timing(errs: dict, bf16: dict, w8a8: dict, moe_r: dict) -> tuple[list[
         f"bound {k2['bound_ms']:.4f} ({k2['bound_by']})")
     flash = []
     # Flash launches are counted by head counts: each path's prefill launches
-    # are at its model's (H, Hkv), phase 3 checks (16, 8) and (32, 4).
-    for cfg, paths in ((configs.get_config(ARCH), [bf16, w8a8]), (moe_cfg, [moe_r])):
-        fl = time_flash(gen, cfg)
-        fl["launches"] = sum(r["prefill_launches"]["flash_attn"] + r["decode_launches"]["flash_attn"] for r in paths)
+    # are at its model's (H, Hkv), phase 3 checks (16, 8) and (32, 4); the
+    # continuous path's also by (B, Sq, Skv), batch 1 at each prompt length.
+    dense_cfg = configs.get_config(ARCH)
+    runs = [(dense_cfg, BATCH, PROMPT, sum(r["prefill_launches"]["flash_attn"] for r in (bf16, w8a8))),
+            (moe_cfg, BATCH, PROMPT, moe_r["prefill_launches"]["flash_attn"])]
+    runs += [(dense_cfg, b, sq, n_calls) for b, sq, _, n_calls in cont["flash_shapes"]]
+    for cfg, b, sq, n_calls in runs:
+        fl = time_flash(gen, cfg, b, sq)
+        fl["launches"] = n_calls
         flash.append(fl)
         say(f"    flash_attn B={fl['b']} H={fl['h']}/{fl['hkv']} S={fl['s']} D={fl['d']} causal x{fl['launches']} "
             f"kernel {fl['ms']:.4f}  plain {fl['plain_ms']:.4f}  sdpa(enable_gqa) {fl['library_ms']:.4f}  "
@@ -1329,8 +1525,9 @@ def phase_timing(errs: dict, bf16: dict, w8a8: dict, moe_r: dict) -> tuple[list[
                 **{key: tot[key] for key in keys[3:]}, "shapes": rows}
 
     # Each kernel's launches are those of every served path that runs it: the
-    # fp GEMM on the bf16 and MoE models, flash attention on all three, the
-    # block-scaled GEMM on the w8a8 model, the grouped GEMM on the MoE model.
+    # fp GEMM on the bf16 (synchronized and continuous) and MoE models, flash
+    # attention on all four paths, the block-scaled GEMM on the w8a8 model,
+    # the grouped GEMM on the MoE model.
     return [entry("systolic_mmm", shapes), entry("flash_attn", flash), entry("systolic_qmm", qshapes),
             entry("grouped_mmm", gshapes)], k2
 
@@ -1350,16 +1547,16 @@ def main() -> int:
     t_start = time.perf_counter()
     device = phase_device()
     errs = phase_kernels()
-    bf16, w8a8 = phase_serve()
+    bf16, w8a8, cont = phase_serve(device["nvidia_smi"])
     phase_small_reference(ARCH)
     moe_r = phase_serve_moe()
     phase_small_reference(MOE_ARCH)
-    kernels, k2 = phase_timing(errs, bf16, w8a8, moe_r)
+    kernels, k2 = phase_timing(errs, bf16, w8a8, moe_r, cont)
     say(f"    wall {time.perf_counter() - t_start:.1f} s")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump({"device": device, "serve": bf16, "serve_w8a8": w8a8, "serve_moe": moe_r,
+            json.dump({"device": device, "serve": bf16, "serve_continuous": cont, "serve_w8a8": w8a8, "serve_moe": moe_r,
                        "kernels": kernels, "systolic_mmm_bias": k2, "failures": failures}, f, indent=1)
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed:", file=sys.stderr)

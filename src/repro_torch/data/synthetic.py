@@ -1,8 +1,10 @@
-"""Synthetic batches with deterministic numpy data.
+"""Synthetic batches and request traces with deterministic numpy data.
 
-The counterpart of ``repro.data.synthetic.make_batch``: the reference draws
-its tokens with numpy, so the same seed gives the same tokens here.  The
-tensors are then placed on ``device`` (default: the card).
+The counterpart of ``repro.data.synthetic``'s ``make_batch``, ``make_prompt``
+and ``make_request_trace``: the reference draws with numpy, and so does this
+module, from the same generators in the same order, so one seed gives the
+same tokens, arrivals and lengths here.  The tensors are then placed on
+``device`` (default: the card).
 """
 
 from __future__ import annotations
@@ -49,3 +51,58 @@ def make_batch(
         labels = rng.integers(0, cfg.vocab_size, _token_shape(cfg, batch, st), dtype=np.int32)
         out["labels"] = torch.from_numpy(labels).to(dev)
     return out
+
+
+def make_prompt(cfg: ArchConfig, *, seq: int, seed: int = 0,
+                device: str | torch.device | None = None) -> dict:
+    """Batch-1 prefill batch: the continuous-batching admission unit."""
+    return make_batch(cfg, batch=1, seq=seq, kind="prefill", seed=seed, device=device)
+
+
+def make_request_trace(
+    cfg: ArchConfig,
+    *,
+    n_requests: int,
+    mean_prompt: int = 24,
+    mean_gen: int = 12,
+    rate: float = 0.5,
+    seed: int = 0,
+    min_prompt: int = 4,
+    max_prompt: int | None = None,
+    min_gen: int = 1,
+    max_gen: int | None = None,
+    device: str | torch.device | None = None,
+) -> list[dict]:
+    """Poisson-arrival ragged request trace for the continuous scheduler.
+
+    Arrivals are a Poisson process of intensity ``rate`` (requests per
+    scheduler tick, i.e. per decode step); prompt and generation lengths are
+    geometric around their means, clipped to [min, max].  Entries are
+    ``{"rid", "arrival", "prompt", "max_new_tokens"}`` with ``prompt`` a
+    batch-1 prefill batch on ``device``
+    (``serving.scheduler.requests_from_trace`` adapts them to Requests).
+    """
+    if n_requests < 1:
+        raise ValueError("n_requests must be >= 1")
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    arrivals = np.cumsum(rng.exponential(1.0 / max(rate, 1e-9), n_requests))
+    max_prompt = max_prompt or 4 * mean_prompt
+    max_gen = max_gen or 4 * mean_gen
+
+    def _ragged(mean: int, lo: int, hi: int) -> int:
+        return int(np.clip(rng.geometric(1.0 / max(mean, 1)), lo, hi))
+
+    trace = []
+    for i in range(n_requests):
+        p = _ragged(mean_prompt, min_prompt, max_prompt)
+        g = _ragged(mean_gen, min_gen, max_gen)
+        trace.append(
+            {
+                "rid": i,
+                "arrival": float(arrivals[i]),
+                "prompt": make_prompt(cfg, seq=p, seed=seed + 1 + i, device=dev),
+                "max_new_tokens": g,
+            }
+        )
+    return trace

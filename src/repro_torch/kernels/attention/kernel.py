@@ -22,10 +22,11 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
 MAX_BATCH = 65535  # the grid's y extent
 
-# Kernel launches made by this process, in all and by the (H, Hkv) head
-# counts they were given (read and reset by chip_smoke.py).
+# Kernel launches made by this process, in all, by the (H, Hkv) head counts
+# they were given and by (B, Sq, Skv) (read and reset by chip_smoke.py).
 launches = 0
 launches_by_heads: collections.Counter = collections.Counter()
+launches_by_shape: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -100,4 +101,5 @@ def flash_attention_call(
     _build.check(lib, "flash_attn_fwd launch", code)
     launches += 1
     launches_by_heads[(h, hkv)] += 1
+    launches_by_shape[(b, sq, skv)] += 1
     return out

@@ -1,14 +1,25 @@
-"""Batched serving engine: synchronized prefill -> greedy decode.
+"""Batched serving engine: synchronized prefill -> decode, plus the per-slot
+primitives the continuous-batching scheduler drives.
 
-The counterpart of the synchronized half of ``repro.serving.engine``.  It
-runs eagerly: no ``torch.compile`` and no CUDA graph yet.  The reference
-jits its decode step and donates the cache to it (``engine.py:187-195``);
-here the decode step updates the resident cache tensors in place, which is
-the same reuse of memory without the compiler.
+The counterpart of ``repro.serving.engine``.  It runs eagerly: no
+``torch.compile`` and no CUDA graph yet.  The reference jits its decode step
+and donates the cache to it; here the decode step updates the cache tensors
+it is given in place, which is the same reuse of memory without the
+compiler.  Two serving modes share the model's functions:
 
-The continuous-batching primitives (``prefill_request``, ``prefill_chunk``,
-``decode_slots``), the tune-plan report and the metrics hooks belong to
-later parts of the port.
+  * **synchronized batched decode** (``generate``): every slot advances one
+    token per step at a common depth;
+  * **continuous batching** (``repro_torch.serving.scheduler`` +
+    ``repro_torch.serving.kvpool``): ``prefill_request`` (batch-1 prefill
+    that does NOT touch the resident synchronized cache) and
+    ``decode_slots`` (decode with a per-slot position *vector* over an
+    externally owned cache).
+
+Empty or cleared slots are marked ``pos = -1`` everywhere; the attention
+masking rule ``valid(k) = pos[k] >= 0`` then blanks their cache rows.
+
+Chunked prefill (``prefill_chunk``, ``chunk_schedule``) and the tune-plan
+report belong to later parts of the port.
 """
 
 from __future__ import annotations
@@ -20,24 +31,18 @@ import torch
 
 from repro_torch.core.device import resolve_device
 from repro_torch.models.registry import Model
-from repro_torch.serving.kvpool import clear_slots
+from repro_torch.obs import attribution as _obs
+from repro_torch.obs import metrics as _obs_metrics
+from repro_torch.obs import trace as _obs_trace
+from repro_torch.serving.kvpool import _tensors, clear_slots
 
 
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
     max_len: int
-    batch: int  # synchronized batch size
-
-
-def _tensors(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _tensors(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _tensors(v)
-    elif isinstance(tree, torch.Tensor):
-        yield tree
+    batch: int  # synchronized batch size == continuous-batching slot count
+    temperature: float = 0.0  # 0 => greedy
+    seed: int = 0
 
 
 class ServeEngine:
@@ -54,14 +59,27 @@ class ServeEngine:
         self.params = params
         self.cache = None
         self.pos = 0
+        # Temperature sampling draws from this generator on the engine's
+        # device (torch's RNG is not JAX's: sampled tokens cannot match the
+        # reference's, greedy ones do).
+        self._gen = torch.Generator(device=self.device).manual_seed(scfg.seed)
+        # The continuous decode step's GEMM work, which the scheduler divides
+        # its measured step into (nothing records into it yet: see
+        # ``obs.attribution``).  Executions are counted by the
+        # ``engine.steps{phase}`` counter of each continuous primitive.
+        self.decode_totals = _obs.GemmTotals()
 
     # -- sampling --------------------------------------------------------------
 
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
-        """logits: (B, 1, V) -> tokens (B, 1) int32, greedy (argmax).
-        Temperature sampling comes with the continuous-serving part of the
-        port, whose launcher sets it."""
-        return torch.argmax(logits, dim=-1).to(torch.int32)
+        """logits: (B, 1, V) -> tokens (B, 1) int32: argmax at temperature 0,
+        else a draw from softmax(logits / temperature) with the engine's
+        generator."""
+        if self.scfg.temperature <= 0.0:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        probs = torch.softmax(logits.float() / self.scfg.temperature, dim=-1)
+        tok = torch.multinomial(probs.reshape(-1, probs.shape[-1]), 1, generator=self._gen)
+        return tok.reshape(logits.shape[:-1]).to(torch.int32)
 
     # -- synchronized serving --------------------------------------------------
 
@@ -103,6 +121,47 @@ class ServeEngine:
             return
         self.cache = clear_slots(self.cache, torch.as_tensor(slot_mask), self.scfg.batch)
 
+    # -- continuous-batching primitives ----------------------------------------
+
     def prompt_positions(self, batch: dict) -> int:
         """Positions a prompt occupies in the cache."""
         return batch["tokens"].shape[1]
+
+    @torch.no_grad()
+    def prefill_request(self, batch: dict):
+        """Prefill one admission unit WITHOUT touching the resident cache.
+
+        batch is a batch-1 prompt dict on the engine's device; returns (first
+        sampled token (1, 1), primed batch-1 cache at this engine's max_len)
+        for the KV pool to scatter into the assigned slot.
+        """
+        tokens = batch["tokens"]
+        if tokens.device.type != self.device.type:
+            raise ValueError(f"prompt on {tokens.device}, engine on {self.device}")
+        _obs_metrics.inc("engine.steps", phase="prefill_request")
+        with _obs_trace.span("engine.prefill_request", cat="engine", prompt_len=tokens.shape[1]):
+            logits, cache = self.model.prefill(self.params, batch, max_len=self.scfg.max_len)
+        return self._sample(logits), cache
+
+    def attn_cache_len(self) -> int:
+        """Sequence capacity of the per-layer attention cache: ``max_len``,
+        except the SWA ring which only keeps ``window`` slots."""
+        if self.cfg.attention == "swa":
+            return min(self.scfg.max_len, self.cfg.window)
+        return self.scfg.max_len
+
+    @torch.no_grad()
+    def decode_slots(self, tokens: torch.Tensor, cache: Any, pos: torch.Tensor):
+        """One continuous-batching decode step over an external cache.
+
+        tokens: (B, 1) last token per slot (garbage for empty slots); pos:
+        (B,) int32 per-slot absolute positions, -1 for empty slots, on the
+        engine's device.  Returns (sampled tokens (B, 1), cache); the cache
+        is updated in place and returned, as the synchronized decode does.
+        """
+        _obs_metrics.inc("engine.steps", phase="decode")
+        with _obs.collecting(self.decode_totals), _obs_trace.span(
+            "engine.decode_slots", cat="engine", batch=tokens.shape[0]
+        ):
+            logits, cache = self.model.decode_step(self.params, tokens, cache=cache, pos=pos)
+        return self._sample(logits), cache

@@ -19,10 +19,10 @@ import torch
 
 from repro_torch import configs
 from repro_torch.convert import params_from_jax
-from repro_torch.data.synthetic import make_batch
+from repro_torch.data.synthetic import make_batch, make_request_trace
 from repro_torch.launch import serve
 from repro_torch.models.registry import get_model
-from repro_torch.serving import ServeConfig, ServeEngine
+from repro_torch.serving import KVPool, ServeConfig, ServeEngine
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
@@ -52,6 +52,8 @@ def test_port_and_chip_smoke_import_no_jax_or_repro():
     assert {"repro_torch.quant", "repro_torch.quant.qarray", "repro_torch.quant.params"} <= set(res["modules"])
     assert {"repro_torch.models.moe", "repro_torch.kernels.grouped.kernel", "repro_torch.kernels.grouped.ops",
             "repro_torch.kernels.grouped.ref"} <= set(res["modules"])
+    assert {"repro_torch.obs.metrics", "repro_torch.obs.trace", "repro_torch.obs.slo", "repro_torch.obs.attribution",
+            "repro_torch.obs.profile", "repro_torch.serving.scheduler"} <= set(res["modules"])
     assert res["bad"] == []
 
 
@@ -91,6 +93,17 @@ ENTRY_POINTS = {
     ),
     "launch.serve qwen3-moe-30b-a3b": lambda: serve.main(["--arch", "qwen3-moe-30b-a3b", "--gen", "2"]),
     "moe model.init": lambda: get_model(configs.get_smoke("qwen3-moe-30b-a3b")).init(0),
+    "ServeEngine.prefill_request": lambda: ServeEngine(
+        get_model(_cfg()), {}, ServeConfig(max_len=8, batch=1)
+    ).prefill_request({"tokens": torch.zeros((1, 4), dtype=torch.int32)}),
+    "ServeEngine.decode_slots": lambda: ServeEngine(get_model(_cfg()), {}, ServeConfig(max_len=8, batch=2)).decode_slots(
+        torch.zeros((2, 1), dtype=torch.int32), None, torch.full((2,), -1, dtype=torch.int32)
+    ),
+    "KVPool": lambda: KVPool(get_model(_cfg()), 2, 8),
+    "make_request_trace": lambda: make_request_trace(_cfg(), n_requests=2),
+    "launch.serve --continuous": lambda: serve.main(
+        ["--arch", "internlm2-1.8b", "--smoke", "--continuous", "--requests", "2", "--gen", "2"]
+    ),
 }
 
 
@@ -137,6 +150,18 @@ def test_launcher_refuses_kv8():
     """kv8 quantizes the continuous-batching KV pool, which is not ported yet."""
     with pytest.raises(ValueError, match="continuous serving"):
         serve.main(["--arch", "internlm2-1.8b", "--smoke", "--device", "cpu", "--quantize", "kv8"])
+    with pytest.raises(ValueError, match="item 2b"):
+        serve.main(["--arch", "internlm2-1.8b", "--smoke", "--device", "cpu", "--continuous", "--quantize", "kv8"])
+
+
+@pytest.mark.parametrize("mode", ["none", "w8a8"])
+def test_continuous_launcher_runs_on_cpu_when_asked(capsys, mode):
+    out = serve.main(["--arch", "internlm2-1.8b", "--smoke", "--device", "cpu", "--continuous", "--requests", "5",
+                      "--slots", "2", "--mean-prompt", "6", "--mean-gen", "4", "--prompt-len", "12", "--gen", "6",
+                      "--quantize", mode])
+    assert sorted(out) == list(range(5)) and all(1 <= len(t) <= 6 for t in out.values())
+    printed = capsys.readouterr().out
+    assert "continuous[continuous] 5 requests over " in printed and "mean slot occupancy" in printed
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -175,6 +175,25 @@ def test_each_wgmma_tile_matches_plain(cuda, path, m, n, k):
             torch.testing.assert_close(out.float(), want.float(), rtol=2e-2, atol=2e-2)
 
 
+# internlm2-1.8b's projections (N, K) at continuous serving's M: batch-1
+# prefills at prompt lengths 5, 17, 63 and 200, and the decode step over 8
+# slots, on whatever path the rule picks (decode tile up to M = 16, then the
+# wgmma tiles).
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [5, 8, 17, 63, 200])
+@pytest.mark.parametrize("n,k", [(2048, 2048), (1024, 2048), (8192, 2048), (2048, 8192)])
+def test_gemm_at_continuous_serving_shapes(cuda, m, n, k):
+    a = _rand((m, k), 20).to(cuda, torch.bfloat16)
+    b = _rand((k, n), 21).to(cuda, torch.bfloat16)
+    path = _path(cuda, m, n, k)
+    assert path == "decode" if m <= 16 else path.startswith("wgmma")
+    before = mm_kernel.launches_by_path[path]
+    got = mm_ops.matmul(a, b)
+    torch.cuda.synchronize()
+    assert mm_kernel.launches_by_path[path] == before + 1
+    torch.testing.assert_close(got.float(), matmul_ref(a, b).float(), rtol=2e-2, atol=2e-2)
+
+
 @pytest.mark.gpu
 def test_unaligned_operand_takes_the_wmma_tile(cuda):
     """A base off 16 bytes cannot be a TMA source: the shape goes to the WMMA
@@ -237,6 +256,27 @@ def test_flash_kernel_gqa_layouts_match_plain(cuda, sq, skv, causal, window, kv_
     torch.cuda.synchronize()
     assert attn_kernel.launches_by_heads[(h, hkv)] == before + 1
     assert got.dtype == dt and got.shape == q.shape and got.transpose(1, 2).is_contiguous()
+    tol = 3e-2 if dtype == "bfloat16" else 2e-4
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+# Continuous serving prefills one request at a time: internlm2-1.8b's flash
+# call at batch 1, S = the prompt length (below one 64-row tile, ragged, and
+# not a multiple of 128), (H, Hkv) = (16, 8), D = 128, causal.
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [4, 17, 100])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_kernel_at_batch1_prompt_lengths(cuda, s, dtype):
+    dt = DTYPES[dtype]
+    q = _flash_operand(cuda, dt, 1, s, 16, 128, "bshd", 17)
+    k = _flash_operand(cuda, dt, 1, s, 8, 128, "bshd", 18)
+    v = _flash_operand(cuda, dt, 1, s, 8, 128, "bshd", 19)
+    before = attn_kernel.launches_by_heads[(16, 8)]
+    got = attn_ops.flash_attention(q, k, v, causal=True)
+    want = flash_attention_call_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale=128**-0.5,
+                                    causal=True, window=None, kv_valid=s).transpose(1, 2)
+    torch.cuda.synchronize()
+    assert attn_kernel.launches_by_heads[(16, 8)] == before + 1
     tol = 3e-2 if dtype == "bfloat16" else 2e-4
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
