@@ -36,7 +36,17 @@ Phases, each printing its own lines; any failure exits non-zero:
      kernel, per GEMM shape and path and per flash shape and head count
      (warmup included), every request's prefill and decode-step logits
      against the same request served alone at batch 1 with the scheduler's
-     tokens fed back, and the continuous serving numbers;
+     tokens fed back, and the continuous serving numbers; the same trace
+     through the kv8 pool (int8 K/V, fp32 scales per slot and head): its
+     resident bytes exact, the same launches, each request's logits within
+     0.15 of the largest logit of the request served alone on the fp cache,
+     the dequantized K of a live slot within 0.05 x max|K| of the fp pool's
+     after a decode step, its step time and kernels per step beside the fp
+     pool's; the long-prompt trace (four requests of 128 tokens decoding, one
+     of 8192 arriving mid-answer, 5 slots) prefilled monolithically and in
+     chunks of 512, in turns A B A B: lifecycle, prefill chunks, exact
+     launches per kernel, shape and path, each request's last-prompt-position
+     logits chunked vs monolithic, and the tick / step / TTFT readings;
      then the same model served w8a8 (int8 weights quantized from the same
      fp32 masters, per-token int8 activations), every projection on the
      block-scaled kernel, with the same launch, kernel-vs-plain and decode
@@ -60,8 +70,10 @@ Phases, each printing its own lines; any failure exits non-zero:
      scales); the systolic GEMM's prefill shapes also on each wgmma tile; the
      grouped GEMM at all rows and with the rows the MoE model's routing gave
      in phase 3, each with its own bound; flash attention in each model's
-     layout, K/V at its KV heads; one JSON line lists the kernels, each
-     shape's time weighted by the launches the main path made at that shape;
+     layout, K/V at its KV heads (batch 1 up to S 8192 for the continuous
+     and long-prompt runs); the chunked path's plain chunk attention (no
+     kernel) beside SDPA; one JSON line lists the kernels, each shape's time
+     weighted by the launches the served paths made at that shape;
   5. the last line: {"ok": true, "device": {...}}.
 Without a card, or without the rest of the repository beside it, it exits
 non-zero and prints no result.
@@ -85,10 +97,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import torch  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from repro_torch import configs, quant  # noqa: E402
 from repro_torch.core.hw import H100, dtype_bytes  # noqa: E402
-from repro_torch.data.synthetic import make_batch, make_request_trace  # noqa: E402
+from repro_torch.data.synthetic import make_adversarial_trace, make_batch, make_request_trace  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.attention import kernel as attn_kernel  # noqa: E402
 from repro_torch.kernels.attention import ops as attn_ops  # noqa: E402
@@ -104,10 +117,13 @@ from repro_torch.kernels.systolic.ref import (  # noqa: E402
     quant_matmul_ref,
     quant_systolic_matmul_ref,
 )
+from repro_torch.launch import trace as trace_tools  # noqa: E402
+from repro_torch.models import attention as attn_model  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.models.transformer import cast_params  # noqa: E402
-from repro_torch.serving import ContinuousScheduler, ServeConfig, ServeEngine, requests_from_trace  # noqa: E402
+from repro_torch.serving import ContinuousScheduler, KVPool, ServeConfig, ServeEngine, requests_from_trace  # noqa: E402
+from repro_torch.serving.engine import chunk_schedule  # noqa: E402
 from repro_torch.serving.scheduler import FINISHED  # noqa: E402
 
 ARCH = "internlm2-1.8b"
@@ -119,6 +135,20 @@ SEED = 0
 # [1, 64]) over 8 slots.
 CONT_SLOTS = 8
 CONT_TRACE = dict(n_requests=16, mean_prompt=128, mean_gen=24, rate=0.5, seed=SEED, max_prompt=512, max_gen=64)
+# The long-prompt path: make_adversarial_trace -- four requests of 128 tokens
+# decoding 48 each from tick 0, and one of 8192 tokens arriving at tick 2
+# for 4 tokens (a user pasting a document into a chat while others are
+# mid-answer) -- over 5 slots, prefilled monolithically and then in chunks
+# of 512 (one per tick), twice each in turns.
+LONG_TRACE = dict(n_short=4, short_prompt=128, short_gen=48, long_prompt=8192, long_gen=4, long_arrival=2.0,
+                  seed=SEED)
+LONG_SLOTS = 5
+LONG_CHUNK = 512
+# kv8: the continuous trace through the int8 pool.  Its resident bytes for 8
+# slots x 411 positions: int8 K/V (8 x 411 x 24 x 2 x 8 x 128), fp32 scales
+# per slot, layer, K/V and head (8 x 24 x 2 x 8 x 4), int32 positions
+# (8 x 411 x 24 x 4).
+KV8_BYTES = 161_611_776 + 12_288 + 315_648
 BF16 = torch.bfloat16
 # Tolerances (|got - want| <= atol + rtol * |want|), with their reasons:
 GEMM_TOL_BF16 = (2e-2, 2e-2)  # one bf16 ulp where kernel and plain round the fp32 sum
@@ -157,6 +187,12 @@ W8A8_VS_BF16_TOL = 0.15  # of the bf16 model's largest logit: tests/test_quant.p
 # by layer, the routed-alike gap, and the nudge readings, for the model of
 # the main path and for models and prompts from two more seeds.
 LOGITS_TOL_MOE = 1e-1
+# kv8 vs the same request served alone on the fp cache: the reference's own
+# quantized-vs-fp bound (tests/test_quant.py), of the largest logit; and its
+# payload gate, the dequantized K of a live slot within 0.05 x max|K| of the
+# fp pool's after a decode step (tests/test_quant.py test_kv8_decode_close_to_fp).
+KV8_VS_FP_TOL = 0.15
+KV8_K_TOL = 0.05
 MOE_WITNESS_SEEDS = (1, 2)  # more models and prompts for the MoE witness
 MOE_NUDGES, MOE_NUDGE_STEPS = 3, 3  # one-ulp nudges per model, decode steps each
 SOURCES = {
@@ -577,6 +613,11 @@ def phase_kernels() -> dict:
     for m in (CONT_SLOTS, *cont_lens):
         for k, n in projections(cfg):
             mm_err = max(mm_err, check_gemm(m, k, n, BF16, gen))
+    # The long-prompt path's: chunks of 512 and the short prompts of 128 (each
+    # one chunk), the monolithic 8192-token prompt, the decode step over 5 slots.
+    for m in (LONG_CHUNK, LONG_TRACE["short_prompt"], LONG_TRACE["long_prompt"], LONG_SLOTS):
+        for k, n in projections(cfg):
+            mm_err = max(mm_err, check_gemm(m, k, n, BF16, gen))
     for m, n, k in ((33, 257, 129), (100, 130, 70)):
         for dt in (torch.float32, BF16):
             check_gemm(m, k, n, dt, gen)
@@ -618,7 +659,7 @@ def phase_kernels() -> dict:
             attn_err = max(attn_err, check_flash(BATCH, cfg.n_heads, s, cfg.resolved_head_dim, BF16, gen,
                                                  hkv=cfg.n_kv_heads, window=window))
     cfg = configs.get_config(ARCH)
-    for s in cont_lens:  # the continuous path's batch-1 prefills
+    for s in (*cont_lens, LONG_TRACE["short_prompt"], LONG_TRACE["long_prompt"]):  # batch-1 prefills
         attn_err = max(attn_err, check_flash(1, cfg.n_heads, s, cfg.resolved_head_dim, BF16, gen, hkv=cfg.n_kv_heads))
     for d in (16, 64, 120, 128):  # head dims of the zoo (120: h2o-danube3; 16 and 64: SMOKE configs)
         for hkv in (8, 4, 1):  # 1, 2 and 8 query heads per KV head
@@ -840,9 +881,6 @@ def serve_path(label: str, model, params, want: dict, batch, feed=None) -> dict:
             tok = lk.argmax(-1).to(torch.int32)
     del engine, cache_k, cache_p, cache_r
 
-    def listed(shapes):  # {kernel: [[*shape, launches], ...]}
-        return {name: [[*key, c] for key, c in sorted(by.items())] for name, by in shapes.items() if by}
-
     return {
         "prefill_ms": t_prefill * 1e3,
         "decode_ms_per_step": t_decode / (GEN - 1) * 1e3,
@@ -891,15 +929,22 @@ def routing_witness(label: str, kernel: list, plain: list) -> dict:
     return {"slots_per_layer": n, "by_layer": rows}
 
 
-def continuous_expected(cfg, prompt_lens: list, decode_steps: int) -> tuple[dict, dict, dict, dict]:
+def continuous_expected(cfg, prompt_lens: list, decode_steps: int, slots: int | None = None,
+                        chunk: int | None = None) -> tuple[dict, dict, dict, dict]:
     """(launches per kernel, per kernel and shape, by route, flash launches by
     (B, Sq, Skv)) that a continuous run must make: a batch-1 prefill per
     request at M = its prompt length, one more per distinct prompt length in
     warmup, and ``decode_steps`` + 1 (warmup's all-empty step) decode steps
-    at M = the slot count."""
-    prefills = collections.Counter(prompt_lens) + collections.Counter(set(prompt_lens))
-    runs = [launches_at(cfg, "systolic_mmm", m, c, True) for m, c in prefills.items()]
-    runs.append(launches_at(cfg, "systolic_mmm", CONT_SLOTS, decode_steps + 1, False))
+    at M = the slot count.  With ``chunk``, each prompt is prefilled in the
+    pieces of ``chunk_schedule`` instead (K1 at M = each piece's length, no
+    flash attention) and warmup runs one dummy chunk per distinct length."""
+    if chunk is None:
+        pieces = list(prompt_lens)
+    else:
+        pieces = [length for p in prompt_lens for _, length in chunk_schedule(p, chunk)]
+    prefills = collections.Counter(pieces) + collections.Counter(set(pieces))
+    runs = [launches_at(cfg, "systolic_mmm", m, c, chunk is None) for m, c in prefills.items()]
+    runs.append(launches_at(cfg, "systolic_mmm", slots or CONT_SLOTS, decode_steps + 1, False))
     total, shapes = collections.Counter(), {"systolic_mmm": {}, "systolic_qmm": {}, "grouped_mmm": {}}
     for t, by in runs:
         total.update(t)
@@ -907,26 +952,54 @@ def continuous_expected(cfg, prompt_lens: list, decode_steps: int) -> tuple[dict
             for key, c in sh.items():
                 shapes[name][key] = shapes[name].get(key, 0) + c
     total = {name: total[name] for name in KERNELS}
+    if chunk is not None:
+        return total, shapes, expected_routes(cfg, shapes, 0), {}
     flash = {(1, m, m): cfg.n_layers * c for m, c in prefills.items()}
     return total, shapes, expected_routes(cfg, shapes, sum(prefills.values())), flash
 
 
-def phase_continuous(model, params, smi: str) -> dict:
+def check_run_launches(label: str, got: tuple, want: tuple) -> None:
+    """Hold a run's (launches per kernel, per GEMM shape, by route, flash by
+    (B, Sq, Skv)) against ``continuous_expected``'s."""
+    (g_total, g_shapes, g_routes, g_flash), (w_total, w_shapes, w_routes, w_flash) = got, want
+    expect(g_total == w_total, f"{label} launches (warmup included): {g_total}, want {w_total}")
+    for name, by in g_shapes.items():
+        expect(by == w_shapes[name], f"{label} {name} launches by shape: {len(by)} shapes, {sum(by.values())} "
+                                     f"launches" + ("" if by == w_shapes[name] else f": {sorted(by.items())}"))
+    for key in g_routes:
+        expect(g_routes[key] == w_routes[key], f"{label} {key}: {g_routes[key]}, want {w_routes[key]}")
+    expect(g_flash == w_flash, f"{label} flash_attn launches by (B, Sq, Skv): {sorted(g_flash.items())}, "
+                               f"want {sorted(w_flash.items())}")
+
+
+def listed(shapes: dict) -> dict:
+    """{kernel: [[*shape, launches], ...]} of launch counts by shape."""
+    return {name: [[*key, c] for key, c in sorted(by.items())] for name, by in shapes.items() if by}
+
+
+def phase_continuous(model, params, smi: str, fp: dict | None = None) -> dict:
     """Serve the continuous trace through ContinuousScheduler with the counts
     set to 0 just before the run and read just after; check the lifecycle
-    and the launches; then replay each request alone at batch 1 (prefill,
-    then decode with the scheduler's tokens fed back) and hold the
-    scheduler's prefill and decode-step logits against the replay's.  The
-    model's prefill and decode_step are wrapped here, in the script, to
-    record what the scheduler's engine computed."""
+    and the launches; then replay each request alone at batch 1 on the fp
+    cache (prefill, then decode with the scheduler's tokens fed back) and
+    hold the scheduler's prefill and decode-step logits against the
+    replay's.  The model's prefill and decode_step are wrapped here, in the
+    script, to record what the scheduler's engine computed.
+
+    With ``fp`` (the fp pool's run of the same trace) the pool is kv8: its
+    resident bytes are checked exactly, its launches and decode steps must
+    equal the fp run's, and its logits are held at the quantized-vs-fp bound."""
+    kv8 = fp is not None
+    label, tol = ("kv8", KV8_VS_FP_TOL) if kv8 else ("continuous", LOGITS_TOL_BF16)
     cfg = model.cfg
     trace = continuous_trace(cfg)
     lens = [t["prompt"]["tokens"].shape[1] for t in trace]
     gens = [t["max_new_tokens"] for t in trace]
     max_len = max(p + g for p, g in zip(lens, gens))
-    say(f"[3] continuous serving of {ARCH} bf16: {len(trace)} requests arriving over "
-        f"{trace[-1]['arrival']:.1f} ticks, prompts {min(lens)}-{max(lens)} (mean {sum(lens) / len(lens):.1f}), "
-        f"generations {min(gens)}-{max(gens)} (mean {sum(gens) / len(gens):.1f}), {CONT_SLOTS} slots, max_len {max_len}")
+    say(f"[3] {label} serving of {ARCH} bf16{' over the int8 (kv8) pool' if kv8 else ''}: {len(trace)} requests "
+        f"arriving over {trace[-1]['arrival']:.1f} ticks, prompts {min(lens)}-{max(lens)} (mean "
+        f"{sum(lens) / len(lens):.1f}), generations {min(gens)}-{max(gens)} (mean {sum(gens) / len(gens):.1f}), "
+        f"{CONT_SLOTS} slots, max_len {max_len}")
     rid_of = {id(t["prompt"]): t["rid"] for t in trace}
     first_logits, steps, sched = {}, [], None
 
@@ -945,7 +1018,13 @@ def phase_continuous(model, params, smi: str) -> dict:
 
     recorded = dataclasses.replace(model, prefill=prefill, decode_step=decode_step)
     engine = ServeEngine(recorded, params, ServeConfig(max_len=max_len, batch=CONT_SLOTS), device="cuda")
-    sched = ContinuousScheduler(engine, policy="continuous")
+    sched = ContinuousScheduler(engine, policy="continuous", quantize_kv=kv8)
+    if kv8:
+        leaves = list(_leaves(sched.pool._qcache))
+        dtypes = sorted({str(t.dtype)[6:] for t in leaves})
+        expect(sched.pool.bytes_resident() == KV8_BYTES and dtypes == ["float32", "int32", "int8"],
+               f"kv8 pool resident bytes {sched.pool.bytes_resident():,} (want {KV8_BYTES:,}; the fp pool "
+               f"{fp['summary']['kv_bytes_resident']:,}), held as {dtypes}")
     reqs = requests_from_trace(trace)
     torch.cuda.synchronize()
     reset_counts()
@@ -953,15 +1032,15 @@ def phase_continuous(model, params, smi: str) -> dict:
     results = sched.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    got, got_shapes, got_routes, got_flash = counts(), shape_counts(), route_counts(), flash_shape_counts()
+    got = (counts(), shape_counts(), route_counts(), flash_shape_counts())
     st = sched.stats.summary()
 
     # Lifecycle.
     expect(all(r.state == FINISHED and len(results[r.rid]) == r.max_new_tokens for r in reqs),
-           f"continuous: all {len(reqs)} requests finished with exactly max_new_tokens tokens "
+           f"{label}: all {len(reqs)} requests finished with exactly max_new_tokens tokens "
            f"({st['tokens_out']} tokens, want {sum(gens)})")
     expect(sched.pool.n_free == CONT_SLOTS and (sched.pool.positions == -1).all(),
-           f"continuous: the pool drained ({sched.pool.n_free} of {CONT_SLOTS} slots free)")
+           f"{label}: the pool drained ({sched.pool.n_free} of {CONT_SLOTS} slots free)")
     rids_by_slot = collections.defaultdict(set)
     for _, _, rids in steps:
         for slot, rid in rids.items():
@@ -969,23 +1048,18 @@ def phase_continuous(model, params, smi: str) -> dict:
     admitted = int(sched.stats.registry.counter_value("sched.admitted"))
     reused = sum(len(v) > 1 for v in rids_by_slot.values())
     expect(admitted == len(reqs) > CONT_SLOTS and reused > 0,
-           f"continuous: {admitted} admissions into {CONT_SLOTS} slots, {reused} slots served more than one request")
+           f"{label}: {admitted} admissions into {CONT_SLOTS} slots, {reused} slots served more than one request")
     ragged = sum(len({int(pos[s]) for s in rids}) > 1 for pos, _, rids in steps)
-    expect(ragged > 0, f"continuous: {ragged} of {len(steps)} decode ticks decoded slots at different positions")
+    expect(ragged > 0, f"{label}: {ragged} of {len(steps)} decode ticks decoded slots at different positions")
 
     # Launches: exact per kernel, GEMM shape and path, flash shape and heads.
-    want, want_shapes, want_routes, want_flash = continuous_expected(cfg, lens, st["decode_steps"])
-    expect(got == want, f"continuous launches (warmup included): {got}, want {want}")
-    for name, by in got_shapes.items():
-        expect(by == want_shapes[name], f"continuous {name} launches by shape: {len(by)} shapes, "
-                                        f"{sum(by.values())} launches" + ("" if by == want_shapes[name] else
-                                                                          f": {sorted(by.items())}"))
-    for key in got_routes:
-        expect(got_routes[key] == want_routes[key], f"continuous {key}: {got_routes[key]}, want {want_routes[key]}")
-    expect(got_flash == want_flash, f"continuous flash_attn launches by (B, Sq, Skv): {len(got_flash)} shapes, "
-                                    f"{sum(got_flash.values())} launches")
+    if kv8:
+        expect(st["decode_steps"] == fp["summary"]["decode_steps"] and st["ticks"] == fp["summary"]["ticks"],
+               f"kv8: {st['ticks']} ticks and {st['decode_steps']} decode steps, as the fp pool's run "
+               f"({fp['summary']['ticks']}, {fp['summary']['decode_steps']})")
+    check_run_launches(label, got, continuous_expected(cfg, lens, st["decode_steps"]))
 
-    # Each request alone at batch 1, the scheduler's tokens fed back.
+    # Each request alone at batch 1 on the fp cache, the scheduler's tokens fed back.
     pf_err, dec_err, same, rows_seen = 0.0, 0.0, 0, 0
     with torch.no_grad():
         for t, r in zip(trace, reqs):
@@ -1006,36 +1080,200 @@ def phase_continuous(model, params, smi: str) -> dict:
             rows_seen += len(rows)
             pf_err, dec_err = max(pf_err, errs[0]), max([dec_err, *errs[1:]])
             same += argmax == [int(x) for x in out]
-            expect(len(rows) == len(out) - 1 and taken == [int(x) for x in out] and max(errs) <= LOGITS_TOL_BF16,
-                   f"continuous request {r.rid} (prompt {p}, {len(out)} tokens, slot ticks {len(rows)}): logits vs "
-                   f"alone at batch 1, largest error {max(errs):.2%} of the largest logit (tol "
-                   f"{LOGITS_TOL_BF16:.0%}); its tokens are the argmax of its own logits")
+            expect(len(rows) == len(out) - 1 and taken == [int(x) for x in out] and max(errs) <= tol,
+                   f"{label} request {r.rid} (prompt {p}, {len(out)} tokens, slot ticks {len(rows)}): logits vs "
+                   f"alone at batch 1 on the fp cache, largest error {max(errs):.2%} of the largest logit (tol "
+                   f"{tol:.0%}); its tokens are the argmax of its own logits")
             del cache
-    say(f"    continuous vs alone: prefill logits within {pf_err:.2%}, decode-step rows within {dec_err:.2%} of the "
+    say(f"    {label} vs alone: prefill logits within {pf_err:.2%}, decode-step rows within {dec_err:.2%} of the "
         f"largest logit over {rows_seen} rows; {same} of {len(reqs)} requests' greedy tokens equal their isolated "
         f"generate() exactly (bf16 near-ties may flip; for information only)")
-    say(f"    continuous numbers ({smi}): {len(reqs)} requests, {st['ticks']} ticks ({st['idle_ticks']} idle), "
+    say(f"    {label} numbers ({smi}): {len(reqs)} requests, {st['ticks']} ticks ({st['idle_ticks']} idle), "
         f"{st['decode_steps']} decode steps, {st['tokens_out']} tokens; {st['tok_per_s']} tok/s; step p50 "
         f"{st['p50_step_ms']} / p99 {st['p99_step_ms']} ms; tick p50 {st['p50_tick_ms']} / p99 {st['p99_tick_ms']} ms; "
         f"TTFT p50 {st['ttft_p50_ms']} / p99 {st['ttft_p99_ms']} ms; mean occupancy {st['mean_occupancy']}; "
         f"kv_bytes_resident {st['kv_bytes_resident']}; prefill {st['prefill_s']} s + decode {st['decode_s']} s; "
         f"run wall {st['run_wall_s']} s ({wall:.3f} s with warmup)")
+    out = {"summary": st, "wall_s_with_warmup": wall, "prompt_lens": lens, "max_new_tokens": gens,
+           "launches": got[0], "shapes": listed(got[1]),
+           "routes": {k: {str(kk): c for kk, c in v.items()} for k, v in got[2].items()},
+           "flash_shapes": [[*key, c] for key, c in sorted(got[3].items())],
+           "prefill_logits_max_share": pf_err, "decode_logits_max_share": dec_err,
+           "requests_tokens_equal_alone": same}
+    if kv8:
+        say(f"    kv8 decode step p50 {st['p50_step_ms']} ms beside the fp pool's {fp['summary']['p50_step_ms']} ms "
+            f"(same call): the pool is dequantized before and re-quantized after every step")
+        out["payload"] = kv8_payload(model, params, trace[0], max_len)
+        out["step_kernels"] = {name: decode_step_kernels(model, params, max_len, q) for name, q in
+                               (("fp", False), ("kv8", True))}
+        say(f"    device kernels of one decode step over {CONT_SLOTS} slots: fp pool "
+            f"{out['step_kernels']['fp']}, kv8 pool {out['step_kernels']['kv8']} "
+            f"(+{out['step_kernels']['kv8'] - out['step_kernels']['fp']})")
     del engine, sched, steps, first_logits
-
-    def listed(shapes):  # {kernel: [[*shape, launches], ...]}
-        return {name: [[*key, c] for key, c in sorted(by.items())] for name, by in shapes.items() if by}
-
-    return {"summary": st, "wall_s_with_warmup": wall, "prompt_lens": lens, "max_new_tokens": gens,
-            "launches": got, "shapes": listed(got_shapes),
-            "routes": {k: {str(kk): c for kk, c in v.items()} for k, v in got_routes.items()},
-            "flash_shapes": [[*key, c] for key, c in sorted(got_flash.items())],
-            "prefill_logits_max_share": pf_err, "decode_logits_max_share": dec_err,
-            "requests_tokens_equal_alone": same}
+    return out
 
 
-def phase_serve(smi: str) -> tuple[dict, dict, dict]:
-    """The bf16 model, the same parameters served continuously, then the
-    w8a8 model quantized from the same fp32 masters."""
+def kv8_payload(model, params, request: dict, max_len: int) -> dict:
+    """The reference's kv8 payload gate: one prompt prefilled, scattered into
+    an fp and a kv8 pool, one decode step on each from the same token; the
+    kv8 pool's dequantized K of the live slot against the fp pool's, every
+    layer, within KV8_K_TOL x max|K|."""
+    engine = ServeEngine(model, params, ServeConfig(max_len=max_len, batch=CONT_SLOTS), device="cuda")
+    first, cache_one = engine.prefill_request(request["prompt"])
+    n = request["prompt"]["tokens"].shape[1]
+    pools = [KVPool(model, CONT_SLOTS, max_len, quantize_kv_cache=q, device="cuda") for q in (False, True)]
+    for pool in pools:
+        pool.write_prefill(pool.alloc(), cache_one, n)
+    toks = first.repeat(CONT_SLOTS, 1)
+    caches = []
+    for pool in pools:
+        _, pool.cache = engine.decode_slots(toks, pool.cache, pool.pos_vector())
+        caches.append(pool.cache)
+    err, scale = 0.0, 0.0
+    for l_fp, l_q in zip(caches[0]["layers"], caches[1]["layers"]):
+        err = max(err, (l_fp["k"][0] - l_q["k"][0]).abs().max().item())
+        scale = max(scale, l_fp["k"][0].abs().max().item())
+    expect(err < KV8_K_TOL * scale, f"kv8 K of the live slot after one decode step vs the fp pool's, every layer: "
+                                    f"max_abs={err:.4e} (bound {KV8_K_TOL} x max|K| = {KV8_K_TOL * scale:.4e})")
+    return {"k_max_abs_err": err, "k_max_abs": scale}
+
+
+def decode_step_kernels(model, params, max_len: int, quantize_kv: bool) -> int:
+    """Device kernels of one decode step over an empty pool of CONT_SLOTS
+    slots (profiler trace), the pool's dequantize and re-quantize included."""
+    engine = ServeEngine(model, params, ServeConfig(max_len=max_len, batch=CONT_SLOTS), device="cuda")
+    pool = KVPool(model, CONT_SLOTS, max_len, quantize_kv_cache=quantize_kv, device="cuda")
+    tok = torch.zeros((CONT_SLOTS, 1), dtype=torch.int32, device="cuda")
+    _, pool.cache = engine.decode_slots(tok, pool.cache, pool.pos_vector())  # first launches outside the trace
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out, pool.cache = engine.decode_slots(tok, pool.cache, pool.pos_vector())
+        out.cpu()
+        torch.cuda.synchronize()
+    return len(trace_tools._device_work(prof.events()))
+
+
+def long_prompt_run(model, params, chunked: bool, smi: str, turn: int) -> dict:
+    """Serve the long-prompt trace through ContinuousScheduler, prefilling
+    monolithically or in chunks of LONG_CHUNK, with the counts set to 0 just
+    before the run and read just after; check the lifecycle and the launches
+    and record each request's last-prompt-position logits (the model's
+    prefill / prefill_chunk are wrapped here, in the script)."""
+    cfg = model.cfg
+    trace = make_adversarial_trace(cfg, device="cuda", **LONG_TRACE)
+    lens = [t["prompt"]["tokens"].shape[1] for t in trace]
+    gens = [t["max_new_tokens"] for t in trace]
+    max_len = max(p + g for p, g in zip(lens, gens))
+    label = f"long-prompt {'chunked' if chunked else 'monolithic'} #{turn}"
+    rid_of = {id(t["prompt"]): t["rid"] for t in trace}
+    last_logits, sched = {}, None
+
+    def prefill(p, batch, max_len):
+        logits, cache = model.prefill(p, batch, max_len=max_len)
+        if id(batch) in rid_of:  # warmup's call comes first; the admission's overwrites it
+            last_logits[rid_of[id(batch)]] = logits.clone()
+        return logits, cache
+
+    def prefill_chunk(p, batch, cache, offset, wrapped):
+        logits, cache = model.prefill_chunk(p, batch, cache=cache, offset=offset, wrapped=wrapped)
+        req = sched._prefilling[0] if sched._prefilling else None  # None in warmup
+        if req is not None and offset + batch["tokens"].shape[1] == req.prompt_len:
+            last_logits[req.rid] = logits.clone()
+        return logits, cache
+
+    recorded = dataclasses.replace(model, prefill=prefill, prefill_chunk=prefill_chunk)
+    engine = ServeEngine(recorded, params, ServeConfig(max_len=max_len, batch=LONG_SLOTS), device="cuda")
+    sched = ContinuousScheduler(engine, chunked_prefill=chunked, chunk_size=LONG_CHUNK)
+    reqs = requests_from_trace(trace)
+    long_req = reqs[-1]
+    first_tick, ticks = [], []  # ticks: (tick, latency in s) of each tick that decoded
+
+    def on_tick(s):
+        if long_req.out and not first_tick:
+            first_tick.append(s.tick)  # the tick that gave the long request its first token, + 1
+        lat = s.stats.tick_latency_s
+        if len(lat) > len(ticks):
+            ticks.append((s.tick - 1, lat[-1]))
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    results = sched.run(reqs, on_tick=on_tick)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = (counts(), shape_counts(), route_counts(), flash_shape_counts())
+    st = sched.stats.summary()
+    want_chunks = sum(len(chunk_schedule(p, LONG_CHUNK)) for p in lens) if chunked else 0
+    expect(all(r.state == FINISHED and len(results[r.rid]) == r.max_new_tokens for r in reqs)
+           and st["tokens_out"] == sum(gens) and sched.pool.n_free == LONG_SLOTS and (sched.pool.positions == -1).all(),
+           f"{label}: all {len(reqs)} requests finished, {st['tokens_out']} tokens (want {sum(gens)}), the pool "
+           f"drained")
+    expect(st["prefill_chunks"] == want_chunks, f"{label}: {st['prefill_chunks']} prefill chunks, want {want_chunks}")
+    check_run_launches(label, got, continuous_expected(cfg, lens, st["decode_steps"], LONG_SLOTS,
+                                                       LONG_CHUNK if chunked else None))
+    expect(sorted(last_logits) == [r.rid for r in reqs] and all(bool(torch.isfinite(v).all())
+                                                                for v in last_logits.values()),
+           f"{label}: finite last-prompt-position logits of all {len(reqs)} requests recorded")
+    ttft_ticks = first_tick[0] - long_req.admitted_tick
+    ttft_ms = (long_req.first_token_s - long_req.admitted_s) * 1e3
+    # The ticks in which the long prompt was prefilled (monolithic: its
+    # admission tick; chunked: one per chunk), and tick 0, which admits the
+    # four short prompts.
+    during = max(lat for t, lat in ticks if long_req.admitted_tick <= t < first_tick[0]) * 1e3
+    tick0 = ticks[0][1] * 1e3 if ticks and ticks[0][0] == 0 else float("nan")
+    say(f"    {label} ({smi}): {st['ticks']} ticks ({st['idle_ticks']} idle), {st['decode_steps']} decode steps, "
+        f"{st['prefill_chunks']} prefill chunks, {st['tokens_out']} tokens; {st['tok_per_s']} tok/s; tick p50 "
+        f"{st['p50_tick_ms']} / p99 {st['p99_tick_ms']} ms; step p50 {st['p50_step_ms']} / p99 {st['p99_step_ms']} "
+        f"ms; the long request's TTFT {ttft_ms:.3f} ms over {ttft_ticks} ticks, its prefill ticks at most "
+        f"{during:.3f} ms; tick 0 {tick0:.3f} ms; prefill {st['prefill_s']} s + decode {st['decode_s']} s; run wall "
+        f"{st['run_wall_s']} s ({wall:.3f} s with warmup)")
+    out = {"chunked": chunked, "summary": st, "wall_s_with_warmup": wall, "long_ttft_ms": ttft_ms,
+           "long_ttft_ticks": ttft_ticks, "long_prefill_tick_max_ms": during, "tick0_ms": tick0,
+           "tick_ms": [[t, lat * 1e3] for t, lat in ticks], "launches": got[0], "shapes": listed(got[1]),
+           "routes": {k: {str(kk): c for kk, c in v.items()} for k, v in got[2].items()},
+           "flash_shapes": [[*key, c] for key, c in sorted(got[3].items())],
+           "tokens": {rid: toks.tolist() for rid, toks in results.items()}, "last_logits": last_logits}
+    del engine, sched
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_long_prompt(model, params, smi: str) -> list[dict]:
+    """The long-prompt trace monolithic (A) and chunked (B), in turns A B A B
+    in one call, so the host's spread between calls cannot decide the
+    comparison; each chunked run's last-prompt-position logits held against
+    the monolithic run's before it."""
+    t = LONG_TRACE
+    say(f"[3] long-prompt serving of {ARCH} bf16: {t['n_short']} requests of {t['short_prompt']} tokens decoding "
+        f"{t['short_gen']} from tick 0, one of {t['long_prompt']} arriving at tick {t['long_arrival']} for "
+        f"{t['long_gen']}; {LONG_SLOTS} slots; monolithic, then chunks of {LONG_CHUNK}, twice each in turns")
+    runs = []
+    for turn in (1, 2):
+        mono = long_prompt_run(model, params, False, smi, turn)
+        chunked = long_prompt_run(model, params, True, smi, turn)
+        worst = 0.0
+        for rid, want in mono["last_logits"].items():
+            got = chunked["last_logits"][rid]
+            err = (got - want).abs().max().item() / max(1.0, want.abs().max().item())
+            worst = max(worst, err)
+        same = sum(mono["tokens"][rid] == chunked["tokens"][rid] for rid in mono["tokens"])
+        expect(worst <= LOGITS_TOL_BF16,
+               f"long-prompt #{turn}: each request's last-prompt-position logits, chunked (plain attention over the "
+               f"cache) vs monolithic (flash kernel), largest error {worst:.2%} of the largest logit (tol "
+               f"{LOGITS_TOL_BF16:.0%}); {same} of {len(mono['tokens'])} requests' greedy tokens identical "
+               f"(bf16 near-ties may flip; for information only)")
+        for r in (mono, chunked):
+            r["vs_monolithic_max_share"] = worst
+            del r["last_logits"]
+        runs += [mono, chunked]
+    return runs
+
+
+def phase_serve(smi: str) -> tuple[dict, dict, dict, dict, list]:
+    """The bf16 model; the same parameters served continuously over the fp
+    pool and over the kv8 pool, and through the long-prompt trace
+    monolithic and chunked; then the w8a8 model quantized from the same
+    fp32 masters."""
     cfg = configs.get_config(ARCH)
     say(f"[3] serve {ARCH} (full width: {cfg.n_layers}L d={cfg.d_model} H={cfg.n_heads}/{cfg.n_kv_heads} "
         f"d_ff={cfg.d_ff} V={cfg.vocab_size}) in {cfg.dtype}, batch {BATCH}, prompt {PROMPT}, {GEN} tokens")
@@ -1053,6 +1291,8 @@ def phase_serve(smi: str) -> tuple[dict, dict, dict]:
     batch = make_batch(cfg, batch=BATCH, seq=PROMPT, kind="prefill", seed=SEED, device="cuda")
     bf16 = serve_path("bf16", model, params, {"gemm": "systolic_mmm", "tol": LOGITS_TOL_BF16}, batch)
     cont = phase_continuous(model, params, smi)
+    kv8 = phase_continuous(model, params, smi, fp=cont)
+    long_runs = phase_long_prompt(model, params, smi)
     with quant.use_act_quant("int8"):
         w8a8 = serve_path("w8a8", model, qparams, {"gemm": "systolic_qmm", "tol": LOGITS_TOL_W8A8}, batch,
                           feed=bf16["fed"])
@@ -1075,7 +1315,7 @@ def phase_serve(smi: str) -> tuple[dict, dict, dict]:
         del r["logits"], r["fed"]
     del params, qparams, model, batch
     torch.cuda.empty_cache()
-    return bf16, w8a8, cont
+    return bf16, w8a8, cont, kv8, long_runs
 
 
 def phase_serve_moe() -> dict:
@@ -1377,6 +1617,36 @@ def time_flash(gen, cfg, b: int = BATCH, s: int = PROMPT) -> dict:
             "library_ms": t["library"], "bound_ms": bound_s * 1e3, "bound_by": bound_by}
 
 
+def time_chunk_attention(gen, cfg, offset: int, chunk: int = LONG_CHUNK, cache: int | None = None) -> dict:
+    """What one chunk pays for attention on the chunked path: the plain
+    ``_sdpa`` of ``attention.gqa_prefill_chunk`` (no kernel: the reference
+    computes chunk attention outside Pallas too) for a chunk of ``chunk``
+    queries at ``offset`` against a cache of ``cache`` slots (default: the
+    long-prompt run's max_len) under the decode mask, beside SDPA with the
+    same boolean mask and ``enable_gqa``.  The bound counts the (q, k) pairs
+    the mask keeps, q and the whole cache's K and V read once, o written."""
+    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    size = cache or LONG_TRACE["long_prompt"] + LONG_TRACE["long_gen"]
+    q = randn((1, chunk, h, d), gen, BF16)
+    k, v = (randn((1, size, hkv, d), gen, BF16) for _ in range(2))
+    qpos = torch.arange(chunk, device="cuda") + offset
+    kpos = torch.arange(size, device="cuda")
+    kpos = torch.where(kpos < offset + chunk, kpos, -1)  # the slots this prompt has written so far
+    valid = (kpos[None, None, :] >= 0) & (kpos[None, None, :] <= qpos[None, :, None])
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    t = {
+        "plain": time_ms(lambda: attn_model._sdpa(q, k, v, valid, h // hkv), 10),
+        "library": time_ms(lambda: sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                        attn_mask=valid[:, None], enable_gqa=True), 10),
+    }
+    pairs = int(valid.sum())
+    flops = 4 * h * pairs * d
+    nbytes = (2 * chunk * h + 2 * size * hkv) * d * dtype_bytes(BF16)
+    bound_s, bound_by = H100.bound_s(flops, nbytes, "bfloat16")
+    return {"chunk": chunk, "offset": offset, "cache": size, "h": h, "hkv": hkv, "d": d, "plain_ms": t["plain"],
+            "library_ms": t["library"], "bound_ms": bound_s * 1e3, "bound_by": bound_by, "pairs": pairs}
+
+
 def _qgemm_cost(m, k, n, qk=quant.DEFAULT_BLOCK_K):
     """Operations and HBM bytes of one w8a8 projection: int8 values and fp32
     per-row / per-column scales read once, the bf16 output written once."""
@@ -1451,13 +1721,15 @@ def _merged(paths: list, kernel: str) -> dict:
     return dict(out)
 
 
-def phase_timing(errs: dict, bf16: dict, w8a8: dict, moe_r: dict, cont: dict) -> tuple[list[dict], dict]:
+def phase_timing(errs: dict, bf16: dict, w8a8: dict, moe_r: dict, served: list) -> tuple[list[dict], dict, list]:
+    """``served``: the continuous-style runs (the continuous, kv8 and
+    long-prompt runs), whose launches count with the synchronized paths'."""
     say("[4] kernel times at the served paths' shapes (CUDA events; ms per call)")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     moe_cfg = configs.get_config(MOE_ARCH)
     shapes = []
     synchronized = _merged([bf16, moe_r], "systolic_mmm")
-    for (m, k, n), n_calls in _merged([bf16, moe_r, cont], "systolic_mmm").items():
+    for (m, k, n), n_calls in _merged([bf16, moe_r, *served], "systolic_mmm").items():
         # each wgmma tile timed at the synchronized paths' shapes only
         r = time_gemm(m, k, n, gen, gemm_out_dtype(moe_cfg, k, n), tiles=(m, k, n) in synchronized)
         r["launches"] = n_calls  # as counted at the launch site on the served paths
@@ -1498,7 +1770,11 @@ def phase_timing(errs: dict, bf16: dict, w8a8: dict, moe_r: dict, cont: dict) ->
     dense_cfg = configs.get_config(ARCH)
     runs = [(dense_cfg, BATCH, PROMPT, sum(r["prefill_launches"]["flash_attn"] for r in (bf16, w8a8))),
             (moe_cfg, BATCH, PROMPT, moe_r["prefill_launches"]["flash_attn"])]
-    runs += [(dense_cfg, b, sq, n_calls) for b, sq, _, n_calls in cont["flash_shapes"]]
+    batch1 = collections.Counter()
+    for r in served:
+        for b, sq, _, n_calls in r["flash_shapes"]:
+            batch1[(b, sq)] += n_calls
+    runs += [(dense_cfg, b, sq, n_calls) for (b, sq), n_calls in sorted(batch1.items())]
     for cfg, b, sq, n_calls in runs:
         fl = time_flash(gen, cfg, b, sq)
         fl["launches"] = n_calls
@@ -1506,6 +1782,13 @@ def phase_timing(errs: dict, bf16: dict, w8a8: dict, moe_r: dict, cont: dict) ->
         say(f"    flash_attn B={fl['b']} H={fl['h']}/{fl['hkv']} S={fl['s']} D={fl['d']} causal x{fl['launches']} "
             f"kernel {fl['ms']:.4f}  plain {fl['plain_ms']:.4f}  sdpa(enable_gqa) {fl['library_ms']:.4f}  "
             f"bound {fl['bound_ms']:.4f} ({fl['bound_by']})")
+
+    chunk_attn = [time_chunk_attention(gen, dense_cfg, off) for off in (0, LONG_TRACE["long_prompt"] - LONG_CHUNK)]
+    for r in chunk_attn:
+        say(f"    chunk attention (plain _sdpa, no kernel: the reference's too) B=1 H={r['h']}/{r['hkv']} "
+            f"chunk {r['chunk']} at offset {r['offset']} over a cache of {r['cache']} ({r['pairs']} (q, k) pairs "
+            f"unmasked) plain {r['plain_ms']:.4f}  sdpa(mask, enable_gqa) {r['library_ms']:.4f}  bound "
+            f"{r['bound_ms']:.4f} ({r['bound_by']})")
 
     def entry(name, rows):
         # Totals over every launch the served paths made (prefill + decode);
@@ -1525,11 +1808,11 @@ def phase_timing(errs: dict, bf16: dict, w8a8: dict, moe_r: dict, cont: dict) ->
                 **{key: tot[key] for key in keys[3:]}, "shapes": rows}
 
     # Each kernel's launches are those of every served path that runs it: the
-    # fp GEMM on the bf16 (synchronized and continuous) and MoE models, flash
-    # attention on all four paths, the block-scaled GEMM on the w8a8 model,
-    # the grouped GEMM on the MoE model.
+    # fp GEMM on the bf16 (synchronized, continuous, kv8 and long-prompt) and
+    # MoE models, flash attention on all of them but the chunked runs, the
+    # block-scaled GEMM on the w8a8 model, the grouped GEMM on the MoE model.
     return [entry("systolic_mmm", shapes), entry("flash_attn", flash), entry("systolic_qmm", qshapes),
-            entry("grouped_mmm", gshapes)], k2
+            entry("grouped_mmm", gshapes)], k2, chunk_attn
 
 
 def main() -> int:
@@ -1547,17 +1830,18 @@ def main() -> int:
     t_start = time.perf_counter()
     device = phase_device()
     errs = phase_kernels()
-    bf16, w8a8, cont = phase_serve(device["nvidia_smi"])
+    bf16, w8a8, cont, kv8, long_runs = phase_serve(device["nvidia_smi"])
     phase_small_reference(ARCH)
     moe_r = phase_serve_moe()
     phase_small_reference(MOE_ARCH)
-    kernels, k2 = phase_timing(errs, bf16, w8a8, moe_r, cont)
+    kernels, k2, chunk_attn = phase_timing(errs, bf16, w8a8, moe_r, [cont, kv8, *long_runs])
     say(f"    wall {time.perf_counter() - t_start:.1f} s")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump({"device": device, "serve": bf16, "serve_continuous": cont, "serve_w8a8": w8a8, "serve_moe": moe_r,
-                       "kernels": kernels, "systolic_mmm_bias": k2, "failures": failures}, f, indent=1)
+            json.dump({"device": device, "serve": bf16, "serve_continuous": cont, "serve_kv8": kv8,
+                       "serve_long_prompt": long_runs, "serve_w8a8": w8a8, "serve_moe": moe_r, "kernels": kernels,
+                       "systolic_mmm_bias": k2, "chunk_attention": chunk_attn, "failures": failures}, f, indent=1)
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed:", file=sys.stderr)
         for f_ in failures:

@@ -1,7 +1,7 @@
 """Synthetic batches and request traces with deterministic numpy data.
 
-The counterpart of ``repro.data.synthetic``'s ``make_batch``, ``make_prompt``
-and ``make_request_trace``: the reference draws with numpy, and so does this
+The counterpart of ``repro.data.synthetic``'s ``make_batch``, ``make_prompt``,
+``make_request_trace`` and ``make_adversarial_trace``: the reference draws with numpy, and so does this
 module, from the same generators in the same order, so one seed gives the
 same tokens, arrivals and lengths here.  The tensors are then placed on
 ``device`` (default: the card).
@@ -103,6 +103,64 @@ def make_request_trace(
                 "arrival": float(arrivals[i]),
                 "prompt": make_prompt(cfg, seq=p, seed=seed + 1 + i, device=dev),
                 "max_new_tokens": g,
+            }
+        )
+    return trace
+
+
+def make_adversarial_trace(
+    cfg: ArchConfig,
+    *,
+    n_short: int,
+    short_prompt: int = 8,
+    short_gen: int = 24,
+    long_prompt: int = 96,
+    long_gen: int = 4,
+    long_arrival: float = 2.0,
+    n_long: int = 1,
+    shared_prefix: int = 0,
+    seed: int = 0,
+    device: str | torch.device | None = None,
+) -> list[dict]:
+    """The long-prompt worst case for monolithic prefill.
+
+    ``n_short`` short requests arrive at tick 0 and decode steadily;
+    ``n_long`` requests with ``long_prompt``-token prompts arrive in a burst
+    at ``long_arrival`` while they are mid-generation.  Under monolithic
+    prefill a long admission stalls every decoding slot for a whole prompt
+    forward (one tick's latency spikes by the whole prefill); under chunked
+    prefill the prompt trickles in one bounded chunk per tick.
+    ``shared_prefix`` makes the first that many tokens identical across the
+    long prompts.  Same entry layout as ``make_request_trace``.
+    """
+    if n_short < 1:
+        raise ValueError("n_short must be >= 1")
+    if n_long < 1:
+        raise ValueError("n_long must be >= 1")
+    if shared_prefix > long_prompt:
+        raise ValueError("shared_prefix cannot exceed long_prompt")
+    dev = resolve_device(device)
+    trace = [
+        {
+            "rid": i,
+            "arrival": 0.0,
+            "prompt": make_prompt(cfg, seq=short_prompt, seed=seed + 1 + i, device=dev),
+            "max_new_tokens": short_gen,
+        }
+        for i in range(n_short)
+    ]
+    rng = np.random.default_rng(seed + 100)
+    prefix = rng.integers(0, cfg.vocab_size, _token_shape(cfg, 1, shared_prefix), dtype=np.int32)
+    for j in range(n_long):
+        prompt = make_prompt(cfg, seq=long_prompt, seed=seed + 101 + j, device=dev)
+        if shared_prefix:
+            prompt["tokens"][:, :shared_prefix] = torch.from_numpy(prefix).to(dev)
+        trace.append(
+            {
+                "rid": n_short + j,
+                "arrival": float(long_arrival),
+                "prompt": prompt,
+                "max_new_tokens": long_gen,
             }
         )
     return trace

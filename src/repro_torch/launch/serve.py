@@ -24,14 +24,25 @@ pool, as synchronized batching does)::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \
         --smoke --device cpu --continuous --requests 6 --slots 3
 
+``--chunked-prefill`` splits each prompt into ``--chunk-size`` chunks
+(remainders in power-of-two buckets) and runs at most ``--chunk-budget`` of
+them per tick beside the decode step; ``--quantize kv8`` keeps the
+continuous pool in int8 with per-head, per-slot scales::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \
+        --smoke --device cpu --continuous --chunked-prefill --chunk-size 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \
+        --continuous --quantize kv8 --requests 16 --slots 8
+
 Weights are random, drawn from ``--seed``.  A MoE config (qwen3-moe-30b-a3b)
 runs its expert GEMMs on the grouped kernel, in bf16 only.  ``--quantize
 w8a16`` keeps the projection weights in int8 and dequantizes them at each
 GEMM; ``w8a8`` also quantizes the activations per token and runs every
 projection on the block-scaled int8 kernel; both work in either mode.
-The kv8 pool, chunked prefill, the paged pool, the adversarial trace and the
-metrics / SLO / profiling flags of ``repro.launch.serve`` belong to later
-parts of the port.
+``kv8`` applies to the continuous pool only: without ``--continuous`` it
+warns and serves unquantized, as the reference does.  The paged pool, the
+adversarial trace and the metrics / SLO / profiling flags of
+``repro.launch.serve`` belong to later parts of the port.
 """
 
 from __future__ import annotations
@@ -39,6 +50,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import time
+import warnings
 
 import torch
 
@@ -110,11 +122,19 @@ def run_continuous(model, params, args, device: torch.device) -> dict:
         ServeConfig(max_len=max_len, batch=args.slots, temperature=args.temperature, seed=args.seed),
         device=device,
     )
-    sched = ContinuousScheduler(engine, policy=args.policy)
+    sched = ContinuousScheduler(
+        engine,
+        policy=args.policy,
+        chunked_prefill=args.chunked_prefill,
+        chunk_size=args.chunk_size,
+        chunk_budget=args.chunk_budget,
+        quantize_kv=args.quantize == "kv8",
+    )
     results = sched.run(requests_from_trace(trace))
     s = sched.stats.summary()
+    mode = f"{args.policy}+chunked" if args.chunked_prefill else args.policy
     print(
-        f"continuous[{args.policy}] {args.requests} requests over "
+        f"continuous[{mode}] {args.requests} requests over "
         f"{s['ticks']} ticks ({s['idle_ticks']} idle, "
         f"{s['prefill_chunks']} prefill chunks) | "
         f"{s['tokens_out']} tokens, {s['tok_per_s']:.1f} tok/s | "
@@ -149,18 +169,23 @@ def main(argv: list[str] | None = None) -> torch.Tensor | dict:
     ap.add_argument("--mean-gen", type=int, default=12)
     ap.add_argument("--policy", choices=ContinuousScheduler.POLICIES, default="continuous",
                     help="'gang' reproduces synchronized batching for comparison")
+    ap.add_argument("--chunked-prefill", action="store_true",
+                    help="split prompts into bucketed chunks and co-schedule them with the decode step "
+                    "(keeps decode latency flat under long prompts)")
+    ap.add_argument("--chunk-size", type=int, default=128,
+                    help="prefill chunk length (remainders bucket to powers of two)")
+    ap.add_argument("--chunk-budget", type=int, default=1, help="max prefill chunks per scheduler tick")
     ap.add_argument(
         "--quantize",
         choices=("none", "w8a16", "w8a8", "kv8"),
         default="none",
         help="w8a16 = int8 weight-only (weights dequantize at each GEMM), w8a8 = int8 "
-        "weights and per-token int8 activations through the block-scaled kernel; kv8 "
-        "(the int8 pool of continuous serving) is not ported yet",
+        "weights and per-token int8 activations through the block-scaled kernel, kv8 = "
+        "int8 KV pool of continuous serving with per-head-per-slot scales",
     )
     args = ap.parse_args(argv)
-    if args.quantize == "kv8":
-        raise ValueError("--quantize kv8 (the int8 KV pool of continuous serving) is not ported yet: "
-                         "ROADMAP.md Queue 1 item 2b")
+    if args.quantize == "kv8" and not args.continuous:
+        warnings.warn("--quantize kv8 applies to the continuous-batching KV pool; ignored in synchronized mode")
 
     device = resolve_device(args.device)
     if device.type == "cuda":
@@ -178,7 +203,10 @@ def init_params(model, seed: int, device: torch.device, quantize: str = "none"):
     """Random weights from ``seed`` -> (params, the activation-quant context
     to serve them under).  w8a16 / w8a8 quantize the fp32 masters, as the
     reference does (it inits in fp32), then cast what stays wide to the
-    compute dtype once; the masters are not kept."""
+    compute dtype once; the masters are not kept.  kv8 quantizes the KV
+    pool, not the weights: its parameters are the fp ones."""
+    if quantize == "kv8":
+        quantize = "none"
     if quantize not in ("none", "w8a16", "w8a8"):
         raise ValueError(f"unknown quantize mode {quantize!r}")
     if quantize != "none" and model.cfg.moe is not None:

@@ -4,6 +4,12 @@ prefill and a few decode steps through ``ServeEngine``.
     PYTHONPATH=src python -m repro_torch.launch.trace --arch internlm2-1.8b \
         --batch 4 --prompt-len 512 --steps 3 [--quantize w8a8] [--chrome trace.json]
     PYTHONPATH=src python -m repro_torch.launch.trace --arch qwen3-moe-30b-a3b --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.trace --batch 1 --prompt-len 8192 \
+        --chunk-size 512 --steps 1
+
+With ``--chunk-size`` the prompt is prefilled as the chunked scheduler does it
+(``ServeEngine.prefill_chunk`` over ``chunk_schedule``, each chunk its own
+phase) into a fresh cache, and the decode steps follow from that cache.
 
 Weights are random, drawn from ``--seed``.  For each phase it prints the host
 wall time, the device busy time (union of the kernels' intervals inside the
@@ -15,6 +21,7 @@ trace with no device kernels is an error, not a result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 
 import torch
@@ -27,6 +34,7 @@ from repro_torch.data.synthetic import make_batch
 from repro_torch.launch.serve import init_params
 from repro_torch.models.registry import get_model
 from repro_torch.serving import ServeConfig, ServeEngine
+from repro_torch.serving.engine import chunk_schedule
 
 
 def _union_us(intervals: list[tuple[float, float]]) -> float:
@@ -41,7 +49,7 @@ def _union_us(intervals: list[tuple[float, float]]) -> float:
     return total
 
 
-PHASES = ("prefill", "decode_step")
+PHASES = ("prefill", "prefill_chunk", "decode_step")
 
 
 def _device_work(events):
@@ -94,6 +102,8 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--json", default=None, help="also write the tables here")
     ap.add_argument("--quantize", choices=("none", "w8a16", "w8a8"), default="none",
                     help="serve quantized weights (as launch.serve --quantize)")
+    ap.add_argument("--chunk-size", type=int, default=None,
+                    help="prefill in chunks of this length, as the chunked scheduler does")
     args = ap.parse_args(argv)
 
     device = resolve_device("cuda")
@@ -108,14 +118,35 @@ def main(argv: list[str] | None = None) -> dict:
         return _trace(engine, batch, args)
 
 
+def _chunked_prefill(engine: ServeEngine, batch: dict, chunk: int, traced: bool) -> torch.Tensor:
+    """Prefill ``batch`` chunk by chunk into a fresh cache that becomes the
+    engine's resident one (each chunk a ``prefill_chunk`` phase when
+    ``traced``); returns the first sampled token."""
+    tokens = batch["tokens"]
+    cache = engine.model.init_cache(tokens.shape[0], engine.scfg.max_len, device=engine.device)
+    for off, length in chunk_schedule(tokens.shape[1], chunk):
+        with record_function("prefill_chunk") if traced else contextlib.nullcontext():
+            tok, cache = engine.prefill_chunk(tokens[:, off : off + length], cache, off,
+                                              last=off + length == tokens.shape[1])
+            torch.cuda.synchronize()
+    engine.cache, engine.pos = cache, tokens.shape[1]
+    return tok
+
+
 def _trace(engine: ServeEngine, batch: dict, args) -> dict:
-    engine.decode(engine.prefill(batch), 2)  # warm-up
+    def prefill(traced: bool) -> torch.Tensor:
+        if args.chunk_size:
+            return _chunked_prefill(engine, batch, args.chunk_size, traced)
+        with record_function("prefill") if traced else contextlib.nullcontext():
+            tok = engine.prefill(batch)
+            torch.cuda.synchronize()
+        return tok
+
+    engine.decode(prefill(False), 2)  # warm-up
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        with record_function("prefill"):
-            tok = engine.prefill(batch)
-            torch.cuda.synchronize()
+        tok = prefill(True)
         for _ in range(args.steps):
             with record_function("decode_step"):
                 tok = engine.decode(tok, 1)

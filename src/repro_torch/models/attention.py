@@ -195,3 +195,50 @@ def gqa_decode(params: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict, pos)
     o = o.reshape(b, 1, cfg.n_heads * hd)
     y = ops.matmul(o, layers.wcast(params["wo"], x.dtype))
     return y, cache
+
+
+def gqa_prefill_chunk(params: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict, offset: int, *,
+                      wrapped: bool = False):
+    """Prefill one chunk of a prompt against a partially primed cache.
+
+    x: (B, L, d) hidden states of absolute prompt positions [offset,
+    offset + L); cache rows for positions < offset are already primed.  The
+    chunk's K/V land at their absolute positions (ring slot ``pos % size``,
+    the rule decode uses) and its queries attend under the decode masking
+    rule ``valid(k) = pos[k] >= 0 and pos[k] <= q_pos [and window]``, with
+    plain attention over the whole cache, as the reference computes it
+    outside any kernel.
+
+    ``wrapped`` (a chunk of an SWA ring past the window) attends over
+    [cache before this chunk's writes ‖ chunk]: the keys and positions are
+    gathered *before* the in-place write, so within-chunk queries still see
+    the ring entries the chunk overwrites.  Otherwise the chunk is written
+    first and attends over the cache.  Updates ``cache`` in place; -> (y,
+    cache).
+    """
+    b, l, _ = x.shape
+    q, k, v = _qkv(params, x, cfg)
+    positions = torch.arange(l, dtype=torch.int32, device=x.device) + offset  # made on the device
+    q = layers.apply_rope(q, positions, cfg.rope_theta)
+    k = layers.apply_rope(k, positions, cfg.rope_theta)
+
+    size = cache["k"].shape[1]
+    slot_of = (positions % size).long()
+    posb = positions[None].expand(b, l)
+    if wrapped:  # copies, taken before the writes below
+        keys = torch.cat([cache["k"], k], dim=1)
+        vals = torch.cat([cache["v"], v], dim=1)
+        kpos = torch.cat([cache["pos"], posb], dim=1)
+    cache["k"][:, slot_of] = k
+    cache["v"][:, slot_of] = v
+    cache["pos"][:, slot_of] = posb
+    if not wrapped:
+        keys, vals, kpos = cache["k"], cache["v"], cache["pos"]
+
+    window = _window(cfg)
+    valid = (kpos[:, None, :] >= 0) & (kpos[:, None, :] <= posb[:, :, None])
+    if window is not None:
+        valid = valid & (kpos[:, None, :] > (posb - window)[:, :, None])
+    o = _sdpa(q, keys, vals, valid, cfg.q_per_kv)  # (B, L, Hq, hd)
+    y = ops.matmul(o.reshape(b, l, -1), layers.wcast(params["wo"], x.dtype))
+    return y, cache

@@ -23,6 +23,7 @@ class Model:
     init_cache: Callable[..., Any]
     decode_step: Callable[..., Any]
     prefill: Callable[..., Any]
+    prefill_chunk: Callable[..., Any]
 
     @property
     def n_params(self) -> int:
@@ -42,4 +43,5 @@ def get_model(cfg: ArchConfig) -> Model:
         init_cache=functools.partial(transformer.init_cache, cfg),
         decode_step=functools.partial(transformer.decode_step, cfg=cfg),
         prefill=functools.partial(transformer.prefill, cfg=cfg),
+        prefill_chunk=functools.partial(transformer.prefill_chunk, cfg=cfg),
     )

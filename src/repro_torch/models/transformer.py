@@ -14,6 +14,8 @@ Entry points (functions over dicts of tensors):
   init_cache(cfg, batch, max_len, dt, dev)  -> cache
   decode_step(params, tok, cfg, cache, pos) -> (logits, cache)   [cache updated in place]
   prefill(params, batch, cfg, max_len)      -> (last logits, primed cache)
+  prefill_chunk(params, batch, cfg, cache, offset, wrapped)
+                                            -> (last logits, cache)   [cache updated in place]
 """
 
 from __future__ import annotations
@@ -78,6 +80,18 @@ def attn_block_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, positions: torch.T
 def attn_block_decode(p: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict, pos):
     xin = layers.rmsnorm(p["attn_norm"], x, cfg.norm_eps)
     a, cache = attn.gqa_decode(p["attn"], xin, cfg, cache, pos)
+    x = x + a
+    hin = layers.rmsnorm(p["ffn_norm"], x, cfg.norm_eps)
+    return x + _ffn(p["ffn"], hin, cfg), cache
+
+
+def attn_block_prefill_chunk(p: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict, offset: int, *,
+                             wrapped: bool = False):
+    """One layer of a chunked prefill: like ``attn_block_fwd``, but the
+    attention reads and writes a partially primed decode cache at
+    ``offset`` (``attention.gqa_prefill_chunk``); the FFN / MoE as in decode."""
+    xin = layers.rmsnorm(p["attn_norm"], x, cfg.norm_eps)
+    a, cache = attn.gqa_prefill_chunk(p["attn"], xin, cfg, cache, offset, wrapped=wrapped)
     x = x + a
     hin = layers.rmsnorm(p["ffn_norm"], x, cfg.norm_eps)
     return x + _ffn(p["ffn"], hin, cfg), cache
@@ -196,5 +210,25 @@ def prefill(params: dict, batch: dict, cfg: ArchConfig, max_len: int):
     for lp, lc in zip(params["layers"], cache["layers"]):
         x, (k, v) = attn_block_fwd(lp, x, cfg, positions)
         attn.gqa_prime_cache(lc, k, v, s)
+    x = layers.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
+    return _head(params, x, cfg), cache
+
+
+def prefill_chunk(params: dict, batch: dict, cfg: ArchConfig, cache: dict, offset: int, *, wrapped: bool = False):
+    """Advance a prefill by one chunk -> (last-position logits (B, 1, V), cache).
+
+    batch: {"tokens": (B, L)} covering absolute prompt positions [offset,
+    offset + L); ``cache`` is a decode cache (``init_cache``) whose rows
+    below ``offset`` earlier chunks primed (a fresh cache at offset 0), and
+    is updated in place.  Composing ``prefill_chunk`` over a split of the
+    prompt gives what one ``prefill`` gives, up to the order of the
+    attention's sums.  ``wrapped`` must be set when an SWA ring chunk
+    extends past the window (``offset + L > cache size``).
+    """
+    if cfg.frontend == "vit":
+        raise ValueError("chunked prefill does not support the vit frontend")
+    x = layers.embed(params["embed"], batch["tokens"], _cdtype(cfg))
+    for lp, lc in zip(params["layers"], cache["layers"]):
+        x, _ = attn_block_prefill_chunk(lp, x, cfg, lc, offset, wrapped=wrapped)
     x = layers.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
     return _head(params, x, cfg), cache

@@ -11,15 +11,16 @@ compiler.  Two serving modes share the model's functions:
     token per step at a common depth;
   * **continuous batching** (``repro_torch.serving.scheduler`` +
     ``repro_torch.serving.kvpool``): ``prefill_request`` (batch-1 prefill
-    that does NOT touch the resident synchronized cache) and
-    ``decode_slots`` (decode with a per-slot position *vector* over an
-    externally owned cache).
+    that does NOT touch the resident synchronized cache), ``prefill_chunk``
+    (advance one request's prefill by one bucketed chunk at its absolute
+    offset, the primitive behind the scheduler's mixed prefill/decode
+    ticks) and ``decode_slots`` (decode with a per-slot position *vector*
+    over an externally owned cache).
 
 Empty or cleared slots are marked ``pos = -1`` everywhere; the attention
 masking rule ``valid(k) = pos[k] >= 0`` then blanks their cache rows.
 
-Chunked prefill (``prefill_chunk``, ``chunk_schedule``) and the tune-plan
-report belong to later parts of the port.
+The tune-plan report belongs to a later part of the port.
 """
 
 from __future__ import annotations
@@ -43,6 +44,33 @@ class ServeConfig:
     batch: int  # synchronized batch size == continuous-batching slot count
     temperature: float = 0.0  # 0 => greedy
     seed: int = 0
+
+
+def chunk_schedule(n_tokens: int, chunk: int) -> list[tuple[int, int]]:
+    """Split a prompt into schedulable prefill chunks: [(offset, length), ...].
+
+    As many full ``chunk``-length pieces as fit, then the remainder split
+    greedily into power-of-two buckets, so distinct chunk lengths stay
+    bounded by log2(chunk) + 2 whatever the prompt lengths.  Nothing is
+    padded (a padded tail would write phantom positions into the KV slot).
+    """
+    if n_tokens < 1:
+        raise ValueError(f"n_tokens must be >= 1, got {n_tokens}")
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    out, off = [], 0
+    while n_tokens - off >= chunk:
+        out.append((off, chunk))
+        off += chunk
+    rem = n_tokens - off
+    bucket = 1 << (chunk.bit_length() - 1)  # largest power of two <= chunk
+    while rem:
+        while bucket > rem:
+            bucket >>= 1
+        out.append((off, bucket))
+        off += bucket
+        rem -= bucket
+    return out
 
 
 class ServeEngine:
@@ -142,6 +170,44 @@ class ServeEngine:
         with _obs_trace.span("engine.prefill_request", cat="engine", prompt_len=tokens.shape[1]):
             logits, cache = self.model.prefill(self.params, batch, max_len=self.scfg.max_len)
         return self._sample(logits), cache
+
+    # -- chunked prefill -------------------------------------------------------
+
+    @property
+    def supports_chunked_prefill(self) -> bool:
+        """Every family except the vit frontend (its patch prefix is glued to
+        the first text positions); the scheduler falls back to monolithic
+        ``prefill_request`` when False."""
+        return self.cfg.frontend != "vit"
+
+    @property
+    def chunk_prefill_staged(self) -> bool:
+        """True when mid-prefill chunks must carry a request-private staging
+        cache instead of round-tripping through the KV pool: SSM/hybrid
+        state has no ``pos`` mask, so a co-scheduled decode step would
+        advance it.  Every family the port builds is an attention family,
+        whose masked rows no decode step touches."""
+        return self.cfg.family in ("ssm", "hybrid")
+
+    @torch.no_grad()
+    def prefill_chunk(self, tokens: torch.Tensor, cache_one: Any, offset: int, *, last: bool):
+        """Advance one request's prefill by one chunk.
+
+        tokens: (1, L) slice of the prompt at absolute offset ``offset``;
+        cache_one: the request's batch-1 slot cache, updated in place.
+        Returns (first sampled token (1, 1) when ``last`` else None, cache).
+        A chunk past the end of the SWA ring takes the ``wrapped`` variant
+        (see ``attention.gqa_prefill_chunk``).
+        """
+        if tokens.device.type != self.device.type:
+            raise ValueError(f"prompt on {tokens.device}, engine on {self.device}")
+        length = tokens.shape[1]
+        wrapped = offset + length > self.attn_cache_len()
+        _obs_metrics.inc("engine.steps", phase="prefill_chunk")
+        with _obs_trace.span("engine.prefill_chunk", cat="engine", offset=offset, length=length, wrapped=wrapped):
+            logits, cache_one = self.model.prefill_chunk(self.params, {"tokens": tokens}, cache=cache_one,
+                                                         offset=offset, wrapped=wrapped)
+        return (self._sample(logits) if last else None), cache_one
 
     def attn_cache_len(self) -> int:
         """Sequence capacity of the per-layer attention cache: ``max_len``,

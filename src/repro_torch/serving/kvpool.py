@@ -1,6 +1,7 @@
 """Slot-pooled KV cache for continuous batching.
 
-The counterpart of ``repro.serving.kvpool`` (the fp pool).  The pool owns one
+The counterpart of ``repro.serving.kvpool``: the fp pool and the kv8 pool
+(int8 values with fp32 scales per slot and head).  The pool owns one
 batched decode cache (``model.init_cache(n_slots, ...)``) whose batch axis
 is a pool of *slots*; each slot holds at most one in-flight request.  The
 layout invariants it relies on:
@@ -22,6 +23,12 @@ exactly the per-slot position argument of the vector-``pos`` decode step.
 The decode step updates the resident cache in place (the reference donates
 it and rebinds the result), and ``gather_slot`` returns a copy, so a slot's
 working cache is never a view a later step could change.
+
+Chunked prefill round-trips a slot through ``gather_slot`` and
+``write_slot`` (``next_pos=None`` mid-prefill): the chunk's K/V rows land in
+the pool at their absolute offsets while ``positions[slot]`` stays -1, so a
+partially prefilled slot is invisible to decode steps under the same
+masking rule that protects freed slots.
 """
 
 from __future__ import annotations
@@ -33,6 +40,72 @@ import torch
 
 from repro_torch.core.device import resolve_device
 from repro_torch.obs import profile as _obs_profile
+
+# ---------------------------------------------------------------------------
+# Quantized pool storage (kv8).
+#
+# With ``quantize_kv_cache`` the pool's *resident* form is int8 values plus
+# fp32 scales per (layer, slot, head); the fp tree the engine's decode step
+# consumes is made on access and re-quantized on assignment, so the
+# scheduler drives the same ``pool.cache`` interface either way.  Scales are
+# symmetric absmax over each slot's sequence and head-dim axes.  Freeing a
+# slot zeroes its floats, so a freed slot quantizes to exact zeros and stays
+# unreachable behind the same ``pos = -1`` mask that protects the fp pool.
+# ---------------------------------------------------------------------------
+
+_KV_QMAX = 127.0
+# The reference's jitted ``absmax / 127`` compiles to a multiply by the fp32
+# reciprocal (XLA folds division by a constant), so the port multiplies too:
+# its scales are the reference's bit for bit.
+_KV_INV_QMAX = float(np.float32(1.0) / np.float32(_KV_QMAX))
+_KV_KEYS = frozenset({"qv", "qs"})
+
+
+def _kv_quantizable(leaf: torch.Tensor) -> bool:
+    """Float cache state with a slot axis (attention K/V).  Integer tensors
+    are the ``pos`` masks and always stay exact."""
+    return leaf.is_floating_point() and leaf.ndim >= 2
+
+
+def _kv_scale_axes(leaf: torch.Tensor) -> tuple[int, ...]:
+    """Reduce absmax over everything except the slot (0) and, for (B, S, H,
+    hd) attention caches, the head axis (2): the per-head-per-slot scale.
+    The reference stacks layers on axis 0 and keeps (0, 1, 3) of its
+    (L, B, S, H, hd) leaves -- the same numbers, one layer at a time."""
+    keep = {0} | ({2} if leaf.ndim >= 4 else set())
+    return tuple(i for i in range(leaf.ndim) if i not in keep)
+
+
+def _is_qleaf(node: Any) -> bool:
+    return isinstance(node, dict) and set(node) == _KV_KEYS
+
+
+def quantize_kv(cache: Any) -> Any:
+    """fp cache tree -> quantized pool form: each float tensor becomes
+    {"qv": int8, "qs": fp32}; integer tensors are kept (not copied)."""
+    if isinstance(cache, dict):
+        return {k: quantize_kv(v) for k, v in cache.items()}
+    if isinstance(cache, (list, tuple)):
+        return type(cache)(quantize_kv(v) for v in cache)
+    if not _kv_quantizable(cache):
+        return cache
+    x = cache.float()
+    absmax = x.abs().amax(dim=_kv_scale_axes(cache), keepdim=True)
+    qs = torch.where(absmax > 0, absmax * _KV_INV_QMAX, 1.0)
+    qv = torch.round(x / qs).clamp_(-_KV_QMAX, _KV_QMAX).to(torch.int8)  # round half to even, as jnp.round
+    return {"qv": qv, "qs": qs}
+
+
+def dequantize_kv(qcache: Any, dtype: torch.dtype) -> Any:
+    """Quantized pool form -> a fresh fp cache tree at ``dtype`` (integer
+    tensors are cloned, so writes into the tree never reach the pool)."""
+    if _is_qleaf(qcache):
+        return (qcache["qv"].float() * qcache["qs"]).to(dtype)
+    if isinstance(qcache, dict):
+        return {k: dequantize_kv(v, dtype) for k, v in qcache.items()}
+    if isinstance(qcache, (list, tuple)):
+        return type(qcache)(dequantize_kv(v, dtype) for v in qcache)
+    return qcache.clone()
 
 
 def _tensors(tree):
@@ -119,26 +192,29 @@ def _gather_slot(pool: Any, slot: int) -> Any:
 
 
 class KVPool:
-    """Fixed-size pool of KV cache slots shared by in-flight requests, in
-    the model's compute dtype.
+    """Fixed-size pool of KV cache slots shared by in-flight requests.
 
-    ``device`` defaults to the card.  ``quantize_kv_cache=True`` (the kv8
-    pool) is not ported yet and raises.
+    ``device`` defaults to the card.  ``quantize_kv_cache=True`` keeps the
+    resident pool in int8 with fp32 scales per head per slot (kv8): the
+    ``cache`` property dequantizes on read and re-quantizes on assignment, so
+    every consumer -- decode steps, slot gather/scatter, slot clearing --
+    sees the usual fp tree while the pool holds about half the bytes of the
+    bf16 form.  Only float tensors quantize; the integer ``pos`` masks stay
+    exact.  An in-place write into the tree ``cache`` returns lands in that
+    fresh copy, so every writer assigns the tree back (``pool.cache = ...``).
     """
 
     def __init__(self, model, n_slots: int, max_len: int, quantize_kv_cache: bool = False,
                  device: str | torch.device | None = None):
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
-        if quantize_kv_cache:
-            raise NotImplementedError(
-                "the kv8 pool (quantize_kv_cache=True) is not ported yet: ROADMAP.md Queue 1 item 2b"
-            )
         self.model = model
         self.n_slots = n_slots
         self.max_len = max_len
         self.device = resolve_device(device)
         self.dtype = getattr(torch, model.cfg.dtype)
+        self.quantize_kv = quantize_kv_cache
+        self._qcache = None
         self._cache = None
         self.cache = model.init_cache(n_slots, max_len, self.dtype, self.device)
         self.positions = np.full((n_slots,), -1, np.int64)
@@ -150,12 +226,21 @@ class KVPool:
 
     @property
     def cache(self) -> Any:
+        if self.quantize_kv:
+            return _obs_profile.sample_call("kv.gather", lambda: dequantize_kv(self._qcache, self.dtype),
+                                            pool="stripe", path="cache")
         return self._cache
 
     @cache.setter
     def cache(self, new: Any) -> None:
-        # The one place the resident form is written: kv8 will quantize here.
-        self._cache = new
+        if self.quantize_kv:
+            self._qcache = _obs_profile.sample_call("kv.scatter", lambda: quantize_kv(new), pool="stripe",
+                                                    path="cache")
+        else:
+            self._cache = new
+
+    def _resident(self) -> Any:
+        return self._qcache if self.quantize_kv else self._cache
 
     # -- bookkeeping -----------------------------------------------------------
 
@@ -171,10 +256,12 @@ class KVPool:
         return self.n_active / self.n_slots
 
     def bytes_resident(self) -> int:
-        """Device bytes held by the pool's cache.  The pool is preallocated,
-        so this is constant for its life: n_slots * max_len worth of state
-        regardless of how many slots are live."""
-        return _nbytes(self._cache)
+        """Device bytes held by the pool's *resident* cache form: under kv8
+        the int8 values, their fp32 scales and the int32 positions;
+        otherwise the fp tree.  The pool is preallocated, so this is
+        constant for its life: n_slots * max_len worth of state regardless
+        of how many slots are live."""
+        return _nbytes(self._resident())
 
     def bytes_report(self) -> dict:
         """{"reserved": preallocated bytes (== ``bytes_resident``), "live":
@@ -203,7 +290,7 @@ class KVPool:
             else:
                 live += _nbytes(node) * active_frac
 
-        walk(self._cache)
+        walk(self._resident())
         return {"reserved": self.bytes_resident(), "live": int(round(live))}
 
     # -- slot lifecycle --------------------------------------------------------
@@ -253,7 +340,7 @@ class KVPool:
 
         def _scatter() -> Any:
             self.cache = _scatter_slot(self.cache, cache_one, slot)
-            return self._cache
+            return self._resident()
 
         _obs_profile.sample_call("kv.scatter", _scatter, pool="stripe", path="slot")
         if next_pos is not None:

@@ -1,11 +1,11 @@
 """Continuous-batching request scheduler.
 
-The counterpart of ``repro.serving.scheduler`` with monolithic prefill.
-Request lifecycle (one state machine per request)::
+The counterpart of ``repro.serving.scheduler``.  Request lifecycle (one
+state machine per request)::
 
     QUEUED ──admission──> PREFILLING ──KV scatter──> DECODING ──EOS /
-      │   (free slot and    (one batch-1 prefill)    │  max_new_tokens
-      │    arrival <= now)                           │
+      │   (free slot and    (monolithic, or one      │  max_new_tokens
+      │    arrival <= now)   chunk per tick)         │
       submit()                                       └──> FINISHED (slot freed)
 
 Admission policies:
@@ -23,10 +23,19 @@ request arrival times measured in ticks (Poisson in the synthetic traces).
 Each tick ends with the sampled tokens read back to the host, which waits
 for the card, so the step and tick latencies cover the device's work.
 
-Per-request outputs equal running each request alone through
-``ServeEngine.generate`` (greedy, fp32; ``tests/test_torch_continuous.py``).
-Chunked prefill, the kv8 pool (ROADMAP item 2b), the paged pool and the
-prefix cache (item 5) are not ported: their options raise.
+**Chunked prefill** (``chunked_prefill=True``): each admitted prompt is split
+by ``engine.chunk_schedule`` into bucketed chunks and the PREFILLING state
+carries progress: every tick runs at most ``chunk_budget`` prefill chunks
+and then the regular decode step, so a decoding request waits for at most
+that many chunks between its tokens, not for a whole prompt.  Mid-prefill
+slots stay ``pos = -1`` in the pool -- masked out of the co-scheduled decode
+steps -- until their final chunk lands.  **kv8** (``quantize_kv=True``) keeps
+the resident pool in int8 (``KVPool(quantize_kv_cache=True)``).
+
+Per-request greedy outputs equal running each request alone through
+``ServeEngine.generate`` (fp32; ``tests/test_torch_continuous.py``,
+``tests/test_torch_chunked.py``).  The paged pool and the prefix cache
+(ROADMAP item 5) are not ported: their options raise.
 """
 
 from __future__ import annotations
@@ -34,6 +43,8 @@ from __future__ import annotations
 import collections
 import dataclasses
 import time
+import warnings
+from typing import Any
 
 import numpy as np
 import torch
@@ -42,7 +53,7 @@ from repro_torch.obs import attribution as _obs_attr
 from repro_torch.obs import metrics as _obs_metrics
 from repro_torch.obs import slo as _obs_slo
 from repro_torch.obs import trace as _obs_trace
-from repro_torch.serving.engine import ServeEngine
+from repro_torch.serving.engine import ServeEngine, chunk_schedule
 from repro_torch.serving.kvpool import KVPool, clear_slots
 
 QUEUED = "queued"
@@ -73,6 +84,11 @@ class Request:
     eligible_s: float = -1.0  # wall time the arrival tick was reached
     # (queue-wait = admitted_s - eligible_s: time spent waiting for a slot,
     # not time spent not-yet-arrived)
+    # chunked prefill progress: the (offset, length) schedule and how many
+    # chunks have landed in the KV slot so far (PREFILLING-with-progress)
+    chunks: list = dataclasses.field(default_factory=list)
+    chunk_idx: int = 0
+    staging: Any = None  # the batch-1 working cache carried across chunks
 
     @property
     def prompt_len(self) -> int:
@@ -143,8 +159,8 @@ class SchedulerStats:
         self._queue_depth = r.gauge("sched.queue_depth")
         self._slot_occupancy = r.gauge("sched.slot_occupancy")
         self._kv_bytes = r.gauge("serve.kv_bytes_resident")
-        # chunked-prefill and paged-pool series (not ported: they stay at 0)
         self._prefill_chunks = r.counter("sched.prefill_chunks")
+        # paged-pool series (not ported: they stay at 0)
         self._prefix_hits = r.counter("serve.prefix_hits")
         self._prefix_hit_tokens = r.counter("serve.prefix_hit_tokens")
         self._preempted = r.counter("sched.preempted")
@@ -191,8 +207,10 @@ class SchedulerStats:
         if itl_s is not None:
             self._itl.observe(itl_s)
 
-    def add_prefill(self, wall_s: float) -> None:
+    def add_prefill(self, wall_s: float, *, chunk: bool = False) -> None:
         self._prefill_s.inc(wall_s)
+        if chunk:
+            self._prefill_chunks.inc()
 
     def record_decode_step(self, wall_s: float, occupancy: float) -> None:
         self._decode_s.inc(wall_s)
@@ -339,6 +357,8 @@ class ContinuousScheduler:
         *,
         policy: str = "continuous",
         chunked_prefill: bool = False,
+        chunk_size: int = 128,
+        chunk_budget: int = 1,
         quantize_kv: bool = False,
         paged: bool = False,
         prefix_cache: bool = False,
@@ -347,15 +367,36 @@ class ContinuousScheduler:
     ):
         if policy not in self.POLICIES:
             raise ValueError(f"policy must be one of {self.POLICIES}, got {policy!r}")
-        for on, what, item in ((chunked_prefill, "chunked prefill", "2b"), (quantize_kv, "the kv8 pool", "2b"),
-                               (paged, "the paged KV pool", "5"), (prefix_cache, "the prefix cache", "5")):
+        if chunk_size < 1:
+            raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
+        if chunk_budget < 1:
+            raise ValueError(f"chunk_budget must be >= 1, got {chunk_budget}")
+        for on, what in ((paged, "the paged KV pool"), (prefix_cache, "the prefix cache")):
             if on:
-                raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md Queue 1 item {item}")
+                raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md Queue 1 item 5")
+        if chunked_prefill and not engine.supports_chunked_prefill:
+            warnings.warn(f"{engine.cfg.name}: frontend {engine.cfg.frontend!r} is not chunkable; "
+                          "falling back to monolithic prefill")
+            chunked_prefill = False
+        if quantize_kv and engine.cfg.family not in ("dense", "moe", "audio", "vlm"):
+            # SSM/hybrid state tensors are running accumulators with no pos
+            # mask; re-quantizing them every step compounds error, so kv8
+            # covers the attention families only.
+            warnings.warn(f"{engine.cfg.name}: family {engine.cfg.family!r} has unmasked state caches; "
+                          "kv8 disabled for this run")
+            quantize_kv = False
         self.engine = engine
         self.policy = policy
-        self.pool = KVPool(engine.model, engine.scfg.batch, engine.scfg.max_len, device=engine.device)
+        self.chunked_prefill = chunked_prefill
+        # A chunk longer than the SWA ring would write one slot twice.
+        self.chunk_size = min(chunk_size, engine.attn_cache_len())
+        self.chunk_budget = chunk_budget
+        self.quantize_kv = quantize_kv
+        self.pool = KVPool(engine.model, engine.scfg.batch, engine.scfg.max_len, quantize_kv_cache=quantize_kv,
+                           device=engine.device)
         self._slot_tok = np.zeros((self.pool.n_slots, 1), np.int32)
         self._slot_req: dict[int, Request] = {}
+        self._prefilling: collections.deque[Request] = collections.deque()
         self.queue: collections.deque[Request] = collections.deque()
         self.tick = 0
         self.stats = SchedulerStats()
@@ -471,6 +512,14 @@ class ContinuousScheduler:
             _obs_trace.instant("serve.admit", cat="serve", rid=req.rid, slot=slot, tick=self.tick,
                                queue_wait_s=round(wait, 6), prompt_len=req.prompt_len)
             self._slo_check(req, "queue_wait", wait)
+            if self.chunked_prefill:
+                # PREFILLING-with-progress: the slot is claimed (pos = -1,
+                # masked out of decode) and the prompt trickles in one
+                # bucketed chunk per tick via _prefill_chunk_once.
+                req.chunks = chunk_schedule(req.prompt_len, self.chunk_size)
+                req.chunk_idx = 0
+                self._prefilling.append(req)
+                continue
             n_pos = self.engine.prompt_positions(req.prompt)
             t0 = time.perf_counter()
             with _obs_trace.request_scope(req.rid), _obs_trace.span(
@@ -489,6 +538,59 @@ class ContinuousScheduler:
         req.state = DECODING
         if self._token_done(req, tok[0]):
             self._finish(req)
+
+    def _wait_for_device(self) -> None:
+        """Wait for the engine's card (a no-op on the CPU), so a timed
+        window that reads nothing back covers the device's work."""
+        if self.engine.device.type == "cuda":
+            torch.cuda.synchronize(self.engine.device)
+
+    def _prefill_chunk_once(self) -> None:
+        """Run up to ``chunk_budget`` prefill chunks (FIFO over PREFILLING
+        requests), each written into the request's KV slot at its absolute
+        offset.  The final chunk emits the prompt's last-position logits and
+        promotes the request to DECODING."""
+        staged = self.engine.chunk_prefill_staged
+        budget = self.chunk_budget
+        while budget > 0 and self._prefilling:
+            req = self._prefilling[0]
+            off, length = req.chunks[req.chunk_idx]
+            last = req.chunk_idx == len(req.chunks) - 1
+            t0 = time.perf_counter()
+            with _obs_trace.request_scope(req.rid), _obs_trace.span(
+                "serve.prefill_chunk", rid=req.rid, offset=off, length=length, last=last
+            ):
+                tokens = req.prompt["tokens"][:, off : off + length]
+                # The working batch-1 cache is carried across chunks on the
+                # request (one gather at the first chunk, not one per chunk);
+                # co-scheduled decode steps cannot touch a pos = -1 slot's
+                # rows, so the carried copy never goes stale.
+                if req.chunk_idx:
+                    cache_one = req.staging
+                elif staged:
+                    cache_one = self.pool.model.init_cache(1, self.pool.max_len, self.pool.dtype, self.pool.device)
+                else:
+                    cache_one = self.pool.gather_slot(req.slot)
+                tok, cache_one = self.engine.prefill_chunk(tokens, cache_one, off, last=last)
+                if last:
+                    tok_np = tok.cpu().numpy()[0]  # (1,); the readback waits for the card
+                else:
+                    self._wait_for_device()
+                if staged and not last:
+                    req.staging = cache_one
+                else:
+                    # Attention families scatter every chunk, so the pool
+                    # holds the chunk's K/V at its absolute offset as soon as
+                    # it lands; staged families write once, on the final chunk.
+                    next_pos = self.engine.prompt_positions(req.prompt) if last else None
+                    self.pool.write_slot(req.slot, cache_one, next_pos)
+                    req.staging = None if last else cache_one
+            self.stats.add_prefill(time.perf_counter() - t0, chunk=True)
+            req.chunk_idx += 1
+            budget -= 1
+            if last:
+                self._prefilling.popleft()
+                self._start_decoding(req, tok_np)
 
     def _decode_once(self) -> bool:
         """One vector-pos decode step; False when no slot was decoding."""
@@ -531,9 +633,10 @@ class ContinuousScheduler:
 
         Always runs one vector-pos decode with every slot marked empty
         (pos = -1): the same work as a live step, and -- because empty slots
-        leave their cache rows untouched -- a no-op on pool state; then one
-        prefill for each distinct prompt shape already queued, against a
-        throwaway cache.  Eagerly
+        leave their cache rows untouched -- a no-op on pool state; then the
+        prefill work of everything already queued, against throwaway caches:
+        one prefill per distinct prompt shape, or under chunked prefill one
+        dummy chunk per distinct (chunk length, wrapped).  Eagerly
         nothing compiles, but the first launches of each kernel path (the
         kernels' build, ``cudaFuncSetAttribute``, library handles) land here
         instead of in the p50/p99 tick histograms.  Sampling state is left
@@ -565,24 +668,37 @@ class ContinuousScheduler:
             self.pool.write_slot(0, self.pool.gather_slot(0), next_pos=None)
             self.pool.cache = clear_slots(self.pool.cache, torch.zeros(self.pool.n_slots, dtype=torch.bool),
                                           self.pool.n_slots)
-            seen: set = set()
+            if not self.chunked_prefill:
+                seen: set = set()
+                for req in self.queue:
+                    key = tuple((k, tuple(v.shape)) for k, v in sorted(req.prompt.items()))
+                    if key in seen:
+                        continue
+                    seen.add(key)
+                    first, _ = self.engine.prefill_request(req.prompt)
+                    first.cpu()
+                return
+            done: set = set()
             for req in self.queue:
-                key = tuple((k, tuple(v.shape)) for k, v in sorted(req.prompt.items()))
-                if key in seen:
-                    continue
-                seen.add(key)
-                first, _ = self.engine.prefill_request(req.prompt)
-                first.cpu()
+                for off, length in chunk_schedule(req.prompt_len, self.chunk_size):
+                    wrapped = off + length > self.engine.attn_cache_len()
+                    if (length, wrapped) in done:
+                        continue
+                    done.add((length, wrapped))
+                    dummy = torch.zeros((1, length), dtype=torch.int32, device=dev)
+                    self.engine.prefill_chunk(dummy, self.pool.gather_slot(0), off, last=False)
+                    self._wait_for_device()
         finally:
             self.engine._gen.set_state(gen_state)
 
     def pending(self) -> bool:
-        return bool(self.queue or self._slot_req)
+        return bool(self.queue or self._prefilling or self._slot_req)
 
     def step(self) -> bool:
-        """One scheduler tick: admit arrived requests (prefilling each), then
-        one batched decode step over whatever is decoding.  Returns
-        ``pending()``.
+        """One scheduler tick: admit arrived requests (prefilling each, or
+        queueing their chunks), run at most ``chunk_budget`` prefill chunks
+        (chunked mode), then one batched decode step over whatever is
+        decoding.  Returns ``pending()``.
 
         Ticks in which at least one slot decoded are timed end to end into
         ``stats.tick_latency_s`` -- the latency a decoding request actually
@@ -593,6 +709,9 @@ class ContinuousScheduler:
         t0 = time.perf_counter()
         try:
             self._admit()
+            chunks_before = self.stats.prefill_chunks
+            if self.chunked_prefill:
+                self._prefill_chunk_once()
             decoded = self._decode_once()
         except Exception as e:
             # Capture the flight recording before the stack unwinds past the
@@ -604,7 +723,8 @@ class ContinuousScheduler:
         dt = time.perf_counter() - t0
         if decoded:
             self.stats.record_tick_latency(dt)
-        else:
+        elif self.stats.prefill_chunks == chunks_before:
+            # truly idle: no decode ran and no prefill chunk landed
             self.stats.count_idle_tick()
         self.tick += 1
         self.stats.count_tick(dt)

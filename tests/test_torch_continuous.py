@@ -401,16 +401,10 @@ def test_slo_budgets_count_violations_and_dump_valid_postmortems(served, tmp_pat
 # -- what is not ported raises -----------------------------------------------------------
 
 
-@pytest.mark.parametrize("option,item", [("chunked_prefill", "2b"), ("quantize_kv", "2b"), ("paged", "5"),
-                                         ("prefix_cache", "5")])
+@pytest.mark.parametrize("option,item", [("paged", "5"), ("prefix_cache", "5")])
 def test_unported_options_raise(served, option, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         ContinuousScheduler(_engine(served, 0.0), **{option: True})
-
-
-def test_kv8_pool_raises(served):
-    with pytest.raises(NotImplementedError, match="item 2b"):
-        KVPool(served["internlm2-1.8b"]["tmodel"], 2, 16, quantize_kv_cache=True, device=CPU)
 
 
 def test_unknown_policy_raises(served):

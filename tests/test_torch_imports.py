@@ -19,7 +19,7 @@ import torch
 
 from repro_torch import configs
 from repro_torch.convert import params_from_jax
-from repro_torch.data.synthetic import make_batch, make_request_trace
+from repro_torch.data.synthetic import make_adversarial_trace, make_batch, make_request_trace
 from repro_torch.launch import serve
 from repro_torch.models.registry import get_model
 from repro_torch.serving import KVPool, ServeConfig, ServeEngine
@@ -99,10 +99,18 @@ ENTRY_POINTS = {
     "ServeEngine.decode_slots": lambda: ServeEngine(get_model(_cfg()), {}, ServeConfig(max_len=8, batch=2)).decode_slots(
         torch.zeros((2, 1), dtype=torch.int32), None, torch.full((2,), -1, dtype=torch.int32)
     ),
+    "ServeEngine.prefill_chunk": lambda: ServeEngine(get_model(_cfg()), {}, ServeConfig(max_len=8, batch=1)).prefill_chunk(
+        torch.zeros((1, 4), dtype=torch.int32), None, 0, last=True
+    ),
     "KVPool": lambda: KVPool(get_model(_cfg()), 2, 8),
+    "KVPool kv8": lambda: KVPool(get_model(_cfg()), 2, 8, quantize_kv_cache=True),
     "make_request_trace": lambda: make_request_trace(_cfg(), n_requests=2),
+    "make_adversarial_trace": lambda: make_adversarial_trace(_cfg(), n_short=1),
     "launch.serve --continuous": lambda: serve.main(
         ["--arch", "internlm2-1.8b", "--smoke", "--continuous", "--requests", "2", "--gen", "2"]
+    ),
+    "launch.serve --continuous --chunked-prefill --quantize kv8": lambda: serve.main(
+        ["--arch", "internlm2-1.8b", "--smoke", "--continuous", "--chunked-prefill", "--quantize", "kv8"]
     ),
 }
 
@@ -146,12 +154,38 @@ def test_moe_launcher_refuses_quantize(mode):
         serve.main(["--arch", "qwen3-moe-30b-a3b", "--smoke", "--device", "cpu", "--quantize", mode])
 
 
-def test_launcher_refuses_kv8():
-    """kv8 quantizes the continuous-batching KV pool, which is not ported yet."""
-    with pytest.raises(ValueError, match="continuous serving"):
-        serve.main(["--arch", "internlm2-1.8b", "--smoke", "--device", "cpu", "--quantize", "kv8"])
-    with pytest.raises(ValueError, match="item 2b"):
-        serve.main(["--arch", "internlm2-1.8b", "--smoke", "--device", "cpu", "--continuous", "--quantize", "kv8"])
+def test_launcher_refuses_kv8(capsys):
+    """kv8 quantizes the continuous-batching KV pool: without --continuous
+    the launcher warns and serves unquantized, as the reference does."""
+    with pytest.warns(UserWarning, match="ignored in synchronized mode"):
+        out = serve.main(["--arch", "internlm2-1.8b", "--smoke", "--device", "cpu", "--quantize", "kv8",
+                          "--batch", "2", "--prompt-len", "8", "--gen", "3"])
+    assert tuple(out.shape) == (2, 3)
+    printed = capsys.readouterr().out
+    assert "prefill 2x8" in printed and "quantize[" not in printed
+
+
+@pytest.mark.parametrize("extra,mode", [(["--chunked-prefill", "--chunk-size", "4"], "continuous+chunked"),
+                                        (["--quantize", "kv8"], "continuous"),
+                                        (["--quantize", "kv8", "--chunked-prefill", "--chunk-size", "4",
+                                          "--chunk-budget", "2", "--policy", "gang"], "gang+chunked")])
+def test_continuous_launcher_chunked_and_kv8_on_cpu(capsys, extra, mode):
+    out = serve.main(["--arch", "internlm2-1.8b", "--smoke", "--device", "cpu", "--continuous", "--requests", "5",
+                      "--slots", "2", "--mean-prompt", "6", "--mean-gen", "4", "--prompt-len", "12", "--gen", "6",
+                      *extra])
+    assert sorted(out) == list(range(5)) and all(1 <= len(t) <= 6 for t in out.values())
+    printed = capsys.readouterr().out
+    assert f"continuous[{mode}] 5 requests over " in printed and "mean slot occupancy" in printed
+    chunks = int(printed.split(" prefill chunks)")[0].rsplit("idle, ", 1)[1])
+    assert (chunks > 5) == ("--chunked-prefill" in extra)
+    cfg = configs.get_smoke("internlm2-1.8b")  # bf16
+    trace = make_request_trace(cfg, n_requests=5, mean_prompt=6, mean_gen=4, seed=0, max_prompt=12, max_gen=6,
+                               device="cpu")
+    rows = 2 * max(t["prompt"]["tokens"].shape[1] + t["max_new_tokens"] for t in trace)  # slots x max_len
+    kv = cfg.n_kv_heads * cfg.resolved_head_dim
+    want = (cfg.n_layers * (rows * (2 * kv + 4) + 2 * 2 * cfg.n_kv_heads * 4) if "kv8" in extra  # int8, scales
+            else cfg.n_layers * rows * (2 * kv * 2 + 4))
+    assert f"kv bytes resident {want}" in printed
 
 
 @pytest.mark.parametrize("mode", ["none", "w8a8"])

@@ -608,3 +608,73 @@ def test_quant_wmma_tiles_take_k_major_b(cuda, m, n, k, qd):
 def test_quant_wgmma_is_deterministic(cuda):
     qa, _, qbk = _kmajor_pair(cuda, 2048, 8192, 2048, "int8", (128, 128), 37)
     assert torch.equal(mm_ops.quant_matmul(qa, qbk), mm_ops.quant_matmul(qa, qbk))
+
+
+# -- chunked prefill and the kv8 pool on the card ---------------------------------------
+# Logits of the bf16 SMOKE model on the kernels, chunked against monolithic,
+# within 5e-2 of the largest logit (bf16 activations rounded at other
+# points, and chunk attention is plain where monolithic runs the flash
+# kernel); quantize_kv's bits equal the CPU's (IEEE division, round half to
+# even, exact absmax).
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,n,chunk", [("internlm2-1.8b", 200, 64), ("internlm2-1.8b", 77, 16),
+                                          ("h2o-danube-3-4b", 90, 16)])
+def test_chunked_prefill_logits_match_monolithic_on_the_card(cuda, arch, n, chunk):
+    from repro_torch import configs
+    from repro_torch.data.synthetic import make_prompt
+    from repro_torch.models.registry import get_model
+    from repro_torch.serving.engine import chunk_schedule
+
+    model = get_model(configs.get_smoke(arch))
+    params = model.init(0, cuda)
+    prompt = make_prompt(model.cfg, seq=n, seed=3, device=cuda)["tokens"]
+    max_len = n + 4
+    size = min(max_len, model.cfg.window) if model.cfg.attention == "swa" else max_len
+    cache = model.init_cache(1, max_len, torch.bfloat16, cuda)
+    with torch.no_grad():
+        for off, length in chunk_schedule(n, chunk):
+            got, cache = model.prefill_chunk(params, {"tokens": prompt[:, off : off + length]}, cache=cache,
+                                             offset=off, wrapped=off + length > size)
+        want, mono = model.prefill(params, {"tokens": prompt}, max_len=max_len)
+    assert bool(torch.isfinite(got).all())
+    assert (got - want).abs().max() <= 5e-2 * want.abs().max()
+    for lc, mc in zip(cache["layers"], mono["layers"]):
+        assert torch.equal(lc["pos"], mc["pos"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_quantize_kv_on_the_card_equals_the_cpu(cuda, dtype):
+    from repro_torch.serving.kvpool import dequantize_kv, quantize_kv
+
+    k = _rand((4, 300, 8, 128), 40) * _rand((1, 1, 8, 1), 41).abs() * 5
+    k[1] = 0  # a freed slot
+    tree = {"layers": [{"k": k.to(DTYPES[dtype]), "v": _rand((4, 300, 8, 128), 42).to(DTYPES[dtype]),
+                        "pos": torch.arange(4 * 300, dtype=torch.int32).reshape(4, 300)}]}
+    on_card = quantize_kv({"layers": [{n: t.to(cuda) for n, t in tree["layers"][0].items()}]})
+    on_cpu = quantize_kv(tree)
+    for name in ("k", "v"):
+        for part in ("qv", "qs"):
+            assert torch.equal(on_card["layers"][0][name][part].cpu(), on_cpu["layers"][0][name][part])
+    back = dequantize_kv(on_card, DTYPES[dtype])
+    assert torch.equal(back["layers"][0]["k"].cpu(), dequantize_kv(on_cpu, DTYPES[dtype])["layers"][0]["k"])
+
+
+@pytest.mark.gpu
+def test_kv8_pool_on_the_card_holds_int8(cuda):
+    """Full-width internlm2-1.8b's pool over 8 slots of 411 positions (the
+    continuous phase of chip_smoke.py): int8 K/V, fp32 scales per slot and
+    head, int32 positions -- exactly 161,939,712 bytes, half the bf16 pool's
+    323,539,200 but for the scales."""
+    from repro_torch import configs
+    from repro_torch.models.registry import get_model
+    from repro_torch.serving.kvpool import KVPool
+
+    model = get_model(configs.get_config("internlm2-1.8b"))
+    pool = KVPool(model, 8, 411, quantize_kv_cache=True, device=cuda)
+    assert pool.bytes_resident() == 8 * 411 * 24 * 2 * 8 * 128 + 8 * 24 * 2 * 8 * 4 + 8 * 411 * 24 * 4 == 161_939_712
+    assert KVPool(model, 8, 411, device=cuda).bytes_resident() == 323_539_200
+    layer = pool.cache["layers"][0]
+    assert layer["k"].dtype == torch.bfloat16 and layer["k"].device.type == "cuda" and (layer["pos"] == -1).all()
