@@ -62,7 +62,17 @@ Phases, each printing its own lines; any failure exits non-zero:
      drops that differ between the paths, by layer; one-ulp nudges of the
      plain path alone), the same checks and witness on models and prompts
      from two more seeds, and the SMOKE MoE config in fp32 on the card
-     against the port's CPU path; every path's prefill twice, bit-identical;
+     against the port's CPU path; then the MoE model in w8a8 (built as the
+     launcher builds it, one layer of fp32 masters at a time: attention and
+     the head int8, the router and the experts bf16) with the same MoE gates
+     and exact launches of all four of its kernels, its logits beside the
+     bf16 model's for information; full-width minicpm3-4b (MLA: its
+     attention plain, as the reference computes it, every projection on the
+     GEMM kernels, wkv_b at prefill and per chunk only) in bf16 and w8a8 with
+     the dense model's gates, served continuously on the same trace,
+     monolithically and in chunks of 128, with its latent pool's resident
+     bytes exact, and its SMOKE config in fp32 against the CPU path; every
+     path's prefill twice, bit-identical; each phase's wall;
   4. each kernel timed at the served paths' shapes (CUDA events) beside its
      bound, its plain version and one PyTorch library call (a yardstick the
      port never calls; none computes the block-scaled product, so the
@@ -118,6 +128,7 @@ from repro_torch.kernels.systolic.ref import (  # noqa: E402
     quant_systolic_matmul_ref,
 )
 from repro_torch.launch import trace as trace_tools  # noqa: E402
+from repro_torch.launch.serve import init_params  # noqa: E402
 from repro_torch.models import attention as attn_model  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
@@ -128,6 +139,7 @@ from repro_torch.serving.scheduler import FINISHED  # noqa: E402
 
 ARCH = "internlm2-1.8b"
 MOE_ARCH = "qwen3-moe-30b-a3b"
+MLA_ARCH = "minicpm3-4b"
 BATCH, PROMPT, GEN = 4, 512, 32
 SEED = 0
 # The continuous path: a Poisson request trace (0.5 arrivals per tick,
@@ -149,6 +161,12 @@ LONG_CHUNK = 512
 # per slot, layer, K/V and head (8 x 24 x 2 x 8 x 4), int32 positions
 # (8 x 411 x 24 x 4).
 KV8_BYTES = 161_611_776 + 12_288 + 315_648
+# minicpm3-4b (MLA) through the same continuous trace, monolithic and then in
+# chunks of MLA_CHUNK (one a tick).  Its fp pool holds the latents: 8 slots x
+# 411 positions x 62 layers x (bf16 c_kv 256 + k_rope 32, 2 x 288 bytes, and
+# an int32 position, 4 bytes).
+MLA_CHUNK = 128
+MLA_CONT_BYTES = 8 * 411 * 62 * (2 * (256 + 32) + 4)
 BF16 = torch.bfloat16
 # Tolerances (|got - want| <= atol + rtol * |want|), with their reasons:
 GEMM_TOL_BF16 = (2e-2, 2e-2)  # one bf16 ulp where kernel and plain round the fp32 sum
@@ -205,19 +223,49 @@ KERNELS = tuple(SOURCES)
 
 
 def projections(cfg) -> collections.Counter:
-    """(K, N) -> launches per layer of the projection GEMM (fp or block-scaled):
-    q, k, v, o, then the SwiGLU's gate, up and down or the MoE router."""
-    d, hd = cfg.d_model, cfg.resolved_head_dim
+    """(K, N) -> launches per layer and forward pass of the projection GEMM
+    (fp or block-scaled): q, k, v, o -- MLA's wq_a, wq_b, wkv_a, wo --, then
+    the SwiGLU's gate, up and down or the MoE router.  MLA's wkv_b is apart
+    (``latent_expansion``): it runs at prefill and per chunk only."""
+    d, hd, h = cfg.d_model, cfg.resolved_head_dim, cfg.n_heads
     c = collections.Counter()
-    c[(d, cfg.n_heads * hd)] += 1
-    c[(d, cfg.n_kv_heads * hd)] += 2
-    c[(cfg.n_heads * hd, d)] += 1
+    if cfg.attention == "mla":
+        m = cfg.mla
+        c[(d, m.q_lora_rank)] += 1
+        c[(m.q_lora_rank, h * (m.qk_nope_head_dim + m.qk_rope_head_dim))] += 1
+        c[(d, m.kv_lora_rank + m.qk_rope_head_dim)] += 1
+        c[(h * m.v_head_dim, d)] += 1
+    else:
+        c[(d, h * hd)] += 1
+        c[(d, cfg.n_kv_heads * hd)] += 2
+        c[(h * hd, d)] += 1
     if cfg.moe is None:
         c[(d, cfg.d_ff)] += 2
         c[(cfg.d_ff, d)] += 1
     else:
         c[(d, cfg.moe.n_experts)] += 1
     return c
+
+
+def latent_expansion(cfg) -> tuple[int, int] | None:
+    """MLA's wkv_b (K, N): once per layer at prefill over the prompt's rows
+    and per chunk over the whole cache's; decode folds it into plain
+    einsums.  Never quantized, as in the reference."""
+    if cfg.attention != "mla":
+        return None
+    m = cfg.mla
+    return m.kv_lora_rank, cfg.n_heads * (m.qk_nope_head_dim + m.v_head_dim)
+
+
+def stays_wide(cfg, k: int, n: int) -> bool:
+    """The projections w8a8 leaves on the fp kernel: the MoE router (its
+    subtree is skipped whole, as the reference skips it)."""
+    return cfg.moe is not None and (k, n) == (cfg.d_model, cfg.moe.n_experts)
+
+
+def quantized_projections(cfg) -> list[tuple[int, int]]:
+    """(K, N) of the projections w8a8 runs on the block-scaled kernel."""
+    return [kn for kn in projections(cfg) if not stays_wide(cfg, *kn)]
 
 
 def expert_gemms(cfg) -> collections.Counter:
@@ -601,11 +649,25 @@ def phase_kernels() -> dict:
     say("[2] kernels against their plain versions on the card")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     mm_err = 0.0
-    for arch in (ARCH, MOE_ARCH):
+    for arch in (ARCH, MOE_ARCH, MLA_ARCH):
         cfg = configs.get_config(arch)
         for m in (4, BATCH * PROMPT):
             for k, n in projections(cfg):
                 mm_err = max(mm_err, check_gemm(m, k, n, BF16, gen, out_dtype=gemm_out_dtype(cfg, k, n)))
+    # minicpm3-4b (MLA): wkv_b over the prefill's rows (K = 256); the
+    # continuous runs' batch-1 prefills (wkv_b over each prompt) and decode
+    # over the slots; the chunked run's pieces, each chunk expanding the
+    # whole batch-1 cache (max_len rows) through wkv_b.
+    mla = configs.get_config(MLA_ARCH)
+    mla_trace = continuous_trace(mla)
+    mla_lens = sorted({t["prompt"]["tokens"].shape[1] for t in mla_trace})
+    mla_max_len = max(t["prompt"]["tokens"].shape[1] + t["max_new_tokens"] for t in mla_trace)
+    pieces = {length for p in mla_lens for _, length in chunk_schedule(p, MLA_CHUNK)}
+    for m in sorted({CONT_SLOTS, *mla_lens, *pieces}):
+        for k, n in projections(mla):
+            mm_err = max(mm_err, check_gemm(m, k, n, BF16, gen))
+    for m in sorted({BATCH * PROMPT, *mla_lens, mla_max_len}):
+        mm_err = max(mm_err, check_gemm(m, *latent_expansion(mla), BF16, gen))
     # The continuous path's GEMMs: the decode step over the slots, and each
     # request's batch-1 prefill at its prompt length.
     cfg = configs.get_config(ARCH)
@@ -638,6 +700,11 @@ def phase_kernels() -> dict:
             for k, n in projections(configs.get_config(ARCH)):
                 err = check_qgemm(m, k, n, qd, gen)
                 q_err = max(q_err, err) if qd == "int8" else q_err  # the main path's dtype
+    for arch in (MLA_ARCH, MOE_ARCH):  # the other w8a8 paths' projections, int8 as served
+        for m in (4, BATCH * PROMPT):
+            for k, n in quantized_projections(configs.get_config(arch)):
+                q_err = max(q_err, check_qgemm(m, k, n, "int8", gen))
+    for qd in quant.QDTYPES:
         # Ragged: the WMMA tiles (K off the 16 grid, N off the 8 grid, the
         # decode tile) and the wgmma tile (K a multiple of 16, N of 8).
         for m, k, n in ((72, 100, 130), (300, 515, 257), (1, 300, 1000), (9, 70, 4000),
@@ -699,22 +766,31 @@ def phase_kernels() -> dict:
 # ---------------------------------------------------------------------------
 
 
-def launches_at(cfg, gemm: str, tokens: int, steps: int, prefill: bool) -> tuple[dict, dict]:
+def launches_at(cfg, gemm: str, tokens: int, steps: int, prefill: bool,
+                kv_rows: int | None = None) -> tuple[dict, dict]:
     """(launches per kernel, launches per kernel and shape) that ``steps``
-    forward passes over ``tokens`` rows (M) must make, each a prefill or a
-    decode step: every projection on ``gemm`` ("systolic_mmm" or
-    "systolic_qmm"), every expert GEMM on the grouped kernel at the dispatch
-    capacity, flash attention once per layer in prefill only."""
+    forward passes over ``tokens`` rows (M) must make, each a monolithic
+    prefill, a chunk or a decode step: every projection on ``gemm``
+    ("systolic_mmm" or "systolic_qmm") but the router, which stays on the fp
+    kernel; MLA's wkv_b on the fp kernel over ``kv_rows`` rows (a prefill's
+    own tokens; a chunk's whole cache; none at decode); every expert GEMM on
+    the grouped kernel at the dispatch capacity; flash attention once per
+    layer in a monolithic GQA prefill only (MLA's attention is plain)."""
     n_layers = cfg.n_layers
     shapes = {"systolic_mmm": {}, "systolic_qmm": {}, "grouped_mmm": {}}
-    shapes[gemm] = {(tokens, k, n): mult * n_layers * steps for (k, n), mult in projections(cfg).items()}
+    for (k, n), mult in projections(cfg).items():
+        shapes["systolic_mmm" if stays_wide(cfg, k, n) else gemm][(tokens, k, n)] = mult * n_layers * steps
+    kv_rows = tokens if prefill else kv_rows
+    if latent_expansion(cfg) is not None and kv_rows is not None:
+        key = (kv_rows, *latent_expansion(cfg))
+        shapes["systolic_mmm"][key] = shapes["systolic_mmm"].get(key, 0) + n_layers * steps
     if cfg.moe is not None:
         g = cfg.moe.dispatch_groups
         rows = g * moe.capacity(tokens // g, cfg)  # the groups fold into one launch
         shapes["grouped_mmm"] = {(cfg.moe.n_experts, rows, k, n): mult * n_layers * steps
                                  for (k, n), mult in expert_gemms(cfg).items()}
     total = {name: sum(by.values()) for name, by in shapes.items()}
-    total["flash_attn"] = n_layers * steps if prefill else 0
+    total["flash_attn"] = n_layers * steps if prefill and cfg.attention != "mla" else 0
     return total, shapes
 
 
@@ -734,6 +810,7 @@ def expected_routes(cfg, shapes: dict, prefills: int) -> dict:
     attention's by the model's (H, Hkv), once per layer in each of
     ``prefills`` prefills."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    prefills = prefills if cfg.attention != "mla" else 0  # MLA reaches no flash kernel
     mm, qmm, grouped = collections.Counter(), collections.Counter(), collections.Counter()
     for (m, k, n), c in shapes["systolic_mmm"].items():
         mm[mm_kernel.gemm_path(m, n, k, BF16, True, sms)] += c
@@ -804,17 +881,18 @@ def serve_path(label: str, model, params, want: dict, batch, feed=None) -> dict:
     # differences from them, and each kernel call against its plain version.
     # MoE: each grouped call against its plain version, and each layer's
     # routing on both paths.
-    acts_k, flips, in_model, routing_k, routing_p, choices = [], [], [], [], [], []
+    acts_k, flips, routing_k, routing_p, choices = [], [], [], [], []
     quantized = want["gemm"] == "systolic_qmm"
     is_moe = cfg.moe is not None
+    in_model = {"systolic_qmm": [], "grouped_mmm": []}  # each kernel call's error as a share of its tolerance
     with torch.no_grad():
         reset_counts()
         with contextlib.ExitStack() as stack:
             if quantized:
                 stack.enter_context(quantized_activations(acts_k))
-                stack.enter_context(checked_quant_calls(in_model))
+                stack.enter_context(checked_quant_calls(in_model["systolic_qmm"]))
             if is_moe:
-                stack.enter_context(checked_grouped_calls(in_model))
+                stack.enter_context(checked_grouped_calls(in_model["grouped_mmm"]))
                 stack.enter_context(recorded_routing(routing_k))
                 stack.enter_context(topk_choices(choices))
             got, cache_k = model.prefill(params, batch, max_len=PROMPT + GEN)
@@ -822,12 +900,13 @@ def serve_path(label: str, model, params, want: dict, batch, feed=None) -> dict:
         expect(torch.equal(got, again), f"{label} two kernel-path prefills give bit-identical logits")
         del again
         kernel_counts = counts()
-        if quantized or is_moe:
-            n_calls = sum(want_pf_shapes["grouped_mmm" if is_moe else "systolic_qmm"].values())
-            expect(len(in_model) == n_calls and max(in_model) <= 1.0,
-                   f"{label} prefill: each of the {len(in_model)} {'grouped' if is_moe else 'block-scaled'} kernel "
-                   f"calls against its plain version on the model's own inputs: worst error "
-                   f"{max(in_model):.3f} of the tolerance")
+        for name, shares in in_model.items():
+            if not shares:
+                continue
+            n_calls = sum(want_pf_shapes[name].values())
+            expect(len(shares) == n_calls and max(shares) <= 1.0,
+                   f"{label} prefill: each of the {len(shares)} {name} kernel calls against its plain version on "
+                   f"the model's own inputs: worst error {max(shares):.3f} of the tolerance")
         with contextlib.ExitStack() as stack:
             stack.enter_context(plain_versions())
             if quantized:
@@ -839,7 +918,7 @@ def serve_path(label: str, model, params, want: dict, batch, feed=None) -> dict:
         expect(not any(plain_counts.values()), f"{label} plain-path prefill launched no kernel ({plain_counts})")
         err, scale = compare_logits(f"{label} prefill", got, want_l, want["tol"])
         if quantized:
-            flips = activation_flips(label, flips, cfg.n_layers)
+            flips = activation_flips(label, flips, cfg)
         routing = routing_witness(label, routing_k, routing_p) if is_moe else None
         # MoE: each layer's rows per expert (G = 1), for phase 4's timing at the model's routing.
         prefill_rows = [r[2][0].tolist() for r in routing_k]
@@ -896,7 +975,7 @@ def serve_path(label: str, model, params, want: dict, batch, feed=None) -> dict:
         "prefill_activation_flips": flips,
         "prefill_routing": routing,
         "routed_alike_max_abs_err": alike,  # MoE: prefill, decode step 0, decode step 1
-        "prefill_kernel_calls_worst_share_of_tol": max(in_model) if in_model else None,
+        "prefill_kernel_calls_worst_share_of_tol": {k: max(v) for k, v in in_model.items() if v} or None,
         "prefill_rows": prefill_rows,  # MoE: rows per expert by layer, prefill and decode step 0
         "decode_rows": [r[2][0].tolist() for r in routing_dec],
         "decode_logits_max_abs_err": dec_err,
@@ -930,20 +1009,21 @@ def routing_witness(label: str, kernel: list, plain: list) -> dict:
 
 
 def continuous_expected(cfg, prompt_lens: list, decode_steps: int, slots: int | None = None,
-                        chunk: int | None = None) -> tuple[dict, dict, dict, dict]:
+                        chunk: int | None = None, max_len: int | None = None) -> tuple[dict, dict, dict, dict]:
     """(launches per kernel, per kernel and shape, by route, flash launches by
     (B, Sq, Skv)) that a continuous run must make: a batch-1 prefill per
     request at M = its prompt length, one more per distinct prompt length in
     warmup, and ``decode_steps`` + 1 (warmup's all-empty step) decode steps
     at M = the slot count.  With ``chunk``, each prompt is prefilled in the
     pieces of ``chunk_schedule`` instead (K1 at M = each piece's length, no
-    flash attention) and warmup runs one dummy chunk per distinct length."""
+    flash attention; MLA's wkv_b at M = ``max_len``, the batch-1 cache each
+    chunk expands) and warmup runs one dummy chunk per distinct length."""
     if chunk is None:
         pieces = list(prompt_lens)
     else:
         pieces = [length for p in prompt_lens for _, length in chunk_schedule(p, chunk)]
     prefills = collections.Counter(pieces) + collections.Counter(set(pieces))
-    runs = [launches_at(cfg, "systolic_mmm", m, c, chunk is None) for m, c in prefills.items()]
+    runs = [launches_at(cfg, "systolic_mmm", m, c, chunk is None, kv_rows=max_len) for m, c in prefills.items()]
     runs.append(launches_at(cfg, "systolic_mmm", slots or CONT_SLOTS, decode_steps + 1, False))
     total, shapes = collections.Counter(), {"systolic_mmm": {}, "systolic_qmm": {}, "grouped_mmm": {}}
     for t, by in runs:
@@ -954,7 +1034,7 @@ def continuous_expected(cfg, prompt_lens: list, decode_steps: int, slots: int | 
     total = {name: total[name] for name in KERNELS}
     if chunk is not None:
         return total, shapes, expected_routes(cfg, shapes, 0), {}
-    flash = {(1, m, m): cfg.n_layers * c for m, c in prefills.items()}
+    flash = {(1, m, m): cfg.n_layers * c for m, c in prefills.items()} if cfg.attention != "mla" else {}
     return total, shapes, expected_routes(cfg, shapes, sum(prefills.values())), flash
 
 
@@ -977,29 +1057,37 @@ def listed(shapes: dict) -> dict:
     return {name: [[*key, c] for key, c in sorted(by.items())] for name, by in shapes.items() if by}
 
 
-def phase_continuous(model, params, smi: str, fp: dict | None = None) -> dict:
+def phase_continuous(model, params, smi: str, fp: dict | None = None, chunk: int | None = None,
+                     resident: int | None = None, alone: dict | None = None) -> dict:
     """Serve the continuous trace through ContinuousScheduler with the counts
     set to 0 just before the run and read just after; check the lifecycle
     and the launches; then replay each request alone at batch 1 on the fp
     cache (prefill, then decode with the scheduler's tokens fed back) and
     hold the scheduler's prefill and decode-step logits against the
-    replay's.  The model's prefill and decode_step are wrapped here, in the
-    script, to record what the scheduler's engine computed.
+    replay's.  The model's prefill, prefill_chunk and decode_step are
+    wrapped here, in the script, to record what the scheduler's engine
+    computed.
 
     With ``fp`` (the fp pool's run of the same trace) the pool is kv8: its
     resident bytes are checked exactly, its launches and decode steps must
-    equal the fp run's, and its logits are held at the quantized-vs-fp bound."""
+    equal the fp run's, and its logits are held at the quantized-vs-fp bound.
+    With ``chunk`` the prompts are prefilled in chunks of that length, one a
+    tick.  ``resident``: the fp pool's resident bytes, checked exactly.
+    ``alone``: the replays of an earlier run of the same model, reused for a
+    request whose tokens equal that run's (the replay is the same then)."""
     kv8 = fp is not None
-    label, tol = ("kv8", KV8_VS_FP_TOL) if kv8 else ("continuous", LOGITS_TOL_BF16)
     cfg = model.cfg
+    label, tol = ("kv8", KV8_VS_FP_TOL) if kv8 else ("continuous", LOGITS_TOL_BF16)
+    if cfg.name != ARCH:
+        label = f"{cfg.name} {'chunked' if chunk else 'continuous'}"
     trace = continuous_trace(cfg)
     lens = [t["prompt"]["tokens"].shape[1] for t in trace]
     gens = [t["max_new_tokens"] for t in trace]
     max_len = max(p + g for p, g in zip(lens, gens))
-    say(f"[3] {label} serving of {ARCH} bf16{' over the int8 (kv8) pool' if kv8 else ''}: {len(trace)} requests "
+    say(f"[3] {label} serving of {cfg.name} bf16{' over the int8 (kv8) pool' if kv8 else ''}: {len(trace)} requests "
         f"arriving over {trace[-1]['arrival']:.1f} ticks, prompts {min(lens)}-{max(lens)} (mean "
         f"{sum(lens) / len(lens):.1f}), generations {min(gens)}-{max(gens)} (mean {sum(gens) / len(gens):.1f}), "
-        f"{CONT_SLOTS} slots, max_len {max_len}")
+        f"{CONT_SLOTS} slots, max_len {max_len}" + (f", prefill in chunks of {chunk} (one a tick)" if chunk else ""))
     rid_of = {id(t["prompt"]): t["rid"] for t in trace}
     first_logits, steps, sched = {}, [], None
 
@@ -1009,6 +1097,13 @@ def phase_continuous(model, params, smi: str, fp: dict | None = None) -> dict:
             first_logits[rid_of[id(batch)]] = logits.clone()
         return logits, cache
 
+    def prefill_chunk(p, batch, cache, offset, wrapped):
+        logits, cache = model.prefill_chunk(p, batch, cache=cache, offset=offset, wrapped=wrapped)
+        req = sched._prefilling[0] if sched._prefilling else None  # None in warmup
+        if req is not None and offset + batch["tokens"].shape[1] == req.prompt_len:
+            first_logits[req.rid] = logits.clone()
+        return logits, cache
+
     def decode_step(p, tok, cache, pos):
         logits, cache = model.decode_step(p, tok, cache=cache, pos=pos)
         rids = {slot: r.rid for slot, r in sched._slot_req.items()}
@@ -1016,9 +1111,13 @@ def phase_continuous(model, params, smi: str, fp: dict | None = None) -> dict:
             steps.append((sched.pool.positions.copy(), logits.clone(), rids))  # the host's copy of pos
         return logits, cache
 
-    recorded = dataclasses.replace(model, prefill=prefill, decode_step=decode_step)
+    recorded = dataclasses.replace(model, prefill=prefill, prefill_chunk=prefill_chunk, decode_step=decode_step)
     engine = ServeEngine(recorded, params, ServeConfig(max_len=max_len, batch=CONT_SLOTS), device="cuda")
-    sched = ContinuousScheduler(engine, policy="continuous", quantize_kv=kv8)
+    sched = ContinuousScheduler(engine, policy="continuous", quantize_kv=kv8, chunked_prefill=chunk is not None,
+                                chunk_size=chunk or 128)
+    if resident is not None:
+        expect(sched.pool.bytes_resident() == resident,
+               f"{label} pool resident bytes {sched.pool.bytes_resident():,} (want {resident:,})")
     if kv8:
         leaves = list(_leaves(sched.pool._qcache))
         dtypes = sorted({str(t.dtype)[6:] for t in leaves})
@@ -1057,25 +1156,37 @@ def phase_continuous(model, params, smi: str, fp: dict | None = None) -> dict:
         expect(st["decode_steps"] == fp["summary"]["decode_steps"] and st["ticks"] == fp["summary"]["ticks"],
                f"kv8: {st['ticks']} ticks and {st['decode_steps']} decode steps, as the fp pool's run "
                f"({fp['summary']['ticks']}, {fp['summary']['decode_steps']})")
-    check_run_launches(label, got, continuous_expected(cfg, lens, st["decode_steps"]))
+    if chunk:
+        want_chunks = sum(len(chunk_schedule(p, chunk)) for p in lens)
+        expect(st["prefill_chunks"] == want_chunks, f"{label}: {st['prefill_chunks']} prefill chunks, want {want_chunks}")
+    check_run_launches(label, got, continuous_expected(cfg, lens, st["decode_steps"], chunk=chunk, max_len=max_len))
 
     # Each request alone at batch 1 on the fp cache, the scheduler's tokens fed back.
     pf_err, dec_err, same, rows_seen = 0.0, 0.0, 0, 0
+    replays = {}  # (rid, tokens) -> the replay's logits: prefill, then each decode step
     with torch.no_grad():
         for t, r in zip(trace, reqs):
             out, p = results[r.rid], lens[r.rid]
             rows = {int(pos[s]): logits[s:s + 1] for pos, logits, rids in steps for s, rid in rids.items()
                     if rid == r.rid}
-            alone, cache = model.prefill(params, t["prompt"], max_len=max_len)
-            errs = [(alone - first_logits[r.rid]).abs().max().item() / max(1.0, alone.abs().max().item())]
-            argmax = [int(alone.argmax())]
+            key = (r.rid, tuple(int(x) for x in out))
+            replay = (alone or {}).get(key)
+            if replay is None:
+                alone_l, cache = model.prefill(params, t["prompt"], max_len=max_len)
+                replay = [alone_l]
+                for j in range(len(out) - 1):
+                    tok = torch.tensor([[int(out[j])]], dtype=torch.int32, device="cuda")
+                    alone_l, cache = model.decode_step(params, tok, cache=cache, pos=p + j)
+                    replay.append(alone_l)
+                del cache
+            replays[key] = replay
+            errs = [(replay[0] - first_logits[r.rid]).abs().max().item() / max(1.0, replay[0].abs().max().item())]
+            argmax = [int(replay[0].argmax())]
             taken = [int(first_logits[r.rid].argmax())]
             for j in range(len(out) - 1):
-                tok = torch.tensor([[int(out[j])]], dtype=torch.int32, device="cuda")
-                alone, cache = model.decode_step(params, tok, cache=cache, pos=p + j)
                 row = rows[p + j]
-                errs.append((alone - row).abs().max().item() / max(1.0, alone.abs().max().item()))
-                argmax.append(int(alone.argmax()))
+                errs.append((replay[j + 1] - row).abs().max().item() / max(1.0, replay[j + 1].abs().max().item()))
+                argmax.append(int(replay[j + 1].argmax()))
                 taken.append(int(row.argmax()))
             rows_seen += len(rows)
             pf_err, dec_err = max(pf_err, errs[0]), max([dec_err, *errs[1:]])
@@ -1084,7 +1195,6 @@ def phase_continuous(model, params, smi: str, fp: dict | None = None) -> dict:
                    f"{label} request {r.rid} (prompt {p}, {len(out)} tokens, slot ticks {len(rows)}): logits vs "
                    f"alone at batch 1 on the fp cache, largest error {max(errs):.2%} of the largest logit (tol "
                    f"{tol:.0%}); its tokens are the argmax of its own logits")
-            del cache
     say(f"    {label} vs alone: prefill logits within {pf_err:.2%}, decode-step rows within {dec_err:.2%} of the "
         f"largest logit over {rows_seen} rows; {same} of {len(reqs)} requests' greedy tokens equal their isolated "
         f"generate() exactly (bf16 near-ties may flip; for information only)")
@@ -1099,7 +1209,7 @@ def phase_continuous(model, params, smi: str, fp: dict | None = None) -> dict:
            "routes": {k: {str(kk): c for kk, c in v.items()} for k, v in got[2].items()},
            "flash_shapes": [[*key, c] for key, c in sorted(got[3].items())],
            "prefill_logits_max_share": pf_err, "decode_logits_max_share": dec_err,
-           "requests_tokens_equal_alone": same}
+           "requests_tokens_equal_alone": same, "replays": replays}
     if kv8:
         say(f"    kv8 decode step p50 {st['p50_step_ms']} ms beside the fp pool's {fp['summary']['p50_step_ms']} ms "
             f"(same call): the pool is dequantized before and re-quantized after every step")
@@ -1291,7 +1401,8 @@ def phase_serve(smi: str) -> tuple[dict, dict, dict, dict, list]:
     batch = make_batch(cfg, batch=BATCH, seq=PROMPT, kind="prefill", seed=SEED, device="cuda")
     bf16 = serve_path("bf16", model, params, {"gemm": "systolic_mmm", "tol": LOGITS_TOL_BF16}, batch)
     cont = phase_continuous(model, params, smi)
-    kv8 = phase_continuous(model, params, smi, fp=cont)
+    kv8 = phase_continuous(model, params, smi, fp=cont, alone=cont["replays"])
+    del cont["replays"], kv8["replays"]
     long_runs = phase_long_prompt(model, params, smi)
     with quant.use_act_quant("int8"):
         w8a8 = serve_path("w8a8", model, qparams, {"gemm": "systolic_qmm", "tol": LOGITS_TOL_W8A8}, batch,
@@ -1299,18 +1410,7 @@ def phase_serve(smi: str) -> tuple[dict, dict, dict, dict, list]:
     w8a8["rounding_sensitivity"] = rounding_sensitivity(
         model, batch, [("bf16", params, contextlib.nullcontext()), ("w8a8", qparams, quant.use_act_quant("int8"))]
     )
-    # w8a8 against the bf16 model from the same fp32 weights, both on the
-    # kernels, prefill and two decode steps fed the same tokens.
-    w8a8["vs_bf16_max_abs_err"], w8a8["vs_bf16_bound"] = [], []
-    for what, got, want in zip(("prefill", "decode step 0", "decode step 1"), w8a8["logits"], bf16["logits"]):
-        err = (got - want).abs().max().item()
-        bound = W8A8_VS_BF16_TOL * want.abs().max().item()
-        expect(bool(torch.isfinite(got).all()) and err < bound,
-               f"w8a8 vs bf16 {what} logits: max_abs={err:.3e} (bound {W8A8_VS_BF16_TOL} x max|logit| = "
-               f"{bound:.3e}); greedy tokens agree in {int((got.argmax(-1) == want.argmax(-1)).sum())} of "
-               f"{got.shape[0]} rows")
-        w8a8["vs_bf16_max_abs_err"].append(err)
-        w8a8["vs_bf16_bound"].append(bound)
+    w8a8_vs_bf16("w8a8", w8a8, bf16)
     for r in (bf16, w8a8):
         del r["logits"], r["fed"]
     del params, qparams, model, batch
@@ -1318,9 +1418,75 @@ def phase_serve(smi: str) -> tuple[dict, dict, dict, dict, list]:
     return bf16, w8a8, cont, kv8, long_runs
 
 
-def phase_serve_moe() -> dict:
+def w8a8_vs_bf16(label: str, w8a8: dict, bf16: dict, gate: bool = True) -> None:
+    """w8a8 against the bf16 model from the same fp32 weights, both on the
+    kernels, prefill and two decode steps fed the same tokens, within the
+    reference's bound of W8A8_VS_BF16_TOL x the largest logit (``gate``), or
+    printed for information only."""
+    w8a8["vs_bf16_max_abs_err"], w8a8["vs_bf16_bound"] = [], []
+    for what, got, want in zip(("prefill", "decode step 0", "decode step 1"), w8a8["logits"], bf16["logits"]):
+        err = (got - want).abs().max().item()
+        bound = W8A8_VS_BF16_TOL * want.abs().max().item()
+        msg = (f"{label} vs bf16 {what} logits: max_abs={err:.3e} (bound {W8A8_VS_BF16_TOL} x max|logit| = "
+               f"{bound:.3e}); greedy tokens agree in {int((got.argmax(-1) == want.argmax(-1)).sum())} of "
+               f"{got.shape[0]} rows")
+        if gate:
+            expect(bool(torch.isfinite(got).all()) and err < bound, msg)
+        else:
+            say(f"    [for information, not a gate] {msg}")
+        w8a8["vs_bf16_max_abs_err"].append(err)
+        w8a8["vs_bf16_bound"].append(bound)
+
+
+def phase_serve_mla(smi: str) -> tuple[dict, dict, dict, dict]:
+    """Full-width minicpm3-4b (MLA), drawn in fp32 from SEED and served in
+    bf16 and in w8a8 from the same masters, each built as the launcher builds
+    it (``launch/serve.py::init_params``: w8a8 one layer at a time, weights
+    K-major); the bf16 parameters also through ContinuousScheduler on the
+    continuous trace, monolithic and then chunked."""
+    cfg = configs.get_config(MLA_ARCH)
+    m = cfg.mla
+    say(f"[3] serve {MLA_ARCH} (full width: {cfg.n_layers}L d={cfg.d_model} H={cfg.n_heads} MLA q_lora "
+        f"{m.q_lora_rank} kv_lora {m.kv_lora_rank} nope {m.qk_nope_head_dim} rope {m.qk_rope_head_dim} v "
+        f"{m.v_head_dim} d_ff={cfg.d_ff} V={cfg.vocab_size}) in {cfg.dtype}, batch {BATCH}, prompt {PROMPT}, "
+        f"{GEN} tokens")
+    model = get_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, _ = init_params(model, SEED, torch.device("cuda"), "none")
+    qparams, act_ctx = init_params(model, SEED, torch.device("cuda"), "w8a8")
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    say(f"    init {time.perf_counter() - t0:.1f} s: {n:,} parameters, {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"on the card with the w8a8 tree (peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB)")
+    norms = cfg.n_layers * (m.q_lora_rank + m.kv_lora_rank)  # count_params leaves MLA's two norms out
+    expect(n == model.n_params + norms,
+           f"{MLA_ARCH} parameters {n} = the config's count {model.n_params} + {norms} MLA norm scales")
+    batch = make_batch(cfg, batch=BATCH, seq=PROMPT, kind="prefill", seed=SEED, device="cuda")
+    bf16 = serve_path("mla bf16", model, params, {"gemm": "systolic_mmm", "tol": LOGITS_TOL_BF16}, batch)
+    cont = phase_continuous(model, params, smi, resident=MLA_CONT_BYTES)
+    chunked = phase_continuous(model, params, smi, chunk=MLA_CHUNK, resident=MLA_CONT_BYTES, alone=cont["replays"])
+    del cont["replays"], chunked["replays"]
+    with act_ctx:
+        w8a8 = serve_path("mla w8a8", model, qparams, {"gemm": "systolic_qmm", "tol": LOGITS_TOL_W8A8}, batch,
+                          feed=bf16["fed"])
+    w8a8_vs_bf16("mla w8a8", w8a8, bf16)
+    for r in (bf16, w8a8):
+        del r["logits"], r["fed"]
+    bf16["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    say(f"    peak device memory over the MLA phase: {bf16['peak_gb']:.2f} GB")
+    del params, qparams, model, batch
+    torch.cuda.empty_cache()
+    return bf16, w8a8, cont, chunked
+
+
+def phase_serve_moe() -> tuple[dict, dict]:
     """The MoE model in bf16, built directly in bf16 (fp32 drawn one tensor
-    at a time), after the dense models' memory has been given back."""
+    at a time), after the dense models' memory has been given back; then,
+    with the bf16 trees freed, in w8a8 from the same seed, built as the
+    launcher builds it (one layer of fp32 masters at a time: attention and
+    the head quantized, the router and the experts bf16, as the reference
+    leaves them)."""
     cfg = configs.get_config(MOE_ARCH)
     m = cfg.moe
     say(f"[3] serve {MOE_ARCH} (full width: {cfg.n_layers}L d={cfg.d_model} H={cfg.n_heads}/{cfg.n_kv_heads} "
@@ -1353,6 +1519,8 @@ def phase_serve_moe() -> dict:
         r = serve_path(label, model, params, want, batch)
         r["rounding_sensitivity"] = rounding_sensitivity(model, batch, [(label, params, contextlib.nullcontext())],
                                                          nudges=MOE_NUDGES, steps=MOE_NUDGE_STEPS, seed=seed)
+        if seed == SEED:
+            bf16_main = {"logits": r["logits"], "fed": r["fed"]}  # for the w8a8 model's comparison
         del r["logits"], r["fed"], batch
         seeds[seed] = r
         out = out or r
@@ -1367,35 +1535,57 @@ def phase_serve_moe() -> dict:
         f"the prefill's largest logit: {free:.2%} routing freely (tol {LOGITS_TOL_MOE:.0%}), {alike:.2%} routed alike "
         f"(tol {LOGITS_TOL_BF16:.0%}); one-ulp nudge of the plain path alone, largest reading {nudge:.2%}")
     out["witness_max"] = {"free": free, "routed_alike": alike, "nudge": nudge}
+    del params
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    qparams, act_ctx = init_params(model, SEED, torch.device("cuda"), "w8a8")
+    torch.cuda.synchronize()
+    n_q, q_bytes = quant.count_quantized(qparams)
+    say(f"    w8a8 init, one layer of fp32 masters at a time: {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, {n_q} weights int8 ({q_bytes / 1e9:.3f} GB)")
+    batch = make_batch(cfg, batch=BATCH, seq=PROMPT, kind="prefill", seed=SEED, device="cuda")
+    with act_ctx:
+        w8 = serve_path("moe w8a8", model, qparams, {"gemm": "systolic_qmm", "tol": LOGITS_TOL_MOE}, batch,
+                        feed=bf16_main["fed"])
+    w8a8_vs_bf16("moe w8a8", w8, bf16_main, gate=False)
+    del w8["logits"], w8["fed"]
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     say(f"    peak device memory over the MoE phase: {out['peak_gb']:.2f} GB")
-    del params, model
+    del qparams, model, batch, bf16_main
     torch.cuda.empty_cache()
-    return out
+    return out, w8
 
 
-def activation_flips(label: str, flips: list, n_layers: int) -> dict:
+def activation_flips(label: str, flips: list, cfg) -> dict:
     """Summarise, by layer, the int8 activation values in which the plain
-    path's prefill differs from the kernel path's (seven quantized GEMM
-    inputs per layer: q, k, v, o, gate, up, down).  The first layer's q, k
-    and v inputs come from the same embedding and norm on both paths, so they
-    must agree exactly; every later difference starts from the paths' bf16
-    GEMM outputs differing by rounding."""
-    expect(len(flips) == 7 * n_layers, f"{label} prefill quantized {len(flips)} GEMM inputs per path, "
-                                       f"want {7 * n_layers}")
-    by_layer = [flips[7 * i:7 * i + 7] for i in range(n_layers)]
+    path's prefill differs from the kernel path's (the quantized GEMM inputs
+    of each layer: q, k, v, o -- MLA: wq_a, wq_b, wkv_a, wo --, then gate, up
+    and down unless the FFN is a MoE block, which stays wide).  The first
+    layer's inputs taken straight from the normed embedding (q, k and v;
+    MLA's wq_a and wkv_a) are the same on both paths, so they must agree
+    exactly; every later difference starts from the paths' bf16 GEMM outputs
+    differing by rounding."""
+    mla = cfg.attention == "mla"
+    names = ["wq_a", "wq_b", "wkv_a", "wo"] if mla else ["q", "k", "v", "o"]
+    names += [] if cfg.moe is not None else ["gate", "up", "down"]
+    per, n_layers = len(names), cfg.n_layers
+    expect(len(flips) == per * n_layers, f"{label} prefill quantized {len(flips)} GEMM inputs per path, "
+                                         f"want {per * n_layers}")
+    by_layer = [flips[per * i:per * i + per] for i in range(n_layers)]
     frac = [sum(f[0] for f in lay) / sum(f[2] for f in lay) for lay in by_layer]
     frac2 = [sum(f[1] for f in lay) / sum(f[2] for f in lay) for lay in by_layer]
-    first_qkv = sum(f[0] for f in flips[:3])
-    expect(first_qkv == 0, f"{label} prefill: layer 0's q/k/v inputs quantize identically on both paths "
-                           f"({first_qkv} values differ)")
+    exact = (0, 2) if mla else (0, 1, 2)
+    first = sum(flips[i][0] for i in exact)
+    expect(first == 0, f"{label} prefill: layer 0's {'/'.join(names[i] for i in exact)} inputs quantize "
+                       f"identically on both paths ({first} values differ)")
     say(f"    {label} prefill int8 activations differing, plain vs kernel path, share by layer: "
         f"{' '.join(f'{x:.2e}' for x in frac)}")
     say(f"    ... by more than one int8 step: {' '.join(f'{x:.2e}' for x in frac2)}; "
-        f"largest difference {max(f[3] for f in flips)} steps; layer 0 by GEMM input (q k v o gate up down): "
-        f"{' '.join(f'{f[0] / f[2]:.2e}' for f in flips[:7])}")
+        f"largest difference {max(f[3] for f in flips)} steps; layer 0 by GEMM input ({' '.join(names)}): "
+        f"{' '.join(f'{f[0] / f[2]:.2e}' for f in flips[:per])}")
     return {"share_by_layer": frac, "share_over_one_step_by_layer": frac2, "max_step": max(f[3] for f in flips),
-            "layer0_share_by_input": [f[0] / f[2] for f in flips[:7]],
+            "layer0_share_by_input": [f[0] / f[2] for f in flips[:per]],
             "differing": sum(f[0] for f in flips), "elements": sum(f[2] for f in flips)}
 
 
@@ -1721,15 +1911,22 @@ def _merged(paths: list, kernel: str) -> dict:
     return dict(out)
 
 
-def phase_timing(errs: dict, bf16: dict, w8a8: dict, moe_r: dict, served: list) -> tuple[list[dict], dict, list]:
-    """``served``: the continuous-style runs (the continuous, kv8 and
-    long-prompt runs), whose launches count with the synchronized paths'."""
+def phase_timing(errs: dict, sync_fp: list, sync_w8a8: list, moe_runs: list,
+                 served: list) -> tuple[list[dict], dict, list]:
+    """``sync_fp``: the synchronized bf16 paths (internlm2, the MoE model's
+    main path, minicpm3); ``sync_w8a8``: the synchronized w8a8 paths
+    (internlm2, minicpm3, the MoE model); ``moe_runs``: the MoE model's bf16
+    and w8a8 paths (the grouped GEMM's launches and flash launches at its
+    heads); ``served``: the continuous-style runs (the continuous, kv8 and
+    long-prompt runs of internlm2, minicpm3's continuous and chunked runs),
+    whose launches count with the synchronized paths'."""
     say("[4] kernel times at the served paths' shapes (CUDA events; ms per call)")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     moe_cfg = configs.get_config(MOE_ARCH)
+    moe_r = moe_runs[0]
     shapes = []
-    synchronized = _merged([bf16, moe_r], "systolic_mmm")
-    for (m, k, n), n_calls in _merged([bf16, moe_r, *served], "systolic_mmm").items():
+    synchronized = _merged(sync_fp, "systolic_mmm")
+    for (m, k, n), n_calls in _merged([*sync_fp, *sync_w8a8, *served], "systolic_mmm").items():
         # each wgmma tile timed at the synchronized paths' shapes only
         r = time_gemm(m, k, n, gen, gemm_out_dtype(moe_cfg, k, n), tiles=(m, k, n) in synchronized)
         r["launches"] = n_calls  # as counted at the launch site on the served paths
@@ -1739,7 +1936,7 @@ def phase_timing(errs: dict, bf16: dict, w8a8: dict, moe_r: dict, served: list) 
             f"{r['path']:13s} kernel {r['ms']:.4f}  plain {r['plain_ms']:.4f}  torch.matmul {r['library_ms']:.4f}  "
             f"bound {r['bound_ms']:.4f} ({r['bound_by']})" + (f"  [each wgmma tile:{tiles}]" if tiles else ""))
     qshapes = []
-    for (m, k, n), n_calls in _merged([w8a8], "systolic_qmm").items():
+    for (m, k, n), n_calls in _merged(sync_w8a8, "systolic_qmm").items():
         r = time_qgemm(m, k, n, gen)
         r["launches"] = n_calls
         qshapes.append(r)
@@ -1749,7 +1946,7 @@ def phase_timing(errs: dict, bf16: dict, w8a8: dict, moe_r: dict, served: list) 
             f"[info: whole-K scales {r['info_whole_k_scales_ms']:.4f}; K1 bf16 {r['info_k1_bf16_ms']:.4f}; other "
             f"functions: torch._int_mm {int_mm}, bf16 torch.matmul {r['info_bf16_matmul_ms']:.4f}]")
     gshapes = []
-    for (e, c, k, n), n_calls in _merged([moe_r], "grouped_mmm").items():
+    for (e, c, k, n), n_calls in _merged(moe_runs, "grouped_mmm").items():
         patterns = moe_r["prefill_rows"] if c > grouped_kernel.DECODE_MAX_M else moe_r["decode_rows"]
         r = time_grouped(e, c, k, n, gen, patterns)
         r["launches"] = n_calls
@@ -1768,8 +1965,9 @@ def phase_timing(errs: dict, bf16: dict, w8a8: dict, moe_r: dict, served: list) 
     # are at its model's (H, Hkv), phase 3 checks (16, 8) and (32, 4); the
     # continuous path's also by (B, Sq, Skv), batch 1 at each prompt length.
     dense_cfg = configs.get_config(ARCH)
-    runs = [(dense_cfg, BATCH, PROMPT, sum(r["prefill_launches"]["flash_attn"] for r in (bf16, w8a8))),
-            (moe_cfg, BATCH, PROMPT, moe_r["prefill_launches"]["flash_attn"])]
+    dense_runs = [r for r in (*sync_fp, *sync_w8a8) if r not in moe_runs]  # MLA's make no flash launch
+    runs = [(dense_cfg, BATCH, PROMPT, sum(r["prefill_launches"]["flash_attn"] for r in dense_runs)),
+            (moe_cfg, BATCH, PROMPT, sum(r["prefill_launches"]["flash_attn"] for r in moe_runs))]
     batch1 = collections.Counter()
     for r in served:
         for b, sq, _, n_calls in r["flash_shapes"]:
@@ -1808,9 +2006,10 @@ def phase_timing(errs: dict, bf16: dict, w8a8: dict, moe_r: dict, served: list) 
                 **{key: tot[key] for key in keys[3:]}, "shapes": rows}
 
     # Each kernel's launches are those of every served path that runs it: the
-    # fp GEMM on the bf16 (synchronized, continuous, kv8 and long-prompt) and
-    # MoE models, flash attention on all of them but the chunked runs, the
-    # block-scaled GEMM on the w8a8 model, the grouped GEMM on the MoE model.
+    # fp GEMM on the bf16 paths (synchronized, continuous, kv8, long-prompt,
+    # chunked), on the MoE models' router and on minicpm3 w8a8's wkv_b; flash
+    # attention on the GQA paths but the chunked runs; the block-scaled GEMM
+    # on the w8a8 paths; the grouped GEMM on the MoE paths.
     return [entry("systolic_mmm", shapes), entry("flash_attn", flash), entry("systolic_qmm", qshapes),
             entry("grouped_mmm", gshapes)], k2, chunk_attn
 
@@ -1828,20 +2027,35 @@ def main() -> int:
            f"fp32 matmuls in full fp32 (allow_tf32={torch.backends.cuda.matmul.allow_tf32}, "
            f"precision={torch.get_float32_matmul_precision()})")
     t_start = time.perf_counter()
-    device = phase_device()
-    errs = phase_kernels()
-    bf16, w8a8, cont, kv8, long_runs = phase_serve(device["nvidia_smi"])
-    phase_small_reference(ARCH)
-    moe_r = phase_serve_moe()
-    phase_small_reference(MOE_ARCH)
-    kernels, k2, chunk_attn = phase_timing(errs, bf16, w8a8, moe_r, [cont, kv8, *long_runs])
+    walls = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[name] = time.perf_counter() - t0
+        say(f"    phase wall [{name}] {walls[name]:.1f} s")
+        return out
+
+    device = timed("device and build", phase_device)
+    errs = timed("kernels vs plain", phase_kernels)
+    bf16, w8a8, cont, kv8, long_runs = timed(f"serve {ARCH}", phase_serve, device["nvidia_smi"])
+    timed(f"small reference {ARCH}", phase_small_reference, ARCH)
+    mla_bf16, mla_w8a8, mla_cont, mla_chunked = timed(f"serve {MLA_ARCH}", phase_serve_mla, device["nvidia_smi"])
+    timed(f"small reference {MLA_ARCH}", phase_small_reference, MLA_ARCH)
+    moe_r, moe_w8a8 = timed(f"serve {MOE_ARCH}", phase_serve_moe)
+    timed(f"small reference {MOE_ARCH}", phase_small_reference, MOE_ARCH)
+    kernels, k2, chunk_attn = timed("timing", phase_timing, errs, [bf16, moe_r, mla_bf16], [w8a8, mla_w8a8, moe_w8a8],
+                                    [moe_r, moe_w8a8], [cont, kv8, *long_runs, mla_cont, mla_chunked])
     say(f"    wall {time.perf_counter() - t_start:.1f} s")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"device": device, "serve": bf16, "serve_continuous": cont, "serve_kv8": kv8,
-                       "serve_long_prompt": long_runs, "serve_w8a8": w8a8, "serve_moe": moe_r, "kernels": kernels,
-                       "systolic_mmm_bias": k2, "chunk_attention": chunk_attn, "failures": failures}, f, indent=1)
+                       "serve_long_prompt": long_runs, "serve_w8a8": w8a8, "serve_moe": moe_r,
+                       "serve_moe_w8a8": moe_w8a8, "serve_mla": mla_bf16, "serve_mla_w8a8": mla_w8a8,
+                       "serve_mla_continuous": mla_cont, "serve_mla_chunked": mla_chunked, "kernels": kernels,
+                       "systolic_mmm_bias": k2, "chunk_attention": chunk_attn, "phase_wall_s": walls,
+                       "failures": failures}, f, indent=1)
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed:", file=sys.stderr)
         for f_ in failures:

@@ -10,7 +10,10 @@ its ``uint8`` bit pattern (numpy's ``ml_dtypes`` fp8 has no ``torch.from_numpy``
 counterpart) viewed back as ``torch.float8_e4m3fn``.  A MoE layer's
 ``ffn`` (``router`` (L, d, E), ``w_gate`` / ``w_up`` (L, E, d, ff), ``w_down``
 (L, E, ff, d), an optional ``shared`` SwiGLU) crosses like any other stacked
-weight, and the qk-norm scales like every RMSNorm scale.
+weight, and the qk-norm scales like every RMSNorm scale.  So does an MLA
+layer's ``attn`` (``wq_a``, ``q_norm``, ``wq_b``, ``wkv_a``, ``kv_norm``,
+``wkv_b``, ``wo``), its projections as ``QArray``s where the reference
+quantized them (every one but ``wkv_b``).
 """
 
 from __future__ import annotations

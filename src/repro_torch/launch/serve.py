@@ -35,10 +35,17 @@ continuous pool in int8 with per-head, per-slot scales::
         --continuous --quantize kv8 --requests 16 --slots 8
 
 Weights are random, drawn from ``--seed``.  A MoE config (qwen3-moe-30b-a3b)
-runs its expert GEMMs on the grouped kernel, in bf16 only.  ``--quantize
-w8a16`` keeps the projection weights in int8 and dequantizes them at each
-GEMM; ``w8a8`` also quantizes the activations per token and runs every
-projection on the block-scaled int8 kernel; both work in either mode.
+runs its expert GEMMs on the grouped kernel; an MLA config (minicpm3-4b)
+caches the attention's latents.  ``--quantize w8a16`` keeps the projection
+weights in int8 and dequantizes them at each GEMM; ``w8a8`` also quantizes
+the activations per token and runs every projection on the block-scaled
+int8 kernel; both work in either mode and on every family.  As in the
+reference, a MoE layer's router and experts and MLA's ``wkv_b`` stay wide::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm3-4b \
+        --quantize w8a8 --batch 4 --prompt-len 512 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b \
+        --quantize w8a8 --smoke --device cpu
 ``kv8`` applies to the continuous pool only: without ``--continuous`` it
 warns and serves unquantized, as the reference does.  The paged pool, the
 adversarial trace and the metrics / SLO / profiling flags of
@@ -202,24 +209,25 @@ def main(argv: list[str] | None = None) -> torch.Tensor | dict:
 def init_params(model, seed: int, device: torch.device, quantize: str = "none"):
     """Random weights from ``seed`` -> (params, the activation-quant context
     to serve them under).  w8a16 / w8a8 quantize the fp32 masters, as the
-    reference does (it inits in fp32), then cast what stays wide to the
-    compute dtype once; the masters are not kept.  kv8 quantizes the KV
-    pool, not the weights: its parameters are the fp ones."""
+    reference does (it inits in fp32), and cast what stays wide to the
+    compute dtype once, one layer at a time: each layer's masters are drawn,
+    quantized, cast and dropped before the next is drawn, so the peak is one
+    layer of fp32 beside the served tree (the whole model's masters would
+    not fit on one card for qwen3-moe-30b-a3b: 30.5 B x 4 bytes).  The
+    result is the whole model's masters quantized and cast, bit for bit.
+    kv8 quantizes the KV pool, not the weights: its parameters are the fp
+    ones."""
     if quantize == "kv8":
         quantize = "none"
     if quantize not in ("none", "w8a16", "w8a8"):
         raise ValueError(f"unknown quantize mode {quantize!r}")
-    if quantize != "none" and model.cfg.moe is not None:
-        raise NotImplementedError(
-            f"{model.cfg.name}: --quantize {quantize} on a MoE config is not ported "
-            "(ROADMAP.md Queue 3, quantized MoE serving)"
-        )
     if quantize == "none":
         return model.init(seed, device), contextlib.nullcontext()
-    params = quant.quantize_params(model.init(seed, device, dtype=torch.float32))
+    dtype = getattr(torch, model.cfg.dtype)
+    params = model.init(seed, device, dtype=torch.float32,
+                        transform=lambda piece: cast_params(quant.quantize_params(piece), dtype))
     n_q, q_bytes = quant.count_quantized(params)
     print(f"quantize[{quantize}]: {n_q} projection weights -> int8 ({q_bytes / 1e6:.1f} MB resident values)")
-    params = cast_params(params, getattr(torch, model.cfg.dtype))
     if quantize == "w8a16":
         return params, contextlib.nullcontext()
     return quant.k_major(params), quant.use_act_quant("int8")  # the layout the block-scaled kernel reads

@@ -3,7 +3,8 @@ prefill and a few decode steps through ``ServeEngine``.
 
     PYTHONPATH=src python -m repro_torch.launch.trace --arch internlm2-1.8b \
         --batch 4 --prompt-len 512 --steps 3 [--quantize w8a8] [--chrome trace.json]
-    PYTHONPATH=src python -m repro_torch.launch.trace --arch qwen3-moe-30b-a3b --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.trace --arch qwen3-moe-30b-a3b --steps 3 [--quantize w8a8]
+    PYTHONPATH=src python -m repro_torch.launch.trace --arch minicpm3-4b --steps 3 [--quantize w8a8]
     PYTHONPATH=src python -m repro_torch.launch.trace --batch 1 --prompt-len 8192 \
         --chunk-size 512 --steps 1
 

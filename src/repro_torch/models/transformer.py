@@ -1,14 +1,15 @@
-"""Decoder assembly for the attention families: GQA / SWA attention with a
-SwiGLU FFN (dense) or a mixture of experts (moe).
+"""Decoder assembly for the attention families: GQA / SWA / MLA attention
+with a SwiGLU FFN (dense) or a mixture of experts (moe).
 
 The counterpart of the dense and MoE families of ``repro.models.transformer``.
 The reference stacks layer parameters on a leading axis and runs
 ``lax.scan``; here ``params["layers"]`` and ``cache["layers"]`` are lists,
-one dict per layer, and a Python loop walks them.  MLA, SSM, hybrid and the
+one dict per layer, and a Python loop walks them.  SSM, hybrid and the
 modality frontends belong to later parts of the port and raise here.
 
 Entry points (functions over dicts of tensors):
-  init_model(cfg, seed, device[, dtype])    -> params
+  init_model(cfg, seed, device[, dtype, transform])
+                                            -> params
   cast_params(params, dtype)                -> params, floating weights cast once
   forward(params, batch, cfg)               -> logits fp32
   init_cache(cfg, batch, max_len, dt, dev)  -> cache
@@ -36,9 +37,9 @@ def _cdtype(cfg: ArchConfig) -> torch.dtype:
 def check_supported(cfg: ArchConfig) -> None:
     """Raise for architectures this part of the port does not build yet."""
     cfg.validate()
-    if cfg.family not in ("dense", "moe") or cfg.attention not in ("gqa", "swa"):
+    if cfg.family not in ("dense", "moe") or cfg.attention not in ("gqa", "swa", "mla"):
         raise NotImplementedError(
-            f"{cfg.name}: the port builds dense and MoE GQA/SWA decoders only so far "
+            f"{cfg.name}: the port builds dense and MoE GQA/SWA/MLA decoders only so far "
             f"(family={cfg.family!r}, attention={cfg.attention!r})"
         )
     if cfg.frontend is not None or cfg.tie_embeddings:
@@ -54,7 +55,7 @@ def init_attn_block(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype) -
     return {
         "attn_norm": layers.init_rmsnorm(cfg.d_model, gen.device),
         "ffn_norm": layers.init_rmsnorm(cfg.d_model, gen.device),
-        "attn": attn.init_gqa(gen, cfg, dtype),
+        "attn": attn.init_mla(gen, cfg, dtype) if cfg.attention == "mla" else attn.init_gqa(gen, cfg, dtype),
         "ffn": (moe.init_moe(gen, cfg, dtype) if cfg.moe is not None
                 else layers.init_swiglu(gen, cfg.d_model, cfg.d_ff, dtype)),
     }
@@ -69,9 +70,11 @@ def _ffn(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 
 
 def attn_block_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor):
-    """Pre-norm attn + residual, pre-norm FFN / MoE + residual -> (x, (k, v))."""
+    """Pre-norm attn + residual, pre-norm FFN / MoE + residual -> (x, the
+    cache's prefill entries: (k, v), or MLA's (c_kv, k_rope))."""
     xin = layers.rmsnorm(p["attn_norm"], x, cfg.norm_eps)
-    a, kv = attn.gqa_fwd(p["attn"], xin, cfg, positions)
+    fwd = attn.mla_fwd if cfg.attention == "mla" else attn.gqa_fwd
+    a, kv = fwd(p["attn"], xin, cfg, positions)
     x = x + a
     hin = layers.rmsnorm(p["ffn_norm"], x, cfg.norm_eps)
     return x + _ffn(p["ffn"], hin, cfg), kv
@@ -79,7 +82,8 @@ def attn_block_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, positions: torch.T
 
 def attn_block_decode(p: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict, pos):
     xin = layers.rmsnorm(p["attn_norm"], x, cfg.norm_eps)
-    a, cache = attn.gqa_decode(p["attn"], xin, cfg, cache, pos)
+    decode = attn.mla_decode if cfg.attention == "mla" else attn.gqa_decode
+    a, cache = decode(p["attn"], xin, cfg, cache, pos)
     x = x + a
     hin = layers.rmsnorm(p["ffn_norm"], x, cfg.norm_eps)
     return x + _ffn(p["ffn"], hin, cfg), cache
@@ -89,9 +93,11 @@ def attn_block_prefill_chunk(p: dict, x: torch.Tensor, cfg: ArchConfig, cache: d
                              wrapped: bool = False):
     """One layer of a chunked prefill: like ``attn_block_fwd``, but the
     attention reads and writes a partially primed decode cache at
-    ``offset`` (``attention.gqa_prefill_chunk``); the FFN / MoE as in decode."""
+    ``offset`` (``attention.gqa_prefill_chunk`` / ``mla_prefill_chunk``); the
+    FFN / MoE as in decode."""
     xin = layers.rmsnorm(p["attn_norm"], x, cfg.norm_eps)
-    a, cache = attn.gqa_prefill_chunk(p["attn"], xin, cfg, cache, offset, wrapped=wrapped)
+    chunk = attn.mla_prefill_chunk if cfg.attention == "mla" else attn.gqa_prefill_chunk
+    a, cache = chunk(p["attn"], xin, cfg, cache, offset, wrapped=wrapped)
     x = x + a
     hin = layers.rmsnorm(p["ffn_norm"], x, cfg.norm_eps)
     return x + _ffn(p["ffn"], hin, cfg), cache
@@ -103,7 +109,7 @@ def attn_block_prefill_chunk(p: dict, x: torch.Tensor, cfg: ArchConfig, cache: d
 
 
 def init_model(cfg: ArchConfig, seed: int = 0, device: str | torch.device | None = None,
-               dtype: torch.dtype | None = None) -> dict:
+               dtype: torch.dtype | None = None, transform=None) -> dict:
     """Random weights from ``seed`` (a torch Generator on ``device``; the
     reference's ``jax.random`` init gives other numbers -- use
     ``repro_torch.convert.params_from_jax`` to carry JAX weights over).
@@ -113,16 +119,22 @@ def init_model(cfg: ArchConfig, seed: int = 0, device: str | torch.device | None
     as the reference inits them, for ``quant.quantize_params``; then
     ``cast_params`` brings what stays wide to the compute dtype.  The same
     seed gives the same fp32 values in either case.
+
+    ``transform`` (default: none) is applied to each top-level piece -- the
+    final norm, the embedding, the head, then each layer, in the order they
+    are drawn -- as soon as it is drawn, so a caller that quantizes holds
+    one layer's fp32 masters at a time (``launch/serve.py::init_params``).
     """
     check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dt = dtype or _cdtype(cfg)
+    f = transform or (lambda piece: piece)
     return {
-        "final_norm": layers.init_rmsnorm(cfg.d_model, dev),
-        "embed": layers.init_embedding(gen, cfg.vocab_size, cfg.d_model, dt),
-        "lm_head": layers.init_dense(gen, cfg.d_model, cfg.vocab_size, dt),
-        "layers": [init_attn_block(gen, cfg, dt) for _ in range(cfg.n_layers)],
+        "final_norm": f(layers.init_rmsnorm(cfg.d_model, dev)),
+        "embed": f(layers.init_embedding(gen, cfg.vocab_size, cfg.d_model, dt)),
+        "lm_head": f(layers.init_dense(gen, cfg.d_model, cfg.vocab_size, dt)),
+        "layers": [f(init_attn_block(gen, cfg, dt)) for _ in range(cfg.n_layers)],
     }
 
 
@@ -183,9 +195,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype: torch.dtype | N
                device: str | torch.device | None = None) -> dict:
     dtype = dtype or _cdtype(cfg)
     dev = resolve_device(device)
-    return {
-        "layers": [attn.init_gqa_cache(cfg, batch, max_len, dtype, dev) for _ in range(cfg.n_layers)]
-    }
+    init = attn.init_mla_cache if cfg.attention == "mla" else attn.init_gqa_cache
+    return {"layers": [init(cfg, batch, max_len, dtype, dev) for _ in range(cfg.n_layers)]}
 
 
 def decode_step(params: dict, tokens: torch.Tensor, cfg: ArchConfig, cache: dict, pos):
@@ -207,9 +218,10 @@ def prefill(params: dict, batch: dict, cfg: ArchConfig, max_len: int):
     x = _embed_input(params, batch, cfg)
     s = x.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
+    prime = attn.mla_prime_cache if cfg.attention == "mla" else attn.gqa_prime_cache
     for lp, lc in zip(params["layers"], cache["layers"]):
-        x, (k, v) = attn_block_fwd(lp, x, cfg, positions)
-        attn.gqa_prime_cache(lc, k, v, s)
+        x, kv = attn_block_fwd(lp, x, cfg, positions)
+        prime(lc, *kv, s)
     x = layers.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
     return _head(params, x, cfg), cache
 

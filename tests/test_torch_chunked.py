@@ -6,7 +6,8 @@ package on the CPU.
 Parameters come from the JAX ``model.init(PRNGKey(0))`` through
 ``params_from_jax``; inputs, caches and request traces from the same numpy
 seed in both packages.  Configs: the fp32 SMOKE internlm2-1.8b (GQA),
-h2o-danube-3-4b (SWA, a 32-slot ring that chunks wrap) and qwen3-moe-30b-a3b.
+h2o-danube-3-4b (SWA, a 32-slot ring that chunks wrap), minicpm3-4b (MLA: a
+latent cache, chunks attending in the expanded form) and qwen3-moe-30b-a3b.
 
 Tolerances: a chunk's attention output and the composed chunks' last logits
 within atol 1e-5 * sqrt(K) of JAX's (K = d_model; fp32 sums in another
@@ -43,7 +44,7 @@ from repro_torch.serving.kvpool import KVPool, _tensors
 from repro_torch.serving.scheduler import DECODING, FINISHED, PREFILLING
 
 CPU = "cpu"
-ARCHS = ["internlm2-1.8b", "h2o-danube-3-4b"]
+ARCHS = ["internlm2-1.8b", "h2o-danube-3-4b", "minicpm3-4b"]
 SLOTS = 3
 CHUNK = 4
 # Traces in the style of tests/test_chunked_prefill.py; danube's prompts
@@ -51,6 +52,7 @@ CHUNK = 4
 TRACES = {
     "internlm2-1.8b": dict(n_requests=6, mean_prompt=8, mean_gen=5, rate=0.7, seed=3, max_prompt=14, max_gen=8),
     "h2o-danube-3-4b": dict(n_requests=6, mean_prompt=20, mean_gen=6, rate=0.7, seed=3, max_prompt=40, max_gen=8),
+    "minicpm3-4b": dict(n_requests=6, mean_prompt=8, mean_gen=5, rate=0.7, seed=3, max_prompt=14, max_gen=8),
 }
 CHUNK_STATS = ("prefill_chunks", "decode_steps", "idle_ticks", "ticks", "tokens_out", "mean_occupancy")
 
@@ -163,7 +165,8 @@ def _compose(model, params, tokens, cache, sched, size, torch_side):
 
 @pytest.mark.parametrize("arch,n,chunk", [("internlm2-1.8b", 13, 4), ("internlm2-1.8b", 20, 8),
                                           ("internlm2-1.8b", 7, 16), ("h2o-danube-3-4b", 45, 8),
-                                          ("h2o-danube-3-4b", 30, 16)])
+                                          ("h2o-danube-3-4b", 30, 16), ("minicpm3-4b", 13, 4),
+                                          ("minicpm3-4b", 20, 8)])
 def test_prefill_chunk_composed_equals_jax_and_monolithic(models, arch, n, chunk):
     jmodel, jparams, tmodel, tparams = models[arch]
     cfg = tmodel.cfg
@@ -181,7 +184,8 @@ def test_prefill_chunk_composed_equals_jax_and_monolithic(models, arch, n, chunk
     np.testing.assert_allclose(got.numpy(), mono.numpy(), rtol=0, atol=tol)
     for lc, mc in zip(cache["layers"], mcache["layers"]):
         torch.testing.assert_close(lc["pos"], mc["pos"], rtol=0, atol=0)
-        torch.testing.assert_close(lc["k"], mc["k"], rtol=0, atol=tol)
+        for name in ("c_kv", "k_rope") if cfg.attention == "mla" else ("k",):
+            torch.testing.assert_close(lc[name], mc[name], rtol=0, atol=tol)
     jpos = np.asarray(jcache["layers"]["pos"])
     for i, lc in enumerate(cache["layers"]):
         np.testing.assert_array_equal(lc["pos"].numpy(), jpos[i])

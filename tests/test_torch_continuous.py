@@ -4,8 +4,10 @@ package on the CPU.
 
 Parameters come from the JAX ``model.init(PRNGKey(0))`` through
 ``params_from_jax``; request traces come from the same numpy seed in both
-packages.  Configs: the fp32 SMOKE internlm2-1.8b (GQA) and h2o-danube-3-4b
-(SWA, its trace long enough to wrap the ring cache).
+packages.  Configs: the fp32 SMOKE internlm2-1.8b (GQA), h2o-danube-3-4b
+(SWA, its trace long enough to wrap the ring cache) and minicpm3-4b (MLA, a
+latent cache), the three cache layouts of the reference's
+tests/test_continuous.py.
 
 Gates: greedy tokens equal token for token -- the port's scheduler, the
 port's isolated ``generate()`` and the JAX scheduler -- and the tick-count
@@ -46,12 +48,13 @@ from repro_torch.serving.kvpool import _tensors, check_next_pos
 from repro_torch.serving.scheduler import DECODING, FINISHED, QUEUED
 
 CPU = "cpu"
-ARCHS = ["internlm2-1.8b", "h2o-danube-3-4b"]
+ARCHS = ["internlm2-1.8b", "h2o-danube-3-4b", "minicpm3-4b"]
 # Traces in the style of tests/test_continuous.py; danube's prompts are long
 # enough that some prompt + generation outgrows its 32-slot SWA ring.
 TRACES = {
     "internlm2-1.8b": dict(n_requests=8, mean_prompt=8, mean_gen=5, rate=0.7, seed=11, max_prompt=12, max_gen=8),
     "h2o-danube-3-4b": dict(n_requests=8, mean_prompt=20, mean_gen=8, rate=0.7, seed=11, max_prompt=30, max_gen=12),
+    "minicpm3-4b": dict(n_requests=8, mean_prompt=8, mean_gen=5, rate=0.7, seed=11, max_prompt=12, max_gen=8),
 }
 SLOTS = 3
 TICK_STATS = ("ticks", "decode_steps", "idle_ticks", "tokens_out", "mean_occupancy", "requests_finished")
@@ -306,7 +309,7 @@ def test_bytes_report_equals_jax(served, arch):
 
 
 @pytest.mark.parametrize("arch,max_len,want", [("internlm2-1.8b", 40, 40), ("h2o-danube-3-4b", 40, 32),
-                                               ("h2o-danube-3-4b", 20, 20)])
+                                               ("h2o-danube-3-4b", 20, 20), ("minicpm3-4b", 40, 40)])
 def test_attn_cache_len_is_the_ring_for_swa(served, arch, max_len, want):
     s = served[arch]
     engine = ServeEngine(s["tmodel"], s["tparams"], ServeConfig(max_len=max_len, batch=1), device=CPU)

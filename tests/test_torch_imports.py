@@ -92,6 +92,11 @@ ENTRY_POINTS = {
         ["--arch", "internlm2-1.8b", "--smoke", "--gen", "2", "--quantize", "w8a8"]
     ),
     "launch.serve qwen3-moe-30b-a3b": lambda: serve.main(["--arch", "qwen3-moe-30b-a3b", "--gen", "2"]),
+    "launch.serve qwen3-moe-30b-a3b --quantize w8a8": lambda: serve.main(
+        ["--arch", "qwen3-moe-30b-a3b", "--smoke", "--gen", "2", "--quantize", "w8a8"]
+    ),
+    "launch.serve minicpm3-4b": lambda: serve.main(["--arch", "minicpm3-4b", "--smoke", "--gen", "2"]),
+    "minicpm3 model.init": lambda: get_model(configs.get_smoke("minicpm3-4b")).init(0),
     "moe model.init": lambda: get_model(configs.get_smoke("qwen3-moe-30b-a3b")).init(0),
     "ServeEngine.prefill_request": lambda: ServeEngine(
         get_model(_cfg()), {}, ServeConfig(max_len=8, batch=1)
@@ -147,11 +152,16 @@ def test_moe_launcher_runs_on_cpu_when_asked(capsys):
 
 
 @pytest.mark.parametrize("mode", ["w8a16", "w8a8"])
-def test_moe_launcher_refuses_quantize(mode):
-    """The reference skips the expert block when it quantizes; quantized MoE
-    serving is not ported."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 3"):
-        serve.main(["--arch", "qwen3-moe-30b-a3b", "--smoke", "--device", "cpu", "--quantize", mode])
+def test_moe_launcher_refuses_quantize(capsys, mode):
+    """What the launcher once refused it now serves: ``--quantize`` on a MoE
+    config quantizes attention and the head, and the expert block stays
+    wide, as the reference skips it when it quantizes."""
+    out = serve.main(["--arch", "qwen3-moe-30b-a3b", "--smoke", "--device", "cpu", "--quantize", mode,
+                      "--batch", "2", "--prompt-len", "8", "--gen", "3"])
+    assert tuple(out.shape) == (2, 3)
+    cfg = configs.get_smoke("qwen3-moe-30b-a3b")
+    printed = capsys.readouterr().out
+    assert f"quantize[{mode}]: {4 * cfg.n_layers + 1} projection weights -> int8" in printed  # q k v o, the head
 
 
 def test_launcher_refuses_kv8(capsys):

@@ -122,6 +122,8 @@ def test_flash_kernel_matches_plain(cuda, sq, skv, causal, window, dtype, d):
 WGMMA_SHAPES = [
     (2048, 2048, 2048), (2048, 1024, 2048), (2048, 8192, 2048), (2048, 2048, 8192),  # internlm2-1.8b
     (2048, 4096, 2048), (2048, 512, 2048), (2048, 2048, 4096), (2048, 128, 2048),  # qwen3-moe-30b-a3b
+    (2048, 768, 2560), (2048, 3840, 768), (2048, 288, 2560), (2048, 5120, 256),  # minicpm3-4b: wq_a, wq_b, wkv_a,
+    (2048, 2560, 2560), (2048, 6400, 2560), (2048, 2560, 6400), (411, 5120, 256),  # wkv_b; wo, the SwiGLU, a chunk's wkv_b
     (2000, 8184, 2040),  # 128x256, ragged everywhere
     (1000, 2040, 1000),  # 128x128
     (300, 264, 200), (17, 8, 8), (129, 1032, 1000),  # 64x128
@@ -185,6 +187,28 @@ def test_each_wgmma_tile_matches_plain(cuda, path, m, n, k):
 def test_gemm_at_continuous_serving_shapes(cuda, m, n, k):
     a = _rand((m, k), 20).to(cuda, torch.bfloat16)
     b = _rand((k, n), 21).to(cuda, torch.bfloat16)
+    path = _path(cuda, m, n, k)
+    assert path == "decode" if m <= 16 else path.startswith("wgmma")
+    before = mm_kernel.launches_by_path[path]
+    got = mm_ops.matmul(a, b)
+    torch.cuda.synchronize()
+    assert mm_kernel.launches_by_path[path] == before + 1
+    torch.testing.assert_close(got.float(), matmul_ref(a, b).float(), rtol=2e-2, atol=2e-2)
+
+
+# minicpm3-4b's projections (N, K) -- MLA's wq_a, wq_b, wkv_a (N 288: the
+# last column tile ragged), wkv_b (K 256: four k tiles of the TMA ring), wo
+# and the SwiGLU -- at decode (4, 8 slots), batch-1 prefill (17, 200), a
+# chunk's whole cache (411) and the synchronized prefill (2048).
+MLA_PROJECTIONS = [(768, 2560), (3840, 768), (288, 2560), (5120, 256), (2560, 2560), (6400, 2560), (2560, 6400)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [4, 8, 17, 200, 411, 2048])
+@pytest.mark.parametrize("n,k", MLA_PROJECTIONS)
+def test_gemm_at_mla_serving_shapes(cuda, m, n, k):
+    a = _rand((m, k), 22).to(cuda, torch.bfloat16)
+    b = _rand((k, n), 23).to(cuda, torch.bfloat16)
     path = _path(cuda, m, n, k)
     assert path == "decode" if m <= 16 else path.startswith("wgmma")
     before = mm_kernel.launches_by_path[path]
@@ -318,6 +342,13 @@ QGEMM_SHAPES = [
     (9, 4000, 70),
 ]
 QDTYPES = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
+# The w8a8 projections (M, N, K) of minicpm3-4b (every MLA projection but
+# wkv_b, which stays wide, and the SwiGLU; wkv_a's N = 288 leaves the
+# m64n128k32 tile's last column tile ragged) and qwen3-moe-30b-a3b's
+# attention, at decode (M 4) and prefill (M 2048), weights K-major as served.
+W8A8_SHAPES = [(m, n, k) for m in (4, 2048) for n, k in
+               [(768, 2560), (3840, 768), (288, 2560), (2560, 2560), (6400, 2560), (2560, 6400),
+                (4096, 2048), (512, 2048), (2048, 4096)]]
 
 
 def _qgemm_check(got, qa, qb, act, out_dtype):
@@ -346,6 +377,24 @@ def test_quant_kernel_matches_plain(cuda, m, n, k, qd):
     torch.cuda.synchronize()
     assert mm_kernel.quant_launches == before + 2 * len(ACTIVATIONS)
     assert mm_kernel.quant_launches_by_shape[(m, k, n)] == shape_before + 2 * len(ACTIVATIONS)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,k", W8A8_SHAPES)
+def test_quant_kernel_at_served_w8a8_shapes(cuda, m, n, k):
+    """int8, per-token x 128-k activations, 128-k x per-column weights laid
+    out K-major once (``quant.k_major``, no copy at the call), bf16 out: the
+    path the rule picks, one launch, within the tolerance."""
+    qa = quantize_act(_rand((m, k), 3).to(cuda), "int8")
+    qb = k_major({"w": quantize_weight(_rand((k, n), 4).to(cuda), "int8")})["w"]
+    assert mm_kernel.is_k_major(qb.values)
+    path = mm_kernel.qgemm_path(m, n, k, 128, torch.int8, True)
+    assert path == ("decode" if m <= 16 else "wgmma")
+    before = mm_kernel.quant_launches_by_path[path]
+    got = mm_ops.quant_matmul(qa, qb, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert mm_kernel.quant_launches_by_path[path] == before + 1
+    _qgemm_check(got, qa, qb, "none", torch.bfloat16)
 
 
 QK_CASES = [(128, 128), (64, 64), (32, 32), (16, 16), (0, 0), (128, 64), (64, 128), (32, 0),

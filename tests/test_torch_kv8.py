@@ -4,8 +4,9 @@ against the JAX package on the CPU.
 
 The port keeps one cache dict per layer with the slot on axis 0; the
 reference stacks layers on axis 0 with the slot on axis 1.  Both take one
-absmax scale per (layer, slot, KV head) over the sequence and head-dim axes,
-so the int8 values and fp32 scales compare bit for bit, layer by layer.
+absmax scale per (layer, slot, KV head) over the sequence and head-dim axes
+-- per (layer, slot) on MLA's latent leaves, which have no head axis -- so
+the int8 values and fp32 scales compare bit for bit, layer by layer.
 Greedy tokens of the kv8 scheduler equal the JAX kv8 scheduler's token for
 token (fp32 SMOKE configs, parameters through ``params_from_jax``, traces
 from the same numpy seed).  The kv8-vs-fp gates are the reference's own
@@ -55,7 +56,7 @@ def _pair(arch):
 
 @pytest.fixture(scope="module")
 def models():
-    return {arch: _pair(arch) for arch in ("internlm2-1.8b", "h2o-danube-3-4b")}
+    return {arch: _pair(arch) for arch in ("internlm2-1.8b", "h2o-danube-3-4b", "minicpm3-4b")}
 
 
 def _max_len(trace):
@@ -113,6 +114,41 @@ def test_quantize_kv_is_bit_identical_to_jax(models, arch, dtype):
         assert layer["pos"] is not tq["layers"][i]["pos"] and torch.equal(layer["pos"], tq["layers"][i]["pos"])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_kv_mla_is_bit_identical_to_jax(models, dtype):
+    """An MLA latent cache in the reference's stacked form -- c_kv (L, B, S,
+    kv_lora), k_rope (L, B, S, rope), positions (L, B, S) -- one slot all
+    zeros: one scale per (layer, slot), int8 values and scales equal JAX's."""
+    cfg = models["minicpm3-4b"][2].cfg
+    m, n_slots, size = cfg.mla, 4, 20
+    rng = np.random.default_rng(5)
+    lead = (cfg.n_layers, n_slots, size)
+    c_kv = (rng.standard_normal((*lead, m.kv_lora_rank)) * rng.uniform(0.1, 8.0, (1, n_slots, 1, 1))).astype(np.float32)
+    k_rope = rng.standard_normal((*lead, m.qk_rope_head_dim)).astype(np.float32)
+    c_kv[:, -1] = 0
+    k_rope[:, -1] = 0
+    pos = rng.integers(-1, size, lead).astype(np.int32)
+    stacked = {"c_kv": c_kv, "k_rope": k_rope, "pos": pos}
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    jq = jax_quantize_kv({"layers": {k: jnp.asarray(a).astype(jdt) if a.dtype == np.float32 else jnp.asarray(a)
+                                     for k, a in stacked.items()}})
+    tcache = {"layers": [{k: torch.from_numpy(a[i].copy()).to(tdt) if a.dtype == np.float32
+                          else torch.from_numpy(a[i].copy()) for k, a in stacked.items()} for i in range(cfg.n_layers)]}
+    tq = quantize_kv(tcache)
+    for i, layer in enumerate(tq["layers"]):
+        for name in ("c_kv", "k_rope"):
+            assert layer[name]["qv"].dtype == torch.int8 and layer[name]["qs"].shape == (n_slots, 1, 1)
+            np.testing.assert_array_equal(layer[name]["qv"].numpy(), np.asarray(jq["layers"][name]["qv"][i]))
+            np.testing.assert_array_equal(layer[name]["qs"].numpy(), np.asarray(jq["layers"][name]["qs"][i]))
+            assert (layer[name]["qv"][-1] == 0).all() and (layer[name]["qs"][-1] == 1.0).all()
+        assert layer["pos"] is tcache["layers"][i]["pos"]
+    jd = jax_dequantize_kv(jq, dtype)
+    for i, layer in enumerate(dequantize_kv(tq, tdt)["layers"]):
+        for name in ("c_kv", "k_rope"):
+            np.testing.assert_array_equal(layer[name].float().numpy(),
+                                          np.asarray(jd["layers"][name][i]).astype(np.float32))
+
+
 def test_quantize_kv_rounds_half_to_even():
     x = torch.tensor([[[[2.5, -0.5, 127.0, 1.5]]]])  # absmax 127: scale 1, x / scale exact
     q = quantize_kv({"k": x})["k"]
@@ -124,14 +160,18 @@ def _prefilled(model, params, seq, seed, max_len):
     return model.prefill(params, make_prompt(model.cfg, seq=seq, seed=seed, device=CPU), max_len=max_len)[1]
 
 
-@pytest.mark.parametrize("arch", ["internlm2-1.8b", "h2o-danube-3-4b"])
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "h2o-danube-3-4b", "minicpm3-4b"])
 def test_kv8_bytes_report_equals_jax(models, arch):
     jmodel, _, tmodel, tparams = models[arch]
     pool = KVPool(tmodel, 3, 40, quantize_kv_cache=True, device=CPU)
     jpool = JaxKVPool(jmodel, 3, 40, quantize_kv_cache=True)
     cfg = tmodel.cfg
     size = min(40, cfg.window) if cfg.attention == "swa" else 40
-    want = cfg.n_layers * 3 * (2 * size * cfg.n_kv_heads * cfg.resolved_head_dim + 2 * cfg.n_kv_heads * 4 + size * 4)
+    if cfg.attention == "mla":  # int8 latents, one fp32 scale per slot for c_kv and for k_rope
+        want = cfg.n_layers * 3 * (size * (cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim) + 2 * 4 + size * 4)
+    else:
+        want = cfg.n_layers * 3 * (2 * size * cfg.n_kv_heads * cfg.resolved_head_dim + 2 * cfg.n_kv_heads * 4
+                                   + size * 4)
     assert pool.bytes_resident() == jpool.bytes_resident() == want
     assert pool.bytes_report() == jpool.bytes_report() == {"reserved": want, "live": 0}
     for seq, seed in ((12, 1), (36, 2), (5, 3)):
@@ -176,10 +216,13 @@ def test_kv8_cache_reads_are_fresh_copies(models):
     assert (pool.cache["layers"][0]["k"] == 3.0).all() and (pool.cache["layers"][0]["pos"] == 2).all()
 
 
-def test_kv8_decode_close_to_fp(models):
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "minicpm3-4b"])
+def test_kv8_decode_close_to_fp(models, arch):
     """The reference's payload gate: after one decode step from the same
-    prefill, the kv8 pool's K is within 0.05 x max|K| of the fp pool's."""
-    _, _, tmodel, tparams = models["internlm2-1.8b"]
+    prefill, the kv8 pool's K (MLA: the latent c_kv) is within 0.05 x max|K|
+    of the fp pool's."""
+    _, _, tmodel, tparams = models[arch]
+    name = "c_kv" if tmodel.cfg.attention == "mla" else "k"
     eng = ServeEngine(tmodel, tparams, ServeConfig(max_len=32, batch=2), device=CPU)
     prompt = make_prompt(tmodel.cfg, seq=6, seed=8, device=CPU)
     first, cache_one = eng.prefill_request(prompt)
@@ -190,7 +233,7 @@ def test_kv8_decode_close_to_fp(models):
     outs = [eng.decode_slots(toks, pool.cache, pool.pos_vector()) for pool in pools]
     for (_, c_fp), (_, c_q) in ((outs[0], outs[1]),):
         for l_fp, l_q in zip(c_fp["layers"], c_q["layers"]):
-            k_fp, k_q = l_fp["k"], l_q["k"]
+            k_fp, k_q = l_fp[name], l_q[name]
             assert k_fp.shape == k_q.shape
             assert (k_fp - k_q).abs().max() < 0.05 * (k_fp.abs().max() + 1e-9)
             assert torch.equal(l_fp["pos"], l_q["pos"])
@@ -224,7 +267,7 @@ def test_kv8_scheduler_end_to_end(models):
 
 @pytest.mark.parametrize("chunked", [False, True])
 @pytest.mark.parametrize("policy", ["continuous", "gang"])
-@pytest.mark.parametrize("arch", ["internlm2-1.8b", "h2o-danube-3-4b"])
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "h2o-danube-3-4b", "minicpm3-4b"])
 def test_kv8_scheduler_tokens_equal_jax(models, arch, policy, chunked):
     jmodel, jparams, tmodel, tparams = models[arch]
     kw = dict(policy=policy, quantize_kv=True, chunked_prefill=chunked, chunk_size=4)

@@ -219,6 +219,45 @@ def test_quantize_params_skips_what_the_reference_skips():
     assert quant.count_quantized(tq) == jquant.count_quantized(jq)
 
 
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "qwen3-moe-30b-a3b"])
+def test_quantize_params_skips_wkv_b_and_moe_subtrees_as_jax_on_smoke_models(arch):
+    """On the SMOKE MLA and MoE models' own trees: the port quantizes the
+    leaves the reference quantizes (its stacked leaf standing for every
+    layer's), MLA's wkv_b and every MoE ``ffn`` leaf stay wide, and the
+    values are the reference's bit for bit."""
+    jmodel, jparams, tmodel = _jax_fp32_pair(arch)
+    masters = params_from_jax(_np_tree(jparams), tmodel.cfg, device=CPU, dtype=torch.float32)
+    tq = quant.quantize_params(masters)
+    jq = jquant.quantize_params(jparams)
+
+    def paths(node, prefix, cls):
+        if isinstance(node, cls):
+            return {prefix}
+        if isinstance(node, dict):
+            return set().union(*(paths(v, f"{prefix}/{k}", cls) for k, v in node.items()))
+        if isinstance(node, list):  # the port's layers: one dict each, the reference's one stacked dict
+            return set().union(*(paths(v, prefix, cls) for v in node))
+        return set()
+
+    want = paths(jq, "", jquant.QArray)
+    assert paths(tq, "", QArray) == want
+    assert "/layers/attn/wkv_b" not in want
+    if arch == "qwen3-moe-30b-a3b":
+        assert not any(p.startswith("/layers/ffn") for p in want)
+    else:
+        assert {"/layers/attn/wq_a", "/layers/ffn/w_up"} <= want
+    for i, layer in enumerate(tq["layers"]):
+        for key, leaf in layer["attn"].items():
+            if isinstance(leaf, QArray):
+                np.testing.assert_array_equal(_values(leaf), _values(jq["layers"]["attn"][key])[i])
+                np.testing.assert_array_equal(leaf.scales.numpy(), np.asarray(jq["layers"]["attn"][key].scales)[i])
+    if arch == "minicpm3-4b":
+        assert not isinstance(tq["layers"][0]["attn"]["wkv_b"], QArray)
+        assert isinstance(tq["layers"][0]["attn"]["wq_a"], QArray)
+    else:
+        assert tq["layers"][0]["ffn"] is masters["layers"][0]["ffn"]  # the subtree returned as it was
+
+
 # -- the block-scaled GEMM's plain version ---------------------------------------
 
 
@@ -518,6 +557,9 @@ def test_quant_kernel_call_takes_k_major_b_and_refuses_other_strides():
     [
         (2048, 2048, 2048, 128, torch.int8, True, "wgmma"),  # the served prefill shapes
         (2048, 2048, 8192, 128, torch.int8, True, "wgmma"),
+        (2048, 288, 2560, 128, torch.int8, True, "wgmma"),  # minicpm3's wkv_a: N 288, a ragged column tile
+        (2048, 3840, 768, 128, torch.int8, True, "wgmma"),  # its wq_b: K 768
+        (4, 288, 2560, 128, torch.int8, True, "decode"),
         (4, 2048, 2048, 128, torch.int8, True, "decode"),  # the served decode shapes
         (16, 2048, 2048, 128, torch.int8, True, "decode"),
         (17, 2048, 2048, 128, torch.int8, True, "wgmma"),

@@ -32,7 +32,8 @@ from repro.serving import ServeConfig as JaxServeConfig
 from repro.serving import ServeEngine as JaxServeEngine
 from repro_torch import configs
 from repro_torch.convert import params_from_jax
-from repro_torch.data.synthetic import make_batch
+from repro_torch.data.synthetic import make_batch, make_request_trace
+from repro_torch.launch import serve
 from repro_torch.models import attention as t_attn
 from repro_torch.models import layers
 from repro_torch.models.registry import get_model
@@ -216,3 +217,49 @@ def test_flash_prefill_attention_matches_plain_gqa(arch):
     want = t_attn._sdpa(q, k, v, t_attn._mask(pos, pos, t_attn._window(cfg)), cfg.q_per_kv)
     got = t_attn._sdpa_flash(q, k, v, cfg)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=FP32_TOL, atol=FP32_TOL)
+
+
+# -- the launcher on the MLA and quantized MoE families -------------------------------
+
+
+@pytest.mark.parametrize("extra", [[], ["--quantize", "w8a16"], ["--quantize", "w8a8"]])
+def test_mla_launcher_serves_on_cpu(capsys, extra):
+    out = serve.main(["--arch", "minicpm3-4b", "--smoke", "--device", "cpu", "--batch", "2", "--prompt-len", "8",
+                      "--gen", "3", *extra])
+    assert tuple(out.shape) == (2, 3)
+    printed = capsys.readouterr().out
+    assert "prefill 2x8" in printed
+    if extra:  # wq_a, wq_b, wkv_a, wo and the SwiGLU's three per layer, and the head; never wkv_b
+        n = 7 * configs.get_smoke("minicpm3-4b").n_layers + 1
+        assert f"quantize[{extra[1]}]: {n} projection weights -> int8" in printed
+
+
+@pytest.mark.parametrize("extra,mode", [([], "continuous"), (["--chunked-prefill", "--chunk-size", "4"],
+                                                            "continuous+chunked"),
+                                        (["--quantize", "kv8"], "continuous"), (["--quantize", "w8a8"], "continuous")])
+def test_mla_continuous_launcher_on_cpu(capsys, extra, mode):
+    """The continuous launcher on the latent cache: its resident bytes are the
+    latents (c_kv, k_rope) and the int32 positions, and under kv8 the int8
+    latents with one fp32 scale per slot for each."""
+    out = serve.main(["--arch", "minicpm3-4b", "--smoke", "--device", "cpu", "--continuous", "--requests", "5",
+                      "--slots", "2", "--mean-prompt", "6", "--mean-gen", "4", "--prompt-len", "12", "--gen", "6",
+                      *extra])
+    assert sorted(out) == list(range(5)) and all(1 <= len(t) <= 6 for t in out.values())
+    printed = capsys.readouterr().out
+    assert f"continuous[{mode}] 5 requests over " in printed
+    cfg = configs.get_smoke("minicpm3-4b")  # bf16
+    trace = make_request_trace(cfg, n_requests=5, mean_prompt=6, mean_gen=4, seed=0, max_prompt=12, max_gen=6,
+                               device="cpu")
+    rows = 2 * max(t["prompt"]["tokens"].shape[1] + t["max_new_tokens"] for t in trace)  # slots x max_len
+    lat = cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim
+    want = (cfg.n_layers * (rows * (lat + 4) + 2 * 2 * 4) if "kv8" in extra
+            else cfg.n_layers * rows * (lat * 2 + 4))
+    assert f"kv bytes resident {want}" in printed
+
+
+def test_quantized_moe_launcher_continuous_on_cpu(capsys):
+    out = serve.main(["--arch", "qwen3-moe-30b-a3b", "--smoke", "--device", "cpu", "--continuous", "--requests", "4",
+                      "--slots", "2", "--mean-prompt", "6", "--mean-gen", "4", "--prompt-len", "12", "--gen", "6",
+                      "--quantize", "w8a8"])
+    assert sorted(out) == list(range(4))
+    assert "continuous[continuous] 4 requests over " in capsys.readouterr().out

@@ -146,6 +146,12 @@ BF16 = torch.bfloat16
     (2048, 2048, 512, BF16, True, "wgmma_64x128"),  # k, v
     (2048, 4096, 2048, BF16, True, "wgmma_128x256"),  # o
     (2048, 2048, 128, BF16, True, "wgmma_64x128"),  # the router: 32 tiles of 64 rows
+    # minicpm3-4b's (MLA)
+    (2048, 2560, 768, BF16, True, "wgmma_128x128"),  # wq_a
+    (2048, 768, 3840, BF16, True, "wgmma_128x256"),  # wq_b: K = q_lora 768
+    (2048, 2560, 288, BF16, True, "wgmma_64x128"),  # wkv_a: N = 288, a ragged last column tile
+    (2048, 256, 5120, BF16, True, "wgmma_128x256"),  # wkv_b: K = kv_lora 256, four k tiles
+    (411, 256, 5120, BF16, True, "wgmma_128x256"),  # wkv_b over a chunk's whole batch-1 cache
     # shapes TMA cannot take keep the WMMA tile
     (2048, 2044, 2048, BF16, True, "wmma"),  # K % 8: rows of A not 16-byte multiples
     (2048, 2048, 2044, BF16, True, "wmma"),  # N % 8: rows of B
@@ -163,13 +169,20 @@ def test_gemm_path_choice(m, k, n, dtype, aligned, want):
     assert t_kernel.gemm_path(m, n, k, dtype, aligned, sms=132) == want
 
 
-@pytest.mark.parametrize("arch", ["internlm2-1.8b", "qwen3-moe-30b-a3b"])
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "qwen3-moe-30b-a3b", "minicpm3-4b"])
 def test_every_served_prefill_projection_takes_wgmma(arch):
     """At batch 4 x 512 tokens every projection of the served models (q, k,
-    v, o, then the MLP or the router) is a wgmma shape on a 132-SM card."""
+    v, o -- MLA's wq_a, wq_b, wkv_a, wkv_b, wo --, then the MLP or the
+    router) is a wgmma shape on a 132-SM card."""
     cfg = configs.get_config(arch)
-    d, hd = cfg.d_model, cfg.resolved_head_dim
-    kn = [(d, cfg.n_heads * hd), (d, cfg.n_kv_heads * hd), (cfg.n_heads * hd, d)]
+    d, hd, h = cfg.d_model, cfg.resolved_head_dim, cfg.n_heads
+    if cfg.attention == "mla":
+        m = cfg.mla
+        kn = [(d, m.q_lora_rank), (m.q_lora_rank, h * (m.qk_nope_head_dim + m.qk_rope_head_dim)),
+              (d, m.kv_lora_rank + m.qk_rope_head_dim), (m.kv_lora_rank, h * (m.qk_nope_head_dim + m.v_head_dim)),
+              (h * m.v_head_dim, d)]
+    else:
+        kn = [(d, h * hd), (d, cfg.n_kv_heads * hd), (h * hd, d)]
     kn += [(d, cfg.d_ff), (cfg.d_ff, d)] if cfg.moe is None else [(d, cfg.moe.n_experts)]
     for k, n in kn:
         assert t_kernel.gemm_path(4 * 512, n, k, BF16, True, sms=132).startswith("wgmma"), (k, n)
