@@ -47,6 +47,16 @@ Phases, each printing its own lines; any failure exits non-zero:
      chunks of 512, in turns A B A B: lifecycle, prefill chunks, exact
      launches per kernel, shape and path, each request's last-prompt-position
      logits chunked vs monolithic, and the tick / step / TTFT readings;
+     the shared-prefix trace (16 requests in two groups sharing a
+     4096-token system prompt, 64-token suffixes, 32 tokens each, 8 slots)
+     over the slot pool, the paged pool (pages of 16), the paged pool with
+     the prefix cache and the same over an arena of 556 pages: the exact
+     ticks, decode steps, prefix hits and hit tokens, preemptions, tokens,
+     peak pages and bytes of the reference scheduler's run, exact launches,
+     the null page intact, the paged pool's tokens and logits bit-identical
+     to the slot pool's and the prefix arms' within 5e-2 of the largest
+     logit, with tok/s, TTFT, step times, peak bytes and kernels per decode
+     step beside each other;
      then the same model served w8a8 (int8 weights quantized from the same
      fp32 masters, per-token int8 activations), every projection on the
      block-scaled kernel, with the same launch, kernel-vs-plain and decode
@@ -70,8 +80,10 @@ Phases, each printing its own lines; any failure exits non-zero:
      attention plain, as the reference computes it, every projection on the
      GEMM kernels, wkv_b at prefill and per chunk only) in bf16 and w8a8 with
      the dense model's gates, served continuously on the same trace,
-     monolithically and in chunks of 128, with its latent pool's resident
-     bytes exact, and its SMOKE config in fp32 against the CPU path; every
+     monolithically, in chunks of 128 and over the paged latent pool (its
+     tokens and logits bit-identical to the monolithic run's), with its
+     latent pool's resident bytes exact, and its SMOKE config in fp32
+     against the CPU path; every
      path's prefill twice, bit-identical; each phase's wall;
   4. each kernel timed at the served paths' shapes (CUDA events) beside its
      bound, its plain version and one PyTorch library call (a yardstick the
@@ -82,7 +94,9 @@ Phases, each printing its own lines; any failure exits non-zero:
      in phase 3, each with its own bound; flash attention in each model's
      layout, K/V at its KV heads (batch 1 up to S 8192 for the continuous
      and long-prompt runs); the chunked path's plain chunk attention (no
-     kernel) beside SDPA; one JSON line lists the kernels, each shape's time
+     kernel) beside SDPA, also a prefix hit's; the paged pool's gather and
+     scatter at the paged arms' arena beside their bound; one JSON line lists
+     the kernels, each shape's time
      weighted by the launches the served paths made at that shape;
   5. the last line: {"ok": true, "device": {...}}.
 Without a card, or without the rest of the repository beside it, it exits
@@ -107,11 +121,16 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import torch  # noqa: E402
-from torch.profiler import ProfilerActivity, profile  # noqa: E402
+from torch.profiler import ProfilerActivity, profile, record_function  # noqa: E402
 
 from repro_torch import configs, quant  # noqa: E402
 from repro_torch.core.hw import H100, dtype_bytes  # noqa: E402
-from repro_torch.data.synthetic import make_adversarial_trace, make_batch, make_request_trace  # noqa: E402
+from repro_torch.data.synthetic import (  # noqa: E402
+    make_adversarial_trace,
+    make_batch,
+    make_request_trace,
+    make_shared_prefix_trace,
+)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.attention import kernel as attn_kernel  # noqa: E402
 from repro_torch.kernels.attention import ops as attn_ops  # noqa: E402
@@ -133,8 +152,11 @@ from repro_torch.models import attention as attn_model  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.models.transformer import cast_params  # noqa: E402
+from repro_torch.obs import trace as obs_trace  # noqa: E402
 from repro_torch.serving import ContinuousScheduler, KVPool, ServeConfig, ServeEngine, requests_from_trace  # noqa: E402
 from repro_torch.serving.engine import chunk_schedule  # noqa: E402
+from repro_torch.serving.kvpool import _nbytes  # noqa: E402
+from repro_torch.serving.paged import PagedKVPool, _gather_pages, _scatter_pages  # noqa: E402
 from repro_torch.serving.scheduler import FINISHED  # noqa: E402
 
 ARCH = "internlm2-1.8b"
@@ -156,6 +178,38 @@ LONG_TRACE = dict(n_short=4, short_prompt=128, short_gen=48, long_prompt=8192, l
                   seed=SEED)
 LONG_SLOTS = 5
 LONG_CHUNK = 512
+# The paged phase: make_shared_prefix_trace -- 16 requests in two groups, each
+# request one of two 4096-token system prompts and a 64-token user suffix,
+# 32 tokens each, Poisson 0.5 per tick (a chat or agent service whose
+# requests share a long system prompt) -- over 8 slots, max_len 4192, pages
+# of 16 rows (262 a slot).  Four arms one after another: the slot pool (the
+# oracle), the paged pool, the paged pool with the prefix cache, and the
+# same with an arena of 556 pages, where the scheduler reclaims prefix pages
+# and preempts.  The exact counts are the reference scheduler's on this
+# trace (scheduling depends only on lengths and arrivals: the trace has no
+# EOS); tests/test_torch_paged_trace.py holds the port's and the
+# reference's schedulers to them on the CPU.
+PAGED_TRACE = dict(n_requests=16, prefix_len=4096, suffix_len=64, gen=32, n_groups=2, rate=0.5, seed=SEED)
+PAGED_SLOTS, PAGE_SIZE, PREEMPT_PAGES = 8, 16, 556
+PAGED_PROMPT = PAGED_TRACE["prefix_len"] + PAGED_TRACE["suffix_len"]
+PAGED_MAX_LEN = PAGED_PROMPT + PAGED_TRACE["gen"]
+_NO_REUSE = dict(ticks=81, decode_steps=80, prefix_hits=0, prefix_hit_tokens=0, preempted=0, tokens_out=512,
+                 mean_occupancy=0.775)
+PAGED_ARMS = {  # arm -> (ContinuousScheduler options, exact gates)
+    "stripe": ({}, _NO_REUSE),
+    "paged": (dict(paged=True, page_size=PAGE_SIZE), dict(_NO_REUSE, peak_pages=2093)),
+    "prefix": (dict(paged=True, page_size=PAGE_SIZE, prefix_cache=True),
+               dict(_NO_REUSE, prefix_hits=14, prefix_hit_tokens=57_344, peak_pages=588)),
+    "preempt": (dict(paged=True, page_size=PAGE_SIZE, prefix_cache=True, n_pages=PREEMPT_PAGES),
+                dict(ticks=81, decode_steps=80, prefix_hits=18, prefix_hit_tokens=73_920, preempted=4, tokens_out=523,
+                     mean_occupancy=0.7859, peak_pages=PREEMPT_PAGES)),
+}
+# Bytes of one token of full-width internlm2-1.8b in the KV cache: 24 layers
+# x (bf16 K and V at 8 heads x 128, and an int32 position) = 98,400; a page
+# holds 16 of them (1,574,400 bytes), the slot pool 8 x 4192 (3,299,942,400).
+TOKEN_BYTES = 24 * (2 * 8 * 128 * 2 + 4)
+PAGE_BYTES = PAGE_SIZE * TOKEN_BYTES
+STRIPE_BYTES = PAGED_SLOTS * PAGED_MAX_LEN * TOKEN_BYTES
 # kv8: the continuous trace through the int8 pool.  Its resident bytes for 8
 # slots x 411 positions: int8 K/V (8 x 411 x 24 x 2 x 8 x 128), fp32 scales
 # per slot, layer, K/V and head (8 x 24 x 2 x 8 x 4), int32 positions
@@ -167,6 +221,9 @@ KV8_BYTES = 161_611_776 + 12_288 + 315_648
 # an int32 position, 4 bytes).
 MLA_CHUNK = 128
 MLA_CONT_BYTES = 8 * 411 * 62 * (2 * (256 + 32) + 4)
+# ... and over the paged latent pool, pages of 16 rows: 26 a slot hold 416
+# rows, of which the gather keeps 411; one page is 575,360 bytes.
+MLA_PAGE_BYTES = PAGE_SIZE * 62 * (2 * (256 + 32) + 4)
 BF16 = torch.bfloat16
 # Tolerances (|got - want| <= atol + rtol * |want|), with their reasons:
 GEMM_TOL_BF16 = (2e-2, 2e-2)  # one bf16 ulp where kernel and plain round the fp32 sum
@@ -680,6 +737,10 @@ def phase_kernels() -> dict:
     for m in (LONG_CHUNK, LONG_TRACE["short_prompt"], LONG_TRACE["long_prompt"], LONG_SLOTS):
         for k, n in projections(cfg):
             mm_err = max(mm_err, check_gemm(m, k, n, BF16, gen))
+    # The paged path's: a miss's whole prompt, a prefix hit's suffix.
+    for m in (PAGED_PROMPT, PAGED_TRACE["suffix_len"]):
+        for k, n in projections(cfg):
+            mm_err = max(mm_err, check_gemm(m, k, n, BF16, gen))
     for m, n, k in ((33, 257, 129), (100, 130, 70)):
         for dt in (torch.float32, BF16):
             check_gemm(m, k, n, dt, gen)
@@ -726,7 +787,7 @@ def phase_kernels() -> dict:
             attn_err = max(attn_err, check_flash(BATCH, cfg.n_heads, s, cfg.resolved_head_dim, BF16, gen,
                                                  hkv=cfg.n_kv_heads, window=window))
     cfg = configs.get_config(ARCH)
-    for s in (*cont_lens, LONG_TRACE["short_prompt"], LONG_TRACE["long_prompt"]):  # batch-1 prefills
+    for s in (*cont_lens, LONG_TRACE["short_prompt"], LONG_TRACE["long_prompt"], PAGED_PROMPT):  # batch-1 prefills
         attn_err = max(attn_err, check_flash(1, cfg.n_heads, s, cfg.resolved_head_dim, BF16, gen, hkv=cfg.n_kv_heads))
     for d in (16, 64, 120, 128):  # head dims of the zoo (120: h2o-danube3; 16 and 64: SMOKE configs)
         for hkv in (8, 4, 1):  # 1, 2 and 8 query heads per KV head
@@ -1009,21 +1070,30 @@ def routing_witness(label: str, kernel: list, plain: list) -> dict:
 
 
 def continuous_expected(cfg, prompt_lens: list, decode_steps: int, slots: int | None = None,
-                        chunk: int | None = None, max_len: int | None = None) -> tuple[dict, dict, dict, dict]:
+                        chunk: int | None = None, max_len: int | None = None, hits: list = (),
+                        warmup_lens: list | None = None) -> tuple[dict, dict, dict, dict]:
     """(launches per kernel, per kernel and shape, by route, flash launches by
     (B, Sq, Skv)) that a continuous run must make: a batch-1 prefill per
-    request at M = its prompt length, one more per distinct prompt length in
-    warmup, and ``decode_steps`` + 1 (warmup's all-empty step) decode steps
-    at M = the slot count.  With ``chunk``, each prompt is prefilled in the
-    pieces of ``chunk_schedule`` instead (K1 at M = each piece's length, no
-    flash attention; MLA's wkv_b at M = ``max_len``, the batch-1 cache each
-    chunk expands) and warmup runs one dummy chunk per distinct length."""
+    admission at M = its prompt length, one more per distinct prompt length
+    of ``warmup_lens`` (default: ``prompt_lens``) in warmup, and
+    ``decode_steps`` + 1 (warmup's all-empty step) decode steps at M = the
+    slot count.  With ``chunk``, each prompt is prefilled in the pieces of
+    ``chunk_schedule`` instead (K1 at M = each piece's length, no flash
+    attention; MLA's wkv_b at M = ``max_len``, the batch-1 cache each chunk
+    expands) and warmup runs one dummy chunk per distinct length.
+    ``hits``: the suffix lengths of the admissions that hit the prefix cache
+    (``prompt_lens`` then lists the others), each prefilled as one chunk at
+    M = its suffix, with no flash attention."""
+    warm = prompt_lens if warmup_lens is None else warmup_lens
     if chunk is None:
-        pieces = list(prompt_lens)
+        pieces, warm_pieces = list(prompt_lens), set(warm)
     else:
         pieces = [length for p in prompt_lens for _, length in chunk_schedule(p, chunk)]
-    prefills = collections.Counter(pieces) + collections.Counter(set(pieces))
+        warm_pieces = {length for p in warm for _, length in chunk_schedule(p, chunk)}
+    prefills = collections.Counter(pieces) + collections.Counter(warm_pieces)
     runs = [launches_at(cfg, "systolic_mmm", m, c, chunk is None, kv_rows=max_len) for m, c in prefills.items()]
+    runs += [launches_at(cfg, "systolic_mmm", m, c, False, kv_rows=max_len)
+             for m, c in collections.Counter(hits).items()]
     runs.append(launches_at(cfg, "systolic_mmm", slots or CONT_SLOTS, decode_steps + 1, False))
     total, shapes = collections.Counter(), {"systolic_mmm": {}, "systolic_qmm": {}, "grouped_mmm": {}}
     for t, by in runs:
@@ -1057,8 +1127,22 @@ def listed(shapes: dict) -> dict:
     return {name: [[*key, c] for key, c in sorted(by.items())] for name, by in shapes.items() if by}
 
 
+def replay_alone(model, params, prompt: dict, out, max_len: int) -> list:
+    """A request alone at batch 1 on the fp cache: its prefill, then a decode
+    step for each of its tokens but the last, fed back; the logits of each."""
+    p = prompt["tokens"].shape[1]
+    logits, cache = model.prefill(params, prompt, max_len=max_len)
+    replay = [logits]
+    for j in range(len(out) - 1):
+        tok = torch.tensor([[int(out[j])]], dtype=torch.int32, device="cuda")
+        logits, cache = model.decode_step(params, tok, cache=cache, pos=p + j)
+        replay.append(logits)
+    return replay
+
+
 def phase_continuous(model, params, smi: str, fp: dict | None = None, chunk: int | None = None,
-                     resident: int | None = None, alone: dict | None = None) -> dict:
+                     resident: int | None = None, alone: dict | None = None, paged: bool = False,
+                     same_as: dict | None = None) -> dict:
     """Serve the continuous trace through ContinuousScheduler with the counts
     set to 0 just before the run and read just after; check the lifecycle
     and the launches; then replay each request alone at batch 1 on the fp
@@ -1074,12 +1158,18 @@ def phase_continuous(model, params, smi: str, fp: dict | None = None, chunk: int
     With ``chunk`` the prompts are prefilled in chunks of that length, one a
     tick.  ``resident``: the fp pool's resident bytes, checked exactly.
     ``alone``: the replays of an earlier run of the same model, reused for a
-    request whose tokens equal that run's (the replay is the same then)."""
+    request whose tokens equal that run's (the replay is the same then).
+    With ``paged`` the pool is the paged one (pages of PAGE_SIZE rows;
+    ``resident`` is then one page's bytes): after the run it validates,
+    holds no page and its null page is still 0 / -1; ``same_as`` (the slot
+    pool's run of the same trace) must then give the same tokens and
+    bit-identical prefill and decode-step logits.  The output's
+    ``logit_rows`` ({rid: {position: logits}}) are for such a comparison."""
     kv8 = fp is not None
     cfg = model.cfg
     label, tol = ("kv8", KV8_VS_FP_TOL) if kv8 else ("continuous", LOGITS_TOL_BF16)
     if cfg.name != ARCH:
-        label = f"{cfg.name} {'chunked' if chunk else 'continuous'}"
+        label = f"{cfg.name} {'chunked' if chunk else 'paged' if paged else 'continuous'}"
     trace = continuous_trace(cfg)
     lens = [t["prompt"]["tokens"].shape[1] for t in trace]
     gens = [t["max_new_tokens"] for t in trace]
@@ -1114,8 +1204,12 @@ def phase_continuous(model, params, smi: str, fp: dict | None = None, chunk: int
     recorded = dataclasses.replace(model, prefill=prefill, prefill_chunk=prefill_chunk, decode_step=decode_step)
     engine = ServeEngine(recorded, params, ServeConfig(max_len=max_len, batch=CONT_SLOTS), device="cuda")
     sched = ContinuousScheduler(engine, policy="continuous", quantize_kv=kv8, chunked_prefill=chunk is not None,
-                                chunk_size=chunk or 128)
-    if resident is not None:
+                                chunk_size=chunk or 128, paged=paged, page_size=PAGE_SIZE)
+    if resident is not None and paged:
+        expect(sched.pool.page_bytes() == resident and sched.pool.pages_per_slot * PAGE_SIZE > max_len,
+               f"{label} pool: one page {sched.pool.page_bytes():,} bytes (want {resident:,}), "
+               f"{sched.pool.pages_per_slot} pages of {PAGE_SIZE} a slot for {max_len} rows")
+    elif resident is not None:
         expect(sched.pool.bytes_resident() == resident,
                f"{label} pool resident bytes {sched.pool.bytes_resident():,} (want {resident:,})")
     if kv8:
@@ -1140,6 +1234,11 @@ def phase_continuous(model, params, smi: str, fp: dict | None = None, chunk: int
            f"({st['tokens_out']} tokens, want {sum(gens)})")
     expect(sched.pool.n_free == CONT_SLOTS and (sched.pool.positions == -1).all(),
            f"{label}: the pool drained ({sched.pool.n_free} of {CONT_SLOTS} slots free)")
+    if paged:
+        errs = sched.pool.validate()
+        expect(errs == [] and sched.pool.pages_in_use == 0 and null_page_intact(sched.pool),
+               f"{label}: validate() {errs or '[]'}, {sched.pool.pages_in_use} pages in use after the drain, "
+               f"the null page still 0 / -1")
     rids_by_slot = collections.defaultdict(set)
     for _, _, rids in steps:
         for slot, rid in rids.items():
@@ -1164,21 +1263,17 @@ def phase_continuous(model, params, smi: str, fp: dict | None = None, chunk: int
     # Each request alone at batch 1 on the fp cache, the scheduler's tokens fed back.
     pf_err, dec_err, same, rows_seen = 0.0, 0.0, 0, 0
     replays = {}  # (rid, tokens) -> the replay's logits: prefill, then each decode step
+    logit_rows = {}
     with torch.no_grad():
         for t, r in zip(trace, reqs):
             out, p = results[r.rid], lens[r.rid]
             rows = {int(pos[s]): logits[s:s + 1] for pos, logits, rids in steps for s, rid in rids.items()
                     if rid == r.rid}
+            logit_rows[r.rid] = {p - 1: first_logits[r.rid], **rows}
             key = (r.rid, tuple(int(x) for x in out))
             replay = (alone or {}).get(key)
             if replay is None:
-                alone_l, cache = model.prefill(params, t["prompt"], max_len=max_len)
-                replay = [alone_l]
-                for j in range(len(out) - 1):
-                    tok = torch.tensor([[int(out[j])]], dtype=torch.int32, device="cuda")
-                    alone_l, cache = model.decode_step(params, tok, cache=cache, pos=p + j)
-                    replay.append(alone_l)
-                del cache
+                replay = replay_alone(model, params, t["prompt"], out, max_len)
             replays[key] = replay
             errs = [(replay[0] - first_logits[r.rid]).abs().max().item() / max(1.0, replay[0].abs().max().item())]
             argmax = [int(replay[0].argmax())]
@@ -1198,6 +1293,15 @@ def phase_continuous(model, params, smi: str, fp: dict | None = None, chunk: int
     say(f"    {label} vs alone: prefill logits within {pf_err:.2%}, decode-step rows within {dec_err:.2%} of the "
         f"largest logit over {rows_seen} rows; {same} of {len(reqs)} requests' greedy tokens equal their isolated "
         f"generate() exactly (bf16 near-ties may flip; for information only)")
+    if same_as is not None:
+        want_rows = same_as["logit_rows"]
+        differ = [rid for rid in want_rows if list(want_rows[rid]) != list(logit_rows[rid])
+                  or not all(torch.equal(logit_rows[rid][k], v) for k, v in want_rows[rid].items())]
+        tokens_same = all(results[r.rid].tolist() == same_as["tokens"][r.rid] for r in reqs)
+        expect(tokens_same and not differ and st["ticks"] == same_as["summary"]["ticks"],
+               f"{label} vs the slot pool's run: tokens equal, prefill and decode-step logits bit-identical over "
+               f"{sum(len(v) for v in logit_rows.values())} rows (differing requests: {differ}), "
+               f"{st['ticks']} ticks")
     say(f"    {label} numbers ({smi}): {len(reqs)} requests, {st['ticks']} ticks ({st['idle_ticks']} idle), "
         f"{st['decode_steps']} decode steps, {st['tokens_out']} tokens; {st['tok_per_s']} tok/s; step p50 "
         f"{st['p50_step_ms']} / p99 {st['p99_step_ms']} ms; tick p50 {st['p50_tick_ms']} / p99 {st['p99_tick_ms']} ms; "
@@ -1209,13 +1313,14 @@ def phase_continuous(model, params, smi: str, fp: dict | None = None, chunk: int
            "routes": {k: {str(kk): c for kk, c in v.items()} for k, v in got[2].items()},
            "flash_shapes": [[*key, c] for key, c in sorted(got[3].items())],
            "prefill_logits_max_share": pf_err, "decode_logits_max_share": dec_err,
-           "requests_tokens_equal_alone": same, "replays": replays}
+           "requests_tokens_equal_alone": same, "replays": replays, "logit_rows": logit_rows,
+           "tokens": {rid: toks.tolist() for rid, toks in results.items()}}
     if kv8:
         say(f"    kv8 decode step p50 {st['p50_step_ms']} ms beside the fp pool's {fp['summary']['p50_step_ms']} ms "
             f"(same call): the pool is dequantized before and re-quantized after every step")
         out["payload"] = kv8_payload(model, params, trace[0], max_len)
-        out["step_kernels"] = {name: decode_step_kernels(model, params, max_len, q) for name, q in
-                               (("fp", False), ("kv8", True))}
+        out["step_kernels"] = {name: decode_step_profile(model, params, max_len, q)["device_kernels"]
+                               for name, q in (("fp", False), ("kv8", True))}
         say(f"    device kernels of one decode step over {CONT_SLOTS} slots: fp pool "
             f"{out['step_kernels']['fp']}, kv8 pool {out['step_kernels']['kv8']} "
             f"(+{out['step_kernels']['kv8'] - out['step_kernels']['fp']})")
@@ -1248,19 +1353,36 @@ def kv8_payload(model, params, request: dict, max_len: int) -> dict:
     return {"k_max_abs_err": err, "k_max_abs": scale}
 
 
-def decode_step_kernels(model, params, max_len: int, quantize_kv: bool) -> int:
-    """Device kernels of one decode step over an empty pool of CONT_SLOTS
-    slots (profiler trace), the pool's dequantize and re-quantize included."""
-    engine = ServeEngine(model, params, ServeConfig(max_len=max_len, batch=CONT_SLOTS), device="cuda")
-    pool = KVPool(model, CONT_SLOTS, max_len, quantize_kv_cache=quantize_kv, device="cuda")
-    tok = torch.zeros((CONT_SLOTS, 1), dtype=torch.int32, device="cuda")
+def decode_step_profile(model, params, max_len: int, quantize_kv: bool, slots: int = CONT_SLOTS,
+                        paged: dict | None = None) -> dict:
+    """One decode step over an empty pool of ``slots`` slots, traced
+    (torch.profiler): its host wall, device busy time, idle share and device
+    kernels (``launch/trace.py``'s phase row), the pool's dequantize and
+    re-quantize included; with ``paged`` (PagedKVPool options) over the
+    paged pool, its page gather and scatter included.  Empty slots cost the
+    plain decode attention what live ones do (it scores every row and masks)."""
+    engine = ServeEngine(model, params, ServeConfig(max_len=max_len, batch=slots), device="cuda")
+    if paged:
+        pool = PagedKVPool(model, slots, max_len, quantize_kv_cache=quantize_kv, device="cuda", **paged)
+    else:
+        pool = KVPool(model, slots, max_len, quantize_kv_cache=quantize_kv, device="cuda")
+    tok = torch.zeros((slots, 1), dtype=torch.int32, device="cuda")
     _, pool.cache = engine.decode_slots(tok, pool.cache, pool.pos_vector())  # first launches outside the trace
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        out, pool.cache = engine.decode_slots(tok, pool.cache, pool.pos_vector())
-        out.cpu()
-        torch.cuda.synchronize()
-    return len(trace_tools._device_work(prof.events()))
+        with record_function("decode_step"):
+            out, pool.cache = engine.decode_slots(tok, pool.cache, pool.pos_vector())
+            out.cpu()
+            torch.cuda.synchronize()
+    (row,) = trace_tools.phase_breakdown(prof.events())
+    return row
+
+
+def null_page_intact(pool) -> bool:
+    """The (fp) paged pool's null page holds floats 0 and positions -1 in
+    every arena tensor."""
+    return all(bool((t[-1] == (-1 if name == "pos" else 0)).all())
+               for layer in pool.phys["layers"] for name, t in layer.items())
 
 
 def long_prompt_run(model, params, chunked: bool, smi: str, turn: int) -> dict:
@@ -1379,11 +1501,251 @@ def phase_long_prompt(model, params, smi: str) -> list[dict]:
     return runs
 
 
-def phase_serve(smi: str) -> tuple[dict, dict, dict, dict, list]:
+def paged_arm(model, params, name: str, smi: str, stripe: dict | None) -> dict:
+    """One arm of the paged phase: the shared-prefix trace through
+    ContinuousScheduler with PAGED_ARMS[name]'s options, the counts set to 0
+    just before the run and read just after.  Gates: PAGED_ARMS's exact
+    counts, the peak pages in use (sampled after every tick through
+    ``run(on_tick=)``) and the bytes they reserve, the lifecycle, the pool
+    after the drain (``validate()``, only the prefix cache's pages held, the
+    null page 0 / -1), exact launches (K1 at each miss's whole prompt, each
+    hit's suffix and the decode step; K3 at each miss), and each request's
+    tokens the argmax of its own logits.  Against ``stripe`` (the slot
+    pool's arm, the oracle): the paged pool's tokens equal and its logits
+    bit-identical; with the prefix cache each request's logits within
+    LOGITS_TOL_BF16 of the largest logit -- row by row while its tokens agree
+    with the stripe arm's, and against the request alone at batch 1 with its
+    own tokens fed back once they part (a hit prefills its suffix through
+    the plain chunk attention, not K3) -- and a miss's first-token logits
+    bit-identical (the same batch-1 prefill).  The model's prefill,
+    prefill_chunk and decode_step are wrapped here, in the script, to record
+    each request's logits by position; a re-admission starts its record
+    afresh."""
+    kw, gates = PAGED_ARMS[name]
+    cfg = model.cfg
+    trace = make_shared_prefix_trace(cfg, device="cuda", **PAGED_TRACE)
+    label = f"paged arm {name}"
+    rows, hit_rids, miss_lens, hit_lens, sched = {}, set(), [], [], None
+
+    def prefill(p, batch, max_len):
+        logits, cache = model.prefill(p, batch, max_len=max_len)
+        rid = obs_trace.current_request()  # None in warmup
+        if rid is not None:
+            rows[rid] = {batch["tokens"].shape[1] - 1: logits[0, -1].clone()}
+            hit_rids.discard(rid)
+            miss_lens.append(batch["tokens"].shape[1])
+        return logits, cache
+
+    def prefill_chunk(p, batch, cache, offset, wrapped):
+        logits, cache = model.prefill_chunk(p, batch, cache=cache, offset=offset, wrapped=wrapped)
+        rid = obs_trace.current_request()  # a prefix hit's suffix (prefill is monolithic here)
+        if rid is not None:
+            rows[rid] = {offset + batch["tokens"].shape[1] - 1: logits[0, -1].clone()}
+            hit_rids.add(rid)
+            hit_lens.append(batch["tokens"].shape[1])
+        return logits, cache
+
+    def decode_step(p, tok, cache, pos):
+        logits, cache = model.decode_step(p, tok, cache=cache, pos=pos)
+        if sched._slot_req:  # warmup's all-empty step serves no request
+            last = logits[:, -1].clone()
+            for slot, r in sched._slot_req.items():
+                rows[r.rid][int(sched.pool.positions[slot])] = last[slot]
+        return logits, cache
+
+    recorded = dataclasses.replace(model, prefill=prefill, prefill_chunk=prefill_chunk, decode_step=decode_step)
+    engine = ServeEngine(recorded, params, ServeConfig(max_len=PAGED_MAX_LEN, batch=PAGED_SLOTS), device="cuda")
+    sched = ContinuousScheduler(engine, **kw)
+    pool = sched.pool
+    reqs = requests_from_trace(trace)
+    peak = {"pages": 0, "reserved": 0, "live": 0}
+
+    def on_tick(s):
+        rep = s.pool.bytes_report()
+        peak["pages"] = max(peak["pages"], s.pool.pages_in_use if s.paged else 0)
+        peak["reserved"] = max(peak["reserved"], rep["reserved"])
+        peak["live"] = max(peak["live"], rep["live"])
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    results = sched.run(reqs, on_tick=on_tick)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = (counts(), shape_counts(), route_counts(), flash_shape_counts())
+    st = sched.stats.summary()
+    tokens = {r.rid: [int(x) for x in results[r.rid]] for r in reqs}
+
+    # Counts, pages, bytes, the lifecycle and the pool after the drain.
+    counted = {key: st[key] for key in gates if key != "peak_pages"}
+    want = {key: v for key, v in gates.items() if key != "peak_pages"}
+    expect(counted == want, f"{label}: {counted} (want {want})")
+    expect(all(r.state == FINISHED and len(tokens[r.rid]) == r.max_new_tokens for r in reqs)
+           and pool.n_free == PAGED_SLOTS and (pool.positions == -1).all(),
+           f"{label}: all {len(reqs)} requests finished with exactly max_new_tokens tokens, the slots drained")
+    if sched.paged:
+        errs = pool.validate()
+        cached = len(pool.prefix.pids()) if pool.prefix is not None else 0
+        arena = _nbytes(pool._resident())
+        expect(peak["pages"] == gates["peak_pages"] and peak["reserved"] == gates["peak_pages"] * PAGE_BYTES
+               and pool.page_bytes() == PAGE_BYTES and arena == (pool.n_pages + 1) * PAGE_BYTES,
+               f"{label}: peak {peak['pages']} of {pool.n_pages} pages in use (want {gates['peak_pages']}), "
+               f"{peak['reserved']:,} bytes reserved at the peak; a page {pool.page_bytes():,} bytes; the arena "
+               f"{arena:,} bytes ({pool.n_pages} pages and the null page)")
+        expect(errs == [] and pool.pages_in_use == cached and null_page_intact(pool),
+               f"{label}: validate() {errs or '[]'}, {pool.pages_in_use} pages in use after the drain (the prefix "
+               f"cache's {cached}), the null page still 0 / -1")
+    else:
+        expect(pool.bytes_resident() == STRIPE_BYTES == peak["reserved"],
+               f"{label}: the slot pool holds {pool.bytes_resident():,} bytes (want {STRIPE_BYTES:,})")
+
+    # Launches: K1 at each miss's prompt, each hit's suffix and each decode
+    # step (warmup's prefill and decode step included); K3 at each miss.
+    admitted = int(sched.stats.registry.counter_value("sched.admitted"))
+    expect(len(hit_lens) == st["prefix_hits"] and len(miss_lens) == admitted - st["prefix_hits"]
+           and sum(PAGED_PROMPT - m for m in hit_lens) == st["prefix_hit_tokens"],
+           f"{label}: {admitted} admissions: {len(miss_lens)} whole prefills, {len(hit_lens)} suffix prefills of "
+           f"{sorted(collections.Counter(hit_lens).items())} tokens")
+    lens = [t["prompt"]["tokens"].shape[1] for t in trace]
+    check_run_launches(label, got, continuous_expected(cfg, miss_lens, st["decode_steps"], PAGED_SLOTS,
+                                                       max_len=PAGED_MAX_LEN, hits=hit_lens, warmup_lens=lens))
+
+    # Logits: each request's own argmax; against the stripe arm.
+    taken = all([int(rows[r.rid][k].argmax()) for k in sorted(rows[r.rid])] == tokens[r.rid] for r in reqs)
+    expect(taken, f"{label}: every request's tokens are the argmax of its own logits")
+    out = {"arm": name, "summary": st, "wall_s_with_warmup": wall, "peak_pages": peak["pages"],
+           "peak_reserved_bytes": peak["reserved"], "peak_live_bytes": peak["live"], "launches": got[0],
+           "shapes": listed(got[1]), "routes": {k: {str(kk): c for kk, c in v.items()} for k, v in got[2].items()},
+           "flash_shapes": [[*key, c] for key, c in sorted(got[3].items())], "tokens": tokens,
+           "ttft_ms_hits": sorted((r.first_token_s - r.admitted_s) * 1e3 for r in reqs if r.rid in hit_rids)}
+    if stripe is None:
+        out["rows"] = rows
+    elif name == "paged":
+        exact = all(tokens[rid] == stripe["tokens"][rid] and list(rows[rid]) == list(stripe["rows"][rid])
+                    and all(torch.equal(v, stripe["rows"][rid][k]) for k, v in rows[rid].items()) for rid in tokens)
+        expect(exact, f"{label} vs the stripe arm: every request's tokens equal, its first-token and decode-step "
+                      f"logits bit-identical ({sum(len(v) for v in rows.values())} rows)")
+    else:
+        worst, replayed, agreeing = 0.0, 0, 0
+        with torch.no_grad():
+            for r in reqs:
+                mine, theirs, want_rows = tokens[r.rid], stripe["tokens"][r.rid], stripe["rows"][r.rid]
+                agree = next((i for i, (a, b) in enumerate(zip(mine, theirs)) if a != b), len(mine))
+                agreeing += agree == len(mine)
+                replay = None
+                for i, k in enumerate(sorted(rows[r.rid])):  # row i follows prompt + mine[:i]
+                    if i <= agree:
+                        want = want_rows[k]
+                    else:
+                        if replay is None:
+                            replay = replay_alone(model, params, trace[r.rid]["prompt"], mine, PAGED_MAX_LEN)
+                            replayed += 1
+                        want = replay[i][0, -1]
+                    worst = max(worst, (rows[r.rid][k] - want).abs().max().item() / max(1.0, want.abs().max().item()))
+        expect(worst <= LOGITS_TOL_BF16,
+               f"{label} vs the stripe arm: every request's first-token and decode-step logits within {worst:.2%} of "
+               f"the largest logit (tol {LOGITS_TOL_BF16:.0%}); {agreeing} of {len(reqs)} requests' tokens equal the "
+               f"stripe arm's, {replayed} held after they part against the request alone at batch 1")
+        misses = sorted(set(tokens) - hit_rids)
+        first = PAGED_PROMPT - 1
+        expect(bool(misses) and all(torch.equal(rows[rid][first], stripe["rows"][rid][first]) for rid in misses),
+               f"{label}: the misses' (requests {misses}) first-token logits bit-identical to the stripe arm's")
+        out["vs_stripe_max_share"] = worst
+    del engine, sched, pool, rows
+    torch.cuda.empty_cache()
+    pool_kw = {k: v for k, v in kw.items() if k in ("page_size", "n_pages")} if kw.get("paged") else None
+    out["decode_step_trace"] = decode_step_profile(model, params, PAGED_MAX_LEN, False, PAGED_SLOTS, paged=pool_kw)
+    hits = out["ttft_ms_hits"]
+    say(f"    {label} ({smi}): {st['ticks']} ticks, {st['decode_steps']} decode steps, {st['tokens_out']} tokens, "
+        f"{st['prefix_hits']} prefix hits ({st['prefix_hit_tokens']} tokens), {st['preempted']} preempted; "
+        f"{st['tok_per_s']} tok/s; TTFT p50 {st['ttft_p50_ms']} / p99 {st['ttft_p99_ms']} ms"
+        + (f" (hits' median {hits[len(hits) // 2]:.3f} ms)" if hits else "")
+        + f"; step p50 {st['p50_step_ms']} / p99 {st['p99_step_ms']} ms; tick p50 {st['p50_tick_ms']} / p99 "
+        f"{st['p99_tick_ms']} ms; peak pages {out['peak_pages']}, peak bytes reserved {out['peak_reserved_bytes']:,} "
+        f"/ live {out['peak_live_bytes']:,}; one decode step traced: {trace_row(out['decode_step_trace'])}; prefill "
+        f"{st['prefill_s']} s + decode {st['decode_s']} s; run wall {st['run_wall_s']} s ({wall:.3f} s with warmup)")
+    return out
+
+
+def trace_row(r: dict) -> str:
+    return (f"wall {r['wall_ms']:.3f} ms, device busy {r['device_busy_ms']:.3f} ms, idle {r['idle_share']:.3f}, "
+            f"{r['device_kernels']} device kernels")
+
+
+def paged_prefill_profiles(model, params) -> dict:
+    """A miss and a prefix hit of the paged phase's trace as the scheduler
+    runs them, traced (torch.profiler) after one untraced round: the miss's
+    whole prompt through ``prefill_request`` and its scatter into fresh
+    pages; the hit's slot gather, its suffix through ``prefill_chunk`` at the
+    hit offset (the plain chunk attention over the slot's cache, no K3) and
+    its scatter; each with the first token's readback, as a TTFT has it."""
+    trace = make_shared_prefix_trace(model.cfg, device="cuda", **PAGED_TRACE)
+    miss, other = trace[0]["prompt"]["tokens"], trace[PAGED_TRACE["n_groups"]]["prompt"]["tokens"]  # one group
+    engine = ServeEngine(model, params, ServeConfig(max_len=PAGED_MAX_LEN, batch=PAGED_SLOTS), device="cuda")
+    pool = PagedKVPool(model, PAGED_SLOTS, PAGED_MAX_LEN, page_size=PAGE_SIZE, prefix_cache=True, device="cuda")
+
+    def serve_both(traced: bool) -> None:
+        with record_function("prefill") if traced else contextlib.nullcontext():
+            slot = pool.alloc()
+            first, cache = engine.prefill_request({"tokens": miss})
+            first.cpu()
+            pool.prepare_write(slot, 0, PAGED_PROMPT)
+            pool.write_slot(slot, cache, next_pos=PAGED_PROMPT)
+            torch.cuda.synchronize()
+        pool.register_prefix(slot, miss[0].cpu().numpy(), PAGED_PROMPT)
+        hit, pids = pool.lookup_prefix(other[0].cpu().numpy())
+        with record_function("prefill_chunk") if traced else contextlib.nullcontext():
+            slot = pool.alloc()
+            pool.attach_prefix(slot, pids)
+            first, view = engine.prefill_chunk(other[:, hit:], pool.gather_slot(slot), hit, last=True)
+            first.cpu()
+            pool.prepare_write(slot, hit, PAGED_PROMPT)
+            pool.write_slot(slot, view, next_pos=PAGED_PROMPT)
+            torch.cuda.synchronize()
+
+    serve_both(False)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        serve_both(True)
+    rows = {"miss" if r["phase"] == "prefill" else "hit": r for r in trace_tools.phase_breakdown(prof.events())}
+    del engine, pool
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_paged(model, params, smi: str) -> list[dict]:
+    """The shared-prefix trace through the four arms of PAGED_ARMS, one after
+    another, each pool freed before the next; then the reference
+    benchmark's two comparisons, for information."""
+    t = PAGED_TRACE
+    say(f"[3] paged serving of {ARCH} bf16: {t['n_requests']} requests in {t['n_groups']} groups sharing a "
+        f"{t['prefix_len']}-token system prompt, {t['suffix_len']}-token suffixes, {t['gen']} tokens each, "
+        f"{t['rate']} arrivals per tick; {PAGED_SLOTS} slots, max_len {PAGED_MAX_LEN}, pages of {PAGE_SIZE}; arms "
+        f"{', '.join(PAGED_ARMS)} ({PREEMPT_PAGES} pages)")
+    runs, stripe = [], None
+    for name in PAGED_ARMS:
+        r = paged_arm(model, params, name, smi, stripe)
+        stripe = stripe or r
+        runs.append(r)
+    del stripe["rows"]
+    prefills = paged_prefill_profiles(model, params)
+    for what in ("miss", "hit"):
+        say(f"    a prefix {what}'s prefill as the scheduler runs it ({smi}), traced: {trace_row(prefills[what])}")
+    runs[0]["prefill_traces"] = prefills
+    by = {r["arm"]: r for r in runs}
+    hits = by["prefix"]["ttft_ms_hits"]
+    say(f"    [for information] prefix-hit TTFT median {hits[len(hits) // 2]:.3f} ms against the paged arm's TTFT p50 "
+        f"{by['paged']['summary']['ttft_p50_ms']} ms; the prefix arm's peak live bytes "
+        f"{by['prefix']['peak_live_bytes']:,} against the stripe's reserved {STRIPE_BYTES:,} "
+        f"({by['prefix']['peak_live_bytes'] / STRIPE_BYTES:.3f})")
+    return runs
+
+
+def phase_serve(smi: str) -> tuple[dict, dict, dict, dict, list, list]:
     """The bf16 model; the same parameters served continuously over the fp
-    pool and over the kv8 pool, and through the long-prompt trace
-    monolithic and chunked; then the w8a8 model quantized from the same
-    fp32 masters."""
+    pool and over the kv8 pool, through the long-prompt trace monolithic and
+    chunked, and through the shared-prefix trace over the slot pool, the
+    paged pool, the prefix cache and an undersized arena; then the w8a8
+    model quantized from the same fp32 masters."""
     cfg = configs.get_config(ARCH)
     say(f"[3] serve {ARCH} (full width: {cfg.n_layers}L d={cfg.d_model} H={cfg.n_heads}/{cfg.n_kv_heads} "
         f"d_ff={cfg.d_ff} V={cfg.vocab_size}) in {cfg.dtype}, batch {BATCH}, prompt {PROMPT}, {GEN} tokens")
@@ -1402,8 +1764,10 @@ def phase_serve(smi: str) -> tuple[dict, dict, dict, dict, list]:
     bf16 = serve_path("bf16", model, params, {"gemm": "systolic_mmm", "tol": LOGITS_TOL_BF16}, batch)
     cont = phase_continuous(model, params, smi)
     kv8 = phase_continuous(model, params, smi, fp=cont, alone=cont["replays"])
-    del cont["replays"], kv8["replays"]
+    for r in (cont, kv8):
+        del r["replays"], r["logit_rows"]
     long_runs = phase_long_prompt(model, params, smi)
+    paged_runs = phase_paged(model, params, smi)
     with quant.use_act_quant("int8"):
         w8a8 = serve_path("w8a8", model, qparams, {"gemm": "systolic_qmm", "tol": LOGITS_TOL_W8A8}, batch,
                           feed=bf16["fed"])
@@ -1415,7 +1779,7 @@ def phase_serve(smi: str) -> tuple[dict, dict, dict, dict, list]:
         del r["logits"], r["fed"]
     del params, qparams, model, batch
     torch.cuda.empty_cache()
-    return bf16, w8a8, cont, kv8, long_runs
+    return bf16, w8a8, cont, kv8, long_runs, paged_runs
 
 
 def w8a8_vs_bf16(label: str, w8a8: dict, bf16: dict, gate: bool = True) -> None:
@@ -1438,12 +1802,12 @@ def w8a8_vs_bf16(label: str, w8a8: dict, bf16: dict, gate: bool = True) -> None:
         w8a8["vs_bf16_bound"].append(bound)
 
 
-def phase_serve_mla(smi: str) -> tuple[dict, dict, dict, dict]:
+def phase_serve_mla(smi: str) -> tuple[dict, dict, dict, dict, dict]:
     """Full-width minicpm3-4b (MLA), drawn in fp32 from SEED and served in
     bf16 and in w8a8 from the same masters, each built as the launcher builds
     it (``launch/serve.py::init_params``: w8a8 one layer at a time, weights
     K-major); the bf16 parameters also through ContinuousScheduler on the
-    continuous trace, monolithic and then chunked."""
+    continuous trace, monolithic, chunked and over the paged latent pool."""
     cfg = configs.get_config(MLA_ARCH)
     m = cfg.mla
     say(f"[3] serve {MLA_ARCH} (full width: {cfg.n_layers}L d={cfg.d_model} H={cfg.n_heads} MLA q_lora "
@@ -1466,7 +1830,10 @@ def phase_serve_mla(smi: str) -> tuple[dict, dict, dict, dict]:
     bf16 = serve_path("mla bf16", model, params, {"gemm": "systolic_mmm", "tol": LOGITS_TOL_BF16}, batch)
     cont = phase_continuous(model, params, smi, resident=MLA_CONT_BYTES)
     chunked = phase_continuous(model, params, smi, chunk=MLA_CHUNK, resident=MLA_CONT_BYTES, alone=cont["replays"])
-    del cont["replays"], chunked["replays"]
+    paged = phase_continuous(model, params, smi, resident=MLA_PAGE_BYTES, alone=cont["replays"], paged=True,
+                             same_as=cont)
+    for r in (cont, chunked, paged):
+        del r["replays"], r["logit_rows"]
     with act_ctx:
         w8a8 = serve_path("mla w8a8", model, qparams, {"gemm": "systolic_qmm", "tol": LOGITS_TOL_W8A8}, batch,
                           feed=bf16["fed"])
@@ -1477,7 +1844,7 @@ def phase_serve_mla(smi: str) -> tuple[dict, dict, dict, dict]:
     say(f"    peak device memory over the MLA phase: {bf16['peak_gb']:.2f} GB")
     del params, qparams, model, batch
     torch.cuda.empty_cache()
-    return bf16, w8a8, cont, chunked
+    return bf16, w8a8, cont, chunked, paged
 
 
 def phase_serve_moe() -> tuple[dict, dict]:
@@ -1837,6 +2204,45 @@ def time_chunk_attention(gen, cfg, offset: int, chunk: int = LONG_CHUNK, cache: 
             "library_ms": t["library"], "bound_ms": bound_s * 1e3, "bound_by": bound_by, "pairs": pairs}
 
 
+def time_paged_pool(gen) -> dict:
+    """The paged pool's page gather (what ``pool.cache`` materialises before
+    every decode step) and scatter (``pool.cache = ...`` after it) at the
+    paged arms' arena -- 8 slots x 262 pages of 16 rows x 24 layers of
+    internlm2-1.8b, every slot's pages mapped, the page index on the card --
+    with CUDA events.  Plain PyTorch (``index_select`` / ``index_copy_`` per
+    cache tensor), as the reference computes them outside any kernel.  The
+    bound moves the slots' 3.3 GB once each way (pages read and the logical
+    cache written, or back); a contiguous ``copy_`` of the same tensors is
+    the yardstick."""
+    pool = PagedKVPool(get_model(configs.get_config(ARCH)), PAGED_SLOTS, PAGED_MAX_LEN, page_size=PAGE_SIZE,
+                       device="cuda")
+    for slot in range(PAGED_SLOTS):
+        pool.prepare_write(pool.alloc(), 0, PAGED_MAX_LEN)
+    for t in _leaves(pool.phys):
+        if t.is_floating_point():
+            t.copy_(randn(t.shape, gen, t.dtype))
+    idx = pool._idx()
+    logical = _gather_pages(pool.phys, idx, pool.seq_len, PAGE_SIZE)
+    dst = _tree(torch.empty_like, logical)
+    pairs = list(zip(_leaves(dst), _leaves(logical)))
+
+    def copy():
+        for a, b in pairs:
+            a.copy_(b)
+
+    t = {"gather": time_ms(lambda: _gather_pages(pool.phys, idx, pool.seq_len, PAGE_SIZE), 10),
+         "scatter": time_ms(lambda: _scatter_pages(pool.phys, logical, idx, pool.seq_len, PAGE_SIZE), 10),
+         "copy": time_ms(copy, 10)}
+    nbytes = 2 * _nbytes(logical)  # read once, written once
+    bound_s, bound_by = H100.bound_s(0, nbytes, "bfloat16")
+    out = {"slots": PAGED_SLOTS, "pages": pool.n_pages, "page_size": PAGE_SIZE, "layers": len(pool.phys["layers"]),
+           "logical_bytes": _nbytes(logical), "gather_ms": t["gather"], "scatter_ms": t["scatter"],
+           "copy_ms": t["copy"], "bound_ms": bound_s * 1e3, "bound_by": bound_by}
+    del pool, logical, dst, pairs
+    torch.cuda.empty_cache()
+    return out
+
+
 def _qgemm_cost(m, k, n, qk=quant.DEFAULT_BLOCK_K):
     """Operations and HBM bytes of one w8a8 projection: int8 values and fp32
     per-row / per-column scales read once, the bf16 output written once."""
@@ -1912,14 +2318,15 @@ def _merged(paths: list, kernel: str) -> dict:
 
 
 def phase_timing(errs: dict, sync_fp: list, sync_w8a8: list, moe_runs: list,
-                 served: list) -> tuple[list[dict], dict, list]:
+                 served: list) -> tuple[list[dict], dict, list, dict]:
     """``sync_fp``: the synchronized bf16 paths (internlm2, the MoE model's
     main path, minicpm3); ``sync_w8a8``: the synchronized w8a8 paths
     (internlm2, minicpm3, the MoE model); ``moe_runs``: the MoE model's bf16
     and w8a8 paths (the grouped GEMM's launches and flash launches at its
     heads); ``served``: the continuous-style runs (the continuous, kv8 and
     long-prompt runs of internlm2, minicpm3's continuous and chunked runs),
-    whose launches count with the synchronized paths'."""
+    whose launches count with the synchronized paths'; the paged arms and
+    minicpm3's paged run too)."""
     say("[4] kernel times at the served paths' shapes (CUDA events; ms per call)")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     moe_cfg = configs.get_config(MOE_ARCH)
@@ -1982,11 +2389,20 @@ def phase_timing(errs: dict, sync_fp: list, sync_w8a8: list, moe_runs: list,
             f"bound {fl['bound_ms']:.4f} ({fl['bound_by']})")
 
     chunk_attn = [time_chunk_attention(gen, dense_cfg, off) for off in (0, LONG_TRACE["long_prompt"] - LONG_CHUNK)]
+    # a prefix hit's suffix over the paged arms' slot cache
+    chunk_attn.append(time_chunk_attention(gen, dense_cfg, PAGED_TRACE["prefix_len"], PAGED_TRACE["suffix_len"],
+                                           PAGED_MAX_LEN))
     for r in chunk_attn:
         say(f"    chunk attention (plain _sdpa, no kernel: the reference's too) B=1 H={r['h']}/{r['hkv']} "
             f"chunk {r['chunk']} at offset {r['offset']} over a cache of {r['cache']} ({r['pairs']} (q, k) pairs "
             f"unmasked) plain {r['plain_ms']:.4f}  sdpa(mask, enable_gqa) {r['library_ms']:.4f}  bound "
             f"{r['bound_ms']:.4f} ({r['bound_by']})")
+    paging = time_paged_pool(gen)
+    say(f"    paged pool (plain index_select / index_copy_, no kernel: the reference's too) {paging['slots']} slots x "
+        f"{paging['pages'] // paging['slots']} pages of {paging['page_size']} x {paging['layers']} layers, "
+        f"{paging['logical_bytes']:,} logical bytes: gather {paging['gather_ms']:.4f}  scatter "
+        f"{paging['scatter_ms']:.4f}  contiguous copy_ {paging['copy_ms']:.4f}  bound {paging['bound_ms']:.4f} "
+        f"({paging['bound_by']})")
 
     def entry(name, rows):
         # Totals over every launch the served paths made (prefill + decode);
@@ -2011,7 +2427,7 @@ def phase_timing(errs: dict, sync_fp: list, sync_w8a8: list, moe_runs: list,
     # attention on the GQA paths but the chunked runs; the block-scaled GEMM
     # on the w8a8 paths; the grouped GEMM on the MoE paths.
     return [entry("systolic_mmm", shapes), entry("flash_attn", flash), entry("systolic_qmm", qshapes),
-            entry("grouped_mmm", gshapes)], k2, chunk_attn
+            entry("grouped_mmm", gshapes)], k2, chunk_attn, paging
 
 
 def main() -> int:
@@ -2038,14 +2454,16 @@ def main() -> int:
 
     device = timed("device and build", phase_device)
     errs = timed("kernels vs plain", phase_kernels)
-    bf16, w8a8, cont, kv8, long_runs = timed(f"serve {ARCH}", phase_serve, device["nvidia_smi"])
+    bf16, w8a8, cont, kv8, long_runs, paged_runs = timed(f"serve {ARCH}", phase_serve, device["nvidia_smi"])
     timed(f"small reference {ARCH}", phase_small_reference, ARCH)
-    mla_bf16, mla_w8a8, mla_cont, mla_chunked = timed(f"serve {MLA_ARCH}", phase_serve_mla, device["nvidia_smi"])
+    mla_bf16, mla_w8a8, mla_cont, mla_chunked, mla_paged = timed(f"serve {MLA_ARCH}", phase_serve_mla,
+                                                                  device["nvidia_smi"])
     timed(f"small reference {MLA_ARCH}", phase_small_reference, MLA_ARCH)
     moe_r, moe_w8a8 = timed(f"serve {MOE_ARCH}", phase_serve_moe)
     timed(f"small reference {MOE_ARCH}", phase_small_reference, MOE_ARCH)
-    kernels, k2, chunk_attn = timed("timing", phase_timing, errs, [bf16, moe_r, mla_bf16], [w8a8, mla_w8a8, moe_w8a8],
-                                    [moe_r, moe_w8a8], [cont, kv8, *long_runs, mla_cont, mla_chunked])
+    kernels, k2, chunk_attn, paging = timed("timing", phase_timing, errs, [bf16, moe_r, mla_bf16],
+                                            [w8a8, mla_w8a8, moe_w8a8], [moe_r, moe_w8a8],
+                                            [cont, kv8, *long_runs, *paged_runs, mla_cont, mla_chunked, mla_paged])
     say(f"    wall {time.perf_counter() - t_start:.1f} s")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -2053,8 +2471,10 @@ def main() -> int:
             json.dump({"device": device, "serve": bf16, "serve_continuous": cont, "serve_kv8": kv8,
                        "serve_long_prompt": long_runs, "serve_w8a8": w8a8, "serve_moe": moe_r,
                        "serve_moe_w8a8": moe_w8a8, "serve_mla": mla_bf16, "serve_mla_w8a8": mla_w8a8,
-                       "serve_mla_continuous": mla_cont, "serve_mla_chunked": mla_chunked, "kernels": kernels,
-                       "systolic_mmm_bias": k2, "chunk_attention": chunk_attn, "phase_wall_s": walls,
+                       "serve_mla_continuous": mla_cont, "serve_mla_chunked": mla_chunked,
+                       "serve_mla_paged": mla_paged, "serve_paged": paged_runs, "kernels": kernels,
+                       "systolic_mmm_bias": k2, "chunk_attention": chunk_attn, "paged_pool": paging,
+                       "phase_wall_s": walls,
                        "failures": failures}, f, indent=1)
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed:", file=sys.stderr)

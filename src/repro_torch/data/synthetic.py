@@ -1,8 +1,8 @@
 """Synthetic batches and request traces with deterministic numpy data.
 
 The counterpart of ``repro.data.synthetic``'s ``make_batch``, ``make_prompt``,
-``make_request_trace`` and ``make_adversarial_trace``: the reference draws with numpy, and so does this
-module, from the same generators in the same order, so one seed gives the
+``make_request_trace``, ``make_adversarial_trace`` and ``make_shared_prefix_trace``: the reference draws with
+numpy, and so does this module, from the same generators in the same order, so one seed gives the
 same tokens, arrivals and lengths here.  The tensors are then placed on
 ``device`` (default: the card).
 """
@@ -163,4 +163,46 @@ def make_adversarial_trace(
                 "max_new_tokens": long_gen,
             }
         )
+    return trace
+
+
+def make_shared_prefix_trace(
+    cfg: ArchConfig,
+    *,
+    n_requests: int,
+    prefix_len: int,
+    suffix_len: int = 4,
+    gen: int = 4,
+    n_groups: int = 1,
+    rate: float = 1.0,
+    seed: int = 0,
+    device: str | torch.device | None = None,
+) -> list[dict]:
+    """Requests sharing ``n_groups`` distinct ``prefix_len``-token prompt
+    prefixes (round-robin group assignment) with per-request random
+    suffixes: the system-prompt workload the prefix cache deduplicates.  The
+    first request of each group prefills the full prompt and registers its
+    pages; every later request in the group should hit ``prefix_len -
+    (prefix_len % page_size)`` cached tokens and prefill only its suffix.
+    Poisson arrivals of intensity ``rate`` per tick.  Same entry layout as
+    ``make_request_trace``.
+    """
+    if n_requests < 1:
+        raise ValueError("n_requests must be >= 1")
+    if prefix_len < 1 or suffix_len < 1:
+        raise ValueError("prefix_len and suffix_len must be >= 1")
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    prefixes = [rng.integers(0, cfg.vocab_size, _token_shape(cfg, 1, prefix_len), dtype=np.int32)
+                for _ in range(max(1, n_groups))]
+    arrivals = np.cumsum(rng.exponential(1.0 / max(rate, 1e-9), n_requests))
+    trace = []
+    for i in range(n_requests):
+        suffix = rng.integers(0, cfg.vocab_size, _token_shape(cfg, 1, suffix_len), dtype=np.int32)
+        toks = np.concatenate([prefixes[i % max(1, n_groups)], suffix], axis=1)
+        prompt: dict = {"tokens": torch.from_numpy(toks).to(dev)}
+        if cfg.frontend == "vit":
+            pe = rng.standard_normal((1, cfg.n_patches, cfg.vit_dim))
+            prompt["patch_embeds"] = torch.from_numpy(pe).to(dev, getattr(torch, cfg.dtype))
+        trace.append({"rid": i, "arrival": float(arrivals[i]), "prompt": prompt, "max_new_tokens": gen})
     return trace

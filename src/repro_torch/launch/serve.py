@@ -47,9 +47,28 @@ reference, a MoE layer's router and experts and MLA's ``wkv_b`` stay wide::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b \
         --quantize w8a8 --smoke --device cpu
 ``kv8`` applies to the continuous pool only: without ``--continuous`` it
-warns and serves unquantized, as the reference does.  The paged pool, the
-adversarial trace and the metrics / SLO / profiling flags of
-``repro.launch.serve`` belong to later parts of the port.
+warns and serves unquantized, as the reference does.
+
+Paged KV (``--paged``): the continuous pool swaps the per-slot ``max_len``
+stripe for ``--page-size``-row pages behind a per-slot page table, so
+reserved KV bytes follow the tokens held; ``--pages`` sizes the arena
+(default: every slot's full stripe; undersize it to make the scheduler
+reclaim prefix pages and preempt).  ``--prefix-cache`` adds the radix prefix
+cache: requests sharing a prompt prefix map the same refcounted pages and
+prefill only their suffix.  ``--adversarial`` replaces the Poisson trace with
+the long-prompt trace (``--requests`` minus ``--long-requests`` short
+requests of ``--mean-prompt`` tokens decoding ``--mean-gen`` from tick 0, and
+``--long-requests`` prompts of ``--prompt-len`` tokens arriving at tick 2,
+their first ``--shared-prefix`` tokens identical)::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \
+        --smoke --device cpu --continuous --paged --page-size 8 --prefix-cache
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \
+        --continuous --paged --prefix-cache --adversarial --requests 6 \
+        --long-requests 2 --prompt-len 4096 --shared-prefix 4000 --slots 4
+
+The metrics / SLO / profiling flags of ``repro.launch.serve`` belong to a
+later part of the port.
 """
 
 from __future__ import annotations
@@ -63,7 +82,7 @@ import torch
 
 from repro_torch import configs, quant
 from repro_torch.core.device import resolve_device
-from repro_torch.data.synthetic import make_batch, make_request_trace
+from repro_torch.data.synthetic import make_adversarial_trace, make_batch, make_request_trace
 from repro_torch.kernels import _build
 from repro_torch.models.registry import get_model
 from repro_torch.models.transformer import cast_params
@@ -109,19 +128,33 @@ def run_synchronized(model, params, args, device: torch.device) -> torch.Tensor:
 
 
 def run_continuous(model, params, args, device: torch.device) -> dict:
-    """Serve a Poisson request trace through ContinuousScheduler; returns
-    {rid: generated tokens}."""
-    trace = make_request_trace(
-        model.cfg,
-        n_requests=args.requests,
-        mean_prompt=args.mean_prompt,
-        mean_gen=args.mean_gen,
-        rate=args.rate,
-        seed=args.seed,
-        max_prompt=args.prompt_len,
-        max_gen=args.gen,
-        device=device,
-    )
+    """Serve a request trace through ContinuousScheduler (Poisson, or with
+    ``--adversarial`` the long-prompt trace); returns {rid: generated
+    tokens}."""
+    if args.adversarial:
+        trace = make_adversarial_trace(
+            model.cfg,
+            n_short=max(1, args.requests - args.long_requests),
+            short_prompt=args.mean_prompt,
+            short_gen=args.mean_gen,
+            long_prompt=args.prompt_len,
+            n_long=args.long_requests,
+            shared_prefix=args.shared_prefix,
+            seed=args.seed,
+            device=device,
+        )
+    else:
+        trace = make_request_trace(
+            model.cfg,
+            n_requests=args.requests,
+            mean_prompt=args.mean_prompt,
+            mean_gen=args.mean_gen,
+            rate=args.rate,
+            seed=args.seed,
+            max_prompt=args.prompt_len,
+            max_gen=args.gen,
+            device=device,
+        )
     max_len = max(t["prompt"]["tokens"].shape[1] + t["max_new_tokens"] for t in trace)
     engine = ServeEngine(
         model,
@@ -136,12 +169,16 @@ def run_continuous(model, params, args, device: torch.device) -> dict:
         chunk_size=args.chunk_size,
         chunk_budget=args.chunk_budget,
         quantize_kv=args.quantize == "kv8",
+        paged=args.paged,
+        page_size=args.page_size,
+        n_pages=args.pages,
+        prefix_cache=args.prefix_cache,
     )
     results = sched.run(requests_from_trace(trace))
     s = sched.stats.summary()
     mode = f"{args.policy}+chunked" if args.chunked_prefill else args.policy
     print(
-        f"continuous[{mode}] {args.requests} requests over "
+        f"continuous[{mode}] {len(trace)} requests over "
         f"{s['ticks']} ticks ({s['idle_ticks']} idle, "
         f"{s['prefill_chunks']} prefill chunks) | "
         f"{s['tokens_out']} tokens, {s['tok_per_s']:.1f} tok/s | "
@@ -149,6 +186,14 @@ def run_continuous(model, params, args, device: torch.device) -> dict:
         f"tick latency p50 {s['p50_tick_ms']:.2f} ms / p99 {s['p99_tick_ms']:.2f} ms | "
         f"mean slot occupancy {s['mean_occupancy']:.2%}"
     )
+    if sched.paged:
+        print(
+            f"paged kv: {sched.pool.pages_in_use}/{sched.pool.n_pages} pages "
+            f"in use at drain, page size {sched.pool.page_size} | "
+            f"prefix hits {s['prefix_hits']} ({s['prefix_hit_tokens']} tokens "
+            f"of prefill skipped) | preempted {s['preempted']} | "
+            f"kv bytes live {s['kv_bytes_live']}"
+        )
     print(f"ttft p50 {s['ttft_p50_ms']:.2f} ms / p99 {s['ttft_p99_ms']:.2f} ms | "
           f"kv bytes resident {s['kv_bytes_resident']}")
     rid0 = min(results)
@@ -182,6 +227,24 @@ def main(argv: list[str] | None = None) -> torch.Tensor | dict:
     ap.add_argument("--chunk-size", type=int, default=128,
                     help="prefill chunk length (remainders bucket to powers of two)")
     ap.add_argument("--chunk-budget", type=int, default=1, help="max prefill chunks per scheduler tick")
+    ap.add_argument("--paged", action="store_true",
+                    help="paged KV cache: fixed-size pages behind a per-slot page table instead of the per-slot "
+                    "max_len stripe (continuous mode, attention families only)")
+    ap.add_argument("--page-size", type=int, default=16, metavar="ROWS", help="KV rows per page (--paged)")
+    ap.add_argument("--pages", type=int, default=None, metavar="N",
+                    help="page arena size; default slots * ceil(max_len / page_size) (undersize it to exercise "
+                    "prefix reclaim and preemption)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="radix prefix cache over --paged: requests sharing a prompt prefix attach the same "
+                    "refcounted pages and prefill only their suffix")
+    ap.add_argument("--adversarial", action="store_true",
+                    help="replace the Poisson trace with the long-prompt trace (requests - long-requests short "
+                    "requests at tick 0, long --prompt-len prompts mid-run; continuous mode only)")
+    ap.add_argument("--long-requests", type=int, default=1, metavar="N",
+                    help="--adversarial: long prompts arriving in the mid-run burst")
+    ap.add_argument("--shared-prefix", type=int, default=0, metavar="TOKENS",
+                    help="--adversarial: identical leading tokens across the long prompts (exercises "
+                    "--prefix-cache under page pressure)")
     ap.add_argument(
         "--quantize",
         choices=("none", "w8a16", "w8a8", "kv8"),

@@ -29,6 +29,11 @@ Chunked prefill round-trips a slot through ``gather_slot`` and
 the pool at their absolute offsets while ``positions[slot]`` stays -1, so a
 partially prefilled slot is invisible to decode steps under the same
 masking rule that protects freed slots.
+
+This pool reserves a full ``max_len`` stripe per slot.
+``serving.paged.PagedKVPool`` offers the same interface over fixed-size
+pages allocated as tokens land, with shared prefix pages and preemption
+(``ContinuousScheduler(paged=True)``).
 """
 
 from __future__ import annotations

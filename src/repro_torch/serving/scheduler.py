@@ -32,10 +32,19 @@ slots stay ``pos = -1`` in the pool -- masked out of the co-scheduled decode
 steps -- until their final chunk lands.  **kv8** (``quantize_kv=True``) keeps
 the resident pool in int8 (``KVPool(quantize_kv_cache=True)``).
 
+**Paged KV** (``paged=True``): the pool is a ``PagedKVPool`` -- fixed-size
+pages behind a per-slot page table, mapped on demand before every write, so
+reserved bytes follow the tokens held.  ``prefix_cache=True`` adds the radix
+prefix cache: an admitted request whose prompt shares page-aligned prefix
+pages with an earlier one maps those refcounted pages and prefills only its
+suffix (one chunk at the hit offset, or the suffix's chunks).  Under page
+pressure the scheduler reclaims idle prefix pages, then preempts the most
+recently admitted other request back to the queue front, and fails loudly
+when neither frees a page.
+
 Per-request greedy outputs equal running each request alone through
 ``ServeEngine.generate`` (fp32; ``tests/test_torch_continuous.py``,
-``tests/test_torch_chunked.py``).  The paged pool and the prefix cache
-(ROADMAP item 5) are not ported: their options raise.
+``tests/test_torch_chunked.py``, ``tests/test_torch_paged_sched.py``).
 """
 
 from __future__ import annotations
@@ -55,6 +64,7 @@ from repro_torch.obs import slo as _obs_slo
 from repro_torch.obs import trace as _obs_trace
 from repro_torch.serving.engine import ServeEngine, chunk_schedule
 from repro_torch.serving.kvpool import KVPool, clear_slots
+from repro_torch.serving.paged import PagedKVPool, PageExhausted
 
 QUEUED = "queued"
 PREFILLING = "prefilling"
@@ -160,7 +170,7 @@ class SchedulerStats:
         self._slot_occupancy = r.gauge("sched.slot_occupancy")
         self._kv_bytes = r.gauge("serve.kv_bytes_resident")
         self._prefill_chunks = r.counter("sched.prefill_chunks")
-        # paged-pool series (not ported: they stay at 0)
+        # paged-pool series (prefix reuse, preemption, page occupancy)
         self._prefix_hits = r.counter("serve.prefix_hits")
         self._prefix_hit_tokens = r.counter("serve.prefix_hit_tokens")
         self._preempted = r.counter("sched.preempted")
@@ -189,6 +199,14 @@ class SchedulerStats:
 
     def count_evicted(self) -> None:
         self._evicted.inc()
+
+    def count_prefix_hit(self, n_tokens: int) -> None:
+        """One admission mapped ``n_tokens`` of prompt onto cached pages."""
+        self._prefix_hits.inc()
+        self._prefix_hit_tokens.inc(n_tokens)
+
+    def count_preempted(self) -> None:
+        self._preempted.inc()
 
     def count_goodput(self, n_tokens: int, conformant: bool) -> None:
         """One finished request's SLO verdict (goodput = conformant tokens
@@ -361,6 +379,8 @@ class ContinuousScheduler:
         chunk_budget: int = 1,
         quantize_kv: bool = False,
         paged: bool = False,
+        page_size: int = 16,
+        n_pages: int | None = None,
         prefix_cache: bool = False,
         slo=None,
         flight_recorder=None,
@@ -371,9 +391,6 @@ class ContinuousScheduler:
             raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
         if chunk_budget < 1:
             raise ValueError(f"chunk_budget must be >= 1, got {chunk_budget}")
-        for on, what in ((paged, "the paged KV pool"), (prefix_cache, "the prefix cache")):
-            if on:
-                raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md Queue 1 item 5")
         if chunked_prefill and not engine.supports_chunked_prefill:
             warnings.warn(f"{engine.cfg.name}: frontend {engine.cfg.frontend!r} is not chunkable; "
                           "falling back to monolithic prefill")
@@ -385,6 +402,22 @@ class ContinuousScheduler:
             warnings.warn(f"{engine.cfg.name}: family {engine.cfg.family!r} has unmasked state caches; "
                           "kv8 disabled for this run")
             quantize_kv = False
+        if paged and engine.cfg.family not in ("dense", "moe", "audio", "vlm"):
+            # SSM/hybrid state tensors have no sequence axis to page (the
+            # whole state is one dense block per slot): the same gating as kv8.
+            warnings.warn(f"{engine.cfg.name}: family {engine.cfg.family!r} has state caches with no sequence "
+                          "axis; paged KV disabled for this run")
+            paged = False
+        if prefix_cache and not paged:
+            warnings.warn("prefix_cache requires the paged pool; disabled for this run")
+            prefix_cache = False
+        if prefix_cache and not engine.supports_chunked_prefill:
+            # The hit path prefills only the prompt suffix through
+            # prefill_chunk, and a vit patch prefix is not captured by
+            # token-id keys anyway.
+            warnings.warn(f"{engine.cfg.name}: frontend {engine.cfg.frontend!r} cannot prefill a prompt suffix; "
+                          "prefix cache disabled for this run")
+            prefix_cache = False
         self.engine = engine
         self.policy = policy
         self.chunked_prefill = chunked_prefill
@@ -392,8 +425,14 @@ class ContinuousScheduler:
         self.chunk_size = min(chunk_size, engine.attn_cache_len())
         self.chunk_budget = chunk_budget
         self.quantize_kv = quantize_kv
-        self.pool = KVPool(engine.model, engine.scfg.batch, engine.scfg.max_len, quantize_kv_cache=quantize_kv,
-                           device=engine.device)
+        self.paged = paged
+        if paged:
+            self.pool = PagedKVPool(engine.model, engine.scfg.batch, engine.scfg.max_len,
+                                    quantize_kv_cache=quantize_kv, page_size=page_size, n_pages=n_pages,
+                                    prefix_cache=prefix_cache, device=engine.device)
+        else:
+            self.pool = KVPool(engine.model, engine.scfg.batch, engine.scfg.max_len, quantize_kv_cache=quantize_kv,
+                               device=engine.device)
         self._slot_tok = np.zeros((self.pool.n_slots, 1), np.int32)
         self._slot_req: dict[int, Request] = {}
         self._prefilling: collections.deque[Request] = collections.deque()
@@ -403,6 +442,11 @@ class ContinuousScheduler:
         self._t0 = time.perf_counter()
         self._gang_forming = False
         self._warmed = False
+        # Set when a request is preempted under page pressure; blocks further
+        # admissions for the rest of the tick, so an admission that triggered
+        # the preemption cannot re-admit its own victim at once and ping-pong
+        # (the victim re-enters from the queue front next tick).
+        self._tick_preempted = False
         # SLO conformance + flight recorder.  ``slo`` is an ``obs.SLOSpec``;
         # ``flight_recorder`` an ``obs.FlightRecorder`` -- a public attribute,
         # so a launcher that builds the recorder from the scheduler's own
@@ -480,10 +524,83 @@ class ContinuousScheduler:
             return True
         return len(req.out) >= req.max_new_tokens
 
+    # -- page pressure (paged pool only) ---------------------------------------
+
+    def _prepare_pages(self, slot: int, start: int, end: int) -> None:
+        """``pool.prepare_write`` with the page-pressure policy.
+
+        On :class:`PageExhausted`, in order: (1) reclaim idle prefix-cache
+        pages (LRU chains whose pages no live slot maps); (2) preempt the
+        most recently admitted *other* request -- LIFO: it has the least
+        sunk prefill and decode work -- resetting it to the front of the
+        queue (greedy decoding regenerates its tokens identically on
+        re-admission; sampled runs re-draw, as any eviction does); (3) fail
+        loudly when no victim remains, which means the arena cannot hold
+        even the present request (``n_pages`` too small).
+        """
+        while True:
+            try:
+                self.pool.prepare_write(slot, start, end)
+                return
+            except PageExhausted:
+                if self.pool.reclaim_prefix_pages(1):
+                    continue
+                victim = self._preempt_victim(protect=slot)
+                if victim is None:
+                    raise RuntimeError(
+                        f"page arena exhausted: slot {slot} needs rows [{start}, {end}) and no prefix pages or "
+                        "preemptable requests remain (n_pages too small for a single request)") from None
+                self._preempt(victim)
+
+    def _preempt_victim(self, protect: int) -> Request | None:
+        """Most recently admitted live request other than ``protect``'s --
+        prefilling requests included (their landed chunks hold pages too)."""
+        cands = [r for r in self._prefilling if r.slot != protect]
+        cands += [r for s, r in self._slot_req.items() if s != protect and r.state == DECODING]
+        if not cands:
+            return None
+        return max(cands, key=lambda r: (r.admitted_tick, r.rid))
+
+    def _preempt(self, req: Request) -> None:
+        """Evict ``req`` back to the queue front and release its pages.
+        Freeing the slot is what returns the pages: exclusive pages blank and
+        rejoin the free list, shared prefix pages just drop a reference."""
+        self.stats.count_preempted()
+        self._tick_preempted = True
+        _obs_trace.instant("serve.preempt", cat="serve", rid=req.rid, slot=req.slot, tick=self.tick,
+                           n_tokens=len(req.out))
+        try:
+            self._prefilling.remove(req)
+        except ValueError:
+            pass
+        self._slot_req.pop(req.slot, None)
+        self.pool.free(req.slot)
+        req.slot = -1
+        req.state = QUEUED
+        req.out = []
+        req.chunks = []
+        req.chunk_idx = 0
+        req.staging = None
+        req.admitted_tick = -1
+        req.admitted_s = -1.0
+        req.first_token_s = -1.0
+        req.last_token_s = -1.0
+        self.queue.appendleft(req)
+
+    def _prefill_suffix(self, req: Request, hit: int):
+        """Prefix-hit monolithic prefill: the slot already maps ``hit``
+        tokens of cached prefix pages, so only the prompt suffix runs through
+        the model (one chunk at absolute offset ``hit``, emitting the
+        last-position logits).  Returns (first token, the whole batch-1 slot
+        cache to scatter back)."""
+        suffix = req.prompt["tokens"][:, hit:]
+        view = self.pool.gather_slot(req.slot)
+        return self.engine.prefill_chunk(suffix, view, hit, last=True)
+
     def _admissible(self) -> bool:
         if not self.queue or self.queue[0].arrival > self.tick:
             return False
-        if self.pool.n_free == 0:
+        if self.pool.n_free == 0 or self._tick_preempted:
             return False
         if self.policy == "gang":
             # A gang only forms on an empty pool; once slots are occupied,
@@ -512,27 +629,60 @@ class ContinuousScheduler:
             _obs_trace.instant("serve.admit", cat="serve", rid=req.rid, slot=slot, tick=self.tick,
                                queue_wait_s=round(wait, 6), prompt_len=req.prompt_len)
             self._slo_check(req, "queue_wait", wait)
+            n_pos = self.engine.prompt_positions(req.prompt)
+            # Prefix-hit fast path (paged + prefix_cache): map the shared
+            # prompt pages into the fresh slot and prefill only the suffix.
+            # Prompts longer than the attention ring are excluded -- their
+            # cache rows wrap, so row != absolute position and page keys
+            # would lie (register_prefix skips them for the same reason).
+            hit = 0
+            if self.paged and self.pool.prefix is not None and n_pos <= self.pool.seq_len:
+                hit, pids = self.pool.lookup_prefix(req.prompt["tokens"][0].cpu().numpy())
+                if hit:
+                    self.pool.attach_prefix(slot, pids)
+                    self.stats.count_prefix_hit(hit)
+                    _obs_trace.instant("serve.prefix_hit", cat="serve", rid=req.rid, slot=slot, tick=self.tick,
+                                       hit_tokens=hit, prompt_len=req.prompt_len)
             if self.chunked_prefill:
                 # PREFILLING-with-progress: the slot is claimed (pos = -1,
                 # masked out of decode) and the prompt trickles in one
-                # bucketed chunk per tick via _prefill_chunk_once.
-                req.chunks = chunk_schedule(req.prompt_len, self.chunk_size)
+                # bucketed chunk per tick via _prefill_chunk_once.  On a
+                # prefix hit only the suffix is scheduled, each chunk shifted
+                # to its absolute offset past the cached pages.
+                req.chunks = [(hit + off, length) for off, length in chunk_schedule(req.prompt_len - hit,
+                                                                                    self.chunk_size)]
                 req.chunk_idx = 0
                 self._prefilling.append(req)
                 continue
-            n_pos = self.engine.prompt_positions(req.prompt)
             t0 = time.perf_counter()
             with _obs_trace.request_scope(req.rid), _obs_trace.span(
-                "serve.prefill", rid=req.rid, prompt_len=req.prompt_len, prefix_hit=0
+                "serve.prefill", rid=req.rid, prompt_len=req.prompt_len, prefix_hit=hit
             ):
-                first, cache_one = self.engine.prefill_request(req.prompt)
+                if hit:
+                    first, cache_one = self._prefill_suffix(req, hit)
+                else:
+                    first, cache_one = self.engine.prefill_request(req.prompt)
                 tok = first.cpu().numpy()[0]  # (1,); the readback waits for the card
-                self.pool.write_prefill(slot, cache_one, n_pos)
+                if self.paged:
+                    # The hit tokens are already resident in shared pages;
+                    # the scatter rewrites them with identical bytes (the
+                    # gathered copy), so only the suffix needs fresh pages.
+                    self._prepare_pages(slot, hit, min(n_pos, self.pool.seq_len))
+                    self.pool.write_slot(slot, cache_one, next_pos=n_pos)
+                else:
+                    self.pool.write_prefill(slot, cache_one, n_pos)
             self.stats.add_prefill(time.perf_counter() - t0)
             self._start_decoding(req, tok)
 
     def _start_decoding(self, req: Request, tok: np.ndarray) -> None:
         """Prefill complete: seed the slot's token and flip to DECODING."""
+        if self.paged and self.pool.prefix is not None:
+            # Index the finished prompt's full pages so later requests
+            # sharing the prefix skip their prefill (register_prefix itself
+            # skips ring-wrapped prompts, whose rows are not at their
+            # absolute positions).
+            self.pool.register_prefix(req.slot, req.prompt["tokens"][0].cpu().numpy(),
+                                      self.engine.prompt_positions(req.prompt))
         self._slot_tok[req.slot] = tok
         self._slot_req[req.slot] = req
         req.state = DECODING
@@ -583,6 +733,17 @@ class ContinuousScheduler:
                     # holds the chunk's K/V at its absolute offset as soon as
                     # it lands; staged families write once, on the final chunk.
                     next_pos = self.engine.prompt_positions(req.prompt) if last else None
+                    if self.paged:
+                        # Map pages for the rows this chunk wrote: [off,
+                        # off + length), or the whole ring when the chunk
+                        # wrapped (its writes land mod seq_len, and the wrap
+                        # overwriting a shared prefix page is exactly the
+                        # copy-on-write trigger).
+                        end = off + length
+                        if end > self.pool.seq_len:
+                            self._prepare_pages(req.slot, 0, self.pool.seq_len)
+                        else:
+                            self._prepare_pages(req.slot, off, end)
                     self.pool.write_slot(req.slot, cache_one, next_pos)
                     req.staging = None if last else cache_one
             self.stats.add_prefill(time.perf_counter() - t0, chunk=True)
@@ -594,6 +755,17 @@ class ContinuousScheduler:
 
     def _decode_once(self) -> bool:
         """One vector-pos decode step; False when no slot was decoding."""
+        if self.paged:
+            # Map (and copy-on-write, for SWA wraps into shared pages) the one
+            # row each decoding slot writes this step.  Preparing can itself
+            # preempt under page pressure, so liveness is re-checked per slot
+            # and the active set is taken only after every surviving slot is
+            # mapped.
+            for slot in sorted(self._slot_req):
+                if slot not in self._slot_req:
+                    continue
+                idx = self.pool.decode_write_index(slot)
+                self._prepare_pages(slot, idx, idx + 1)
         active = sorted(self._slot_req)
         if not active:
             return False
@@ -651,13 +823,19 @@ class ContinuousScheduler:
         self._set_gauges()
 
     def _set_gauges(self) -> None:
+        # Both pools report {"reserved", "live"}: reserved is allocated-page
+        # bytes (paged -- follows the load) or the preallocated stripe
+        # (constant); live is written-row bytes under the masks.
         rep = self.pool.bytes_report()
         self.stats.set_gauges(len(self.queue), self.pool.occupancy(), kv_bytes=rep["reserved"],
-                              kv_bytes_live=rep["live"])
+                              kv_bytes_live=rep["live"],
+                              page_occupancy=self.pool.page_occupancy() if self.paged else None)
 
     def _warmup_impl(self) -> None:
         gen_state = self.engine._gen.get_state()  # warmup must not advance sampling
         try:
+            if self.paged:
+                self.pool.warmup()  # the page copy's first launches (COW and blanking)
             dev = self.engine.device
             tok = torch.zeros(self._slot_tok.shape, dtype=torch.int32, device=dev)
             pos = torch.full((self.pool.n_slots,), -1, dtype=torch.int32, device=dev)
@@ -707,6 +885,7 @@ class ContinuousScheduler:
         if not self._warmed:
             self.warmup()
         t0 = time.perf_counter()
+        self._tick_preempted = False
         try:
             self._admit()
             chunks_before = self.stats.prefill_chunks

@@ -43,7 +43,15 @@ from repro_torch.data.synthetic import make_prompt, make_request_trace
 from repro_torch.models.registry import get_model
 from repro_torch.obs import metrics as tmetrics
 from repro_torch.obs import trace as ttrace
-from repro_torch.serving import ContinuousScheduler, KVPool, Request, ServeConfig, ServeEngine, requests_from_trace
+from repro_torch.serving import (
+    ContinuousScheduler,
+    KVPool,
+    PagedKVPool,
+    Request,
+    ServeConfig,
+    ServeEngine,
+    requests_from_trace,
+)
 from repro_torch.serving.kvpool import _tensors, check_next_pos
 from repro_torch.serving.scheduler import DECODING, FINISHED, QUEUED
 
@@ -401,13 +409,24 @@ def test_slo_budgets_count_violations_and_dump_valid_postmortems(served, tmp_pat
         assert jslo.validate_postmortem(json.loads(open(path).read())) == []
 
 
-# -- what is not ported raises -----------------------------------------------------------
+# -- options once unported, and what raises ------------------------------------------
 
 
 @pytest.mark.parametrize("option,item", [("paged", "5"), ("prefix_cache", "5")])
 def test_unported_options_raise(served, option, item):
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        ContinuousScheduler(_engine(served, 0.0), **{option: True})
+    """ROADMAP item 5 (the paged pool and the prefix cache) is ported, so
+    neither option raises any more: ``paged`` builds the paged pool, and
+    ``prefix_cache`` alone warns that it needs the paged pool and serves
+    without it, as the reference does (tests/test_torch_paged*.py hold both
+    against JAX)."""
+    assert item == "5"
+    if option == "paged":
+        sched = ContinuousScheduler(_engine(served, 0.0), paged=True)
+        assert sched.paged and isinstance(sched.pool, PagedKVPool) and sched.pool.prefix is None
+    else:
+        with pytest.warns(UserWarning, match="requires the paged pool"):
+            sched = ContinuousScheduler(_engine(served, 0.0), prefix_cache=True)
+        assert not sched.paged and isinstance(sched.pool, KVPool)
 
 
 def test_unknown_policy_raises(served):

@@ -4,6 +4,8 @@
   module, loads neither ``jax`` nor anything of ``repro``.
 * Every entry point called without ``device="cpu"`` asks for the card and,
   on a host without one, raises instead of running on the CPU.
+* The modules the port copies whole from the JAX package behave as the
+  reference's do (``PrefixCache``, the paged pool's radix).
 """
 
 import ast
@@ -19,10 +21,10 @@ import torch
 
 from repro_torch import configs
 from repro_torch.convert import params_from_jax
-from repro_torch.data.synthetic import make_adversarial_trace, make_batch, make_request_trace
+from repro_torch.data.synthetic import make_adversarial_trace, make_batch, make_request_trace, make_shared_prefix_trace
 from repro_torch.launch import serve
 from repro_torch.models.registry import get_model
-from repro_torch.serving import KVPool, ServeConfig, ServeEngine
+from repro_torch.serving import KVPool, PagedKVPool, PrefixCache, ServeConfig, ServeEngine
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
@@ -53,7 +55,8 @@ def test_port_and_chip_smoke_import_no_jax_or_repro():
     assert {"repro_torch.models.moe", "repro_torch.kernels.grouped.kernel", "repro_torch.kernels.grouped.ops",
             "repro_torch.kernels.grouped.ref"} <= set(res["modules"])
     assert {"repro_torch.obs.metrics", "repro_torch.obs.trace", "repro_torch.obs.slo", "repro_torch.obs.attribution",
-            "repro_torch.obs.profile", "repro_torch.serving.scheduler"} <= set(res["modules"])
+            "repro_torch.obs.profile", "repro_torch.serving.scheduler",
+            "repro_torch.serving.paged"} <= set(res["modules"])
     assert res["bad"] == []
 
 
@@ -116,6 +119,11 @@ ENTRY_POINTS = {
     ),
     "launch.serve --continuous --chunked-prefill --quantize kv8": lambda: serve.main(
         ["--arch", "internlm2-1.8b", "--smoke", "--continuous", "--chunked-prefill", "--quantize", "kv8"]
+    ),
+    "PagedKVPool": lambda: PagedKVPool(get_model(_cfg()), 2, 8),
+    "make_shared_prefix_trace": lambda: make_shared_prefix_trace(_cfg(), n_requests=2, prefix_len=4),
+    "launch.serve --continuous --paged --prefix-cache": lambda: serve.main(
+        ["--arch", "internlm2-1.8b", "--smoke", "--continuous", "--paged", "--prefix-cache"]
     ),
 }
 
@@ -206,6 +214,61 @@ def test_continuous_launcher_runs_on_cpu_when_asked(capsys, mode):
     assert sorted(out) == list(range(5)) and all(1 <= len(t) <= 6 for t in out.values())
     printed = capsys.readouterr().out
     assert "continuous[continuous] 5 requests over " in printed and "mean slot occupancy" in printed
+
+
+@pytest.mark.parametrize("extra", [[], ["--chunked-prefill", "--chunk-size", "4"], ["--quantize", "kv8"]])
+def test_paged_launcher_runs_on_cpu_when_asked(capsys, extra):
+    """``--continuous --paged --prefix-cache`` serves and prints the paged
+    summary; the adversarial trace with a shared prefix over an undersized
+    arena reclaims and preempts, and every request still gets its tokens."""
+    out = serve.main(["--arch", "internlm2-1.8b", "--smoke", "--device", "cpu", "--continuous", "--paged",
+                      "--page-size", "8", "--prefix-cache", "--requests", "5", "--slots", "2", "--mean-prompt", "6",
+                      "--mean-gen", "4", "--prompt-len", "12", "--gen", "6", *extra])
+    assert sorted(out) == list(range(5)) and all(1 <= len(t) <= 6 for t in out.values())
+    printed = capsys.readouterr().out
+    assert "continuous[" in printed and "paged kv: " in printed and "page size 8" in printed
+    out = serve.main(["--arch", "internlm2-1.8b", "--smoke", "--device", "cpu", "--continuous", "--paged",
+                      "--page-size", "8", "--pages", "10", "--prefix-cache", "--adversarial", "--requests", "5",
+                      "--long-requests", "2", "--prompt-len", "28", "--shared-prefix", "8", "--mean-prompt", "6",
+                      "--mean-gen", "20", "--slots", "4", *extra])
+    assert sorted(out) == list(range(5)) and [len(out[r]) for r in range(5)] == [20, 20, 20, 4, 4]
+    paged_line = next(line for line in capsys.readouterr().out.splitlines() if line.startswith("paged kv: "))
+    assert "/10 pages in use at drain" in paged_line
+    preempted = int(paged_line.split("preempted ")[1].split()[0])
+    assert preempted > 0
+
+
+def test_prefix_cache_is_the_reference_copy():
+    """The same seeded lookups, inserts and chain evictions on the port's
+    ``PrefixCache`` and the reference's: the same answers and the same state
+    (keys, pages, LRU stamps, hit and miss counts) after every operation."""
+    from repro.serving.paged import PrefixCache as JaxPrefixCache
+
+    rng = np.random.default_rng(5)
+    page = 4
+    ours, theirs = PrefixCache(page), JaxPrefixCache(page)
+    stems = rng.integers(0, 3, (2, 40)).astype(np.int32)
+    evicted = 0
+    for step in range(400):
+        toks = stems[int(rng.integers(2))][: int(rng.integers(1, 40))].copy()
+        if rng.random() < 0.3:  # a tail that leaves the stem
+            cut = int(rng.integers(len(toks)))
+            toks[cut:] = rng.integers(0, 3, len(toks) - cut)
+        op = int(rng.integers(3))
+        if op == 0:
+            assert ours.lookup(toks) == theirs.lookup(toks), step
+        elif op == 1:
+            j, pid = int(rng.integers(0, max(1, len(toks) // page))), int(rng.integers(100))
+            assert ours.insert(toks, j, pid) == theirs.insert(toks, j, pid), step
+        elif ours._stamp:
+            key = sorted(ours._stamp)[int(rng.integers(len(ours._stamp)))]
+            pids = ours.evict_chain(key)
+            assert pids == theirs.evict_chain(key), step
+            evicted += len(pids)
+        assert ours._pages == theirs._pages and ours._stamp == theirs._stamp and ours._clock == theirs._clock, step
+        assert (ours.hits, ours.misses, len(ours), ours.pids()) == (theirs.hits, theirs.misses, len(theirs),
+                                                                    theirs.pids()), step
+    assert ours.hits > 0 and ours.misses > 0 and evicted > 0
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -727,3 +727,84 @@ def test_kv8_pool_on_the_card_holds_int8(cuda):
     assert KVPool(model, 8, 411, device=cuda).bytes_resident() == 323_539_200
     layer = pool.cache["layers"][0]
     assert layer["k"].dtype == torch.bfloat16 and layer["k"].device.type == "cuda" and (layer["pos"] == -1).all()
+
+
+# -- the paged KV pool on the card --------------------------------------------------------
+# The page gather, scatter and copy-on-write are index copies: on the card
+# they must move the same bits as on the CPU, duplicate indices (the null
+# page, shared prefix pages) included; and a paged serving run gives the
+# slot pool's tokens.
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,kv8", [("internlm2-1.8b", False), ("minicpm3-4b", False), ("internlm2-1.8b", True)])
+def test_paged_pool_on_the_card_equals_the_cpu(cuda, arch, kv8):
+    from repro_torch import configs
+    from repro_torch.models.registry import get_model
+    from repro_torch.serving.paged import PagedKVPool
+
+    model = get_model(configs.get_smoke(arch))
+    pools = [PagedKVPool(model, 3, 30, quantize_kv_cache=kv8, page_size=8, n_pages=10, prefix_cache=True,
+                         device=dev) for dev in ("cpu", cuda)]
+    tokens = np.arange(24, dtype=np.int32)
+    for step, pool in enumerate(pools):
+        a = pool.alloc()
+        pool.prepare_write(a, 0, 20)
+        view = pool.gather_slot(a)
+        for i, layer in enumerate(view["layers"]):
+            for name, t in layer.items():
+                if name == "pos":
+                    t[0, :20] = torch.arange(20, dtype=torch.int32)
+                else:
+                    t[0, :20] = _rand((20, *t.shape[2:]), 60 + i).to(t.dtype)
+        pool.write_slot(a, view, next_pos=20)
+        pool.register_prefix(a, tokens, 20)
+        hit, pids = pool.lookup_prefix(tokens)
+        assert hit == 16
+        b = pool.alloc()
+        pool.attach_prefix(b, pids)
+        pool.prepare_write(b, 12, 22)  # copy-on-write of the shared second page
+        cache = pool.cache  # both slots, the null page behind the unmapped rows
+        for i, layer in enumerate(cache["layers"]):
+            for name, t in layer.items():
+                if name == "pos":
+                    t[b, 12:22] = torch.arange(12, 22, dtype=torch.int32)
+                else:
+                    t[b, 12:22] = _rand((10, *t.shape[2:]), 70 + i).to(t.dtype)
+        pool.cache = cache
+        pool.positions[b] = 22
+        assert pool.validate() == []
+    cpu, card = pools
+    for got, want in zip(card.cache["layers"], cpu.cache["layers"]):
+        for name in got:
+            assert torch.equal(got[name].cpu(), want[name]), name
+    for got, want in zip(card._resident()["layers"], cpu._resident()["layers"]):
+        for name, t in got.items():
+            parts = t.items() if isinstance(t, dict) else [("", t)]
+            for part, x in parts:
+                assert torch.equal(x.cpu(), (want[name][part] if part else want[name])), (name, part)
+                assert (x[-1] == (-1 if name == "pos" else 1 if part == "qs" else 0)).all()  # the null page
+
+
+@pytest.mark.gpu
+def test_paged_serving_on_the_card_gives_the_slot_pools_tokens(cuda):
+    from repro_torch import configs
+    from repro_torch.data.synthetic import make_shared_prefix_trace
+    from repro_torch.models.registry import get_model
+    from repro_torch.serving import ContinuousScheduler, ServeConfig, ServeEngine, requests_from_trace
+
+    model = get_model(configs.get_smoke("internlm2-1.8b"))
+    params = model.init(0, cuda)
+    engine = ServeEngine(model, params, ServeConfig(max_len=48, batch=3), device=cuda)
+    trace = make_shared_prefix_trace(model.cfg, n_requests=6, prefix_len=33, suffix_len=5, gen=10, n_groups=2,
+                                     rate=0.8, seed=3, device=cuda)
+    want = ContinuousScheduler(engine).run(requests_from_trace(trace))
+    sched = ContinuousScheduler(engine, paged=True, page_size=8)
+    got = sched.run(requests_from_trace(trace))
+    assert sched.pool.validate() == [] and sched.pool.pages_in_use == 0
+    for rid in want:
+        np.testing.assert_array_equal(got[rid], want[rid])
+    prefix = ContinuousScheduler(engine, paged=True, page_size=8, prefix_cache=True)
+    hit = prefix.run(requests_from_trace(trace))
+    assert prefix.stats.summary()["prefix_hits"] >= 1 and prefix.pool.validate() == []
+    assert all(len(hit[rid]) == len(want[rid]) for rid in want)
