@@ -18,7 +18,11 @@ Phases, each printing its own lines; any failure exits non-zero:
      w8a8 serves them, also over scale blocks of 256, 128, 64, 32, 16 and
      whole-K; the grouped
      GEMM at capacities 8, 100, 160 and 200 with each expert's token rows
-     empty, partial, full or as a decode step routes them);
+     empty, partial, full or as a decode step routes them; the systolic GEMM
+     at the recurrent families' projections -- N = 8 and fp32 out (mLSTM's
+     gates), N = 14576 (Mamba2's in_proj), K = 7168 (its out_proj) -- at M
+     = 1, 4, 8, 1000 and 2048 and in fp32 at M = 512; flash attention at
+     zamba2's 32 / 32 heads of 112);
   3. full-width internlm2-1.8b in bf16 (random weights from a seed) served
      through ServeEngine: batch 4, prompt 512, 32 greedy tokens, with the
      kernels' launch counts checked exactly, in all and per GEMM shape, every
@@ -83,7 +87,18 @@ Phases, each printing its own lines; any failure exits non-zero:
      monolithically, in chunks of 128 and over the paged latent pool (its
      tokens and logits bit-identical to the monolithic run's), with its
      latent pool's resident bytes exact, and its SMOKE config in fp32
-     against the CPU path; every
+     against the CPU path; full-width xlstm-125m (SSM: mLSTM + sLSTM) and
+     zamba2-7b (hybrid: Mamba2 + one shared attention block, 5.89 B
+     parameters) in bf16 with their fp32 leaves kept fp32, each served
+     through ServeEngine (batch 4, prompt 512 -- a prefill of 512 decode
+     steps, as the reference scans them -- and 32 tokens) with exact K1
+     launches per shape (60 and 217 a step, all at M = 4 on the decode tile)
+     and no flash launch, kernel vs plain on a 4 x 64-token prompt, two
+     prefills bit-identical, fp32 forward (chunked mLSTM / SSD, K1 at M =
+     512, flash at D = 112) against fp32 prefill on one 512-token row, and
+     the SMOKE config in fp32 against the CPU path; xlstm-125m also served
+     continuously on the same trace, monolithic and in chunks of 128 (the
+     staged path), its state pool's resident bytes exact; every
      path's prefill twice, bit-identical; each phase's wall;
   4. each kernel timed at the served paths' shapes (CUDA events) beside its
      bound, its plain version and one PyTorch library call (a yardstick the
@@ -93,7 +108,8 @@ Phases, each printing its own lines; any failure exits non-zero:
      grouped GEMM at all rows and with the rows the MoE model's routing gave
      in phase 3, each with its own bound; flash attention in each model's
      layout, K/V at its KV heads (batch 1 up to S 8192 for the continuous
-     and long-prompt runs); the chunked path's plain chunk attention (no
+     and long-prompt runs; zamba2's D = 112, which no served path launches);
+     the chunked path's plain chunk attention (no
      kernel) beside SDPA, also a prefix hit's; the paged pool's gather and
      scatter at the paged arms' arena beside their bound; one JSON line lists
      the kernels, each shape's time
@@ -151,7 +167,8 @@ from repro_torch.launch.serve import init_params  # noqa: E402
 from repro_torch.models import attention as attn_model  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
-from repro_torch.models.transformer import cast_params  # noqa: E402
+from repro_torch.models.layers import FP32_KEYS  # noqa: E402
+from repro_torch.models.transformer import cast_params, hybrid_counts, xlstm_counts  # noqa: E402
 from repro_torch.obs import trace as obs_trace  # noqa: E402
 from repro_torch.serving import ContinuousScheduler, KVPool, ServeConfig, ServeEngine, requests_from_trace  # noqa: E402
 from repro_torch.serving.engine import chunk_schedule  # noqa: E402
@@ -224,6 +241,19 @@ MLA_CONT_BYTES = 8 * 411 * 62 * (2 * (256 + 32) + 4)
 # ... and over the paged latent pool, pages of 16 rows: 26 a slot hold 416
 # rows, of which the gather keeps 411; one page is 575,360 bytes.
 MLA_PAGE_BYTES = PAGE_SIZE * 62 * (2 * (256 + 32) + 4)
+# The recurrent families: xlstm-125m (SSM: groups of one mLSTM and one sLSTM)
+# and zamba2-7b (hybrid: Mamba2 layers and one shared attention + SwiGLU
+# block applied every 6 of them).  Both prefill, as the reference does, by a
+# loop of decode steps over the prompt, so every served GEMM is a decode
+# step's.  Their kernel-vs-plain check runs a 4 x 64-token prompt (the plain
+# path repeats every step); ``forward`` (the parallel path: chunked mLSTM /
+# SSD, K1 at M = 512, zamba2's flash attention at D = 112) is held against
+# ``prefill`` on one 512-token row in fp32; xlstm-125m is also served
+# continuously on the continuous trace, monolithic and in chunks of 128.
+SSM_ARCH, HYBRID_ARCH = "xlstm-125m", "zamba2-7b"
+RECURRENT = ("ssm", "hybrid")
+RECURRENT_CHECK_PROMPT = 64
+SSM_CHUNK = 128
 BF16 = torch.bfloat16
 # Tolerances (|got - want| <= atol + rtol * |want|), with their reasons:
 GEMM_TOL_BF16 = (2e-2, 2e-2)  # one bf16 ulp where kernel and plain round the fp32 sum
@@ -231,6 +261,11 @@ GEMM_RTOL_FP32 = 1e-5  # fp32 atol is 1e-5 * sqrt(K): summation order, growing w
 ATTN_TOL = {BF16: 3e-2, torch.float32: 2e-4}  # P rounded to bf16 / online vs direct softmax
 LOGITS_TOL_BF16 = 5e-2  # of the largest logit: bf16 activations rounded at other points
 LOGITS_TOL_FP32 = 1e-4  # fp32 SMOKE model, card vs CPU: summation order only
+# fp32 forward (parallel: chunked mLSTM / SSD, flash attention) vs fp32
+# prefill (the recurrence, one token at a time) at full width, of the
+# largest logit: two algorithms whose fp32 sums run in other orders over 512
+# positions and up to 81 layers.
+FORWARD_TOL_FP32 = 1e-2
 # Block-scaled GEMM vs its dequantize-then-fp32 plain version: atol 1e-5 x
 # (max|sum| + 1), the reference's own (same quantized values, other fp32
 # order; the activations are <= 1.1-Lipschitz), plus one bf16 ulp (2^-7
@@ -339,6 +374,66 @@ def expert_gemms(cfg) -> collections.Counter:
 def gemm_out_dtype(cfg, k: int, n: int) -> torch.dtype:
     """The router writes fp32 logits; every other projection the compute dtype."""
     return torch.float32 if cfg.moe is not None and (k, n) == (cfg.d_model, cfg.moe.n_experts) else BF16
+
+
+def recurrent_gemms(cfg) -> list[tuple[int, int, torch.dtype, int]]:
+    """(K, N, output dtype, launches per decode step) of a recurrent model's
+    projections: per mLSTM layer w_up, wq / wk / wv, w_if (fp32 gates) and
+    w_down; per sLSTM layer w_x (fp32 pre-activations) and its SwiGLU's gate
+    and up, then down; per Mamba2 layer in_proj and out_proj; per
+    application of the hybrid's shared block its attention and SwiGLU
+    projections.  ``forward`` launches each once per layer at M = B x S."""
+    d, s = cfg.d_model, cfg.ssm
+    di = s.expand * d
+    if cfg.family == "ssm":
+        n_groups, n_m = xlstm_counts(cfg)
+        nm, d_up = n_groups * n_m, int(4 * d / 3 / 8) * 8 or 8
+        return [(d, 2 * di, BF16, nm), (di, di, BF16, 3 * nm), (di, 2 * cfg.n_heads, torch.float32, nm),
+                (di, d, BF16, nm), (d, 4 * d, torch.float32, n_groups), (d, d_up, BF16, 2 * n_groups),
+                (d_up, d, BF16, n_groups)]
+    n_mamba, n_apps, _ = hybrid_counts(cfg)
+    nh, gn = di // s.head_dim, s.n_groups * s.state_size
+    return [(d, 2 * di + 2 * gn + nh, BF16, n_mamba), (di, d, BF16, n_mamba),
+            *[(k, n, BF16, c * n_apps) for (k, n), c in projections(cfg).items()]]
+
+
+def recurrent_projections(cfg) -> collections.Counter:
+    """(K, N) -> K1 launches per decode step of a recurrent model (xlstm-125m:
+    60, zamba2-7b: 217)."""
+    c = collections.Counter()
+    for k, n, _, per_step in recurrent_gemms(cfg):
+        c[(k, n)] += per_step
+    return c
+
+
+def timed_out_dtype(k: int, n: int) -> torch.dtype:
+    """The output dtype phase 4 times a served (K, N) at: fp32 where every
+    served launch at that shape writes fp32 (the MoE router, mLSTM's gates),
+    else bf16 (xlstm's w_x writes fp32 at the shape of w_up, which writes
+    bf16)."""
+    outs = set()
+    for arch in (ARCH, MOE_ARCH, MLA_ARCH, SSM_ARCH, HYBRID_ARCH):
+        cfg = configs.get_config(arch)
+        if cfg.family in RECURRENT:
+            outs |= {out for kk, nn, out, _ in recurrent_gemms(cfg) if (kk, nn) == (k, n)}
+        elif (k, n) in projections(cfg):
+            outs.add(gemm_out_dtype(cfg, k, n))
+    return torch.float32 if outs == {torch.float32} else BF16
+
+
+def state_bytes(cfg, slots: int) -> int:
+    """Bytes of a recurrent model's decode state for ``slots`` slots, from
+    its leaves (no sequence axis, so independent of max_len): per mLSTM
+    layer fp32 C (H, hd, hd), n (H, hd) and m (H) and the bf16 conv window
+    (K - 1, d_inner); per sLSTM layer fp32 c, n, m and h (d each)."""
+    if cfg.family != "ssm":
+        raise ValueError("state_bytes covers the SSM family's state")
+    n_groups, n_m = xlstm_counts(cfg)
+    di = cfg.ssm.expand * cfg.d_model
+    h, hd = cfg.n_heads, di // cfg.n_heads
+    mlstm = 4 * (h * hd * hd + h * hd + h) + 2 * (cfg.ssm.conv_kernel - 1) * di
+    slstm = 4 * 4 * cfg.d_model
+    return slots * (n_groups * n_m * mlstm + n_groups * slstm)
 
 
 failures: list[str] = []
@@ -521,6 +616,18 @@ def _leaves(tree):
         yield tree
 
 
+def _keyed_leaves(tree, key=None):
+    """(dict key, leaf) of every leaf; a list's items keep the key above them."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _keyed_leaves(v, k)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _keyed_leaves(v, key)
+    else:
+        yield key, tree
+
+
 def _tree(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree(fn, v) for k, v in tree.items()}
@@ -597,8 +704,13 @@ def phase_device() -> dict:
 # ---------------------------------------------------------------------------
 
 
-def check_gemm(m, k, n, dtype, gen, *, bias=False, act="none", out_dtype=None) -> float:
+def check_gemm(m, k, n, dtype, gen, *, bias=False, act="none", out_dtype=None, model_weights=False) -> float:
+    """K1 against its plain version on N(0, 1) operands; ``model_weights``
+    draws B as the models draw their weights (N(0, 1) x K^-0.5,
+    ``layers._dense_init``), so the outputs are O(1), as the model's are."""
     a, b = randn((m, k), gen, dtype), randn((k, n), gen, dtype)
+    if model_weights:
+        b = (b.float() * k**-0.5).to(dtype)
     bv = randn((n,), gen, torch.float32) if bias else None
     before = collections.Counter(mm_kernel.launches_by_path)
     got = mm_ops.matmul(a, b, bv, activation=act, out_dtype=out_dtype)
@@ -755,6 +867,19 @@ def phase_kernels() -> dict:
     for m, n, k in ((2000, 8184, 2040), (1000, 2040, 1000), (300, 264, 200), (17, 8, 8)):
         for act in ACTIVATIONS:
             check_gemm(m, k, n, BF16, gen, bias=True, act=act, out_dtype=torch.float32 if act == "gelu" else None)
+    # The recurrent families' projections: M = 1 (the continuous run's batch-1
+    # prefill steps), 4 (every served step of the synchronized batch), 8 (the
+    # continuous decode over 8 slots), 2048 (forward over 4 x 512: the wgmma
+    # tiles; N = 8 on a 64x128 tile) and a ragged 1000, fp32 out where the
+    # model asks for it (mLSTM's gates, sLSTM's pre-activations); and in fp32
+    # at M = 512, the fp32 forward's rows, the weights at the model's scale:
+    # with N(0, 1) weights the outputs grow as sqrt(K) and so does each
+    # partial sum's rounding, past atol 1e-5 x sqrt(K) at K = 14336.
+    for arch in (SSM_ARCH, HYBRID_ARCH):
+        for k, n, out, _ in recurrent_gemms(configs.get_config(arch)):
+            for m in (1, BATCH, CONT_SLOTS, 1000, BATCH * PROMPT):
+                mm_err = max(mm_err, check_gemm(m, k, n, BF16, gen, out_dtype=out))
+            check_gemm(PROMPT, k, n, torch.float32, gen, model_weights=True)
     q_err = 0.0
     for qd in quant.QDTYPES:
         for m in (4, BATCH * PROMPT):
@@ -789,7 +914,11 @@ def phase_kernels() -> dict:
     cfg = configs.get_config(ARCH)
     for s in (*cont_lens, LONG_TRACE["short_prompt"], LONG_TRACE["long_prompt"], PAGED_PROMPT):  # batch-1 prefills
         attn_err = max(attn_err, check_flash(1, cfg.n_heads, s, cfg.resolved_head_dim, BF16, gen, hkv=cfg.n_kv_heads))
-    for d in (16, 64, 120, 128):  # head dims of the zoo (120: h2o-danube3; 16 and 64: SMOKE configs)
+    hyb = configs.get_config(HYBRID_ARCH)  # zamba2's shared attention: 32/32 heads of 112
+    for b, dt in ((1, BF16), (BATCH, BF16), (1, torch.float32)):  # forward's row (bf16, fp32) and a batch
+        attn_err = max(attn_err, check_flash(b, hyb.n_heads, PROMPT, hyb.resolved_head_dim, dt, gen,
+                                             hkv=hyb.n_kv_heads))
+    for d in (16, 64, 112, 120, 128):  # head dims of the zoo (112: zamba2; 120: h2o-danube3; 16, 64: SMOKE)
         for hkv in (8, 4, 1):  # 1, 2 and 8 query heads per KV head
             for layout in ("bshd", "bhsd", "sliced"):
                 check_flash(2, 8, 200, d, BF16, gen, hkv=hkv, layout=layout)
@@ -836,9 +965,15 @@ def launches_at(cfg, gemm: str, tokens: int, steps: int, prefill: bool,
     kernel; MLA's wkv_b on the fp kernel over ``kv_rows`` rows (a prefill's
     own tokens; a chunk's whole cache; none at decode); every expert GEMM on
     the grouped kernel at the dispatch capacity; flash attention once per
-    layer in a monolithic GQA prefill only (MLA's attention is plain)."""
+    layer in a monolithic GQA prefill only (MLA's attention is plain).  A
+    recurrent model's pass is a decode step (its prefill scans them): its
+    projections at M = ``tokens``, ``steps`` times, and no flash launch."""
     n_layers = cfg.n_layers
     shapes = {"systolic_mmm": {}, "systolic_qmm": {}, "grouped_mmm": {}}
+    if cfg.family in RECURRENT:
+        shapes[gemm] = {(tokens, k, n): c * steps for (k, n), c in recurrent_projections(cfg).items()}
+        total = {name: sum(by.values()) for name, by in shapes.items()}
+        return {**total, "flash_attn": 0}, shapes
     for (k, n), mult in projections(cfg).items():
         shapes["systolic_mmm" if stays_wide(cfg, k, n) else gemm][(tokens, k, n)] = mult * n_layers * steps
     kv_rows = tokens if prefill else kv_rows
@@ -1083,7 +1218,8 @@ def continuous_expected(cfg, prompt_lens: list, decode_steps: int, slots: int | 
     expands) and warmup runs one dummy chunk per distinct length.
     ``hits``: the suffix lengths of the admissions that hit the prefix cache
     (``prompt_lens`` then lists the others), each prefilled as one chunk at
-    M = its suffix, with no flash attention."""
+    M = its suffix, with no flash attention.  A recurrent model prefills a
+    prompt, a chunk or a hit's suffix of p tokens as p decode steps at M = 1."""
     warm = prompt_lens if warmup_lens is None else warmup_lens
     if chunk is None:
         pieces, warm_pieces = list(prompt_lens), set(warm)
@@ -1091,9 +1227,14 @@ def continuous_expected(cfg, prompt_lens: list, decode_steps: int, slots: int | 
         pieces = [length for p in prompt_lens for _, length in chunk_schedule(p, chunk)]
         warm_pieces = {length for p in warm for _, length in chunk_schedule(p, chunk)}
     prefills = collections.Counter(pieces) + collections.Counter(warm_pieces)
-    runs = [launches_at(cfg, "systolic_mmm", m, c, chunk is None, kv_rows=max_len) for m, c in prefills.items()]
-    runs += [launches_at(cfg, "systolic_mmm", m, c, False, kv_rows=max_len)
-             for m, c in collections.Counter(hits).items()]
+    recurrent = cfg.family in RECURRENT
+    if recurrent:
+        steps = sum(m * c for m, c in prefills.items()) + sum(hits)
+        runs = [launches_at(cfg, "systolic_mmm", 1, steps, True)]
+    else:
+        runs = [launches_at(cfg, "systolic_mmm", m, c, chunk is None, kv_rows=max_len) for m, c in prefills.items()]
+        runs += [launches_at(cfg, "systolic_mmm", m, c, False, kv_rows=max_len)
+                 for m, c in collections.Counter(hits).items()]
     runs.append(launches_at(cfg, "systolic_mmm", slots or CONT_SLOTS, decode_steps + 1, False))
     total, shapes = collections.Counter(), {"systolic_mmm": {}, "systolic_qmm": {}, "grouped_mmm": {}}
     for t, by in runs:
@@ -1102,7 +1243,7 @@ def continuous_expected(cfg, prompt_lens: list, decode_steps: int, slots: int | 
             for key, c in sh.items():
                 shapes[name][key] = shapes[name].get(key, 0) + c
     total = {name: total[name] for name in KERNELS}
-    if chunk is not None:
+    if chunk is not None or recurrent:
         return total, shapes, expected_routes(cfg, shapes, 0), {}
     flash = {(1, m, m): cfg.n_layers * c for m, c in prefills.items()} if cfg.attention != "mla" else {}
     return total, shapes, expected_routes(cfg, shapes, sum(prefills.values())), flash
@@ -1924,6 +2065,198 @@ def phase_serve_moe() -> tuple[dict, dict]:
     return out, w8
 
 
+def serve_recurrent(model, params, batch) -> dict:
+    """Serve one synchronized batch of a recurrent model through ServeEngine
+    (BATCH x PROMPT, GEN greedy tokens), the counts set to 0 just before the
+    prefill and the decode and read just after: the prefill is PROMPT decode
+    steps, so every K1 launch is at M = BATCH on the decode tile, per shape
+    ``recurrent_projections`` x steps, and no flash launch.  The model's
+    prefill is wrapped here, in the script, to keep the served logits.  Then
+    the kernel path against the plain path on the batch's first
+    RECURRENT_CHECK_PROMPT tokens (last logits, and two decode steps from one
+    cache), and a second kernel-path prefill against the first, bit for bit."""
+    cfg = model.cfg
+    label = cfg.name
+    served = []
+
+    def prefill(p, b, max_len):
+        logits, cache = model.prefill(p, b, max_len=max_len)
+        served.append(logits.clone())
+        return logits, cache
+
+    engine = ServeEngine(dataclasses.replace(model, prefill=prefill), params,
+                         ServeConfig(max_len=PROMPT + GEN, batch=BATCH), device="cuda")
+    # Warm-up: library handles and every kernel's first launch (not counted).
+    # A prefill is decode steps at M = BATCH whatever its length, so 4 tokens do.
+    engine.generate({"tokens": batch["tokens"][:, :4].contiguous()}, 2)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    first = engine.prefill(batch)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    pf = (counts(), shape_counts(), route_counts())
+    reset_counts()
+    t0 = time.perf_counter()
+    rest = engine.decode(first, GEN - 1)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    dec = (counts(), shape_counts(), route_counts())
+    tokens = torch.cat([first, rest], dim=1)
+    per_step = sum(recurrent_projections(cfg).values())
+    say(f"    {label}: prefill {BATCH}x{PROMPT} ({PROMPT} decode steps) {t_prefill * 1e3:.3f} ms "
+        f"({t_prefill / PROMPT * 1e3:.3f} ms a step); decode {t_decode / (GEN - 1) * 1e3:.3f} ms/step, "
+        f"{BATCH * (GEN - 1) / t_decode:.1f} tok/s over {GEN - 1} steps; {per_step} K1 launches a step")
+    for phase, (got_c, got_s, got_r), steps in (("prefill", pf, PROMPT), ("decode", dec, GEN - 1)):
+        want_c, want_s = launches_at(cfg, "systolic_mmm", BATCH, steps, phase == "prefill")
+        expect(got_c == want_c, f"{label} {phase} launches over {steps} steps: {got_c}, want {want_c} "
+                                f"({per_step} a step, no flash)")
+        for name, by in got_s.items():
+            expect(by == want_s[name], f"{label} {phase} {name} launches by shape: {sorted(by.items())}")
+        want_r = expected_routes(cfg, want_s, 0)
+        for key in got_r:
+            expect(got_r[key] == want_r[key], f"{label} {phase} {key}: {got_r[key]}, want {want_r[key]}")
+    expect(tuple(tokens.shape) == (BATCH, GEN) and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+           f"{label} tokens {tuple(tokens.shape)} in [0, {cfg.vocab_size}): {tokens[0, :12].tolist()}")
+    expect(bool(torch.isfinite(served[-1]).all()), f"{label} served prefill logits finite")
+
+    small = {"tokens": batch["tokens"][:, :RECURRENT_CHECK_PROMPT].contiguous()}
+    max_len = RECURRENT_CHECK_PROMPT + 2
+    with torch.no_grad():
+        reset_counts()
+        got, cache_k = model.prefill(params, small, max_len=max_len)
+        again, _ = model.prefill(params, small, max_len=max_len)
+        expect(torch.equal(got, again), f"{label} two kernel-path prefills give bit-identical logits")
+        del again
+        kernel_counts = counts()
+        with plain_versions():
+            want_l, _ = model.prefill(params, small, max_len=max_len)
+        plain_counts = {k: c - kernel_counts[k] for k, c in counts().items()}
+        expect(not any(plain_counts.values()), f"{label} plain-path prefill launched no kernel ({plain_counts})")
+        err, scale = compare_logits(f"{label} prefill ({BATCH}x{RECURRENT_CHECK_PROMPT})", got, want_l,
+                                    LOGITS_TOL_BF16)
+        cache_p = _tree(torch.clone, cache_k)
+        tok, dec_err = got.argmax(-1).to(torch.int32), 0.0
+        for step in range(2):
+            lk, cache_k = model.decode_step(params, tok, cache=cache_k, pos=RECURRENT_CHECK_PROMPT + step)
+            n0 = counts()
+            with plain_versions():
+                lp, cache_p = model.decode_step(params, tok, cache=cache_p, pos=RECURRENT_CHECK_PROMPT + step)
+            expect(counts() == n0, f"{label} plain-path decode step {step} launched no kernel")
+            dec_err = max(dec_err, compare_logits(f"{label} decode step {step}", lk, lp, LOGITS_TOL_BF16)[0])
+            tok = lk.argmax(-1).to(torch.int32)
+    del engine, cache_k, cache_p
+    return {
+        "prefill_ms": t_prefill * 1e3, "prefill_ms_per_step": t_prefill / PROMPT * 1e3,
+        "decode_ms_per_step": t_decode / (GEN - 1) * 1e3, "decode_tok_s": BATCH * (GEN - 1) / t_decode,
+        "k1_launches_per_step": per_step, "prefill_launches": pf[0], "decode_launches": dec[0],
+        "prefill_shapes": listed(pf[1]), "decode_shapes": listed(dec[1]),
+        "logits_max_abs_err": err, "logits_scale": scale, "decode_logits_max_abs_err": dec_err,
+        "served_prefill_logits": served[-1],
+    }
+
+
+def forward_vs_prefill(model, masters, params, batch, served_logits) -> dict:
+    """``forward`` (the parallel path: chunked mLSTM / SSD, zamba2's shared
+    attention on the flash kernel at D = 112) against ``prefill`` (the
+    recurrence) on the batch's first row, in fp32 at full width (the fp32
+    masters): forward's launches exact (K1 once per projection and layer at
+    M = PROMPT, flash once per application of the shared block), its last
+    logits within FORWARD_TOL_FP32 of the largest.  The bf16 forward on the
+    same row beside the served bf16 prefill's row 0 is printed for
+    information."""
+    cfg = model.cfg
+    model32 = get_model(dataclasses.replace(cfg, dtype="float32"))
+    row = {"tokens": batch["tokens"][:1].contiguous()}
+    n_apps = hybrid_counts(cfg)[1] if cfg.family == "hybrid" else 0
+    with torch.no_grad():
+        reset_counts()
+        t0 = time.perf_counter()
+        f32 = model32.forward(masters, row)[:, -1:]
+        torch.cuda.synchronize()
+        t_fwd = time.perf_counter() - t0
+        got_c, got_s, got_f = counts(), shape_counts(), flash_shape_counts()
+        want_c, want_s = launches_at(cfg, "systolic_mmm", PROMPT, 1, False)
+        want_c["flash_attn"] = n_apps
+        expect(got_c == want_c and got_s["systolic_mmm"] == want_s["systolic_mmm"]
+               and got_f == ({(1, PROMPT, PROMPT): n_apps} if n_apps else {}),
+               f"{cfg.name} fp32 forward 1x{PROMPT} launches: {got_c}, K1 at M={PROMPT} by shape "
+               f"{sorted(got_s['systolic_mmm'].items())}, flash by (B, Sq, Skv) {got_f}")
+        t0 = time.perf_counter()
+        p32, _ = model32.prefill(masters, row, max_len=PROMPT + 1)
+        torch.cuda.synchronize()
+        t_pf = time.perf_counter() - t0
+        err = (f32 - p32).abs().max().item()
+        scale = max(1.0, p32.abs().max().item())
+        expect(bool(torch.isfinite(f32).all()) and err <= FORWARD_TOL_FP32 * scale,
+               f"{cfg.name} fp32 forward (parallel) vs prefill (recurrent) last logits on 1x{PROMPT}: "
+               f"max_abs={err:.3e} (tol {FORWARD_TOL_FP32} x {scale:.2f}); argmax equal: "
+               f"{int(f32.argmax(-1)) == int(p32.argmax(-1))}")
+        fb = model.forward(params, row)[:, -1:]
+        err16 = (fb - served_logits[:1]).abs().max().item()
+        scale16 = max(1.0, served_logits[:1].abs().max().item())
+        say(f"    [for information, not a gate] {cfg.name} bf16 forward 1x{PROMPT} vs the served bf16 prefill's row 0: "
+            f"max_abs={err16:.3e} ({err16 / scale16:.2%} of the largest logit)")
+    say(f"    {cfg.name} fp32: forward 1x{PROMPT} {t_fwd * 1e3:.1f} ms, prefill ({PROMPT} steps) {t_pf * 1e3:.1f} ms")
+    return {"forward_vs_prefill_fp32_max_abs_err": err, "forward_vs_prefill_fp32_scale": scale,
+            "forward_bf16_vs_served_max_abs_err": err16, "forward_fp32_ms": t_fwd * 1e3,
+            "prefill_fp32_ms": t_pf * 1e3, "forward_launches": got_c,
+            "forward_flash_shapes": [[*k, c] for k, c in sorted(got_f.items())]}
+
+
+def phase_serve_recurrent(arch: str, smi: str) -> tuple[dict, list]:
+    """A recurrent model at full width, drawn in fp32 from SEED and served in
+    bf16 (its fp32 leaves kept fp32): ``serve_recurrent``, then
+    ``forward_vs_prefill`` on the fp32 masters; the SSM model also through
+    ContinuousScheduler on the continuous trace, monolithic and in chunks of
+    SSM_CHUNK (the staged path), its state pool's resident bytes exact."""
+    cfg = configs.get_config(arch)
+    s = cfg.ssm
+    if cfg.family == "ssm":
+        n_groups, n_m = xlstm_counts(cfg)
+        shape = (f"{n_groups} groups of {n_m} mLSTM + 1 sLSTM, d={cfg.d_model} H={cfg.n_heads} expand {s.expand} "
+                 f"(mLSTM heads {s.expand * cfg.d_model // cfg.n_heads} wide)")
+    else:
+        n_mamba, n_apps, _ = hybrid_counts(cfg)
+        shape = (f"{n_mamba} Mamba2 layers (d_inner {s.expand * cfg.d_model}, {s.expand * cfg.d_model // s.head_dim} "
+                 f"heads of {s.head_dim}, state {s.state_size}) and {n_apps} applications of one shared attention "
+                 f"block (H={cfg.n_heads}/{cfg.n_kv_heads} D={cfg.resolved_head_dim}, d_ff={cfg.d_ff})")
+    say(f"[3] serve {arch} (full width: {cfg.n_layers}L, {shape}, V={cfg.vocab_size}) in {cfg.dtype}, batch "
+        f"{BATCH}, prompt {PROMPT}, {GEN} tokens")
+    model = get_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    masters = model.init(SEED, "cuda", dtype=torch.float32)
+    params = cast_params(masters, BF16)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    kept = [t for k, t in _keyed_leaves(params) if k in FP32_KEYS]
+    say(f"    init {time.perf_counter() - t0:.1f} s: {n:,} parameters (count_params: {model.n_params:,}), "
+        f"{_nbytes(params):,} bytes in bf16, {torch.cuda.memory_allocated() / 1e9:.2f} GB on the card with the "
+        f"fp32 masters")
+    expect(all(t.dtype == torch.float32 for t in kept) and len(kept) > 0,
+           f"{arch}: all {len(kept)} leaves of {sorted(FP32_KEYS)} kept fp32 in the bf16 model")
+    batch = make_batch(cfg, batch=BATCH, seq=PROMPT, kind="prefill", seed=SEED, device="cuda")
+    r = serve_recurrent(model, params, batch)
+    r.update(forward_vs_prefill(model, masters, params, batch, r.pop("served_prefill_logits")))
+    del masters
+    torch.cuda.empty_cache()
+    r.update(n_params=n, count_params=model.n_params, param_bytes=_nbytes(params))
+    runs = []
+    if cfg.family == "ssm":
+        resident = state_bytes(cfg, CONT_SLOTS)
+        cont = phase_continuous(model, params, smi, resident=resident)
+        chunked = phase_continuous(model, params, smi, chunk=SSM_CHUNK, resident=resident, alone=cont["replays"])
+        for run in (cont, chunked):
+            del run["replays"], run["logit_rows"]
+        runs = [cont, chunked]
+    r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    say(f"    peak device memory over the {arch} phase: {r['peak_gb']:.2f} GB")
+    del params, model, batch
+    torch.cuda.empty_cache()
+    return r, runs
+
+
 def activation_flips(label: str, flips: list, cfg) -> dict:
     """Summarise, by layer, the int8 activation values in which the plain
     path's prefill differs from the kernel path's (the quantized GEMM inputs
@@ -2326,7 +2659,8 @@ def phase_timing(errs: dict, sync_fp: list, sync_w8a8: list, moe_runs: list,
     heads); ``served``: the continuous-style runs (the continuous, kv8 and
     long-prompt runs of internlm2, minicpm3's continuous and chunked runs),
     whose launches count with the synchronized paths'; the paged arms and
-    minicpm3's paged run too)."""
+    minicpm3's paged run too).  The recurrent models' synchronized paths
+    come in ``sync_fp``, xlstm-125m's continuous runs in ``served``."""
     say("[4] kernel times at the served paths' shapes (CUDA events; ms per call)")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     moe_cfg = configs.get_config(MOE_ARCH)
@@ -2335,7 +2669,7 @@ def phase_timing(errs: dict, sync_fp: list, sync_w8a8: list, moe_runs: list,
     synchronized = _merged(sync_fp, "systolic_mmm")
     for (m, k, n), n_calls in _merged([*sync_fp, *sync_w8a8, *served], "systolic_mmm").items():
         # each wgmma tile timed at the synchronized paths' shapes only
-        r = time_gemm(m, k, n, gen, gemm_out_dtype(moe_cfg, k, n), tiles=(m, k, n) in synchronized)
+        r = time_gemm(m, k, n, gen, timed_out_dtype(k, n), tiles=(m, k, n) in synchronized)
         r["launches"] = n_calls  # as counted at the launch site on the served paths
         shapes.append(r)
         tiles = "".join(f"  {p[6:]} {t:.4f}" for p, t in r["ms_by_path"].items())
@@ -2380,6 +2714,11 @@ def phase_timing(errs: dict, sync_fp: list, sync_w8a8: list, moe_runs: list,
         for b, sq, _, n_calls in r["flash_shapes"]:
             batch1[(b, sq)] += n_calls
     runs += [(dense_cfg, b, sq, n_calls) for (b, sq), n_calls in sorted(batch1.items())]
+    # zamba2's shared attention (D = 112): no served launch (its prefill is
+    # decode steps, whose attention is plain); forward reaches it once per
+    # application, as in phase 3's forward check.
+    hyb_cfg = configs.get_config(HYBRID_ARCH)
+    runs += [(hyb_cfg, 1, PROMPT, 0), (hyb_cfg, BATCH, PROMPT, 0)]
     for cfg, b, sq, n_calls in runs:
         fl = time_flash(gen, cfg, b, sq)
         fl["launches"] = n_calls
@@ -2461,9 +2800,14 @@ def main() -> int:
     timed(f"small reference {MLA_ARCH}", phase_small_reference, MLA_ARCH)
     moe_r, moe_w8a8 = timed(f"serve {MOE_ARCH}", phase_serve_moe)
     timed(f"small reference {MOE_ARCH}", phase_small_reference, MOE_ARCH)
-    kernels, k2, chunk_attn, paging = timed("timing", phase_timing, errs, [bf16, moe_r, mla_bf16],
+    ssm_r, ssm_runs = timed(f"serve {SSM_ARCH}", phase_serve_recurrent, SSM_ARCH, device["nvidia_smi"])
+    timed(f"small reference {SSM_ARCH}", phase_small_reference, SSM_ARCH)
+    hyb_r, _ = timed(f"serve {HYBRID_ARCH}", phase_serve_recurrent, HYBRID_ARCH, device["nvidia_smi"])
+    timed(f"small reference {HYBRID_ARCH}", phase_small_reference, HYBRID_ARCH)
+    kernels, k2, chunk_attn, paging = timed("timing", phase_timing, errs, [bf16, moe_r, mla_bf16, ssm_r, hyb_r],
                                             [w8a8, mla_w8a8, moe_w8a8], [moe_r, moe_w8a8],
-                                            [cont, kv8, *long_runs, *paged_runs, mla_cont, mla_chunked, mla_paged])
+                                            [cont, kv8, *long_runs, *paged_runs, mla_cont, mla_chunked, mla_paged,
+                                             *ssm_runs])
     say(f"    wall {time.perf_counter() - t_start:.1f} s")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -2472,7 +2816,8 @@ def main() -> int:
                        "serve_long_prompt": long_runs, "serve_w8a8": w8a8, "serve_moe": moe_r,
                        "serve_moe_w8a8": moe_w8a8, "serve_mla": mla_bf16, "serve_mla_w8a8": mla_w8a8,
                        "serve_mla_continuous": mla_cont, "serve_mla_chunked": mla_chunked,
-                       "serve_mla_paged": mla_paged, "serve_paged": paged_runs, "kernels": kernels,
+                       "serve_mla_paged": mla_paged, "serve_paged": paged_runs, "serve_xlstm": ssm_r,
+                       "serve_xlstm_continuous": ssm_runs, "serve_zamba2": hyb_r, "kernels": kernels,
                        "systolic_mmm_bias": k2, "chunk_attention": chunk_attn, "paged_pool": paging,
                        "phase_wall_s": walls,
                        "failures": failures}, f, indent=1)

@@ -13,7 +13,10 @@ counterpart) viewed back as ``torch.float8_e4m3fn``.  A MoE layer's
 weight, and the qk-norm scales like every RMSNorm scale.  So does an MLA
 layer's ``attn`` (``wq_a``, ``q_norm``, ``wq_b``, ``wkv_a``, ``kv_norm``,
 ``wkv_b``, ``wo``), its projections as ``QArray``s where the reference
-quantized them (every one but ``wkv_b``).
+quantized them (every one but ``wkv_b``).  The SSM family's ``mlstm`` and
+``slstm`` stacks and the hybrid's ``mamba`` stack cross the same way, each
+a list of per-layer blocks, and the hybrid's ``shared`` attention block as
+one block.
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ import torch
 
 from repro_torch.core.device import resolve_device
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.transformer import check_supported
+from repro_torch.models.layers import FP32_KEYS
+from repro_torch.models.transformer import check_supported, hybrid_counts, xlstm_counts
 from repro_torch.quant.qarray import QArray, canonical_qdtype, qdtype_info
 
 _QARRAY_FIELDS = ("values", "scales", "block", "qdtype")
@@ -62,8 +66,12 @@ def params_from_jax(
     """numpy parameter tree of ``repro`` -> the port's parameters on ``device``
     (default: the card).  Projection weights and the embedding are cast once
     to ``dtype`` (default: the config's compute dtype) -- the reference casts
-    them on every call to the same values; RMSNorm ``scale`` vectors stay
-    fp32, as in the reference; quantized weights keep their storage dtype."""
+    them on every call to the same values; the leaves of
+    ``layers.FP32_KEYS`` (RMSNorm ``scale`` vectors, the recurrent blocks'
+    fp32 parameters) stay fp32, as in the reference; quantized weights keep
+    their storage dtype.  The stacks (``layers``; ``mlstm`` and ``slstm``;
+    ``mamba``) become lists in stack order, their lengths checked against
+    the config; the hybrid's ``shared`` block crosses as one block."""
     check_supported(cfg)
     dev = resolve_device(device)
     dt = dtype or getattr(torch, cfg.dtype)
@@ -73,7 +81,7 @@ def params_from_jax(
             return _qarray(node, layer, dev)
         if isinstance(node, dict):
             return {
-                k: (_leaf(v, layer, torch.float32) if k == "scale" else convert(v, layer))
+                k: (_leaf(v, layer, torch.float32) if k in FP32_KEYS else convert(v, layer))
                 for k, v in node.items()
             }
         return _leaf(node, layer, dt)
@@ -85,13 +93,27 @@ def params_from_jax(
         # widen first: numpy has no bf16, and bf16 -> fp32 is exact
         return torch.tensor(np.asarray(a, dtype=np.float32)).to(dev, to_dtype)
 
-    stacked = np_params["layers"]
-    n = np.asarray(stacked["attn_norm"]["scale"]).shape[0]
-    if n != cfg.n_layers:
-        raise ValueError(f"{cfg.name}: tree has {n} stacked layers, config says {cfg.n_layers}")
-    return {
+    def stack(key: str, want: int) -> list:
+        """A stacked (N, ...) subtree -> N per-layer dicts, in stack order."""
+        tree = np_params[key]
+        n = np.asarray(tree["norm" if key != "layers" else "attn_norm"]["scale"]).shape[0]
+        if n != want:
+            raise ValueError(f"{cfg.name}: tree has {n} stacked {key!r} layers, config says {want}")
+        return [convert(tree, i) for i in range(n)]
+
+    out = {
         "final_norm": convert(np_params["final_norm"]),
         "embed": convert(np_params["embed"]),
         "lm_head": convert(np_params["lm_head"]),
-        "layers": [convert(stacked, i) for i in range(n)],
     }
+    if cfg.family == "ssm":
+        n_groups, n_m = xlstm_counts(cfg)
+        if n_m:
+            out["mlstm"] = stack("mlstm", n_groups * n_m)
+        out["slstm"] = stack("slstm", n_groups)
+    elif cfg.family == "hybrid":
+        out["mamba"] = stack("mamba", hybrid_counts(cfg)[0])
+        out["shared"] = convert(np_params["shared"])
+    else:
+        out["layers"] = stack("layers", cfg.n_layers)
+    return out

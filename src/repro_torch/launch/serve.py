@@ -49,6 +49,20 @@ reference, a MoE layer's router and experts and MLA's ``wkv_b`` stay wide::
 ``kv8`` applies to the continuous pool only: without ``--continuous`` it
 warns and serves unquantized, as the reference does.
 
+The recurrent families -- xlstm-125m (SSM: mLSTM + sLSTM) and zamba2-7b
+(hybrid: Mamba2 + one shared attention block) -- prefill by a loop of decode
+steps over the prompt, as the reference does, and serve in every mode: w8a16
+/ w8a8 quantize the mLSTM, SwiGLU and shared-attention projections and the
+head (Mamba2's in_proj / out_proj and sLSTM's w_x stay wide, as in the
+reference); chunked prefill carries the state on the request and writes it
+into the slot once; ``--quantize kv8`` and ``--paged`` warn and serve
+unquantized and unpaged (the state has no sequence axis)::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
+        --smoke --device cpu --batch 2 --prompt-len 16 --gen 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m \
+        --smoke --device cpu --continuous --chunked-prefill --chunk-size 4
+
 Paged KV (``--paged``): the continuous pool swaps the per-slot ``max_len``
 stripe for ``--page-size``-row pages behind a per-slot page table, so
 reserved KV bytes follow the tokens held; ``--pages`` sizes the arena
@@ -273,7 +287,9 @@ def init_params(model, seed: int, device: torch.device, quantize: str = "none"):
     """Random weights from ``seed`` -> (params, the activation-quant context
     to serve them under).  w8a16 / w8a8 quantize the fp32 masters, as the
     reference does (it inits in fp32), and cast what stays wide to the
-    compute dtype once, one layer at a time: each layer's masters are drawn,
+    compute dtype once (the fp32 leaves of ``layers.FP32_KEYS`` stay fp32),
+    one layer at a time (the hybrid's shared block as one piece, after its
+    Mamba2 layers): each layer's masters are drawn,
     quantized, cast and dropped before the next is drawn, so the peak is one
     layer of fp32 beside the served tree (the whole model's masters would
     not fit on one card for qwen3-moe-30b-a3b: 30.5 B x 4 bytes).  The

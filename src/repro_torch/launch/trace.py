@@ -7,6 +7,11 @@ prefill and a few decode steps through ``ServeEngine``.
     PYTHONPATH=src python -m repro_torch.launch.trace --arch minicpm3-4b --steps 3 [--quantize w8a8]
     PYTHONPATH=src python -m repro_torch.launch.trace --batch 1 --prompt-len 8192 \
         --chunk-size 512 --steps 1
+    PYTHONPATH=src python -m repro_torch.launch.trace --arch zamba2-7b --prompt-len 1 --steps 3
+
+The recurrent families (xlstm-125m, zamba2-7b) prefill by a loop of decode
+steps, one per prompt token, so ``--prompt-len 1`` traces one step of their
+sequential prefill as the "prefill" phase.
 
 With ``--chunk-size`` the prompt is prefilled as the chunked scheduler does it
 (``ServeEngine.prefill_chunk`` over ``chunk_schedule``, each chunk its own

@@ -7,10 +7,11 @@ dense projections route through ``repro_torch.core.ops.matmul``.
 Projection weights are (d_in, d_out), as in the reference (the systolic
 kernel's B operand is the weight as stored).  They are created in the compute
 dtype once, at init or load, where the reference keeps fp32 and casts on
-every call: the cast values are the same.  RMSNorm scales stay fp32, as in
-the reference.  Every GEMM takes its weight through ``wcast``, which passes a
-quantized ``QArray`` (``repro_torch.quant.quantize_params``) straight to
-``ops.matmul``, so one layer code serves fp, w8a16 and w8a8 weights.
+every call: the cast values are the same.  The leaves of ``FP32_KEYS`` stay
+fp32, as in the reference, which uses them in fp32 arithmetic.  Every GEMM
+takes its weight through ``wcast``, which passes a quantized ``QArray``
+(``repro_torch.quant.quantize_params``) straight to ``ops.matmul``, so one
+layer code serves fp, w8a16 and w8a8 weights.
 """
 
 from __future__ import annotations
@@ -20,6 +21,14 @@ import torch.nn.functional as F
 
 from repro_torch.core import ops
 from repro_torch.quant.qarray import QArray
+
+# Leaves kept fp32 whatever the compute dtype: RMSNorm scales, and the
+# recurrent blocks' conv taps and bias, decay and step parameters, skip
+# weights, gate biases and sLSTM's recurrence (``models/ssm.py``).  The
+# reference serves its fp32 masters and casts only GEMM weights at use, so
+# each of these enters its arithmetic in fp32 (``exp(a_log)``, the fp32
+# recurrence einsum with ``r_h``, ...).
+FP32_KEYS = frozenset({"scale", "conv_w", "conv_b", "a_log", "dt_bias", "d_skip", "b_if", "b", "r_h"})
 
 
 def wcast(w: torch.Tensor | QArray, dtype: torch.dtype) -> torch.Tensor | QArray:

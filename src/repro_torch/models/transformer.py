@@ -1,11 +1,19 @@
-"""Decoder assembly for the attention families: GQA / SWA / MLA attention
-with a SwiGLU FFN (dense) or a mixture of experts (moe).
+"""Decoder assembly: one module builds every family the port serves.
 
-The counterpart of the dense and MoE families of ``repro.models.transformer``.
-The reference stacks layer parameters on a leading axis and runs
-``lax.scan``; here ``params["layers"]`` and ``cache["layers"]`` are lists,
-one dict per layer, and a Python loop walks them.  SSM, hybrid and the
-modality frontends belong to later parts of the port and raise here.
+  dense / moe      [attn + SwiGLU / MoE] stack (GQA / SWA / MLA attention)
+  ssm (xlstm)      repeating [mLSTM x (slstm_every - 1), sLSTM] groups
+  hybrid (zamba2)  repeating [Mamba2 x attn_every, shared attn] groups, then
+                   the trailing Mamba2 layers; the shared attn + SwiGLU
+                   block's *weights* are shared across its applications,
+                   its KV caches are per application.
+
+The counterpart of ``repro.models.transformer``.  The reference stacks layer
+parameters on a leading axis and runs ``lax.scan``; here ``params["layers"]``
+(``["mlstm"]``, ``["slstm"]``, ``["mamba"]``) and the caches' lists hold one
+dict per layer, and Python loops walk them.  The SSM and hybrid families
+prefill, as the reference does, by a loop of ``decode_step`` over the prompt
+(their state is sequential by nature).  The modality frontends and tied
+embeddings belong to a later part of the port and raise here.
 
 Entry points (functions over dicts of tensors):
   init_model(cfg, seed, device[, dtype, transform])
@@ -25,7 +33,7 @@ import torch
 
 from repro_torch.core.device import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models import layers, moe
+from repro_torch.models import layers, moe, ssm
 from repro_torch.models.config import ArchConfig
 from repro_torch.quant.qarray import QArray
 
@@ -34,16 +42,20 @@ def _cdtype(cfg: ArchConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
+ATTN_FAMILIES = ("dense", "moe")
+
+
 def check_supported(cfg: ArchConfig) -> None:
     """Raise for architectures this part of the port does not build yet."""
     cfg.validate()
-    if cfg.family not in ("dense", "moe") or cfg.attention not in ("gqa", "swa", "mla"):
+    attention = ("none",) if cfg.family == "ssm" else ("gqa", "swa", "mla")
+    if cfg.family not in (*ATTN_FAMILIES, "ssm", "hybrid") or cfg.attention not in attention:
         raise NotImplementedError(
-            f"{cfg.name}: the port builds dense and MoE GQA/SWA/MLA decoders only so far "
+            f"{cfg.name}: the port builds the dense and MoE (GQA/SWA/MLA), SSM and hybrid decoders so far "
             f"(family={cfg.family!r}, attention={cfg.attention!r})"
         )
     if cfg.frontend is not None or cfg.tie_embeddings:
-        raise NotImplementedError(f"{cfg.name}: frontends and tied embeddings are not ported yet")
+        raise NotImplementedError(f"{cfg.name}: the modality frontends and tied embeddings are not ported yet")
 
 
 # ===========================================================================
@@ -104,6 +116,68 @@ def attn_block_prefill_chunk(p: dict, x: torch.Tensor, cfg: ArchConfig, cache: d
 
 
 # ===========================================================================
+# SSM blocks (xlstm pairs, zamba2 Mamba2 layers)
+# ===========================================================================
+
+
+def init_mlstm_block(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype) -> dict:
+    return {"norm": layers.init_rmsnorm(cfg.d_model, gen.device), "core": ssm.init_mlstm(gen, cfg, dtype)}
+
+
+def init_slstm_block(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype) -> dict:
+    return {"norm": layers.init_rmsnorm(cfg.d_model, gen.device), "core": ssm.init_slstm(gen, cfg, dtype)}
+
+
+def init_mamba_block(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype) -> dict:
+    return {"norm": layers.init_rmsnorm(cfg.d_model, gen.device), "core": ssm.init_mamba2(gen, cfg, dtype)}
+
+
+def _ssm_block_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, fwd) -> torch.Tensor:
+    return x + fwd(p["core"], layers.rmsnorm(p["norm"], x, cfg.norm_eps), cfg)
+
+
+def _ssm_block_step(p: dict, x: torch.Tensor, cfg: ArchConfig, step, state: dict) -> torch.Tensor:
+    """One token through a pre-norm recurrent block; ``state``'s entries are
+    replaced by the new state (the dict is updated in place)."""
+    y, new = step(p["core"], layers.rmsnorm(p["norm"], x, cfg.norm_eps), cfg, state)
+    state.update(new)
+    return x + y
+
+
+def hybrid_counts(cfg: ArchConfig) -> tuple[int, int, int]:
+    """(n_mamba, n_shared_apps, n_groups).  Each group = attn_every Mamba2
+    layers + 1 shared-attn application; the remaining layers are trailing
+    Mamba2 layers."""
+    period = cfg.attn_every + 1
+    n_apps = cfg.n_layers // period
+    return cfg.n_layers - n_apps, n_apps, n_apps
+
+
+def xlstm_counts(cfg: ArchConfig) -> tuple[int, int]:
+    """(n_groups, n_mlstm_per_group).  Group = (slstm_every - 1) mLSTM + 1 sLSTM."""
+    s = cfg.ssm.slstm_every
+    if cfg.n_layers % s:
+        raise ValueError(f"{cfg.name}: n_layers must divide slstm_every={s}")
+    return cfg.n_layers // s, s - 1
+
+
+def _xlstm_groups(params_or_cache: dict, cfg: ArchConfig):
+    """(mLSTM entries, sLSTM entry) of each group, in execution order: group
+    g runs ``mlstm[g * n_m:(g + 1) * n_m]`` then ``slstm[g]``."""
+    n_groups, n_m = xlstm_counts(cfg)
+    mlstm = params_or_cache.get("mlstm", [])
+    return [(mlstm[g * n_m : (g + 1) * n_m], params_or_cache["slstm"][g]) for g in range(n_groups)]
+
+
+def _hybrid_split(mamba: list, cfg: ArchConfig):
+    """(each group's Mamba2 entries, the trailing ones): group g runs
+    ``mamba[g * attn_every:(g + 1) * attn_every]`` then the shared block."""
+    _, _, n_groups = hybrid_counts(cfg)
+    e = cfg.attn_every
+    return [mamba[g * e : (g + 1) * e] for g in range(n_groups)], mamba[n_groups * e :]
+
+
+# ===========================================================================
 # Model init
 # ===========================================================================
 
@@ -120,30 +194,45 @@ def init_model(cfg: ArchConfig, seed: int = 0, device: str | torch.device | None
     ``cast_params`` brings what stays wide to the compute dtype.  The same
     seed gives the same fp32 values in either case.
 
+    The leaves of ``layers.FP32_KEYS`` are fp32 in either case.
+
     ``transform`` (default: none) is applied to each top-level piece -- the
-    final norm, the embedding, the head, then each layer, in the order they
-    are drawn -- as soon as it is drawn, so a caller that quantizes holds
-    one layer's fp32 masters at a time (``launch/serve.py::init_params``).
+    final norm, the embedding, the head, then each layer (the hybrid's
+    shared block after its Mamba2 layers), in the order they are drawn --
+    as soon as it is drawn, so a caller that quantizes holds one layer's
+    fp32 masters at a time (``launch/serve.py::init_params``).
     """
     check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dt = dtype or _cdtype(cfg)
     f = transform or (lambda piece: piece)
-    return {
+    params = {
         "final_norm": f(layers.init_rmsnorm(cfg.d_model, dev)),
         "embed": f(layers.init_embedding(gen, cfg.vocab_size, cfg.d_model, dt)),
         "lm_head": f(layers.init_dense(gen, cfg.d_model, cfg.vocab_size, dt)),
-        "layers": [f(init_attn_block(gen, cfg, dt)) for _ in range(cfg.n_layers)],
     }
+    if cfg.family == "ssm":
+        n_groups, n_m = xlstm_counts(cfg)
+        if n_m:
+            params["mlstm"] = [f(init_mlstm_block(gen, cfg, dt)) for _ in range(n_groups * n_m)]
+        params["slstm"] = [f(init_slstm_block(gen, cfg, dt)) for _ in range(n_groups)]
+    elif cfg.family == "hybrid":
+        n_mamba, _, _ = hybrid_counts(cfg)
+        params["mamba"] = [f(init_mamba_block(gen, cfg, dt)) for _ in range(n_mamba)]
+        params["shared"] = f(init_attn_block(gen, cfg, dt))
+    else:
+        params["layers"] = [f(init_attn_block(gen, cfg, dt)) for _ in range(cfg.n_layers)]
+    return params
 
 
 def cast_params(params, dtype: torch.dtype):
     """A copy of ``params`` with every floating weight in ``dtype``, once:
-    RMSNorm ``scale`` vectors stay fp32 (as in the reference) and quantized
+    the leaves of ``layers.FP32_KEYS`` (RMSNorm scales, the recurrent
+    blocks' fp32 parameters) stay fp32, as in the reference, and quantized
     ``QArray`` weights stay as they are."""
     if isinstance(params, dict):
-        return {k: v if k == "scale" else cast_params(v, dtype) for k, v in params.items()}
+        return {k: v if k in layers.FP32_KEYS else cast_params(v, dtype) for k, v in params.items()}
     if isinstance(params, list):
         return [cast_params(v, dtype) for v in params]
     if isinstance(params, torch.Tensor) and params.is_floating_point():
@@ -185,36 +274,108 @@ def forward(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
     at every position (``prefill`` gives the last position's alone)."""
     x = _embed_input(params, batch, cfg)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    for lp in params["layers"]:
-        x, _ = attn_block_fwd(lp, x, cfg, positions)
+    if cfg.family == "ssm":
+        for mps, sp in _xlstm_groups(params, cfg):
+            for mp in mps:
+                x = _ssm_block_fwd(mp, x, cfg, ssm.mlstm_auto)
+            x = _ssm_block_fwd(sp, x, cfg, ssm.slstm_fwd)
+    elif cfg.family == "hybrid":
+        groups, tail = _hybrid_split(params["mamba"], cfg)
+        for mps in groups:
+            for mp in mps:
+                x = _ssm_block_fwd(mp, x, cfg, ssm.mamba2_fwd)
+            x, _ = attn_block_fwd(params["shared"], x, cfg, positions)
+        for mp in tail:
+            x = _ssm_block_fwd(mp, x, cfg, ssm.mamba2_fwd)
+    else:
+        for lp in params["layers"]:
+            x, _ = attn_block_fwd(lp, x, cfg, positions)
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return _head(params, x, cfg)
 
 
+def init_attn_block_cache(cfg: ArchConfig, batch: int, max_len: int, dtype: torch.dtype,
+                          device: torch.device) -> dict:
+    init = attn.init_mla_cache if cfg.attention == "mla" else attn.init_gqa_cache
+    return init(cfg, batch, max_len, dtype, device)
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype: torch.dtype | None = None,
                device: str | torch.device | None = None) -> dict:
+    """Attention families: one KV cache per layer.  SSM: one recurrent state
+    per mLSTM and sLSTM layer (no sequence axis: ``max_len`` is unused).
+    Hybrid: one state per Mamba2 layer and one KV cache per application of
+    the shared block."""
     dtype = dtype or _cdtype(cfg)
     dev = resolve_device(device)
-    init = attn.init_mla_cache if cfg.attention == "mla" else attn.init_gqa_cache
-    return {"layers": [init(cfg, batch, max_len, dtype, dev) for _ in range(cfg.n_layers)]}
+    if cfg.family == "ssm":
+        n_groups, n_m = xlstm_counts(cfg)
+        c = {"slstm": [ssm.init_slstm_state(cfg, batch, dtype, dev) for _ in range(n_groups)]}
+        if n_m:
+            c["mlstm"] = [ssm.init_mlstm_state(cfg, batch, dtype, dev) for _ in range(n_groups * n_m)]
+        return c
+    if cfg.family == "hybrid":
+        n_mamba, n_apps, _ = hybrid_counts(cfg)
+        return {
+            "mamba": [ssm.init_mamba2_state(cfg, batch, dtype, dev) for _ in range(n_mamba)],
+            "shared": [init_attn_block_cache(cfg, batch, max_len, dtype, dev) for _ in range(n_apps)],
+        }
+    return {"layers": [init_attn_block_cache(cfg, batch, max_len, dtype, dev) for _ in range(cfg.n_layers)]}
 
 
 def decode_step(params: dict, tokens: torch.Tensor, cfg: ArchConfig, cache: dict, pos):
     """tokens: (B, 1) int; pos: int absolute position (synchronized batch) or
     a (B,) int32 tensor of per-slot positions (negative = empty slot).
-    -> (logits fp32 (B, 1, V), cache), the cache updated in place."""
+    -> (logits fp32 (B, 1, V), cache), the cache updated in place.
+
+    The SSM and hybrid state updates ignore ``pos``, as in the reference: an
+    empty slot's state advances on whatever token it is given, and the slot
+    is overwritten when a request is admitted into it; ``pos`` only masks
+    the hybrid's shared-attention caches."""
     x = layers.embed(params["embed"], tokens, _cdtype(cfg))
-    pos = attn.slot_positions(pos, x.shape[0], x.device)
-    for lp, lc in zip(params["layers"], cache["layers"]):
-        x, _ = attn_block_decode(lp, x, cfg, lc, pos)
+    if cfg.family != "ssm":
+        pos = attn.slot_positions(pos, x.shape[0], x.device)
+    if cfg.family == "ssm":
+        for (mps, sp), (mcs, sc) in zip(_xlstm_groups(params, cfg), _xlstm_groups(cache, cfg)):
+            for mp, mc in zip(mps, mcs):
+                x = _ssm_block_step(mp, x, cfg, ssm.mlstm_step, mc)
+            x = _ssm_block_step(sp, x, cfg, ssm.slstm_step, sc)
+    elif cfg.family == "hybrid":
+        groups, tail = _hybrid_split(params["mamba"], cfg)
+        cgroups, ctail = _hybrid_split(cache["mamba"], cfg)
+        for mps, mcs, ac in zip(groups, cgroups, cache["shared"]):
+            for mp, mc in zip(mps, mcs):
+                x = _ssm_block_step(mp, x, cfg, ssm.mamba2_step, mc)
+            x, _ = attn_block_decode(params["shared"], x, cfg, ac, pos)
+        for mp, mc in zip(tail, ctail):
+            x = _ssm_block_step(mp, x, cfg, ssm.mamba2_step, mc)
+    else:
+        for lp, lc in zip(params["layers"], cache["layers"]):
+            x, _ = attn_block_decode(lp, x, cfg, lc, pos)
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return _head(params, x, cfg), cache
 
 
+def _scan_prompt(params: dict, tokens: torch.Tensor, cfg: ArchConfig, cache: dict, offset: int):
+    """The sequential families' prefill: ``decode_step`` over each prompt
+    token from ``cache`` at absolute positions offset, offset + 1, ...,
+    carrying only the newest logits.  -> (last logits (B, 1, V), cache)."""
+    logits = None
+    for si in range(tokens.shape[1]):
+        logits, cache = decode_step(params, tokens[:, si : si + 1], cfg, cache, offset + si)
+    return logits, cache
+
+
 def prefill(params: dict, batch: dict, cfg: ArchConfig, max_len: int):
-    """Run the full prompt and prime a decode cache -> (last logits (B, 1, V), cache)."""
+    """Run the full prompt and prime a decode cache -> (last logits (B, 1, V), cache).
+
+    Attention families prime their KV caches from the parallel forward; the
+    SSM and hybrid families scan ``decode_step`` over the prompt, as the
+    reference does."""
     tokens = batch["tokens"]
     cache = init_cache(cfg, tokens.shape[0], max_len, _cdtype(cfg), tokens.device)
+    if cfg.family not in ATTN_FAMILIES:
+        return _scan_prompt(params, tokens, cfg, cache, 0)
     x = _embed_input(params, batch, cfg)
     s = x.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
@@ -234,11 +395,15 @@ def prefill_chunk(params: dict, batch: dict, cfg: ArchConfig, cache: dict, offse
     below ``offset`` earlier chunks primed (a fresh cache at offset 0), and
     is updated in place.  Composing ``prefill_chunk`` over a split of the
     prompt gives what one ``prefill`` gives, up to the order of the
-    attention's sums.  ``wrapped`` must be set when an SWA ring chunk
-    extends past the window (``offset + L > cache size``).
+    attention's sums; for the SSM and hybrid families a chunk is the same
+    ``decode_step`` loop from the carried state, exactly.  ``wrapped`` must
+    be set when an SWA ring chunk extends past the window (``offset + L >
+    cache size``).
     """
     if cfg.frontend == "vit":
         raise ValueError("chunked prefill does not support the vit frontend")
+    if cfg.family not in ATTN_FAMILIES:
+        return _scan_prompt(params, batch["tokens"], cfg, cache, offset)
     x = layers.embed(params["embed"], batch["tokens"], _cdtype(cfg))
     for lp, lc in zip(params["layers"], cache["layers"]):
         x, _ = attn_block_prefill_chunk(lp, x, cfg, lc, offset, wrapped=wrapped)

@@ -18,7 +18,10 @@ compiler.  Two serving modes share the model's functions:
     over an externally owned cache).
 
 Empty or cleared slots are marked ``pos = -1`` everywhere; the attention
-masking rule ``valid(k) = pos[k] >= 0`` then blanks their cache rows.
+masking rule ``valid(k) = pos[k] >= 0`` then blanks their cache rows.  The
+SSM and hybrid families' recurrent state has no such mask: an empty slot's
+state advances on whatever token it is given, as in the reference, and is
+overwritten when a request is admitted into the slot.
 
 The tune-plan report belongs to a later part of the port.
 """
@@ -183,10 +186,11 @@ class ServeEngine:
     @property
     def chunk_prefill_staged(self) -> bool:
         """True when mid-prefill chunks must carry a request-private staging
-        cache instead of round-tripping through the KV pool: SSM/hybrid
-        state has no ``pos`` mask, so a co-scheduled decode step would
-        advance it.  Every family the port builds is an attention family,
-        whose masked rows no decode step touches."""
+        cache instead of round-tripping through the KV pool: the SSM and
+        hybrid families' state has no ``pos`` mask, so a co-scheduled decode
+        step would advance it (the scheduler writes their cache into the
+        slot once, after the last chunk).  The attention families' masked
+        rows no decode step touches."""
         return self.cfg.family in ("ssm", "hybrid")
 
     @torch.no_grad()

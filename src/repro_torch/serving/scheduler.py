@@ -805,7 +805,9 @@ class ContinuousScheduler:
 
         Always runs one vector-pos decode with every slot marked empty
         (pos = -1): the same work as a live step, and -- because empty slots
-        leave their cache rows untouched -- a no-op on pool state; then the
+        leave their cache rows untouched -- a no-op on the attention pools'
+        state (the SSM and hybrid states of the empty slots advance, and
+        each is overwritten when a request is admitted into it); then the
         prefill work of everything already queued, against throwaway caches:
         one prefill per distinct prompt shape, or under chunked prefill one
         dummy chunk per distinct (chunk length, wrapped).  Eagerly

@@ -9,6 +9,7 @@ from repro import configs as jax_configs
 from repro.models import config as jax_config
 from repro_torch import configs
 from repro_torch.models import config
+from repro_torch.models.transformer import check_supported
 
 
 def test_same_architectures():
@@ -45,3 +46,19 @@ def test_validate_raises_like_reference():
         jax_configs.get_smoke("internlm2-1.8b").scaled(**bad).validate()
     with pytest.raises(ValueError):
         configs.get_smoke("internlm2-1.8b").scaled(**bad).validate()
+
+
+@pytest.mark.parametrize("arch", jax_configs.ALL_ARCHS)
+def test_check_supported_admits_every_family_but_the_frontends(arch):
+    """The port builds the dense, MoE, SSM and hybrid families; the modality
+    frontends (the audio and vlm families) and tied embeddings still raise."""
+    cfg = configs.get_config(arch)
+    if cfg.frontend is None and not cfg.tie_embeddings:
+        assert cfg.family in ("dense", "moe", "ssm", "hybrid")
+        check_supported(cfg)
+        if cfg.family in ("ssm", "hybrid"):
+            with pytest.raises(NotImplementedError, match="frontends and tied embeddings"):
+                check_supported(dataclasses.replace(cfg, tie_embeddings=True))
+    else:
+        with pytest.raises(NotImplementedError):
+            check_supported(cfg)

@@ -57,6 +57,7 @@ def test_port_and_chip_smoke_import_no_jax_or_repro():
     assert {"repro_torch.obs.metrics", "repro_torch.obs.trace", "repro_torch.obs.slo", "repro_torch.obs.attribution",
             "repro_torch.obs.profile", "repro_torch.serving.scheduler",
             "repro_torch.serving.paged"} <= set(res["modules"])
+    assert "repro_torch.models.ssm" in res["modules"]
     assert res["bad"] == []
 
 

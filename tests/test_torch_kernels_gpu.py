@@ -218,6 +218,70 @@ def test_gemm_at_mla_serving_shapes(cuda, m, n, k):
     torch.testing.assert_close(got.float(), matmul_ref(a, b).float(), rtol=2e-2, atol=2e-2)
 
 
+# The recurrent families' projections (N, K, output dtype): xlstm-125m's
+# mLSTM w_up, wq / wk / wv, w_if (N 8, fp32 gates), w_down, sLSTM's w_x (fp32
+# pre-activations) and SwiGLU; zamba2-7b's Mamba2 in_proj (N 14576) and
+# out_proj (K 7168) and its shared block's attention and SwiGLU.  At M = 1
+# (continuous batch-1 prefill steps), 4 (every synchronized step), 8 (decode
+# over 8 slots), a ragged 1000 and 2048 (forward over 4 x 512, the wgmma
+# tiles); each also in fp32 at M = 512 (the fp32 forward).
+RECURRENT_PROJECTIONS = [(3072, 768, torch.bfloat16), (1536, 1536, torch.bfloat16), (8, 1536, torch.float32),
+                         (768, 1536, torch.bfloat16), (3072, 768, torch.float32), (1024, 768, torch.bfloat16),
+                         (768, 1024, torch.bfloat16), (14576, 3584, torch.bfloat16), (3584, 7168, torch.bfloat16),
+                         (3584, 3584, torch.bfloat16), (14336, 3584, torch.bfloat16), (3584, 14336, torch.bfloat16)]
+
+
+def _randn_cuda(shape, seed, cuda, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return torch.randn(shape, generator=gen, device=cuda, dtype=torch.float32).to(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 4, 8, 1000, 2048])
+@pytest.mark.parametrize("n,k,out_dtype", RECURRENT_PROJECTIONS)
+def test_gemm_at_recurrent_serving_shapes(cuda, m, n, k, out_dtype):
+    a = _randn_cuda((m, k), 24, cuda, torch.bfloat16)
+    b = _randn_cuda((k, n), 25, cuda, torch.bfloat16)
+    path = _path(cuda, m, n, k)
+    assert path == "decode" if m <= 16 else path.startswith("wgmma")
+    before = mm_kernel.launches_by_path[path]
+    got = mm_ops.matmul(a, b, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert mm_kernel.launches_by_path[path] == before + 1 and got.dtype == out_dtype
+    torch.testing.assert_close(got.float(), matmul_ref(a, b, out_dtype=out_dtype).float(), rtol=2e-2, atol=2e-2)
+
+
+# The fp32 forward's rows, the weights at the models' scale (N(0, 1) x
+# K^-0.5, ``layers._dense_init``): the outputs are O(1), as the model's are.
+# (With N(0, 1) weights they grow as sqrt(K), and so does the rounding of
+# every partial sum: past atol 1e-5 x sqrt(K) at K = 14336.)
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,k,out_dtype", RECURRENT_PROJECTIONS)
+def test_fp32_gemm_at_the_recurrent_forward_rows(cuda, n, k, out_dtype):
+    a = _randn_cuda((512, k), 26, cuda, torch.float32)
+    b = _randn_cuda((k, n), 27, cuda, torch.float32) * k**-0.5
+    got = mm_ops.matmul(a, b)
+    torch.testing.assert_close(got, matmul_ref(a, b, out_dtype=torch.float32), **_gemm_tol("float32", k))
+
+
+# zamba2-7b's shared attention: 32 / 32 heads of 112, S 512, causal, in the
+# model's (B, S, H, D) layout; batch 1 (forward's row) and 4.
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 4])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_kernel_at_zamba2_heads(cuda, b, dtype):
+    dt = DTYPES[dtype]
+    q, k, v = (_flash_operand(cuda, dt, b, 512, 32, 112, "bshd", seed) for seed in (28, 29, 30))
+    before = attn_kernel.launches_by_heads[(32, 32)]
+    got = attn_ops.flash_attention(q, k, v, causal=True)
+    want = flash_attention_call_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale=112**-0.5,
+                                    causal=True, window=None, kv_valid=512).transpose(1, 2)
+    torch.cuda.synchronize()
+    assert attn_kernel.launches_by_heads[(32, 32)] == before + 1
+    tol = 3e-2 if dtype == "bfloat16" else 2e-4
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
 @pytest.mark.gpu
 def test_unaligned_operand_takes_the_wmma_tile(cuda):
     """A base off 16 bytes cannot be a TMA source: the shape goes to the WMMA

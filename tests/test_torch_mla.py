@@ -254,6 +254,10 @@ def test_prefill_logits_close_bf16():
 
 
 def test_check_supported_admits_mla_and_still_refuses_ssm():
+    """MLA is admitted.  The SSM family is ported now
+    (``test_torch_recurrent.py``), so the refusal this test holds is the one
+    still standing: the modality frontends (musicgen's audio codec)."""
     transformer.check_supported(configs.get_config(ARCH))
+    transformer.check_supported(configs.get_config("xlstm-125m"))
     with pytest.raises(NotImplementedError):
-        transformer.check_supported(configs.get_config("xlstm-125m"))
+        transformer.check_supported(configs.get_config("musicgen-medium"))
