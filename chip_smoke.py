@@ -22,7 +22,12 @@ Phases, each printing its own lines; any failure exits non-zero:
      at the recurrent families' projections -- N = 8 and fp32 out (mLSTM's
      gates), N = 14576 (Mamba2's in_proj), K = 7168 (its out_proj) -- at M
      = 1, 4, 8, 1000 and 2048 and in fp32 at M = 512; flash attention at
-     zamba2's 32 / 32 heads of 112);
+     zamba2's 32 / 32 heads of 112; the frontend models' projections, the
+     vit projector and internvl2-1b's continuous prompt lengths; the
+     systolic GEMM reading B K-major -- the tied head's 151655 x 896 table,
+     fp32 out, at M = 1, 4, 8 and 1024 -- and on ragged K-major shapes;
+     flash attention at musicgen-medium's 24 / 24 heads and internvl2-1b's
+     14 / 2, a group of 7);
   3. full-width internlm2-1.8b in bf16 (random weights from a seed) served
      through ServeEngine: batch 4, prompt 512, 32 greedy tokens, with the
      kernels' launch counts checked exactly, in all and per GEMM shape, every
@@ -48,7 +53,7 @@ Phases, each printing its own lines; any failure exits non-zero:
      after a decode step, its step time and kernels per step beside the fp
      pool's; the long-prompt trace (four requests of 128 tokens decoding, one
      of 8192 arriving mid-answer, 5 slots) prefilled monolithically and in
-     chunks of 512, in turns A B A B: lifecycle, prefill chunks, exact
+     chunks of 512, one turn each (A B): lifecycle, prefill chunks, exact
      launches per kernel, shape and path, each request's last-prompt-position
      logits chunked vs monolithic, and the tick / step / TTFT readings;
      the shared-prefix trace (16 requests in two groups sharing a
@@ -98,8 +103,17 @@ Phases, each printing its own lines; any failure exits non-zero:
      512, flash at D = 112) against fp32 prefill on one 512-token row, and
      the SMOKE config in fp32 against the CPU path; xlstm-125m also served
      continuously on the same trace, monolithic and in chunks of 128 (the
-     staged path), its state pool's resident bytes exact; every
-     path's prefill twice, bit-identical; each phase's wall;
+     staged path), its state pool's resident bytes exact; full-width
+     musicgen-medium (audio: four codebook streams, 1.84 B parameters) and
+     internvl2-1b (vlm: 256 projected patches, then 256 text tokens) served
+     as internlm2-1.8b is (exact K1 launches per shape -- the projector's
+     two per prefill -- and K3 per head count, kernel vs plain, device
+     kernels per decode step), internvl2-1b also continuously on the
+     continuous trace with the continuous gates, and with a tied head (one
+     prefill and two decode steps: the table's K1 launches on the K-major
+     decode tile exact, 1 + 2, kernel vs plain), and the SMOKE configs of
+     both and a tied one in fp32 against the CPU path; every path's prefill
+     twice, bit-identical; each phase's wall;
   4. each kernel timed at the served paths' shapes (CUDA events) beside its
      bound, its plain version and one PyTorch library call (a yardstick the
      port never calls; none computes the block-scaled product, so the
@@ -190,7 +204,8 @@ CONT_TRACE = dict(n_requests=16, mean_prompt=128, mean_gen=24, rate=0.5, seed=SE
 # decoding 48 each from tick 0, and one of 8192 tokens arriving at tick 2
 # for 4 tokens (a user pasting a document into a chat while others are
 # mid-answer) -- over 5 slots, prefilled monolithically and then in chunks
-# of 512 (one per tick), twice each in turns.
+# of 512 (one per tick), one turn each (a second A B turn was cut to keep the
+# script's wall under 900 s).
 LONG_TRACE = dict(n_short=4, short_prompt=128, short_gen=48, long_prompt=8192, long_gen=4, long_arrival=2.0,
                   seed=SEED)
 LONG_SLOTS = 5
@@ -252,8 +267,21 @@ MLA_PAGE_BYTES = PAGE_SIZE * 62 * (2 * (256 + 32) + 4)
 # continuously on the continuous trace, monolithic and in chunks of 128.
 SSM_ARCH, HYBRID_ARCH = "xlstm-125m", "zamba2-7b"
 RECURRENT = ("ssm", "hybrid")
+# The modality frontends: musicgen-medium (audio: four codebook streams
+# embedded and summed, one output head per stream -- an einsum outside any
+# kernel, as in the reference) and internvl2-1b (vlm: 256 patches projected
+# by two K1 launches per prefill, then the text; its 512-position prompts
+# hold 256 patches and 256 text tokens), each served like internlm2-1.8b,
+# internvl2-1b also continuously on the continuous trace (its prompts the
+# patches and then text drawn as the trace draws prompts); and internvl2-1b
+# with a tied head (the Qwen2-0.5B backbone ties it): K1 reads the 151655 x
+# 896 table K-major, one launch per prefill and per decode step, checked on
+# one prefill and TIED_STEPS decode steps.
+AUDIO_ARCH, VLM_ARCH = "musicgen-medium", "internvl2-1b"
+TIED_STEPS = 2
 RECURRENT_CHECK_PROMPT = 64
 SSM_CHUNK = 128
+SSM_CHUNKED_REQUESTS = 12  # the first 12 of the trace's 16 requests (cut for time; > CONT_SLOTS, so slots are reused)
 BF16 = torch.bfloat16
 # Tolerances (|got - want| <= atol + rtol * |want|), with their reasons:
 GEMM_TOL_BF16 = (2e-2, 2e-2)  # one bf16 ulp where kernel and plain round the fp32 sum
@@ -304,7 +332,7 @@ LOGITS_TOL_MOE = 1e-1
 KV8_VS_FP_TOL = 0.15
 KV8_K_TOL = 0.05
 MOE_WITNESS_SEEDS = (1, 2)  # more models and prompts for the MoE witness
-MOE_NUDGES, MOE_NUDGE_STEPS = 3, 3  # one-ulp nudges per model, decode steps each
+MOE_NUDGES, MOE_NUDGE_STEPS = 2, 2  # one-ulp nudges per model, decode steps each (3, 3 until cut for time)
 SOURCES = {
     "systolic_mmm": ("src/repro_torch/csrc/systolic_mmm.cu", "src/repro/kernels/systolic/kernel.py:37"),
     "systolic_qmm": ("src/repro_torch/csrc/systolic_qmm.cu", "src/repro/kernels/systolic/kernel.py:174"),
@@ -434,6 +462,24 @@ def state_bytes(cfg, slots: int) -> int:
     mlstm = 4 * (h * hd * hd + h * hd + h) + 2 * (cfg.ssm.conv_kernel - 1) * di
     slstm = 4 * 4 * cfg.d_model
     return slots * (n_groups * n_m * mlstm + n_groups * slstm)
+
+
+def prefix_len(cfg) -> int:
+    """Cache positions a prompt holds before its tokens: the vit frontend's patches."""
+    return cfg.n_patches if cfg.frontend == "vit" else 0
+
+
+def projector_gemms(cfg) -> list[tuple[int, int]]:
+    """(K, N) of the vit projector's two K1 launches, once per prefill over
+    its batch's patches."""
+    return [(cfg.vit_dim, cfg.d_model), (cfg.d_model, cfg.d_model)] if cfg.frontend == "vit" else []
+
+
+def tied_head(cfg) -> tuple[int, int] | None:
+    """(K, N) of the tied head's K1 launch (``layers.unembed``: the (V, d)
+    table read K-major), once per pass over one row per sequence; None when
+    the head is untied (a library product, no kernel)."""
+    return (cfg.d_model, cfg.vocab_size) if cfg.tie_embeddings and cfg.frontend != "audio_codec" else None
 
 
 failures: list[str] = []
@@ -704,11 +750,15 @@ def phase_device() -> dict:
 # ---------------------------------------------------------------------------
 
 
-def check_gemm(m, k, n, dtype, gen, *, bias=False, act="none", out_dtype=None, model_weights=False) -> float:
+def check_gemm(m, k, n, dtype, gen, *, bias=False, act="none", out_dtype=None, model_weights=False,
+               k_major=False) -> float:
     """K1 against its plain version on N(0, 1) operands; ``model_weights``
     draws B as the models draw their weights (N(0, 1) x K^-0.5,
-    ``layers._dense_init``), so the outputs are O(1), as the model's are."""
-    a, b = randn((m, k), gen, dtype), randn((k, n), gen, dtype)
+    ``layers._dense_init``), so the outputs are O(1), as the model's are;
+    ``k_major`` hands B over as the transpose of an (N, K) tensor, as the
+    tied head hands over its table."""
+    a = randn((m, k), gen, dtype)
+    b = randn((n, k), gen, dtype).T if k_major else randn((k, n), gen, dtype)
     if model_weights:
         b = (b.float() * k**-0.5).to(dtype)
     bv = randn((n,), gen, torch.float32) if bias else None
@@ -718,8 +768,9 @@ def check_gemm(m, k, n, dtype, gen, *, bias=False, act="none", out_dtype=None, m
     want = matmul_ref(a, b, bv, activation=act, out_dtype=out_dtype)
     atol, rtol = GEMM_TOL_BF16 if dtype == BF16 else (1e-5 * math.sqrt(k), GEMM_RTOL_FP32)
     ok, err, rel = close(got, want, atol, rtol)
-    expect(ok, f"gemm {str(dtype)[6:]:8s} M={m:<5d} K={k:<5d} N={n:<5d} bias={bias!s:5s} act={act:5s} "
-               f"{path:13s} max_abs={err:.3e} max_rel={rel:.3e} (atol {atol:.1e}, rtol {rtol:.0e})")
+    expect(ok and path.endswith("_kmajor") == k_major,
+           f"gemm {str(dtype)[6:]:8s} M={m:<5d} K={k:<5d} N={n:<5d} bias={bias!s:5s} act={act:5s} "
+           f"{path:13s} max_abs={err:.3e} max_rel={rel:.3e} (atol {atol:.1e}, rtol {rtol:.0e})")
     return err
 
 
@@ -810,8 +861,19 @@ def check_grouped(e, c, k, n, dtype, gen, rows: str = "none") -> float:
 
 
 def continuous_trace(cfg) -> list[dict]:
-    """The continuous path's request trace, on the card."""
-    return make_request_trace(cfg, device="cuda", **CONT_TRACE)
+    """The continuous path's request trace, on the card.  A vit request's
+    prompt holds the model's patches and then text: the trace's prompt
+    lengths (mean, least and most) count the patches too, so the text is
+    drawn around the others' prompt lengths (its tokens are the text)."""
+    p = prefix_len(cfg)
+    kw = dict(CONT_TRACE, mean_prompt=CONT_TRACE["mean_prompt"] + p, min_prompt=4 + p,
+              max_prompt=CONT_TRACE["max_prompt"] + p) if p else CONT_TRACE
+    return make_request_trace(cfg, device="cuda", **kw)
+
+
+def prompt_positions(cfg, trace: list[dict]) -> list[int]:
+    """Each request's cache positions after its prefill: tokens and patches."""
+    return [t["prompt"]["tokens"].shape[1] + prefix_len(cfg) for t in trace]
 
 
 def phase_kernels() -> dict:
@@ -880,6 +942,31 @@ def phase_kernels() -> dict:
             for m in (1, BATCH, CONT_SLOTS, 1000, BATCH * PROMPT):
                 mm_err = max(mm_err, check_gemm(m, k, n, BF16, gen, out_dtype=out))
             check_gemm(PROMPT, k, n, torch.float32, gen, model_weights=True)
+    # The frontends' GEMMs: musicgen-medium's and internvl2-1b's layers at
+    # decode (M = 4) and prefill (4 x 512); internvl2-1b's continuous run
+    # (each prompt's positions, the decode step over the slots); the vit
+    # projector over the batch's patches (4 x 256) and one request's (256);
+    # the tied head's table read K-major, fp32 out, at decode (M = 1, 4, 8)
+    # and over a forward's 1024 rows; ragged K-major shapes on each tile
+    # that reads B so, with an epilogue.
+    for arch in (AUDIO_ARCH, VLM_ARCH):
+        for m in (4, BATCH * PROMPT):
+            for k, n in projections(configs.get_config(arch)):
+                mm_err = max(mm_err, check_gemm(m, k, n, BF16, gen))
+    vlm = configs.get_config(VLM_ARCH)
+    vlm_lens = sorted(set(prompt_positions(vlm, continuous_trace(vlm))))
+    for m in (CONT_SLOTS, *vlm_lens):
+        for k, n in projections(vlm):
+            mm_err = max(mm_err, check_gemm(m, k, n, BF16, gen))
+    for m in (BATCH * vlm.n_patches, vlm.n_patches):
+        for k, n in projector_gemms(vlm):
+            mm_err = max(mm_err, check_gemm(m, k, n, BF16, gen))
+    head = tied_head(dataclasses.replace(vlm, tie_embeddings=True))
+    for m in (1, BATCH, CONT_SLOTS, 1024):
+        mm_err = max(mm_err, check_gemm(m, *head, BF16, gen, out_dtype=torch.float32, k_major=True))
+    for m, n, k in ((1, 300, 1000), (9, 4000, 70), (100, 130, 70), (300, 264, 200)):
+        for dt in (torch.float32, BF16):
+            check_gemm(m, k, n, dt, gen, k_major=True, bias=True, act="gelu")
     q_err = 0.0
     for qd in quant.QDTYPES:
         for m in (4, BATCH * PROMPT):
@@ -914,6 +1001,12 @@ def phase_kernels() -> dict:
     cfg = configs.get_config(ARCH)
     for s in (*cont_lens, LONG_TRACE["short_prompt"], LONG_TRACE["long_prompt"], PAGED_PROMPT):  # batch-1 prefills
         attn_err = max(attn_err, check_flash(1, cfg.n_heads, s, cfg.resolved_head_dim, BF16, gen, hkv=cfg.n_kv_heads))
+    for arch in (AUDIO_ARCH, VLM_ARCH):  # musicgen's 24/24 heads; internvl2's 14/2, a group of 7
+        cfg = configs.get_config(arch)
+        attn_err = max(attn_err, check_flash(BATCH, cfg.n_heads, PROMPT, cfg.resolved_head_dim, BF16, gen,
+                                             hkv=cfg.n_kv_heads))
+    for s in vlm_lens:  # internvl2's batch-1 prefills in its continuous run
+        attn_err = max(attn_err, check_flash(1, vlm.n_heads, s, vlm.resolved_head_dim, BF16, gen, hkv=vlm.n_kv_heads))
     hyb = configs.get_config(HYBRID_ARCH)  # zamba2's shared attention: 32/32 heads of 112
     for b, dt in ((1, BF16), (BATCH, BF16), (1, torch.float32)):  # forward's row (bf16, fp32) and a batch
         attn_err = max(attn_err, check_flash(b, hyb.n_heads, PROMPT, hyb.resolved_head_dim, dt, gen,
@@ -957,7 +1050,7 @@ def phase_kernels() -> dict:
 
 
 def launches_at(cfg, gemm: str, tokens: int, steps: int, prefill: bool,
-                kv_rows: int | None = None) -> tuple[dict, dict]:
+                kv_rows: int | None = None, seqs: int | None = None) -> tuple[dict, dict]:
     """(launches per kernel, launches per kernel and shape) that ``steps``
     forward passes over ``tokens`` rows (M) must make, each a monolithic
     prefill, a chunk or a decode step: every projection on ``gemm``
@@ -967,8 +1060,14 @@ def launches_at(cfg, gemm: str, tokens: int, steps: int, prefill: bool,
     the grouped kernel at the dispatch capacity; flash attention once per
     layer in a monolithic GQA prefill only (MLA's attention is plain).  A
     recurrent model's pass is a decode step (its prefill scans them): its
-    projections at M = ``tokens``, ``steps`` times, and no flash launch."""
+    projections at M = ``tokens``, ``steps`` times, and no flash launch.
+    The frontends (``seqs``: the pass's sequences, default ``tokens``, as in
+    a decode step): the vit projector's two launches on the fp kernel at
+    M = ``seqs`` x n_patches in a monolithic prefill; a tied head's one
+    K-major launch per pass at M = ``seqs`` (prefill and chunks head their
+    last position only)."""
     n_layers = cfg.n_layers
+    seqs = tokens if seqs is None else seqs
     shapes = {"systolic_mmm": {}, "systolic_qmm": {}, "grouped_mmm": {}}
     if cfg.family in RECURRENT:
         shapes[gemm] = {(tokens, k, n): c * steps for (k, n), c in recurrent_projections(cfg).items()}
@@ -980,6 +1079,10 @@ def launches_at(cfg, gemm: str, tokens: int, steps: int, prefill: bool,
     if latent_expansion(cfg) is not None and kv_rows is not None:
         key = (kv_rows, *latent_expansion(cfg))
         shapes["systolic_mmm"][key] = shapes["systolic_mmm"].get(key, 0) + n_layers * steps
+    extra = [(seqs * cfg.n_patches, k, n) for k, n in projector_gemms(cfg)] if prefill else []
+    extra += [(seqs, *tied_head(cfg))] if tied_head(cfg) else []
+    for key in extra:
+        shapes["systolic_mmm"][key] = shapes["systolic_mmm"].get(key, 0) + steps
     if cfg.moe is not None:
         g = cfg.moe.dispatch_groups
         rows = g * moe.capacity(tokens // g, cfg)  # the groups fold into one launch
@@ -994,7 +1097,7 @@ def expected_launches(cfg, gemm: str, prefill: bool) -> tuple[dict, dict]:
     """``launches_at`` for a synchronized prefill (BATCH x PROMPT rows) or
     its GEN - 1 decode steps (BATCH rows)."""
     if prefill:
-        return launches_at(cfg, gemm, BATCH * PROMPT, 1, True)
+        return launches_at(cfg, gemm, BATCH * PROMPT, 1, True, seqs=BATCH)
     return launches_at(cfg, gemm, BATCH, GEN - 1, False)
 
 
@@ -1002,14 +1105,15 @@ def expected_routes(cfg, shapes: dict, prefills: int) -> dict:
     """Each GEMM's launches by path that the shapes ``shapes`` (from
     launches_at) must make with operands the model hands over aligned, int8
     weights K-major and 128-k scale blocks (every launch at M > 16 on a
-    wgmma tile, every one at M <= 16 on the decode tile), and flash
+    wgmma tile, every one at M <= 16 on the decode tile; a tied head's on
+    the tile of its shape that reads B K-major), and flash
     attention's by the model's (H, Hkv), once per layer in each of
     ``prefills`` prefills."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     prefills = prefills if cfg.attention != "mla" else 0  # MLA reaches no flash kernel
     mm, qmm, grouped = collections.Counter(), collections.Counter(), collections.Counter()
     for (m, k, n), c in shapes["systolic_mmm"].items():
-        mm[mm_kernel.gemm_path(m, n, k, BF16, True, sms)] += c
+        mm[mm_kernel.gemm_path(m, n, k, BF16, True, sms, k_major=(k, n) == tied_head(cfg))] += c
     for (m, k, n), c in shapes["systolic_qmm"].items():
         qmm[mm_kernel.qgemm_path(m, n, k, quant.DEFAULT_BLOCK_K, torch.int8, True)] += c
     for (e, rows, k, n), c in shapes["grouped_mmm"].items():
@@ -1051,7 +1155,8 @@ def serve_path(label: str, model, params, want: dict, batch, feed=None) -> dict:
     want_dec, want_dec_shapes = expected_launches(cfg, want["gemm"], prefill=False)
     expect(pf_counts == want_pf, f"{label} prefill launches: {pf_counts}, want {want_pf}")
     expect(dec_counts == want_dec, f"{label} decode launches over {GEN - 1} steps: {dec_counts}, want {want_dec}")
-    expect(tuple(tokens.shape) == (BATCH, GEN) and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+    want_shape = (BATCH, GEN, cfg.n_codebooks) if cfg.frontend == "audio_codec" else (BATCH, GEN)
+    expect(tuple(tokens.shape) == want_shape and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
            f"{label} tokens {tuple(tokens.shape)} in [0, {cfg.vocab_size}): {tokens[0, :12].tolist()}")
     # Per-shape counts, from the launch site: the timing phase weights each
     # shape's time by these, so they must be the model's own GEMMs.
@@ -1157,6 +1262,7 @@ def serve_path(label: str, model, params, want: dict, batch, feed=None) -> dict:
     del engine, cache_k, cache_p, cache_r
 
     return {
+        "arch": cfg.name,
         "prefill_ms": t_prefill * 1e3,
         "decode_ms_per_step": t_decode / (GEN - 1) * 1e3,
         "decode_tok_s": BATCH * (GEN - 1) / t_decode,
@@ -1209,7 +1315,8 @@ def continuous_expected(cfg, prompt_lens: list, decode_steps: int, slots: int | 
                         warmup_lens: list | None = None) -> tuple[dict, dict, dict, dict]:
     """(launches per kernel, per kernel and shape, by route, flash launches by
     (B, Sq, Skv)) that a continuous run must make: a batch-1 prefill per
-    admission at M = its prompt length, one more per distinct prompt length
+    admission at M = its prompt length (its cache positions: a vit prompt's
+    patches count), one more per distinct prompt length
     of ``warmup_lens`` (default: ``prompt_lens``) in warmup, and
     ``decode_steps`` + 1 (warmup's all-empty step) decode steps at M = the
     slot count.  With ``chunk``, each prompt is prefilled in the pieces of
@@ -1232,8 +1339,9 @@ def continuous_expected(cfg, prompt_lens: list, decode_steps: int, slots: int | 
         steps = sum(m * c for m, c in prefills.items()) + sum(hits)
         runs = [launches_at(cfg, "systolic_mmm", 1, steps, True)]
     else:
-        runs = [launches_at(cfg, "systolic_mmm", m, c, chunk is None, kv_rows=max_len) for m, c in prefills.items()]
-        runs += [launches_at(cfg, "systolic_mmm", m, c, False, kv_rows=max_len)
+        runs = [launches_at(cfg, "systolic_mmm", m, c, chunk is None, kv_rows=max_len, seqs=1)
+                for m, c in prefills.items()]
+        runs += [launches_at(cfg, "systolic_mmm", m, c, False, kv_rows=max_len, seqs=1)
                  for m, c in collections.Counter(hits).items()]
     runs.append(launches_at(cfg, "systolic_mmm", slots or CONT_SLOTS, decode_steps + 1, False))
     total, shapes = collections.Counter(), {"systolic_mmm": {}, "systolic_qmm": {}, "grouped_mmm": {}}
@@ -1271,11 +1379,11 @@ def listed(shapes: dict) -> dict:
 def replay_alone(model, params, prompt: dict, out, max_len: int) -> list:
     """A request alone at batch 1 on the fp cache: its prefill, then a decode
     step for each of its tokens but the last, fed back; the logits of each."""
-    p = prompt["tokens"].shape[1]
+    p = prompt["tokens"].shape[1] + prefix_len(model.cfg)
     logits, cache = model.prefill(params, prompt, max_len=max_len)
     replay = [logits]
     for j in range(len(out) - 1):
-        tok = torch.tensor([[int(out[j])]], dtype=torch.int32, device="cuda")
+        tok = torch.as_tensor(out[j:j + 1], dtype=torch.int32, device="cuda").unsqueeze(0)  # (1, 1[, n_codebooks])
         logits, cache = model.decode_step(params, tok, cache=cache, pos=p + j)
         replay.append(logits)
     return replay
@@ -1283,7 +1391,7 @@ def replay_alone(model, params, prompt: dict, out, max_len: int) -> list:
 
 def phase_continuous(model, params, smi: str, fp: dict | None = None, chunk: int | None = None,
                      resident: int | None = None, alone: dict | None = None, paged: bool = False,
-                     same_as: dict | None = None) -> dict:
+                     same_as: dict | None = None, n_requests: int | None = None) -> dict:
     """Serve the continuous trace through ContinuousScheduler with the counts
     set to 0 just before the run and read just after; check the lifecycle
     and the launches; then replay each request alone at batch 1 on the fp
@@ -1305,14 +1413,15 @@ def phase_continuous(model, params, smi: str, fp: dict | None = None, chunk: int
     holds no page and its null page is still 0 / -1; ``same_as`` (the slot
     pool's run of the same trace) must then give the same tokens and
     bit-identical prefill and decode-step logits.  The output's
-    ``logit_rows`` ({rid: {position: logits}}) are for such a comparison."""
+    ``logit_rows`` ({rid: {position: logits}}) are for such a comparison.
+    ``n_requests``: serve the trace's first n requests only (default: all)."""
     kv8 = fp is not None
     cfg = model.cfg
     label, tol = ("kv8", KV8_VS_FP_TOL) if kv8 else ("continuous", LOGITS_TOL_BF16)
     if cfg.name != ARCH:
         label = f"{cfg.name} {'chunked' if chunk else 'paged' if paged else 'continuous'}"
-    trace = continuous_trace(cfg)
-    lens = [t["prompt"]["tokens"].shape[1] for t in trace]
+    trace = continuous_trace(cfg)[:n_requests]
+    lens = prompt_positions(cfg, trace)  # a vit prompt's patches included
     gens = [t["max_new_tokens"] for t in trace]
     max_len = max(p + g for p, g in zip(lens, gens))
     say(f"[3] {label} serving of {cfg.name} bf16{' over the int8 (kv8) pool' if kv8 else ''}: {len(trace)} requests "
@@ -1449,7 +1558,7 @@ def phase_continuous(model, params, smi: str, fp: dict | None = None, chunk: int
         f"TTFT p50 {st['ttft_p50_ms']} / p99 {st['ttft_p99_ms']} ms; mean occupancy {st['mean_occupancy']}; "
         f"kv_bytes_resident {st['kv_bytes_resident']}; prefill {st['prefill_s']} s + decode {st['decode_s']} s; "
         f"run wall {st['run_wall_s']} s ({wall:.3f} s with warmup)")
-    out = {"summary": st, "wall_s_with_warmup": wall, "prompt_lens": lens, "max_new_tokens": gens,
+    out = {"arch": cfg.name, "summary": st, "wall_s_with_warmup": wall, "prompt_lens": lens, "max_new_tokens": gens,
            "launches": got[0], "shapes": listed(got[1]),
            "routes": {k: {str(kk): c for kk, c in v.items()} for k, v in got[2].items()},
            "flash_shapes": [[*key, c] for key, c in sorted(got[3].items())],
@@ -1507,7 +1616,8 @@ def decode_step_profile(model, params, max_len: int, quantize_kv: bool, slots: i
         pool = PagedKVPool(model, slots, max_len, quantize_kv_cache=quantize_kv, device="cuda", **paged)
     else:
         pool = KVPool(model, slots, max_len, quantize_kv_cache=quantize_kv, device="cuda")
-    tok = torch.zeros((slots, 1), dtype=torch.int32, device="cuda")
+    tail = (model.cfg.n_codebooks,) if model.cfg.frontend == "audio_codec" else ()
+    tok = torch.zeros((slots, 1, *tail), dtype=torch.int32, device="cuda")
     _, pool.cache = engine.decode_slots(tok, pool.cache, pool.pos_vector())  # first launches outside the trace
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1612,16 +1722,16 @@ def long_prompt_run(model, params, chunked: bool, smi: str, turn: int) -> dict:
 
 
 def phase_long_prompt(model, params, smi: str) -> list[dict]:
-    """The long-prompt trace monolithic (A) and chunked (B), in turns A B A B
-    in one call, so the host's spread between calls cannot decide the
-    comparison; each chunked run's last-prompt-position logits held against
-    the monolithic run's before it."""
+    """The long-prompt trace monolithic (A) and then chunked (B) in one call,
+    so the host's spread between calls cannot decide the comparison; the
+    chunked run's last-prompt-position logits held against the monolithic
+    run's."""
     t = LONG_TRACE
     say(f"[3] long-prompt serving of {ARCH} bf16: {t['n_short']} requests of {t['short_prompt']} tokens decoding "
         f"{t['short_gen']} from tick 0, one of {t['long_prompt']} arriving at tick {t['long_arrival']} for "
-        f"{t['long_gen']}; {LONG_SLOTS} slots; monolithic, then chunks of {LONG_CHUNK}, twice each in turns")
+        f"{t['long_gen']}; {LONG_SLOTS} slots; monolithic, then chunks of {LONG_CHUNK}")
     runs = []
-    for turn in (1, 2):
+    for turn in (1,):
         mono = long_prompt_run(model, params, False, smi, turn)
         chunked = long_prompt_run(model, params, True, smi, turn)
         worst = 0.0
@@ -2147,7 +2257,7 @@ def serve_recurrent(model, params, batch) -> dict:
             tok = lk.argmax(-1).to(torch.int32)
     del engine, cache_k, cache_p
     return {
-        "prefill_ms": t_prefill * 1e3, "prefill_ms_per_step": t_prefill / PROMPT * 1e3,
+        "arch": cfg.name, "prefill_ms": t_prefill * 1e3, "prefill_ms_per_step": t_prefill / PROMPT * 1e3,
         "decode_ms_per_step": t_decode / (GEN - 1) * 1e3, "decode_tok_s": BATCH * (GEN - 1) / t_decode,
         "k1_launches_per_step": per_step, "prefill_launches": pf[0], "decode_launches": dec[0],
         "prefill_shapes": listed(pf[1]), "decode_shapes": listed(dec[1]),
@@ -2246,7 +2356,8 @@ def phase_serve_recurrent(arch: str, smi: str) -> tuple[dict, list]:
     if cfg.family == "ssm":
         resident = state_bytes(cfg, CONT_SLOTS)
         cont = phase_continuous(model, params, smi, resident=resident)
-        chunked = phase_continuous(model, params, smi, chunk=SSM_CHUNK, resident=resident, alone=cont["replays"])
+        chunked = phase_continuous(model, params, smi, chunk=SSM_CHUNK, resident=resident, alone=cont["replays"],
+                                   n_requests=SSM_CHUNKED_REQUESTS)
         for run in (cont, chunked):
             del run["replays"], run["logit_rows"]
         runs = [cont, chunked]
@@ -2255,6 +2366,119 @@ def phase_serve_recurrent(arch: str, smi: str) -> tuple[dict, list]:
     del params, model, batch
     torch.cuda.empty_cache()
     return r, runs
+
+
+def phase_serve_frontend(arch: str, smi: str) -> tuple[dict, dict | None]:
+    """A frontend model at full width, drawn in fp32 from SEED and built in
+    bf16 as the launcher builds it (the projector's norm fp32): served like
+    internlm2-1.8b (``serve_path``: exact K1 launches per shape -- the vit
+    projector's two per prefill, the audio heads none -- and K3 per head
+    count, kernel vs plain, two prefills bit-identical), its device kernels
+    per decode step traced; internvl2-1b also through ContinuousScheduler on
+    the continuous trace."""
+    cfg = configs.get_config(arch)
+    front = (f"{cfg.n_codebooks} codebooks of {cfg.vocab_size}" if cfg.frontend == "audio_codec"
+             else f"{cfg.n_patches} patches of {cfg.vit_dim}, V={cfg.vocab_size}")
+    say(f"[3] serve {arch} (full width: {cfg.n_layers}L d={cfg.d_model} H={cfg.n_heads}/{cfg.n_kv_heads} "
+        f"d_ff={cfg.d_ff}, {front}) in {cfg.dtype}, batch {BATCH}, prompt {PROMPT} positions"
+        + (f" ({cfg.n_patches} patches + {PROMPT - cfg.n_patches} text)" if cfg.frontend == "vit" else "")
+        + f", {GEN} tokens")
+    model = get_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, _ = init_params(model, SEED, torch.device("cuda"), "none")
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    # count_params leaves the vit projector out (its norm and two weights)
+    projector = cfg.vit_dim + sum(k * nn for k, nn in projector_gemms(cfg)) if cfg.frontend == "vit" else 0
+    say(f"    init {time.perf_counter() - t0:.1f} s: {n:,} parameters, {_nbytes(params):,} bytes")
+    expect(n == model.n_params + projector,
+           f"{arch} parameters {n:,} = the config's count {model.n_params:,} + {projector:,} of the projector")
+    batch = make_batch(cfg, batch=BATCH, seq=PROMPT, kind="prefill", seed=SEED, device="cuda")
+    r = serve_path(arch, model, params, {"gemm": "systolic_mmm", "tol": LOGITS_TOL_BF16}, batch)
+    del r["logits"], r["fed"]
+    r["decode_step_trace"] = decode_step_profile(model, params, PROMPT + GEN, False, slots=BATCH)
+    cont = None
+    if cfg.frontend == "vit":
+        cont = phase_continuous(model, params, smi)
+        del cont["replays"], cont["logit_rows"]
+    r.update(n_params=n, param_bytes=_nbytes(params), peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    say(f"    {arch} ({smi}): prefill {r['prefill_ms']:.3f} ms, decode {r['decode_ms_per_step']:.3f} ms/step, "
+        f"{r['decode_tok_s']:.1f} tok/s; one decode step over {BATCH} slots traced: {trace_row(r['decode_step_trace'])}; "
+        f"peak device memory {r['peak_gb']:.2f} GB")
+    del params, model, batch
+    torch.cuda.empty_cache()
+    return r, cont
+
+
+def phase_tied(smi: str) -> dict:
+    """internvl2-1b with a tied head (``dataclasses.replace(...,
+    tie_embeddings=True)``: no lm_head; K1 reads the (V, d) table K-major,
+    ``layers.unembed``) at full width in bf16: one prefill of BATCH x PROMPT
+    and TIED_STEPS greedy decode steps with the counts set to 0 just before
+    and read just after, every launch exact by shape and path -- the
+    table's 1 + TIED_STEPS on the K-major decode tile --; then the kernel
+    path's logits against the plain path's from the same cache, and a
+    second kernel-path prefill against the first, bit for bit."""
+    cfg = dataclasses.replace(configs.get_config(VLM_ARCH), tie_embeddings=True)
+    k, v = tied_head(cfg)
+    say(f"[3] {VLM_ARCH} with a tied head (the {v} x {k} table read K-major), bf16, one prefill of {BATCH}x{PROMPT} "
+        f"and {TIED_STEPS} decode steps")
+    model = get_model(cfg)
+    params, _ = init_params(model, SEED, torch.device("cuda"), "none")
+    batch = make_batch(cfg, batch=BATCH, seq=PROMPT, kind="prefill", seed=SEED, device="cuda")
+    max_len = PROMPT + TIED_STEPS
+    with torch.no_grad():
+        model.prefill(params, batch, max_len=max_len)  # warm-up: first launches (not counted)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        got, cache_k = model.prefill(params, batch, max_len=max_len)
+        cache_p = _tree(torch.clone, cache_k)
+        tok, logits_k, feed = got.argmax(-1).to(torch.int32), [got], []
+        for step in range(TIED_STEPS):
+            feed.append(tok)
+            lk, cache_k = model.decode_step(params, tok, cache=cache_k, pos=PROMPT + step)
+            logits_k.append(lk)
+            tok = lk.argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got_c, got_s, got_r, got_f = counts(), shape_counts(), route_counts(), flash_shape_counts()
+        want_c, want_s = launches_at(cfg, "systolic_mmm", BATCH * PROMPT, 1, True, seqs=BATCH)
+        dec_c, dec_s = launches_at(cfg, "systolic_mmm", BATCH, TIED_STEPS, False)
+        for key, c in dec_s["systolic_mmm"].items():
+            want_s["systolic_mmm"][key] = want_s["systolic_mmm"].get(key, 0) + c
+        want_c = {name: want_c[name] + dec_c[name] for name in want_c}
+        want_r = expected_routes(cfg, want_s, 1)
+        expect(got_c == want_c, f"tied prefill + {TIED_STEPS} decode steps launches: {got_c}, want {want_c}")
+        for name, by in got_s.items():
+            expect(by == want_s[name], f"tied {name} launches by shape: {sorted(by.items())}")
+        for key in got_r:
+            expect(got_r[key] == want_r[key], f"tied {key}: {got_r[key]}, want {want_r[key]}")
+        head = got_s["systolic_mmm"].get((BATCH, k, v), 0)
+        paths = got_r["systolic_mmm_paths"]
+        expect(head == 1 + TIED_STEPS and paths.get("decode_kmajor", 0) == 1 + TIED_STEPS,
+               f"tied head: {head} K1 launches at (M, K, N) = ({BATCH}, {k}, {v}), {paths.get('decode_kmajor', 0)} "
+               f"on decode_kmajor (want {1 + TIED_STEPS}: the prefill's and each decode step's)")
+        again, _ = model.prefill(params, batch, max_len=max_len)
+        expect(torch.equal(got, again), "tied: two kernel-path prefills give bit-identical logits")
+        del again
+        n0 = counts()
+        with plain_versions():
+            want_l, _ = model.prefill(params, batch, max_len=max_len)
+            errs = [compare_logits("tied prefill", got, want_l, LOGITS_TOL_BF16)[0]]
+            for step in range(TIED_STEPS):
+                lp, cache_p = model.decode_step(params, feed[step], cache=cache_p, pos=PROMPT + step)
+                errs.append(compare_logits(f"tied decode step {step}", logits_k[step + 1], lp, LOGITS_TOL_BF16)[0])
+        expect(counts() == n0, "tied plain path launched no kernel")
+    say(f"    tied ({smi}): prefill + {TIED_STEPS} decode steps {wall * 1e3:.3f} ms")
+    out = {"arch": cfg.name, "tie_embeddings": True, "launches": got_c, "shapes": listed(got_s),
+           "routes": {key: {str(kk): c for kk, c in val.items()} for key, val in got_r.items()},
+           "flash_shapes": [[*key, c] for key, c in sorted(got_f.items())],
+           "logits_max_abs_err": errs, "wall_ms": wall * 1e3}
+    del params, model, batch, cache_k, cache_p
+    torch.cuda.empty_cache()
+    return out
 
 
 def activation_flips(label: str, flips: list, cfg) -> dict:
@@ -2359,11 +2583,13 @@ def compare_logits(what: str, got: torch.Tensor, want: torch.Tensor, tol: float)
     return err, scale
 
 
-def phase_small_reference(arch: str) -> None:
-    """SMOKE config in fp32: the card (kernels) against the port's CPU path,
-    which tests/test_torch_serve.py and tests/test_torch_moe.py hold against
-    the JAX package."""
-    cfg = dataclasses.replace(configs.get_smoke(arch), dtype="float32")
+def phase_small_reference(arch: str, **over) -> None:
+    """SMOKE config in fp32 (with the ArchConfig overrides ``over``, e.g. a
+    tied head): the card (kernels) against the port's CPU path, which
+    tests/test_torch_serve.py, tests/test_torch_moe.py and the other
+    tests/test_torch_*.py hold against the JAX package."""
+    cfg = dataclasses.replace(configs.get_smoke(arch), dtype="float32", **over)
+    label = arch + "".join(f" {k}={v}" for k, v in over.items())
     model = get_model(cfg)
     cpu = model.init(SEED, "cpu")
     gpu = _tree(lambda t: t.to("cuda"), cpu)
@@ -2376,9 +2602,9 @@ def phase_small_reference(arch: str) -> None:
         out[dev] = (logits.cpu(), eng.generate(b, 8).cpu())
     err = (out["cpu"][0] - out["cuda"][0]).abs().max().item()
     expect(err <= LOGITS_TOL_FP32,
-           f"{arch} SMOKE fp32 prefill logits, card vs CPU: max_abs={err:.3e} (tol {LOGITS_TOL_FP32})")
+           f"{label} SMOKE fp32 prefill logits, card vs CPU: max_abs={err:.3e} (tol {LOGITS_TOL_FP32})")
     expect(torch.equal(out["cpu"][1], out["cuda"][1]),
-           f"{arch} SMOKE fp32 8 greedy tokens, card vs CPU identical: {out['cuda'][1][0].tolist()}")
+           f"{label} SMOKE fp32 8 greedy tokens, card vs CPU identical: {out['cuda'][1][0].tolist()}")
 
 
 # ---------------------------------------------------------------------------
@@ -2405,15 +2631,17 @@ def cycler(items: list):
     return nxt
 
 
-def time_gemm(m, k, n, gen, out_dtype=BF16, tiles: bool = True) -> dict:
+def time_gemm(m, k, n, gen, out_dtype=BF16, tiles: bool = True, k_major: bool = False) -> dict:
     """Kernel, plain and library times of one bf16 projection.  Weights are
     cycled through enough copies to exceed the 50 MB L2, as the main path
     reads each layer's weights cold.  With ``tiles``, a shape on a wgmma path
     is also timed on each wgmma tile through the C entry (launches that no
-    counter sees), for the path rule's record."""
+    counter sees), for the path rule's record.  ``k_major``: B is the
+    transpose of an (N, K) tensor, as the tied head's table (the library
+    call then multiplies by the same transposed view)."""
     a = randn((m, k), gen, BF16)
     copies = max(1, math.ceil(150e6 / (k * n * dtype_bytes(BF16))))
-    nxt = cycler([randn((k, n), gen, BF16) for _ in range(copies)])
+    nxt = cycler([randn((n, k), gen, BF16).T if k_major else randn((k, n), gen, BF16) for _ in range(copies)])
     iters = 20 if m <= 16 else 10
     lib = (lambda: torch.mm(a, nxt(), out_dtype=torch.float32)) if out_dtype == torch.float32 \
         else (lambda: torch.matmul(a, nxt()))
@@ -2423,7 +2651,7 @@ def time_gemm(m, k, n, gen, out_dtype=BF16, tiles: bool = True) -> dict:
         "library": time_ms(lib, iters),
     }
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    path = mm_kernel.gemm_path(m, n, k, BF16, True, sms)
+    path = mm_kernel.gemm_path(m, n, k, BF16, True, sms, k_major)
     by_path = {}
     if tiles and path.startswith("wgmma"):
         lib_, fn = mm_kernel._entry("systolic_mmm")
@@ -2660,16 +2888,22 @@ def phase_timing(errs: dict, sync_fp: list, sync_w8a8: list, moe_runs: list,
     long-prompt runs of internlm2, minicpm3's continuous and chunked runs),
     whose launches count with the synchronized paths'; the paged arms and
     minicpm3's paged run too).  The recurrent models' synchronized paths
-    come in ``sync_fp``, xlstm-125m's continuous runs in ``served``."""
+    come in ``sync_fp``, xlstm-125m's continuous runs in ``served``; so do
+    the frontend models' (musicgen-medium's and internvl2-1b's synchronized
+    paths in ``sync_fp``; internvl2-1b's continuous run and the tied check
+    in ``served``)."""
     say("[4] kernel times at the served paths' shapes (CUDA events; ms per call)")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    moe_cfg = configs.get_config(MOE_ARCH)
     moe_r = moe_runs[0]
     shapes = []
     synchronized = _merged(sync_fp, "systolic_mmm")
+    tied = tied_head(dataclasses.replace(configs.get_config(VLM_ARCH), tie_embeddings=True))
     for (m, k, n), n_calls in _merged([*sync_fp, *sync_w8a8, *served], "systolic_mmm").items():
-        # each wgmma tile timed at the synchronized paths' shapes only
-        r = time_gemm(m, k, n, gen, timed_out_dtype(k, n), tiles=(m, k, n) in synchronized)
+        # each wgmma tile timed at the synchronized paths' shapes only; the
+        # tied head's table K-major, fp32 out
+        k_major = (k, n) == tied
+        r = time_gemm(m, k, n, gen, torch.float32 if k_major else timed_out_dtype(k, n),
+                      tiles=(m, k, n) in synchronized, k_major=k_major)
         r["launches"] = n_calls  # as counted at the launch site on the served paths
         shapes.append(r)
         tiles = "".join(f"  {p[6:]} {t:.4f}" for p, t in r["ms_by_path"].items())
@@ -2702,18 +2936,22 @@ def phase_timing(errs: dict, sync_fp: list, sync_w8a8: list, moe_runs: list,
         f"kernel {k2['ms']:.4f}  plain {k2['plain_ms']:.4f}  torch.addmm {k2['library_ms']:.4f}  "
         f"bound {k2['bound_ms']:.4f} ({k2['bound_by']})")
     flash = []
-    # Flash launches are counted by head counts: each path's prefill launches
-    # are at its model's (H, Hkv), phase 3 checks (16, 8) and (32, 4); the
-    # continuous path's also by (B, Sq, Skv), batch 1 at each prompt length.
+    # Flash launches are counted by head counts: each synchronized path's
+    # prefill launches are at its model's (H, Hkv) (phase 3 checks them),
+    # over BATCH x PROMPT; the served runs' also by (B, Sq, Skv) -- batch 1
+    # at each prompt length, the tied check's BATCH x PROMPT --, each at its
+    # model's heads (a run names its model under "arch"; the long-prompt and
+    # paged runs are internlm2's).  MLA's paths and the recurrent ones make
+    # no flash launch.
     dense_cfg = configs.get_config(ARCH)
-    dense_runs = [r for r in (*sync_fp, *sync_w8a8) if r not in moe_runs]  # MLA's make no flash launch
-    runs = [(dense_cfg, BATCH, PROMPT, sum(r["prefill_launches"]["flash_attn"] for r in dense_runs)),
-            (moe_cfg, BATCH, PROMPT, sum(r["prefill_launches"]["flash_attn"] for r in moe_runs))]
-    batch1 = collections.Counter()
+    by_shape, served_shapes = collections.Counter(), collections.Counter()
+    for r in (*sync_fp, *sync_w8a8):
+        by_shape[(r["arch"], BATCH, PROMPT)] += r["prefill_launches"]["flash_attn"]
     for r in served:
         for b, sq, _, n_calls in r["flash_shapes"]:
-            batch1[(b, sq)] += n_calls
-    runs += [(dense_cfg, b, sq, n_calls) for (b, sq), n_calls in sorted(batch1.items())]
+            served_shapes[(r.get("arch", ARCH), b, sq)] += n_calls
+    by_shape.update(dict(sorted(served_shapes.items())))
+    runs = [(configs.get_config(arch), b, sq, n_calls) for (arch, b, sq), n_calls in by_shape.items() if n_calls]
     # zamba2's shared attention (D = 112): no served launch (its prefill is
     # decode steps, whose attention is plain); forward reaches it once per
     # application, as in phase 3's forward check.
@@ -2804,10 +3042,17 @@ def main() -> int:
     timed(f"small reference {SSM_ARCH}", phase_small_reference, SSM_ARCH)
     hyb_r, _ = timed(f"serve {HYBRID_ARCH}", phase_serve_recurrent, HYBRID_ARCH, device["nvidia_smi"])
     timed(f"small reference {HYBRID_ARCH}", phase_small_reference, HYBRID_ARCH)
-    kernels, k2, chunk_attn, paging = timed("timing", phase_timing, errs, [bf16, moe_r, mla_bf16, ssm_r, hyb_r],
+    audio_r, _ = timed(f"serve {AUDIO_ARCH}", phase_serve_frontend, AUDIO_ARCH, device["nvidia_smi"])
+    timed(f"small reference {AUDIO_ARCH}", phase_small_reference, AUDIO_ARCH)
+    vlm_r, vlm_cont = timed(f"serve {VLM_ARCH}", phase_serve_frontend, VLM_ARCH, device["nvidia_smi"])
+    timed(f"small reference {VLM_ARCH}", phase_small_reference, VLM_ARCH)
+    tied_r = timed(f"tied {VLM_ARCH}", phase_tied, device["nvidia_smi"])
+    timed(f"small reference {VLM_ARCH} tied", lambda: phase_small_reference(VLM_ARCH, tie_embeddings=True))
+    kernels, k2, chunk_attn, paging = timed("timing", phase_timing, errs,
+                                            [bf16, moe_r, mla_bf16, ssm_r, hyb_r, audio_r, vlm_r],
                                             [w8a8, mla_w8a8, moe_w8a8], [moe_r, moe_w8a8],
                                             [cont, kv8, *long_runs, *paged_runs, mla_cont, mla_chunked, mla_paged,
-                                             *ssm_runs])
+                                             *ssm_runs, vlm_cont, tied_r])
     say(f"    wall {time.perf_counter() - t_start:.1f} s")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -2817,7 +3062,9 @@ def main() -> int:
                        "serve_moe_w8a8": moe_w8a8, "serve_mla": mla_bf16, "serve_mla_w8a8": mla_w8a8,
                        "serve_mla_continuous": mla_cont, "serve_mla_chunked": mla_chunked,
                        "serve_mla_paged": mla_paged, "serve_paged": paged_runs, "serve_xlstm": ssm_r,
-                       "serve_xlstm_continuous": ssm_runs, "serve_zamba2": hyb_r, "kernels": kernels,
+                       "serve_xlstm_continuous": ssm_runs, "serve_zamba2": hyb_r, "serve_musicgen": audio_r,
+                       "serve_internvl2": vlm_r, "serve_internvl2_continuous": vlm_cont, "serve_tied": tied_r,
+                       "kernels": kernels,
                        "systolic_mmm_bias": k2, "chunk_attention": chunk_attn, "paged_pool": paging,
                        "phase_wall_s": walls,
                        "failures": failures}, f, indent=1)

@@ -16,7 +16,10 @@ layer's ``attn`` (``wq_a``, ``q_norm``, ``wq_b``, ``wkv_a``, ``kv_norm``,
 quantized them (every one but ``wkv_b``).  The SSM family's ``mlstm`` and
 ``slstm`` stacks and the hybrid's ``mamba`` stack cross the same way, each
 a list of per-layer blocks, and the hybrid's ``shared`` attention block as
-one block.
+one block.  The frontends' leaves cross whole: the audio codec's
+``embed.tables`` (n_codebooks, V, d) and stacked ``lm_head.w``
+(n_codebooks, d, V), the vit ``projector`` (``norm``, ``w1``, ``w2``); a
+tied model has no ``lm_head``.
 """
 
 from __future__ import annotations
@@ -101,11 +104,10 @@ def params_from_jax(
             raise ValueError(f"{cfg.name}: tree has {n} stacked {key!r} layers, config says {want}")
         return [convert(tree, i) for i in range(n)]
 
-    out = {
-        "final_norm": convert(np_params["final_norm"]),
-        "embed": convert(np_params["embed"]),
-        "lm_head": convert(np_params["lm_head"]),
-    }
+    out = {"final_norm": convert(np_params["final_norm"]), "embed": convert(np_params["embed"])}
+    for key in ("lm_head", "projector"):  # no lm_head when tied; a projector for vit only
+        if key in np_params:
+            out[key] = convert(np_params[key])
     if cfg.family == "ssm":
         n_groups, n_m = xlstm_counts(cfg)
         if n_m:

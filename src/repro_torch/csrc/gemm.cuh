@@ -17,9 +17,19 @@
 // unbatched instantiations are the systolic GEMM's code as it was before the
 // batch existed: `if constexpr` and constant-folded ternaries leave them
 // token for token what they were.
+//
+// KMB (unbatched only) reads B K-major: the (K, N) values stored as an
+// (N, K) row-major matrix, as a tied head's (V, d) embedding table is the
+// transpose of the (d, V) operand it multiplies.  A B tile is then staged as
+// BN rows of BK contraction values, loaded and zero-filled as A's tiles are,
+// and read as col_major WMMA fragments (bf16) or by column (fp32), so no
+// transposed copy of B is ever made.  With KMB off (the default) every
+// instantiation is what it was before KMB existed.
 #pragma once
 
 #include <mma.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -42,7 +52,7 @@ struct TcCfg {
   static constexpr int B_ELEMS = BK * LDB;
 };
 
-template <bool BATCHED, int BM, int BN, int BK, int WARPS_M, int WARPS_N, typename O>
+template <bool BATCHED, int BM, int BN, int BK, int WARPS_M, int WARPS_N, typename O, bool KMB = false>
 __global__ void __launch_bounds__(32 * WARPS_M * WARPS_N)
     mmm_bf16_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ B,
                     const float* __restrict__ bias, O* __restrict__ out, int M, int N, int K,
@@ -64,8 +74,12 @@ __global__ void __launch_bounds__(32 * WARPS_M * WARPS_N)
     }
   }
   using C = TcCfg<BM, BN, BK, WARPS_M, WARPS_N>;
+  static_assert(!(BATCHED && KMB), "K-major B is the unbatched GEMM's");
+  // K-major B: BN rows of BK k each, padded as A's rows are.
+  constexpr int LDB = KMB ? BK + 8 : C::LDB;
+  using BLayout = typename std::conditional<KMB, wmma::col_major, wmma::row_major>::type;
   __shared__ __align__(128) __nv_bfloat16 As[2][C::A_ELEMS];
-  __shared__ __align__(128) __nv_bfloat16 Bs[2][C::B_ELEMS];
+  __shared__ __align__(128) __nv_bfloat16 Bs[2][KMB ? BN * LDB : C::B_ELEMS];
   __shared__ __align__(128) float epi[WARPS_M * WARPS_N][16 * 16];
 
   const int warp = threadIdx.x / 32;
@@ -83,9 +97,14 @@ __global__ void __launch_bounds__(32 * WARPS_M * WARPS_N)
 
   const int kb = BATCHED ? 0 : blockIdx.z * k_chunk;
   const int nk = (min(K, kb + k_chunk) - kb + BK - 1) / BK;
+  // B's k tile: BK x BN of a row-major (K, N) matrix, or BN x BK of the
+  // (N, K) storage of a K-major one.
   if (nk > 0) {
     load_tile<__nv_bfloat16, BM, BK, C::LDA, C::NT>(As[0], A, M, K, m0, kb, vec_a);
-    load_tile<__nv_bfloat16, BK, BN, C::LDB, C::NT>(Bs[0], B, K, N, kb, n0, vec_b);
+    if constexpr (KMB)
+      load_tile<__nv_bfloat16, BN, BK, LDB, C::NT>(Bs[0], B, N, K, n0, kb, vec_b);
+    else
+      load_tile<__nv_bfloat16, BK, BN, LDB, C::NT>(Bs[0], B, K, N, kb, n0, vec_b);
   }
   cp_async_commit();
 
@@ -94,7 +113,10 @@ __global__ void __launch_bounds__(32 * WARPS_M * WARPS_N)
     if (kt + 1 < nk) {  // prefetch the next k tile into the other stage
       const int k1 = kb + (kt + 1) * BK;
       load_tile<__nv_bfloat16, BM, BK, C::LDA, C::NT>(As[cur ^ 1], A, M, K, m0, k1, vec_a);
-      load_tile<__nv_bfloat16, BK, BN, C::LDB, C::NT>(Bs[cur ^ 1], B, K, N, k1, n0, vec_b);
+      if constexpr (KMB)
+        load_tile<__nv_bfloat16, BN, BK, LDB, C::NT>(Bs[cur ^ 1], B, N, K, n0, k1, vec_b);
+      else
+        load_tile<__nv_bfloat16, BK, BN, LDB, C::NT>(Bs[cur ^ 1], B, K, N, k1, n0, vec_b);
     }
     cp_async_commit();
     cp_async_wait<1>();  // the current stage has landed
@@ -103,13 +125,15 @@ __global__ void __launch_bounds__(32 * WARPS_M * WARPS_N)
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> af[C::FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bf[C::FN];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, BLayout> bf[C::FN];
 #pragma unroll
       for (int i = 0; i < C::FM; ++i)
         wmma::load_matrix_sync(af[i], &As[cur][(wm * C::WTM + i * 16) * C::LDA + kk], C::LDA);
 #pragma unroll
-      for (int j = 0; j < C::FN; ++j)
-        wmma::load_matrix_sync(bf[j], &Bs[cur][kk * C::LDB + wn * C::WTN + j * 16], C::LDB);
+      for (int j = 0; j < C::FN; ++j) {
+        const int col = wn * C::WTN + j * 16;
+        wmma::load_matrix_sync(bf[j], KMB ? &Bs[cur][col * LDB + kk] : &Bs[cur][kk * LDB + col], LDB);
+      }
 #pragma unroll
       for (int i = 0; i < C::FM; ++i)
 #pragma unroll
@@ -152,7 +176,7 @@ __global__ void __launch_bounds__(32 * WARPS_M * WARPS_N)
 
 constexpr int F_BM = 64, F_BN = 64, F_BK = 16, F_NT = 256;
 
-template <bool BATCHED, typename O>
+template <bool BATCHED, typename O, bool KMB = false>
 __global__ void __launch_bounds__(F_NT)
     mmm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
                    const float* __restrict__ bias, O* __restrict__ out, int M, int N, int K,
@@ -167,9 +191,10 @@ __global__ void __launch_bounds__(F_NT)
       return;
     }
   }
-  constexpr int LDA = F_BK + 4, LDB = F_BN + 4;
+  static_assert(!(BATCHED && KMB), "K-major B is the unbatched GEMM's");
+  constexpr int LDA = F_BK + 4, LDB = KMB ? F_BK + 4 : F_BN + 4;  // K-major B: F_BN rows of F_BK k
   __shared__ __align__(128) float As[2][F_BM * LDA];
-  __shared__ __align__(128) float Bs[2][F_BK * LDB];
+  __shared__ __align__(128) float Bs[2][KMB ? F_BN * LDB : F_BK * LDB];
 
   const int tx = threadIdx.x % 16;  // output columns tx + 16 j
   const int ty = threadIdx.x / 16;  // output rows ty + 16 i
@@ -180,7 +205,10 @@ __global__ void __launch_bounds__(F_NT)
   const int nk = (K + F_BK - 1) / F_BK;
   if (nk > 0) {
     load_tile<float, F_BM, F_BK, LDA, F_NT>(As[0], A, M, K, m0, 0, vec_a);
-    load_tile<float, F_BK, F_BN, LDB, F_NT>(Bs[0], B, K, N, 0, n0, vec_b);
+    if constexpr (KMB)
+      load_tile<float, F_BN, F_BK, LDB, F_NT>(Bs[0], B, N, K, n0, 0, vec_b);
+    else
+      load_tile<float, F_BK, F_BN, LDB, F_NT>(Bs[0], B, K, N, 0, n0, vec_b);
   }
   cp_async_commit();
 
@@ -189,7 +217,10 @@ __global__ void __launch_bounds__(F_NT)
     if (kt + 1 < nk) {
       const int k1 = (kt + 1) * F_BK;
       load_tile<float, F_BM, F_BK, LDA, F_NT>(As[cur ^ 1], A, M, K, m0, k1, vec_a);
-      load_tile<float, F_BK, F_BN, LDB, F_NT>(Bs[cur ^ 1], B, K, N, k1, n0, vec_b);
+      if constexpr (KMB)
+        load_tile<float, F_BN, F_BK, LDB, F_NT>(Bs[cur ^ 1], B, N, K, n0, k1, vec_b);
+      else
+        load_tile<float, F_BK, F_BN, LDB, F_NT>(Bs[cur ^ 1], B, K, N, k1, n0, vec_b);
     }
     cp_async_commit();
     cp_async_wait<1>();
@@ -200,7 +231,7 @@ __global__ void __launch_bounds__(F_NT)
 #pragma unroll
       for (int i = 0; i < 4; ++i) a[i] = As[cur][(ty + 16 * i) * LDA + k];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[cur][k * LDB + tx + 16 * j];
+      for (int j = 0; j < 4; ++j) b[j] = KMB ? Bs[cur][(tx + 16 * j) * LDB + k] : Bs[cur][k * LDB + tx + 16 * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -220,27 +251,27 @@ __global__ void __launch_bounds__(F_NT)
 // 16-byte aligned when the first is and its rows are whole 16-byte chunks.
 // ---------------------------------------------------------------------------
 
-template <bool BATCHED, int BM, int BN, int BK, int WM, int WN, typename O>
+template <bool BATCHED, int BM, int BN, int BK, int WM, int WN, typename O, bool KMB = false>
 void launch_bf16(const void* a, const void* b, const float* bias, void* out, int M, int N, int K,
                  int act, int batch, cudaStream_t s, Split sp = {1, 0}, float* partial = nullptr,
                  const int* rows = nullptr) {
   const bool vec_a = aligned16(a) && K % 8 == 0;
-  const bool vec_b = aligned16(b) && N % 8 == 0;
+  const bool vec_b = aligned16(b) && (KMB ? K : N) % 8 == 0;  // B's stored rows: K-major rows are K long
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, BATCHED ? batch : sp.splits);
-  mmm_bf16_kernel<BATCHED, BM, BN, BK, WM, WN, O><<<grid, 32 * WM * WN, 0, s>>>(
+  mmm_bf16_kernel<BATCHED, BM, BN, BK, WM, WN, O, KMB><<<grid, 32 * WM * WN, 0, s>>>(
       static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b), bias,
       static_cast<O*>(out), M, N, K, act, vec_a, vec_b, sp.splits > 1 ? sp.k_chunk : K,
       sp.splits > 1 ? partial : nullptr, rows);
   finish_split<O>(partial, sp, bias, static_cast<O*>(out), M, N, act, s);
 }
 
-template <bool BATCHED, typename O>
+template <bool BATCHED, typename O, bool KMB = false>
 void launch_f32(const void* a, const void* b, const float* bias, void* out, int M, int N, int K,
                 int act, int batch, cudaStream_t s, const int* rows = nullptr) {
   const bool vec_a = aligned16(a) && K % 4 == 0;
-  const bool vec_b = aligned16(b) && N % 4 == 0;
+  const bool vec_b = aligned16(b) && (KMB ? K : N) % 4 == 0;
   dim3 grid((N + F_BN - 1) / F_BN, (M + F_BM - 1) / F_BM, batch);
-  mmm_f32_kernel<BATCHED, O><<<grid, F_NT, 0, s>>>(static_cast<const float*>(a),
+  mmm_f32_kernel<BATCHED, O, KMB><<<grid, F_NT, 0, s>>>(static_cast<const float*>(a),
                                                    static_cast<const float*>(b), bias,
                                                    static_cast<O*>(out), M, N, K, act, vec_a,
                                                    vec_b, rows);

@@ -20,8 +20,8 @@
 // least; and the epilogue, which writes an output tile as wide as the reads
 // that fed it.
 //
-// The caller picks one of six paths by shape (kernels/systolic/kernel.py
-// gemm_path, passed in as `path`; a choice by shape, never a retry):
+// The caller picks one of nine paths by shape and B's layout (kernels/systolic/kernel.py
+// gemm_path, passed in as `path`; a choice by shape and layout, never a retry):
 //   * wgmma tiles (bf16, M > 16, K and N multiples of 8, 16-byte-aligned
 //     bases) -- the prefill tile built for Hopper, 128x256, 128x128 or
 //     64x128, the widest whose grid leaves at most half the SMs idle.
@@ -46,6 +46,14 @@
 //     chosen so about four blocks per SM read B.
 //   * fp32 operands: a CUDA-core FMA tile, because the reference computes
 //     fp32 products in full fp32 (TF32 would not match it).
+//   * B K-major (the (K, N) values stored as an (N, K) row-major matrix):
+//     the decode, WMMA and FMA tiles above, each staging B's tiles from the
+//     (N, K) storage (gemm.cuh KMB).  A tied head multiplies by the
+//     transpose of the (V, d) embedding table; reading the table so, in
+//     place, saves a transposed copy of it on every call (272 MB for a
+//     151655 x 896 bf16 table).  A decode head (M <= 16) is bound by reading
+//     the table once, as any decode projection is by its weight.  The wgmma
+//     tiles read B N-major through TMA and take none.
 // The wgmma tile is in wgmma_gemm.cuh and the WMMA and FMA kernels and their
 // launch in gemm.cuh, all shared with the grouped expert GEMM
 // (grouped_mmm.cu); the Hopper building blocks are in hopper.cuh.  No path uses atomics: every output element is written once by
@@ -59,7 +67,10 @@ using namespace repro;
 namespace {
 
 // Paths, as numbered by the Python binding's PATHS.
-enum Path { P_FMA = 0, P_DECODE = 1, P_WMMA = 2, P_WGMMA_128 = 3, P_WGMMA_64 = 4, P_WGMMA_256 = 5 };
+enum Path {
+  P_FMA = 0, P_DECODE = 1, P_WMMA = 2, P_WGMMA_128 = 3, P_WGMMA_64 = 4, P_WGMMA_256 = 5,
+  P_FMA_KMAJOR = 6, P_DECODE_KMAJOR = 7, P_WMMA_KMAJOR = 8
+};
 
 template <typename O>
 int dispatch(int path, const void* a, const void* b, const float* bias, void* out, int M, int N, int K, int act,
@@ -81,28 +92,41 @@ int dispatch(int path, const void* a, const void* b, const float* bias, void* ou
       return wg::launch_wgmma<false, 2, 128, O>(a, b, bias, out, M, N, K, act, 1, nullptr, s);
     case P_WGMMA_64:
       return wg::launch_wgmma<false, 1, 128, O>(a, b, bias, out, M, N, K, act, 1, nullptr, s);
+    case P_FMA_KMAJOR:
+      launch_f32<false, O, true>(a, b, bias, out, M, N, K, act, 1, s);
+      break;
+    case P_DECODE_KMAJOR:
+      launch_bf16<false, D_BM, D_BN, D_BK, 1, 4, O, true>(a, b, bias, out, M, N, K, act, 1, s,
+                                                          plan_split(M, N, K, true), workspace);
+      break;
+    case P_WMMA_KMAJOR:
+      launch_bf16<false, 128, 128, 32, 2, 4, O, true>(a, b, bias, out, M, N, K, act, 1, s);
+      break;
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// a: (M, K), b: (K, N), both row-major and of dtype `in_dtype`; bias: (N,)
-// fp32 or null; out: (M, N) row-major of dtype `out_dtype`; `path`: one of
-// Path, which must fit the operands (fp32 <-> FMA; the decode tile M <= 16;
-// wgmma K and N multiples of 8 and 16-byte-aligned bases); workspace: at
-// least split_workspace(M, N, K, path == decode) bytes (null if that is 0).
+// a: (M, K) row-major, b: (K, N) row-major -- or, on a *_KMAJOR path,
+// K-major (stored as (N, K) row-major) --, both of dtype `in_dtype`; bias:
+// (N,) fp32 or null; out: (M, N) row-major of dtype `out_dtype`; `path`: one
+// of Path, which must fit the operands (fp32 <-> an FMA path; the decode
+// tiles M <= 16; wgmma K and N multiples of 8 and 16-byte-aligned bases);
+// workspace: at least split_workspace(M, N, K, path is a decode tile) bytes
+// (null if that is 0).
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int systolic_mmm(const void* a, const void* b, const void* bias, void* out, int M, int N, int K,
                             int in_dtype, int out_dtype, int activation, int path, void* workspace,
                             long long workspace_bytes, void* stream) {
   const bool fp32 = in_dtype == DT_F32;
-  const bool wgmma = path >= P_WGMMA_128;
+  const bool wgmma = path >= P_WGMMA_128 && path <= P_WGMMA_256;
+  const bool decode = path == P_DECODE || path == P_DECODE_KMAJOR;
   if ((in_dtype != DT_F32 && in_dtype != DT_BF16) || (out_dtype != DT_F32 && out_dtype != DT_BF16) ||
       activation < ACT_NONE || activation > ACT_TANH || M <= 0 || N <= 0 || K < 0 || path < P_FMA ||
-      path > P_WGMMA_256 || fp32 != (path == P_FMA) || (path == P_DECODE && M > D_BM) ||
+      path > P_WMMA_KMAJOR || fp32 != (path == P_FMA || path == P_FMA_KMAJOR) || (decode && M > D_BM) ||
       (wgmma && (K == 0 || K % 8 != 0 || N % 8 != 0 || !aligned16(a) || !aligned16(b))) ||
-      workspace_bytes < split_workspace(M, N, K, path == P_DECODE) ||
+      workspace_bytes < split_workspace(M, N, K, decode) ||
       (workspace_bytes > 0 && workspace == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const float* bs = static_cast<const float*>(bias);

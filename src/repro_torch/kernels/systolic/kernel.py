@@ -30,11 +30,16 @@ ACTIVATION_CODES = {name: i for i, name in enumerate(ACTIVATIONS)}
 #   wgmma_128x128  bf16 prefill: TMA ring + wgmma, two consumer warpgroups;
 #   wgmma_64x128   the same with one consumer warpgroup;
 #   wgmma_128x256  two consumer warpgroups of 64 x 256.
+#   fma_kmajor, decode_kmajor, wmma_kmajor
+#                  the fma, decode and wmma tiles reading B K-major (the
+#                  transpose of an (N, K) row-major matrix: a tied head's
+#                  embedding table), with no transposed copy.
 # Of the wgmma tiles the widest whose grid has a tile for at least half the
 # SMs is taken (the 64x128 tile when none has): a wider tile re-reads fewer
 # operand bytes per product, and on the H100 it was the fastest of the three
 # at every served prefill shape so chosen (measured on the H100, PERF.md).
-PATHS = ("fma", "decode", "wmma", "wgmma_128x128", "wgmma_64x128", "wgmma_128x256")
+PATHS = ("fma", "decode", "wmma", "wgmma_128x128", "wgmma_64x128", "wgmma_128x256",
+         "fma_kmajor", "decode_kmajor", "wmma_kmajor")
 WGMMA_TILES = (("wgmma_128x256", 128, 256), ("wgmma_128x128", 128, 128), ("wgmma_64x128", 64, 128))
 DECODE_MAX_M = 16  # csrc/common.cuh D_BM
 
@@ -84,18 +89,21 @@ def _workspace(name: str, device: torch.device, m: int, n: int, k: int, splittab
     return ws, nbytes
 
 
-def gemm_path(m: int, n: int, k: int, dtype: torch.dtype, aligned: bool, sms: int) -> str:
+def gemm_path(m: int, n: int, k: int, dtype: torch.dtype, aligned: bool, sms: int, k_major: bool = False) -> str:
     """The systolic GEMM's path for an (M, K) @ (K, N) product of ``dtype``
     operands whose bases are 16-byte aligned (``aligned``) on a card of
-    ``sms`` SMs.  A choice by shape: TMA needs 16-byte rows (K and N
-    multiples of 8) and aligned bases; of the wgmma tiles, the widest whose
-    grid has at least ``sms / 2`` tiles."""
+    ``sms`` SMs, B row-major or, with ``k_major``, K-major.  A choice by
+    shape and layout: TMA needs 16-byte rows (K and N multiples of 8) and
+    aligned bases; of the wgmma tiles, the widest whose grid has at least
+    ``sms / 2`` tiles; a K-major B goes to the tile of its shape among those
+    that read it so (the wgmma tiles do not)."""
+    tail = "_kmajor" if k_major else ""
     if dtype == torch.float32:
-        return "fma"
+        return "fma" + tail
     if m <= DECODE_MAX_M:
-        return "decode"
-    if k == 0 or k % 8 or n % 8 or not aligned:
-        return "wmma"
+        return "decode" + tail
+    if k_major or k == 0 or k % 8 or n % 8 or not aligned:
+        return "wmma" + tail
     for path, bm, bn in WGMMA_TILES[:-1]:
         if 2 * math.ceil(m / bm) * math.ceil(n / bn) >= sms:
             return path
@@ -117,8 +125,10 @@ def systolic_matmul_call(
 ) -> torch.Tensor:
     """a: (M, K), b: (K, N), bias: (N,) or None -> (M, N) on the card.
 
-    a and b are contiguous CUDA tensors of one dtype (bf16 or fp32); the
-    output dtype is bf16 or fp32.  Raises on anything the kernel does not take.
+    a and b are CUDA tensors of one dtype (bf16 or fp32), a row-major
+    contiguous, b row-major contiguous or K-major (``is_k_major``: the
+    transpose of a contiguous (N, K) tensor, read in place); the output
+    dtype is bf16 or fp32.  Raises on anything the kernel does not take.
     """
     global launches
     if a.device.type != "cuda" or b.device != a.device:
@@ -131,8 +141,10 @@ def systolic_matmul_call(
         raise ValueError(f"unknown activation {activation!r}")
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"expected (M, K) @ (K, N), got {tuple(a.shape)} @ {tuple(b.shape)}")
-    if not (a.is_contiguous() and b.is_contiguous()):
-        raise ValueError("systolic kernel needs row-major contiguous operands")
+    k_major = not b.is_contiguous() and is_k_major(b)
+    if not (a.is_contiguous() and (b.is_contiguous() or k_major)):
+        raise ValueError(f"systolic kernel needs A row-major contiguous and B row-major contiguous or K-major; "
+                         f"got A strides {a.stride()}, B strides {b.stride()}")
     m, k = a.shape
     n = b.shape[1]
     if bias is not None:
@@ -146,8 +158,8 @@ def systolic_matmul_call(
         return out
     lib, fn = _entry("systolic_mmm")
     aligned = a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
-    path = gemm_path(m, n, k, a.dtype, aligned, _sm_count(a.device.index))
-    ws, nbytes = _workspace("systolic_mmm", a.device, m, n, k, path == "decode")
+    path = gemm_path(m, n, k, a.dtype, aligned, _sm_count(a.device.index), k_major)
+    ws, nbytes = _workspace("systolic_mmm", a.device, m, n, k, path.startswith("decode"))
     stream = torch.cuda.current_stream(a.device).cuda_stream
     code = fn(
         a.data_ptr(), b.data_ptr(), None if bias is None else bias.data_ptr(),

@@ -23,7 +23,9 @@ def matmul(
     out_dtype: torch.dtype | None = None,
     activation: str = "none",
 ) -> torch.Tensor:
-    """(M, K) @ (K, N) [+bias] [activation] with an fp32 accumulator."""
+    """(M, K) @ (K, N) [+bias] [activation] with an fp32 accumulator.  A
+    K-major b (the transpose of a contiguous (N, K) tensor) goes to the
+    kernel as it is, with no copy."""
     if a.ndim != 2 or b.ndim != 2:
         raise ValueError(f"expected 2D operands, got {tuple(a.shape)} @ {tuple(b.shape)}")
     if a.shape[1] != b.shape[0]:
@@ -35,7 +37,7 @@ def matmul(
         return matmul_ref(a, b, bias, activation=activation, out_dtype=out_dtype)
     return _kernel.systolic_matmul_call(
         a.contiguous(),
-        b.contiguous(),
+        b if _kernel.is_k_major(b) else b.contiguous(),
         bias,
         out_dtype=out_dtype,
         activation=activation,

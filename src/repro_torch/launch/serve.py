@@ -81,6 +81,21 @@ their first ``--shared-prefix`` tokens identical)::
         --continuous --paged --prefix-cache --adversarial --requests 6 \
         --long-requests 2 --prompt-len 4096 --shared-prefix 4000 --slots 4
 
+The modality frontends: musicgen-medium (audio: four parallel codebook
+streams in and out, so each sampled token is one id per codebook) and
+internvl2-1b (vlm: a prompt of ``--prompt-len`` positions holds its 256
+projected patches and the text after them; the cache holds the patches
+too).  ``--continuous`` serves both; there the trace's prompt lengths
+(``--mean-prompt``, at most ``--prompt-len``) count a vit prompt's text, and
+its patches come before it.  The vit frontend's prompts are not chunkable
+and not prefix-cached (``--chunked-prefill`` and ``--prefix-cache`` warn and
+prefill monolithically, as the reference does)::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch musicgen-medium \
+        --batch 4 --prompt-len 512 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-1b \
+        --smoke --device cpu --continuous --requests 6 --slots 3
+
 The metrics / SLO / profiling flags of ``repro.launch.serve`` belong to a
 later part of the port.
 """
@@ -108,13 +123,18 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _prefix(cfg) -> int:
+    """Cache positions a prompt holds before its text: the vit frontend's patches."""
+    return cfg.n_patches if cfg.frontend == "vit" else 0
+
+
 def run_synchronized(model, params, args, device: torch.device) -> torch.Tensor:
     cfg = model.cfg
     engine = ServeEngine(
         model,
         params,
-        ServeConfig(max_len=args.prompt_len + args.gen, batch=args.batch, temperature=args.temperature,
-                    seed=args.seed),
+        ServeConfig(max_len=args.prompt_len + args.gen + _prefix(cfg), batch=args.batch,
+                    temperature=args.temperature, seed=args.seed),
         device=device,
     )
     prompts = make_batch(cfg, batch=args.batch, seq=args.prompt_len, kind="prefill",
@@ -158,18 +178,20 @@ def run_continuous(model, params, args, device: torch.device) -> dict:
             device=device,
         )
     else:
+        p = _prefix(model.cfg)  # a vit prompt's positions: its patches, then the trace's text lengths
         trace = make_request_trace(
             model.cfg,
             n_requests=args.requests,
-            mean_prompt=args.mean_prompt,
+            mean_prompt=args.mean_prompt + p,
             mean_gen=args.mean_gen,
             rate=args.rate,
             seed=args.seed,
-            max_prompt=args.prompt_len,
+            min_prompt=4 + p,
+            max_prompt=args.prompt_len + p,
             max_gen=args.gen,
             device=device,
         )
-    max_len = max(t["prompt"]["tokens"].shape[1] + t["max_new_tokens"] for t in trace)
+    max_len = max(t["prompt"]["tokens"].shape[1] + t["max_new_tokens"] for t in trace) + _prefix(model.cfg)
     engine = ServeEngine(
         model,
         params,

@@ -98,6 +98,12 @@ def embed(params: dict, tokens: torch.Tensor, compute_dtype: torch.dtype) -> tor
     return params["table"].to(compute_dtype)[tokens]
 
 
+def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """Tied head: fp32 logits ``x @ table.T`` on the systolic kernel, which
+    reads the (V, d) table K-major where it lies: no transposed copy."""
+    return ops.matmul(x, params["table"].to(x.dtype).T, out_dtype=torch.float32)
+
+
 # -- SwiGLU FFN ---------------------------------------------------------------
 
 

@@ -1,6 +1,10 @@
 """Decoder assembly: one module builds every family the port serves.
 
   dense / moe      [attn + SwiGLU / MoE] stack (GQA / SWA / MLA attention)
+  audio / vlm      the same [attn + SwiGLU] stack behind a modality frontend
+                   (``models/frontends.py``): parallel codebook streams,
+                   embedded and summed, with one head per stream (audio); a
+                   projected patch prefix before the text (vlm)
   ssm (xlstm)      repeating [mLSTM x (slstm_every - 1), sLSTM] groups
   hybrid (zamba2)  repeating [Mamba2 x attn_every, shared attn] groups, then
                    the trailing Mamba2 layers; the shared attn + SwiGLU
@@ -12,8 +16,9 @@ parameters on a leading axis and runs ``lax.scan``; here ``params["layers"]``
 (``["mlstm"]``, ``["slstm"]``, ``["mamba"]``) and the caches' lists hold one
 dict per layer, and Python loops walk them.  The SSM and hybrid families
 prefill, as the reference does, by a loop of ``decode_step`` over the prompt
-(their state is sequential by nature).  The modality frontends and tied
-embeddings belong to a later part of the port and raise here.
+(their state is sequential by nature).  With ``tie_embeddings`` the head is
+the embedding table's transpose (``layers.unembed``), and there is no
+``lm_head``.
 
 Entry points (functions over dicts of tensors):
   init_model(cfg, seed, device[, dtype, transform])
@@ -33,7 +38,7 @@ import torch
 
 from repro_torch.core.device import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models import layers, moe, ssm
+from repro_torch.models import frontends, layers, moe, ssm
 from repro_torch.models.config import ArchConfig
 from repro_torch.quant.qarray import QArray
 
@@ -42,20 +47,19 @@ def _cdtype(cfg: ArchConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-ATTN_FAMILIES = ("dense", "moe")
+ATTN_FAMILIES = ("dense", "moe", "audio", "vlm")
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise for architectures this part of the port does not build yet."""
+    """Raise for an architecture the port does not build: a family or an
+    attention outside the reference's decoders."""
     cfg.validate()
     attention = ("none",) if cfg.family == "ssm" else ("gqa", "swa", "mla")
     if cfg.family not in (*ATTN_FAMILIES, "ssm", "hybrid") or cfg.attention not in attention:
         raise NotImplementedError(
-            f"{cfg.name}: the port builds the dense and MoE (GQA/SWA/MLA), SSM and hybrid decoders so far "
+            f"{cfg.name}: the port builds the dense, MoE, audio and vlm (GQA/SWA/MLA), SSM and hybrid decoders "
             f"(family={cfg.family!r}, attention={cfg.attention!r})"
         )
-    if cfg.frontend is not None or cfg.tie_embeddings:
-        raise NotImplementedError(f"{cfg.name}: the modality frontends and tied embeddings are not ported yet")
 
 
 # ===========================================================================
@@ -197,7 +201,8 @@ def init_model(cfg: ArchConfig, seed: int = 0, device: str | torch.device | None
     The leaves of ``layers.FP32_KEYS`` are fp32 in either case.
 
     ``transform`` (default: none) is applied to each top-level piece -- the
-    final norm, the embedding, the head, then each layer (the hybrid's
+    final norm, the embedding (the codebook tables), the head unless tied
+    (the codebook heads), the vit projector, then each layer (the hybrid's
     shared block after its Mamba2 layers), in the order they are drawn --
     as soon as it is drawn, so a caller that quantizes holds one layer's
     fp32 masters at a time (``launch/serve.py::init_params``).
@@ -207,11 +212,16 @@ def init_model(cfg: ArchConfig, seed: int = 0, device: str | torch.device | None
     gen = torch.Generator(device=dev).manual_seed(seed)
     dt = dtype or _cdtype(cfg)
     f = transform or (lambda piece: piece)
-    params = {
-        "final_norm": f(layers.init_rmsnorm(cfg.d_model, dev)),
-        "embed": f(layers.init_embedding(gen, cfg.vocab_size, cfg.d_model, dt)),
-        "lm_head": f(layers.init_dense(gen, cfg.d_model, cfg.vocab_size, dt)),
-    }
+    params = {"final_norm": f(layers.init_rmsnorm(cfg.d_model, dev))}
+    if cfg.frontend == "audio_codec":
+        params["embed"] = f(frontends.init_audio_embed(gen, cfg, dt))
+        params["lm_head"] = f(frontends.init_audio_heads(gen, cfg, dt))
+    else:
+        params["embed"] = f(layers.init_embedding(gen, cfg.vocab_size, cfg.d_model, dt))
+        if not cfg.tie_embeddings:
+            params["lm_head"] = f(layers.init_dense(gen, cfg.d_model, cfg.vocab_size, dt))
+    if cfg.frontend == "vit":
+        params["projector"] = f(frontends.init_vit_projector(gen, cfg, dt))
     if cfg.family == "ssm":
         n_groups, n_m = xlstm_counts(cfg)
         if n_m:
@@ -245,15 +255,34 @@ def cast_params(params, dtype: torch.dtype):
 # ===========================================================================
 
 
-def _embed_input(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
-    return layers.embed(params["embed"], batch["tokens"], _cdtype(cfg))
+def _embed_tokens(params: dict, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """Token ids (B, S) -- (B, S, n_codebooks) for the audio codec -- -> (B, S, d)."""
+    if cfg.frontend == "audio_codec":
+        return frontends.audio_embed(params["embed"], tokens, _cdtype(cfg))
+    return layers.embed(params["embed"], tokens, _cdtype(cfg))
+
+
+def _embed_input(params: dict, batch: dict, cfg: ArchConfig) -> tuple[torch.Tensor, int]:
+    """-> (x, n_prefix): the vit frontend's projected patches go before the
+    text, and n_prefix counts them (0 otherwise)."""
+    x = _embed_tokens(params, batch["tokens"], cfg)
+    if cfg.frontend != "vit":
+        return x, 0
+    proj = frontends.vit_project(params["projector"], batch["patch_embeds"].to(x.dtype), cfg)
+    return torch.cat([proj, x], dim=1), proj.shape[1]
 
 
 def _head(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """fp32 logits.  The reference runs the head as an einsum outside any
-    kernel, so it stays a library matmul here: bf16 operands, fp32 output.
-    A quantized head dequantizes to ``x.dtype`` here, as in the reference,
-    and never goes through the quantized kernel."""
+    """fp32 logits: the codebook heads (B, S, n_codebooks, V), the tied
+    ``layers.unembed`` -- a launch of the systolic kernel, as in the
+    reference --, or the untied head.  The reference runs the untied head as
+    an einsum outside any kernel, so it stays a library matmul here: bf16
+    operands, fp32 output.  A quantized head dequantizes to ``x.dtype``
+    here, as in the reference, and never goes through the quantized kernel."""
+    if cfg.frontend == "audio_codec":
+        return frontends.audio_logits(params["lm_head"], x)
+    if cfg.tie_embeddings:
+        return layers.unembed(params["embed"], x)
     w = params["lm_head"]["w"]
     w = w.dequantize(x.dtype) if isinstance(w, QArray) else w.to(x.dtype)
     x2 = x.reshape(-1, x.shape[-1])
@@ -270,9 +299,11 @@ def _head(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 
 
 def forward(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
-    """Full-sequence forward.  batch: {"tokens": (B, S) int}.  -> logits fp32
-    at every position (``prefill`` gives the last position's alone)."""
-    x = _embed_input(params, batch, cfg)
+    """Full-sequence forward.  batch: {"tokens": (B, S[, n_codebooks]) int[,
+    "patch_embeds": (B, P, vit_dim)]}.  -> logits fp32 at every position,
+    the patch prefix's included (``prefill`` gives the last position's
+    alone)."""
+    x, _ = _embed_input(params, batch, cfg)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     if cfg.family == "ssm":
         for mps, sp in _xlstm_groups(params, cfg):
@@ -324,15 +355,16 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype: torch.dtype | N
 
 
 def decode_step(params: dict, tokens: torch.Tensor, cfg: ArchConfig, cache: dict, pos):
-    """tokens: (B, 1) int; pos: int absolute position (synchronized batch) or
-    a (B,) int32 tensor of per-slot positions (negative = empty slot).
-    -> (logits fp32 (B, 1, V), cache), the cache updated in place.
+    """tokens: (B, 1[, n_codebooks]) int; pos: int absolute position
+    (synchronized batch) or a (B,) int32 tensor of per-slot positions
+    (negative = empty slot).  -> (logits fp32 (B, 1[, n_codebooks], V),
+    cache), the cache updated in place.
 
     The SSM and hybrid state updates ignore ``pos``, as in the reference: an
     empty slot's state advances on whatever token it is given, and the slot
     is overwritten when a request is admitted into it; ``pos`` only masks
     the hybrid's shared-attention caches."""
-    x = layers.embed(params["embed"], tokens, _cdtype(cfg))
+    x = _embed_tokens(params, tokens, cfg)
     if cfg.family != "ssm":
         pos = attn.slot_positions(pos, x.shape[0], x.device)
     if cfg.family == "ssm":
@@ -359,7 +391,7 @@ def decode_step(params: dict, tokens: torch.Tensor, cfg: ArchConfig, cache: dict
 def _scan_prompt(params: dict, tokens: torch.Tensor, cfg: ArchConfig, cache: dict, offset: int):
     """The sequential families' prefill: ``decode_step`` over each prompt
     token from ``cache`` at absolute positions offset, offset + 1, ...,
-    carrying only the newest logits.  -> (last logits (B, 1, V), cache)."""
+    carrying only the newest logits.  -> (last logits (B, 1[, n_codebooks], V), cache)."""
     logits = None
     for si in range(tokens.shape[1]):
         logits, cache = decode_step(params, tokens[:, si : si + 1], cfg, cache, offset + si)
@@ -367,16 +399,18 @@ def _scan_prompt(params: dict, tokens: torch.Tensor, cfg: ArchConfig, cache: dic
 
 
 def prefill(params: dict, batch: dict, cfg: ArchConfig, max_len: int):
-    """Run the full prompt and prime a decode cache -> (last logits (B, 1, V), cache).
+    """Run the full prompt and prime a decode cache -> (last logits (B, 1[,
+    n_codebooks], V), cache).
 
-    Attention families prime their KV caches from the parallel forward; the
-    SSM and hybrid families scan ``decode_step`` over the prompt, as the
-    reference does."""
+    Attention families prime their KV caches from the parallel forward, the
+    vit frontend's patch prefix at positions 0 .. n_patches - 1 and the text
+    after it; the SSM and hybrid families scan ``decode_step`` over the
+    prompt's tokens, as the reference does."""
     tokens = batch["tokens"]
     cache = init_cache(cfg, tokens.shape[0], max_len, _cdtype(cfg), tokens.device)
     if cfg.family not in ATTN_FAMILIES:
         return _scan_prompt(params, tokens, cfg, cache, 0)
-    x = _embed_input(params, batch, cfg)
+    x, _ = _embed_input(params, batch, cfg)
     s = x.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     prime = attn.mla_prime_cache if cfg.attention == "mla" else attn.gqa_prime_cache
@@ -388,9 +422,10 @@ def prefill(params: dict, batch: dict, cfg: ArchConfig, max_len: int):
 
 
 def prefill_chunk(params: dict, batch: dict, cfg: ArchConfig, cache: dict, offset: int, *, wrapped: bool = False):
-    """Advance a prefill by one chunk -> (last-position logits (B, 1, V), cache).
+    """Advance a prefill by one chunk -> (last-position logits (B, 1[,
+    n_codebooks], V), cache).
 
-    batch: {"tokens": (B, L)} covering absolute prompt positions [offset,
+    batch: {"tokens": (B, L[, n_codebooks])} covering absolute prompt positions [offset,
     offset + L); ``cache`` is a decode cache (``init_cache``) whose rows
     below ``offset`` earlier chunks primed (a fresh cache at offset 0), and
     is updated in place.  Composing ``prefill_chunk`` over a split of the
@@ -398,13 +433,14 @@ def prefill_chunk(params: dict, batch: dict, cfg: ArchConfig, cache: dict, offse
     attention's sums; for the SSM and hybrid families a chunk is the same
     ``decode_step`` loop from the carried state, exactly.  ``wrapped`` must
     be set when an SWA ring chunk extends past the window (``offset + L >
-    cache size``).
+    cache size``).  The vit frontend is not chunkable (its patch prefix is
+    glued to the first text positions): serving prefills it monolithically.
     """
     if cfg.frontend == "vit":
         raise ValueError("chunked prefill does not support the vit frontend")
     if cfg.family not in ATTN_FAMILIES:
         return _scan_prompt(params, batch["tokens"], cfg, cache, offset)
-    x = layers.embed(params["embed"], batch["tokens"], _cdtype(cfg))
+    x = _embed_tokens(params, batch["tokens"], cfg)
     for lp, lc in zip(params["layers"], cache["layers"]):
         x, _ = attn_block_prefill_chunk(lp, x, cfg, lc, offset, wrapped=wrapped)
     x = layers.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)

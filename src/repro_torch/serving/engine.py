@@ -103,7 +103,8 @@ class ServeEngine:
     # -- sampling --------------------------------------------------------------
 
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
-        """logits: (B, 1, V) -> tokens (B, 1) int32: argmax at temperature 0,
+        """logits: (B, 1[, n_codebooks], V) -> tokens (B, 1[, n_codebooks])
+        int32: argmax at temperature 0,
         else a draw from softmax(logits / temperature) with the engine's
         generator."""
         if self.scfg.temperature <= 0.0:
@@ -125,7 +126,8 @@ class ServeEngine:
 
     @torch.no_grad()
     def decode(self, tokens: torch.Tensor, n_steps: int) -> torch.Tensor:
-        """Generate n_steps tokens.  tokens: (B, 1) seed tokens -> (B, n_steps)."""
+        """Generate n_steps tokens.  tokens: (B, 1[, n_codebooks]) seed tokens
+        -> (B, n_steps[, n_codebooks])."""
         if self.cache is None:
             raise RuntimeError("prefill() first")
         outs = []
@@ -155,15 +157,20 @@ class ServeEngine:
     # -- continuous-batching primitives ----------------------------------------
 
     def prompt_positions(self, batch: dict) -> int:
-        """Positions a prompt occupies in the cache."""
-        return batch["tokens"].shape[1]
+        """Positions a prompt occupies in the cache: its tokens, and the vit
+        frontend's patch prefix before them."""
+        n = batch["tokens"].shape[1]
+        if self.cfg.frontend == "vit":
+            n += self.cfg.n_patches
+        return n
 
     @torch.no_grad()
     def prefill_request(self, batch: dict):
         """Prefill one admission unit WITHOUT touching the resident cache.
 
         batch is a batch-1 prompt dict on the engine's device; returns (first
-        sampled token (1, 1), primed batch-1 cache at this engine's max_len)
+        sampled token (1, 1[, n_codebooks]), primed batch-1 cache at this
+        engine's max_len)
         for the KV pool to scatter into the assigned slot.
         """
         tokens = batch["tokens"]
@@ -197,9 +204,10 @@ class ServeEngine:
     def prefill_chunk(self, tokens: torch.Tensor, cache_one: Any, offset: int, *, last: bool):
         """Advance one request's prefill by one chunk.
 
-        tokens: (1, L) slice of the prompt at absolute offset ``offset``;
-        cache_one: the request's batch-1 slot cache, updated in place.
-        Returns (first sampled token (1, 1) when ``last`` else None, cache).
+        tokens: (1, L[, n_codebooks]) slice of the prompt at absolute offset
+        ``offset``; cache_one: the request's batch-1 slot cache, updated in
+        place.  Returns (first sampled token (1, 1[, n_codebooks]) when
+        ``last`` else None, cache).
         A chunk past the end of the SWA ring takes the ``wrapped`` variant
         (see ``attention.gqa_prefill_chunk``).
         """
@@ -224,9 +232,10 @@ class ServeEngine:
     def decode_slots(self, tokens: torch.Tensor, cache: Any, pos: torch.Tensor):
         """One continuous-batching decode step over an external cache.
 
-        tokens: (B, 1) last token per slot (garbage for empty slots); pos:
-        (B,) int32 per-slot absolute positions, -1 for empty slots, on the
-        engine's device.  Returns (sampled tokens (B, 1), cache); the cache
+        tokens: (B, 1[, n_codebooks]) last token per slot (garbage for empty
+        slots); pos: (B,) int32 per-slot absolute positions, -1 for empty
+        slots, on the engine's device.  Returns (sampled tokens (B, 1[,
+        n_codebooks]), cache); the cache
         is updated in place and returned, as the synchronized decode does.
         """
         _obs_metrics.inc("engine.steps", phase="decode")

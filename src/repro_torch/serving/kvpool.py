@@ -298,6 +298,10 @@ class KVPool:
         walk(self._resident())
         return {"reserved": self.bytes_resident(), "live": int(round(live))}
 
+    def active_slots(self) -> list[int]:
+        free = set(self._free)
+        return [s for s in range(self.n_slots) if s not in free]
+
     # -- slot lifecycle --------------------------------------------------------
 
     def alloc(self) -> int | None:

@@ -75,7 +75,8 @@ FINISHED = "finished"
 @dataclasses.dataclass
 class Request:
     """One generation request; ``prompt`` is a batch-1 prefill batch dict
-    ({"tokens": (1, S)}) on the engine's device."""
+    ({"tokens": (1, S[, n_codebooks])[, "patch_embeds": (1, P, vit_dim)]}) on
+    the engine's device."""
 
     rid: int
     prompt: dict
@@ -105,7 +106,7 @@ class Request:
         return self.prompt["tokens"].shape[1]
 
     def tokens(self) -> np.ndarray:
-        """Generated tokens: (n,) int32."""
+        """Generated tokens: (n,) int32, or (n, n_codebooks) for the audio codec."""
         return np.stack(self.out) if self.out else np.zeros((0,), np.int32)
 
 
@@ -433,7 +434,11 @@ class ContinuousScheduler:
         else:
             self.pool = KVPool(engine.model, engine.scfg.batch, engine.scfg.max_len, quantize_kv_cache=quantize_kv,
                                device=engine.device)
-        self._slot_tok = np.zeros((self.pool.n_slots, 1), np.int32)
+        cfg = engine.cfg
+        tok_shape = (self.pool.n_slots, 1)
+        if cfg.frontend == "audio_codec":
+            tok_shape += (cfg.n_codebooks,)
+        self._slot_tok = np.zeros(tok_shape, np.int32)
         self._slot_req: dict[int, Request] = {}
         self._prefilling: collections.deque[Request] = collections.deque()
         self.queue: collections.deque[Request] = collections.deque()
@@ -458,7 +463,7 @@ class ContinuousScheduler:
     # -- submission ------------------------------------------------------------
 
     def submit(self, req: Request) -> None:
-        budget = req.prompt_len + req.max_new_tokens
+        budget = self.engine.prompt_positions(req.prompt) + req.max_new_tokens  # a vit prompt's patches count
         if budget > self.pool.max_len:
             raise ValueError(f"request {req.rid}: prompt+gen {budget} exceeds max_len {self.pool.max_len}")
         if req.max_new_tokens < 1:
@@ -662,7 +667,7 @@ class ContinuousScheduler:
                     first, cache_one = self._prefill_suffix(req, hit)
                 else:
                     first, cache_one = self.engine.prefill_request(req.prompt)
-                tok = first.cpu().numpy()[0]  # (1,); the readback waits for the card
+                tok = first.cpu().numpy()[0]  # (1,) or (1, n_codebooks); the readback waits for the card
                 if self.paged:
                     # The hit tokens are already resident in shared pages;
                     # the scatter rewrites them with identical bytes (the
@@ -723,7 +728,7 @@ class ContinuousScheduler:
                     cache_one = self.pool.gather_slot(req.slot)
                 tok, cache_one = self.engine.prefill_chunk(tokens, cache_one, off, last=last)
                 if last:
-                    tok_np = tok.cpu().numpy()[0]  # (1,); the readback waits for the card
+                    tok_np = tok.cpu().numpy()[0]  # (1,) or (1, n_codebooks); the readback waits for the card
                 else:
                     self._wait_for_device()
                 if staged and not last:
@@ -792,7 +797,7 @@ class ContinuousScheduler:
         self.pool.advance(active)
         for slot in active:
             req = self._slot_req[slot]
-            tok = nxt_np[slot]  # (1,)
+            tok = nxt_np[slot]  # (1,) or (1, n_codebooks)
             self._slot_tok[slot] = tok
             if self._token_done(req, tok[0]):
                 self._finish(req)
@@ -858,6 +863,7 @@ class ContinuousScheduler:
                     first, _ = self.engine.prefill_request(req.prompt)
                     first.cpu()
                 return
+            tok_tail = self._slot_tok.shape[2:]  # (n_codebooks,) for the audio codec
             done: set = set()
             for req in self.queue:
                 for off, length in chunk_schedule(req.prompt_len, self.chunk_size):
@@ -865,7 +871,7 @@ class ContinuousScheduler:
                     if (length, wrapped) in done:
                         continue
                     done.add((length, wrapped))
-                    dummy = torch.zeros((1, length), dtype=torch.int32, device=dev)
+                    dummy = torch.zeros((1, length, *tok_tail), dtype=torch.int32, device=dev)
                     self.engine.prefill_chunk(dummy, self.pool.gather_slot(0), off, last=False)
                     self._wait_for_device()
         finally:

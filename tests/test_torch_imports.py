@@ -58,6 +58,7 @@ def test_port_and_chip_smoke_import_no_jax_or_repro():
             "repro_torch.obs.profile", "repro_torch.serving.scheduler",
             "repro_torch.serving.paged"} <= set(res["modules"])
     assert "repro_torch.models.ssm" in res["modules"]
+    assert "repro_torch.models.frontends" in res["modules"]
     assert res["bad"] == []
 
 

@@ -99,6 +99,56 @@ def test_systolic_kernel_matches_plain(cuda, m, n, k, dtype):
     assert mm_kernel.launches == before + 2 * len(ACTIVATIONS)
 
 
+# K-major B (the transpose of an (N, K) row-major tensor, as a tied head
+# reads its embedding table): internvl2-1b's tied head at decode and over a
+# forward's rows, and ragged shapes on each tile that reads B so.
+KMAJOR_SHAPES = [
+    (4, 151655, 896),
+    (1, 151655, 896),
+    (1024, 151655, 896),
+    (1, 300, 1000),  # decode tile, split-K, ragged N and K
+    (9, 70, 4000),
+    (100, 130, 70),  # WMMA tile, ragged
+    (17, 264, 200),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,k", KMAJOR_SHAPES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_systolic_kernel_reads_k_major_b(cuda, m, n, k, dtype):
+    """B handed over as table.T with no copy: the launch is on a *_kmajor
+    path, counted under it, and matches the plain version (fp32 out, as the
+    tied head writes it; bf16 out and an epilogue at the small shapes)."""
+    a = _rand((m, k), 1).to(cuda, DTYPES[dtype])
+    table = _rand((n, k), 2).to(cuda, DTYPES[dtype])
+    b = table.T
+    before = dict(mm_kernel.launches_by_path)
+    got = mm_ops.matmul(a, b, out_dtype=torch.float32)
+    paths = {p: c - before.get(p, 0) for p, c in mm_kernel.launches_by_path.items() if c != before.get(p, 0)}
+    want = matmul_ref(a, b, out_dtype=torch.float32)
+    torch.testing.assert_close(got, want, **_gemm_tol(dtype, k))
+    assert len(paths) == 1 and next(iter(paths)).endswith("_kmajor") and sum(paths.values()) == 1
+    if n * k < 10**6:
+        bias = _rand((n,), 3).to(cuda)
+        for act in ACTIVATIONS:
+            got = mm_ops.matmul(a, b, bias, activation=act, out_dtype=torch.bfloat16)
+            want = matmul_ref(a, b, bias, activation=act, out_dtype=torch.bfloat16)
+            torch.testing.assert_close(got.float(), want.float(), **_gemm_tol(dtype, k, torch.bfloat16))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_k_major_decode_tile_equals_the_row_major_one(cuda):
+    """The decode tile sums the same products in the same order whichever
+    way B is stored: K-major and row-major give the same bits."""
+    a = _rand((4, 896), 1).to(cuda, torch.bfloat16)
+    table = _rand((4096, 896), 2).to(cuda, torch.bfloat16)
+    got = mm_ops.matmul(a, table.T, out_dtype=torch.float32)
+    want = mm_ops.matmul(a, table.T.contiguous(), out_dtype=torch.float32)
+    assert torch.equal(got, want)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("sq,skv,causal,window", ATTN_CASES)
 @pytest.mark.parametrize("dtype", list(DTYPES))

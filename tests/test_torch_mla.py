@@ -254,10 +254,13 @@ def test_prefill_logits_close_bf16():
 
 
 def test_check_supported_admits_mla_and_still_refuses_ssm():
-    """MLA is admitted.  The SSM family is ported now
-    (``test_torch_recurrent.py``), so the refusal this test holds is the one
-    still standing: the modality frontends (musicgen's audio codec)."""
+    """MLA is admitted.  The SSM family and the modality frontends are
+    ported now (``test_torch_recurrent.py``, ``test_torch_frontends.py``),
+    so the refusal this test holds is the one still standing: an attention
+    the family does not have (an SSM config with MLA attention)."""
     transformer.check_supported(configs.get_config(ARCH))
     transformer.check_supported(configs.get_config("xlstm-125m"))
+    transformer.check_supported(configs.get_config("musicgen-medium"))
     with pytest.raises(NotImplementedError):
-        transformer.check_supported(configs.get_config("musicgen-medium"))
+        transformer.check_supported(dataclasses.replace(configs.get_config("xlstm-125m"), attention="mla",
+                                                        mla=configs.get_config(ARCH).mla))

@@ -166,12 +166,13 @@ def test_decode_step_with_an_empty_slot_equals_jax(pair, name):
 
 
 def test_check_supported_admits_ssm_and_hybrid_only():
+    """The SSM and hybrid families are admitted with their own layers only:
+    the SSM family with no attention, the hybrid with GQA; a tied head on
+    either is admitted too (the frontends and tied embeddings are ported,
+    ``test_torch_frontends.py``)."""
     for arch in ("xlstm-125m", "zamba2-7b"):
         transformer.check_supported(configs.get_config(arch))
-    for arch in ("musicgen-medium", "internvl2-1b"):  # the audio and vlm families
-        with pytest.raises(NotImplementedError):
-            transformer.check_supported(configs.get_config(arch))
-    smoke = configs.get_smoke("xlstm-125m")
-    for over in (dict(frontend="vit"), dict(tie_embeddings=True)):
-        with pytest.raises(NotImplementedError, match="frontends and tied embeddings"):
-            transformer.check_supported(dataclasses.replace(smoke, **over))
+        transformer.check_supported(dataclasses.replace(configs.get_config(arch), tie_embeddings=True))
+    for arch, attention in (("xlstm-125m", "gqa"), ("zamba2-7b", "none")):
+        with pytest.raises(NotImplementedError, match="decoders"):
+            transformer.check_supported(dataclasses.replace(configs.get_smoke(arch), attention=attention))

@@ -169,6 +169,35 @@ def test_gemm_path_choice(m, k, n, dtype, aligned, want):
     assert t_kernel.gemm_path(m, n, k, dtype, aligned, sms=132) == want
 
 
+@pytest.mark.parametrize("m,k,n,dtype,aligned,want", [
+    (4, 896, 151655, BF16, True, "decode_kmajor"),  # internvl2-1b's tied head at decode
+    (1, 896, 151655, BF16, True, "decode_kmajor"),
+    (1024, 896, 151655, BF16, True, "wmma_kmajor"),  # a tied forward's rows
+    (2048, 2048, 2048, BF16, True, "wmma_kmajor"),  # no wgmma tile reads B K-major
+    (2048, 2044, 2044, BF16, False, "wmma_kmajor"),
+    (4, 64, 256, torch.float32, True, "fma_kmajor"),
+    (2048, 64, 256, torch.float32, True, "fma_kmajor"),
+])
+def test_gemm_path_choice_k_major(m, k, n, dtype, aligned, want):
+    """A K-major B picks its tile by shape among the tiles that read it so."""
+    assert t_kernel.gemm_path(m, n, k, dtype, aligned, sms=132, k_major=True) == want
+
+
+def test_k_major_operand_reaches_the_kernel_uncopied(monkeypatch):
+    """ops.matmul hands a K-major B (a transposed contiguous tensor) to the
+    kernel binding as it is, and any other layout contiguous."""
+    seen = []
+    monkeypatch.setattr(t_kernel, "systolic_matmul_call", lambda a, b, bias, **kw: seen.append(b))
+    table = torch.ones(10, 4)
+    a = torch.ones(3, 4)
+    fake_cuda = a.to("meta")  # not a CPU tensor: the wrapper goes to the binding
+    ops.matmul(fake_cuda, table.to("meta").T)
+    ops.matmul(fake_cuda, torch.ones(20, 4, device="meta")[::2].T)  # strided both ways: copied
+    assert seen[0].stride() == (1, 4) and not seen[0].is_contiguous()
+    assert seen[1].is_contiguous()
+    assert t_kernel.is_k_major(table.T) and not t_kernel.is_k_major(torch.ones(4, 10))
+
+
 @pytest.mark.parametrize("arch", ["internlm2-1.8b", "qwen3-moe-30b-a3b", "minicpm3-4b"])
 def test_every_served_prefill_projection_takes_wgmma(arch):
     """At batch 4 x 512 tokens every projection of the served models (q, k,
@@ -195,7 +224,8 @@ def test_path_numbers_follow_the_kernel():
     enum = re.search(r"enum Path \{([^}]*)\}", src).group(1)
     numbered = {name.strip(): int(num) for name, num in (item.split("=") for item in enum.split(","))}
     c_names = {"P_FMA": "fma", "P_DECODE": "decode", "P_WMMA": "wmma", "P_WGMMA_128": "wgmma_128x128",
-               "P_WGMMA_64": "wgmma_64x128", "P_WGMMA_256": "wgmma_128x256"}
+               "P_WGMMA_64": "wgmma_64x128", "P_WGMMA_256": "wgmma_128x256", "P_FMA_KMAJOR": "fma_kmajor",
+               "P_DECODE_KMAJOR": "decode_kmajor", "P_WMMA_KMAJOR": "wmma_kmajor"}
     assert {c_names[name]: num for name, num in numbered.items()} == {p: i for i, p in enumerate(t_kernel.PATHS)}
     assert {p for p, _, _ in t_kernel.WGMMA_TILES} <= set(t_kernel.PATHS)
 
