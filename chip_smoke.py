@@ -85,7 +85,8 @@ Phases, each printing its own lines; any failure exits non-zero:
      launcher builds it, one layer of fp32 masters at a time: attention and
      the head int8, the router and the experts bf16) with the same MoE gates
      and exact launches of all four of its kernels, its logits beside the
-     bf16 model's for information; full-width minicpm3-4b (MLA: its
+     bf16 model's for information; minicpm3-4b at full width and 31 of its
+     62 layers (MLA: its
      attention plain, as the reference computes it, every projection on the
      GEMM kernels, wkv_b at prefill and per chunk only) in bf16 and w8a8 with
      the dense model's gates, served continuously on the same trace,
@@ -113,7 +114,18 @@ Phases, each printing its own lines; any failure exits non-zero:
      prefill and two decode steps: the table's K1 launches on the K-major
      decode tile exact, 1 + 2, kernel vs plain), and the SMOKE configs of
      both and a tied one in fp32 against the CPU path; every path's prefill
-     twice, bit-identical; each phase's wall;
+     twice, bit-identical; then training: full-width internlm2-1.8b with fp32
+     masters from the seed, computing in bf16, batch 4 x 512 tokens: one
+     step's loss, gradient norm and every gradient leaf on the kernel path
+     against the plain path on the card (K1's forward, dA and dB launches;
+     K3 with its logsumexp output, the attention backward plain), exact
+     launches of a step (K1 504 per shape and path, K3 24) and of a remat
+     step (672, 48), six AdamW steps through the Trainer on one batch (the
+     loss falls, every parameter finite and changed, the step counter, no
+     retry), a traced step (device kernels, busy ms, idle share, K1's
+     forward and backward ms), step ms, tokens/s, peak memory, the SMOKE
+     checkpoint round trip on the card and the SMOKE model's fp32
+     gradients against the CPU path; each phase's wall;
   4. each kernel timed at the served paths' shapes (CUDA events) beside its
      bound, its plain version and one PyTorch library call (a yardstick the
      port never calls; none computes the block-scaled product, so the
@@ -125,7 +137,10 @@ Phases, each printing its own lines; any failure exits non-zero:
      and long-prompt runs; zamba2's D = 112, which no served path launches);
      the chunked path's plain chunk attention (no
      kernel) beside SDPA, also a prefix hit's; the paged pool's gather and
-     scatter at the paged arms' arena beside their bound; one JSON line lists
+     scatter at the paged arms' arena beside their bound; K1 at the training
+     step's dA shapes (W^T read K-major and copied row-major) and dB shapes
+     (X^T copied), the copies apart, and K3 with and without its lse output
+     beside SDPA, the plain attention backward beside SDPA's; one JSON line lists
      the kernels, each shape's time
      weighted by the launches the served paths made at that shape;
   5. the last line: {"ok": true, "device": {...}}.
@@ -142,6 +157,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -151,9 +167,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import torch  # noqa: E402
+from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile, record_function  # noqa: E402
 
 from repro_torch import configs, quant  # noqa: E402
+from repro_torch.checkpoint import latest_step  # noqa: E402
+from repro_torch.core import tree as tree_util  # noqa: E402
 from repro_torch.core.hw import H100, dtype_bytes  # noqa: E402
 from repro_torch.data.synthetic import (  # noqa: E402
     make_adversarial_trace,
@@ -189,6 +208,8 @@ from repro_torch.serving.engine import chunk_schedule  # noqa: E402
 from repro_torch.serving.kvpool import _nbytes  # noqa: E402
 from repro_torch.serving.paged import PagedKVPool, _gather_pages, _scatter_pages  # noqa: E402
 from repro_torch.serving.scheduler import FINISHED  # noqa: E402
+from repro_torch.optim import global_norm  # noqa: E402
+from repro_torch.train.loop import TrainConfig, Trainer, make_grad_fn  # noqa: E402
 
 ARCH = "internlm2-1.8b"
 MOE_ARCH = "qwen3-moe-30b-a3b"
@@ -252,10 +273,14 @@ KV8_BYTES = 161_611_776 + 12_288 + 315_648
 # 411 positions x 62 layers x (bf16 c_kv 256 + k_rope 32, 2 x 288 bytes, and
 # an int32 position, 4 bytes).
 MLA_CHUNK = 128
-MLA_CONT_BYTES = 8 * 411 * 62 * (2 * (256 + 32) + 4)
+# minicpm3-4b runs at full width but 31 of its 62 layers (cut to keep the
+# script's wall under 900 s once the training phase came in; its paths were
+# the longest, 211-251 s at 62 layers).
+MLA_LAYERS = 31
+MLA_CONT_BYTES = 8 * 411 * MLA_LAYERS * (2 * (256 + 32) + 4)
 # ... and over the paged latent pool, pages of 16 rows: 26 a slot hold 416
 # rows, of which the gather keeps 411; one page is 575,360 bytes.
-MLA_PAGE_BYTES = PAGE_SIZE * 62 * (2 * (256 + 32) + 4)
+MLA_PAGE_BYTES = PAGE_SIZE * MLA_LAYERS * (2 * (256 + 32) + 4)
 # The recurrent families: xlstm-125m (SSM: groups of one mLSTM and one sLSTM)
 # and zamba2-7b (hybrid: Mamba2 layers and one shared attention + SwiGLU
 # block applied every 6 of them).  Both prefill, as the reference does, by a
@@ -331,6 +356,21 @@ LOGITS_TOL_MOE = 1e-1
 # fp pool's after a decode step (tests/test_quant.py test_kv8_decode_close_to_fp).
 KV8_VS_FP_TOL = 0.15
 KV8_K_TOL = 0.05
+# Training: full-width internlm2-1.8b, fp32 masters computing in bf16,
+# kernel path vs plain path on the card, one step from the same masters and
+# batch.  bf16 rounds the activations at other points on the two paths (the
+# served logits differ by up to ~1.8 % of the largest logit); a loss is a
+# mean over 2048 tokens, so it moves far less: 1e-2 relative.  Each gradient
+# leaf sums bf16 products over 2048 tokens through 24 layers of such
+# roundings: its relative L2 gap measured 2.6-3.6 % (first measured on an
+# H100), held at 1e-1; the global norm at 5e-2.  The SMOKE model in fp32,
+# card vs CPU: summation order only, 1e-4 of each leaf's largest value.
+TRAIN_STEPS = 6
+TRAIN_TCFG = dict(peak_lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS)
+TRAIN_LOSS_RTOL = 1e-2
+TRAIN_NORM_RTOL = 5e-2
+TRAIN_LEAF_RTOL = 1e-1
+TRAIN_FP32_TOL = 1e-4
 MOE_WITNESS_SEEDS = (1, 2)  # more models and prompts for the MoE witness
 MOE_NUDGES, MOE_NUDGE_STEPS = 2, 2  # one-ulp nudges per model, decode steps each (3, 3 until cut for time)
 SOURCES = {
@@ -652,16 +692,6 @@ def recorded_routing(record: list):
         yield
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        tree = list(tree.values())
-    if isinstance(tree, list):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
 def _keyed_leaves(tree, key=None):
     """(dict key, leaf) of every leaf; a list's items keep the key above them."""
     if isinstance(tree, dict):
@@ -672,14 +702,6 @@ def _keyed_leaves(tree, key=None):
             yield from _keyed_leaves(v, key)
     else:
         yield key, tree
-
-
-def _tree(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree(fn, v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_tree(fn, v) for v in tree]
-    return fn(tree)
 
 
 def randn(shape, gen, dtype):
@@ -1234,8 +1256,8 @@ def serve_path(label: str, model, params, want: dict, batch, feed=None) -> dict:
         # Two decode steps from one cache: the kernel path's primed cache, and
         # a copy of it for the plain path (and, MoE, another for the plain
         # path routed as the kernel path); all are fed the same tokens.
-        cache_p = _tree(torch.clone, cache_k)
-        cache_r = _tree(torch.clone, cache_k) if is_moe else None
+        cache_p = tree_util.tree_map(torch.clone, cache_k)
+        cache_r = tree_util.tree_map(torch.clone, cache_k) if is_moe else None
         tok, dec_err, fed, routing_dec = got.argmax(-1).to(torch.int32), 0.0, [], []
         for step in range(2):
             tok = tok if feed is None else feed[step]
@@ -1463,7 +1485,7 @@ def phase_continuous(model, params, smi: str, fp: dict | None = None, chunk: int
         expect(sched.pool.bytes_resident() == resident,
                f"{label} pool resident bytes {sched.pool.bytes_resident():,} (want {resident:,})")
     if kv8:
-        leaves = list(_leaves(sched.pool._qcache))
+        leaves = list(tree_util.leaves(sched.pool._qcache))
         dtypes = sorted({str(t.dtype)[6:] for t in leaves})
         expect(sched.pool.bytes_resident() == KV8_BYTES and dtypes == ["float32", "int32", "int8"],
                f"kv8 pool resident bytes {sched.pool.bytes_resident():,} (want {KV8_BYTES:,}; the fp pool "
@@ -2059,9 +2081,9 @@ def phase_serve_mla(smi: str) -> tuple[dict, dict, dict, dict, dict]:
     it (``launch/serve.py::init_params``: w8a8 one layer at a time, weights
     K-major); the bf16 parameters also through ContinuousScheduler on the
     continuous trace, monolithic, chunked and over the paged latent pool."""
-    cfg = configs.get_config(MLA_ARCH)
+    cfg = dataclasses.replace(configs.get_config(MLA_ARCH), n_layers=MLA_LAYERS)
     m = cfg.mla
-    say(f"[3] serve {MLA_ARCH} (full width: {cfg.n_layers}L d={cfg.d_model} H={cfg.n_heads} MLA q_lora "
+    say(f"[3] serve {MLA_ARCH} (full width, {cfg.n_layers} of its 62 layers: {cfg.n_layers}L d={cfg.d_model} H={cfg.n_heads} MLA q_lora "
         f"{m.q_lora_rank} kv_lora {m.kv_lora_rank} nope {m.qk_nope_head_dim} rope {m.qk_rope_head_dim} v "
         f"{m.v_head_dim} d_ff={cfg.d_ff} V={cfg.vocab_size}) in {cfg.dtype}, batch {BATCH}, prompt {PROMPT}, "
         f"{GEN} tokens")
@@ -2071,7 +2093,7 @@ def phase_serve_mla(smi: str) -> tuple[dict, dict, dict, dict, dict]:
     params, _ = init_params(model, SEED, torch.device("cuda"), "none")
     qparams, act_ctx = init_params(model, SEED, torch.device("cuda"), "w8a8")
     torch.cuda.synchronize()
-    n = sum(t.numel() for t in _leaves(params))
+    n = sum(t.numel() for t in tree_util.leaves(params))
     say(f"    init {time.perf_counter() - t0:.1f} s: {n:,} parameters, {torch.cuda.memory_allocated() / 1e9:.2f} GB "
         f"on the card with the w8a8 tree (peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB)")
     norms = cfg.n_layers * (m.q_lora_rank + m.kv_lora_rank)  # count_params leaves MLA's two norms out
@@ -2115,7 +2137,7 @@ def phase_serve_moe() -> tuple[dict, dict]:
     t0 = time.perf_counter()
     params = model.init(SEED, "cuda")
     torch.cuda.synchronize()
-    n = sum(t.numel() for t in _leaves(params))
+    n = sum(t.numel() for t in tree_util.leaves(params))
     say(f"    init {time.perf_counter() - t0:.1f} s: {n:,} parameters, "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card (peak "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB)")
@@ -2245,7 +2267,7 @@ def serve_recurrent(model, params, batch) -> dict:
         expect(not any(plain_counts.values()), f"{label} plain-path prefill launched no kernel ({plain_counts})")
         err, scale = compare_logits(f"{label} prefill ({BATCH}x{RECURRENT_CHECK_PROMPT})", got, want_l,
                                     LOGITS_TOL_BF16)
-        cache_p = _tree(torch.clone, cache_k)
+        cache_p = tree_util.tree_map(torch.clone, cache_k)
         tok, dec_err = got.argmax(-1).to(torch.int32), 0.0
         for step in range(2):
             lk, cache_k = model.decode_step(params, tok, cache=cache_k, pos=RECURRENT_CHECK_PROMPT + step)
@@ -2339,7 +2361,7 @@ def phase_serve_recurrent(arch: str, smi: str) -> tuple[dict, list]:
     masters = model.init(SEED, "cuda", dtype=torch.float32)
     params = cast_params(masters, BF16)
     torch.cuda.synchronize()
-    n = sum(t.numel() for t in _leaves(params))
+    n = sum(t.numel() for t in tree_util.leaves(params))
     kept = [t for k, t in _keyed_leaves(params) if k in FP32_KEYS]
     say(f"    init {time.perf_counter() - t0:.1f} s: {n:,} parameters (count_params: {model.n_params:,}), "
         f"{_nbytes(params):,} bytes in bf16, {torch.cuda.memory_allocated() / 1e9:.2f} GB on the card with the "
@@ -2388,7 +2410,7 @@ def phase_serve_frontend(arch: str, smi: str) -> tuple[dict, dict | None]:
     t0 = time.perf_counter()
     params, _ = init_params(model, SEED, torch.device("cuda"), "none")
     torch.cuda.synchronize()
-    n = sum(t.numel() for t in _leaves(params))
+    n = sum(t.numel() for t in tree_util.leaves(params))
     # count_params leaves the vit projector out (its norm and two weights)
     projector = cfg.vit_dim + sum(k * nn for k, nn in projector_gemms(cfg)) if cfg.frontend == "vit" else 0
     say(f"    init {time.perf_counter() - t0:.1f} s: {n:,} parameters, {_nbytes(params):,} bytes")
@@ -2434,7 +2456,7 @@ def phase_tied(smi: str) -> dict:
         reset_counts()
         t0 = time.perf_counter()
         got, cache_k = model.prefill(params, batch, max_len=max_len)
-        cache_p = _tree(torch.clone, cache_k)
+        cache_p = tree_util.tree_map(torch.clone, cache_k)
         tok, logits_k, feed = got.argmax(-1).to(torch.int32), [got], []
         for step in range(TIED_STEPS):
             feed.append(tok)
@@ -2544,7 +2566,7 @@ def rounding_sensitivity(model, batch, variants: list, nudges: int = 1, steps: i
                     readings.append([share(base, model.prefill(q, batch, max_len=PROMPT + GEN)[0])])
                 tok = base.argmax(-1).to(torch.int32)
                 for step in range(steps):
-                    moved = [model.decode_step(q, tok, cache=_tree(torch.clone, cache), pos=PROMPT + step)[0]
+                    moved = [model.decode_step(q, tok, cache=tree_util.tree_map(torch.clone, cache), pos=PROMPT + step)[0]
                              for q in nudged]
                     logits, cache = model.decode_step(p, tok, cache=cache, pos=PROMPT + step)
                     for r, m in zip(readings, moved):
@@ -2592,7 +2614,7 @@ def phase_small_reference(arch: str, **over) -> None:
     label = arch + "".join(f" {k}={v}" for k, v in over.items())
     model = get_model(cfg)
     cpu = model.init(SEED, "cpu")
-    gpu = _tree(lambda t: t.to("cuda"), cpu)
+    gpu = tree_util.tree_map(lambda t: t.to("cuda"), cpu)
     out = {}
     for dev, params in (("cpu", cpu), ("cuda", gpu)):
         eng = ServeEngine(model, params, ServeConfig(max_len=40, batch=2), device=dev)
@@ -2605,6 +2627,247 @@ def phase_small_reference(arch: str, **over) -> None:
            f"{label} SMOKE fp32 prefill logits, card vs CPU: max_abs={err:.3e} (tol {LOGITS_TOL_FP32})")
     expect(torch.equal(out["cpu"][1], out["cuda"][1]),
            f"{label} SMOKE fp32 8 greedy tokens, card vs CPU identical: {out['cuda'][1][0].tolist()}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 3 (training): full-width internlm2-1.8b takes optimizer steps
+# ---------------------------------------------------------------------------
+
+
+def train_expected(cfg, forwards: int) -> tuple[dict, dict]:
+    """K1's launches (by (M, K, N) and by path) of one training step over
+    BATCH x PROMPT tokens with ``forwards`` forward passes (2 under remat):
+    each projection's forward at (M, K, N), its dA at (M, N, K) with B = W^T
+    (a row-major copy) and its dB at (K, M, N) with A = X^T (a copy), once
+    per layer.  The untied head is a
+    library product (no launch)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    m = BATCH * PROMPT
+    shapes, paths = collections.Counter(), collections.Counter()
+    for (k, n), c in projections(cfg).items():
+        c *= cfg.n_layers
+        shapes[(m, k, n)] += forwards * c
+        paths[mm_kernel.gemm_path(m, n, k, BF16, True, sms)] += forwards * c
+        shapes[(m, n, k)] += c
+        paths[mm_kernel.gemm_path(m, k, n, BF16, True, sms)] += c
+        shapes[(k, m, n)] += c
+        paths[mm_kernel.gemm_path(k, n, m, BF16, True, sms)] += c
+    return dict(shapes), dict(paths)
+
+
+def check_train_launches(label: str, cfg, forwards: int) -> dict:
+    """Exact launches of the step just run: K1 in all, per shape and per
+    path; K3 once per layer and forward at the model's heads and (B, S, S);
+    no K4 or K5."""
+    shapes, paths = train_expected(cfg, forwards)
+    got, routes = counts(), route_counts()
+    n_flash = cfg.n_layers * forwards
+    per_pass = sum(projections(cfg).values()) * cfg.n_layers
+    expect(got == {"systolic_mmm": sum(shapes.values()), "systolic_qmm": 0, "flash_attn": n_flash, "grouped_mmm": 0},
+           f"{label} launches exact: {got} (K1 {sum(shapes.values())} = {forwards} forward x {per_pass} + {per_pass} "
+           f"dA + {per_pass} dB, K3 {n_flash})")
+    expect(shape_counts()["systolic_mmm"] == shapes,
+           f"{label} K1 launches per (M, K, N) exact: {listed({'systolic_mmm': shapes})}")
+    expect(routes["systolic_mmm_paths"] == paths, f"{label} K1 launches per path exact: {routes['systolic_mmm_paths']}")
+    heads = {(cfg.n_heads, cfg.n_kv_heads): n_flash}
+    expect(routes["flash_attn_heads"] == heads and flash_shape_counts() == {(BATCH, PROMPT, PROMPT): n_flash},
+           f"{label} K3 launches per heads and shape exact: {routes['flash_attn_heads']} {flash_shape_counts()}")
+    return {"launches": got, "shapes": {"systolic_mmm": [[*s, c] for s, c in sorted(shapes.items())]},
+            "flash_shapes": [[BATCH, PROMPT, PROMPT, n_flash]], "paths": routes["systolic_mmm_paths"]}
+
+
+def leaf_gaps(got, want) -> list[tuple[float, str]]:
+    """(||g - g_plain|| / ||g_plain||, leaf path) of every gradient leaf."""
+    return [(((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item(), key)
+            for (key, a), (_, b) in zip(tree_util.leaves_with_path(got), tree_util.leaves_with_path(want))]
+
+
+def train_gradient_gate(label: str, grads, metrics, plain_grads, plain_metrics) -> dict:
+    loss, want = float(metrics["loss"]), float(plain_metrics["loss"])
+    norm, want_norm = float(global_norm(grads)), float(global_norm(plain_grads))
+    gaps = leaf_gaps(grads, plain_grads)
+    worst = max(gaps)
+    loss_gap, norm_gap = abs(loss - want) / abs(want), abs(norm - want_norm) / want_norm
+    expect(math.isfinite(loss) and loss_gap <= TRAIN_LOSS_RTOL,
+           f"{label} loss kernel vs plain: {loss:.6f} vs {want:.6f}, {loss_gap:.2e} relative (tol {TRAIN_LOSS_RTOL})")
+    expect(math.isfinite(norm) and norm_gap <= TRAIN_NORM_RTOL,
+           f"{label} gradient norm kernel vs plain: {norm:.6f} vs {want_norm:.6f}, {norm_gap:.2e} relative "
+           f"(tol {TRAIN_NORM_RTOL})")
+    expect(worst[0] <= TRAIN_LEAF_RTOL,
+           f"{label} every gradient leaf within {TRAIN_LEAF_RTOL} of the plain path's norm: worst {worst[1]} "
+           f"{worst[0]:.4f} (median {sorted(gaps)[len(gaps) // 2][0]:.4f}, {len(gaps)} leaves)")
+    return {"loss": loss, "plain_loss": want, "grad_norm": norm, "plain_grad_norm": want_norm,
+            "worst_leaf": worst[1], "worst_leaf_gap": worst[0], "median_leaf_gap": sorted(gaps)[len(gaps) // 2][0]}
+
+
+def traced_train_step(trainer, batch) -> dict:
+    """One Trainer step under torch.profiler: ``launch/trace.py``'s phase row
+    (host wall, device busy, idle share, device kernels) and K1's device ms,
+    forward and backward apart, and K3's.  A K1 kernel is the forward's when
+    it runs inside the device span of ``make_grad_fn``'s ``train_forward``
+    range; without that span (or with more than one) the split is printed
+    as unresolved (None).  The kernels counted stand beside the times: a
+    trace that dropped events shows it there."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("train_step"):
+            trainer.run(iter([batch]), 1, log_every=0)
+            torch.cuda.synchronize()
+    events = prof.events()
+    (row,) = trace_tools.phase_breakdown(events)
+    ms = lambda es: sum((e.time_range.end - e.time_range.start) / 1e3 for e in es)
+    work = trace_tools._device_work(events)
+    k1 = [e for e in work if "mmm_" in e.name]
+    spans = [(e.time_range.start, e.time_range.end) for e in events
+             if e.device_type == DeviceType.CUDA and e.name == "train_forward"]
+    split = dict(k1_forward_ms=None, k1_backward_ms=None, k1_forward_kernels=None, k1_backward_kernels=None)
+    if len(spans) == 1:
+        lo, hi = spans[0]
+        fwd = [e for e in k1 if lo <= e.time_range.start < hi]
+        bwd = [e for e in k1 if e.time_range.start >= hi]
+        split = dict(k1_forward_ms=ms(fwd), k1_backward_ms=ms(bwd), k1_forward_kernels=len(fwd),
+                     k1_backward_kernels=len(bwd))
+    row.update(k1_kernels=len(k1), k1_ms=ms(k1), **split, forward_spans=len(spans),
+               k3_ms=ms(e for e in work if "flash" in e.name), top=trace_tools.top_kernels(events, 8))
+    return row
+
+
+def train_checkpoint_roundtrip() -> None:
+    """The checkpoint on the card at SMOKE size (full width would write
+    ~30 GB): a Trainer writes every step, another from other weights
+    resumes and holds the first one's parameters and moments bit for bit,
+    each leaf back on the card in its dtype."""
+    cfg = dataclasses.replace(configs.get_smoke(ARCH), dtype="float32")
+    model = get_model(cfg)
+    root = os.path.join(ROOT, "chiprun_out", "train_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        tcfg = TrainConfig(peak_lr=1e-3, warmup_steps=1, total_steps=4, ckpt_dir=root, ckpt_every=1)
+        batch = make_batch(cfg, batch=2, seq=16, kind="train", seed=SEED, device="cuda")
+        first = Trainer(model, tcfg, model.init(SEED, "cuda", dtype=torch.float32))
+        first.run(iter([batch] * 2), 2, log_every=0)
+        second = Trainer(model, tcfg, model.init(SEED + 1, "cuda", dtype=torch.float32))
+        resumed = second.try_resume()
+        same = all(a.device.type == "cuda" and a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(
+            tree_util.leaves({"p": second.params, "o": second.opt_state}),
+            tree_util.leaves({"p": first.params, "o": first.opt_state})))
+        expect(resumed and second.step == 2 and same and latest_step(root) == 2,
+               f"SMOKE checkpoint round trip on the card: resumed at step {second.step}, parameters and moments "
+               f"bit-identical, on the card, dtypes kept")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_train(smi: str) -> dict:
+    """Full-width internlm2-1.8b with fp32 masters from SEED, computing in
+    bf16: one step's gradients on the kernel path against the plain path on
+    the card, exact launches of a step (and of a remat step), TRAIN_STEPS
+    Trainer steps on one fixed batch, a traced step, the readings."""
+    cfg = configs.get_config(ARCH)
+    say(f"[3] train {ARCH} (full width: {cfg.n_layers}L d={cfg.d_model} H={cfg.n_heads}/{cfg.n_kv_heads} "
+        f"d_ff={cfg.d_ff} V={cfg.vocab_size}), fp32 masters computing in {cfg.dtype}, batch {BATCH} x {PROMPT} "
+        f"tokens, AdamW {TRAIN_TCFG}")
+    model = get_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(SEED, "cuda", dtype=torch.float32)
+    n = sum(t.numel() for t in tree_util.leaves(params))
+    expect(n == model.n_params and all(t.dtype == torch.float32 for t in tree_util.leaves(params)),
+           f"{ARCH} fp32 masters: {n:,} parameters = the config's count")
+    batch = make_batch(cfg, batch=BATCH, seq=PROMPT, kind="train", seed=SEED, device="cuda")
+    tcfg = TrainConfig(**TRAIN_TCFG)
+    out: dict = {"arch": ARCH, "n_params": n, "nvidia_smi": smi}
+
+    grads_of = make_grad_fn(model, tcfg)
+    reset_counts()
+    grads, metrics = grads_of(params, batch)
+    torch.cuda.synchronize()
+    out["step"] = check_train_launches("train step", cfg, 1)
+    with plain_versions():
+        plain_grads, plain_metrics = grads_of(params, batch)
+    out["gate"] = train_gradient_gate("train step", grads, metrics, plain_grads, plain_metrics)
+    del plain_grads
+    reset_counts()
+    remat_grads, remat_metrics = make_grad_fn(model, dataclasses.replace(tcfg, remat=True))(params, batch)
+    torch.cuda.synchronize()
+    out["remat_step"] = check_train_launches("remat step", cfg, 2)
+    remat_gap = max(leaf_gaps(remat_grads, grads))
+    expect(float(remat_metrics["loss"]) == float(metrics["loss"]) and remat_gap[0] <= TRAIN_LEAF_RTOL,
+           f"remat step: the same loss, gradients within {TRAIN_LEAF_RTOL} of the step's (worst {remat_gap[1]} "
+           f"{remat_gap[0]:.2e})")
+    del grads, remat_grads
+
+    start = [t.clone() for t in tree_util.leaves(params)]
+    trainer = Trainer(model, tcfg, params)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, walls, norms, lrs = [], [], [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = trainer.run(iter([batch]), 1, log_every=0)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        lrs.append(float(m["lr"]))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    say(f"    {TRAIN_STEPS} steps on one batch: loss {[round(x, 4) for x in losses]}, grad norm "
+        f"{[round(x, 3) for x in norms]}, lr {[f'{x:.3e}' for x in lrs]}, step ms {[round(x, 1) for x in walls]}")
+    expect(all(map(math.isfinite, losses)) and losses[-1] < losses[0] and min(losses[2:]) < losses[1],
+           f"the loss falls on the fixed batch: {losses[0]:.4f} -> {losses[-1]:.4f}")
+    changed = [bool(torch.isfinite(p).all()) and not torch.equal(p, p0) for p, p0 in zip(tree_util.leaves(trainer.params), start)]
+    expect(all(changed), f"every parameter finite and changed: {sum(changed)} of {len(changed)} leaves")
+    expect(trainer.step == TRAIN_STEPS and int(trainer.opt_state.step) == TRAIN_STEPS and trainer.retries == 0,
+           f"step counter {trainer.step}, optimizer step {int(trainer.opt_state.step)}, retries {trainer.retries}")
+    del start
+    step_ms = sorted(walls[1:])[len(walls[1:]) // 2]
+    tokens = BATCH * PROMPT
+    out.update(losses=losses, grad_norms=norms, lrs=lrs, step_ms=walls, step_ms_p50=step_ms,
+               tokens_per_s=tokens / step_ms * 1e3, peak_gb=peak,
+               model_flops_share=6 * n * tokens / (step_ms / 1e3) / H100.peak_flops["bfloat16"], retries=trainer.retries)
+    row = traced_train_step(trainer, batch)
+    out["trace"] = row
+    steps = TRAIN_STEPS + 1
+    shapes, _ = train_expected(cfg, 1)
+    expect(counts() == {"systolic_mmm": sum(shapes.values()) * steps, "systolic_qmm": 0, "flash_attn": cfg.n_layers * steps,
+                        "grouped_mmm": 0} and shape_counts()["systolic_mmm"] == {k: c * steps for k, c in shapes.items()},
+           f"{steps} Trainer steps (the traced one included): launches exact, {counts()}")
+    # every full-width kernel-path launch of the phase, for the kernels line
+    total = collections.Counter()
+    for run, times in ((out["step"], 1 + steps), (out["remat_step"], 1)):
+        for *shp, c in run["shapes"]["systolic_mmm"]:
+            total[tuple(shp)] += c * times
+    out["shapes"] = {"systolic_mmm": [[*shp, c] for shp, c in sorted(total.items())]}
+    out["flash_shapes"] = [[BATCH, PROMPT, PROMPT, cfg.n_layers * (1 + steps + 2)]]
+    say(f"    train step (steady, p50 of steps 2-{TRAIN_STEPS}) {step_ms:.3f} ms, {out['tokens_per_s']:.1f} tokens/s, "
+        f"peak device memory {peak:.2f} GB, 6 N tokens / step time / 989e12 = {out['model_flops_share']:.4f} "
+        f"(for information); {smi}")
+    if row["k1_forward_ms"] is None:
+        k1_split = f"forward / backward unresolved ({row['forward_spans']} forward spans in the trace)"
+    else:
+        k1_split = (f"forward {row['k1_forward_kernels']} kernels {row['k1_forward_ms']:.3f} ms, backward "
+                    f"{row['k1_backward_kernels']} kernels {row['k1_backward_ms']:.3f} ms")
+    say(f"    traced step: {trace_row(row)}; K1 {row['k1_kernels']} of the step's {sum(shapes.values())} kernels in "
+        f"the trace, {row['k1_ms']:.3f} ms: {k1_split}; K3 {row['k3_ms']:.3f} ms")
+    for r in row["top"]:
+        say(f"      {r['device_ms']:9.3f} ms  x{r['calls']:<5d} {r['kernel'][:100]}")
+    del trainer, params, batch
+    torch.cuda.empty_cache()
+    train_checkpoint_roundtrip()
+    # fp32 SMOKE gradients on the card (K1's FMA tiles, the fp32 flash
+    # kernel with its lse) against the port's CPU path
+    cfg32 = dataclasses.replace(configs.get_smoke(ARCH), dtype="float32")
+    small = get_model(cfg32)
+    cpu = small.init(SEED, "cpu", dtype=torch.float32)
+    got = {}
+    for dev, p in (("cpu", cpu), ("cuda", tree_util.tree_map(lambda t: t.to("cuda"), cpu))):
+        b = make_batch(cfg32, batch=2, seq=32, kind="train", seed=SEED, device=dev)
+        got[dev] = make_grad_fn(small, tcfg)(p, b)
+    err = max(((a.cpu() - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+              for a, b in zip(tree_util.leaves(got["cuda"][0]), tree_util.leaves(got["cpu"][0])))
+    expect(err <= TRAIN_FP32_TOL, f"{ARCH} SMOKE fp32 gradients, card vs CPU: worst leaf {err:.2e} of its largest "
+                                  f"(tol {TRAIN_FP32_TOL})")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2779,13 +3042,13 @@ def time_paged_pool(gen) -> dict:
                        device="cuda")
     for slot in range(PAGED_SLOTS):
         pool.prepare_write(pool.alloc(), 0, PAGED_MAX_LEN)
-    for t in _leaves(pool.phys):
+    for t in tree_util.leaves(pool.phys):
         if t.is_floating_point():
             t.copy_(randn(t.shape, gen, t.dtype))
     idx = pool._idx()
     logical = _gather_pages(pool.phys, idx, pool.seq_len, PAGE_SIZE)
-    dst = _tree(torch.empty_like, logical)
-    pairs = list(zip(_leaves(dst), _leaves(logical)))
+    dst = tree_util.tree_map(torch.empty_like, logical)
+    pairs = list(zip(tree_util.leaves(dst), tree_util.leaves(logical)))
 
     def copy():
         for a, b in pairs:
@@ -2867,6 +3130,81 @@ def time_gemm_bias(m, k, n, gen) -> dict:
             "bound_ms": bound_s * 1e3, "bound_by": bound_by, "launches": 0}
 
 
+def time_train(gen, cfg) -> tuple[list[dict], dict]:
+    """The training step's kernels at its shapes: for each projection (K, N)
+    at M = BATCH x PROMPT, K1's dA = dC W^T at (M, N, K) with W^T read
+    K-major in place and with W^T copied row-major (the kernel apart from the
+    copy, and the copy), and dB = X^T dC at (K, M, N) (the kernel, and the
+    copy of X^T); each beside its bound, its plain version and the library
+    call on the same views (``torch.matmul``).  Weights are cycled through
+    >= 150 MB of copies, as the step reads each layer's cold.  K3 at the
+    step's shape with and without its lse output, beside SDPA, and the
+    plain block backward (``attention._flash_bwd``) beside SDPA's
+    forward + backward."""
+    m = BATCH * PROMPT
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+    for k, n in projections(cfg):
+        x, dc = randn((m, k), gen, BF16), randn((m, n), gen, BF16)
+        copies = max(1, math.ceil(150e6 / (k * n * dtype_bytes(BF16))))
+        ws = cycler([randn((k, n), gen, BF16) for _ in range(copies)])
+        wts = cycler([randn((n, k), gen, BF16) for _ in range(copies)])  # W^T already row-major
+        xt = x.t().contiguous()
+        r = {"m": m, "k": k, "n": n,
+             "da_path": mm_kernel.gemm_path(m, k, n, BF16, True, sms),
+             "da_kmajor_path": mm_kernel.gemm_path(m, k, n, BF16, True, sms, k_major=True),
+             "db_path": mm_kernel.gemm_path(k, n, m, BF16, True, sms),
+             "da_ms": time_ms(lambda: mm_ops._matmul(dc, wts(), out_dtype=BF16), 10),
+             "da_kmajor_ms": time_ms(lambda: mm_ops._matmul(dc, ws().t(), out_dtype=BF16), 10),
+             "da_copy_ms": time_ms(lambda: ws().t().contiguous(), 10),
+             "db_ms": time_ms(lambda: mm_ops._matmul(xt, dc, out_dtype=BF16), 10),
+             "db_copy_ms": time_ms(lambda: x.t().contiguous(), 10),
+             "da_plain_ms": time_ms(lambda: matmul_ref(dc, ws().t(), out_dtype=BF16), 5),
+             "db_plain_ms": time_ms(lambda: matmul_ref(x.t(), dc, out_dtype=BF16), 5),
+             "da_library_ms": time_ms(lambda: torch.matmul(dc, ws().t()), 10),
+             "db_library_ms": time_ms(lambda: torch.matmul(x.t(), dc), 10)}
+        for side, (mm_, kk, nn) in (("da", (m, n, k)), ("db", (k, m, n))):
+            bound_s, by = H100.bound_s(*_gemm_cost(mm_, kk, nn), "bfloat16")
+            r[f"{side}_bound_ms"], r[f"{side}_bound_by"] = bound_s * 1e3, by
+        rows.append(r)
+        say(f"    train K1 (K={k}, N={n}) dA (M={m}, K={n}, N={k}): {r['da_path']} {r['da_ms']:.4f} + W^T copy "
+            f"{r['da_copy_ms']:.4f}; K-major {r['da_kmajor_path']} {r['da_kmajor_ms']:.4f}; plain {r['da_plain_ms']:.4f}  "
+            f"torch.matmul {r['da_library_ms']:.4f}  bound {r['da_bound_ms']:.4f} ({r['da_bound_by']}) | dB (M={k}, "
+            f"K={m}, N={n}): {r['db_path']} {r['db_ms']:.4f} + X^T copy {r['db_copy_ms']:.4f}; plain "
+            f"{r['db_plain_ms']:.4f}  torch.matmul {r['db_library_ms']:.4f}  bound {r['db_bound_ms']:.4f} "
+            f"({r['db_bound_by']})")
+    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q = randn((BATCH, PROMPT, h, d), gen, BF16)
+    kk, vv, do = randn((BATCH, PROMPT, hkv, d), gen, BF16), randn((BATCH, PROMPT, hkv, d), gen, BF16), \
+        randn((BATCH, PROMPT, h, d), gen, BF16)
+    kw = dict(scale=d**-0.5, causal=True, window=None, kv_valid=PROMPT)
+    o, lse = attn_kernel.flash_attention_call(q, kk, vv, return_lse=True, **kw)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qs, ks, vs = (t.transpose(1, 2) for t in (q, kk, vv))
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (qs, ks, vs))
+
+    def sdpa_fwd_bwd():
+        sdpa(qg, kg, vg, is_causal=True, enable_gqa=True).backward(do.transpose(1, 2))
+
+    bwd = dict(causal=True, window=None, scale=d**-0.5, bq=512, bkv=1024)
+    fl = {"b": BATCH, "h": h, "hkv": hkv, "s": PROMPT, "d": d,
+          "ms": time_ms(lambda: attn_kernel.flash_attention_call(q, kk, vv, return_lse=True, **kw), 20),
+          "no_lse_ms": time_ms(lambda: attn_kernel.flash_attention_call(q, kk, vv, **kw), 20),
+          "plain_ms": time_ms(lambda: flash_attention_call_ref(q, kk, vv, return_lse=True, **kw), 10),
+          "library_ms": time_ms(lambda: sdpa(qs, ks, vs, is_causal=True, enable_gqa=True), 20),
+          "backward_plain_ms": time_ms(lambda: attn_model._flash_bwd(q, kk, vv, o, lse, do, **bwd), 5),
+          "sdpa_fwd_bwd_ms": time_ms(sdpa_fwd_bwd, 10)}
+    pairs = PROMPT * (PROMPT + 1) // 2
+    nbytes = 2 * BATCH * PROMPT * (h + hkv) * d * dtype_bytes(BF16) + 4 * BATCH * h * PROMPT  # + the lse
+    bound_s, fl["bound_by"] = H100.bound_s(4 * BATCH * h * pairs * d, nbytes, "bfloat16")
+    fl["bound_ms"] = bound_s * 1e3
+    say(f"    train K3 B={BATCH} H={h}/{hkv} S={PROMPT} D={d} causal with lse {fl['ms']:.4f} (without {fl['no_lse_ms']:.4f})"
+        f"  plain {fl['plain_ms']:.4f}  sdpa(enable_gqa) {fl['library_ms']:.4f}  bound {fl['bound_ms']:.4f} "
+        f"({fl['bound_by']}); the plain block backward {fl['backward_plain_ms']:.4f}, SDPA forward + backward "
+        f"{fl['sdpa_fwd_bwd_ms']:.4f}")
+    return rows, fl
+
+
 def _merged(paths: list, kernel: str) -> dict:
     """shape -> launches of ``kernel`` over prefill and decode of every path
     (a continuous run lists its launches under "shapes")."""
@@ -2879,7 +3217,7 @@ def _merged(paths: list, kernel: str) -> dict:
 
 
 def phase_timing(errs: dict, sync_fp: list, sync_w8a8: list, moe_runs: list,
-                 served: list) -> tuple[list[dict], dict, list, dict]:
+                 served: list, train: dict) -> tuple[list[dict], dict, list, dict, dict]:
     """``sync_fp``: the synchronized bf16 paths (internlm2, the MoE model's
     main path, minicpm3); ``sync_w8a8``: the synchronized w8a8 paths
     (internlm2, minicpm3, the MoE model); ``moe_runs``: the MoE model's bf16
@@ -2891,14 +3229,16 @@ def phase_timing(errs: dict, sync_fp: list, sync_w8a8: list, moe_runs: list,
     come in ``sync_fp``, xlstm-125m's continuous runs in ``served``; so do
     the frontend models' (musicgen-medium's and internvl2-1b's synchronized
     paths in ``sync_fp``; internvl2-1b's continuous run and the tied check
-    in ``served``)."""
+    in ``served``).  ``train``: the training phase's full-width kernel-path
+    launches (K1 at its forward, dA and dB shapes; K3 with its lse output,
+    timed so)."""
     say("[4] kernel times at the served paths' shapes (CUDA events; ms per call)")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     moe_r = moe_runs[0]
     shapes = []
     synchronized = _merged(sync_fp, "systolic_mmm")
     tied = tied_head(dataclasses.replace(configs.get_config(VLM_ARCH), tie_embeddings=True))
-    for (m, k, n), n_calls in _merged([*sync_fp, *sync_w8a8, *served], "systolic_mmm").items():
+    for (m, k, n), n_calls in _merged([*sync_fp, *sync_w8a8, *served, train], "systolic_mmm").items():
         # each wgmma tile timed at the synchronized paths' shapes only; the
         # tied head's table K-major, fp32 out
         k_major = (k, n) == tied
@@ -2965,6 +3305,10 @@ def phase_timing(errs: dict, sync_fp: list, sync_w8a8: list, moe_runs: list,
             f"kernel {fl['ms']:.4f}  plain {fl['plain_ms']:.4f}  sdpa(enable_gqa) {fl['library_ms']:.4f}  "
             f"bound {fl['bound_ms']:.4f} ({fl['bound_by']})")
 
+    train_rows, train_flash = time_train(gen, dense_cfg)
+    train_flash["launches"] = train["flash_shapes"][0][-1]
+    flash.append(train_flash)
+
     chunk_attn = [time_chunk_attention(gen, dense_cfg, off) for off in (0, LONG_TRACE["long_prompt"] - LONG_CHUNK)]
     # a prefix hit's suffix over the paged arms' slot cache
     chunk_attn.append(time_chunk_attention(gen, dense_cfg, PAGED_TRACE["prefix_len"], PAGED_TRACE["suffix_len"],
@@ -3004,7 +3348,7 @@ def phase_timing(errs: dict, sync_fp: list, sync_w8a8: list, moe_runs: list,
     # attention on the GQA paths but the chunked runs; the block-scaled GEMM
     # on the w8a8 paths; the grouped GEMM on the MoE paths.
     return [entry("systolic_mmm", shapes), entry("flash_attn", flash), entry("systolic_qmm", qshapes),
-            entry("grouped_mmm", gshapes)], k2, chunk_attn, paging
+            entry("grouped_mmm", gshapes)], k2, chunk_attn, paging, {"k1": train_rows, "k3": train_flash}
 
 
 def main() -> int:
@@ -3048,11 +3392,12 @@ def main() -> int:
     timed(f"small reference {VLM_ARCH}", phase_small_reference, VLM_ARCH)
     tied_r = timed(f"tied {VLM_ARCH}", phase_tied, device["nvidia_smi"])
     timed(f"small reference {VLM_ARCH} tied", lambda: phase_small_reference(VLM_ARCH, tie_embeddings=True))
-    kernels, k2, chunk_attn, paging = timed("timing", phase_timing, errs,
+    train_r = timed(f"train {ARCH}", phase_train, device["nvidia_smi"])
+    kernels, k2, chunk_attn, paging, train_t = timed("timing", phase_timing, errs,
                                             [bf16, moe_r, mla_bf16, ssm_r, hyb_r, audio_r, vlm_r],
                                             [w8a8, mla_w8a8, moe_w8a8], [moe_r, moe_w8a8],
                                             [cont, kv8, *long_runs, *paged_runs, mla_cont, mla_chunked, mla_paged,
-                                             *ssm_runs, vlm_cont, tied_r])
+                                             *ssm_runs, vlm_cont, tied_r], train_r)
     say(f"    wall {time.perf_counter() - t_start:.1f} s")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -3064,6 +3409,7 @@ def main() -> int:
                        "serve_mla_paged": mla_paged, "serve_paged": paged_runs, "serve_xlstm": ssm_r,
                        "serve_xlstm_continuous": ssm_runs, "serve_zamba2": hyb_r, "serve_musicgen": audio_r,
                        "serve_internvl2": vlm_r, "serve_internvl2_continuous": vlm_cont, "serve_tied": tied_r,
+                       "train": train_r, "train_timing": train_t,
                        "kernels": kernels,
                        "systolic_mmm_bias": k2, "chunk_attention": chunk_attn, "paged_pool": paging,
                        "phase_wall_s": walls,

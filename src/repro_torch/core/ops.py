@@ -29,6 +29,9 @@ def matmul(x: torch.Tensor, w: torch.Tensor | QArray, *, out_dtype: torch.dtype 
     if w.shape[0] != k:
         raise ValueError(f"matmul shape mismatch: {tuple(x.shape)} @ {tuple(w.shape)}")
     if isinstance(w, QArray):
+        if torch.is_grad_enabled() and x.requires_grad:
+            raise RuntimeError("a quantized (QArray) weight has no backward: quantized weights serve, "
+                               "the reference does not train them")
         return _quant_matmul(x, w, out_dtype=out_dtype)
     y2 = systolic_ops.matmul(x.reshape(-1, k), w, out_dtype=out_dtype or x.dtype)
     return y2.reshape(*lead, w.shape[1])

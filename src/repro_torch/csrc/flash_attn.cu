@@ -11,8 +11,11 @@
 //     kpos < kv_valid  [and kpos <= qpos if causal]  [and kpos > qpos - window];
 // whole K/V tiles outside the mask are skipped by the reference's `needed`
 // test at this kernel's tile sizes; P is rounded to bf16 for P @ V; rows
-// whose l stayed 0 are written as 0.  The TPU's sequential kv grid dimension
-// becomes the loop inside the block.  Query head h reads K/V head
+// whose l stayed 0 are written as 0.  On request each row's logsumexp of
+// its scaled scores is written too, fp32 (B, H, Sq), +inf where l stayed 0:
+// the statistics the reference's block-recomputing backward reads
+// (repro/models/attention.py chunked_mha(return_stats=True)).  The TPU's
+// sequential kv grid dimension becomes the loop inside the block.  Query head h reads K/V head
 // h / (H / Hkv): the reference's callers repeat K/V in HBM, this kernel does
 // not.  q, k and v are read through their strides (last dimension
 // contiguous, rows 16-byte aligned); o is written (B, Sq, H, D) contiguous.
@@ -113,8 +116,8 @@ struct WgLayout {
 template <int DP>
 __global__ void __launch_bounds__(W_NT, 1)
     flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                       const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int H, int Hkv,
-                       int D, float scale_log2, Mask mk) {
+                       const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                       float* __restrict__ lse, int H, int Hkv, int D, float scale_log2, Mask mk) {
   using L = WgLayout<DP>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = hp::align1024(smem_raw);
@@ -269,6 +272,10 @@ __global__ void __launch_bounds__(W_NT, 1)
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
     const int rr = lr + 8 * i;
+    // m and l are in base 2 (the scores carry log2(e) * scale): ln(sum e^s) = ln2 * (m + log2 l).
+    if (lse != nullptr && col0 == 0 && row0 + 8 * i < mk.Sq)
+      lse[((size_t)b * H + h) * mk.Sq + row0 + 8 * i] =
+          l[i] > 0.f ? 0.6931471805599453f * (m[i] + log2f(l[i])) : INFINITY;
 #pragma unroll
     for (int c = 0; c < DP / 8; ++c)
       *reinterpret_cast<__nv_bfloat162*>(stage + rr * ROW + hp::swizzle128(rr, c) * 16 + col0 * 2) =
@@ -294,7 +301,7 @@ int map_bshd(CUtensorMap* map, const void* base, int B, int S, int heads, int D,
 }
 
 template <int DP>
-int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int H, int Hkv, int D,
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H, int Hkv, int D,
                  const long long* qs, const long long* ks, const long long* vs, float scale, const Mask& mk,
                  cudaStream_t s) {
   using L = WgLayout<DP>;
@@ -307,7 +314,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, in
   const cudaError_t attr = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   dim3 grid(H, B, (mk.Sq + W_BQ - 1) / W_BQ);
-  kern<<<grid, W_NT, L::SMEM, s>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o), H, Hkv, D,
+  kern<<<grid, W_NT, L::SMEM, s>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, H, Hkv, D,
                                    scale * 1.4426950408889634f, mk);
   return static_cast<int>(cudaGetLastError());
 }
@@ -356,7 +363,8 @@ __device__ __forceinline__ void load_rows(float* smem, int ld, const float* g, l
 
 __global__ void __launch_bounds__(F_NT)
     flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                     float* __restrict__ o, int H, int Hkv, int D, int DP, long long qsb, long long qss,
+                     float* __restrict__ o, float* __restrict__ lse, int H, int Hkv, int D, int DP,
+                     long long qsb, long long qss,
                      long long qsh, long long ksb, long long kss, long long ksh, long long vsb, long long vss,
                      long long vsh, float scale, Mask mk, bool vec) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -442,10 +450,12 @@ __global__ void __launch_bounds__(F_NT)
     float* orow = o + (((size_t)b * mk.Sq + qpos) * H + h) * D;
     for (int c = half * (DP / 2); c < (half + 1) * (DP / 2) && c < D; ++c)
       orow[c] = l_i > 0.f ? O[r * L.ld + c] / l_i : 0.f;
+    if (lse != nullptr && half == 0)
+      lse[((size_t)b * H + h) * mk.Sq + qpos] = l_i > 0.f ? m_i + logf(l_i) : INFINITY;
   }
 }
 
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int H, int Hkv, int D,
+int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H, int Hkv, int D,
                const long long* qs, const long long* ks, const long long* vs, float scale, const Mask& mk,
                cudaStream_t s) {
   const int DP = (D + 15) / 16 * 16;
@@ -460,7 +470,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int 
   dim3 grid(H, B, (mk.Sq + F_BQ - 1) / F_BQ);
   flash_f32_kernel<<<grid, F_NT, L.bytes, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), H, Hkv, D, DP, qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], scale,
+      static_cast<float*>(o), lse, H, Hkv, D, DP, qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], scale,
       mk, vec);
   return static_cast<int>(cudaGetLastError());
 }
@@ -469,11 +479,13 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int 
 
 // q: (B, Sq, H, D), k/v: (B, Skv, Hkv, D) of dtype `dtype`, each through its
 // element strides (batch, sequence, head; the last dimension contiguous);
-// o: (B, Sq, H, D) contiguous.  Hkv divides H; window <= 0 means no sliding
+// o: (B, Sq, H, D) contiguous; lse: null, or (B, H, Sq) fp32 contiguous for
+// each row's logsumexp.  Hkv divides H; window <= 0 means no sliding
 // window; keys at kv_valid and beyond are masked.  bf16 needs 16-byte
 // aligned bases and strides that are multiples of 8 (TMA).  Launches on
 // `stream`; returns the CUDA error code (0 = ok).
-extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void* o, int B, int H, int Hkv, int Sq,
+extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+                              int Hkv, int Sq,
                               int Skv, int D, long long qsb, long long qss, long long qsh, long long ksb,
                               long long kss, long long ksh, long long vsb, long long vss, long long vsh, float scale,
                               int causal, int window, int kv_valid, int dtype, void* stream) {
@@ -487,9 +499,9 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void*
     bool tma_ok = repro::aligned16(q) && repro::aligned16(k) && repro::aligned16(v) && D % 8 == 0;
     for (int i = 0; i < 3; ++i) tma_ok = tma_ok && qs[i] % 8 == 0 && ks[i] % 8 == 0 && vs[i] % 8 == 0;
     if (!tma_ok) return static_cast<int>(cudaErrorInvalidValue);
-    if (D <= 64) return launch_wgmma<64>(q, k, v, o, B, H, Hkv, D, qs, ks, vs, scale, mk, s);
-    return launch_wgmma<128>(q, k, v, o, B, H, Hkv, D, qs, ks, vs, scale, mk, s);
+    if (D <= 64) return launch_wgmma<64>(q, k, v, o, lse, B, H, Hkv, D, qs, ks, vs, scale, mk, s);
+    return launch_wgmma<128>(q, k, v, o, lse, B, H, Hkv, D, qs, ks, vs, scale, mk, s);
   }
-  if (dtype == repro::DT_F32) return launch_f32(q, k, v, o, B, H, Hkv, D, qs, ks, vs, scale, mk, s);
+  if (dtype == repro::DT_F32) return launch_f32(q, k, v, o, lse, B, H, Hkv, D, qs, ks, vs, scale, mk, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

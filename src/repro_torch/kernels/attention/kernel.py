@@ -5,7 +5,9 @@ forward attention over (B, S, H, D) queries and (B, S, Hkv, D) keys and
 values, query head h reading KV head ``h // (H // Hkv)`` in place (the
 reference repeats KV to every query head first).  Every operand is read
 through its strides, so transposed views pass without a copy; the kernel
-masks the ragged sequence tail itself, so nothing is padded.
+masks the ragged sequence tail itself, so nothing is padded.  On request it
+also writes each query row's logsumexp (fp32 (B, H, Sq)), the statistics
+``models.attention.flash_mha``'s backward reads.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ def _entry():
     """The loaded library and its C entry point (built on first call)."""
     lib = _build.library("flash_attn")
     fn = lib.flash_attn_fwd
-    fn.argtypes = [_P, _P, _P, _P, *[_I] * 6, *[_LL] * 9, ctypes.c_float, _I, _I, _I, _I, _P]
+    fn.argtypes = [_P, _P, _P, _P, _P, *[_I] * 6, *[_LL] * 9, ctypes.c_float, _I, _I, _I, _I, _P]
     fn.restype = _I
     return lib, fn
 
@@ -61,10 +63,13 @@ def flash_attention_call(
     causal: bool,
     window: int | None,
     kv_valid: int,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """q: (B, Sq, H, D), k/v: (B, Skv, Hkv, D) on one CUDA device, one dtype
     (bf16 or fp32), Hkv dividing H, D <= 128, the last dimension contiguous
-    and every row 16-byte aligned -> (B, Sq, H, D) contiguous in q's dtype."""
+    and every row 16-byte aligned -> (B, Sq, H, D) contiguous in q's dtype;
+    with ``return_lse``, (out, lse): lse fp32 (B, H, Sq), each row's
+    logsumexp of its scaled, masked scores, +inf for a row with no key."""
     global launches
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"flash kernel needs q, k, v on one CUDA device, got {q.device}, {k.device}, {v.device}")
@@ -88,12 +93,14 @@ def flash_attention_call(
             raise ValueError(f"flash kernel needs {name}'s last dimension contiguous and its rows 16-byte "
                              f"aligned, got shape {tuple(t.shape)} strides {t.stride()}")
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if return_lse else None
     if b == 0 or sq == 0 or h == 0:
-        return out
+        return (out, lse) if return_lse else out
     lib, fn = _entry()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     code = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, hkv, sq, skv, d,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
+        b, h, hkv, sq, skv, d,
         *_strides(q), *_strides(k), *_strides(v),
         float(scale), int(causal), 0 if window is None else int(window), int(kv_valid),
         DTYPE_CODES[q.dtype], stream,
@@ -102,4 +109,4 @@ def flash_attention_call(
     launches += 1
     launches_by_heads[(h, hkv)] += 1
     launches_by_shape[(b, sq, skv)] += 1
-    return out
+    return (out, lse) if return_lse else out

@@ -7,6 +7,9 @@ which equals the reference on KV repeated to H heads.  A CPU tensor goes to
 the plain version, which repeats KV; a CUDA tensor goes to the hand-written
 kernel, which reads q, k and v in place through their strides (transposed
 views included) and returns a (B, H, S, D) view of its (B, S, H, D) output.
+The kernel has no backward: on the card it is refused under grad (training
+attention is ``models.attention.flash_mha``, whose backward is plain); the
+plain version is differentiable by autograd.
 """
 
 from __future__ import annotations
@@ -45,6 +48,9 @@ def flash_attention(
         raise ValueError(f"kv_valid must be in 1..{skv}, got {kv_valid}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
+    if q.device.type != "cpu" and torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("the flash attention kernel (K3) has no backward of its own; under grad the model "
+                           "takes models.attention.flash_mha")
     call = flash_attention_call_ref if q.device.type == "cpu" else _kernel.flash_attention_call
     o = call(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
              scale=scale, causal=causal, window=window, kv_valid=kv_valid)

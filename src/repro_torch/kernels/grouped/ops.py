@@ -3,7 +3,9 @@
 The counterpart of ``repro.kernels.grouped.ops.grouped_matmul``.  A CPU tensor
 goes to the plain version; a CUDA tensor goes to the hand-written kernel,
 which masks ragged edges itself, so nothing is padded and no block plan is
-chosen here (the reference's tuner lookup comes with the port's tuner).
+chosen here (the reference's tuner lookup comes with the port's tuner).  The
+kernel has no backward: on the card it is refused under grad, never cut from
+the graph; the plain version is differentiable by autograd.
 """
 
 from __future__ import annotations
@@ -29,4 +31,7 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, *, rows: torch.Tensor | Non
         raise ValueError(f"contraction mismatch {tuple(x.shape)} @ {tuple(w.shape)}")
     if x.device.type == "cpu":
         return grouped_matmul_ref(x, w)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        raise RuntimeError("the grouped expert matmul (K4) has no backward yet, so MoE training runs on the "
+                           "CPU only (its plain version is differentiable)")
     return _kernel.grouped_matmul_call(x.contiguous(), w.contiguous(), rows)

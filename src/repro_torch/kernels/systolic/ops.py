@@ -4,6 +4,15 @@ The counterpart of ``repro.kernels.systolic.ops``: ``matmul`` (fp path) and
 ``quant_matmul`` (block-scaled int8 / fp8).  A CPU tensor goes to the plain
 version; a CUDA tensor goes to the hand-written kernel, which masks ragged
 edges itself, so nothing is padded and no block plan is chosen here.
+
+Under grad mode, with an operand that requires grad, ``matmul`` runs through
+``_Matmul``, whose backward is two more GEMMs of the same dispatch: on the
+card dA = dC B^T and dB = A^T dC are K1 launches, on the CPU the plain
+version, so the CPU tests run the backward code the card runs.  The kernels'
+bias / activation epilogue (K2) and the block-scaled GEMM (K5) have no
+backward (the reference trains without them): on the card they are refused
+under grad rather than silently cut from the graph; on the CPU their plain
+versions are differentiable by autograd.
 """
 
 from __future__ import annotations
@@ -33,6 +42,16 @@ def matmul(
     if activation not in ACTIVATIONS:
         raise ValueError(f"unknown activation {activation!r}")
     out_dtype = out_dtype or a.dtype
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        if bias is None and activation == "none":
+            return _Matmul.apply(a, b, out_dtype)
+        if a.device.type != "cpu":
+            raise RuntimeError("the systolic matmul has no backward for a bias or an activation epilogue (K2); "
+                               "the training path runs bias-free projections without one")
+    return _matmul(a, b, bias, out_dtype=out_dtype, activation=activation)
+
+
+def _matmul(a, b, bias=None, *, out_dtype, activation="none"):
     if a.device.type == "cpu":
         return matmul_ref(a, b, bias, activation=activation, out_dtype=out_dtype)
     return _kernel.systolic_matmul_call(
@@ -42,6 +61,36 @@ def matmul(
         out_dtype=out_dtype,
         activation=activation,
     )
+
+
+class _Matmul(torch.autograd.Function):
+    """C = A @ B with an fp32 accumulator, differentiable.  The backward's
+    products run through ``_matmul`` (K1 on the card), each with the
+    operands' common dtype; a cotangent wider than the operands (an fp32
+    output of bf16 operands) widens the other operand, as JAX's dot
+    transpose promotes, and the gradients are cast to the operands' dtypes.
+    dB reads A^T through one transposed copy of A (K1 reads A row-major).
+    dA reads B^T through a row-major copy of it too: B^T is K-major as it
+    lies, which only the WMMA tile reads in place, and the copy plus a
+    wgmma tile took 0.56-0.67x the time of the in-place read at every
+    training shape on the H100 (PERF.md)."""
+
+    @staticmethod
+    def forward(ctx, a, b, out_dtype):
+        ctx.save_for_backward(a, b)
+        return _matmul(a, b, out_dtype=out_dtype)
+
+    @staticmethod
+    def backward(ctx, dc):
+        a, b = ctx.saved_tensors
+        da = db = None
+        ct = torch.promote_types(dc.dtype, a.dtype)
+        dc = dc.to(ct)
+        if ctx.needs_input_grad[0]:
+            da = _matmul(dc, b.to(ct).t().contiguous(), out_dtype=a.dtype)
+        if ctx.needs_input_grad[1]:
+            db = _matmul(a.to(ct).t().contiguous(), dc, out_dtype=b.dtype)
+        return da, db, None
 
 
 # ---------------------------------------------------------------------------
@@ -87,6 +136,10 @@ def quant_matmul(
         raise ValueError(f"operand qdtypes differ: {a.values.dtype} vs {b.values.dtype}")
     if activation not in ACTIVATIONS:
         raise ValueError(f"unknown activation {activation!r}")
+    if (a.values.device.type != "cpu" and torch.is_grad_enabled()
+            and any(t.requires_grad for q in (a, b) for t in (q.values, q.scales))):
+        raise RuntimeError("the block-scaled quantized matmul (K5) has no backward; the reference does not "
+                           "train quantized")
     m, k = a.shape
     n = b.shape[1]
     out_dtype = out_dtype or torch.bfloat16

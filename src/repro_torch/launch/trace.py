@@ -55,13 +55,14 @@ def _union_us(intervals: list[tuple[float, float]]) -> float:
     return total
 
 
-PHASES = ("prefill", "prefill_chunk", "decode_step")
+PHASES = ("prefill", "prefill_chunk", "decode_step", "train_step")  # train_step: chip_smoke.py's traced step
+SPANS = PHASES + ("train_forward",)  # train_forward: train.loop.make_grad_fn's forward, inside a train_step
 
 
 def _device_work(events):
     """Device-side events that are work (kernels, copies), not the device
     mirror of a record_function range."""
-    return [e for e in events if e.device_type == DeviceType.CUDA and e.name not in PHASES]
+    return [e for e in events if e.device_type == DeviceType.CUDA and e.name not in SPANS]
 
 
 def phase_breakdown(events) -> list[dict]:

@@ -13,8 +13,12 @@ A slot whose position is negative is empty: its cache row stays marked
 ``pos = -1``, so the rule blanks every key.
 
 GQA prefill attention is the flash kernel on the card (its plain version on
-the CPU); decode attention has no kernel in the reference either and is
-plain torch here.  MLA's attention is plain torch everywhere, as the
+the CPU); under grad (training) it is ``flash_mha``, the reference's
+block-recomputing attention as a ``torch.autograd.Function``: its forward is
+the same kernel with its logsumexp output on the card and ``chunked_mha`` on
+the CPU, its backward the reference's plain block loop (``_blk_bwd``).
+Decode attention has no kernel in the reference either and is plain torch
+here.  MLA's attention is plain torch everywhere, as the
 reference's default path computes it (it never reaches the reference's
 flash kernel, and its query/key head (nope + rope) is wider than its value
 head); its projections go through ``core.ops.matmul`` like every other.  The reference's "einsum" / "flash" / "chunked" switch is not
@@ -24,10 +28,13 @@ tensors in place (the reference donates them) and return the same dict.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.core import ops
 from repro_torch.kernels.attention import flash_attention
+from repro_torch.kernels.attention import kernel as _flash_kernel
 from repro_torch.models import layers
 from repro_torch.models.config import ArchConfig
 
@@ -83,6 +90,176 @@ def _sdpa_flash(q, k, v, cfg: ArchConfig):
     return o.transpose(1, 2)
 
 
+# ---------------------------------------------------------------------------
+# Memory-efficient attention and its block-recomputing backward (training).
+# ---------------------------------------------------------------------------
+
+
+def _blk_mask(q_lo, k_lo, bq, bkv, s, t, causal, window, device):
+    qpos = q_lo + torch.arange(bq, device=device)[:, None]
+    kpos = k_lo + torch.arange(bkv, device=device)[None, :]
+    mask = (kpos < t) & (qpos < s)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def _blk_needed(q_lo: int, k_lo: int, bq, bkv, causal, window) -> bool:
+    """Static causal / window block skip."""
+    if causal and k_lo > q_lo + bq - 1:
+        return False
+    if window is not None and k_lo + bkv - 1 < q_lo - window + 1:
+        return False
+    return True
+
+
+def _blk_fwd(qblk, kblk, vblk, q_lo, k_lo, m_p, l_p, acc, *, scale, causal, window, s, t, bq, bkv):
+    """One online-softmax update.  qblk (B,bq,H,hd), k/v (B,bkv,H,*).
+    Stats (B,H,bq); acc (B,H,bq,hd_v)."""
+    sc = torch.einsum("bqhd,bkhd->bhqk", qblk.float(), kblk.float()) * scale
+    sc = torch.where(_blk_mask(q_lo, k_lo, bq, bkv, s, t, causal, window, sc.device), sc, -1e30)
+    m_n = torch.maximum(m_p, sc.amax(dim=-1))
+    p = torch.exp(sc - m_n[..., None])
+    alpha = torch.exp(m_p - m_n)
+    l_n = alpha * l_p + p.sum(dim=-1)
+    pv = torch.einsum("bhqk,bkhd->bhqd", p.to(vblk.dtype).float(), vblk.float())
+    return m_n, l_n, acc * alpha[..., None] + pv
+
+
+def _pad_seq(x: torch.Tensor, n: int, value: float = 0.0) -> torch.Tensor:
+    """Pad axis 1 of x to n rows."""
+    if x.shape[1] == n:
+        return x
+    pad = x.new_full((x.shape[0], n - x.shape[1], *x.shape[2:]), value)
+    return torch.cat([x, pad], dim=1)
+
+
+def chunked_mha(q, k, v, *, causal=True, window=None, scale=None, bq=512, bkv=1024, return_stats=False):
+    """Online-softmax attention over blocks, O(bq * bkv) temporaries.
+
+    q: (B, S, H, hd), k/v: (B, T, H, hd) -> (B, S, H, hd_v); with
+    ``return_stats`` also each row's logsumexp, fp32 (B, H, S), +inf where a
+    row saw no key.  The reference's Python-loop form (with its static
+    causal / window block skip): a resident Q block against streamed K/V
+    blocks, the flash kernel's math in plain PyTorch.
+    """
+    b, s, h, hd = q.shape
+    t = k.shape[1]
+    hd_v = v.shape[-1]
+    scale = scale if scale is not None else hd**-0.5
+    bq, bkv = min(bq, s), min(bkv, t)
+    sp, tp = math.ceil(s / bq) * bq, math.ceil(t / bkv) * bkv
+    qp, kp, vp = _pad_seq(q, sp), _pad_seq(k, tp), _pad_seq(v, tp)
+    blk = dict(scale=scale, causal=causal, window=window, s=s, t=t, bq=bq, bkv=bkv)
+    outs, lses = [], []
+    for q_lo in range(0, sp, bq):
+        qblk = qp[:, q_lo : q_lo + bq]
+        m = q.new_full((b, h, bq), -1e30, dtype=torch.float32)
+        l = q.new_zeros((b, h, bq), dtype=torch.float32)
+        acc = q.new_zeros((b, h, bq, hd_v), dtype=torch.float32)
+        for k_lo in range(0, tp, bkv):
+            if _blk_needed(q_lo, k_lo, bq, bkv, causal, window):
+                m, l, acc = _blk_fwd(qblk, kp[:, k_lo : k_lo + bkv], vp[:, k_lo : k_lo + bkv], q_lo, k_lo, m, l,
+                                     acc, **blk)
+        l_safe = torch.where(l > 0, l, 1.0)
+        outs.append((acc / l_safe[..., None]).to(q.dtype).transpose(1, 2))
+        lses.append(torch.where(l > 0, m + torch.log(l_safe), math.inf))
+    o = torch.cat(outs, dim=1)[:, :s]
+    return (o, torch.cat(lses, dim=-1)[..., :s]) if return_stats else o
+
+
+def _blk_bwd(qblk, kblk, vblk, doblk, lseblk, dblk, q_lo, k_lo, *, scale, causal, window, s, t, bq, bkv):
+    """Gradients of one block pair -> (dq_blk, dk_blk, dv_blk), fp32.
+    lseblk / dblk: (B,H,bq) logsumexp rows and rowsum(do * o)."""
+    sc = torch.einsum("bqhd,bkhd->bhqk", qblk.float(), kblk.float()) * scale
+    sc = torch.where(_blk_mask(q_lo, k_lo, bq, bkv, s, t, causal, window, sc.device), sc, -1e30)
+    p = torch.exp(sc - lseblk[..., None])  # rows with lse = +inf -> 0
+    dp = torch.einsum("bqhd,bkhd->bhqk", doblk.float(), vblk.float())
+    ds = p * (dp - dblk[..., None]) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kblk.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qblk.float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, doblk.float())
+    return dq, dk, dv
+
+
+def _repeat_kv(x: torch.Tensor, rep: int) -> torch.Tensor:
+    return x.repeat_interleave(rep, dim=2) if rep > 1 else x
+
+
+def _flash_bwd(q, k, v, o, lse, do, *, causal, window, scale, bq, bkv):
+    """The reference's flash backward (kv blocks outer, q blocks inner, dq
+    accumulated in fp32) with K/V at Hkv heads: they are repeated to the
+    query heads, as the reference's callers repeat them before its
+    ``flash_mha``, and dk / dv are summed back over each group (the
+    repeat's gradient)."""
+    b, s, h, hd = q.shape
+    t, hkv, hd_v = k.shape[1], k.shape[2], v.shape[-1]
+    rep = h // hkv
+    bq, bkv = min(bq, s), min(bkv, t)
+    sp, tp = math.ceil(s / bq) * bq, math.ceil(t / bkv) * bkv
+    qp, op, dop = _pad_seq(q, sp), _pad_seq(o, sp), _pad_seq(do, sp)
+    kp, vp = _pad_seq(_repeat_kv(k, rep), tp), _pad_seq(_repeat_kv(v, rep), tp)
+    dmat = (dop.float() * op.float()).sum(dim=-1).transpose(1, 2)  # (B, H, Sp)
+    lsep = _pad_seq(lse.transpose(1, 2), sp, math.inf).transpose(1, 2)
+    blk = dict(scale=scale, causal=causal, window=window, s=s, t=t, bq=bq, bkv=bkv)
+    dq = q.new_zeros((b, sp, h, hd), dtype=torch.float32)
+    dk = q.new_zeros((b, tp, h, hd), dtype=torch.float32)
+    dv = q.new_zeros((b, tp, h, hd_v), dtype=torch.float32)
+    for k_lo in range(0, tp, bkv):
+        kblk, vblk = kp[:, k_lo : k_lo + bkv], vp[:, k_lo : k_lo + bkv]
+        for q_lo in range(0, sp, bq):
+            if not _blk_needed(q_lo, k_lo, bq, bkv, causal, window):
+                continue
+            dq_b, dk_b, dv_b = _blk_bwd(qp[:, q_lo : q_lo + bq], kblk, vblk, dop[:, q_lo : q_lo + bq],
+                                        lsep[..., q_lo : q_lo + bq], dmat[..., q_lo : q_lo + bq], q_lo, k_lo, **blk)
+            dq[:, q_lo : q_lo + bq] += dq_b
+            dk[:, k_lo : k_lo + bkv] += dk_b
+            dv[:, k_lo : k_lo + bkv] += dv_b
+    dk = dk[:, :t].reshape(b, t, hkv, rep, hd).sum(dim=3)
+    dv = dv[:, :t].reshape(b, t, hkv, rep, hd_v).sum(dim=3)
+    return dq[:, :s].to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashMHA(torch.autograd.Function):
+    """Differentiable flash attention.  Forward: on the card the flash kernel
+    (K/V read in place at their Hkv heads) with its logsumexp output, on the
+    CPU ``chunked_mha(return_stats=True)`` over K/V repeated to the query
+    heads; the output and the statistics are saved, never the (S, T)
+    probabilities.  Backward: ``_flash_bwd``, plain PyTorch, as the
+    reference's is plain JAX."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, bq, bkv):
+        scale = scale if scale is not None else q.shape[-1] ** -0.5
+        if q.device.type == "cpu":
+            rep = q.shape[2] // k.shape[2]
+            o, lse = chunked_mha(q, _repeat_kv(k, rep), _repeat_kv(v, rep), causal=causal, window=window,
+                                 scale=scale, bq=bq, bkv=bkv, return_stats=True)
+        else:
+            o, lse = _flash_kernel.flash_attention_call(q, k, v, scale=scale, causal=causal, window=window,
+                                                        kv_valid=k.shape[1], return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.opts = dict(causal=causal, window=window, scale=scale, bq=bq, bkv=bkv)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        return (*_flash_bwd(q, k, v, o, lse, do, **ctx.opts), None, None, None, None, None)
+
+
+def flash_mha(q, k, v, *, causal=True, window=None, scale=None, bq=512, bkv=1024):
+    """Differentiable flash attention (block-recomputing backward).  q: (B,
+    S, H, hd), k/v: (B, T, Hkv, hd) with Hkv dividing H (query head h reads
+    KV head h // (H // Hkv)) -> (B, S, H, hd)."""
+    if q.shape[2] % k.shape[2] or k.shape != v.shape:
+        raise ValueError(f"flash_mha needs k/v of one shape with KV heads dividing H, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    return _FlashMHA.apply(q, k, v, causal, window, scale, bq, bkv)
+
+
 def _qkv(params: dict, x: torch.Tensor, cfg: ArchConfig):
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
@@ -97,12 +274,17 @@ def _qkv(params: dict, x: torch.Tensor, cfg: ArchConfig):
 
 def gqa_fwd(params: dict, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor):
     """Full-sequence causal self attention.  x: (B, S, d), positions: (S,) =
-    arange(S).  -> (y, (k, v)) with k/v (B, S, Hkv, hd) for the cache."""
+    arange(S).  -> (y, (k, v)) with k/v (B, S, Hkv, hd) for the cache.  Under
+    grad the attention is ``flash_mha`` (the reference's "flashvjp" form),
+    else the flash kernel alone."""
     b, s, _ = x.shape
     q, k, v = _qkv(params, x, cfg)
     q = layers.apply_rope(q, positions, cfg.rope_theta)
     k = layers.apply_rope(k, positions, cfg.rope_theta)
-    o = _sdpa_flash(q, k, v, cfg)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        o = flash_mha(q, k, v, causal=True, window=_window(cfg))
+    else:
+        o = _sdpa_flash(q, k, v, cfg)
     y = ops.matmul(o.reshape(b, s, -1), layers.wcast(params["wo"], x.dtype))
     return y, (k, v)
 

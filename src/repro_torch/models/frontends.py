@@ -73,7 +73,7 @@ def audio_logits(params: dict, x: torch.Tensor) -> torch.Tensor:
     w = params["w"].to(x.dtype)
     x2 = x.reshape(-1, x.shape[-1])
     if x.device.type == "cuda" and x.dtype == torch.bfloat16:
-        y = torch.stack([torch.mm(x2, w[c], out_dtype=torch.float32) for c in range(w.shape[0])], dim=1)
+        y = torch.stack([layers.matmul_f32_out(x2, w[c]) for c in range(w.shape[0])], dim=1)
     else:
         y = torch.einsum("md,cdv->mcv", x2.float(), w.float())
     return y.reshape(*x.shape[:-1], *y.shape[1:])

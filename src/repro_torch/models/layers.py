@@ -98,6 +98,38 @@ def embed(params: dict, tokens: torch.Tensor, compute_dtype: torch.dtype) -> tor
     return params["table"].to(compute_dtype)[tokens]
 
 
+class _MatmulF32Out(torch.autograd.Function):
+    """x @ w of bf16 operands with an fp32 output (``aten::mm.dtype``, CUDA),
+    differentiable: the op has no autograd formula of its own.  The backward
+    is two library products in fp32: the fp32 cotangent widens the other
+    operand, as JAX's dot transpose promotes (``kernels/systolic/ops.py``'s
+    ``_Matmul`` does the same), and each gradient is cast to its operand's
+    dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.float()
+        dx = torch.mm(dy, w.float().t()).to(x.dtype) if ctx.needs_input_grad[0] else None
+        dw = torch.mm(x.float().t(), dy).to(w.dtype) if ctx.needs_input_grad[1] else None
+        return dx, dw
+
+
+def matmul_f32_out(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(M, K) @ (K, N) -> fp32, a library product outside any kernel (the
+    reference's head einsums): on the card bf16 operands write fp32 (no fp32
+    copy of the weight); elsewhere the operands are widened to fp32 (exact
+    for bf16)."""
+    if x.device.type == "cuda" and x.dtype == torch.bfloat16:
+        return _MatmulF32Out.apply(x, w)
+    return torch.mm(x.float(), w.float())
+
+
 def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
     """Tied head: fp32 logits ``x @ table.T`` on the systolic kernel, which
     reads the (V, d) table K-major where it lies: no transposed copy."""

@@ -24,6 +24,7 @@ class Model:
     decode_step: Callable[..., Any]
     prefill: Callable[..., Any]
     prefill_chunk: Callable[..., Any]
+    loss_fn: Callable[..., Any]
 
     @property
     def n_params(self) -> int:
@@ -44,4 +45,5 @@ def get_model(cfg: ArchConfig) -> Model:
         decode_step=functools.partial(transformer.decode_step, cfg=cfg),
         prefill=functools.partial(transformer.prefill, cfg=cfg),
         prefill_chunk=functools.partial(transformer.prefill_chunk, cfg=cfg),
+        loss_fn=functools.partial(transformer.loss_fn, cfg=cfg),
     )

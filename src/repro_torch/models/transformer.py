@@ -20,11 +20,19 @@ prefill, as the reference does, by a loop of ``decode_step`` over the prompt
 the embedding table's transpose (``layers.unembed``), and there is no
 ``lm_head``.
 
+Training keeps fp32 masters (``init_model(..., dtype=torch.float32)``) and
+casts each GEMM weight at use (``layers.wcast``), as the reference does;
+``remat`` recomputes each layer (each SSM / hybrid group) in the backward
+(``torch.utils.checkpoint``, where the reference wraps its scan body in
+``jax.checkpoint``).
+
 Entry points (functions over dicts of tensors):
   init_model(cfg, seed, device[, dtype, transform])
                                             -> params
   cast_params(params, dtype)                -> params, floating weights cast once
-  forward(params, batch, cfg)               -> logits fp32
+  forward(params, batch, cfg[, remat, return_aux])
+                                            -> logits fp32 [, the MoE aux loss]
+  loss_fn(params, batch, cfg[, remat])      -> (loss, metrics)
   init_cache(cfg, batch, max_len, dt, dev)  -> cache
   decode_step(params, tok, cfg, cache, pos) -> (logits, cache)   [cache updated in place]
   prefill(params, batch, cfg, max_len)      -> (last logits, primed cache)
@@ -35,6 +43,7 @@ Entry points (functions over dicts of tensors):
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.device import resolve_device
 from repro_torch.models import attention as attn
@@ -85,15 +94,25 @@ def _ffn(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     return layers.swiglu(p, x)
 
 
-def attn_block_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor):
-    """Pre-norm attn + residual, pre-norm FFN / MoE + residual -> (x, the
-    cache's prefill entries: (k, v), or MLA's (c_kv, k_rope))."""
+def _attn_block(p: dict, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor):
+    """``attn_block_fwd`` with the MoE block's aux loss -> (x, kv, aux),
+    aux None for a SwiGLU block."""
     xin = layers.rmsnorm(p["attn_norm"], x, cfg.norm_eps)
     fwd = attn.mla_fwd if cfg.attention == "mla" else attn.gqa_fwd
     a, kv = fwd(p["attn"], xin, cfg, positions)
     x = x + a
     hin = layers.rmsnorm(p["ffn_norm"], x, cfg.norm_eps)
-    return x + _ffn(p["ffn"], hin, cfg), kv
+    if cfg.moe is not None:
+        y, aux = moe.moe_fwd(p["ffn"], hin, cfg)
+        return x + y, kv, aux
+    return x + layers.swiglu(p["ffn"], hin), kv, None
+
+
+def attn_block_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor):
+    """Pre-norm attn + residual, pre-norm FFN / MoE + residual -> (x, the
+    cache's prefill entries: (k, v), or MLA's (c_kv, k_rope))."""
+    x, kv, _ = _attn_block(p, x, cfg, positions)
+    return x, kv
 
 
 def attn_block_decode(p: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict, pos):
@@ -286,11 +305,7 @@ def _head(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     w = params["lm_head"]["w"]
     w = w.dequantize(x.dtype) if isinstance(w, QArray) else w.to(x.dtype)
     x2 = x.reshape(-1, x.shape[-1])
-    if x.device.type == "cuda" and x.dtype == torch.bfloat16:
-        y = torch.mm(x2, w, out_dtype=torch.float32)  # CUDA only: no fp32 copy of the head
-    else:
-        y = torch.mm(x2.float(), w.float())
-    return y.reshape(*x.shape[:-1], w.shape[1])
+    return layers.matmul_f32_out(x2, w).reshape(*x.shape[:-1], w.shape[1])
 
 
 # ===========================================================================
@@ -298,31 +313,96 @@ def _head(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 # ===========================================================================
 
 
-def forward(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+def _remat(fn, remat: bool):
+    """fn, or fn recomputed in the backward instead of keeping its
+    activations (the reference's ``jax.checkpoint``)."""
+    if not remat:
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
+def forward(params: dict, batch: dict, cfg: ArchConfig, *, remat: bool = False, return_aux: bool = False):
     """Full-sequence forward.  batch: {"tokens": (B, S[, n_codebooks]) int[,
     "patch_embeds": (B, P, vit_dim)]}.  -> logits fp32 at every position,
     the patch prefix's included (``prefill`` gives the last position's
-    alone)."""
+    alone); with ``return_aux``, (logits, aux): the MoE blocks' summed
+    load-balance loss (fp32 0 without MoE; the SSM and hybrid families have
+    none).  ``remat`` recomputes each layer (each SSM / hybrid group; the
+    trailing Mamba2 layers are not wrapped) in the backward."""
     x, _ = _embed_input(params, batch, cfg)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
-        for mps, sp in _xlstm_groups(params, cfg):
+        def group(h, mps, sp):
             for mp in mps:
-                x = _ssm_block_fwd(mp, x, cfg, ssm.mlstm_auto)
-            x = _ssm_block_fwd(sp, x, cfg, ssm.slstm_fwd)
+                h = _ssm_block_fwd(mp, h, cfg, ssm.mlstm_auto)
+            return _ssm_block_fwd(sp, h, cfg, ssm.slstm_fwd)
+
+        group = _remat(group, remat)
+        for mps, sp in _xlstm_groups(params, cfg):
+            x = group(x, mps, sp)
     elif cfg.family == "hybrid":
         groups, tail = _hybrid_split(params["mamba"], cfg)
-        for mps in groups:
+
+        def group(h, mps):
             for mp in mps:
-                x = _ssm_block_fwd(mp, x, cfg, ssm.mamba2_fwd)
-            x, _ = attn_block_fwd(params["shared"], x, cfg, positions)
+                h = _ssm_block_fwd(mp, h, cfg, ssm.mamba2_fwd)
+            return _attn_block(params["shared"], h, cfg, positions)[0]
+
+        group = _remat(group, remat)
+        for mps in groups:
+            x = group(x, mps)
         for mp in tail:
             x = _ssm_block_fwd(mp, x, cfg, ssm.mamba2_fwd)
     else:
+        def layer(h, lp):
+            h, _, da = _attn_block(lp, h, cfg, positions)
+            return h, da
+
+        layer = _remat(layer, remat)
         for lp in params["layers"]:
-            x, _ = attn_block_fwd(lp, x, cfg, positions)
+            x, da = layer(x, lp)
+            if da is not None:
+                aux = aux + da
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return _head(params, x, cfg)
+    logits = _head(params, x, cfg)
+    return (logits, aux) if return_aux else logits
+
+
+# ===========================================================================
+# Loss
+# ===========================================================================
+
+
+def _ce(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Token-mean cross entropy.  logits fp32 (..., V), labels int (...).
+    The gold logit is gathered with a one-hot contraction, as the reference
+    gathers it (its numerics; the reference chose it so that the backward
+    stays batch- and vocab-sharded)."""
+    lse = torch.logsumexp(logits, dim=-1)
+    onehot = torch.zeros_like(logits).scatter_(-1, labels.long()[..., None], 1.0)
+    gold = torch.einsum("...v,...v->...", logits, onehot)
+    nll = lse - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def loss_fn(params: dict, batch: dict, cfg: ArchConfig, *, remat: bool = False):
+    """-> (scalar loss, {"ce", "aux", "loss"}).  batch must hold "labels"
+    aligned with the *text* positions of "tokens" (already shifted): the vit
+    prefix's logits are dropped; audio takes the mean over codebooks too."""
+    logits, aux = forward(params, batch, cfg, remat=remat, return_aux=True)
+    labels = batch["labels"]
+    mask = batch.get("loss_mask")
+    if cfg.frontend == "vit":
+        logits = logits[:, logits.shape[1] - labels.shape[1] :]
+    if cfg.frontend == "audio_codec" and mask is not None:
+        mask = mask[..., None].expand(labels.shape)
+    ce = _ce(logits, labels, mask)
+    loss = ce + aux
+    return loss, {"ce": ce, "aux": aux, "loss": loss}
 
 
 def init_attn_block_cache(cfg: ArchConfig, batch: int, max_len: int, dtype: torch.dtype,

@@ -23,6 +23,7 @@ from repro_torch import configs
 from repro_torch.convert import params_from_jax
 from repro_torch.data.synthetic import make_adversarial_trace, make_batch, make_request_trace, make_shared_prefix_trace
 from repro_torch.launch import serve
+from repro_torch.launch import train as launch_train
 from repro_torch.models.registry import get_model
 from repro_torch.serving import KVPool, PagedKVPool, PrefixCache, ServeConfig, ServeEngine
 
@@ -59,6 +60,9 @@ def test_port_and_chip_smoke_import_no_jax_or_repro():
             "repro_torch.serving.paged"} <= set(res["modules"])
     assert "repro_torch.models.ssm" in res["modules"]
     assert "repro_torch.models.frontends" in res["modules"]
+    assert {"repro_torch.train.loop", "repro_torch.optim.adamw", "repro_torch.optim.clip", "repro_torch.optim.schedule",
+            "repro_torch.optim.compress", "repro_torch.checkpoint.ckpt", "repro_torch.data.sharded",
+            "repro_torch.launch.train", "repro_torch.core.tree"} <= set(res["modules"])
     assert res["bad"] == []
 
 
@@ -127,6 +131,8 @@ ENTRY_POINTS = {
     "launch.serve --continuous --paged --prefix-cache": lambda: serve.main(
         ["--arch", "internlm2-1.8b", "--smoke", "--continuous", "--paged", "--prefix-cache"]
     ),
+    "launch.train": lambda: launch_train.main(["--arch", "internlm2-1.8b", "--smoke", "--steps", "1"]),
+    "launch.train qwen3-moe-30b-a3b": lambda: launch_train.main(["--arch", "qwen3-moe-30b-a3b", "--smoke", "--steps", "1"]),
 }
 
 

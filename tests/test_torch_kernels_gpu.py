@@ -377,6 +377,28 @@ def _flash_operand(cuda, dtype, b, s, h, d, layout, seed):
 
 
 @pytest.mark.gpu
+def test_untied_head_backward_is_the_widened_products(cuda):
+    """The untied head (``layers.matmul_f32_out``: bf16 operands, fp32 out,
+    a library product outside any kernel): its gradients are the products
+    of the fp32 cotangent with the other operand widened to fp32, as JAX's
+    dot transpose promotes, each cast to its operand's bf16 -- bit for bit
+    what autograd gives through the product of the widened operands."""
+    from repro_torch.models.layers import matmul_f32_out
+
+    x = _rand((64, 96), 27).to(cuda, torch.bfloat16).requires_grad_()
+    w = _rand((96, 300), 28).to(cuda, torch.bfloat16).requires_grad_()
+    dy = _rand((64, 300), 29).to(cuda)
+    y = matmul_f32_out(x, w)
+    y.backward(dy)
+    x2, w2 = (t.detach().float().requires_grad_() for t in (x, w))
+    want = x2 @ w2
+    want.backward(dy)
+    assert y.dtype == torch.float32 and x.grad.dtype == w.grad.dtype == torch.bfloat16
+    torch.testing.assert_close(y, want.detach(), **_gemm_tol("float32", 96))
+    assert torch.equal(x.grad, x2.grad.bfloat16()) and torch.equal(w.grad, w2.grad.bfloat16())
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("sq,skv,causal,window,kv_valid", FLASH_MASKS)
 @pytest.mark.parametrize("h,hkv", FLASH_HEADS)
 @pytest.mark.parametrize("layout", ["bhsd", "bshd", "sliced"])
@@ -922,3 +944,95 @@ def test_paged_serving_on_the_card_gives_the_slot_pools_tokens(cuda):
     hit = prefix.run(requests_from_trace(trace))
     assert prefix.stats.summary()["prefix_hits"] >= 1 and prefix.pool.validate() == []
     assert all(len(hit[rid]) == len(want[rid]) for rid in want)
+
+
+# Training (K1's backward GEMMs and K3's logsumexp output).  internlm2-1.8b's
+# projections at 4 x 512 tokens (M, K, N) -- each forward's backward is dA at
+# (M, N, K) with B = W^T and dB at (K, M, N) with A = X^T -- and ragged ones.
+TRAIN_SHAPES = [(2048, 2048, 2048), (2048, 2048, 1024), (2048, 2048, 8192), (2048, 8192, 2048),
+                (100, 130, 70), (33, 257, 129), (4, 2048, 1024)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", TRAIN_SHAPES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_systolic_backward_matches_plain_autograd(cuda, m, k, n, dtype):
+    """dA and dB are two more K1 launches, each on the path ``gemm_path``
+    picks for its row-major operands (W^T and X^T are copied), and match
+    autograd through the plain version."""
+    dt = DTYPES[dtype]
+    a = _rand((m, k), 21).to(cuda, dt).requires_grad_()
+    b = (_rand((k, n), 22) * k**-0.5).to(cuda, dt).requires_grad_()
+    dc = _rand((m, n), 23).to(cuda, dt)
+    before = mm_kernel.launches
+    paths = dict(mm_kernel.launches_by_path)
+    mm_ops.matmul(a, b).backward(dc)
+    torch.cuda.synchronize()
+    assert mm_kernel.launches == before + 3
+    new = {p for p, c in mm_kernel.launches_by_path.items() if c != paths.get(p, 0)}
+    assert not any(p.endswith("_kmajor") for p in new)
+    a2, b2 = a.detach().clone().requires_grad_(), b.detach().clone().requires_grad_()
+    matmul_ref(a2, b2).backward(dc)
+    torch.testing.assert_close(a.grad.float(), a2.grad.float(), **_gemm_tol(dtype, n))
+    torch.testing.assert_close(b.grad.float(), b2.grad.float(), **_gemm_tol(dtype, m))
+
+
+@pytest.mark.gpu
+def test_systolic_backward_of_a_k_major_b_and_fp32_out(cuda):
+    """A tied head's B (table.T, K-major) with fp32 out: the cotangent is
+    fp32, so both backward GEMMs run in fp32 (FMA tiles), as JAX's dot
+    transpose promotes, and the table's gradient matches."""
+    x = _rand((64, 96), 24).to(cuda, torch.bfloat16).requires_grad_()
+    table = _rand((300, 96), 25).to(cuda, torch.bfloat16).requires_grad_()
+    dy = _rand((64, 300), 26).to(cuda)
+    mm_ops.matmul(x, table.T, out_dtype=torch.float32).backward(dy)
+    x2, t2 = x.detach().clone().requires_grad_(), table.detach().clone().requires_grad_()
+    matmul_ref(x2, t2.T, out_dtype=torch.float32).backward(dy)
+    torch.testing.assert_close(x.grad.float(), x2.grad.float(), **_gemm_tol("bfloat16", 300))
+    torch.testing.assert_close(table.grad.float(), t2.grad.float(), **_gemm_tol("bfloat16", 64))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq,skv,causal,window,kv_valid", FLASH_MASKS)
+@pytest.mark.parametrize("h,hkv", FLASH_HEADS)
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_kernel_logsumexp_matches_plain(cuda, sq, skv, causal, window, kv_valid, h, hkv, d, dtype):
+    """The kernel's lse output (fp32 (B, H, Sq)) against the plain version's
+    logsumexp of the same masked scores; the output is the one the kernel
+    writes without it, bit for bit."""
+    dt = DTYPES[dtype]
+    q = _rand((2, sq, h, d), 31).to(cuda, dt)
+    k, v = (_rand((2, skv, hkv, d), s).to(cuda, dt) for s in (32, 33))
+    kw = dict(scale=d**-0.5, causal=causal, window=window, kv_valid=skv if kv_valid is None else kv_valid)
+    out, lse = attn_kernel.flash_attention_call(q, k, v, return_lse=True, **kw)
+    plain = attn_kernel.flash_attention_call(q, k, v, **kw)
+    _, want = flash_attention_call_ref(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert lse.dtype == torch.float32 and lse.shape == (2, h, sq) and torch.equal(out, plain)
+    torch.testing.assert_close(lse, want, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_mha_on_the_card_matches_plain_autograd(cuda, dtype):
+    """``flash_mha`` (the kernel forward with lse, the plain block backward,
+    dk / dv summed over each GQA group) against autograd through the plain
+    attention, internlm2-1.8b's heads at a small sequence."""
+    from repro_torch.models.attention import flash_mha
+
+    dt = DTYPES[dtype]
+    q = _rand((2, 200, 16, 128), 34).to(cuda, dt).requires_grad_()
+    k, v = (_rand((2, 200, 8, 128), s).to(cuda, dt).requires_grad_() for s in (35, 36))
+    do = _rand((2, 200, 16, 128), 37).to(cuda, dt)
+    before = attn_kernel.launches
+    o = flash_mha(q, k, v, causal=True, bq=64, bkv=128)
+    o.backward(do)
+    assert attn_kernel.launches == before + 1
+    q2, k2, v2 = (t.detach().float().clone().requires_grad_() for t in (q, k, v))
+    want = flash_attention_call_ref(q2, k2, v2, scale=128**-0.5, causal=True, window=None, kv_valid=200)
+    want.backward(do.float())
+    tol = 3e-2 if dtype == "bfloat16" else 2e-4
+    torch.testing.assert_close(o.float(), want.float(), rtol=tol, atol=tol)
+    for got, ref in ((q.grad, q2.grad), (k.grad, k2.grad), (v.grad, v2.grad)):
+        torch.testing.assert_close(got.float(), ref, rtol=tol, atol=tol * ref.abs().max().item())

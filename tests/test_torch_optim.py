@@ -1,0 +1,166 @@
+"""The port's optimizer substrate against the JAX package's on the CPU.
+
+``repro_torch.optim`` (AdamW, global-norm clipping, the schedules, int8
+compression with error feedback) on the same numpy inputs as ``repro.optim``,
+and the reference's own optimizer tests (``tests/test_optim.py``) rebuilt on
+the port.  AdamW is compared on the *same* gradients over several steps
+(its first step moves every weight by about +-lr, so a gradient near zero
+would flip a parameter's move: parameters after a step are not compared
+across models, only across optimizers).  Tolerances: 1e-6 relative (fp32,
+the same operations in another order at most).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import optim as jax_optim
+from repro.optim import compress as jax_compress
+from repro.optim import schedule as jax_schedule
+from repro_torch import optim
+from repro_torch.core.tree import leaves, tree_map
+from repro_torch.optim import compress, schedule
+
+RTOL = 1e-6
+
+
+def _tree(seed):
+    """A small parameter-like tree: 2-D weights, 1-D scales, a list of layers."""
+    rng = np.random.default_rng(seed)
+    return {"w": rng.standard_normal((6, 5)).astype(np.float32),
+            "scale": rng.standard_normal((5,)).astype(np.float32),
+            "layers": [{"a": rng.standard_normal((3, 4)).astype(np.float32),
+                        "b": rng.standard_normal((4,)).astype(np.float32)} for _ in range(2)]}
+
+
+def _jax_tree(t):
+    """The same structure in JAX (a list of layers, not the reference's
+    stacked leaves: stacking makes a layer's 1-D leaf 2-D, which the
+    reference's AdamW then decays; the port's per-layer 1-D leaves are
+    exempt, as the reference's comment says norms are)."""
+    return jax.tree.map(jnp.asarray, t)
+
+
+def _torch_tree(t):
+    return tree_map(lambda a: torch.from_numpy(a.copy()), t)
+
+
+def _assert_same(jt, tt, rtol=RTOL, atol=1e-7):
+    np.testing.assert_allclose(np.asarray(jt["w"]), tt["w"].numpy(), rtol=rtol, atol=atol)
+    np.testing.assert_allclose(np.asarray(jt["scale"]), tt["scale"].numpy(), rtol=rtol, atol=atol)
+    for jl, tl in zip(jt["layers"], tt["layers"]):
+        for k in ("a", "b"):
+            np.testing.assert_allclose(np.asarray(jl[k]), tl[k].numpy(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("lr_type", [float, torch.tensor])
+@pytest.mark.parametrize("weight_decay", [0.0, 0.1])
+def test_adamw_matches_jax_over_steps(lr_type, weight_decay):
+    """The learning rate as a float or as the schedule's scalar tensor; the
+    update writes into the old tensors and returns them."""
+    p0 = _tree(0)
+    jp, tp = _jax_tree(p0), _torch_tree(p0)
+    js, ts = jax_optim.adamw_init(jp), optim.adamw_init(tp)
+    for step in range(4):
+        g = _tree(10 + step)
+        lr = 1e-2 * (step + 1)
+        jp, js = jax_optim.adamw_update(_jax_tree(g), js, jp, lr=lr, weight_decay=weight_decay)
+        tp_new, ts_new = optim.adamw_update(_torch_tree(g), ts, tp, lr=lr_type(lr), weight_decay=weight_decay)
+        assert tp_new["w"] is tp["w"] and ts_new is ts and ts.mu["w"] is ts_new.mu["w"]
+        _assert_same(jp, tp)
+        _assert_same(js.mu, ts.mu)
+        _assert_same(js.nu, ts.nu)
+        assert int(js.step) == int(ts.step) == step + 1
+    assert ts.step.dtype == torch.int32 and all(m.dtype == torch.float32 for m in leaves(ts.mu))
+
+
+def test_adamw_first_step_is_signed_lr():
+    """With bias correction, step 1 moves each weight by ~lr*sign(g) (+wd)."""
+    params = {"w": torch.ones((4, 4)), "b": torch.zeros((4,))}
+    grads = {"w": torch.full((4, 4), 0.5), "b": torch.full((4,), -0.5)}
+    new, state = optim.adamw_update(grads, optim.adamw_init(params), params, lr=1e-2, weight_decay=0.0)
+    np.testing.assert_allclose(new["w"].numpy(), 1.0 - 1e-2, rtol=1e-4)
+    np.testing.assert_allclose(new["b"].numpy(), 1e-2, rtol=1e-4)
+    assert int(state.step) == 1
+
+
+def test_adamw_weight_decay_2d_only():
+    params = {"w": torch.ones((4, 4)), "scale": torch.ones((4,))}
+    grads = tree_map(torch.zeros_like, params)
+    new, _ = optim.adamw_update(grads, optim.adamw_init(params), params, lr=1e-2, weight_decay=0.1)
+    assert float(new["w"][0, 0]) < 1.0  # decayed
+    assert float(new["scale"][0]) == 1.0  # exempt
+
+
+def test_adamw_converges_quadratic():
+    params = {"x": torch.tensor([5.0, -3.0])}
+    state = optim.adamw_init(params)
+    for _ in range(300):
+        params, state = optim.adamw_update({"x": 2 * params["x"]}, state, params, lr=5e-2, weight_decay=0.0)
+    assert float(params["x"].square().sum()) < 1e-2
+
+
+def test_clip_by_global_norm():
+    g = {"a": torch.full((3,), 4.0), "b": torch.full((4,), 3.0)}
+    clipped, norm = optim.clip_by_global_norm(g, 1.0)
+    np.testing.assert_allclose(float(norm), (3 * 16 + 4 * 9) ** 0.5, rtol=1e-5)
+    np.testing.assert_allclose(float(optim.global_norm(clipped)), 1.0, rtol=1e-4)
+    same, _ = optim.clip_by_global_norm(g, 100.0)
+    np.testing.assert_allclose(same["a"].numpy(), g["a"].numpy(), rtol=1e-6)
+
+
+@pytest.mark.parametrize("max_norm", [0.5, 1e3])
+def test_clip_matches_jax(max_norm):
+    g = _tree(3)
+    jc, jn = jax_optim.clip_by_global_norm(_jax_tree(g), max_norm)
+    tc, tn = optim.clip_by_global_norm(_torch_tree(g), max_norm)
+    np.testing.assert_allclose(float(jn), float(tn), rtol=RTOL)
+    np.testing.assert_allclose(float(jax_optim.global_norm(_jax_tree(g))), float(optim.global_norm(_torch_tree(g))),
+                               rtol=RTOL)
+    _assert_same(jc, tc)
+    bf = {"w": torch.from_numpy(g["w"]).bfloat16()}
+    assert optim.clip_by_global_norm(bf, max_norm)[0]["w"].dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("warmup,total", [(1, 8), (10, 100), (0, 50), (100, 1000)])
+def test_schedules_match_jax(warmup, total):
+    for step in [0, 1, 2, warmup - 1, warmup, warmup + 1, total // 2, total - 1, total, total + 5]:
+        kw = dict(peak_lr=3e-4, warmup_steps=warmup)
+        want = jax_schedule.cosine_with_warmup(step, total_steps=total, **kw)
+        got = schedule.cosine_with_warmup(step, total_steps=total, **kw)
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(float(got), float(want), rtol=RTOL, atol=1e-12)
+        np.testing.assert_allclose(float(schedule.linear_warmup_constant(step, **kw)),
+                                   float(jax_schedule.linear_warmup_constant(step, **kw)), rtol=RTOL)
+
+
+def test_compress_int8_matches_jax_with_error_feedback():
+    rng = np.random.default_rng(4)
+    g1, g2 = (rng.standard_normal((64, 8)).astype(np.float32) for _ in range(2))
+    jq, js, jr = jax_compress.compress_int8(jnp.asarray(g1))
+    tq, ts, tr = compress.compress_int8(torch.from_numpy(g1))
+    assert tq.dtype == torch.int8
+    np.testing.assert_array_equal(np.asarray(jq), tq.numpy())
+    np.testing.assert_allclose(float(js), float(ts), rtol=RTOL)
+    np.testing.assert_allclose(np.asarray(jr), tr.numpy(), rtol=RTOL, atol=1e-7)
+    jq2, js2, jr2 = jax_compress.compress_int8(jnp.asarray(g2), jr)  # the residual carried
+    tq2, ts2, tr2 = compress.compress_int8(torch.from_numpy(g2), tr)
+    np.testing.assert_array_equal(np.asarray(jq2), tq2.numpy())
+    np.testing.assert_allclose(np.asarray(jr2), tr2.numpy(), rtol=RTOL, atol=1e-7)
+    np.testing.assert_allclose(np.asarray(jax_compress.decompress_int8(jq2, js2)),
+                               compress.decompress_int8(tq2, ts2).numpy(), rtol=RTOL)
+    zq, zs, _ = compress.compress_int8(torch.zeros(3))
+    assert float(zs) == 1.0 and not zq.any()  # an all-zero gradient keeps scale 1
+
+
+def test_compress_tree_matches_jax():
+    g = _tree(5)
+    jq, js, jr = jax_compress.compress_tree(_jax_tree(g), None)
+    tq, ts, tr = compress.compress_tree(_torch_tree(g))
+    np.testing.assert_array_equal(np.asarray(jq["w"]), tq["w"].numpy())
+    np.testing.assert_allclose(float(js["scale"]), float(ts["scale"]), rtol=RTOL)
+    np.testing.assert_allclose(np.asarray(jr["w"]), tr["w"].numpy(), rtol=RTOL, atol=1e-7)
+    tq2, _, tr2 = compress.compress_tree(_torch_tree(g), tr)
+    assert tq2["w"].dtype == torch.int8 and tr2["w"].shape == (6, 5)

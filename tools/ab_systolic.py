@@ -151,8 +151,9 @@ class Side:
         qlib.split_workspace.restype = _LL
         self.q_ws = qlib.split_workspace
         self.head_aware = n_params(tree, "flash_attn", "flash_attn_fwd") > 14
+        self.fa_lse = [None] if n_params(tree, "flash_attn", "flash_attn_fwd") > 25 else []  # the lse output, unused
         self.fa = ctypes.CDLL(paths["flash_attn"]).flash_attn_fwd
-        self.fa.argtypes = ([_P] * 4 + [_I] * 6 + [_LL] * 9 + [ctypes.c_float, _I, _I, _I, _I, _P]
+        self.fa.argtypes = ([_P] * (4 + len(self.fa_lse)) + [_I] * 6 + [_LL] * 9 + [ctypes.c_float, _I, _I, _I, _I, _P]
                             if self.head_aware else [_P] * 4 + [_I] * 4 + [ctypes.c_float, _I, _I, _I, _I, _P])
         self.fa.restype = _I
 
@@ -203,7 +204,8 @@ class Side:
             strides = [*(q.stride()[:3]), *(k.stride()[:3]), *(v.stride()[:3])]
 
             def call():
-                checked(self.fa(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, h, hkv, s, s, d, *strides,
+                checked(self.fa(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), *self.fa_lse, b, h, hkv, s, s,
+                                d, *strides,
                                 scale, 1, 0, s, DTYPE_CODES[BF16], stream()), "flash_attn_fwd")
 
             return call, lambda: o
