@@ -37,7 +37,19 @@ Phases, each printing its own lines; any failure exits non-zero:
      kernel path's prefill logits and two decode steps from the same cache
      against the same model run through the plain versions on the card; and
      the SMOKE config in fp32 on the card against the port's CPU path;
-     then the same parameters served continuously: 16 requests of a
+     then the tuner on the same parameters (an empty plan cache is pinned
+     before any launch, so a cache left on the machine moves no path): K1
+     autotuned at the model's four projections at M = 2048 and M = 4 and at
+     minicpm3-4b's (2560, 2560), K5 int8 at (2048, 8192, 2048), K4 at
+     (C 160, 2048, 768), every candidate against its plain version and no
+     faster than its bound, the rule's tile, each candidate's time and the
+     winner printed, a second pass a pure cache hit, the model served on the
+     tuned tiles (every K1 launch at a tuned shape on its cached path and
+     chunk, logits within 5e-2 of the plain path, two prefills
+     bit-identical, the decode-plan report), the Table I analogue at 4096^3
+     and BlockPlan.smem_bytes() against each wgmma tile's shared memory in
+     the binaries, the Python twin of the decode split rule against the
+     binary's at the tuned decode shapes; then the same parameters served continuously: 16 requests of a
      Poisson trace (prompts up to 512 tokens, generations up to 64) through
      ContinuousScheduler over 8 slots, with the lifecycle checked (every
      request finished with all its tokens, the pool drained, slots reused,
@@ -160,6 +172,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
@@ -173,6 +186,9 @@ from torch.profiler import ProfilerActivity, profile, record_function  # noqa: E
 from repro_torch import configs, quant  # noqa: E402
 from repro_torch.checkpoint import latest_step  # noqa: E402
 from repro_torch.core import tree as tree_util  # noqa: E402
+from repro_torch.configs import paper  # noqa: E402
+from repro_torch.core import dse  # noqa: E402
+from repro_torch.core.blocking import BlockPlan, derive_block_plan  # noqa: E402
 from repro_torch.core.hw import H100, dtype_bytes  # noqa: E402
 from repro_torch.data.synthetic import (  # noqa: E402
     make_adversarial_trace,
@@ -204,12 +220,15 @@ from repro_torch.models.layers import FP32_KEYS  # noqa: E402
 from repro_torch.models.transformer import cast_params, hybrid_counts, xlstm_counts  # noqa: E402
 from repro_torch.obs import trace as obs_trace  # noqa: E402
 from repro_torch.serving import ContinuousScheduler, KVPool, ServeConfig, ServeEngine, requests_from_trace  # noqa: E402
-from repro_torch.serving.engine import chunk_schedule  # noqa: E402
+from repro_torch.serving.engine import chunk_schedule, decode_gemm_problems  # noqa: E402
 from repro_torch.serving.kvpool import _nbytes  # noqa: E402
 from repro_torch.serving.paged import PagedKVPool, _gather_pages, _scatter_pages  # noqa: E402
 from repro_torch.serving.scheduler import FINISHED  # noqa: E402
 from repro_torch.optim import global_norm  # noqa: E402
 from repro_torch.train.loop import TrainConfig, Trainer, make_grad_fn  # noqa: E402
+from repro_torch.tune import autotune, candidates, measure_matmul  # noqa: E402
+from repro_torch.tune import cache as tune_cache  # noqa: E402
+from repro_torch.tune.measure import cycler, time_ms  # noqa: E402
 
 ARCH = "internlm2-1.8b"
 MOE_ARCH = "qwen3-moe-30b-a3b"
@@ -306,7 +325,7 @@ AUDIO_ARCH, VLM_ARCH = "musicgen-medium", "internvl2-1b"
 TIED_STEPS = 2
 RECURRENT_CHECK_PROMPT = 64
 SSM_CHUNK = 128
-SSM_CHUNKED_REQUESTS = 12  # the first 12 of the trace's 16 requests (cut for time; > CONT_SLOTS, so slots are reused)
+SSM_CHUNKED_REQUESTS = 10  # the first 10 of the trace's 16 requests (cut for time; > CONT_SLOTS, so slots are reused)
 BF16 = torch.bfloat16
 # Tolerances (|got - want| <= atol + rtol * |want|), with their reasons:
 GEMM_TOL_BF16 = (2e-2, 2e-2)  # one bf16 ulp where kernel and plain round the fp32 sum
@@ -372,6 +391,14 @@ TRAIN_NORM_RTOL = 5e-2
 TRAIN_LEAF_RTOL = 1e-1
 TRAIN_FP32_TOL = 1e-4
 MOE_WITNESS_SEEDS = (1, 2)  # more models and prompts for the MoE witness
+# The tune phase: each candidate timed TUNE_REPEATS times (the best kept, as
+# the reference's tuner keeps it); the tuned serve decodes TUNE_DECODE_STEPS
+# steps; the DSE table at DSE_SIZE^3 (one of paper design G's sizes).  The
+# plan caches live in TUNE_DIR, made by main and removed at its end.
+TUNE_REPEATS = 3
+TUNE_DECODE_STEPS = 8
+DSE_SIZE = 4096
+TUNE_DIR = ""
 MOE_NUDGES, MOE_NUDGE_STEPS = 2, 2  # one-ulp nudges per model, decode steps each (3, 3 until cut for time)
 SOURCES = {
     "systolic_mmm": ("src/repro_torch/csrc/systolic_mmm.cu", "src/repro/kernels/systolic/kernel.py:37"),
@@ -539,15 +566,18 @@ def reset_counts() -> None:
     mm_kernel.launches = 0
     mm_kernel.launches_by_shape.clear()
     mm_kernel.launches_by_path.clear()
+    mm_kernel.launches_by_plan.clear()
     mm_kernel.quant_launches = 0
     mm_kernel.quant_launches_by_shape.clear()
     mm_kernel.quant_launches_by_path.clear()
+    mm_kernel.quant_launches_by_plan.clear()
     attn_kernel.launches = 0
     attn_kernel.launches_by_heads.clear()
     attn_kernel.launches_by_shape.clear()
     grouped_kernel.launches = 0
     grouped_kernel.launches_by_shape.clear()
     grouped_kernel.launches_by_path.clear()
+    grouped_kernel.launches_by_plan.clear()
 
 
 def counts() -> dict:
@@ -583,13 +613,16 @@ def plain_versions():
     """Route the kernel wrappers' CUDA calls to their plain versions (for the
     comparison run only; the port itself has no such switch)."""
 
-    def mm(a, b, bias, *, out_dtype, activation="none"):
+    def mm(a, b, bias, *, out_dtype, activation="none", **_path):
         return matmul_ref(a, b, bias, activation=activation, out_dtype=out_dtype)
 
+    def qmm(a, a_s, b, b_s, path=None, plan_source=None, **kw):
+        return quant_systolic_matmul_ref(a, a_s, b, b_s, **kw)
+
     with mock.patch.object(mm_kernel, "systolic_matmul_call", mm), \
-            mock.patch.object(mm_kernel, "quant_systolic_matmul_call", quant_systolic_matmul_ref), \
+            mock.patch.object(mm_kernel, "quant_systolic_matmul_call", qmm), \
             mock.patch.object(attn_kernel, "flash_attention_call", flash_attention_call_ref), \
-            mock.patch.object(grouped_kernel, "grouped_matmul_call", lambda x, w, rows=None: grouped_matmul_ref(x, w)):
+            mock.patch.object(grouped_kernel, "grouped_matmul_call", lambda x, w, rows=None, **_: grouped_matmul_ref(x, w)):
         yield
 
 
@@ -622,9 +655,9 @@ def checked_quant_calls(worst: list):
     tolerance (the comparison itself launches no kernel)."""
     real = mm_kernel.quant_systolic_matmul_call
 
-    def call(a, a_s, b, b_s, *, qk_a, qk_b, out_dtype, activation="none"):
+    def call(a, a_s, b, b_s, *, qk_a, qk_b, out_dtype, activation="none", **path):
         kw = dict(qk_a=qk_a, qk_b=qk_b)
-        got = real(a, a_s, b, b_s, out_dtype=out_dtype, activation=activation, **kw)
+        got = real(a, a_s, b, b_s, out_dtype=out_dtype, activation=activation, **kw, **path)
         want = quant_systolic_matmul_ref(a, a_s, b, b_s, out_dtype=out_dtype, activation=activation, **kw)
         pre = quant_systolic_matmul_ref(a, a_s, b, b_s, out_dtype=torch.float32, **kw)
         tol = QGEMM_ATOL * (pre.abs().max() + 1.0)
@@ -643,8 +676,8 @@ def checked_grouped_calls(worst: list):
     real = grouped_kernel.grouped_matmul_call
     atol, rtol = GEMM_TOL_BF16
 
-    def call(x, w, rows=None):
-        got = real(x, w, rows)
+    def call(x, w, rows=None, **path):
+        got = real(x, w, rows, **path)
         want = grouped_matmul_ref(x, w)  # every row, as the reference computes them
         worst.append(((got.float() - want.float()).abs() / (atol + rtol * want.float().abs())).max().item())
         return got
@@ -713,31 +746,6 @@ def close(got: torch.Tensor, want: torch.Tensor, atol: float, rtol: float) -> tu
     w = want.float().abs()
     ok = bool(torch.isfinite(got.float()).all()) and bool((d <= atol + rtol * w).all())
     return ok, d.max().item(), (d / w.clamp_min(1e-6)).max().item()
-
-
-def time_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean device time of fn() over `iters` back-to-back calls (CUDA events).
-
-    The stream is first held by a spin kernel lasting twice the host time of
-    the calls, so all of them are queued before the first starts: the events
-    then time the device, not the Python that launches it.
-    """
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    host_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(2 * host_s * 2e9))  # cycles at <= 2 GHz: at least 2x the host time
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 # ---------------------------------------------------------------------------
@@ -2035,6 +2043,7 @@ def phase_serve(smi: str) -> tuple[dict, dict, dict, dict, list, list]:
         f"w8a8: {n_q} projection weights -> int8 ({q_bytes / 1e6:.1f} MB resident values)")
     batch = make_batch(cfg, batch=BATCH, seq=PROMPT, kind="prefill", seed=SEED, device="cuda")
     bf16 = serve_path("bf16", model, params, {"gemm": "systolic_mmm", "tol": LOGITS_TOL_BF16}, batch)
+    bf16["tune"] = phase_tune(model, params, batch)
     cont = phase_continuous(model, params, smi)
     kv8 = phase_continuous(model, params, smi, fp=cont, alone=cont["replays"])
     for r in (cont, kv8):
@@ -2053,6 +2062,233 @@ def phase_serve(smi: str) -> tuple[dict, dict, dict, dict, list, list]:
     del params, qparams, model, batch
     torch.cuda.empty_cache()
     return bf16, w8a8, cont, kv8, long_runs, paged_runs
+
+
+def pin_cache(path: str) -> None:
+    """Point the port's plan cache at ``path``: every dispatch reads it from
+    the next launch on.  ``main`` pins an empty file before any launch, so a
+    cache left on the machine cannot move an untuned phase's paths."""
+    os.environ[tune_cache._ENV_VAR] = path
+    tune_cache.reset_default_cache()
+
+
+def tune_problems(cfg) -> list[tuple[str, str, str, int, int, int]]:
+    """(label, backend, dtype, M, N, K) of the tune phase: K1 at the model's
+    projections at prefill (4 x 512 rows) and decode (4 rows), K1 at
+    minicpm3-4b's widest projection (its shape rule's 128x256 tile was
+    slower than 128x128 there, PERF.md), K5 int8 at the model's
+    widest, and K4 at qwen3-moe-30b-a3b's expert shape (E = 1, C = 160)."""
+    out = [("K1", "cuda-systolic", "bfloat16", m, n, k)
+           for m in (BATCH * PROMPT, BATCH) for (k, n) in sorted(projections(cfg))]
+    out.append(("K1 minicpm3", "cuda-systolic", "bfloat16", BATCH * PROMPT, 2560, 2560))
+    out.append(("K5", "cuda-systolic", "int8", BATCH * PROMPT, cfg.d_ff, cfg.d_model))
+    out.append(("K4", "cuda-grouped", "bfloat16", 160, 768, 2048))
+    return out
+
+
+def check_plan(backend: str, dtype: str, m: int, n: int, k: int, plan: BlockPlan, gen) -> tuple[bool, float]:
+    """One launch of ``backend``'s kernel on ``plan``'s path against its plain
+    version, within phase 2's tolerance for that kernel; weights at the
+    models' scale (K^-0.5), so the outputs are O(1) as the model's are."""
+    if backend == "cuda-grouped":
+        x, w = randn((1, m, k), gen, BF16), (randn((1, k, n), gen, torch.float32) * k**-0.5).to(BF16)
+        got, want = grouped_ops.grouped_matmul(x, w, plan=plan), grouped_matmul_ref(x, w)
+        ok, err, _ = close(got, want, *GEMM_TOL_BF16)
+        return ok, err
+    if dtype == "int8":
+        qa = quant.quantize(randn((m, k), gen, torch.float32), "int8", block=(1, 128))
+        qb = quant.quantize(randn((k, n), gen, torch.float32), "int8", block=(128, 1))
+        got = mm_ops.quant_matmul(qa, quant.k_major({"w": qb})["w"], out_dtype=BF16, plan=plan)
+        want = quant_matmul_ref(qa, qb, out_dtype=BF16)
+        atol = QGEMM_ATOL * (quant_matmul_ref(qa, qb, out_dtype=torch.float32).abs().max().item() + 1.0)
+        ok, err, _ = close(got, want, atol, QGEMM_RTOL_BF16)
+        return ok, err
+    a, b = randn((m, k), gen, BF16), (randn((k, n), gen, torch.float32) * k**-0.5).to(BF16)
+    ok, err, _ = close(mm_ops.matmul(a, b, plan=plan), matmul_ref(a, b, out_dtype=BF16), *GEMM_TOL_BF16)
+    return ok, err
+
+
+def least_us(backend: str, dtype: str, m: int, n: int, k: int) -> float:
+    """The datasheet bound of one problem: its operations at the peak, or each
+    input read and the output written once at the HBM rate (a plan's own
+    memory term counts re-reads that the 50 MB L2 serves on the card)."""
+    if backend == "cuda-grouped":
+        return H100.bound_s(*_grouped_cost(k, n, m, [m]), "bfloat16")[0] * 1e6
+    if dtype == "int8":
+        return H100.bound_s(*_qgemm_cost(m, k, n), "int8")[0] * 1e6
+    return H100.bound_s(*_gemm_cost(m, k, n), "bfloat16")[0] * 1e6
+
+
+def tune_one(label: str, backend: str, dtype: str, m: int, n: int, k: int, gen) -> dict:
+    """Autotune one problem on the card, every candidate held to its plain
+    version and to the problem's bound before it is timed; prints the rule's
+    tile and time, every candidate's and the winner."""
+    rule_path, rule_blk = candidates.rule_block(m, n, k, dtype, backend)
+    least = least_us(backend, dtype, m, n, k)
+
+    def measure_fn(rec):
+        plan = BlockPlan(m, n, k, rec.bm, rec.bn, rec.bk, in_dtype=dtype)
+        ok, err = check_plan(backend, dtype, m, n, k, plan, gen)
+        ms = measure_matmul(m, n, k, rec.bm, rec.bn, rec.bk, dtype=dtype, backend=backend, repeats=TUNE_REPEATS)
+        expect(ok and ms.best_us >= least,
+               f"tune {label} ({m}, {n}, {k}) {dtype} {rec.path} {rec.ident}: max_abs={err:.3e}, "
+               f"{ms.best_us:.3f} us (mean {ms.mean_us:.3f}) >= bound {least:.3f} us")
+        return ms
+
+    res = autotune(m, n, k, dtype=dtype, backend=backend, top_k=None, measure_fn=measure_fn)
+    times = {r.ident: r.measured_us for r in res.records}
+    rule_id = "x".join(map(str, rule_blk))
+    w = res.winner
+    expect(not res.cache_hit and rule_id in times,
+           f"tune {label} ({m}, {n}, {k}) {dtype}: rule {rule_path} {rule_id} {times.get(rule_id, float('nan')):.3f} us; "
+           f"measured " + ", ".join(f"{r.path} {r.ident} {r.measured_us:.3f}" for r in res.records)
+           + f"; winner {w.bm}x{w.bn}x{w.bk} {w.best_us:.3f} us [{w.method}], bound {least:.3f} us")
+    return {"label": label, "backend": backend, "dtype": dtype, "m": m, "n": n, "k": k, "rule_path": rule_path,
+            "rule_block": list(rule_blk), "rule_us": times.get(rule_id), "bound_us": least,
+            "candidates": [{"path": r.path, "block": [r.bm, r.bn, r.bk], "us": r.measured_us} for r in res.records],
+            "winner": [w.bm, w.bn, w.bk], "winner_us": w.best_us}
+
+
+def serve_tuned(model, params, batch, tuned: dict) -> dict:
+    """Serve the batch (4 x 512 prefill, TUNE_DECODE_STEPS decode steps)
+    through ServeEngine with the tuned cache active: every K1 launch at a
+    tuned shape on its cached path and chunk; then the logits of a prefill
+    and two decode steps against the plain path, and two prefills bit for
+    bit.  ``tuned``: (M, K, N) -> (path, k_chunk) of each tuned K1 problem."""
+    cfg = model.cfg
+    engine = ServeEngine(model, params, ServeConfig(max_len=PROMPT + GEN, batch=BATCH), device="cuda")
+    engine.generate(batch, 2)  # warm-up (not counted)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    first = engine.prefill(batch)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine.decode(first, TUNE_DECODE_STEPS)
+    torch.cuda.synchronize()
+    t_decode = (time.perf_counter() - t0) / TUNE_DECODE_STEPS
+    plans = dict(mm_kernel.launches_by_plan)
+    at_tuned = sum(c for key, c in plans.items() if key[:3] in tuned)
+    off = {str(key): c for key, c in plans.items() if key[:3] in tuned and (key[5] != "tuned" or key[3:5] != tuned[key[:3]])}
+    expect(not off and at_tuned == mm_kernel.launches and at_tuned > 0,
+           f"tuned serve: {at_tuned} of {mm_kernel.launches} K1 launches at tuned shapes, every one on its cached "
+           f"path and chunk (off: {off})")
+    report = engine.decode_plan_report()
+    say(f"    tuned serve: prefill {t_prefill * 1e3:.3f} ms; decode {t_decode * 1e3:.3f} ms/step over "
+        f"{TUNE_DECODE_STEPS} steps; {report}")
+    n_dec = len(decode_gemm_problems(cfg, BATCH))
+    expect(report == f"decode plans: {n_dec}/{n_dec} tuned (batch={BATCH})", f"tuned serve decode plans: {report}")
+    with torch.no_grad():
+        got, cache_t = model.prefill(params, batch, max_len=PROMPT + GEN)
+        again, _ = model.prefill(params, batch, max_len=PROMPT + GEN)
+        expect(torch.equal(got, again), "tuned serve: two prefills give bit-identical logits")
+        del again
+        cache_p = tree_util.tree_map(torch.clone, cache_t)
+        with plain_versions():
+            want, _ = model.prefill(params, batch, max_len=PROMPT + GEN)
+        errs = [compare_logits("tuned serve prefill", got, want, LOGITS_TOL_BF16)[0]]
+        tok = got.argmax(-1).to(torch.int32)
+        for step in range(2):
+            lk, cache_t = model.decode_step(params, tok, cache=cache_t, pos=PROMPT + step)
+            with plain_versions():
+                lp, cache_p = model.decode_step(params, tok, cache=cache_p, pos=PROMPT + step)
+            errs.append(compare_logits(f"tuned serve decode step {step}", lk, lp, LOGITS_TOL_BF16)[0])
+            tok = lk.argmax(-1).to(torch.int32)
+    del engine, cache_t, cache_p
+    return {"prefill_ms": t_prefill * 1e3, "decode_ms_per_step": t_decode * 1e3, "report": report,
+            "launches_by_plan": {str(k): c for k, c in plans.items()}, "logits_max_abs_err": errs}
+
+
+def dse_table(d2: int = DSE_SIZE) -> list[dict]:
+    """The Table I analogue on the card: ``dse.explore`` over bm 64-256, bn
+    128-256, bk 32-64 at d2^3 in bf16, the geometries no tile runs marked as
+    fitter failures, the rest measured (``attach_measurements``); beside it
+    paper design G's plan on the card (``configs/paper.block_plan_for``) and
+    the balance equation's (``derive_block_plan``)."""
+    recs = dse.explore(d2, d2, d2, bms=(64, 128, 256), bns=(128, 256), bks=(32, 64))
+    recs = dse.attach_measurements(recs, lambda r: measure_matmul(d2, d2, d2, r.bm, r.bn, r.bk, repeats=1).best_us)
+    say(f"    Table I analogue at {d2}^3 bf16 (fits: a tile runs it within shared memory and registers):")
+    say(f"      {'block':>12} {'path':>14} {'smem KiB':>9} {'fits':>5} {'AI':>7} {'compute us':>11} "
+        f"{'memory us':>10} {'measured us':>12}")
+    for r in recs:
+        meas = f"{r.measured_us:12.3f}" if r.measured_us is not None else f"{'-':>12}"
+        say(f"      {r.ident:>12} {str(r.path):>14} {r.smem_kib:9.1f} {str(r.fits):>5} {r.arithmetic_intensity:7.1f} "
+            f"{r.compute_us:11.3f} {r.memory_us:10.3f} {meas}")
+    design = paper.designs()["G"]
+    g = paper.block_plan_for(design, d2)
+    balance = derive_block_plan(d2, d2, d2)
+    win = dse.best(recs)
+    say(f"      measured best {win.ident} ({win.path}); design G {design.array} -> {g.bm}x{g.bn}x{g.bk}; "
+        f"derive_block_plan -> {balance.bm}x{balance.bn}x{balance.bk} ({balance.smem_bytes()} B shared memory)")
+    expect(all(r.measured_us is not None for r in recs if r.fits) and any(not r.fits for r in recs),
+           f"DSE table: {sum(r.fits for r in recs)} of {len(recs)} geometries fit and were measured")
+    return [dataclasses.asdict(r) for r in recs]
+
+
+def smem_check() -> dict:
+    """``BlockPlan.smem_bytes()`` against the shared memory each wgmma path
+    allocates, read from the binaries (``tile_smem_bytes``)."""
+    q = mm_kernel.qtiles(torch.int8)["wgmma"]
+    rows = [("systolic_mmm", p, BlockPlan(1, 1, 1, *mm_kernel.TILES[p])) for p, _, _ in mm_kernel.WGMMA_TILES]
+    rows += [("grouped_mmm", p, BlockPlan(1, 1, 1, *grouped_kernel.TILES[p])) for p in grouped_kernel.WGMMA_ROWS]
+    rows += [("systolic_qmm", "wgmma", BlockPlan(1, 1, 1, *q, in_dtype="int8", quant_block_k=128))]
+    out = {}
+    for lib, path, plan in rows:
+        got = mm_kernel.tile_smem_bytes(lib, path)
+        out[f"{lib}:{path}"] = got
+        expect(got == plan.smem_bytes(), f"smem {lib} {path}: binary {got} B, BlockPlan.smem_bytes() {plan.smem_bytes()} B")
+    return out
+
+
+def split_check(problems) -> dict:
+    """``kernel.plan_split``, the Python twin by which the tuner reports the
+    rule's decode chunk, against the binary's rule: the split-K workspace
+    that csrc/common.cuh's ``plan_split`` sizes (splits x M x N fp32), at
+    each (M, N, K) of ``problems``."""
+    lib, _ = mm_kernel._entry("systolic_mmm")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for m, n, k in problems:
+        splits, chunk = mm_kernel.plan_split(m, n, k, sms)
+        got = lib.split_workspace(m, n, k, 1, 0)
+        out[f"{m}x{n}x{k}"] = {"splits": splits, "k_chunk": chunk, "workspace_bytes": got}
+        expect(got == (splits * m * n * 4 if splits > 1 else 0),
+               f"plan_split twin at ({m}, {n}, {k}): {splits} splits of {chunk}, binary workspace {got} B")
+    return out
+
+
+def phase_tune(model, params, batch) -> dict:
+    """The tuner on the card, on the bf16 model's parameters: autotune each of
+    ``tune_problems`` into a fresh plan cache, a second pass a pure cache hit,
+    the model served on the tuned tiles, the DSE table, the shared-memory
+    check and the decode split rule's twin; then the empty cache pinned again
+    for the untuned phases."""
+    t0 = time.perf_counter()
+    say(f"    tune: {len(tune_problems(model.cfg))} problems into a fresh plan cache")
+    pin_cache(os.path.join(TUNE_DIR, "plans.json"))
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        results = [tune_one(*p, gen) for p in tune_problems(model.cfg)]
+        reset_counts()
+        measured = []
+        hits = [autotune(r["m"], r["n"], r["k"], dtype=r["dtype"], backend=r["backend"],
+                         measure_fn=lambda rec: measured.append(rec)) for r in results]
+        expect(all(h.cache_hit for h in hits) and not measured and not any(counts().values()),
+               f"tune: second pass {sum(h.cache_hit for h in hits)} of {len(hits)} cache hits, "
+               f"{len(measured)} measurements, launches {counts()}")
+        tuned = {(r["m"], r["k"], r["n"]): mm_kernel.path_of_block(*r["winner"])
+                 for r in results if r["backend"] == "cuda-systolic" and r["dtype"] == "bfloat16"}
+        serve = serve_tuned(model, params, batch, tuned)
+        table = dse_table()
+        smem = smem_check()
+        split = split_check([(r["m"], r["n"], r["k"]) for r in results if r["backend"] == "cuda-systolic"
+                             and r["dtype"] == "bfloat16" and r["m"] <= mm_kernel.DECODE_MAX_M])
+    finally:
+        pin_cache(os.path.join(TUNE_DIR, "untuned.json"))
+    wall = time.perf_counter() - t0
+    say(f"    tune phase wall {wall:.1f} s")
+    return {"problems": results, "serve": serve, "dse": table, "smem": smem, "split": split, "wall_s": wall}
 
 
 def w8a8_vs_bf16(label: str, w8a8: dict, bf16: dict, gate: bool = True) -> None:
@@ -2824,7 +3060,7 @@ def phase_train(smi: str) -> dict:
     tokens = BATCH * PROMPT
     out.update(losses=losses, grad_norms=norms, lrs=lrs, step_ms=walls, step_ms_p50=step_ms,
                tokens_per_s=tokens / step_ms * 1e3, peak_gb=peak,
-               model_flops_share=6 * n * tokens / (step_ms / 1e3) / H100.peak_flops["bfloat16"], retries=trainer.retries)
+               model_flops_share=6 * n * tokens / (step_ms / 1e3) / H100.peak_flops("bfloat16"), retries=trainer.retries)
     row = traced_train_step(trainer, batch)
     out["trace"] = row
     steps = TRAIN_STEPS + 1
@@ -2883,17 +3119,6 @@ def _gemm_cost(m, k, n, out_dtype=BF16):
     return flops, nbytes
 
 
-def cycler(items: list):
-    """A function returning the next of ``items`` on each call, round robin."""
-    it = [0]
-
-    def nxt():
-        it[0] = (it[0] + 1) % len(items)
-        return items[it[0]]
-
-    return nxt
-
-
 def time_gemm(m, k, n, gen, out_dtype=BF16, tiles: bool = True, k_major: bool = False) -> dict:
     """Kernel, plain and library times of one bf16 projection.  Weights are
     cycled through enough copies to exceed the 50 MB L2, as the main path
@@ -2923,7 +3148,7 @@ def time_gemm(m, k, n, gen, out_dtype=BF16, tiles: bool = True, k_major: bool = 
 
         def on(tile):
             code = fn(a.data_ptr(), nxt().data_ptr(), None, out.data_ptr(), m, n, k, mm_kernel.DTYPE_CODES[BF16],
-                      mm_kernel.DTYPE_CODES[out_dtype], 0, mm_kernel.PATHS.index(tile), None, 0, stream)
+                      mm_kernel.DTYPE_CODES[out_dtype], 0, mm_kernel.PATHS.index(tile), 0, None, 0, stream)
             _build.check(lib_, "systolic_mmm launch", code)
 
         by_path = {tile: time_ms(lambda: on(tile), iters) for tile, _, _ in mm_kernel.WGMMA_TILES}
@@ -3358,6 +3583,16 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    global TUNE_DIR
+    TUNE_DIR = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    try:
+        pin_cache(os.path.join(TUNE_DIR, "untuned.json"))
+        return run(args)
+    finally:
+        shutil.rmtree(TUNE_DIR, ignore_errors=True)
+
+
+def run(args) -> int:
     # The plain GEMMs are fp32 matmuls, which TF32 would round to ~3 digits:
     # they rely on PyTorch's default of full fp32.
     expect(not torch.backends.cuda.matmul.allow_tf32 and torch.get_float32_matmul_precision() == "highest",

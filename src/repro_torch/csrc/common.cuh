@@ -166,8 +166,12 @@ struct Split {
 // Enough K slices that about four decode blocks per SM stream B (the
 // N / D_BN column tiles alone may fill a few SMs only); one slice when the
 // GEMM is not a splittable decode or the column tiles already fill the card.
-inline Split plan_split(int M, int N, int K, bool splittable) {
+// A caller's `k_chunk` (> 0, a multiple of D_BK: a tuned plan's) sets the
+// contraction per block instead.  kernels/systolic/kernel.py plan_split is
+// the same rule in Python.
+inline Split plan_split(int M, int N, int K, bool splittable, int k_chunk = 0) {
   if (!splittable || M > D_BM || K <= D_BK) return {1, K};
+  if (k_chunk > 0) return k_chunk >= K ? Split{1, K} : Split{(K + k_chunk - 1) / k_chunk, k_chunk};
   const int col_tiles = (N + D_BN - 1) / D_BN;
   const int k_tiles = (K + D_BK - 1) / D_BK;
   const int want = (4 * sm_count() + col_tiles - 1) / col_tiles;
@@ -195,8 +199,9 @@ extern "C" const char* cuda_error_string(int code) {
 
 // Bytes of fp32 scratch that a GEMM of this shape needs on the current
 // device (its split-K partials; 0 when the contraction is not split).
-// `splittable`: the kernel splits its decode tile along K.
-extern "C" long long split_workspace(int M, int N, int K, int splittable) {
-  const repro::Split sp = repro::plan_split(M, N, K, splittable != 0);
+// `splittable`: the kernel splits its decode tile along K; `k_chunk`: the
+// contraction per block, 0 for plan_split's choice.
+extern "C" long long split_workspace(int M, int N, int K, int splittable, int k_chunk) {
+  const repro::Split sp = repro::plan_split(M, N, K, splittable != 0, k_chunk);
   return sp.splits > 1 ? (long long)sp.splits * M * N * (long long)sizeof(float) : 0;
 }

@@ -295,7 +295,7 @@ void launch(const void* a, const void* b, const float* bias, void* out, int M, i
 // after another, into `batch` (M, N) outputs of dtype `out_dtype`, with the
 // bias (N,) fp32 or null and the activation applied.  Unbatched (batch 1)
 // the decode tile splits K, and `workspace` holds at least
-// split_workspace(M, N, K, in_dtype == bf16) bytes (null if that is 0).
+// split_workspace(M, N, K, in_dtype == bf16, 0) bytes (null if that is 0).
 // Batched, `rows` (batch,) on the device or null: see BATCHED above.
 // Launches on `s` and returns cudaGetLastError() (0 on success).
 template <bool BATCHED>
@@ -305,7 +305,7 @@ int gemm(const void* a, const void* b, const float* bias, void* out, int M, int 
   if ((in_dtype != DT_F32 && in_dtype != DT_BF16) || (out_dtype != DT_F32 && out_dtype != DT_BF16) ||
       act < ACT_NONE || act > ACT_TANH || M <= 0 || N <= 0 || K < 0 || batch <= 0 ||
       batch > (BATCHED ? 65535 : 1) ||
-      workspace_bytes < split_workspace(M, N, K, !BATCHED && in_dtype == DT_BF16) ||
+      workspace_bytes < split_workspace(M, N, K, !BATCHED && in_dtype == DT_BF16, 0) ||
       (workspace_bytes > 0 && workspace == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   float* ws = static_cast<float*>(workspace);

@@ -55,6 +55,23 @@ enum Path { P_FMA = 0, P_DECODE = 1, P_WMMA = 2, P_WGMMA_64 = 3, P_WGMMA_128 = 4
 
 }  // namespace
 
+// Dynamic shared memory of one block of `path`'s tile: the wgmma tiles'
+// (WgTile::SMEM), 0 for the tiles whose shared memory is static.  Held to
+// core/blocking.py's BlockPlan.smem_bytes() by the tests.
+extern "C" int tile_smem_bytes(int path) {
+  namespace wg = repro::wg;
+  switch (path) {
+    case P_WGMMA_64:
+      return wg::WgTile<1, 128>::SMEM;
+    case P_WGMMA_128:
+      return wg::WgTile<2, 128>::SMEM;
+    case P_WGMMA_192:
+      return wg::WgTile<3, 128>::SMEM;
+    default:
+      return 0;
+  }
+}
+
 // x: (E, C, K), w: (E, K, N), y: (E, C, N), all row-major and of dtype
 // `dtype` (bf16 or fp32); rows: (E,) int32 on the device, or null (all C
 // rows); `path`: one of Path, which must fit the operands (fp32 <-> FMA;

@@ -20,8 +20,8 @@
 // least; and the epilogue, which writes an output tile as wide as the reads
 // that fed it.
 //
-// The caller picks one of nine paths by shape and B's layout (kernels/systolic/kernel.py
-// gemm_path, passed in as `path`; a choice by shape and layout, never a retry):
+// The caller picks one of nine paths (kernels/systolic/kernel.py: a tuned plan's,
+// or gemm_path's by shape and B's layout; passed in as `path`, never a retry):
 //   * wgmma tiles (bf16, M > 16, K and N multiples of 8, 16-byte-aligned
 //     bases) -- the prefill tile built for Hopper, 128x256, 128x128 or
 //     64x128, the widest whose grid leaves at most half the SMs idle.
@@ -43,7 +43,8 @@
 //   * WMMA decode tile (bf16, M <= 16): a 16-row tile with the contraction
 //     split across blocks (split-K); a second, small kernel sums the fp32
 //     partials in a fixed order and applies the epilogue.  The split is
-//     chosen so about four blocks per SM read B.
+//     chosen so about four blocks per SM read B, or given (`k_chunk`: a
+//     tuned plan's contraction per block).
 //   * fp32 operands: a CUDA-core FMA tile, because the reference computes
 //     fp32 products in full fp32 (TF32 would not match it).
 //   * B K-major (the (K, N) values stored as an (N, K) row-major matrix):
@@ -74,14 +75,14 @@ enum Path {
 
 template <typename O>
 int dispatch(int path, const void* a, const void* b, const float* bias, void* out, int M, int N, int K, int act,
-             float* workspace, cudaStream_t s) {
+             int k_chunk, float* workspace, cudaStream_t s) {
   switch (path) {
     case P_FMA:
       launch_f32<false, O>(a, b, bias, out, M, N, K, act, 1, s);
       break;
     case P_DECODE:
       launch_bf16<false, D_BM, D_BN, D_BK, 1, 4, O>(a, b, bias, out, M, N, K, act, 1, s,
-                                                    plan_split(M, N, K, true), workspace);
+                                                    plan_split(M, N, K, true, k_chunk), workspace);
       break;
     case P_WMMA:
       launch_bf16<false, 128, 128, 32, 2, 4, O>(a, b, bias, out, M, N, K, act, 1, s);
@@ -97,7 +98,7 @@ int dispatch(int path, const void* a, const void* b, const float* bias, void* ou
       break;
     case P_DECODE_KMAJOR:
       launch_bf16<false, D_BM, D_BN, D_BK, 1, 4, O, true>(a, b, bias, out, M, N, K, act, 1, s,
-                                                          plan_split(M, N, K, true), workspace);
+                                                          plan_split(M, N, K, true, k_chunk), workspace);
       break;
     case P_WMMA_KMAJOR:
       launch_bf16<false, 128, 128, 32, 2, 4, O, true>(a, b, bias, out, M, N, K, act, 1, s);
@@ -108,17 +109,34 @@ int dispatch(int path, const void* a, const void* b, const float* bias, void* ou
 
 }  // namespace
 
+// Dynamic shared memory of one block of `path`'s tile: the wgmma tiles'
+// (WgTile::SMEM), 0 for the tiles whose shared memory is static.  Held to
+// core/blocking.py's BlockPlan.smem_bytes() by the tests.
+extern "C" int tile_smem_bytes(int path) {
+  switch (path) {
+    case P_WGMMA_128:
+      return wg::WgTile<2, 128>::SMEM;
+    case P_WGMMA_64:
+      return wg::WgTile<1, 128>::SMEM;
+    case P_WGMMA_256:
+      return wg::WgTile<2, 256>::SMEM;
+    default:
+      return 0;
+  }
+}
+
 // a: (M, K) row-major, b: (K, N) row-major -- or, on a *_KMAJOR path,
 // K-major (stored as (N, K) row-major) --, both of dtype `in_dtype`; bias:
 // (N,) fp32 or null; out: (M, N) row-major of dtype `out_dtype`; `path`: one
 // of Path, which must fit the operands (fp32 <-> an FMA path; the decode
 // tiles M <= 16; wgmma K and N multiples of 8 and 16-byte-aligned bases);
-// workspace: at least split_workspace(M, N, K, path is a decode tile) bytes
-// (null if that is 0).
+// `k_chunk`: 0, or on a decode tile the contraction per block, a multiple of
+// D_BK (0: plan_split's choice); workspace: at least split_workspace(M, N,
+// K, path is a decode tile, k_chunk) bytes (null if that is 0).
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int systolic_mmm(const void* a, const void* b, const void* bias, void* out, int M, int N, int K,
-                            int in_dtype, int out_dtype, int activation, int path, void* workspace,
-                            long long workspace_bytes, void* stream) {
+                            int in_dtype, int out_dtype, int activation, int path, int k_chunk,
+                            void* workspace, long long workspace_bytes, void* stream) {
   const bool fp32 = in_dtype == DT_F32;
   const bool wgmma = path >= P_WGMMA_128 && path <= P_WGMMA_256;
   const bool decode = path == P_DECODE || path == P_DECODE_KMAJOR;
@@ -126,12 +144,13 @@ extern "C" int systolic_mmm(const void* a, const void* b, const void* bias, void
       activation < ACT_NONE || activation > ACT_TANH || M <= 0 || N <= 0 || K < 0 || path < P_FMA ||
       path > P_WMMA_KMAJOR || fp32 != (path == P_FMA || path == P_FMA_KMAJOR) || (decode && M > D_BM) ||
       (wgmma && (K == 0 || K % 8 != 0 || N % 8 != 0 || !aligned16(a) || !aligned16(b))) ||
-      workspace_bytes < split_workspace(M, N, K, decode) ||
+      k_chunk < 0 || (k_chunk > 0 && (!decode || k_chunk % D_BK != 0)) ||
+      workspace_bytes < split_workspace(M, N, K, decode, k_chunk) ||
       (workspace_bytes > 0 && workspace == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const float* bs = static_cast<const float*>(bias);
   float* ws = static_cast<float*>(workspace);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return out_dtype == DT_F32 ? dispatch<float>(path, a, b, bs, out, M, N, K, activation, ws, s)
-                             : dispatch<__nv_bfloat16>(path, a, b, bs, out, M, N, K, activation, ws, s);
+  return out_dtype == DT_F32 ? dispatch<float>(path, a, b, bs, out, M, N, K, activation, k_chunk, ws, s)
+                             : dispatch<__nv_bfloat16>(path, a, b, bs, out, M, N, K, activation, k_chunk, ws, s);
 }

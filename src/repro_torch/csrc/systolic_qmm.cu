@@ -558,13 +558,18 @@ int scale_step(int qk_a, int qk_b) {
 
 }  // namespace
 
+// Dynamic shared memory of one block of `path`'s tile: the int8 wgmma
+// tile's (QTile::SMEM), 0 for the WMMA tiles, whose shared memory is
+// static.  Held to core/blocking.py's BlockPlan.smem_bytes() by the tests.
+extern "C" int tile_smem_bytes(int path) { return path == QP_WGMMA ? QTile::SMEM : 0; }
+
 // a: (M, K) row-major; b: the (K, N) values stored K-major, as an (N, K)
 // row-major matrix; 1-byte values of `qdtype` (0 int8, 1
 // e4m3); a_scales: (M, qk_a ? ceil(K / qk_a) : 1) fp32; b_scales:
 // (qk_b ? ceil(K / qk_b) : 1, N) fp32; out: (M, N) row-major of dtype
 // `out_dtype`; `path`: one of QPath, which must fit the operands (decode
 // M <= 16, the others M > 16; wgmma as described there); workspace: at
-// least split_workspace(M, N, K, 1) bytes.  The scale step must be 0
+// least split_workspace(M, N, K, 1, 0) bytes.  The scale step must be 0
 // (whole K) or a multiple of 16.  Launches on `stream` and returns
 // cudaGetLastError() (0 on success).
 extern "C" int systolic_qmm(const void* a, const void* a_scales, const void* b,
@@ -579,7 +584,7 @@ extern "C" int systolic_qmm(const void* a, const void* a_scales, const void* b,
       step % 16 != 0 || path < QP_DECODE || path > QP_WGMMA || (path == QP_DECODE) != (M <= D_BM) ||
       (path == QP_WGMMA && (qdtype != Q_INT8 || K % 16 != 0 || N % 8 != 0 || step % Q_BK != 0 ||
                             !repro::aligned16(a) || !repro::aligned16(b))) ||
-      workspace_bytes < split_workspace(M, N, K, 1) ||
+      workspace_bytes < split_workspace(M, N, K, 1, 0) ||
       (workspace_bytes > 0 && workspace == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_sa = qk_a > 0 ? (K + qk_a - 1) / qk_a : 1;

@@ -2,8 +2,10 @@
 
 The counterpart of ``repro.kernels.grouped.kernel.grouped_matmul_call``: one
 launch computes ``y[e] = x[e] @ w[e]`` for every expert with an fp32
-accumulator and no epilogue, on the path that ``grouped_path`` picks by
-shape, dtype and alignment.  ``rows`` may name each expert's leading rows
+accumulator and no epilogue, on the path the caller names (a tuned plan's,
+``kernels/grouped/ops.py``) or else the one that ``grouped_path`` picks by
+shape, dtype and alignment; ``TILES`` names each path's (bc, bn, bk), the
+geometry a tuned plan stores.  ``rows`` may name each expert's leading rows
 that can hold a token; the kernel then skips the tiles past them.  The
 kernel masks ragged C, K and N itself, so shapes need not divide any block.
 """
@@ -16,7 +18,7 @@ import math
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.systolic.kernel import DECODE_MAX_M, DTYPE_CODES, _entry
+from repro_torch.kernels.systolic.kernel import DECODE_MAX_M, DTYPE_CODES, TILES as _MM_TILES, _entry
 
 MAX_EXPERTS = 65535  # the grid's z extent
 
@@ -30,11 +32,19 @@ MAX_EXPERTS = 65535  # the grid's z extent
 PATHS = ("fma", "decode", "wmma", "wgmma_64x128", "wgmma_128x128", "wgmma_192x128")
 WGMMA_ROWS = {"wgmma_64x128": 64, "wgmma_128x128": 128, "wgmma_192x128": 192}
 
-# Kernel launches made by this process, in all, by (E, C, K, N) and by path
+# Each path's tile as (bc, bn, bk), one path per geometry: the systolic
+# GEMM's fma, decode (no split: the k stage) and WMMA tiles, and its wgmma
+# tile with 64-deep k stages at each row count.
+TILES = {"fma": _MM_TILES["fma"], "decode": _MM_TILES["decode"], "wmma": _MM_TILES["wmma"],
+         **{p: (rows, 128, 64) for p, rows in WGMMA_ROWS.items()}}
+
+# Kernel launches made by this process, in all, by (E, C, K, N), by path and
+# by (E, C, K, N, path, source) as the systolic kernel's ``launches_by_plan``
 # (read and reset by chip_smoke.py).
 launches = 0
 launches_by_shape: collections.Counter = collections.Counter()
 launches_by_path: collections.Counter = collections.Counter()
+launches_by_plan: collections.Counter = collections.Counter()
 
 
 def grouped_path(c: int, k: int, n: int, dtype: torch.dtype, aligned: bool) -> str:
@@ -53,15 +63,56 @@ def grouped_path(c: int, k: int, n: int, dtype: torch.dtype, aligned: bool) -> s
     return min(WGMMA_ROWS, key=lambda p: (math.ceil(c / WGMMA_ROWS[p]), math.ceil(c / WGMMA_ROWS[p]) * WGMMA_ROWS[p]))
 
 
-def grouped_matmul_call(x: torch.Tensor, w: torch.Tensor, rows: torch.Tensor | None = None) -> torch.Tensor:
+def path_of_block(bc: int, bn: int, bk: int) -> str:
+    """The path that a (bc, bn, bk) geometry names; raises on a geometry no
+    tile runs."""
+    for path, tile in TILES.items():
+        if tile == (bc, bn, bk):
+            return path
+    raise ValueError(f"no grouped tile runs the block ({bc}, {bn}, {bk}); tiles: {TILES}")
+
+
+def path_refusal(path: str, c: int, k: int, n: int, dtype: torch.dtype, aligned: bool) -> str | None:
+    """Why ``path`` cannot take these operands (None: it can), as the kernel
+    checks them (csrc/grouped_mmm.cu)."""
+    if path not in PATHS:
+        return f"unknown path {path!r}; paths: {PATHS}"
+    if (dtype == torch.float32) != (path == "fma"):
+        return f"path {path} does not take {dtype} operands"
+    if path != "fma" and (path == "decode") != (c <= DECODE_MAX_M):
+        return f"the decode tile takes C <= {DECODE_MAX_M} and the others C > {DECODE_MAX_M}; C is {c}"
+    if path.startswith("wgmma") and (k == 0 or k % 8 or n % 8 or not aligned):
+        return f"path {path} needs K and N multiples of 8 and 16-byte-aligned bases (TMA); got K={k}, N={n}, " \
+               f"aligned={aligned}"
+    return None
+
+
+def launch_path(path: str | None, source: str, c: int, k: int, n: int, dtype: torch.dtype,
+                aligned: bool) -> tuple[str, str]:
+    """(path, source) that a launch runs, as the systolic GEMM's
+    ``launch_path`` decides it, with ``grouped_path`` the rule."""
+    if path is None:
+        return grouped_path(c, k, n, dtype, aligned), "rule"
+    refusal = path_refusal(path, c, k, n, dtype, aligned)
+    if refusal is None:
+        return path, source
+    if source == "tuned":
+        return grouped_path(c, k, n, dtype, aligned), "tuned_refused"
+    raise ValueError(f"grouped kernel: {refusal}")
+
+
+def grouped_matmul_call(x: torch.Tensor, w: torch.Tensor, rows: torch.Tensor | None = None, *,
+                        path: str | None = None, plan_source: str = "rule") -> torch.Tensor:
     """x: (E, C, K), w: (E, K, N) -> (E, C, N) on the card, in x's dtype.
 
     x and w are contiguous CUDA tensors of one dtype (bf16 or fp32).
     ``rows``: None, or an (E,) int32 tensor on the same card holding the
     number of leading rows of each expert's x that can be nonzero (the rest
     must be zero); tiles wholly past it are not computed and come out zero,
-    as the product of zero rows does.  Raises on anything the kernel does
-    not take.
+    as the product of zero rows does.  ``path``: the path to launch (None:
+    ``grouped_path``'s choice) and ``plan_source`` as for the systolic
+    GEMM's (``launch_path``).
+    Raises on anything the kernel does not take.
     """
     global launches
     if x.device.type != "cuda" or w.device != x.device:
@@ -84,9 +135,9 @@ def grouped_matmul_call(x: torch.Tensor, w: torch.Tensor, rows: torch.Tensor | N
     out = torch.empty((e, c, n), dtype=x.dtype, device=x.device)
     if e == 0 or c == 0 or n == 0:
         return out
-    lib, fn = _entry("grouped_mmm")
     aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
-    path = grouped_path(c, k, n, x.dtype, aligned)
+    path, plan_source = launch_path(path, plan_source, c, k, n, x.dtype, aligned)
+    lib, fn = _entry("grouped_mmm")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     code = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), e, c, k, n, DTYPE_CODES[x.dtype],
               None if rows is None else rows.data_ptr(), PATHS.index(path), stream)
@@ -94,4 +145,5 @@ def grouped_matmul_call(x: torch.Tensor, w: torch.Tensor, rows: torch.Tensor | N
     launches += 1
     launches_by_shape[(e, c, k, n)] += 1
     launches_by_path[path] += 1
+    launches_by_plan[(e, c, k, n, path, plan_source)] += 1
     return out

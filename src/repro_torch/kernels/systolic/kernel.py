@@ -2,10 +2,13 @@
 
 ``systolic_matmul_call`` (``csrc/systolic_mmm.cu``) is the counterpart of
 ``repro.kernels.systolic.kernel.systolic_matmul_call``: one launch computes
-``act(A @ B [+ bias])`` with an fp32 accumulator, on the path that
+``act(A @ B [+ bias])`` with an fp32 accumulator, on the path the caller
+names (a tuned plan's, ``kernels/systolic/ops.py``) or else the one that
 ``gemm_path`` picks by shape, dtype and alignment.  ``quant_systolic_matmul_call``
-(``csrc/systolic_qmm.cu``) is the block-scaled int8 / fp8 GEMM.  Both
-kernels mask ragged edges themselves, so shapes need not divide any block.
+(``csrc/systolic_qmm.cu``) is the block-scaled int8 / fp8 GEMM, likewise.
+Both kernels mask ragged edges themselves, so shapes need not divide any
+block.  ``TILES`` / ``QTILES`` name each path's (bm, bn, bk): the geometry
+that a tuned plan (``tune/cache.py``) stores, one path per geometry.
 """
 
 from __future__ import annotations
@@ -42,12 +45,30 @@ PATHS = ("fma", "decode", "wmma", "wgmma_128x128", "wgmma_64x128", "wgmma_128x25
          "fma_kmajor", "decode_kmajor", "wmma_kmajor")
 WGMMA_TILES = (("wgmma_128x256", 128, 256), ("wgmma_128x128", 128, 128), ("wgmma_64x128", 64, 128))
 DECODE_MAX_M = 16  # csrc/common.cuh D_BM
+DECODE_BN, DECODE_BK = 64, 64  # csrc/common.cuh D_BN, D_BK
 
-# Kernel launches made by this process, in all, by (M, K, N) and by path
-# (read and reset by chip_smoke.py).
+# Each path's tile as (bm, bn, bk), one path per geometry; a K-major path
+# runs its row-major twin's tile.  The decode tile's bk is its contraction
+# per block (``k_chunk``, a multiple of DECODE_BK; ``plan_split``'s when not
+# given), so its geometry is (16, 64, k_chunk).
+TILES = {
+    "fma": (64, 64, 16),  # csrc/gemm.cuh F_BM, F_BN, F_BK
+    "decode": (DECODE_MAX_M, DECODE_BN, DECODE_BK),
+    "wmma": (128, 128, 32),
+    "wgmma_128x128": (128, 128, 64),  # csrc/wgmma_gemm.cuh: 64-deep k stages
+    "wgmma_64x128": (64, 128, 64),
+    "wgmma_128x256": (128, 256, 64),
+}
+
+# Kernel launches made by this process, in all, by (M, K, N), by path and
+# by (M, K, N, path, k_chunk, source), the source being where the path came from:
+# "explicit" (a caller's plan), "tuned" (the plan cache), "rule"
+# (``gemm_path``) or "tuned_refused" (the rule's path where the operands at
+# hand could not take the cached one).  Read and reset by chip_smoke.py.
 launches = 0
 launches_by_shape: collections.Counter = collections.Counter()
 launches_by_path: collections.Counter = collections.Counter()
+launches_by_plan: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -56,7 +77,7 @@ _LL = ctypes.c_longlong
 
 # Argument types of each library's C entry point, named as the library.
 _ARGTYPES = {
-    "systolic_mmm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _LL, _P],
+    "systolic_mmm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _LL, _P],
     "systolic_qmm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _LL, _P],
     "grouped_mmm": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P],  # bound in kernels/grouped/kernel.py
 }
@@ -69,24 +90,96 @@ def _entry(name: str):
     fn = getattr(lib, name)
     fn.argtypes = _ARGTYPES[name]
     fn.restype = _I
-    lib.split_workspace.argtypes = [_I, _I, _I, _I]
+    lib.split_workspace.argtypes = [_I, _I, _I, _I, _I]
     lib.split_workspace.restype = _LL
+    lib.tile_smem_bytes.argtypes = [_I]
+    lib.tile_smem_bytes.restype = _I
     return lib, fn
 
 
 @functools.cache
-def _workspace_bytes(name: str, m: int, n: int, k: int, splittable: bool, device_index: int | None) -> int:
+def _workspace_bytes(name: str, m: int, n: int, k: int, splittable: bool, k_chunk: int,
+                     device_index: int | None) -> int:
     """fp32 scratch bytes of the split-K partials (``csrc/common.cuh``
-    ``plan_split``); depends on the shape and the card's SM count, so it is
-    asked once per shape and card."""
-    return _entry(name)[0].split_workspace(m, n, k, int(splittable))
+    ``plan_split``); depends on the shape, the contraction per block and the
+    card's SM count, so it is asked once per shape, chunk and card."""
+    return _entry(name)[0].split_workspace(m, n, k, int(splittable), k_chunk)
 
 
-def _workspace(name: str, device: torch.device, m: int, n: int, k: int, splittable: bool):
+def _workspace(name: str, device: torch.device, m: int, n: int, k: int, splittable: bool, k_chunk: int = 0):
     """(scratch tensor or None, its bytes) for one launch of library ``name``."""
-    nbytes = _workspace_bytes(name, m, n, k, splittable, device.index)
+    nbytes = _workspace_bytes(name, m, n, k, splittable, k_chunk, device.index)
     ws = torch.empty(nbytes // 4, dtype=torch.float32, device=device) if nbytes else None
     return ws, nbytes
+
+
+def tile_smem_bytes(name: str, path: str) -> int:
+    """Dynamic shared memory one block of ``path``'s tile allocates in
+    library ``name`` (the wgmma tiles'; 0 for the static ones), read from
+    the binary."""
+    paths = {"systolic_mmm": PATHS, "systolic_qmm": QPATHS}.get(name)
+    if paths is None:
+        from repro_torch.kernels.grouped.kernel import PATHS as paths
+    return _entry(name)[0].tile_smem_bytes(paths.index(path))
+
+
+def plan_split(m: int, n: int, k: int, sms: int, k_chunk: int = 0) -> tuple[int, int]:
+    """(splits, contraction per split) of the decode tile on a card of
+    ``sms`` SMs: ``csrc/common.cuh``'s ``plan_split``, the same rule."""
+    if m > DECODE_MAX_M or k <= DECODE_BK:
+        return 1, k
+    if k_chunk > 0:
+        return (1, k) if k_chunk >= k else (-(-k // k_chunk), k_chunk)
+    col_tiles = -(-n // DECODE_BN)
+    k_tiles = -(-k // DECODE_BK)
+    splits = min(-(-4 * sms // col_tiles), k_tiles)
+    if splits <= 1:
+        return 1, k
+    per = -(-k_tiles // splits)
+    return -(-k_tiles // per), per * DECODE_BK
+
+
+def block_of(path: str, m: int, n: int, k: int, sms: int, k_chunk: int = 0) -> tuple[int, int, int]:
+    """The (bm, bn, bk) that ``path`` runs an (M, K) @ (K, N) product on:
+    its tile, the decode tile's bk its contraction per block (K rounded up to
+    the k stage when the contraction is not split)."""
+    base = path.removesuffix("_kmajor")
+    if base == "decode":
+        splits, chunk = plan_split(m, n, k, sms, k_chunk)
+        return DECODE_MAX_M, DECODE_BN, chunk if splits > 1 else -(-max(k, 1) // DECODE_BK) * DECODE_BK
+    return TILES[base]
+
+
+def path_of_block(bm: int, bn: int, bk: int) -> tuple[str, int]:
+    """(path, k_chunk) that a (bm, bn, bk) geometry names; raises on a
+    geometry no tile runs."""
+    if (bm, bn) == TILES["decode"][:2] and bk > 0 and bk % DECODE_BK == 0:
+        return "decode", bk
+    for path, tile in TILES.items():
+        if tile == (bm, bn, bk) and path != "decode":
+            return path, 0
+    raise ValueError(f"no systolic tile runs the block ({bm}, {bn}, {bk}); tiles: {TILES}")
+
+
+def path_refusal(path: str, m: int, n: int, k: int, dtype: torch.dtype, aligned: bool, k_major: bool = False,
+                 k_chunk: int = 0) -> str | None:
+    """Why ``path`` cannot take these operands (None: it can): the kernel's
+    own checks (csrc/systolic_mmm.cu), made before a launch."""
+    if path not in PATHS:
+        return f"unknown path {path!r}; paths: {PATHS}"
+    base = path.removesuffix("_kmajor")
+    if (dtype == torch.float32) != (base == "fma"):
+        return f"path {path} does not take {dtype} operands"
+    if path.endswith("_kmajor") != k_major:
+        return f"path {path} reads B {'row-major' if k_major else 'K-major'}; B is the other"
+    if base == "decode" and m > DECODE_MAX_M:
+        return f"the decode tile takes M <= {DECODE_MAX_M}, not {m}"
+    if base.startswith("wgmma") and (k == 0 or k % 8 or n % 8 or not aligned):
+        return f"path {path} needs K and N multiples of 8 and 16-byte-aligned bases (TMA); got K={k}, N={n}, " \
+               f"aligned={aligned}"
+    if k_chunk and (base != "decode" or k_chunk < 0 or k_chunk % DECODE_BK):
+        return f"k_chunk {k_chunk} is for the decode tile only, a multiple of {DECODE_BK}"
+    return None
 
 
 def gemm_path(m: int, n: int, k: int, dtype: torch.dtype, aligned: bool, sms: int, k_major: bool = False) -> str:
@@ -110,6 +203,25 @@ def gemm_path(m: int, n: int, k: int, dtype: torch.dtype, aligned: bool, sms: in
     return WGMMA_TILES[-1][0]
 
 
+def launch_path(path: str | None, k_chunk: int, source: str, m: int, n: int, k: int, dtype: torch.dtype,
+                aligned: bool, k_major: bool, sms: int) -> tuple[str, int, str]:
+    """(path, k_chunk, source) that a launch runs: ``gemm_path``'s ("rule")
+    when ``path`` is None, else ``path`` if the operands can take it; a
+    tuned path (``source`` "tuned") they cannot take gives way to
+    ``gemm_path``'s, counted as "tuned_refused"; any other raises.  Only a
+    path the caller names is checked: ``gemm_path`` picks one that fits."""
+    if path is None:
+        return gemm_path(m, n, k, dtype, aligned, sms, k_major), 0, "rule"
+    if source == "tuned" and aligned and not k_major:
+        return path, k_chunk, source  # the plan cache's table checked it on such operands (tune.cache)
+    refusal = path_refusal(path, m, n, k, dtype, aligned, k_major, k_chunk)
+    if refusal is None:
+        return path, k_chunk, source
+    if source == "tuned":
+        return gemm_path(m, n, k, dtype, aligned, sms, k_major), 0, "tuned_refused"
+    raise ValueError(f"systolic kernel: {refusal}")
+
+
 @functools.cache
 def _sm_count(device_index: int | None) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
@@ -122,13 +234,21 @@ def systolic_matmul_call(
     *,
     out_dtype: torch.dtype,
     activation: str = "none",
+    path: str | None = None,
+    k_chunk: int = 0,
+    plan_source: str = "rule",
 ) -> torch.Tensor:
     """a: (M, K), b: (K, N), bias: (N,) or None -> (M, N) on the card.
 
     a and b are CUDA tensors of one dtype (bf16 or fp32), a row-major
     contiguous, b row-major contiguous or K-major (``is_k_major``: the
     transpose of a contiguous (N, K) tensor, read in place); the output
-    dtype is bf16 or fp32.  Raises on anything the kernel does not take.
+    dtype is bf16 or fp32.  ``path``: the path to launch (None: ``gemm_path``'s
+    choice), with ``k_chunk`` the decode tile's contraction per block (0:
+    ``plan_split``'s); ``plan_source`` names where it came from ("explicit",
+    "tuned"), for the launch counters.  A path the operands cannot take
+    raises, but for a tuned one, which gives way to the rule
+    (``launch_path``).  Raises on anything the kernel does not take.
     """
     global launches
     if a.device.type != "cuda" or b.device != a.device:
@@ -156,20 +276,23 @@ def systolic_matmul_call(
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     if m == 0 or n == 0:
         return out
-    lib, fn = _entry("systolic_mmm")
     aligned = a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
-    path = gemm_path(m, n, k, a.dtype, aligned, _sm_count(a.device.index), k_major)
-    ws, nbytes = _workspace("systolic_mmm", a.device, m, n, k, path.startswith("decode"))
+    path, k_chunk, plan_source = launch_path(path, k_chunk, plan_source, m, n, k, a.dtype, aligned, k_major,
+                                             _sm_count(a.device.index))
+    lib, fn = _entry("systolic_mmm")
+    ws, nbytes = _workspace("systolic_mmm", a.device, m, n, k, path.startswith("decode"), k_chunk)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     code = fn(
         a.data_ptr(), b.data_ptr(), None if bias is None else bias.data_ptr(),
         out.data_ptr(), m, n, k, DTYPE_CODES[a.dtype], DTYPE_CODES[out_dtype],
-        ACTIVATION_CODES[activation], PATHS.index(path), None if ws is None else ws.data_ptr(), nbytes, stream,
+        ACTIVATION_CODES[activation], PATHS.index(path), k_chunk, None if ws is None else ws.data_ptr(), nbytes,
+        stream,
     )
     _build.check(lib, "systolic_mmm launch", code)
     launches += 1
     launches_by_shape[(m, k, n)] += 1
     launches_by_path[path] += 1
+    launches_by_plan[(m, k, n, path, k_chunk, plan_source)] += 1
     return out
 
 
@@ -194,11 +317,61 @@ MAX_INT8_STEP = (2**31 - 1) // 2**14
 QPATHS = ("decode", "wmma", "wgmma")
 WGMMA_QK = 128  # the wgmma tile's k stage (csrc/systolic_qmm.cu Q_BK): its scale steps are multiples of it
 
-# Launches of the quantized kernel made by this process, in all, by (M, K, N)
-# and by path.
+
+def qtiles(dtype: torch.dtype) -> dict[str, tuple[int, int, int]]:
+    """Each path's tile as (bm, bn, bk) for ``dtype`` values (csrc/
+    systolic_qmm.cu): the decode tile's k stage (its split stays
+    ``plan_split``'s), the WMMA tile's (64 int8, 32 e4m3), the int8 wgmma
+    tile's 128; e4m3 has no wgmma tile."""
+    tiles = {"decode": TILES["decode"], "wmma": (128, 128, 64 if dtype == torch.int8 else 32)}
+    if dtype == torch.int8:
+        tiles["wgmma"] = (128, 128, WGMMA_QK)
+    return tiles
+
+
+def qpath_of_block(bm: int, bn: int, bk: int, dtype: torch.dtype) -> str:
+    """The block-scaled GEMM's path that a (bm, bn, bk) geometry names for
+    ``dtype`` values; raises on a geometry no tile runs."""
+    for path, tile in qtiles(dtype).items():
+        if tile == (bm, bn, bk):
+            return path
+    raise ValueError(f"no block-scaled tile runs the block ({bm}, {bn}, {bk}) on {dtype}; tiles: {qtiles(dtype)}")
+
+
+def qlaunch_path(path: str | None, source: str, m: int, n: int, k: int, step: int, dtype: torch.dtype,
+                 aligned: bool) -> tuple[str, str]:
+    """(path, source) that a launch of the block-scaled GEMM runs, as
+    ``launch_path`` decides it, with ``qgemm_path`` the rule."""
+    if path is None:
+        return qgemm_path(m, n, k, step, dtype, aligned), "rule"
+    refusal = qpath_refusal(path, m, n, k, step, dtype, aligned)
+    if refusal is None:
+        return path, source
+    if source == "tuned":
+        return qgemm_path(m, n, k, step, dtype, aligned), "tuned_refused"
+    raise ValueError(f"quantized kernel: {refusal}")
+
+
+def qpath_refusal(path: str, m: int, n: int, k: int, step: int, dtype: torch.dtype, aligned: bool) -> str | None:
+    """Why ``path`` cannot take these operands (None: it can), as the
+    kernel checks them (csrc/systolic_qmm.cu); ``step`` as for ``qgemm_path``."""
+    if path not in QPATHS:
+        return f"unknown path {path!r}; paths: {QPATHS}"
+    if (path == "decode") != (m <= DECODE_MAX_M):
+        return f"the decode tile takes M <= {DECODE_MAX_M} and the others M > {DECODE_MAX_M}; M is {m}"
+    if path == "wgmma" and not (dtype == torch.int8 and aligned and k % 16 == 0 and n % 8 == 0
+                                and step % WGMMA_QK == 0):
+        return f"the wgmma tile needs int8 values, K a multiple of 16, N of 8, aligned bases and a scale step " \
+               f"of whole K or a multiple of {WGMMA_QK}; got {dtype}, K={k}, N={n}, aligned={aligned}, step={step}"
+    return None
+
+
+# Launches of the quantized kernel made by this process, in all, by (M, K, N),
+# by path and by (M, K, N, path, source), the source as in ``launches_by_plan``.
 quant_launches = 0
 quant_launches_by_shape: collections.Counter = collections.Counter()
 quant_launches_by_path: collections.Counter = collections.Counter()
+quant_launches_by_plan: collections.Counter = collections.Counter()
 
 
 def is_k_major(b: torch.Tensor) -> bool:
@@ -241,12 +414,16 @@ def quant_systolic_matmul_call(
     qk_b: int,
     out_dtype: torch.dtype,
     activation: str = "none",
+    path: str | None = None,
+    plan_source: str = "rule",
 ) -> torch.Tensor:
     """a: (M, K), b: (K, N) int8 or float8_e4m3fn (one dtype); a_scales:
     (M, ceil(K / qk_a)) and b_scales: (ceil(K / qk_b), N) fp32, where a scale
     block of 0 spans all of K (one scale column / row) -> (M, N) on the card.
     a and the scales are row-major contiguous; b is K-major (``is_k_major``),
-    the one layout the kernel reads.
+    the one layout the kernel reads.  ``path``: the path to launch (None:
+    ``qgemm_path``'s choice) and ``plan_source`` as for
+    ``systolic_matmul_call`` (``qlaunch_path``).
 
     Validates everything the kernel does not take and raises; the checks on
     dtypes, shapes, layouts and the scale step come before the device check,
@@ -295,9 +472,10 @@ def quant_systolic_matmul_call(
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     if m == 0 or n == 0:
         return out
-    lib, fn = _entry("systolic_qmm")
     aligned = a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
-    path = qgemm_path(m, n, k, step if (qk_a or qk_b) else 0, a.dtype, aligned)
+    step = step if (qk_a or qk_b) else 0
+    path, plan_source = qlaunch_path(path, plan_source, m, n, k, step, a.dtype, aligned)
+    lib, fn = _entry("systolic_qmm")
     ws, nbytes = _workspace("systolic_qmm", a.device, m, n, k, True)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     code = fn(
@@ -310,4 +488,5 @@ def quant_systolic_matmul_call(
     quant_launches += 1
     quant_launches_by_shape[(m, k, n)] += 1
     quant_launches_by_path[path] += 1
+    quant_launches_by_plan[(m, k, n, path, plan_source)] += 1
     return out

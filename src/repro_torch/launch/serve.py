@@ -156,6 +156,7 @@ def run_synchronized(model, params, args, device: torch.device) -> torch.Tensor:
         pieces.append(out)
         print(f"decode {n_dec} steps: {t_dec / n_dec * 1e3:.3f} ms/step, "
               f"{args.batch * n_dec / t_dec:.1f} tok/s")
+    print(engine.decode_plan_report())
     sample = torch.cat(pieces, dim=1)
     print("sample tokens:", sample[0, :16].tolist())
     return sample
@@ -232,6 +233,7 @@ def run_continuous(model, params, args, device: torch.device) -> dict:
         )
     print(f"ttft p50 {s['ttft_p50_ms']:.2f} ms / p99 {s['ttft_p99_ms']:.2f} ms | "
           f"kv bytes resident {s['kv_bytes_resident']}")
+    print(engine.decode_plan_report())
     rid0 = min(results)
     print(f"sample tokens (request {rid0}):", results[rid0][:16].tolist())
     return results

@@ -58,4 +58,4 @@ def mfu(flops: float, seconds: float, dtype=None, gpu: hw.GPU = hw.H100) -> floa
     bf16, the served dtype)."""
     if seconds <= 0:
         return 0.0
-    return (flops / seconds) / gpu.peak_flops[str(dtype) if dtype else "bfloat16"]
+    return (flops / seconds) / gpu.peak_flops(dtype)

@@ -2,8 +2,12 @@
 
 The counterpart of ``repro.optim.adamw``: moments are fp32 whatever the
 parameters' dtype, bias-corrected, and the weight decay is decoupled and
-applied to tensors of two or more dimensions only (norm scales and biases
-are exempt).  The reference's ``adamw_update`` is functional and its
+applied to the leaves whose counterpart in the reference's tree has two or
+more dimensions.  The reference stacks each layer's leaves on a leading axis
+where the port keeps a list of layers (``convert.params_from_jax``), so a
+leaf under a list has one dimension more there: a layer's norm scale is
+(L, d) in the reference, which its AdamW decays, and is decayed here too;
+the final norm's scale is 1-D in both and exempt.  The reference's ``adamw_update`` is functional and its
 trainer donates the old state to the jitted step; here ``adamw_update``
 writes the new parameters and moments into the old tensors, leaf by leaf,
 so a full-width model never holds two copies of its state.
@@ -16,7 +20,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.core.tree import leaves, tree_map
+from repro_torch.core.tree import _children, leaves, tree_map
 
 
 @dataclasses.dataclass
@@ -32,11 +36,22 @@ def adamw_init(params: Any) -> AdamWState:
                       mu=tree_map(zeros, params), nu=tree_map(zeros, params))
 
 
-def _step_leaf(g, m, v, p, *, lr, b1, b2, eps, b1c, b2c, weight_decay) -> None:
+def reference_ndims(params: Any, stacked: int = 0) -> list[int]:
+    """Per leaf of ``params``, in leaf order, the number of dimensions of its
+    counterpart in the reference's tree: its own, plus one for each list on
+    its path (a list of layers is one stacked axis there)."""
+    kids = _children(params)
+    if kids is None:
+        return [params.ndim + stacked]
+    inner = stacked + isinstance(params, list)
+    return [n for _, v in kids for n in reference_ndims(v, inner)]
+
+
+def _step_leaf(g, m, v, p, *, lr, b1, b2, eps, b1c, b2c, weight_decay, ref_ndim) -> None:
     g32 = g.float()
     m.mul_(b1).add_(g32, alpha=1.0 - b1)
     v.mul_(b2).addcmul_(g32, g32, value=1.0 - b2)
-    wd = weight_decay if p.ndim >= 2 else 0.0
+    wd = weight_decay if ref_ndim >= 2 else 0.0
     delta = (m / b1c) / (torch.sqrt(v / b2c) + eps) + wd * p.float()
     p.copy_((p.float() - lr * delta).to(p.dtype))
 
@@ -60,7 +75,9 @@ def adamw_update(
     step = state.step + 1
     b1c = 1.0 - b1 ** step.float()
     b2c = 1.0 - b2 ** step.float()
-    for g, m, v, p in zip(leaves(grads), leaves(state.mu), leaves(state.nu), leaves(params), strict=True):
-        _step_leaf(g, m, v, p, lr=lr, b1=b1, b2=b2, eps=eps, b1c=b1c, b2c=b2c, weight_decay=weight_decay)
+    for g, m, v, p, nd in zip(leaves(grads), leaves(state.mu), leaves(state.nu), leaves(params),
+                              reference_ndims(params), strict=True):
+        _step_leaf(g, m, v, p, lr=lr, b1=b1, b2=b2, eps=eps, b1c=b1c, b2c=b2c, weight_decay=weight_decay,
+                   ref_ndim=nd)
     state.step.copy_(step)
     return params, state

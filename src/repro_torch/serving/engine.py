@@ -23,7 +23,12 @@ SSM and hybrid families' recurrent state has no such mask: an empty slot's
 state advances on whatever token it is given, as in the reference, and is
 overwritten when a request is admitted into the slot.
 
-The tune-plan report belongs to a later part of the port.
+Decode-shape plans: the per-step dense GEMMs of a decode token are all
+``(batch, *) x (*, *)`` problems, so the batch geometry the scheduler picks
+determines which kernel plans fire.  ``decode_plans`` consults the port's
+plan cache (``repro_torch.tune``) for every such problem, so that launchers
+report whether the serving batch runs on measured winners or on the
+kernel's shape rule.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from repro_torch.obs import attribution as _obs
 from repro_torch.obs import metrics as _obs_metrics
 from repro_torch.obs import trace as _obs_trace
 from repro_torch.serving.kvpool import _tensors, clear_slots
+from repro_torch.tune import cache as _tune_cache
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,6 +82,61 @@ def chunk_schedule(n_tokens: int, chunk: int) -> list[tuple[int, int]]:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Decode-shape plan consultation (the repro_torch.tune cache)
+# ---------------------------------------------------------------------------
+
+
+def decode_gemm_problems(cfg, batch: int) -> list[tuple[str, int, int, int]]:
+    """The per-token dense GEMM problems of one decode step: (name, M, N, K).
+
+    M is the serving batch (slot count) -- the knob the scheduler owns; N/K
+    come from the architecture.  MoE expert GEMMs route through the grouped
+    kernel and are tuned under its own backend key, so only the dense
+    projections are listed here.
+    """
+    d = cfg.d_model
+    probs: list[tuple[str, int, int, int]] = []
+    if cfg.attention == "mla":
+        m = cfg.mla
+        qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
+        probs += [
+            ("wq_a", batch, m.q_lora_rank, d),
+            ("wq_b", batch, cfg.n_heads * qk_head, m.q_lora_rank),
+            ("wkv_a", batch, m.kv_lora_rank + m.qk_rope_head_dim, d),
+            ("wo", batch, d, cfg.n_heads * m.v_head_dim),
+        ]
+    elif cfg.attention in ("gqa", "swa"):
+        hd = cfg.resolved_head_dim
+        probs += [
+            ("wq", batch, cfg.n_heads * hd, d),
+            ("wk", batch, cfg.n_kv_heads * hd, d),
+            ("wv", batch, cfg.n_kv_heads * hd, d),
+            ("wo", batch, d, cfg.n_heads * hd),
+        ]
+    if cfg.moe is None and cfg.d_ff:
+        probs += [
+            ("ffn_in", batch, cfg.d_ff, d),
+            ("ffn_out", batch, d, cfg.d_ff),
+        ]
+    return probs
+
+
+def consult_decode_plans(cfg, batch: int) -> dict:
+    """Look every decode-step GEMM up in the table the K1 dispatch reads
+    (``tune.cache.tuned_path``, backend "cuda-systolic").
+
+    Returns ``{name: ((m, n, k), TunedPlan | None)}`` -- None means the
+    kernel's shape rule will drive that projection.  Never raises: the
+    autotuner is an accelerant, not a dependency.
+    """
+    out = {}
+    for name, m, n, k in decode_gemm_problems(cfg, batch):
+        hit = _tune_cache.tuned_path("cuda-systolic", m, n, k, cfg.dtype)
+        out[name] = ((m, n, k), None if hit is None else hit.plan)
+    return out
+
+
 class ServeEngine:
     def __init__(self, model: Model, params: Any, scfg: ServeConfig,
                  device: str | torch.device | None = None):
@@ -99,6 +160,23 @@ class ServeEngine:
         # ``obs.attribution``).  Executions are counted by the
         # ``engine.steps{phase}`` counter of each continuous primitive.
         self.decode_totals = _obs.GemmTotals()
+        self._decode_plans: dict | None = None
+
+    # -- tune-cache consultation ------------------------------------------------
+
+    @property
+    def decode_plans(self) -> dict:
+        """Tune-cache consultation for this engine's decode batch geometry
+        (lazy; see ``consult_decode_plans``)."""
+        if self._decode_plans is None:
+            self._decode_plans = consult_decode_plans(self.cfg, self.scfg.batch)
+        return self._decode_plans
+
+    def decode_plan_report(self) -> str:
+        """One-line summary: how many decode GEMMs run on tuned plans."""
+        plans = self.decode_plans
+        hits = sum(1 for _, p in plans.values() if p is not None)
+        return f"decode plans: {hits}/{len(plans)} tuned (batch={self.scfg.batch})"
 
     # -- sampling --------------------------------------------------------------
 

@@ -3,7 +3,8 @@
 * Importing every module of ``repro_torch``, and ``chip_smoke.py`` as a
   module, loads neither ``jax`` nor anything of ``repro``.
 * Every entry point called without ``device="cpu"`` asks for the card and,
-  on a host without one, raises instead of running on the CPU.
+  on a host without one, raises instead of running on the CPU (the tuner's
+  ``autotune``, ``measure_matmul`` and ``python -m repro_torch.tune`` too).
 * The modules the port copies whole from the JAX package behave as the
   reference's do (``PrefixCache``, the paged pool's radix).
 """
@@ -26,6 +27,8 @@ from repro_torch.launch import serve
 from repro_torch.launch import train as launch_train
 from repro_torch.models.registry import get_model
 from repro_torch.serving import KVPool, PagedKVPool, PrefixCache, ServeConfig, ServeEngine
+from repro_torch.tune import autotune, measure_matmul
+from repro_torch.tune.__main__ import main as tune_main
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
@@ -63,6 +66,10 @@ def test_port_and_chip_smoke_import_no_jax_or_repro():
     assert {"repro_torch.train.loop", "repro_torch.optim.adamw", "repro_torch.optim.clip", "repro_torch.optim.schedule",
             "repro_torch.optim.compress", "repro_torch.checkpoint.ckpt", "repro_torch.data.sharded",
             "repro_torch.launch.train", "repro_torch.core.tree"} <= set(res["modules"])
+    assert {"repro_torch.core.analytical", "repro_torch.core.blocking", "repro_torch.core.dse",
+            "repro_torch.core.systolic", "repro_torch.configs.paper", "repro_torch.tune", "repro_torch.tune.cache",
+            "repro_torch.tune.candidates", "repro_torch.tune.measure", "repro_torch.tune.autotune",
+            "repro_torch.tune.__main__"} <= set(res["modules"])
     assert res["bad"] == []
 
 
@@ -133,6 +140,10 @@ ENTRY_POINTS = {
     ),
     "launch.train": lambda: launch_train.main(["--arch", "internlm2-1.8b", "--smoke", "--steps", "1"]),
     "launch.train qwen3-moe-30b-a3b": lambda: launch_train.main(["--arch", "qwen3-moe-30b-a3b", "--smoke", "--steps", "1"]),
+    "tune.autotune": lambda: autotune(64, 64, 64),
+    "tune.autotune cuda-grouped": lambda: autotune(160, 768, 2048, backend="cuda-grouped"),
+    "tune.measure_matmul": lambda: measure_matmul(64, 64, 64, 64, 64, 16),
+    "python -m repro_torch.tune": lambda: tune_main(["--m", "64", "--n", "64", "--k", "64"]),
 }
 
 

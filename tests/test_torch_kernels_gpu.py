@@ -18,6 +18,7 @@ in the last bits, so they may land one bf16 ulp apart).  The grouped expert
 GEMM takes the GEMM's tolerances.
 """
 
+import collections
 import dataclasses
 
 import numpy as np
@@ -221,7 +222,7 @@ def test_each_wgmma_tile_matches_plain(cuda, path, m, n, k):
             out = torch.empty((m, n), dtype=out_dtype, device=cuda)
             code = fn(a.data_ptr(), b.data_ptr(), bias.data_ptr(), out.data_ptr(), m, n, k, 1,
                       mm_kernel.DTYPE_CODES[out_dtype], mm_kernel.ACTIVATION_CODES[act], mm_kernel.PATHS.index(path),
-                      None, 0, torch.cuda.current_stream().cuda_stream)
+                      0, None, 0, torch.cuda.current_stream().cuda_stream)
             assert code == 0
             want = matmul_ref(a, b, bias, activation=act, out_dtype=out_dtype)
             torch.testing.assert_close(out.float(), want.float(), rtol=2e-2, atol=2e-2)
@@ -1036,3 +1037,174 @@ def test_flash_mha_on_the_card_matches_plain_autograd(cuda, dtype):
     torch.testing.assert_close(o.float(), want.float(), rtol=tol, atol=tol)
     for got, ref in ((q.grad, q2.grad), (k.grad, k2.grad), (v.grad, v2.grad)):
         torch.testing.assert_close(got.float(), ref, rtol=tol, atol=tol * ref.abs().max().item())
+
+
+# ---------------------------------------------------------------------------
+# Tuned tiles: each path forced through a plan, the decode tile's k_chunk,
+# refused paths, the shared-memory accounting, the plan cache's dispatch.
+# ---------------------------------------------------------------------------
+
+K1_FORCED = [  # (path, dtype, (m, n, k) shapes the path takes)
+    ("fma", "float32", [(100, 130, 70), (4, 2048, 2048)]),
+    ("decode", "bfloat16", [(4, 2048, 2048), (16, 1024, 2048), (1, 300, 1000)]),
+    ("wmma", "bfloat16", [(256, 384, 512), (100, 130, 70), (4, 2048, 2048)]),
+    ("wgmma_128x128", "bfloat16", [(256, 384, 512), (200, 264, 136), (4, 2048, 2048)]),
+    ("wgmma_64x128", "bfloat16", [(256, 384, 512), (200, 264, 136)]),
+    ("wgmma_128x256", "bfloat16", [(256, 384, 512), (200, 264, 136), (2048, 2560, 2560)]),
+]
+
+
+def _plan(m, n, k, tile):
+    from repro_torch.core.blocking import BlockPlan
+
+    return BlockPlan(m, n, k, *tile)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path,dtype,shapes", K1_FORCED, ids=[p for p, _, _ in K1_FORCED])
+def test_systolic_forced_path_matches_plain(cuda, path, dtype, shapes):
+    """A plan names one K1 path; the launch runs it, counted as explicit."""
+    for m, n, k in shapes:
+        a = _rand((m, k), 11).to(cuda, DTYPES[dtype])
+        b = (_rand((k, n), 12) * k**-0.5).to(cuda, DTYPES[dtype])
+        tile = mm_kernel.block_of(path, m, n, k, torch.cuda.get_device_properties(0).multi_processor_count)
+        before = collections.Counter(mm_kernel.launches_by_plan)
+        got = mm_ops.matmul(a, b, plan=_plan(m, n, k, tile))
+        new = mm_kernel.launches_by_plan - before
+        assert [key[3] for key in new] == [path] and [key[5] for key in new] == ["explicit"]
+        torch.testing.assert_close(got.float(), matmul_ref(a, b).float(), **_gemm_tol(dtype, k, DTYPES[dtype]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,k", [(4, 2048, 8192), (4, 8192, 2048), (1, 300, 1000), (16, 1024, 2048)])
+def test_decode_k_chunk_gives_the_same_product(cuda, m, n, k):
+    """Every contraction chunk of the decode tile (its split-K) agrees with
+    the plain version and with the rule's chunk."""
+    from repro_torch.core import dse
+
+    a = _rand((m, k), 13).to(cuda, torch.bfloat16)
+    b = (_rand((k, n), 14) * k**-0.5).to(cuda, torch.bfloat16)
+    want = matmul_ref(a, b)
+    rule = mm_ops.matmul(a, b)
+    for chunk in dse.decode_chunks(k, torch.cuda.get_device_properties(0).multi_processor_count, n):
+        before = collections.Counter(mm_kernel.launches_by_plan)
+        got = mm_ops.matmul(a, b, plan=_plan(m, n, k, (16, 64, chunk)))
+        assert [key[3:5] for key in mm_kernel.launches_by_plan - before] == [("decode", chunk)]
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+        torch.testing.assert_close(got.float(), rule.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,k", [(4, 2048, 2048), (4, 1024, 2048), (4, 8192, 2048), (4, 2048, 8192),
+                                   (1, 300, 1000), (16, 64, 4096), (4, 2560, 2560)])
+def test_plan_split_twin_is_the_c_rule(cuda, m, n, k):
+    """``kernel.plan_split`` decides the rule's decode chunk that the tuner
+    and PERF.md report; the binary's split-K workspace (splits x M x N fp32)
+    holds it to csrc/common.cuh's rule, at the rule's chunk and at given ones."""
+    lib, _ = mm_kernel._entry("systolic_mmm")
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for k_chunk in (0, 128, 512):
+        splits, _ = mm_kernel.plan_split(m, n, k, sms, k_chunk)
+        assert lib.split_workspace(m, n, k, 1, k_chunk) == (splits * m * n * 4 if splits > 1 else 0), k_chunk
+
+
+@pytest.mark.gpu
+def test_forced_paths_the_operands_cannot_take_raise(cuda):
+    a = torch.ones(32, 256, device=cuda, dtype=torch.bfloat16)
+    b = torch.ones(256, 256, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="decode tile takes M <= 16"):
+        mm_ops.matmul(a, b, plan=_plan(32, 256, 256, (16, 64, 128)))
+    unaligned = torch.ones(32 * 256 + 4, device=cuda, dtype=torch.bfloat16)[4:].view(32, 256)
+    with pytest.raises(ValueError, match="TMA"):
+        mm_ops.matmul(unaligned, b, plan=_plan(32, 256, 256, mm_kernel.TILES["wgmma_128x128"]))
+    with pytest.raises(ValueError, match="does not take"):
+        mm_ops.matmul(a.float(), b.float(), plan=_plan(32, 256, 256, mm_kernel.TILES["wgmma_128x128"]))
+    with pytest.raises(ValueError, match="no systolic tile"):
+        mm_ops.matmul(a, b, plan=_plan(32, 256, 256, (256, 256, 64)))
+    with pytest.raises(ValueError, match="k_chunk"):
+        mm_kernel.systolic_matmul_call(a, b, None, out_dtype=torch.bfloat16, path="wmma", k_chunk=128)
+    qa = quantize_act(_rand((32, 256), 15).to(cuda), "fp8")
+    qb = k_major({"w": quantize_weight(_rand((256, 256), 16).to(cuda), "fp8")})["w"]
+    with pytest.raises(ValueError, match="no block-scaled tile"):
+        mm_ops.quant_matmul(qa, qb, plan=_plan(32, 256, 256, (128, 128, 128)))
+    x = torch.ones(2, 100, 64, device=cuda, dtype=torch.bfloat16)
+    w = torch.ones(2, 64, 128, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="decode tile takes C <= 16"):
+        grouped_ops.grouped_matmul(x, w, plan=_plan(100, 128, 64, grouped_kernel.TILES["decode"]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qdtype", ["int8", "fp8"])
+def test_quant_forced_path_matches_plain(cuda, qdtype):
+    tiles = mm_kernel.qtiles(torch.int8 if qdtype == "int8" else torch.float8_e4m3fn)
+    for path, (m, n, k) in [("decode", (4, 384, 512)), ("wmma", (256, 384, 512)), ("wgmma", (256, 384, 512))]:
+        if path not in tiles:
+            continue
+        qa = quantize_act(_rand((m, k), 17).to(cuda), qdtype)
+        qb = quantize_weight(_rand((k, n), 18).to(cuda), qdtype)
+        before = collections.Counter(mm_kernel.quant_launches_by_plan)
+        got = mm_ops.quant_matmul(qa, k_major({"w": qb})["w"], plan=_plan(m, n, k, tiles[path]))
+        assert [key[3:] for key in mm_kernel.quant_launches_by_plan - before] == [(path, "explicit")]
+        want = quant_matmul_ref(qa, qb, out_dtype=torch.bfloat16)
+        atol = 1e-5 * (quant_matmul_ref(qa, qb, out_dtype=torch.float32).abs().max().item() + 1.0)
+        torch.testing.assert_close(got.float(), want.float(), rtol=2**-7, atol=atol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", list(grouped_kernel.TILES))
+def test_grouped_forced_path_matches_plain(cuda, path):
+    dt = torch.float32 if path == "fma" else torch.bfloat16
+    c = 8 if path == "decode" else 100
+    x = _rand((3, c, 136), 19).to(cuda, dt)
+    w = (_rand((3, 136, 264), 20) * 136**-0.5).to(cuda, dt)
+    before = collections.Counter(grouped_kernel.launches_by_plan)
+    got = grouped_ops.grouped_matmul(x, w, plan=_plan(c, 264, 136, grouped_kernel.TILES[path]))
+    assert [key[4:] for key in grouped_kernel.launches_by_plan - before] == [(path, "explicit")]
+    torch.testing.assert_close(got.float(), grouped_matmul_ref(x, w).float(),
+                               **_gemm_tol("float32" if path == "fma" else "bfloat16", 136, dt))
+
+
+@pytest.mark.gpu
+def test_block_plan_smem_is_what_each_wgmma_tile_allocates(cuda):
+    """core/blocking.py's accounting against the binaries' WgTile / QTile
+    shared memory, per wgmma path of K1, K4 and K5."""
+    from repro_torch.core.blocking import BlockPlan
+
+    for p, _, _ in mm_kernel.WGMMA_TILES:
+        assert mm_kernel.tile_smem_bytes("systolic_mmm", p) == BlockPlan(1, 1, 1, *mm_kernel.TILES[p]).smem_bytes()
+    for p in grouped_kernel.WGMMA_ROWS:
+        assert mm_kernel.tile_smem_bytes("grouped_mmm", p) == BlockPlan(1, 1, 1, *grouped_kernel.TILES[p]).smem_bytes()
+    q = BlockPlan(1, 1, 1, *mm_kernel.qtiles(torch.int8)["wgmma"], in_dtype="int8", quant_block_k=128)
+    assert mm_kernel.tile_smem_bytes("systolic_qmm", "wgmma") == q.smem_bytes()
+    assert mm_kernel.tile_smem_bytes("systolic_mmm", "wmma") == 0
+
+
+@pytest.mark.gpu
+def test_autotune_on_the_card_then_dispatch_follows_the_cache(cuda, tmp_path, monkeypatch):
+    """A miss measures K1's tiles with CUDA events and stores the winner; a
+    second call is a pure hit; ops.matmul then launches the cached path, and
+    an unaligned view of the same problem gives way to the rule."""
+    from repro_torch.tune import autotune
+    from repro_torch.tune import cache as tune_cache
+
+    monkeypatch.setenv("REPRO_TORCH_TUNE_CACHE", str(tmp_path / "plans.json"))
+    tune_cache.reset_default_cache()
+    try:
+        res = autotune(256, 384, 512, top_k=None, repeats=1)
+        assert not res.cache_hit and res.winner.method == "cuda-events" and len(res.records) == 4
+        n0 = mm_kernel.launches
+        assert autotune(256, 384, 512).cache_hit and mm_kernel.launches == n0
+        path, _ = mm_kernel.path_of_block(*res.block)
+        a = _rand((256, 512), 21).to(cuda, torch.bfloat16)
+        b = _rand((512, 384), 22).to(cuda, torch.bfloat16)
+        before = collections.Counter(mm_kernel.launches_by_plan)
+        mm_ops.matmul(a, b)
+        assert [(key[3], key[5]) for key in mm_kernel.launches_by_plan - before] == [(path, "tuned")]
+        if path.startswith("wgmma"):
+            raw = torch.empty(256 * 512 + 4, device=cuda, dtype=torch.bfloat16)[4:].view(256, 512).copy_(a)
+            before = collections.Counter(mm_kernel.launches_by_plan)
+            mm_ops.matmul(raw, b)
+            assert [(key[3], key[5]) for key in mm_kernel.launches_by_plan - before] == [("wmma", "tuned_refused")]
+    finally:
+        monkeypatch.delenv("REPRO_TORCH_TUNE_CACHE")
+        tune_cache.reset_default_cache()

@@ -170,7 +170,7 @@ def test_mfu_is_over_the_cards_peak():
     assert attribution.mfu(989e12 * 0.5, 1.0) == pytest.approx(0.5)
     assert attribution.mfu(1979e12, 2.0, dtype="int8") == pytest.approx(0.5)
     assert attribution.mfu(1.0, 0.0) == 0.0
-    assert hw.H100.peak_flops["bfloat16"] == 989e12
+    assert hw.H100.peak_flops("bfloat16") == hw.H100.peak_flops() == 989e12
     totals = attribution.GemmTotals()
     with attribution.collecting(totals):
         assert attribution._COLLECT.get() is totals

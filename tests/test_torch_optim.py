@@ -3,12 +3,18 @@
 ``repro_torch.optim`` (AdamW, global-norm clipping, the schedules, int8
 compression with error feedback) on the same numpy inputs as ``repro.optim``,
 and the reference's own optimizer tests (``tests/test_optim.py``) rebuilt on
-the port.  AdamW is compared on the *same* gradients over several steps
+the port.  AdamW is compared on the *same* gradients over several steps, the
+reference's tree stacked as ``init_model`` stacks it (a list of layers in the
+port is a leading axis there, so a layer's 1-D leaf is 2-D there and decayed
+by both), and over three ``Trainer`` steps of every family's fp32 SMOKE
+model at the default weight decay (every parameter within 1e-5)
 (its first step moves every weight by about +-lr, so a gradient near zero
 would flip a parameter's move: parameters after a step are not compared
 across models, only across optimizers).  Tolerances: 1e-6 relative (fp32,
 the same operations in another order at most).
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -17,11 +23,19 @@ import pytest
 import torch
 
 from repro import optim as jax_optim
+from repro.configs import get_smoke as jax_get_smoke
+from repro.data.synthetic import make_batch as jax_make_batch
+from repro.models.registry import get_model as jax_get_model
+from repro.train.loop import TrainConfig as JaxTrainConfig
+from repro.train.loop import Trainer as JaxTrainer
 from repro.optim import compress as jax_compress
 from repro.optim import schedule as jax_schedule
-from repro_torch import optim
-from repro_torch.core.tree import leaves, tree_map
+from repro_torch import configs, optim
+from repro_torch.convert import params_from_jax
+from repro_torch.core.tree import leaves, leaves_with_path, tree_map
+from repro_torch.models.registry import get_model
 from repro_torch.optim import compress, schedule
+from repro_torch.train.loop import TrainConfig, Trainer
 
 RTOL = 1e-6
 
@@ -35,12 +49,22 @@ def _tree(seed):
                         "b": rng.standard_normal((4,)).astype(np.float32)} for _ in range(2)]}
 
 
-def _jax_tree(t):
-    """The same structure in JAX (a list of layers, not the reference's
-    stacked leaves: stacking makes a layer's 1-D leaf 2-D, which the
-    reference's AdamW then decays; the port's per-layer 1-D leaves are
-    exempt, as the reference's comment says norms are)."""
+def _jax_tree(t, stacked=False):
+    """The same values in JAX: the list of layers kept a list, or, with
+    ``stacked``, stacked on a leading axis as the reference's ``init_model``
+    stacks a model's layers (a layer's 1-D leaf is then 2-D, which the
+    reference's AdamW decays; the port decays its counterpart too)."""
+    if stacked:
+        t = dict(t, layers={k: np.stack([layer[k] for layer in t["layers"]]) for k in t["layers"][0]})
     return jax.tree.map(jnp.asarray, t)
+
+
+def _unstacked(jt):
+    """A JAX tree with its layers as a list, stacked or not."""
+    if isinstance(jt["layers"], dict):
+        n = len(next(iter(jt["layers"].values())))
+        jt = dict(jt, layers=[{k: v[i] for k, v in jt["layers"].items()} for i in range(n)])
+    return jt
 
 
 def _torch_tree(t):
@@ -48,6 +72,7 @@ def _torch_tree(t):
 
 
 def _assert_same(jt, tt, rtol=RTOL, atol=1e-7):
+    jt = _unstacked(jt)
     np.testing.assert_allclose(np.asarray(jt["w"]), tt["w"].numpy(), rtol=rtol, atol=atol)
     np.testing.assert_allclose(np.asarray(jt["scale"]), tt["scale"].numpy(), rtol=rtol, atol=atol)
     for jl, tl in zip(jt["layers"], tt["layers"]):
@@ -61,12 +86,12 @@ def test_adamw_matches_jax_over_steps(lr_type, weight_decay):
     """The learning rate as a float or as the schedule's scalar tensor; the
     update writes into the old tensors and returns them."""
     p0 = _tree(0)
-    jp, tp = _jax_tree(p0), _torch_tree(p0)
+    jp, tp = _jax_tree(p0, stacked=True), _torch_tree(p0)
     js, ts = jax_optim.adamw_init(jp), optim.adamw_init(tp)
     for step in range(4):
         g = _tree(10 + step)
         lr = 1e-2 * (step + 1)
-        jp, js = jax_optim.adamw_update(_jax_tree(g), js, jp, lr=lr, weight_decay=weight_decay)
+        jp, js = jax_optim.adamw_update(_jax_tree(g, stacked=True), js, jp, lr=lr, weight_decay=weight_decay)
         tp_new, ts_new = optim.adamw_update(_torch_tree(g), ts, tp, lr=lr_type(lr), weight_decay=weight_decay)
         assert tp_new["w"] is tp["w"] and ts_new is ts and ts.mu["w"] is ts_new.mu["w"]
         _assert_same(jp, tp)
@@ -92,6 +117,55 @@ def test_adamw_weight_decay_2d_only():
     new, _ = optim.adamw_update(grads, optim.adamw_init(params), params, lr=1e-2, weight_decay=0.1)
     assert float(new["w"][0, 0]) < 1.0  # decayed
     assert float(new["scale"][0]) == 1.0  # exempt
+
+
+def test_adamw_decays_what_the_stacked_reference_decays():
+    """A leaf under a list of layers has one dimension more in the
+    reference's tree: a layer's norm scale is decayed, the final one not."""
+    params = {"final_norm": torch.ones((4,)),
+              "layers": [{"scale": torch.ones((4,)), "w": torch.ones((4, 4))} for _ in range(2)]}
+    assert optim.adamw.reference_ndims(params) == [1, 2, 3, 2, 3]
+    grads = tree_map(torch.zeros_like, params)
+    new, _ = optim.adamw_update(grads, optim.adamw_init(params), params, lr=1e-2, weight_decay=0.1)
+    assert float(new["final_norm"][0]) == 1.0
+    assert all(float(layer[k].flatten()[0]) < 1.0 for layer in new["layers"] for k in ("scale", "w"))
+
+
+MODELS = {
+    "dense": ("internlm2-1.8b", {}),
+    "moe": ("qwen3-moe-30b-a3b", {}),
+    "mla": ("minicpm3-4b", {}),
+    "audio": ("musicgen-medium", {}),
+    "vlm": ("internvl2-1b", {}),
+    "tied": ("internlm2-1.8b", dict(tie_embeddings=True)),
+    "ssm": ("xlstm-125m", {}),
+    "hybrid": ("zamba2-7b", {}),
+}
+
+
+@pytest.mark.parametrize("name", list(MODELS))
+def test_trainer_steps_match_jax_with_weight_decay(name):
+    """Three ``Trainer`` steps at weight decay 0.1 in both packages from the
+    same parameters and batches: every parameter within 1e-5 of JAX's (the
+    port's per-layer norm scales were exempt from the decay, 1.6e-4 apart
+    after three steps of the dense model)."""
+    arch, over = MODELS[name]
+    jmodel = jax_get_model(dataclasses.replace(jax_get_smoke(arch), dtype="float32", **over))
+    model = get_model(dataclasses.replace(configs.get_smoke(arch), dtype="float32", **over))
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), model.cfg, device="cpu")
+    kw = dict(peak_lr=1e-3, warmup_steps=1, total_steps=3, weight_decay=0.1)
+    jbatches = [jax_make_batch(jmodel.cfg, batch=2, seq=12, kind="train", seed=s) for s in range(3)]
+    batches = [{k: torch.from_numpy(np.array(v)) for k, v in b.items()} for b in jbatches]
+    jtrainer = JaxTrainer(jmodel, JaxTrainConfig(**kw), jparams, donate=False)
+    jtrainer.run(iter(jbatches), n_steps=3, log_every=0)
+    trainer = Trainer(model, TrainConfig(**kw), params)
+    trainer.run(iter(batches), n_steps=3, log_every=0)
+    want = params_from_jax(jax.tree.map(np.asarray, jtrainer.params), model.cfg, device="cpu")
+    got = dict(leaves_with_path(trainer.params))
+    assert list(got) == [k for k, _ in leaves_with_path(want)]
+    for key, w in leaves_with_path(want):
+        torch.testing.assert_close(got[key], w, rtol=0, atol=1e-5, msg=key)
 
 
 def test_adamw_converges_quadratic():

@@ -26,7 +26,8 @@ prefill attention.
 
 The entry points' signatures are read from each tree's source, so either
 side may predate this tree: a systolic entry without a ``path`` argument
-picks its tile itself (this tree passes the path ``gemm_path`` picks), a
+picks its tile itself (this tree passes the path ``gemm_path`` picks, and,
+where the entry takes a ``k_chunk``, 0: the rule's split-K), a
 grouped entry without ``rows`` and ``path`` picks its tile itself (this tree
 passes ``grouped_path``'s and no rows), a block-scaled entry without
 ``path`` (which reads B row-major) is given the int8 weight row-major while
@@ -132,11 +133,13 @@ class Side:
 
     def __init__(self, tree: str, paths: dict[str, str]):
         self.systolic = ctypes.CDLL(paths["systolic_mmm"])
-        self.with_path = n_params(tree, "systolic_mmm", "systolic_mmm") == 14
+        mm_params = n_params(tree, "systolic_mmm", "systolic_mmm")
+        self.with_path = mm_params >= 14
+        self.k_chunk = [0] if mm_params == 15 else []  # the decode tile's contraction per block: the rule's
         self.mm = self.systolic.systolic_mmm
-        self.mm.argtypes = [_P, _P, _P, _P, *[_I] * (7 if self.with_path else 6), _P, _LL, _P]
+        self.mm.argtypes = [_P, _P, _P, _P, *[_I] * (6 + self.with_path + len(self.k_chunk)), _P, _LL, _P]
         self.mm.restype = _I
-        self.systolic.split_workspace.argtypes = [_I] * 4
+        self.systolic.split_workspace.argtypes = [_I] * (4 + len(self.k_chunk))
         self.systolic.split_workspace.restype = _LL
         self.gm_paths = n_params(tree, "grouped_mmm", "grouped_mmm") == 11
         self.gm = ctypes.CDLL(paths["grouped_mmm"]).grouped_mmm
@@ -147,7 +150,7 @@ class Side:
         self.qm = qlib.systolic_qmm
         self.qm.argtypes = [_P] * 5 + [_I] * (9 if self.q_kmajor else 8) + [_P, _LL, _P]
         self.qm.restype = _I
-        qlib.split_workspace.argtypes = [_I] * 4
+        qlib.split_workspace.argtypes = [_I] * (4 + len(self.k_chunk))
         qlib.split_workspace.restype = _LL
         self.q_ws = qlib.split_workspace
         self.head_aware = n_params(tree, "flash_attn", "flash_attn_fwd") > 14
@@ -158,14 +161,15 @@ class Side:
         self.fa.restype = _I
 
     def gemm(self, a, nxt, out, m, k, n):
-        nbytes = self.systolic.split_workspace(m, n, k, 1)
+        nbytes = self.systolic.split_workspace(m, n, k, 1, *self.k_chunk)
         ws = torch.empty(max(1, nbytes // 4), dtype=F32, device="cuda")
         code_out = DTYPE_CODES[out.dtype]
         path = [PATHS.index(gemm_path(m, n, k, BF16, True, torch.cuda.get_device_properties(0).multi_processor_count))]
 
         def call():
             checked(self.mm(a.data_ptr(), nxt().data_ptr(), None, out.data_ptr(), m, n, k, 1, code_out, 0,
-                            *(path if self.with_path else []), ws.data_ptr() if nbytes else None, nbytes, stream()),
+                            *(path if self.with_path else []), *self.k_chunk, ws.data_ptr() if nbytes else None,
+                            nbytes, stream()),
                     "systolic_mmm")
 
         return call
@@ -181,7 +185,7 @@ class Side:
 
     def qgemm(self, qa, nxt, out, m, k, n):
         """int8, 128-k scale blocks, bf16 out; ``nxt()`` gives (row-major QArray, its K-major twin)."""
-        nbytes = self.q_ws(m, n, k, 1)
+        nbytes = self.q_ws(m, n, k, 1, *self.k_chunk)
         ws = torch.empty(max(1, nbytes // 4), dtype=F32, device="cuda")
         a_s = qa.scales.contiguous()
         path = mm_kernel.QPATHS.index(mm_kernel.qgemm_path(m, n, k, 128, torch.int8, True))
