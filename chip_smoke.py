@@ -49,7 +49,15 @@ Phases, each printing its own lines; any failure exits non-zero:
      bit-identical, the decode-plan report), the Table I analogue at 4096^3
      and BlockPlan.smem_bytes() against each wgmma tile's shared memory in
      the binaries, the Python twin of the decode split rule against the
-     binary's at the tuned decode shapes; then the same parameters served continuously: 16 requests of a
+     binary's at the tuned decode shapes; then the obs phase on the same parameters, the plan cache pinned empty
+     again: the continuous trace's first 8 requests over 8 slots served with telemetry off and then on with every
+     K1 call in a sampled window (tokens bit-identical, launches equal and exact, every K1 launch recorded, the
+     engine's decode_totals exactly one decode step's GEMM work from the first tick to the last, one decode MFU
+     and model residual reading a decode tick, one window a K1 call), the drift probe re-measuring the six
+     decode GEMMs with CUDA events (its launches counted apart), a plan injected 3x off its reading and
+     flagged stale, `python -m repro_torch.obs doctor` on the run's metrics (exit 0, coverage >= 0.9; exit 1
+     with the injected plan), the decode MFU, residual, probe readings, the doctor's top sinks and the
+     decode ms/step with telemetry off and on printed; then the same parameters served continuously: 16 requests of a
      Poisson trace (prompts up to 512 tokens, generations up to 64) through
      ContinuousScheduler over 8 slots, with the lifecycle checked (every
      request finished with all its tokens, the pool drained, slots reused,
@@ -170,6 +178,7 @@ import json
 import math
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -183,7 +192,7 @@ import torch  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile, record_function  # noqa: E402
 
-from repro_torch import configs, quant  # noqa: E402
+from repro_torch import configs, obs, quant  # noqa: E402
 from repro_torch.checkpoint import latest_step  # noqa: E402
 from repro_torch.core import tree as tree_util  # noqa: E402
 from repro_torch.configs import paper  # noqa: E402
@@ -218,6 +227,9 @@ from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.models.layers import FP32_KEYS  # noqa: E402
 from repro_torch.models.transformer import cast_params, hybrid_counts, xlstm_counts  # noqa: E402
+from repro_torch.obs import doctor as obs_doctor  # noqa: E402
+from repro_torch.obs import drift as obs_drift  # noqa: E402
+from repro_torch.obs import metrics as obs_metrics  # noqa: E402
 from repro_torch.obs import trace as obs_trace  # noqa: E402
 from repro_torch.serving import ContinuousScheduler, KVPool, ServeConfig, ServeEngine, requests_from_trace  # noqa: E402
 from repro_torch.serving.engine import chunk_schedule, decode_gemm_problems  # noqa: E402
@@ -399,6 +411,15 @@ TUNE_REPEATS = 3
 TUNE_DECODE_STEPS = 8
 DSE_SIZE = 4096
 TUNE_DIR = ""
+# The obs phase: the continuous trace's first OBS_REQUESTS requests over
+# CONT_SLOTS slots, served with telemetry off and then on with every K1 call
+# in a sampled window; the drift probe; the doctor on the run's metrics; the
+# decode step with telemetry off and on (sampler off), OBS_BLOCKS alternating
+# blocks of OBS_STEPS synchronized steps; the stale plan injected at
+# OBS_STALE times the probe's reading of OBS_STALE_GEMM.
+OBS_REQUESTS = 8
+OBS_BLOCKS, OBS_STEPS = 4, 4
+OBS_STALE, OBS_STALE_GEMM = 3.0, "ffn_in"
 MOE_NUDGES, MOE_NUDGE_STEPS = 2, 2  # one-ulp nudges per model, decode steps each (3, 3 until cut for time)
 SOURCES = {
     "systolic_mmm": ("src/repro_torch/csrc/systolic_mmm.cu", "src/repro/kernels/systolic/kernel.py:37"),
@@ -616,7 +637,7 @@ def plain_versions():
     def mm(a, b, bias, *, out_dtype, activation="none", **_path):
         return matmul_ref(a, b, bias, activation=activation, out_dtype=out_dtype)
 
-    def qmm(a, a_s, b, b_s, path=None, plan_source=None, **kw):
+    def qmm(a, a_s, b, b_s, path=None, plan_source=None, settled=False, **kw):
         return quant_systolic_matmul_ref(a, a_s, b, b_s, **kw)
 
     with mock.patch.object(mm_kernel, "systolic_matmul_call", mm), \
@@ -1751,6 +1772,210 @@ def long_prompt_run(model, params, chunked: bool, smi: str, turn: int) -> dict:
     return out
 
 
+def obs_run(model, params, trace: list[dict], max_len: int, on: bool) -> dict:
+    """One continuous run of ``trace`` with the counts set to 0 just before
+    and read just after: with telemetry off (``obs.disabled()``), or on with
+    every K1 call in a sampled window (``obs.sampling(1.0)``), the registry
+    and the tracer cleared first.  The engine's decode_totals are read after
+    every tick that decoded."""
+    engine = ServeEngine(model, params, ServeConfig(max_len=max_len, batch=CONT_SLOTS), device="cuda")
+    sched = ContinuousScheduler(engine, policy="continuous")
+    totals = []
+
+    def on_tick(sc) -> None:
+        if sc.stats.decode_steps > len(totals):
+            totals.append((sc.engine.decode_totals.flops, sc.engine.decode_totals.calls))
+
+    obs_metrics.reset()
+    obs_trace.get_tracer().clear()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with obs.sampling(1.0) if on else obs.disabled():
+        results = sched.run(requests_from_trace(trace), on_tick=on_tick)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = (counts(), shape_counts(), route_counts(), flash_shape_counts())
+    return {"arch": model.cfg.name, "engine": engine, "sched": sched, "totals": totals, "wall_s": wall,
+            "summary": sched.stats.summary(), "got": got, "launches": got[0], "shapes": listed(got[1]),
+            "flash_shapes": [[*key, c] for key, c in sorted(got[3].items())],
+            "tokens": {rid: toks.tolist() for rid, toks in results.items()}}
+
+
+@contextlib.contextmanager
+def telemetry(on: bool):
+    """Telemetry set on or off for the scope, whatever REPRO_OBS says, and
+    restored after it."""
+    prev = obs.enabled()
+    obs.enable(on)
+    try:
+        yield
+    finally:
+        obs.enable(prev)
+
+
+def decode_ms_on_off(model, params, batch) -> dict:
+    """Untraced synchronized decode ms/step of the BATCH x PROMPT batch with
+    telemetry off and on (the sampler off), OBS_BLOCKS blocks of OBS_STEPS
+    steps alternating off, on, on, off; each step synchronized; with each
+    arm's K1 launches and the launches it recorded (``gemm.calls``)."""
+    engine = ServeEngine(model, params, ServeConfig(max_len=PROMPT + OBS_BLOCKS * OBS_STEPS + 4, batch=BATCH),
+                         device="cuda")
+    tok = engine.decode(engine.prefill(batch), 2)[:, -1:]  # warm-up
+    torch.cuda.synchronize()
+    ms = {"off": [], "on": []}
+    recorded, launched = {"off": 0.0, "on": 0.0}, {"off": 0, "on": 0}
+    reg = obs_metrics.get_registry()
+    for arm in ("off", "on", "on", "off")[:OBS_BLOCKS]:
+        before, k1 = reg.counter_value("gemm.calls", backend="cuda-systolic", dtype="bfloat16"), mm_kernel.launches
+        with telemetry(arm == "on"):
+            for _ in range(OBS_STEPS):
+                t0 = time.perf_counter()
+                tok = engine.decode(tok, 1)
+                torch.cuda.synchronize()
+                ms[arm].append((time.perf_counter() - t0) * 1e3)
+        recorded[arm] += reg.counter_value("gemm.calls", backend="cuda-systolic", dtype="bfloat16") - before
+        launched[arm] += mm_kernel.launches - k1
+    del engine
+    return {**ms, "recorded": recorded, "launched": launched}
+
+
+def run_doctor(mdir: str, *extra: str) -> subprocess.Popen:
+    """``python -m repro_torch.obs doctor <mdir> --json`` in a process of its own."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    return subprocess.Popen([sys.executable, "-m", "repro_torch.obs", "doctor", mdir, "--json", *extra], cwd=ROOT,
+                            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def phase_obs(model, params, batch, smi: str) -> dict:
+    """Observability on the bf16 model's parameters, the plan cache pinned
+    empty: the continuous trace's first OBS_REQUESTS requests served twice,
+    telemetry off and on (every K1 call in a sampled window): tokens bit
+    for bit and launches equal between the two and exact; every K1 launch
+    recorded, decode_totals exactly one step's GEMM work from the first tick
+    to the last, one decode MFU and residual reading a decode tick, one
+    window a K1 call; the drift probe (its launches counted apart), a stale
+    plan injected and flagged; the doctor on the run's metrics, exit 0 and
+    1; decode ms/step with telemetry off and on."""
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    trace = continuous_trace(cfg)[:OBS_REQUESTS]
+    lens = prompt_positions(cfg, trace)
+    max_len = max(p + t["max_new_tokens"] for p, t in zip(lens, trace))
+    say(f"[3] obs: {len(trace)} requests of the continuous trace over {CONT_SLOTS} slots, telemetry off then on "
+        f"(sampling rate 1.0), the drift probe and the doctor")
+    off = obs_run(model, params, trace, max_len, on=False)
+    on = obs_run(model, params, trace, max_len, on=True)
+    st = on["summary"]
+    expect(on["tokens"] == off["tokens"] and st["ticks"] == off["summary"]["ticks"],
+           f"obs: tokens bit-identical with telemetry and windows on and off ({st['tokens_out']} tokens, "
+           f"{st['ticks']} ticks)")
+    expect(on["launches"] == off["launches"] and on["got"][1] == off["got"][1] and on["got"][3] == off["got"][3],
+           f"obs: launches equal on and off, by kernel, GEMM shape and flash shape ({on['launches']}; windows add "
+           f"none)")
+    check_run_launches("obs", on["got"], continuous_expected(cfg, lens, st["decode_steps"]))
+
+    # Every K1 launch recorded; decode_totals one step's work, from the first tick to the last.
+    snap = obs_metrics.get_registry().snapshot()
+    c = snap["counters"]
+    k1 = on["launches"]["systolic_mmm"]
+    recorded = c.get('gemm.calls{backend="cuda-systolic",dtype="bfloat16"}', 0.0)
+    misses = c.get('tune.plan.miss{backend="cuda-systolic"}', 0.0)
+    expect(recorded == k1 == misses and c.get('tune.plan.hit{backend="cuda-systolic"}', 0.0) == 0,
+           f"obs: every K1 launch recorded: gemm.calls {recorded:.0f}, launches {k1}, plan misses {misses:.0f} "
+           f"(an empty cache: the rule's tiles)")
+    per_layer = sum(cnt * k * n for (k, n), cnt in projections(cfg).items())
+    want = (2.0 * CONT_SLOTS * cfg.n_layers * per_layer, cfg.n_layers * sum(projections(cfg).values()))
+    got_totals = (on["engine"].decode_totals.flops, on["engine"].decode_totals.calls)
+    expect(got_totals == want and on["totals"][0] == on["totals"][-1] == want and len(on["totals"]) ==
+           st["decode_steps"],
+           f"obs: decode_totals {got_totals[0]:.0f} flops, {got_totals[1]} GEMMs = 2 x {CONT_SLOTS} x "
+           f"{cfg.n_layers} x {per_layer} (want {want}), the same after tick 1 and after the last of "
+           f"{len(on['totals'])} decode ticks")
+    mfu_h = on["sched"].stats.registry.snapshot()["histograms"]["serve.decode_mfu"]
+    resid_h = on["sched"].stats.registry.snapshot()["histograms"]["serve.model_residual"]
+    expect(mfu_h["count"] == resid_h["count"] == st["decode_steps"] and 0 < mfu_h["min"] <= mfu_h["max"] <= 1
+           and resid_h["min"] > 0,
+           f"obs: serve.decode_mfu {mfu_h['count']} readings over {st['decode_steps']} decode ticks, in "
+           f"[{mfu_h['min']:.6f}, {mfu_h['max']:.6f}]; serve.model_residual {resid_h['count']} readings")
+    windows = sum(h["count"] for series, h in snap["histograms"].items()
+                  if obs.parse_series(series)[0] == "profile.gemm_us")
+    expect(windows == k1, f"obs: profile.gemm_us holds {windows} samples, one per K1 call ({k1})")
+    expect(off["engine"].decode_totals.calls == 0 and not off["sched"].stats.registry.histogram(
+        "serve.decode_mfu").count, "obs: with telemetry off nothing is recorded")
+    say(f"    obs numbers ({smi}): decode MFU mean {mfu_h['mean']:.6f} (of the card's bf16 datasheet peak, "
+        f"{mfu_h['min']:.6f}-{mfu_h['max']:.6f}), model residual mean {resid_h['mean']:.4f}x the roofline "
+        f"({resid_h['min']:.4f}-{resid_h['max']:.4f}); step p50 off {off['summary']['p50_step_ms']} / on with "
+        f"every K1 call windowed {st['p50_step_ms']} ms; run wall off {off['wall_s']:.3f} / on {on['wall_s']:.3f} s")
+
+    # The drift probe, its launches apart; a stale plan injected.
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    rows = obs_drift.probe_decode_plans(on["engine"])
+    torch.cuda.synchronize()
+    probe_s, probe_launches = time.perf_counter() - t0, counts()
+    reset_counts()
+    problems = decode_gemm_problems(cfg, CONT_SLOTS)
+    expect(len(rows) == len(problems) and all("mean_us" in r and r["method"] == "cuda-events" for r in rows),
+           f"obs: drift probe {len(rows)} rows for {len(problems)} decode GEMMs, none failed "
+           f"({[r['error'] for r in rows if 'error' in r]}); its own launches {probe_launches}, counted apart")
+    for r in rows:
+        if "mean_us" in r:
+            say(f"      probe {r['name']:8s} {r['problem']:14s} on {r['path']:7s} {r['mean_us']:9.3f} us "
+                f"(best {r['best_us']:.3f}) [{r['method']}], model {r['model_us']:.3f} us")
+    snap = obs_metrics.snapshot_doc(obs_metrics.get_registry(), on["sched"].stats.registry, extra=st)
+    mdir = tempfile.mkdtemp(prefix="chip_smoke_obs_", dir=TUNE_DIR)
+    with open(os.path.join(mdir, "snapshot.json"), "w") as f:
+        json.dump(snap, f)
+    obs_trace.get_tracer().export_chrome(os.path.join(mdir, "trace.json"))
+    row = next((r for r in rows if r["name"] == OBS_STALE_GEMM and "mean_us" in r), None)
+    stale_path = os.path.join(mdir, "stale_plans.json")
+    stale_key = None
+    if row is not None:
+        m, n, k = (int(x) for x in row["problem"].split("x"))
+        stale_key = tune_cache.CacheKey("cuda-systolic", "h100", m, n, k, cfg.dtype)
+        tune_cache.PlanCache(stale_path).store(stale_key, tune_cache.TunedPlan(
+            *row["blocks"], mean_us=OBS_STALE * row["mean_us"], best_us=OBS_STALE * row["mean_us"],
+            method="cuda-events"))
+        flagged = [f.key for f in obs_drift.check_drift(snap, cache=tune_cache.PlanCache(stale_path)) if f.stale]
+        expect(flagged == [stale_key.encode()],
+               f"obs: check_drift flags exactly the injected plan ({OBS_STALE}x {OBS_STALE_GEMM}'s probe reading): "
+               f"{flagged}")
+    healthy, stale = run_doctor(mdir), run_doctor(mdir, "--tune-cache", stale_path)
+    (h_out, h_err), (s_out, s_err) = healthy.communicate(timeout=300), stale.communicate(timeout=300)
+    report = json.loads(h_out) if healthy.returncode == 0 else {}
+    errs = obs_doctor.validate_doctor_report(report)
+    expect(healthy.returncode == 0 and not errs and report["coverage"] >= 0.9,
+           f"obs: python -m repro_torch.obs doctor exit {healthy.returncode} (want 0), report valid ({errs or 'yes'}), "
+           f"coverage {report.get('coverage', 0):.3f} of the run's wall (>= 0.9) {h_err[-300:]}")
+    stale_report = json.loads(s_out) if s_out.strip().startswith("{") else {}
+    expect(stale.returncode == 1 and [p["key"] for p in stale_report.get("stale_plans", [])] ==
+           [stale_key and stale_key.encode()],
+           f"obs: doctor with the injected plan exit {stale.returncode} (want 1), stale "
+           f"{[p['key'] for p in stale_report.get('stale_plans', [])]} {s_err[-300:]}")
+    for r in report.get("top_sinks", [])[:6]:
+        say(f"      doctor sink {r['component']:44s} {r['seconds']:.4f} s")
+    ms = decode_ms_on_off(model, params, batch)
+    expect(ms["recorded"]["off"] == 0 and ms["recorded"]["on"] == ms["launched"]["on"] > 0,
+           f"obs: decode ms/step arms: telemetry on recorded {ms['recorded']['on']:.0f} of its "
+           f"{ms['launched']['on']} K1 launches, off {ms['recorded']['off']:.0f} of {ms['launched']['off']}")
+    say(f"    untraced decode ms/step ({smi}), sampler off, alternated off on on off: telemetry off "
+        f"{[round(x, 3) for x in ms['off']]}, on {[round(x, 3) for x in ms['on']]} (median off "
+        f"{statistics.median(ms['off']):.3f}, on {statistics.median(ms['on']):.3f})")
+    wall = time.perf_counter() - t_phase
+    say(f"    obs phase wall {wall:.1f} s")
+    runs = [{key: r[key] for key in ("arch", "launches", "shapes", "flash_shapes", "summary", "wall_s", "totals")}
+            for r in (off, on)]
+    out = {"runs": runs, "decode_mfu": mfu_h, "model_residual": resid_h, "windows": windows, "recorded": recorded,
+           "decode_totals": list(got_totals), "probe": rows, "probe_s": probe_s, "probe_launches": probe_launches,
+           "doctor": {"exit": healthy.returncode, "stale_exit": stale.returncode, "coverage": report.get("coverage"),
+                      "top_sinks": report.get("top_sinks")},
+           "decode_ms": ms, "wall_s": wall}
+    del off, on
+    return out
+
+
 def phase_long_prompt(model, params, smi: str) -> list[dict]:
     """The long-prompt trace monolithic (A) and then chunked (B) in one call,
     so the host's spread between calls cannot decide the comparison; the
@@ -2044,6 +2269,7 @@ def phase_serve(smi: str) -> tuple[dict, dict, dict, dict, list, list]:
     batch = make_batch(cfg, batch=BATCH, seq=PROMPT, kind="prefill", seed=SEED, device="cuda")
     bf16 = serve_path("bf16", model, params, {"gemm": "systolic_mmm", "tol": LOGITS_TOL_BF16}, batch)
     bf16["tune"] = phase_tune(model, params, batch)
+    bf16["obs"] = phase_obs(model, params, batch, smi)
     cont = phase_continuous(model, params, smi)
     kv8 = phase_continuous(model, params, smi, fp=cont, alone=cont["replays"])
     for r in (cont, kv8):
@@ -3037,12 +3263,23 @@ def phase_train(smi: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     losses, walls, norms, lrs = [], [], [], []
-    for _ in range(TRAIN_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        m = trainer.run(iter([batch]), 1, log_every=0)
-        torch.cuda.synchronize()
+    # telemetry off and on by turns (odd steps on): the host cost of recording
+    # the forward's K1 launches, which run outside any scope, read per arm
+    reg = obs_metrics.get_registry()
+    arm_ms, recorded, launched = {"off": [], "on": []}, {"off": 0.0, "on": 0.0}, {"off": 0, "on": 0}
+    for i in range(TRAIN_STEPS):
+        arm = "on" if i % 2 else "off"
+        before, k1 = reg.counter_value("gemm.calls", backend="cuda-systolic", dtype="bfloat16"), mm_kernel.launches
+        with telemetry(arm == "on"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = trainer.run(iter([batch]), 1, log_every=0)
+            torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
+        recorded[arm] += reg.counter_value("gemm.calls", backend="cuda-systolic", dtype="bfloat16") - before
+        launched[arm] += mm_kernel.launches - k1
+        if i:
+            arm_ms[arm].append(walls[-1])
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
         lrs.append(float(m["lr"]))
@@ -3056,6 +3293,14 @@ def phase_train(smi: str) -> dict:
     expect(trainer.step == TRAIN_STEPS and int(trainer.opt_state.step) == TRAIN_STEPS and trainer.retries == 0,
            f"step counter {trainer.step}, optimizer step {int(trainer.opt_state.step)}, retries {trainer.retries}")
     del start
+    fwd = cfg.n_layers * sum(projections(cfg).values())  # a step's forward K1 launches; the backward's go unrecorded
+    expect(recorded["off"] == 0 and recorded["on"] == fwd * len(arm_ms["on"]),
+           f"train steps with telemetry on recorded {recorded['on']:.0f} K1 launches (want {fwd} a step, the "
+           f"forward's, of {launched['on']} launched), off {recorded['off']:.0f} of {launched['off']}")
+    say(f"    train step ms ({smi}), steps 2-{TRAIN_STEPS} telemetry on and off by turns: off "
+        f"{[round(x, 3) for x in arm_ms['off']]}, on {[round(x, 3) for x in arm_ms['on']]}; median off "
+        f"{statistics.median(arm_ms['off']):.3f}, on {statistics.median(arm_ms['on']):.3f}")
+    out["telemetry_ms"] = arm_ms
     step_ms = sorted(walls[1:])[len(walls[1:]) // 2]
     tokens = BATCH * PROMPT
     out.update(losses=losses, grad_norms=norms, lrs=lrs, step_ms=walls, step_ms_p50=step_ms,
@@ -3631,8 +3876,13 @@ def run(args) -> int:
     kernels, k2, chunk_attn, paging, train_t = timed("timing", phase_timing, errs,
                                             [bf16, moe_r, mla_bf16, ssm_r, hyb_r, audio_r, vlm_r],
                                             [w8a8, mla_w8a8, moe_w8a8], [moe_r, moe_w8a8],
-                                            [cont, kv8, *long_runs, *paged_runs, mla_cont, mla_chunked, mla_paged,
-                                             *ssm_runs, vlm_cont, tied_r], train_r)
+                                            [cont, kv8, *bf16["obs"]["runs"], *long_runs, *paged_runs, mla_cont,
+                                             mla_chunked, mla_paged, *ssm_runs, vlm_cont, tied_r], train_r)
+    obs_launches = collections.Counter()
+    for r in bf16["obs"]["runs"]:
+        obs_launches.update(r["launches"])
+    for e in kernels:
+        e["launches_obs"] = obs_launches[e["name"]]  # of "launches": the obs phase's two runs
     say(f"    wall {time.perf_counter() - t_start:.1f} s")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

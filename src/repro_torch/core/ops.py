@@ -4,8 +4,10 @@ fp32-accumulating einsum.
 The counterpart of ``repro.core.ops``.  There is no backend switch: on the
 card every fp projection *is* the hand-written systolic kernel, every w8a8
 projection the block-scaled one and every MoE expert GEMM the grouped one;
-on the CPU their plain versions.  The reference's TP hook and profiling
-belong to later parts of the port.
+on the CPU their plain versions.  Each fp projection runs in a sampled
+timing window (``obs.profile``) when the profiler is active, as the
+reference's does; the reference's TP hook belongs to a later part of the
+port.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 from repro_torch import quant
 from repro_torch.kernels.grouped import ops as grouped_ops
 from repro_torch.kernels.systolic import ops as systolic_ops
+from repro_torch.obs import profile as _obs_profile
 from repro_torch.quant.qarray import QArray
 
 
@@ -33,7 +36,19 @@ def matmul(x: torch.Tensor, w: torch.Tensor | QArray, *, out_dtype: torch.dtype 
             raise RuntimeError("a quantized (QArray) weight has no backward: quantized weights serve, "
                                "the reference does not train them")
         return _quant_matmul(x, w, out_dtype=out_dtype)
-    y2 = systolic_ops.matmul(x.reshape(-1, k), w, out_dtype=out_dtype or x.dtype)
+    x2, out_dtype = x.reshape(-1, k), out_dtype or x.dtype
+    prof = _obs_profile.get_profiler()
+    if prof.active():
+        # Sampled measured timing: the host clock from the call to the card's
+        # finishing it, labelled "eager-wall" so the drift watchdog never holds
+        # it against a plan the card timed with CUDA events.
+        y2, wall = prof.timed("profile.gemm", lambda: systolic_ops.matmul(x2, w, out_dtype=out_dtype),
+                              backend=systolic_ops.BACKEND)
+        if wall is not None:
+            _obs_profile.record_gemm_sample(x2.shape[0], w.shape[1], k, backend=systolic_ops.BACKEND, dtype=x2.dtype,
+                                            wall_s=wall, method="eager-wall")
+    else:
+        y2 = systolic_ops.matmul(x2, w, out_dtype=out_dtype)
     return y2.reshape(*lead, w.shape[1])
 
 

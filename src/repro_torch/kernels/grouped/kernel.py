@@ -18,7 +18,7 @@ import math
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.systolic.kernel import DECODE_MAX_M, DTYPE_CODES, TILES as _MM_TILES, _entry
+from repro_torch.kernels.systolic.kernel import DECODE_MAX_M, DTYPE_CODES, TILES as _MM_TILES, _entry, aligned
 
 MAX_EXPERTS = 65535  # the grid's z extent
 
@@ -102,7 +102,7 @@ def launch_path(path: str | None, source: str, c: int, k: int, n: int, dtype: to
 
 
 def grouped_matmul_call(x: torch.Tensor, w: torch.Tensor, rows: torch.Tensor | None = None, *,
-                        path: str | None = None, plan_source: str = "rule") -> torch.Tensor:
+                        path: str | None = None, plan_source: str = "rule", settled: bool = False) -> torch.Tensor:
     """x: (E, C, K), w: (E, K, N) -> (E, C, N) on the card, in x's dtype.
 
     x and w are contiguous CUDA tensors of one dtype (bf16 or fp32).
@@ -110,8 +110,8 @@ def grouped_matmul_call(x: torch.Tensor, w: torch.Tensor, rows: torch.Tensor | N
     number of leading rows of each expert's x that can be nonzero (the rest
     must be zero); tiles wholly past it are not computed and come out zero,
     as the product of zero rows does.  ``path``: the path to launch (None:
-    ``grouped_path``'s choice) and ``plan_source`` as for the systolic
-    GEMM's (``launch_path``).
+    ``grouped_path``'s choice), ``plan_source`` and ``settled`` as for the
+    systolic GEMM's (``launch_path``).
     Raises on anything the kernel does not take.
     """
     global launches
@@ -135,8 +135,8 @@ def grouped_matmul_call(x: torch.Tensor, w: torch.Tensor, rows: torch.Tensor | N
     out = torch.empty((e, c, n), dtype=x.dtype, device=x.device)
     if e == 0 or c == 0 or n == 0:
         return out
-    aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
-    path, plan_source = launch_path(path, plan_source, c, k, n, x.dtype, aligned)
+    if not settled:
+        path, plan_source = launch_path(path, plan_source, c, k, n, x.dtype, aligned(x, w))
     lib, fn = _entry("grouped_mmm")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     code = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), e, c, k, n, DTYPE_CODES[x.dtype],

@@ -20,6 +20,7 @@ import math
 
 import torch
 
+from repro_torch.core import hw
 from repro_torch.kernels import _build
 from repro_torch.kernels.systolic.ref import ACTIVATIONS
 
@@ -227,6 +228,17 @@ def _sm_count(device_index: int | None) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
+def sm_count(device: torch.device) -> int:
+    """The SMs a launch on ``device`` has; on the CPU the H100's, so the
+    plain version's dispatch settles the path the card would."""
+    return _sm_count(device.index) if device.type == "cuda" else hw.H100.n_sm
+
+
+def aligned(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Both operand bases 16-byte aligned, as TMA needs them."""
+    return a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+
+
 def systolic_matmul_call(
     a: torch.Tensor,
     b: torch.Tensor,
@@ -237,6 +249,7 @@ def systolic_matmul_call(
     path: str | None = None,
     k_chunk: int = 0,
     plan_source: str = "rule",
+    settled: bool = False,
 ) -> torch.Tensor:
     """a: (M, K), b: (K, N), bias: (N,) or None -> (M, N) on the card.
 
@@ -248,7 +261,10 @@ def systolic_matmul_call(
     ``plan_split``'s); ``plan_source`` names where it came from ("explicit",
     "tuned"), for the launch counters.  A path the operands cannot take
     raises, but for a tuned one, which gives way to the rule
-    (``launch_path``).  Raises on anything the kernel does not take.
+    (``launch_path``).  ``settled``: the caller ran ``launch_path`` on these
+    operands and passes its result (``ops.matmul``, which records the
+    launch), so it is not run again.  Raises on anything the kernel does not
+    take.
     """
     global launches
     if a.device.type != "cuda" or b.device != a.device:
@@ -276,9 +292,9 @@ def systolic_matmul_call(
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     if m == 0 or n == 0:
         return out
-    aligned = a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
-    path, k_chunk, plan_source = launch_path(path, k_chunk, plan_source, m, n, k, a.dtype, aligned, k_major,
-                                             _sm_count(a.device.index))
+    if not settled:
+        path, k_chunk, plan_source = launch_path(path, k_chunk, plan_source, m, n, k, a.dtype, aligned(a, b),
+                                                 k_major, _sm_count(a.device.index))
     lib, fn = _entry("systolic_mmm")
     ws, nbytes = _workspace("systolic_mmm", a.device, m, n, k, path.startswith("decode"), k_chunk)
     stream = torch.cuda.current_stream(a.device).cuda_stream
@@ -352,6 +368,13 @@ def qlaunch_path(path: str | None, source: str, m: int, n: int, k: int, step: in
     raise ValueError(f"quantized kernel: {refusal}")
 
 
+def launch_step(qk_a: int, qk_b: int, k: int) -> int:
+    """The scale step a launch hands ``qlaunch_path``: 0 for whole-K scales
+    (a scale block spanning K is whole-K), else ``scale_step``'s."""
+    qk_a, qk_b = (q if q < k else 0 for q in (qk_a, qk_b))
+    return scale_step(qk_a, qk_b, k) if (qk_a or qk_b) else 0
+
+
 def qpath_refusal(path: str, m: int, n: int, k: int, step: int, dtype: torch.dtype, aligned: bool) -> str | None:
     """Why ``path`` cannot take these operands (None: it can), as the
     kernel checks them (csrc/systolic_qmm.cu); ``step`` as for ``qgemm_path``."""
@@ -416,13 +439,14 @@ def quant_systolic_matmul_call(
     activation: str = "none",
     path: str | None = None,
     plan_source: str = "rule",
+    settled: bool = False,
 ) -> torch.Tensor:
     """a: (M, K), b: (K, N) int8 or float8_e4m3fn (one dtype); a_scales:
     (M, ceil(K / qk_a)) and b_scales: (ceil(K / qk_b), N) fp32, where a scale
     block of 0 spans all of K (one scale column / row) -> (M, N) on the card.
     a and the scales are row-major contiguous; b is K-major (``is_k_major``),
     the one layout the kernel reads.  ``path``: the path to launch (None:
-    ``qgemm_path``'s choice) and ``plan_source`` as for
+    ``qgemm_path``'s choice), ``plan_source`` and ``settled`` as for
     ``systolic_matmul_call`` (``qlaunch_path``).
 
     Validates everything the kernel does not take and raises; the checks on
@@ -472,9 +496,9 @@ def quant_systolic_matmul_call(
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     if m == 0 or n == 0:
         return out
-    aligned = a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
-    step = step if (qk_a or qk_b) else 0
-    path, plan_source = qlaunch_path(path, plan_source, m, n, k, step, a.dtype, aligned)
+    if not settled:
+        path, plan_source = qlaunch_path(path, plan_source, m, n, k, launch_step(qk_a, qk_b, k), a.dtype,
+                                         aligned(a, b))
     lib, fn = _entry("systolic_qmm")
     ws, nbytes = _workspace("systolic_qmm", a.device, m, n, k, True)
     stream = torch.cuda.current_stream(a.device).cuda_stream

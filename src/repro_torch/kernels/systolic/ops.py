@@ -10,8 +10,12 @@ reference's order (``repro.kernels.systolic.ops.matmul``): an explicit
 dtype, activation), then the kernel's shape rule (``gemm_path`` /
 ``qgemm_path``).  A cached path that the operands at hand cannot take (an
 unaligned view, a K-major B) is not used for that call: the rule decides,
-and the launch is counted as "tuned_refused" (``kernel.launch_path``).  An
-explicit plan the operands cannot take raises.
+and the launch is counted as "tuned_refused" (``kernel.launch_path`` /
+``qlaunch_path``, which settle the launch here, once, on the operands as
+launched).  An explicit plan the operands cannot take raises.  Each call records its launch
+(``obs.attribution.record_launch``; K5 under the quantized dtype's name) once
+the path is settled and before the CPU branch, so the plain version records
+what the kernel would.
 
 Under grad mode, with an operand that requires grad, ``matmul`` runs through
 ``_Matmul``, whose backward is two more GEMMs of the same dispatch: on the
@@ -30,6 +34,8 @@ import torch
 from repro_torch.core.blocking import BlockPlan
 from repro_torch.kernels.systolic import kernel as _kernel
 from repro_torch.kernels.systolic.ref import ACTIVATIONS, matmul_ref, quant_systolic_matmul_ref
+from repro_torch.obs import attribution as _obs
+from repro_torch.obs import metrics as _metrics
 from repro_torch.quant.qarray import QArray
 from repro_torch.tune import cache as _tune_cache
 
@@ -67,17 +73,31 @@ def matmul(
     return _matmul(a, b, bias, out_dtype=out_dtype, activation=activation, plan=plan)
 
 
-def _matmul(a, b, bias=None, *, out_dtype, activation="none", plan=None):
-    if a.device.type == "cpu":
-        return matmul_ref(a, b, bias, activation=activation, out_dtype=out_dtype)
+def _matmul(a, b, bias=None, *, out_dtype, activation="none", plan=None, record=True):
+    """The dispatch: the tile's path settled as the card would settle it, the
+    launch recorded (``obs.attribution``; ``record=False`` for the backward's
+    products: the reference records no training GEMMs), then the kernel, or
+    on the CPU the plain version."""
+    m, k = a.shape
+    n = b.shape[1]
+    dtype = DTYPE_NAMES.get(a.dtype, "")
+    cpu = a.device.type == "cpu"
     k_major = not b.is_contiguous() and _kernel.is_k_major(b)  # a (K, 1) or (1, N) B is both: row-major then
     a, b = a.contiguous(), b if k_major else b.contiguous()
-    path, k_chunk, source = _tune_cache.plan_path(BACKEND, a.shape[0], b.shape[1], a.shape[1],
-                                                  DTYPE_NAMES.get(a.dtype, ""), activation, plan)
-    if path is not None and k_major:
-        path += "_kmajor"
+    if cpu and plan is not None:
+        path, k_chunk, source = None, 0, "explicit"  # the plain version takes any plan: not resolved to a path
+    else:
+        path, k_chunk, source = _tune_cache.plan_path(BACKEND, m, n, k, dtype, activation, plan)
+        if path is not None and k_major:
+            path += "_kmajor"
+        path, k_chunk, source = _kernel.launch_path(path, k_chunk, source, m, n, k, a.dtype, _kernel.aligned(a, b),
+                                                    k_major, _kernel.sm_count(a.device))
+    if record and _metrics._enabled:
+        _obs.record_launch(m, n, k, dtype, BACKEND, source)
+    if cpu:
+        return matmul_ref(a, b, bias, activation=activation, out_dtype=out_dtype)
     return _kernel.systolic_matmul_call(a, b, bias, out_dtype=out_dtype, activation=activation, path=path,
-                                        k_chunk=k_chunk, plan_source=source)
+                                        k_chunk=k_chunk, plan_source=source, settled=True)
 
 
 class _Matmul(torch.autograd.Function):
@@ -104,9 +124,9 @@ class _Matmul(torch.autograd.Function):
         ct = torch.promote_types(dc.dtype, a.dtype)
         dc = dc.to(ct)
         if ctx.needs_input_grad[0]:
-            da = _matmul(dc, b.to(ct).t().contiguous(), out_dtype=a.dtype)
+            da = _matmul(dc, b.to(ct).t().contiguous(), out_dtype=a.dtype, record=False)
         if ctx.needs_input_grad[1]:
-            db = _matmul(a.to(ct).t().contiguous(), dc, out_dtype=b.dtype)
+            db = _matmul(a.to(ct).t().contiguous(), dc, out_dtype=b.dtype, record=False)
         return da, db, None, None
 
 
@@ -166,9 +186,18 @@ def quant_matmul(
     b_s, qk_b = _col_scales(b, k, n)
     av = a.values.contiguous()
     bv = b.values.t().contiguous().t()  # K-major, the kernel's one B layout; no copy if laid out so (quant.k_major)
-    if av.device.type == "cpu":
+    dtype = DTYPE_NAMES.get(av.dtype, "")
+    cpu = av.device.type == "cpu"
+    if cpu and plan is not None:
+        path, source = None, "explicit"  # the plain version takes any plan: not resolved to a path
+    else:
+        path, _, source = _tune_cache.plan_path(BACKEND, m, n, k, dtype, activation, plan)
+        path, source = _kernel.qlaunch_path(path, source, m, n, k, _kernel.launch_step(qk_a, qk_b, k), av.dtype,
+                                            _kernel.aligned(av, bv))
+    if _metrics._enabled:
+        _obs.record_launch(m, n, k, dtype, BACKEND, source)  # under the values' dtype, as the reference's
+    if cpu:
         return quant_systolic_matmul_ref(av, a_s, bv, b_s, qk_a=qk_a, qk_b=qk_b, out_dtype=out_dtype,
                                          activation=activation)
-    path, _, source = _tune_cache.plan_path(BACKEND, m, n, k, DTYPE_NAMES.get(av.dtype, ""), activation, plan)
     return _kernel.quant_systolic_matmul_call(av, a_s, bv, b_s, qk_a=qk_a, qk_b=qk_b, out_dtype=out_dtype,
-                                              activation=activation, path=path, plan_source=source)
+                                              activation=activation, path=path, plan_source=source, settled=True)

@@ -96,14 +96,30 @@ prefill monolithically, as the reference does)::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-1b \
         --smoke --device cpu --continuous --requests 6 --slots 3
 
-The metrics / SLO / profiling flags of ``repro.launch.serve`` belong to a
-later part of the port.
+Telemetry (``repro_torch.obs``): ``--metrics-dir`` writes the merged metrics
+snapshot (``snapshot.json``: the dispatch registry -- ``gemm.*``,
+``tune.plan.*``, ``profile.*`` -- and the scheduler's, with the run summary),
+the Chrome trace (``trace.json``), in continuous mode a ``snapshot-<tick>.json``
+every ``--metrics-interval`` ticks (the newest ``--metrics-keep`` kept) and
+flight-recorder bundles on SLO violations (``--slo-ttft-ms``, ``--slo-itl-ms``,
+``--slo-queue-wait-ms``).  ``--profile-sample-rate`` times that fraction of
+K1 calls and KV-pool dispatches in windows, and after a continuous run
+re-measures the decode GEMMs with CUDA events (the drift probe) against the
+plan cache; ``$REPRO_TORCH_LEDGER`` also records stale plans.  Then
+``python -m repro_torch.obs doctor <dir>`` diagnoses the run::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \
+        --continuous --requests 16 --slots 8 --profile-sample-rate 0.5 \
+        --metrics-dir /tmp/serve-metrics
+    PYTHONPATH=src python -m repro_torch.obs doctor /tmp/serve-metrics
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import json
+import os
 import time
 import warnings
 
@@ -115,7 +131,65 @@ from repro_torch.data.synthetic import make_adversarial_trace, make_batch, make_
 from repro_torch.kernels import _build
 from repro_torch.models.registry import get_model
 from repro_torch.models.transformer import cast_params
+from repro_torch.obs import drift as obs_drift
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import profile as obs_profile
+from repro_torch.obs import trace as obs_trace
+from repro_torch.obs.ledger import Ledger
+from repro_torch.obs.slo import FlightRecorder, SLOSpec
 from repro_torch.serving import ContinuousScheduler, ServeConfig, ServeEngine, requests_from_trace
+
+
+def _dump_metrics(metrics_dir: str, extra_registry=None, extra: dict | None = None,
+                  name: str = "snapshot.json") -> str:
+    """Write the merged metrics snapshot to ``metrics_dir/<name>`` (the
+    process-wide dispatch registry + the scheduler's private registry)."""
+    regs = [obs_metrics.get_registry()]
+    if extra_registry is not None:
+        regs.append(extra_registry)
+    doc = obs_metrics.snapshot_doc(*regs, extra=extra)
+    os.makedirs(metrics_dir, exist_ok=True)
+    path = os.path.join(metrics_dir, name)
+    with open(path, "w") as f:
+        json.dump(doc, f, indent=1)
+    return path
+
+
+def _prune_tick_snapshots(metrics_dir: str, keep: int) -> None:
+    """Keep only the newest ``keep`` periodic ``snapshot-<tick>.json`` files
+    (the final merged ``snapshot.json`` is never pruned)."""
+    ticks = sorted(f for f in os.listdir(metrics_dir) if f.startswith("snapshot-") and f.endswith(".json"))
+    for stale in ticks[:-keep] if keep > 0 else ticks:
+        with contextlib.suppress(OSError):
+            os.remove(os.path.join(metrics_dir, stale))
+
+
+def _dump_trace(metrics_dir: str) -> str:
+    path = os.path.join(metrics_dir, "trace.json")
+    obs_trace.get_tracer().export_chrome(path)
+    return path
+
+
+def drift_probe(engine) -> list:
+    """Re-measure the run's decode GEMMs off the serving path (CUDA events on
+    the card) and hold the samples against the plan cache and the roofline;
+    stale plans go into the registry (``tune.plan.stale{key}``) and, with
+    ``$REPRO_TORCH_LEDGER``, a ledger.  Returns the probe's rows."""
+    probe = obs_drift.probe_decode_plans(engine)
+    findings = obs_drift.check_drift(obs_metrics.get_registry().snapshot())
+    ledger_path = os.environ.get("REPRO_TORCH_LEDGER")
+    n_stale = obs_drift.record_findings(findings, ledger=Ledger(ledger_path) if ledger_path else None)
+    print(f"drift probe: {len(probe)} decode GEMMs re-measured, {n_stale} stale plan(s)")
+    for row in probe:
+        if "error" in row:
+            print(f"  {row['name']} {row['problem']}: not measured: {row['error']}")
+        else:
+            print(f"  {row['name']} {row['problem']} on {row['path']}: {row['mean_us']:.3f} us "
+                  f"[{row['method']}], model {row['model_us']:.3f} us")
+    for f in findings:
+        if f.stale:
+            print(f"  STALE {f.recommendation}")
+    return probe
 
 
 def _sync(device: torch.device) -> None:
@@ -159,6 +233,9 @@ def run_synchronized(model, params, args, device: torch.device) -> torch.Tensor:
     print(engine.decode_plan_report())
     sample = torch.cat(pieces, dim=1)
     print("sample tokens:", sample[0, :16].tolist())
+    if args.metrics_dir:
+        print("metrics snapshot:", _dump_metrics(args.metrics_dir))
+        print("chrome trace:", _dump_trace(args.metrics_dir))
     return sample
 
 
@@ -199,6 +276,10 @@ def run_continuous(model, params, args, device: torch.device) -> dict:
         ServeConfig(max_len=max_len, batch=args.slots, temperature=args.temperature, seed=args.seed),
         device=device,
     )
+    slo = None
+    if args.slo_ttft_ms or args.slo_itl_ms or args.slo_queue_wait_ms:
+        slo = SLOSpec(ttft_ms=args.slo_ttft_ms, itl_ms=args.slo_itl_ms, queue_wait_ms=args.slo_queue_wait_ms)
+        print(f"slo budgets: {slo.describe()}")
     sched = ContinuousScheduler(
         engine,
         policy=args.policy,
@@ -210,8 +291,25 @@ def run_continuous(model, params, args, device: torch.device) -> dict:
         page_size=args.page_size,
         n_pages=args.pages,
         prefix_cache=args.prefix_cache,
+        slo=slo,
     )
-    results = sched.run(requests_from_trace(trace))
+    on_tick = None
+    if args.metrics_dir:
+        # Flight recorder: postmortem bundles on SLO violation or engine
+        # exception, snapshotting both registries.
+        sched.flight_recorder = FlightRecorder(args.metrics_dir,
+                                               registries=(obs_metrics.get_registry(), sched.stats.registry))
+        interval, keep = max(1, args.metrics_interval), max(1, args.metrics_keep)
+
+        def on_tick(sc) -> None:
+            if sc.tick % interval == 0:
+                _dump_metrics(args.metrics_dir, sc.stats.registry, extra=sc.stats.summary(),
+                              name=f"snapshot-{sc.tick:06d}.json")
+                _prune_tick_snapshots(args.metrics_dir, keep)
+
+    results = sched.run(requests_from_trace(trace), on_tick=on_tick)
+    if obs_profile.get_profiler().active():
+        drift_probe(engine)  # its findings land in the registry before the final snapshot
     s = sched.stats.summary()
     mode = f"{args.policy}+chunked" if args.chunked_prefill else args.policy
     print(
@@ -233,9 +331,26 @@ def run_continuous(model, params, args, device: torch.device) -> dict:
         )
     print(f"ttft p50 {s['ttft_p50_ms']:.2f} ms / p99 {s['ttft_p99_ms']:.2f} ms | "
           f"kv bytes resident {s['kv_bytes_resident']}")
+    if s["decode_mfu"] or s["model_residual"]:
+        print(f"decode mfu {s['decode_mfu']:.6f} (mean over {s['decode_steps']} steps, of the card's datasheet peak "
+              f"for {model.cfg.dtype}) | model residual {s['model_residual']:.4f}x the roofline")
+    if slo is not None:
+        print(f"slo: {s['requests_conformant']}/{s['requests_finished']} requests conformant, "
+              f"{s['slo_violations']} violations | goodput {s['goodput_toks']} toks, "
+              f"{s['goodput_tok_per_s']:.1f} tok/s (raw {s['tok_per_s']:.1f})")
+        fr = sched.flight_recorder
+        if fr is not None and fr.paths:
+            print(f"postmortem bundles: {len(fr.paths)} in {args.metrics_dir}"
+                  + (f" ({fr.suppressed} suppressed)" if fr.suppressed else ""))
     print(engine.decode_plan_report())
     rid0 = min(results)
     print(f"sample tokens (request {rid0}):", results[rid0][:16].tolist())
+    if args.metrics_dir:
+        # The final snapshot carries the run summary (MFU, TTFT / ITL, KV
+        # bytes) in "extra" beside the raw registry series.
+        print("metrics snapshot:", _dump_metrics(args.metrics_dir, sched.stats.registry, extra=s))
+        print("chrome trace:", _dump_trace(args.metrics_dir))
+        print(f"diagnose: python -m repro_torch.obs doctor {args.metrics_dir}")
     return results
 
 
@@ -291,7 +406,29 @@ def main(argv: list[str] | None = None) -> torch.Tensor | dict:
         "weights and per-token int8 activations through the block-scaled kernel, kv8 = "
         "int8 KV pool of continuous serving with per-head-per-slot scales",
     )
+    ap.add_argument("--metrics-dir", default=None,
+                    help="write telemetry here: the final snapshot.json, in continuous mode periodic "
+                    "snapshot-<tick>.json (the newest --metrics-keep kept), trace.json (Chrome trace_event) and "
+                    "postmortem-*.json flight-recorder bundles on SLO violations; validate with python -m "
+                    "repro_torch.obs <files>, diagnose with python -m repro_torch.obs doctor <dir>")
+    ap.add_argument("--metrics-interval", type=int, default=50, metavar="TICKS",
+                    help="ticks between periodic snapshot-<tick>.json dumps (continuous mode)")
+    ap.add_argument("--metrics-keep", type=int, default=16, metavar="K",
+                    help="keep only the newest K periodic snapshot-<tick>.json files")
+    ap.add_argument("--slo-ttft-ms", type=float, default=None, help="TTFT budget (admission -> first token), ms")
+    ap.add_argument("--slo-itl-ms", type=float, default=None,
+                    help="inter-token latency budget (gap between a request's consecutive tokens), ms")
+    ap.add_argument("--slo-queue-wait-ms", type=float, default=None,
+                    help="queue-wait budget (eligible -> slot granted), ms")
+    ap.add_argument("--profile-sample-rate", type=float, default=None, metavar="RATE",
+                    help="time this fraction of K1 calls and KV-pool dispatches in windows (host clock to the "
+                    "card's finishing the call), and run the drift probe after a continuous run; 0 disables; "
+                    "default $REPRO_PROFILE_RATE or 0")
     args = ap.parse_args(argv)
+    if args.profile_sample_rate is not None:
+        obs_profile.configure(args.profile_sample_rate)
+        if args.profile_sample_rate > 0:
+            print(f"profiling: sample rate {args.profile_sample_rate}")
     if args.quantize == "kv8" and not args.continuous:
         warnings.warn("--quantize kv8 applies to the continuous-batching KV pool; ignored in synchronized mode")
 

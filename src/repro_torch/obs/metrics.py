@@ -260,6 +260,18 @@ class Registry:
         self._gauges: dict[tuple, Gauge] = {}
         self._hists: dict[tuple, Histogram] = {}
         self._lock = threading.Lock()
+        self._pending: list = []  # ``add_pending``'s flushes
+
+    def add_pending(self, flush) -> None:
+        """Call ``flush()`` before every read and reset of this registry: a
+        writer that keeps its records back (``obs.attribution``'s GEMM records
+        made outside a scope) brings them in then, so a read sees every
+        record made before it."""
+        self._pending.append(flush)
+
+    def _sync(self) -> None:
+        for flush in self._pending:
+            flush()
 
     def _get(self, store: dict, cls, name: str, labels: dict) -> Any:
         key = (name, _label_key(labels))
@@ -295,6 +307,7 @@ class Registry:
     # -- introspection -------------------------------------------------------
 
     def series(self) -> Iterable[str]:
+        self._sync()
         with self._lock:
             keys = (
                 list(self._counters) + list(self._gauges) + list(self._hists)
@@ -303,6 +316,7 @@ class Registry:
 
     def counter_value(self, name: str, **labels) -> float:
         """Current value without creating the series (0.0 if absent)."""
+        self._sync()
         inst = self._counters.get((name, _label_key(labels)))
         return inst.value if inst is not None else 0.0
 
@@ -310,6 +324,7 @@ class Registry:
         """Plain-dict view: {"counters": {series: v}, "gauges": {...},
         "histograms": {series: {count, sum, mean, min, max, p50, p90, p99}}}.
         """
+        self._sync()
         with self._lock:
             counters = dict(self._counters)
             gauges = dict(self._gauges)
@@ -335,6 +350,7 @@ class Registry:
         (``\\``, ``"``, and newlines -- a label carrying an error message
         or a file path must not be able to break the line format).
         """
+        self._sync()
         with self._lock:
             counters = sorted(self._counters.items())
             gauges = sorted(self._gauges.items())
@@ -365,6 +381,7 @@ class Registry:
         return doc
 
     def reset(self) -> None:
+        self._sync()  # records kept back are dropped with the rest
         with self._lock:
             self._counters.clear()
             self._gauges.clear()

@@ -1,12 +1,16 @@
 """Sampled measured timing windows around host-side dispatch.
 
-The part of ``repro.obs.profile`` that the KV pool calls: ``Profiler``,
-``get_profiler``, ``configure``, ``sampling`` and ``sample_call``.  A sampled
-window covers the call and a wait for the card (``torch.cuda.synchronize()``
-where the reference waits with ``block_until_ready``), so it charges any
-pending work on the stream to the sampled stream.  Inactive by default: it
-samples only with telemetry enabled and a rate above 0
-(``REPRO_PROFILE_RATE`` or ``configure``).
+The port's copy of ``repro.obs.profile``: ``Profiler``, ``get_profiler``,
+``configure``, ``sampling``, ``sample_call`` (the KV pool's windows) and
+``record_gemm_sample`` (``core.ops.matmul``'s window around K1 and the drift
+probe's readings).  A sampled window covers the call and a wait for the card
+(``torch.cuda.synchronize()`` where the reference waits with
+``block_until_ready``), so it charges any pending work on the stream to the
+sampled stream: dispatch to retire on the host's clock.  Inactive by
+default: it samples only with telemetry enabled and a rate above 0
+(``REPRO_PROFILE_RATE`` or ``configure``).  Sampling is a deterministic
+per-stream Bresenham draw, so a run at rate r times exactly floor(r * calls)
+windows (+-1).
 
 Series written (in the default registry unless a registry is passed):
 
@@ -14,6 +18,8 @@ Series written (in the default registry unless a registry is passed):
     {stream}.sampled{labels}     calls that got a timing window
     {stream}.sampled_us{labels}  total measured µs across sampled calls
     {stream}_us{labels}          histogram of per-call measured µs
+    profile.gemm_us{backend,dtype,problem,method}
+                                 one GEMM reading (``record_gemm_sample``)
 """
 
 from __future__ import annotations
@@ -28,7 +34,7 @@ import torch
 
 from repro_torch.obs import metrics as _metrics
 
-__all__ = ["Profiler", "get_profiler", "configure", "sampling", "sample_call"]
+__all__ = ["Profiler", "get_profiler", "configure", "sampling", "sample_call", "record_gemm_sample"]
 
 
 def _env_rate() -> float:
@@ -72,6 +78,12 @@ class Profiler:
 
     def configure(self, sample_rate: float) -> None:
         self.sample_rate = max(0.0, min(1.0, float(sample_rate)))
+
+    def reset(self) -> None:
+        """Restore the env-derived rate and clear sampling accumulators."""
+        with self._lock:
+            self._acc.clear()
+        self.sample_rate = _env_rate()
 
     def should_sample(self, stream: Any) -> bool:
         if not self.active():
@@ -137,3 +149,23 @@ def sample_call(stream: str, thunk: Callable[[], Any], **labels) -> Any:
     if not _profiler.active():
         return thunk()
     return _profiler.sample_call(stream, thunk, **labels)
+
+
+def record_gemm_sample(m: int, n: int, k: int, *, backend: str, dtype: Any, wall_s: float,
+                       method: str = "eager-wall", registry: _metrics.Registry | None = None) -> None:
+    """Record one measured GEMM time into ``profile.gemm_us``.
+
+    ``method`` carries provenance as the plan cache does: ``eager-wall``
+    windows (sampled around an ``ops.matmul`` call, host clock to the card's
+    finishing it) compare only with each other, while the drift probe's
+    readings carry ``tune.measure``'s method (``cuda-events``), so the
+    watchdog holds them against a cached plan's ``mean_us`` like for like.
+    """
+    if not _metrics.enabled():
+        return
+    reg = registry if registry is not None else _metrics.get_registry()
+    labels = {"backend": backend, "dtype": dtype if isinstance(dtype, str) else str(dtype).removeprefix("torch."),
+              "problem": f"{int(m)}x{int(n)}x{int(k)}", "method": method}
+    reg.inc("profile.gemm.sampled", 1, **labels)
+    reg.inc("profile.gemm.sampled_us", wall_s * 1e6, **labels)
+    reg.observe("profile.gemm_us", wall_s * 1e6, **labels)

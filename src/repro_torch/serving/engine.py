@@ -137,6 +137,11 @@ def consult_decode_plans(cfg, batch: int) -> dict:
     return out
 
 
+def _shapes(batch: dict) -> tuple:
+    """A prompt batch's shape key: each tensor's name and shape."""
+    return tuple((name, tuple(v.shape)) for name, v in sorted(batch.items()) if isinstance(v, torch.Tensor))
+
+
 class ServeEngine:
     def __init__(self, model: Model, params: Any, scfg: ServeConfig,
                  device: str | torch.device | None = None):
@@ -155,12 +160,36 @@ class ServeEngine:
         # device (torch's RNG is not JAX's: sampled tokens cannot match the
         # reference's, greedy ones do).
         self._gen = torch.Generator(device=self.device).manual_seed(scfg.seed)
-        # The continuous decode step's GEMM work, which the scheduler divides
-        # its measured step into (nothing records into it yet: see
-        # ``obs.attribution``).  Executions are counted by the
-        # ``engine.steps{phase}`` counter of each continuous primitive.
+        # GEMM-work accounting (``obs.attribution``): each totals object holds
+        # ONE call's GEMM work, as the reference's trace-time totals do:
+        #   decode_totals    vector-pos decode_slots (one continuous tick)
+        #   generate_totals  synchronized scalar-pos decode step
+        #   prefill_totals   monolithic prefills, one call per distinct prompt
+        #                    shape (the reference's one trace per shape)
+        #   chunk totals     per (bucketed length, wrapped) prefill chunk
+        # Chosen: fill a totals object on the first call per shape key (with
+        # telemetry on) and collect later calls of that key into a scratch
+        # object, which feeds only the registry's counters.  Resetting on
+        # every call would also keep decode_totals at one tick, but would
+        # leave prefill_totals at the last prompt's shape, where the
+        # reference's sums one trace per shape.  The scheduler divides each
+        # measured tick into decode_totals; executions are counted by
+        # ``engine.steps{phase}``, so total FLOPs(phase) = totals.flops *
+        # engine.steps{phase} for a single-shape phase.
         self.decode_totals = _obs.GemmTotals()
+        self.generate_totals = _obs.GemmTotals()
+        self.prefill_totals = _obs.GemmTotals()
+        self._chunk_totals: dict[tuple[int, bool], _obs.GemmTotals] = {}
+        self._filled: set = set()  # the shape keys whose call filled its totals
         self._decode_plans: dict | None = None
+
+    def _collecting(self, totals: _obs.GemmTotals, key) -> Any:
+        """``collecting(totals)`` on the first call of shape ``key`` made with
+        telemetry on; a scratch totals object (the counters only) after it."""
+        if key in self._filled or not _obs_metrics.enabled():
+            return _obs.collecting(_obs.GemmTotals())
+        self._filled.add(key)
+        return _obs.collecting(totals)
 
     # -- tune-cache consultation ------------------------------------------------
 
@@ -198,7 +227,9 @@ class ServeEngine:
         """Prime the resident cache from a synchronized prompt batch; returns
         the first sampled continuation token (prefill emits last-position
         logits)."""
-        logits, self.cache = self.model.prefill(self.params, batch, max_len=self.scfg.max_len)
+        _obs_metrics.inc("engine.steps", phase="prefill")
+        with self._collecting(self.prefill_totals, ("prefill", _shapes(batch))):
+            logits, self.cache = self.model.prefill(self.params, batch, max_len=self.scfg.max_len)
         self.pos = self.prompt_positions(batch)
         return self._sample(logits)
 
@@ -210,8 +241,10 @@ class ServeEngine:
             raise RuntimeError("prefill() first")
         outs = []
         tok = tokens
+        _obs_metrics.inc("engine.steps", n_steps, phase="decode_sync")
         for _ in range(n_steps):
-            logits, self.cache = self.model.decode_step(self.params, tok, cache=self.cache, pos=self.pos)
+            with self._collecting(self.generate_totals, ("decode_sync", tuple(tok.shape))):
+                logits, self.cache = self.model.decode_step(self.params, tok, cache=self.cache, pos=self.pos)
             tok = self._sample(logits)
             outs.append(tok)
             self.pos += 1
@@ -255,7 +288,8 @@ class ServeEngine:
         if tokens.device.type != self.device.type:
             raise ValueError(f"prompt on {tokens.device}, engine on {self.device}")
         _obs_metrics.inc("engine.steps", phase="prefill_request")
-        with _obs_trace.span("engine.prefill_request", cat="engine", prompt_len=tokens.shape[1]):
+        with self._collecting(self.prefill_totals, ("prefill", _shapes(batch))), \
+                _obs_trace.span("engine.prefill_request", cat="engine", prompt_len=tokens.shape[1]):
             logits, cache = self.model.prefill(self.params, batch, max_len=self.scfg.max_len)
         return self._sample(logits), cache
 
@@ -293,8 +327,10 @@ class ServeEngine:
             raise ValueError(f"prompt on {tokens.device}, engine on {self.device}")
         length = tokens.shape[1]
         wrapped = offset + length > self.attn_cache_len()
+        totals = self._chunk_totals.setdefault((length, wrapped), _obs.GemmTotals())
         _obs_metrics.inc("engine.steps", phase="prefill_chunk")
-        with _obs_trace.span("engine.prefill_chunk", cat="engine", offset=offset, length=length, wrapped=wrapped):
+        with self._collecting(totals, ("chunk", length, wrapped)), \
+                _obs_trace.span("engine.prefill_chunk", cat="engine", offset=offset, length=length, wrapped=wrapped):
             logits, cache_one = self.model.prefill_chunk(self.params, {"tokens": tokens}, cache=cache_one,
                                                          offset=offset, wrapped=wrapped)
         return (self._sample(logits) if last else None), cache_one
@@ -317,7 +353,7 @@ class ServeEngine:
         is updated in place and returned, as the synchronized decode does.
         """
         _obs_metrics.inc("engine.steps", phase="decode")
-        with _obs.collecting(self.decode_totals), _obs_trace.span(
+        with self._collecting(self.decode_totals, ("decode", tuple(tokens.shape))), _obs_trace.span(
             "engine.decode_slots", cat="engine", batch=tokens.shape[0]
         ):
             logits, cache = self.model.decode_step(self.params, tokens, cache=cache, pos=pos)

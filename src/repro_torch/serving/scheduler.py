@@ -786,8 +786,8 @@ class ContinuousScheduler:
         self.stats.record_decode_step(dt, len(active) / self.pool.n_slots)
         if _obs_metrics.enabled():
             # Utilization attribution: the measured step divided into the
-            # GEMM work the engine's decode step recorded (none yet: see
-            # ``obs.attribution``).
+            # GEMM work of one decode step, which the engine's decode_totals
+            # holds (``obs.attribution``).
             totals = self.engine.decode_totals
             if totals.flops > 0 and dt > 0:
                 self.stats.record_utilization(

@@ -70,6 +70,8 @@ def test_port_and_chip_smoke_import_no_jax_or_repro():
             "repro_torch.core.systolic", "repro_torch.configs.paper", "repro_torch.tune", "repro_torch.tune.cache",
             "repro_torch.tune.candidates", "repro_torch.tune.measure", "repro_torch.tune.autotune",
             "repro_torch.tune.__main__"} <= set(res["modules"])
+    assert {"repro_torch.obs.drift", "repro_torch.obs.doctor", "repro_torch.obs.ledger",
+            "repro_torch.obs.__main__"} <= set(res["modules"])
     assert res["bad"] == []
 
 

@@ -1208,3 +1208,114 @@ def test_autotune_on_the_card_then_dispatch_follows_the_cache(cuda, tmp_path, mo
     finally:
         monkeypatch.delenv("REPRO_TORCH_TUNE_CACHE")
         tune_cache.reset_default_cache()
+
+
+# -- observability: recording, sampled windows, the drift probe ----------------------
+
+
+def _plan_counts():
+    from repro_torch.obs import metrics
+
+    c = metrics.get_registry().snapshot()["counters"]
+    return (c.get('tune.plan.hit{backend="cuda-systolic"}', 0.0), c.get('tune.plan.miss{backend="cuda-systolic"}', 0.0),
+            c.get('gemm.calls{backend="cuda-systolic",dtype="bfloat16"}', 0.0))
+
+
+@pytest.mark.gpu
+def test_record_gemm_adds_no_launch_and_records_what_launched(cuda, tmp_path, monkeypatch):
+    """Recording is host bookkeeping: a record launches nothing, each K1
+    launch is recorded once, and a tuned path the operands refuse (an
+    unaligned view) is recorded as the miss the rule's launch is."""
+    from repro_torch.obs import attribution, metrics
+    from repro_torch.tune import cache as tune_cache
+
+    monkeypatch.setenv("REPRO_TORCH_TUNE_CACHE", str(tmp_path / "plans.json"))
+    tune_cache.reset_default_cache()
+    metrics.reset()
+    try:
+        n0 = mm_kernel.launches
+        totals = attribution.GemmTotals()
+        with attribution.collecting(totals):
+            attribution.record_gemm(4, 2048, 2048, dtype="bfloat16", backend="cuda-systolic", plan_source="rule")
+        assert mm_kernel.launches == n0 and totals.calls == 1
+        m, n, k = 256, 384, 512
+        tune_cache.default_cache().store(
+            tune_cache.CacheKey("cuda-systolic", "h100", m, n, k, "bfloat16"),
+            tune_cache.TunedPlan(*mm_kernel.TILES["wgmma_128x128"], mean_us=1.0, best_us=1.0, method="cuda-events"))
+        a = _rand((m, k), 31).to(cuda, torch.bfloat16)
+        b = _rand((k, n), 32).to(cuda, torch.bfloat16)
+        raw = torch.empty(m * k + 4, device=cuda, dtype=torch.bfloat16)[4:].view(m, k).copy_(a)
+        metrics.reset()
+        before = collections.Counter(mm_kernel.launches_by_plan)
+        with attribution.collecting(totals):
+            mm_ops.matmul(a, b)
+            mm_ops.matmul(raw, b)
+            mm_ops.matmul(a[:64], b)
+        torch.cuda.synchronize()
+        assert sorted(key[5] for key in mm_kernel.launches_by_plan - before) == ["rule", "tuned", "tuned_refused"]
+        assert _plan_counts() == (1.0, 2.0, 3.0)
+        assert mm_kernel.launches == n0 + 3 and totals.calls == 4
+    finally:
+        metrics.reset()
+        monkeypatch.delenv("REPRO_TORCH_TUNE_CACHE")
+        tune_cache.reset_default_cache()
+
+
+@pytest.mark.gpu
+def test_sampled_windows_time_each_k1_call(cuda):
+    """At sampling rate 1.0 every K1 call through ``core.ops.matmul`` gets
+    one ``eager-wall`` window (host clock to the card's finishing it), and
+    the windows add no launch."""
+    from repro_torch import obs
+    from repro_torch.core import ops
+    from repro_torch.obs import metrics
+
+    metrics.reset()
+    x = _rand((2, 4, 512), 33).to(cuda, torch.bfloat16)
+    w = _rand((512, 256), 34).to(cuda, torch.bfloat16)
+    n0 = mm_kernel.launches
+    try:
+        with obs.sampling(1.0):
+            for _ in range(5):
+                ops.matmul(x, w)
+        hists = metrics.get_registry().snapshot()["histograms"]
+        (series, h), = hists.items()
+        assert obs.parse_series(series)[1] == {"backend": "cuda-systolic", "dtype": "bfloat16", "method": "eager-wall",
+                                               "problem": "8x256x512"}
+        assert h["count"] == mm_kernel.launches - n0 == 5 and h["min"] > 0
+    finally:
+        metrics.reset()
+
+
+@pytest.mark.gpu
+def test_drift_probe_times_each_decode_gemm_with_cuda_events(cuda, tmp_path, monkeypatch):
+    """The drift probe on an engine on the card: one ``cuda-events``
+    ``profile.gemm_us`` sample per decode problem, on the shape rule's path
+    (an empty plan cache), none failing."""
+    from repro_torch import configs, obs
+    from repro_torch.models.registry import get_model
+    from repro_torch.obs import drift, metrics
+    from repro_torch.serving import ServeConfig, ServeEngine
+    from repro_torch.serving.engine import decode_gemm_problems
+    from repro_torch.tune import cache as tune_cache
+
+    monkeypatch.setenv("REPRO_TORCH_TUNE_CACHE", str(tmp_path / "plans.json"))
+    tune_cache.reset_default_cache()
+    metrics.reset()
+    try:
+        cfg = configs.get_smoke("internlm2-1.8b")
+        model = get_model(cfg)
+        engine = ServeEngine(model, model.init(0, "cuda"), ServeConfig(max_len=32, batch=4), device="cuda")
+        rows = drift.probe_decode_plans(engine, repeats=1)
+        problems = decode_gemm_problems(cfg, 4)
+        assert len(rows) == len(problems) and all("error" not in r for r in rows)
+        assert all(r["method"] == "cuda-events" and r["mean_us"] > 0 and r["path"] == "decode" and not r["cached"]
+                   for r in rows)
+        hists = {obs.parse_series(s)[1]["problem"]: h for s, h in metrics.get_registry().snapshot()["histograms"].items()
+                 if obs.parse_series(s)[0] == "profile.gemm_us"}
+        want = collections.Counter(f"{m}x{n}x{k}" for _, m, n, k in problems)
+        assert {p: h["count"] for p, h in hists.items()} == dict(want)
+    finally:
+        metrics.reset()
+        monkeypatch.delenv("REPRO_TORCH_TUNE_CACHE")
+        tune_cache.reset_default_cache()

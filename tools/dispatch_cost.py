@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Host cost of the GEMM dispatch, and of the decode step it runs in, for one checkout.
 
-    python3 tools/dispatch_cost.py [--src ROOT] [--device cpu|cuda] [--calls 20000] [--steps 24] [--out FILE]
+    python3 tools/dispatch_cost.py [--src ROOT] [--device cpu|cuda] [--obs on|off] [--calls 20000] [--steps 24]
+                                   [--out FILE]
 
 ``repro_torch`` is imported from ``ROOT/src`` (default: this checkout), so
 two checkouts are compared by running this script once per checkout, in
@@ -13,12 +14,21 @@ K1 launch's tile at internlm2-1.8b's decode shape (4, 2048, 2048) in bf16,
 per call (the least mean of five runs of ``--calls`` calls): the shape rule
 alone (``gemm_path``, all that a launch decided before the plan cache), and,
 where the checkout has the cache, ``tune.cache.plan_path`` then
-``kernel.launch_path`` on a miss (an empty cache) and on a hit.
+``kernel.launch_path`` on a miss (an empty cache) and on a hit.  Where the
+checkout records GEMMs (``obs.attribution.record_gemm``), also the Python
+that recording adds to one ``core.ops.matmul`` call at (4, 2048) @ (2048,
+2048) bf16 on a plan-cache miss, the plain version stubbed out so only the
+dispatch runs, the sampler off: telemetry off (as ``REPRO_OBS=0``), on inside a ``collecting``
+scope (the serving engine's steps) and on outside any scope (training steps;
+the process's tally reaches the registry at its next read, outside the
+timing), in alternating rounds of ``--calls`` calls; each reading the median
+of the rounds, and what recording adds the median of each round's
+difference to the off arm.
 
 On the card (``--device cuda``, the default), with an empty plan cache
 unless said otherwise:
-  * the host wall per ``ops.matmul`` call at (4, 256) @ (256, 256) bf16,
-    ``--calls`` back-to-back calls then one synchronize (a few us of device
+  * the host wall per ``ops.matmul`` call at (4, 256) @ (256, 256) bf16
+    (outside any scope), ``--calls`` back-to-back calls then one synchronize (a few us of device
     work each, so the loop runs at the host's pace); where the checkout has
     the cache, also on a hit: the rule's own tile timed with CUDA events
     (``tune.measure.measure_matmul``) and stored, so hit and miss launch the
@@ -26,6 +36,10 @@ unless said otherwise:
   * the wall of each of ``--steps`` decode steps of full-width internlm2-1.8b
     (random weights from seed 0, bf16, batch 4, a 512-token prompt) through
     ``ServeEngine``, untraced, each step synchronized; median and min.
+
+``--obs on|off`` sets telemetry for the card's readings (off: as
+``REPRO_OBS=0``), so the decode step with and without recording is read by
+running the script once per setting, alternated, in one call to the machine.
 
 Prints one JSON object as its last line (and writes it to ``--out``).
 """
@@ -82,6 +96,59 @@ def cpu_costs(calls: int) -> dict:
                                 TunedPlan(*rule, mean_us=0.0, best_us=0.0, method=cache.DISPATCHED_METHOD))
     assert decide()[2] == "tuned"
     out["hit_us"] = per_call_us(decide, calls)
+    return out
+
+
+def obs_costs(calls: int, rounds: int = 24) -> dict:
+    """us a ``core.ops.matmul`` call at DECODE_SHAPE with telemetry off, on
+    in a scope and on outside one, the plain product stubbed out; the
+    median of ``rounds`` alternating rounds each."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.core import ops
+    from repro_torch.kernels.systolic import ops as mm_ops
+    from repro_torch.obs import attribution, metrics
+
+    m, n, k = DECODE_SHAPE
+    x, w = torch.zeros((m, k), dtype=torch.bfloat16), torch.zeros((k, n), dtype=torch.bfloat16)
+    y = torch.empty((m, n), dtype=torch.bfloat16)
+
+    def loop():
+        for _ in range(calls):
+            ops.matmul(x, w)
+
+    def timed(on: bool, scoped: bool) -> float:
+        metrics.enable(on)
+        totals = attribution.GemmTotals()
+        t0 = time.perf_counter()
+        if scoped:
+            with attribution.collecting(totals):
+                loop()
+        else:
+            loop()
+        dt = (time.perf_counter() - t0) / calls * 1e6
+        assert totals.calls == (calls if on and scoped else 0)
+        return dt
+
+    arms = {"off_us": (False, False), "on_scoped_us": (True, True), "on_direct_us": (True, False)}
+    got = {name: [] for name in arms}
+    with mock.patch.object(mm_ops, "matmul_ref", lambda *a, **kw: y):
+        try:
+            loop()  # warm-up
+            for r in range(rounds):
+                for name in (arms if r % 2 == 0 else reversed(arms)):
+                    got[name].append(timed(*arms[name]))
+        finally:
+            metrics.enable(True)
+            metrics.reset()
+    out = {name: statistics.median(v) for name, v in got.items()}
+    # what recording adds: the median of each round's on - off (the arms of
+    # a round run back to back, so a slower stretch of the host cancels)
+    out["added_scoped_us"] = statistics.median(on - off for on, off in zip(got["on_scoped_us"], got["off_us"]))
+    out["added_direct_us"] = statistics.median(on - off for on, off in zip(got["on_direct_us"], got["off_us"]))
+    out["rounds"] = got
     return out
 
 
@@ -159,6 +226,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=ROOT, help="root of the checkout whose repro_torch is measured")
     ap.add_argument("--device", choices=("cpu", "cuda"), default="cuda")
+    ap.add_argument("--obs", choices=("on", "off"), default="on",
+                    help="telemetry for the card's readings (off: as REPRO_OBS=0)")
     ap.add_argument("--calls", type=int, default=20000)
     ap.add_argument("--steps", type=int, default=24)
     ap.add_argument("--out", default=None)
@@ -175,13 +244,25 @@ def run(args, src: str) -> int:
     import torch
 
     out = {"src": src, "device": args.device}
+    try:
+        from repro_torch.obs import attribution
+    except ImportError:
+        attribution = None
+    records = attribution is not None and hasattr(attribution, "record_gemm")
     if args.device == "cpu":
+        if records:
+            out["record"] = obs_costs(args.calls)  # on a miss: before cpu_costs stores a plan for the shape
         out["decide"] = cpu_costs(args.calls)
     else:
         if not torch.cuda.is_available():
             print("dispatch_cost: no CUDA device; pass --device cpu", file=sys.stderr)
             return 1
+        from repro_torch.obs import metrics
+
+        metrics.enable(args.obs == "on")
         out["card"] = torch.cuda.get_device_name(0)
+        out["obs"] = args.obs
+        out["records_gemms"] = records
         out["decode_step"] = decode_steps(args.steps)  # before the matmul loop stores a plan
         out["matmul"] = matmul_costs(args.calls)
     line = json.dumps(out)
