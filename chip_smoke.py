@@ -145,7 +145,15 @@ Phases, each printing its own lines; any failure exits non-zero:
      retry), a traced step (device kernels, busy ms, idle share, K1's
      forward and backward ms), step ms, tokens/s, peak memory, the SMOKE
      checkpoint round trip on the card and the SMOKE model's fp32
-     gradients against the CPU path; each phase's wall;
+     gradients against the CPU path; then the static checks
+     (repro_torch.check) on the card: the auditor over every distinct plan
+     the run launched (K1, K5 and K4 plans, K3 shapes; coverage 1.0, zero
+     findings: each binary's own report of its grid, threads, shared
+     memory, split-K workspace and spills held to the Python accounting),
+     its dispatch paths and the paper sweep, each path's registers, spill
+     bytes and shared memory as the binaries report them, and the CLI in
+     a process of its own (exit 1 on a corrupt plan spec, 0 on the clean
+     tree); each phase's wall;
   4. each kernel timed at the served paths' shapes (CUDA events) beside its
      bound, its plain version and one PyTorch library call (a yardstick the
      port never calls; none computes the block-scaled product, so the
@@ -193,6 +201,7 @@ from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile, record_function  # noqa: E402
 
 from repro_torch import configs, obs, quant  # noqa: E402
+from repro_torch.check import audit as check_audit  # noqa: E402
 from repro_torch.checkpoint import latest_step  # noqa: E402
 from repro_torch.core import tree as tree_util  # noqa: E402
 from repro_torch.configs import paper  # noqa: E402
@@ -583,7 +592,19 @@ def expect(ok: bool, what: str) -> None:
         failures.append(what)
 
 
+# Every distinct plan the run launched, by counter (K1's launches_by_plan,
+# K5's quant_launches_by_plan, K4's and K3's launches_by_plan): folded in by
+# every reset, read by the audit phase.
+RUN_PLANS: dict[str, set] = {"systolic": set(), "quant": set(), "grouped": set(), "attention": set()}
+
+
 def reset_counts() -> None:
+    """Zero every launch counter, after folding its plan keys into
+    ``RUN_PLANS``."""
+    RUN_PLANS["systolic"].update(mm_kernel.launches_by_plan)
+    RUN_PLANS["quant"].update(mm_kernel.quant_launches_by_plan)
+    RUN_PLANS["grouped"].update(grouped_kernel.launches_by_plan)
+    RUN_PLANS["attention"].update(attn_kernel.launches_by_plan)
     mm_kernel.launches = 0
     mm_kernel.launches_by_shape.clear()
     mm_kernel.launches_by_path.clear()
@@ -593,8 +614,7 @@ def reset_counts() -> None:
     mm_kernel.quant_launches_by_path.clear()
     mm_kernel.quant_launches_by_plan.clear()
     attn_kernel.launches = 0
-    attn_kernel.launches_by_heads.clear()
-    attn_kernel.launches_by_shape.clear()
+    attn_kernel.launches_by_plan.clear()
     grouped_kernel.launches = 0
     grouped_kernel.launches_by_shape.clear()
     grouped_kernel.launches_by_path.clear()
@@ -617,7 +637,7 @@ def shape_counts() -> dict:
 
 def flash_shape_counts() -> dict:
     """Flash launches since the last reset by (B, Sq, Skv)."""
-    return dict(attn_kernel.launches_by_shape)
+    return dict(attn_kernel.launches_by_shape())
 
 
 def route_counts() -> dict:
@@ -626,7 +646,7 @@ def route_counts() -> dict:
     return {"systolic_mmm_paths": dict(mm_kernel.launches_by_path),
             "systolic_qmm_paths": dict(mm_kernel.quant_launches_by_path),
             "grouped_mmm_paths": dict(grouped_kernel.launches_by_path),
-            "flash_attn_heads": dict(attn_kernel.launches_by_heads)}
+            "flash_attn_heads": dict(attn_kernel.launches_by_heads())}
 
 
 @contextlib.contextmanager
@@ -2452,36 +2472,39 @@ def dse_table(d2: int = DSE_SIZE) -> list[dict]:
     return [dataclasses.asdict(r) for r in recs]
 
 
+def audit_gate(what: str, findings: list, stats: dict) -> None:
+    """One auditor verdict: zero findings (the first few printed) at full
+    coverage."""
+    for f in findings[:12]:
+        say(f"      {f.render()}")
+    expect(not findings and stats.get("coverage", 1.0) == 1.0,
+           f"{what}: {len(findings)} finding(s), coverage {stats.get('coverage', 1.0)}")
+
+
 def smem_check() -> dict:
     """``BlockPlan.smem_bytes()`` against the shared memory each wgmma path
-    allocates, read from the binaries (``tile_smem_bytes``)."""
-    q = mm_kernel.qtiles(torch.int8)["wgmma"]
-    rows = [("systolic_mmm", p, BlockPlan(1, 1, 1, *mm_kernel.TILES[p])) for p, _, _ in mm_kernel.WGMMA_TILES]
-    rows += [("grouped_mmm", p, BlockPlan(1, 1, 1, *grouped_kernel.TILES[p])) for p in grouped_kernel.WGMMA_ROWS]
-    rows += [("systolic_qmm", "wgmma", BlockPlan(1, 1, 1, *q, in_dtype="int8", quant_block_k=128))]
-    out = {}
-    for lib, path, plan in rows:
-        got = mm_kernel.tile_smem_bytes(lib, path)
-        out[f"{lib}:{path}"] = got
-        expect(got == plan.smem_bytes(), f"smem {lib} {path}: binary {got} B, BlockPlan.smem_bytes() {plan.smem_bytes()} B")
-    return out
+    allocates, held by the auditor (repro_torch.check.audit: the binary's
+    own launch report against the Python accounting, smem-mismatch /
+    smem-underdeclared) at one prefill launch of each wgmma tile; the
+    auditor's stats."""
+    findings, stats = check_audit.audit_launches(
+        systolic=[(2048, 2048, 2048, p, 0, "explicit", True) for p, _, _ in mm_kernel.WGMMA_TILES],
+        grouped=[(8, 256, 2048, 768, p, "explicit", True) for p in grouped_kernel.WGMMA_ROWS],
+        quant=[(2048, 2048, 2048, "wgmma", "explicit", "int8", 128, 128, True)], device="cuda")
+    audit_gate("smem of every wgmma tile, binary vs BlockPlan.smem_bytes()", findings, stats)
+    return stats
 
 
 def split_check(problems) -> dict:
     """``kernel.plan_split``, the Python twin by which the tuner reports the
-    rule's decode chunk, against the binary's rule: the split-K workspace
-    that csrc/common.cuh's ``plan_split`` sizes (splits x M x N fp32), at
-    each (M, N, K) of ``problems``."""
-    lib, _ = mm_kernel._entry("systolic_mmm")
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    out = {}
-    for m, n, k in problems:
-        splits, chunk = mm_kernel.plan_split(m, n, k, sms)
-        got = lib.split_workspace(m, n, k, 1, 0)
-        out[f"{m}x{n}x{k}"] = {"splits": splits, "k_chunk": chunk, "workspace_bytes": got}
-        expect(got == (splits * m * n * 4 if splits > 1 else 0),
-               f"plan_split twin at ({m}, {n}, {k}): {splits} splits of {chunk}, binary workspace {got} B")
-    return out
+    rule's decode chunk, against the binary's rule, held by the auditor
+    (workspace-mismatch: csrc/common.cuh's ``split_workspace``, splits x M x
+    N fp32; grid-mismatch: the binary's splits and chunk) at each rule
+    decode launch of ``problems`` (M, N, K); the auditor's stats."""
+    findings, stats = check_audit.audit_launches(
+        systolic=[(m, k, n, "decode", 0, "rule", True) for m, n, k in problems], device="cuda")
+    audit_gate(f"decode split rule at {len(problems)} problems, binary vs plan_split", findings, stats)
+    return stats
 
 
 def phase_tune(model, params, batch) -> dict:
@@ -2515,6 +2538,78 @@ def phase_tune(model, params, batch) -> dict:
     wall = time.perf_counter() - t0
     say(f"    tune phase wall {wall:.1f} s")
     return {"problems": results, "serve": serve, "dse": table, "smem": smem, "split": split, "wall_s": wall}
+
+
+# The audit phase's corrupt plan spec: the 128x256 wgmma tile declared with
+# 1000 B of shared memory, which the CLI must refuse (exit 1).
+CORRUPT_PLAN = {"m": 2048, "n": 2048, "k": 2048, "bm": 128, "bn": 256, "bk": 64, "dtype": "bfloat16",
+                "declared_smem_bytes": 1000}
+
+
+def run_check_cli(*args: str) -> subprocess.Popen:
+    """``python -m repro_torch.check <args>`` in a process of its own."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    return subprocess.Popen([sys.executable, "-m", "repro_torch.check", *args], cwd=ROOT, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def phase_audit(smi: str) -> dict:
+    """The static checks on the card (repro_torch.check), after every serving
+    and training phase: the auditor over every distinct plan the run
+    launched (``RUN_PLANS``; tuned launches read against the tune phase's
+    cache), coverage 1.0 and zero findings; its dispatch paths and the paper
+    sweep; each path's registers, spill bytes and shared memory as the
+    binaries report them, no spill; and the CLI in two processes, started
+    first: exit 1 on CORRUPT_PLAN, 0 on the clean tree (lint and the card
+    audit).  Every audited launch is made once more on seeded operands and
+    held against its plain version (``output-mismatch``)."""
+    t0 = time.perf_counter()
+    corrupt = os.path.join(TUNE_DIR, "corrupt_plans.json")
+    with open(corrupt, "w") as f:
+        json.dump({"plans": [CORRUPT_PLAN]}, f)
+    cli = {"corrupt": run_check_cli("--no-lint", "--plans", corrupt), "clean": run_check_cli()}
+    reset_counts()
+    plans = {k: sorted(v) for k, v in RUN_PLANS.items()}
+    say(f"    audit: {', '.join(f'{len(v)} {k}' for k, v in plans.items())} distinct launched plan keys")
+    pin_cache(os.path.join(TUNE_DIR, "plans.json"))  # the cache the tuned launches read
+    try:
+        findings, stats = check_audit.audit_launches(**plans, device="cuda")
+    finally:
+        pin_cache(os.path.join(TUNE_DIR, "untuned.json"))
+    say(f"    audit of launched plans: {stats['audited']} audited of {stats['launched']}, coverage "
+        f"{stats['coverage']}")
+    audit_gate("audit of every launched plan", findings, stats)
+    expect(all(stats["launched"].get(f, 0) > 0 for f in ("systolic", "quant", "grouped", "attention")),
+           f"audit: the run launched every family ({stats['launched']})")
+    d_findings, d_stats = check_audit.audit_dispatch_paths("cuda")
+    say(f"    audit dispatch paths: {d_stats['paths']}, max_abs_err {d_stats['max_abs_err']}")
+    audit_gate("audit of the dispatch paths", d_findings, d_stats)
+    s_findings, s_stats = check_audit.sweep_paper_candidates("cuda")
+    say(f"    audit paper sweep: {s_stats['plans_audited']} candidates over {s_stats['problems']} x "
+        f"{s_stats['dtypes']}")
+    audit_gate("audit of the paper sweep", s_findings, s_stats)
+    report = check_audit.kernel_report("cuda")
+    say(f"    binaries ({smi}):")
+    say(f"      {'library':12} {'path':16} {'dtype':14} {'out':9} {'regs':>4} {'spill B':>7} {'static B':>8} "
+        f"{'dynamic B':>9} {'threads':>7}")
+    for r in report:
+        say(f"      {r['library']:12} {r['path']:16} {r['dtype']:14} {r['out']:9} {r['regs']:4d} "
+            f"{r['local_bytes']:7d} {r['static_smem']:8d} {r['dyn_smem']:9d} {r['threads']:7d}")
+    spills = [f"{r['library']}:{r['path']}:{r['out']}" for r in report if r["local_bytes"]]
+    expect(not spills, f"no compiled path spills to local memory ({len(report)} kernels; spilling: {spills})")
+    rcs = {}
+    for name, proc in cli.items():
+        out, _ = proc.communicate(timeout=600)
+        rcs[name] = proc.returncode
+        say(f"    check CLI ({name}): exit {proc.returncode}; {out.strip().splitlines()[-1] if out.strip() else ''}")
+    expect(rcs == {"corrupt": 1, "clean": 0}, f"check CLI exits 1 on the corrupt plan spec, 0 on the clean tree "
+                                              f"({rcs})")
+    reset_counts()
+    wall = time.perf_counter() - t0
+    say(f"    audit phase wall {wall:.1f} s")
+    return {"launched": stats, "dispatch": d_stats, "sweep": s_stats,
+            "kernels": report, "cli": rcs, "findings": [f.to_dict() for f in findings + d_findings + s_findings],
+            "wall_s": wall}
 
 
 def w8a8_vs_bf16(label: str, w8a8: dict, bf16: dict, gate: bool = True) -> None:
@@ -3873,6 +3968,7 @@ def run(args) -> int:
     tied_r = timed(f"tied {VLM_ARCH}", phase_tied, device["nvidia_smi"])
     timed(f"small reference {VLM_ARCH} tied", lambda: phase_small_reference(VLM_ARCH, tie_embeddings=True))
     train_r = timed(f"train {ARCH}", phase_train, device["nvidia_smi"])
+    audit_r = timed("audit", phase_audit, device["nvidia_smi"])
     kernels, k2, chunk_attn, paging, train_t = timed("timing", phase_timing, errs,
                                             [bf16, moe_r, mla_bf16, ssm_r, hyb_r, audio_r, vlm_r],
                                             [w8a8, mla_w8a8, moe_w8a8], [moe_r, moe_w8a8],
@@ -3894,7 +3990,7 @@ def run(args) -> int:
                        "serve_mla_paged": mla_paged, "serve_paged": paged_runs, "serve_xlstm": ssm_r,
                        "serve_xlstm_continuous": ssm_runs, "serve_zamba2": hyb_r, "serve_musicgen": audio_r,
                        "serve_internvl2": vlm_r, "serve_internvl2_continuous": vlm_cont, "serve_tied": tied_r,
-                       "train": train_r, "train_timing": train_t,
+                       "train": train_r, "train_timing": train_t, "audit": audit_r,
                        "kernels": kernels,
                        "systolic_mmm_bias": k2, "chunk_attention": chunk_attn, "paged_pool": paging,
                        "phase_wall_s": walls,

@@ -92,11 +92,21 @@ class BlockPlan:
         slack of the 128-byte swizzle.  Equal to what the wgmma tiles
         allocate (``WgTile::SMEM`` in csrc/wgmma_gemm.cuh, ``QTile::SMEM`` in
         csrc/systolic_qmm.cu).  The output tile is staged through the drained
-        ring and the accumulator lives in registers, so neither adds here."""
+        ring and the accumulator lives in registers, so neither adds here.
+        The WMMA tiles stage two cp.async stages in static shared memory, which
+        this covers (``repro_torch.check.audit`` holds each binary to it);
+        with e4m3 values they also widen one stage to bf16 (WMMA has no e4m3
+        type, csrc/systolic_qmm.cu), which is added."""
         a_block = self.bm * self.bk * self.in_dtype_bytes
         b_block = self.bk * self.bn * self.in_dtype_bytes
         scales = (self.bm + self.bn) * self.scale_dtype_bytes if self.quant_block_k else 0
-        return self.stages * (a_block + b_block + scales) + 2 * self.stages * BARRIER_BYTES + ALIGN_BYTES
+        widened = (self.bm * self.bk + self.bk * self.bn) * hw.dtype_bytes("bfloat16") if self._e4m3 else 0
+        return (self.stages * (a_block + b_block + scales) + widened + 2 * self.stages * BARRIER_BYTES
+                + ALIGN_BYTES)
+
+    @property
+    def _e4m3(self) -> bool:
+        return self.in_dtype in ("float8_e4m3fn", "fp8")
 
     def fits_smem(self, chip: hw.GPU | str | None = None) -> bool:
         return self.smem_bytes() <= hw.get_chip(chip).smem_per_block

@@ -181,6 +181,41 @@ inline Split plan_split(int M, int N, int K, bool splittable, int k_chunk = 0) {
   return {(k_tiles + per - 1) / per, per * D_BK};
 }
 
+// What one launch runs: its kernel's grid, threads per block, dynamic shared
+// memory and split-K, and the compiled kernel's attributes.  Every launcher
+// takes an optional `LaunchQuery*`: given one, it fills it from the very
+// values it would launch with and returns without launching, so a query is
+// the launch itself and not a second copy of it (kernels/_build.py query).
+struct LaunchQuery {
+  dim3 grid;
+  int threads;
+  int dyn_smem;
+  Split split;
+  cudaFuncAttributes attr;
+};
+
+template <typename Kernel>
+int describe(LaunchQuery* q, Kernel kern, dim3 grid, int threads, int dyn_smem, Split sp = {1, 0}) {
+  q->grid = grid;
+  q->threads = threads;
+  q->dyn_smem = dyn_smem;
+  q->split = sp;
+  return static_cast<int>(cudaFuncGetAttributes(&q->attr, kern));
+}
+
+// A query's fields as the Python binding reads them (kernels/_build.py
+// QUERY_FIELDS): grid x, y, z, threads, dynamic shared memory, splits, the
+// contraction per split (0 unsplit), registers per thread, static shared
+// memory, local (spill) bytes per thread, the kernel's most threads a block.
+constexpr int QUERY_FIELDS = 11;
+inline void export_query(const LaunchQuery& q, long long* out) {
+  const long long v[QUERY_FIELDS] = {q.grid.x, q.grid.y, q.grid.z, q.threads, q.dyn_smem, q.split.splits,
+                                     q.split.splits > 1 ? q.split.k_chunk : 0, q.attr.numRegs,
+                                     (long long)q.attr.sharedSizeBytes, (long long)q.attr.localSizeBytes,
+                                     q.attr.maxThreadsPerBlock};
+  for (int i = 0; i < QUERY_FIELDS; ++i) out[i] = v[i];
+}
+
 // After a split-K launch: sum its partials in z order into `out`.
 template <typename O>
 void finish_split(const float* partial, Split sp, const float* bias, O* out, int M, int N, int act,

@@ -300,20 +300,23 @@ int map_bshd(CUtensorMap* map, const void* base, int B, int S, int heads, int D,
   return hp::encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, 4, dims, strides, box);
 }
 
+// Each launcher returns a CUDA error code (0 = ok); given `query`, it
+// describes the launch instead (repro::LaunchQuery) and launches nothing.
 template <int DP>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H, int Hkv, int D,
                  const long long* qs, const long long* ks, const long long* vs, float scale, const Mask& mk,
-                 cudaStream_t s) {
+                 cudaStream_t s, repro::LaunchQuery* query) {
   using L = WgLayout<DP>;
+  auto kern = flash_wgmma_kernel<DP>;
+  const dim3 grid(H, B, (mk.Sq + W_BQ - 1) / W_BQ);
+  if (query != nullptr) return repro::describe(query, kern, grid, W_NT, L::SMEM);
   CUtensorMap tq, tk, tv;
   int e = map_bshd(&tq, q, B, mk.Sq, H, D, qs[0], qs[1], qs[2], 64);
   if (e == 0) e = map_bshd(&tk, k, B, mk.Skv, Hkv, D, ks[0], ks[1], ks[2], W_BKV);
   if (e == 0) e = map_bshd(&tv, v, B, mk.Skv, Hkv, D, vs[0], vs[1], vs[2], W_BKV);
   if (e != 0) return e;
-  auto kern = flash_wgmma_kernel<DP>;
   const cudaError_t attr = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  dim3 grid(H, B, (mk.Sq + W_BQ - 1) / W_BQ);
   kern<<<grid, W_NT, L::SMEM, s>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, H, Hkv, D,
                                    scale * 1.4426950408889634f, mk);
   return static_cast<int>(cudaGetLastError());
@@ -457,9 +460,11 @@ __global__ void __launch_bounds__(F_NT)
 
 int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H, int Hkv, int D,
                const long long* qs, const long long* ks, const long long* vs, float scale, const Mask& mk,
-               cudaStream_t s) {
+               cudaStream_t s, repro::LaunchQuery* query) {
   const int DP = (D + 15) / 16 * 16;
   const F32Layout L(DP);
+  const dim3 grid(H, B, (mk.Sq + F_BQ - 1) / F_BQ);
+  if (query != nullptr) return repro::describe(query, flash_f32_kernel, grid, F_NT, static_cast<int>(L.bytes));
   if (L.bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(flash_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                static_cast<int>(L.bytes));
@@ -467,12 +472,29 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
   }
   bool vec = repro::aligned16(q) && repro::aligned16(k) && repro::aligned16(v) && D % 4 == 0;
   for (int i = 0; i < 3; ++i) vec = vec && qs[i] % 4 == 0 && ks[i] % 4 == 0 && vs[i] % 4 == 0;
-  dim3 grid(H, B, (mk.Sq + F_BQ - 1) / F_BQ);
   flash_f32_kernel<<<grid, F_NT, L.bytes, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(o), lse, H, Hkv, D, DP, qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], scale,
       mk, vec);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The entry point's launch after its pointer checks: the checks of the sizes
+// and the dtype, then the path by dtype and D (`query` as for the launchers).
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H, int Hkv, int Sq, int Skv,
+           int D, const long long* qs, const long long* ks, const long long* vs, float scale, int causal, int window,
+           int kv_valid, int dtype, cudaStream_t s, repro::LaunchQuery* query) {
+  if (B <= 0 || B > 65535 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || Sq <= 0 || Skv <= 0 || D <= 0 || D > 128 ||
+      (Sq + 63) / 64 > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Mask mk{Sq, Skv, kv_valid, causal, window};
+  if (dtype == repro::DT_BF16) {
+    if (D % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+    if (D <= 64) return launch_wgmma<64>(q, k, v, o, lse, B, H, Hkv, D, qs, ks, vs, scale, mk, s, query);
+    return launch_wgmma<128>(q, k, v, o, lse, B, H, Hkv, D, qs, ks, vs, scale, mk, s, query);
+  }
+  if (dtype == repro::DT_F32) return launch_f32(q, k, v, o, lse, B, H, Hkv, D, qs, ks, vs, scale, mk, s, query);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -489,19 +511,26 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void*
                               int Skv, int D, long long qsb, long long qss, long long qsh, long long ksb,
                               long long kss, long long ksh, long long vsb, long long vss, long long vsh, float scale,
                               int causal, int window, int kv_valid, int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long qs[3] = {qsb, qss, qsh}, ks[3] = {ksb, kss, ksh}, vs[3] = {vsb, vss, vsh};
-  if (B <= 0 || B > 65535 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || Sq <= 0 || Skv <= 0 || D <= 0 || D > 128 ||
-      (Sq + 63) / 64 > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Mask mk{Sq, Skv, kv_valid, causal, window};
   if (dtype == repro::DT_BF16) {
-    bool tma_ok = repro::aligned16(q) && repro::aligned16(k) && repro::aligned16(v) && D % 8 == 0;
+    bool tma_ok = repro::aligned16(q) && repro::aligned16(k) && repro::aligned16(v);
     for (int i = 0; i < 3; ++i) tma_ok = tma_ok && qs[i] % 8 == 0 && ks[i] % 8 == 0 && vs[i] % 8 == 0;
     if (!tma_ok) return static_cast<int>(cudaErrorInvalidValue);
-    if (D <= 64) return launch_wgmma<64>(q, k, v, o, lse, B, H, Hkv, D, qs, ks, vs, scale, mk, s);
-    return launch_wgmma<128>(q, k, v, o, lse, B, H, Hkv, D, qs, ks, vs, scale, mk, s);
   }
-  if (dtype == repro::DT_F32) return launch_f32(q, k, v, o, lse, B, H, Hkv, D, qs, ks, vs, scale, mk, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch(q, k, v, o, lse, B, H, Hkv, Sq, Skv, D, qs, ks, vs, scale, causal, window, kv_valid, dtype,
+                static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// What a flash_attn_fwd launch at these sizes runs, taken from the launch
+// above with a LaunchQuery (no launch), for contiguous (B, S, H, D)
+// operands: QUERY_FIELDS values into `out`.  Returns 0, or the code the
+// launch's checks would give.
+extern "C" int flash_attn_query(int B, int H, int Hkv, int Sq, int Skv, int D, int dtype, long long* out) {
+  const long long qs[3] = {(long long)Sq * H * D, (long long)H * D, D};
+  const long long kvs[3] = {(long long)Skv * Hkv * D, (long long)Hkv * D, D};
+  repro::LaunchQuery query{};
+  const int e = launch(nullptr, nullptr, nullptr, nullptr, nullptr, B, H, Hkv, Sq, Skv, D, qs, kvs, kvs, 1.f, 1, 0,
+                       Skv, dtype, nullptr, &query);
+  if (e == 0) repro::export_query(query, out);
+  return e;
 }

@@ -251,44 +251,50 @@ __global__ void __launch_bounds__(F_NT)
 // 16-byte aligned when the first is and its rows are whole 16-byte chunks.
 // ---------------------------------------------------------------------------
 
+// Each launcher returns 0 after a launch (the caller reads cudaGetLastError)
+// or, given `q`, describe()'s code after filling it, launching nothing.
 template <bool BATCHED, int BM, int BN, int BK, int WM, int WN, typename O, bool KMB = false>
-void launch_bf16(const void* a, const void* b, const float* bias, void* out, int M, int N, int K,
-                 int act, int batch, cudaStream_t s, Split sp = {1, 0}, float* partial = nullptr,
-                 const int* rows = nullptr) {
+int launch_bf16(const void* a, const void* b, const float* bias, void* out, int M, int N, int K,
+                int act, int batch, cudaStream_t s, Split sp = {1, 0}, float* partial = nullptr,
+                const int* rows = nullptr, LaunchQuery* q = nullptr) {
   const bool vec_a = aligned16(a) && K % 8 == 0;
   const bool vec_b = aligned16(b) && (KMB ? K : N) % 8 == 0;  // B's stored rows: K-major rows are K long
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, BATCHED ? batch : sp.splits);
-  mmm_bf16_kernel<BATCHED, BM, BN, BK, WM, WN, O, KMB><<<grid, 32 * WM * WN, 0, s>>>(
+  auto kern = mmm_bf16_kernel<BATCHED, BM, BN, BK, WM, WN, O, KMB>;
+  if (q != nullptr) return describe(q, kern, grid, 32 * WM * WN, 0, sp);
+  kern<<<grid, 32 * WM * WN, 0, s>>>(
       static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b), bias,
       static_cast<O*>(out), M, N, K, act, vec_a, vec_b, sp.splits > 1 ? sp.k_chunk : K,
       sp.splits > 1 ? partial : nullptr, rows);
   finish_split<O>(partial, sp, bias, static_cast<O*>(out), M, N, act, s);
+  return 0;
 }
 
 template <bool BATCHED, typename O, bool KMB = false>
-void launch_f32(const void* a, const void* b, const float* bias, void* out, int M, int N, int K,
-                int act, int batch, cudaStream_t s, const int* rows = nullptr) {
+int launch_f32(const void* a, const void* b, const float* bias, void* out, int M, int N, int K,
+               int act, int batch, cudaStream_t s, const int* rows = nullptr, LaunchQuery* q = nullptr) {
   const bool vec_a = aligned16(a) && K % 4 == 0;
   const bool vec_b = aligned16(b) && (KMB ? K : N) % 4 == 0;
   dim3 grid((N + F_BN - 1) / F_BN, (M + F_BM - 1) / F_BM, batch);
-  mmm_f32_kernel<BATCHED, O, KMB><<<grid, F_NT, 0, s>>>(static_cast<const float*>(a),
-                                                   static_cast<const float*>(b), bias,
-                                                   static_cast<O*>(out), M, N, K, act, vec_a,
-                                                   vec_b, rows);
+  auto kern = mmm_f32_kernel<BATCHED, O, KMB>;
+  if (q != nullptr) return describe(q, kern, grid, F_NT, 0);
+  kern<<<grid, F_NT, 0, s>>>(static_cast<const float*>(a), static_cast<const float*>(b), bias,
+                             static_cast<O*>(out), M, N, K, act, vec_a, vec_b, rows);
+  return 0;
 }
 
 template <bool BATCHED, typename O>
-void launch(const void* a, const void* b, const float* bias, void* out, int M, int N, int K,
-            int in_dtype, int act, int batch, cudaStream_t s, float* workspace, const int* rows) {
-  if (in_dtype == DT_F32) {
-    launch_f32<BATCHED, O>(a, b, bias, out, M, N, K, act, batch, s, rows);
-  } else if (M <= D_BM) {  // decode: one 16-row tile, 4 warps side by side over 64 columns
-    launch_bf16<BATCHED, D_BM, D_BN, D_BK, 1, 4, O>(a, b, bias, out, M, N, K, act, batch, s,
-                                                    plan_split(M, N, K, !BATCHED), workspace, rows);
-  } else {  // prefill: 128x128 tile, 8 warps of 64x32
-    launch_bf16<BATCHED, 128, 128, 32, 2, 4, O>(a, b, bias, out, M, N, K, act, batch, s, {1, 0},
-                                                nullptr, rows);
-  }
+int launch(const void* a, const void* b, const float* bias, void* out, int M, int N, int K,
+           int in_dtype, int act, int batch, cudaStream_t s, float* workspace, const int* rows,
+           LaunchQuery* q) {
+  if (in_dtype == DT_F32)
+    return launch_f32<BATCHED, O>(a, b, bias, out, M, N, K, act, batch, s, rows, q);
+  if (M <= D_BM)  // decode: one 16-row tile, 4 warps side by side over 64 columns
+    return launch_bf16<BATCHED, D_BM, D_BN, D_BK, 1, 4, O>(a, b, bias, out, M, N, K, act, batch, s,
+                                                           plan_split(M, N, K, !BATCHED), workspace, rows, q);
+  // prefill: 128x128 tile, 8 warps of 64x32
+  return launch_bf16<BATCHED, 128, 128, 32, 2, 4, O>(a, b, bias, out, M, N, K, act, batch, s, {1, 0},
+                                                     nullptr, rows, q);
 }
 
 // `batch` row-major (M, K) @ (K, N) products of dtype `in_dtype`, stored one
@@ -297,11 +303,12 @@ void launch(const void* a, const void* b, const float* bias, void* out, int M, i
 // the decode tile splits K, and `workspace` holds at least
 // split_workspace(M, N, K, in_dtype == bf16, 0) bytes (null if that is 0).
 // Batched, `rows` (batch,) on the device or null: see BATCHED above.
-// Launches on `s` and returns cudaGetLastError() (0 on success).
+// Launches on `s` and returns cudaGetLastError() (0 on success); given `q`,
+// describes the launch instead (LaunchQuery).
 template <bool BATCHED>
 int gemm(const void* a, const void* b, const float* bias, void* out, int M, int N, int K,
          int batch, int in_dtype, int out_dtype, int act, void* workspace,
-         long long workspace_bytes, cudaStream_t s, const int* rows = nullptr) {
+         long long workspace_bytes, cudaStream_t s, const int* rows = nullptr, LaunchQuery* q = nullptr) {
   if ((in_dtype != DT_F32 && in_dtype != DT_BF16) || (out_dtype != DT_F32 && out_dtype != DT_BF16) ||
       act < ACT_NONE || act > ACT_TANH || M <= 0 || N <= 0 || K < 0 || batch <= 0 ||
       batch > (BATCHED ? 65535 : 1) ||
@@ -309,11 +316,10 @@ int gemm(const void* a, const void* b, const float* bias, void* out, int M, int 
       (workspace_bytes > 0 && workspace == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   float* ws = static_cast<float*>(workspace);
-  if (out_dtype == DT_F32)
-    launch<BATCHED, float>(a, b, bias, out, M, N, K, in_dtype, act, batch, s, ws, rows);
-  else
-    launch<BATCHED, __nv_bfloat16>(a, b, bias, out, M, N, K, in_dtype, act, batch, s, ws, rows);
-  return static_cast<int>(cudaGetLastError());
+  const int e = out_dtype == DT_F32
+                    ? launch<BATCHED, float>(a, b, bias, out, M, N, K, in_dtype, act, batch, s, ws, rows, q)
+                    : launch<BATCHED, __nv_bfloat16>(a, b, bias, out, M, N, K, in_dtype, act, batch, s, ws, rows, q);
+  return e != 0 || q != nullptr ? e : static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace repro

@@ -53,24 +53,31 @@ namespace {
 // Paths, as numbered by the Python binding's PATHS (kernels/grouped/kernel.py).
 enum Path { P_FMA = 0, P_DECODE = 1, P_WMMA = 2, P_WGMMA_64 = 3, P_WGMMA_128 = 4, P_WGMMA_192 = 5 };
 
-}  // namespace
-
-// Dynamic shared memory of one block of `path`'s tile: the wgmma tiles'
-// (WgTile::SMEM), 0 for the tiles whose shared memory is static.  Held to
-// core/blocking.py's BlockPlan.smem_bytes() by the tests.
-extern "C" int tile_smem_bytes(int path) {
+// The launch of `path` once the pointers are checked (`q` as for the
+// launchers: given one, it describes the launch and launches nothing).
+int launch(const void* x, const void* w, void* y, int E, int C, int K, int N, int dtype, const int* rows, int path,
+           cudaStream_t s, repro::LaunchQuery* q) {
+  const bool fp32 = dtype == repro::DT_F32;
+  if ((dtype != repro::DT_F32 && dtype != repro::DT_BF16) || E <= 0 || E > 65535 || C <= 0 || N <= 0 || K < 0 ||
+      path < P_FMA || path > P_WGMMA_192 || fp32 != (path == P_FMA) ||
+      (!fp32 && (path == P_DECODE) != (C <= repro::D_BM)) ||
+      (path >= P_WGMMA_64 && (K == 0 || K % 8 != 0 || N % 8 != 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  using B16 = __nv_bfloat16;
   namespace wg = repro::wg;
   switch (path) {
     case P_WGMMA_64:
-      return wg::WgTile<1, 128>::SMEM;
+      return wg::launch_wgmma<true, 1, 128, B16>(x, w, nullptr, y, C, N, K, repro::ACT_NONE, E, rows, s, q);
     case P_WGMMA_128:
-      return wg::WgTile<2, 128>::SMEM;
+      return wg::launch_wgmma<true, 2, 128, B16>(x, w, nullptr, y, C, N, K, repro::ACT_NONE, E, rows, s, q);
     case P_WGMMA_192:
-      return wg::WgTile<3, 128>::SMEM;
-    default:
-      return 0;
+      return wg::launch_wgmma<true, 3, 128, B16>(x, w, nullptr, y, C, N, K, repro::ACT_NONE, E, rows, s, q);
+    default:  // FMA, the decode tile or the WMMA tile: gemm.cuh picks by dtype and C as the path did
+      return repro::gemm<true>(x, w, nullptr, y, C, N, K, E, dtype, dtype, repro::ACT_NONE, nullptr, 0, s, rows, q);
   }
 }
+
+}  // namespace
 
 // x: (E, C, K), w: (E, K, N), y: (E, C, N), all row-major and of dtype
 // `dtype` (bf16 or fp32); rows: (E,) int32 on the device, or null (all C
@@ -80,26 +87,19 @@ extern "C" int tile_smem_bytes(int path) {
 // cudaGetLastError() (0 on success).
 extern "C" int grouped_mmm(const void* x, const void* w, void* y, int E, int C, int K, int N, int dtype,
                            const void* rows, int path, void* stream) {
-  using repro::aligned16;
-  const int* r = static_cast<const int*>(rows);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool fp32 = dtype == repro::DT_F32;
-  const bool wgmma = path >= P_WGMMA_64;
-  if ((dtype != repro::DT_F32 && dtype != repro::DT_BF16) || E <= 0 || E > 65535 || C <= 0 || N <= 0 || K < 0 ||
-      path < P_FMA || path > P_WGMMA_192 || fp32 != (path == P_FMA) ||
-      (!fp32 && (path == P_DECODE) != (C <= repro::D_BM)) ||
-      (wgmma && (K == 0 || K % 8 != 0 || N % 8 != 0 || !aligned16(x) || !aligned16(w))))
+  if (path >= P_WGMMA_64 && (!repro::aligned16(x) || !repro::aligned16(w)))
     return static_cast<int>(cudaErrorInvalidValue);
-  using B16 = __nv_bfloat16;
-  namespace wg = repro::wg;
-  switch (path) {
-    case P_WGMMA_64:
-      return wg::launch_wgmma<true, 1, 128, B16>(x, w, nullptr, y, C, N, K, repro::ACT_NONE, E, r, s);
-    case P_WGMMA_128:
-      return wg::launch_wgmma<true, 2, 128, B16>(x, w, nullptr, y, C, N, K, repro::ACT_NONE, E, r, s);
-    case P_WGMMA_192:
-      return wg::launch_wgmma<true, 3, 128, B16>(x, w, nullptr, y, C, N, K, repro::ACT_NONE, E, r, s);
-    default:  // FMA, the decode tile or the WMMA tile: gemm.cuh picks by dtype and C as the path did
-      return repro::gemm<true>(x, w, nullptr, y, C, N, K, E, dtype, dtype, repro::ACT_NONE, nullptr, 0, s, r);
-  }
+  return launch(x, w, y, E, C, K, N, dtype, static_cast<const int*>(rows), path, static_cast<cudaStream_t>(stream),
+                nullptr);
+}
+
+// What a grouped_mmm launch of `path` at (E, C, K, N) and `dtype` runs,
+// taken from the launch above with a LaunchQuery (no launch):
+// QUERY_FIELDS values into `out`.  Returns 0, or the code the launch's
+// checks would give (aligned bases assumed).
+extern "C" int grouped_mmm_query(int E, int C, int K, int N, int dtype, int path, long long* out) {
+  repro::LaunchQuery q{};
+  const int e = launch(nullptr, nullptr, nullptr, E, C, K, N, dtype, nullptr, path, nullptr, &q);
+  if (e == 0) repro::export_query(q, out);
+  return e;
 }

@@ -75,55 +75,60 @@ enum Path {
 
 template <typename O>
 int dispatch(int path, const void* a, const void* b, const float* bias, void* out, int M, int N, int K, int act,
-             int k_chunk, float* workspace, cudaStream_t s) {
+             int k_chunk, float* workspace, cudaStream_t s, LaunchQuery* q = nullptr) {
+  int e = 0;
   switch (path) {
     case P_FMA:
-      launch_f32<false, O>(a, b, bias, out, M, N, K, act, 1, s);
+      e = launch_f32<false, O>(a, b, bias, out, M, N, K, act, 1, s, nullptr, q);
       break;
     case P_DECODE:
-      launch_bf16<false, D_BM, D_BN, D_BK, 1, 4, O>(a, b, bias, out, M, N, K, act, 1, s,
-                                                    plan_split(M, N, K, true, k_chunk), workspace);
+      e = launch_bf16<false, D_BM, D_BN, D_BK, 1, 4, O>(a, b, bias, out, M, N, K, act, 1, s,
+                                                        plan_split(M, N, K, true, k_chunk), workspace, nullptr, q);
       break;
     case P_WMMA:
-      launch_bf16<false, 128, 128, 32, 2, 4, O>(a, b, bias, out, M, N, K, act, 1, s);
+      e = launch_bf16<false, 128, 128, 32, 2, 4, O>(a, b, bias, out, M, N, K, act, 1, s, {1, 0}, nullptr, nullptr,
+                                                    q);
       break;
     case P_WGMMA_256:
-      return wg::launch_wgmma<false, 2, 256, O>(a, b, bias, out, M, N, K, act, 1, nullptr, s);
+      e = wg::launch_wgmma<false, 2, 256, O>(a, b, bias, out, M, N, K, act, 1, nullptr, s, q);
+      break;
     case P_WGMMA_128:
-      return wg::launch_wgmma<false, 2, 128, O>(a, b, bias, out, M, N, K, act, 1, nullptr, s);
+      e = wg::launch_wgmma<false, 2, 128, O>(a, b, bias, out, M, N, K, act, 1, nullptr, s, q);
+      break;
     case P_WGMMA_64:
-      return wg::launch_wgmma<false, 1, 128, O>(a, b, bias, out, M, N, K, act, 1, nullptr, s);
+      e = wg::launch_wgmma<false, 1, 128, O>(a, b, bias, out, M, N, K, act, 1, nullptr, s, q);
+      break;
     case P_FMA_KMAJOR:
-      launch_f32<false, O, true>(a, b, bias, out, M, N, K, act, 1, s);
+      e = launch_f32<false, O, true>(a, b, bias, out, M, N, K, act, 1, s, nullptr, q);
       break;
     case P_DECODE_KMAJOR:
-      launch_bf16<false, D_BM, D_BN, D_BK, 1, 4, O, true>(a, b, bias, out, M, N, K, act, 1, s,
-                                                          plan_split(M, N, K, true, k_chunk), workspace);
+      e = launch_bf16<false, D_BM, D_BN, D_BK, 1, 4, O, true>(a, b, bias, out, M, N, K, act, 1, s,
+                                                              plan_split(M, N, K, true, k_chunk), workspace, nullptr,
+                                                              q);
       break;
     case P_WMMA_KMAJOR:
-      launch_bf16<false, 128, 128, 32, 2, 4, O, true>(a, b, bias, out, M, N, K, act, 1, s);
+      e = launch_bf16<false, 128, 128, 32, 2, 4, O, true>(a, b, bias, out, M, N, K, act, 1, s, {1, 0}, nullptr,
+                                                          nullptr, q);
       break;
   }
-  return static_cast<int>(cudaGetLastError());
+  return e != 0 || q != nullptr ? e : static_cast<int>(cudaGetLastError());
+}
+
+// The entry point's checks of everything but the pointers and the workspace
+// (`aligned`: the bases are 16-byte aligned).
+bool valid_call(int M, int N, int K, int in_dtype, int out_dtype, int activation, int path, int k_chunk,
+                bool aligned) {
+  const bool fp32 = in_dtype == DT_F32;
+  const bool wgmma = path >= P_WGMMA_128 && path <= P_WGMMA_256;
+  const bool decode = path == P_DECODE || path == P_DECODE_KMAJOR;
+  return !((in_dtype != DT_F32 && in_dtype != DT_BF16) || (out_dtype != DT_F32 && out_dtype != DT_BF16) ||
+           activation < ACT_NONE || activation > ACT_TANH || M <= 0 || N <= 0 || K < 0 || path < P_FMA ||
+           path > P_WMMA_KMAJOR || fp32 != (path == P_FMA || path == P_FMA_KMAJOR) || (decode && M > D_BM) ||
+           (wgmma && (K == 0 || K % 8 != 0 || N % 8 != 0 || !aligned)) || k_chunk < 0 ||
+           (k_chunk > 0 && (!decode || k_chunk % D_BK != 0)));
 }
 
 }  // namespace
-
-// Dynamic shared memory of one block of `path`'s tile: the wgmma tiles'
-// (WgTile::SMEM), 0 for the tiles whose shared memory is static.  Held to
-// core/blocking.py's BlockPlan.smem_bytes() by the tests.
-extern "C" int tile_smem_bytes(int path) {
-  switch (path) {
-    case P_WGMMA_128:
-      return wg::WgTile<2, 128>::SMEM;
-    case P_WGMMA_64:
-      return wg::WgTile<1, 128>::SMEM;
-    case P_WGMMA_256:
-      return wg::WgTile<2, 256>::SMEM;
-    default:
-      return 0;
-  }
-}
 
 // a: (M, K) row-major, b: (K, N) row-major -- or, on a *_KMAJOR path,
 // K-major (stored as (N, K) row-major) --, both of dtype `in_dtype`; bias:
@@ -137,20 +142,31 @@ extern "C" int tile_smem_bytes(int path) {
 extern "C" int systolic_mmm(const void* a, const void* b, const void* bias, void* out, int M, int N, int K,
                             int in_dtype, int out_dtype, int activation, int path, int k_chunk,
                             void* workspace, long long workspace_bytes, void* stream) {
-  const bool fp32 = in_dtype == DT_F32;
-  const bool wgmma = path >= P_WGMMA_128 && path <= P_WGMMA_256;
   const bool decode = path == P_DECODE || path == P_DECODE_KMAJOR;
-  if ((in_dtype != DT_F32 && in_dtype != DT_BF16) || (out_dtype != DT_F32 && out_dtype != DT_BF16) ||
-      activation < ACT_NONE || activation > ACT_TANH || M <= 0 || N <= 0 || K < 0 || path < P_FMA ||
-      path > P_WMMA_KMAJOR || fp32 != (path == P_FMA || path == P_FMA_KMAJOR) || (decode && M > D_BM) ||
-      (wgmma && (K == 0 || K % 8 != 0 || N % 8 != 0 || !aligned16(a) || !aligned16(b))) ||
-      k_chunk < 0 || (k_chunk > 0 && (!decode || k_chunk % D_BK != 0)) ||
-      workspace_bytes < split_workspace(M, N, K, decode, k_chunk) ||
-      (workspace_bytes > 0 && workspace == nullptr))
+  if (!valid_call(M, N, K, in_dtype, out_dtype, activation, path, k_chunk, aligned16(a) && aligned16(b)) ||
+      workspace_bytes < split_workspace(M, N, K, decode, k_chunk) || (workspace_bytes > 0 && workspace == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const float* bs = static_cast<const float*>(bias);
   float* ws = static_cast<float*>(workspace);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return out_dtype == DT_F32 ? dispatch<float>(path, a, b, bs, out, M, N, K, activation, k_chunk, ws, s)
                              : dispatch<__nv_bfloat16>(path, a, b, bs, out, M, N, K, activation, k_chunk, ws, s);
+}
+
+// What a systolic_mmm launch of `path` at (M, N, K) with these dtypes and
+// `k_chunk` runs, taken from the dispatch above with a LaunchQuery (no
+// launch): QUERY_FIELDS values into `out`.  Returns 0, or the code the
+// launch's checks would give (aligned bases assumed).
+extern "C" int systolic_mmm_query(int M, int N, int K, int in_dtype, int out_dtype, int path, int k_chunk,
+                                  long long* out) {
+  if (!valid_call(M, N, K, in_dtype, out_dtype, ACT_NONE, path, k_chunk, true))
+    return static_cast<int>(cudaErrorInvalidValue);
+  LaunchQuery q{};
+  const int e = out_dtype == DT_F32
+                    ? dispatch<float>(path, nullptr, nullptr, nullptr, nullptr, M, N, K, ACT_NONE, k_chunk, nullptr,
+                                      nullptr, &q)
+                    : dispatch<__nv_bfloat16>(path, nullptr, nullptr, nullptr, nullptr, M, N, K, ACT_NONE, k_chunk,
+                                              nullptr, nullptr, &q);
+  if (e == 0) export_query(q, out);
+  return e;
 }

@@ -83,6 +83,7 @@ using repro::from_f32;
 using repro::D_BK;
 using repro::D_BM;
 using repro::D_BN;
+using repro::LaunchQuery;
 using repro::plan_split;
 using repro::Split;
 using repro::store_out;
@@ -501,23 +502,31 @@ int gcd(int a, int b) {
   return a;
 }
 
+// Each launcher returns 0 after a launch, or a CUDA error code; given `q`,
+// describes the launch instead (LaunchQuery).
 template <int BM, int BN, int BK, int WM, int WN, int QD, typename O>
-void launch_tile(const void* a, const float* a_s, const void* b, const float* b_s, void* out,
-                 int M, int N, int K, int qk_a, int qk_b, int n_sa, int step, int act,
-                 cudaStream_t s, Split sp, float* partial) {
+int launch_tile(const void* a, const float* a_s, const void* b, const float* b_s, void* out,
+                int M, int N, int K, int qk_a, int qk_b, int n_sa, int step, int act,
+                cudaStream_t s, Split sp, float* partial, LaunchQuery* q) {
   const bool vec_a = repro::aligned16(a) && K % 16 == 0;
   const bool vec_b = repro::aligned16(b) && K % 16 == 0;
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, sp.splits);
-  qmm_kernel<BM, BN, BK, WM, WN, QD, O><<<grid, 32 * WM * WN, 0, s>>>(
+  auto kern = qmm_kernel<BM, BN, BK, WM, WN, QD, O>;
+  if (q != nullptr) return repro::describe(q, kern, grid, 32 * WM * WN, 0, sp);
+  kern<<<grid, 32 * WM * WN, 0, s>>>(
       static_cast<const uint8_t*>(a), a_s, static_cast<const uint8_t*>(b), b_s,
       static_cast<O*>(out), M, N, K, qk_a, qk_b, n_sa, step, act, vec_a, vec_b,
       sp.splits > 1 ? sp.k_chunk : K, sp.splits > 1 ? partial : nullptr);
   repro::finish_split<O>(partial, sp, nullptr, static_cast<O*>(out), M, N, act, s);
+  return 0;
 }
 
 template <typename O>
 int launch_wgmma(const void* a, const float* a_s, const void* b, const float* b_s, void* out, int M, int N, int K,
-                 int qk_a, int qk_b, int n_sa, int step, int act, cudaStream_t s) {
+                 int qk_a, int qk_b, int n_sa, int step, int act, cudaStream_t s, LaunchQuery* q) {
+  auto kern = qmm_wgmma_kernel<O>;
+  const dim3 grid((N + Q_BN - 1) / Q_BN, (M + Q_BM - 1) / Q_BM);
+  if (q != nullptr) return repro::describe(q, kern, grid, QTile::NT, QTile::SMEM);
   CUtensorMap ta, tb;
   const cuuint64_t a_dims[2] = {(cuuint64_t)K, (cuuint64_t)M}, b_dims[2] = {(cuuint64_t)K, (cuuint64_t)N};
   const cuuint64_t pitch[1] = {(cuuint64_t)K};
@@ -525,28 +534,27 @@ int launch_wgmma(const void* a, const float* a_s, const void* b, const float* b_
   int e = hp::encode_map(&ta, CU_TENSOR_MAP_DATA_TYPE_UINT8, a, 2, a_dims, pitch, a_box);
   if (e == 0) e = hp::encode_map(&tb, CU_TENSOR_MAP_DATA_TYPE_UINT8, b, 2, b_dims, pitch, b_box);
   if (e != 0) return e;
-  auto kern = qmm_wgmma_kernel<O>;
   const cudaError_t attr = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, QTile::SMEM);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  dim3 grid((N + Q_BN - 1) / Q_BN, (M + Q_BM - 1) / Q_BM);
   kern<<<grid, QTile::NT, QTile::SMEM, s>>>(ta, tb, a_s, b_s, static_cast<O*>(out), M, N, K, qk_a, qk_b, n_sa,
                                             step, act);
-  return static_cast<int>(cudaGetLastError());
+  return 0;
 }
 
 template <int QD, typename O>
 int launch(int path, const void* a, const float* a_s, const void* b, const float* b_s, void* out, int M, int N,
-           int K, int qk_a, int qk_b, int n_sa, int step, int act, cudaStream_t s, float* workspace) {
-  if constexpr (QD == Q_INT8) {
-    if (path == QP_WGMMA) return launch_wgmma<O>(a, a_s, b, b_s, out, M, N, K, qk_a, qk_b, n_sa, step, act, s);
-  }
-  if (path == QP_DECODE)
-    launch_tile<D_BM, D_BN, D_BK, 1, 4, QD, O>(a, a_s, b, b_s, out, M, N, K, qk_a, qk_b, n_sa, step, act, s,
-                                               plan_split(M, N, K, true), workspace);
+           int K, int qk_a, int qk_b, int n_sa, int step, int act, cudaStream_t s, float* workspace,
+           LaunchQuery* q = nullptr) {
+  int e;
+  if (QD == Q_INT8 && path == QP_WGMMA)
+    e = launch_wgmma<O>(a, a_s, b, b_s, out, M, N, K, qk_a, qk_b, n_sa, step, act, s, q);
+  else if (path == QP_DECODE)
+    e = launch_tile<D_BM, D_BN, D_BK, 1, 4, QD, O>(a, a_s, b, b_s, out, M, N, K, qk_a, qk_b, n_sa, step, act, s,
+                                                   plan_split(M, N, K, true), workspace, q);
   else
-    launch_tile<P_BM, P_BN, p_bk(QD), 2, 4, QD, O>(a, a_s, b, b_s, out, M, N, K, qk_a, qk_b, n_sa, step, act, s,
-                                                   {1, K}, nullptr);
-  return static_cast<int>(cudaGetLastError());
+    e = launch_tile<P_BM, P_BN, p_bk(QD), 2, 4, QD, O>(a, a_s, b, b_s, out, M, N, K, qk_a, qk_b, n_sa, step, act,
+                                                       s, {1, K}, nullptr, q);
+  return e != 0 || q != nullptr ? e : static_cast<int>(cudaGetLastError());
 }
 
 // The scale step for scale blocks qk_a, qk_b (0 = all of K): gcd of the
@@ -556,12 +564,18 @@ int scale_step(int qk_a, int qk_b) {
   return qk_a > 0 ? qk_a : qk_b;
 }
 
-}  // namespace
+// The entry point's checks of everything but the pointers and the workspace
+// (`aligned`: the bases are 16-byte aligned).
+bool valid_call(int M, int N, int K, int qk_a, int qk_b, int qdtype, int out_dtype, int activation, int path,
+                bool aligned) {
+  const int step = scale_step(qk_a, qk_b);
+  return !((qdtype != Q_INT8 && qdtype != Q_FP8) || (out_dtype != repro::DT_F32 && out_dtype != repro::DT_BF16) ||
+           activation < ACT_NONE || activation > ACT_TANH || M <= 0 || N <= 0 || K <= 0 || qk_a < 0 || qk_b < 0 ||
+           step % 16 != 0 || path < QP_DECODE || path > QP_WGMMA || (path == QP_DECODE) != (M <= D_BM) ||
+           (path == QP_WGMMA && (qdtype != Q_INT8 || K % 16 != 0 || N % 8 != 0 || step % Q_BK != 0 || !aligned)));
+}
 
-// Dynamic shared memory of one block of `path`'s tile: the int8 wgmma
-// tile's (QTile::SMEM), 0 for the WMMA tiles, whose shared memory is
-// static.  Held to core/blocking.py's BlockPlan.smem_bytes() by the tests.
-extern "C" int tile_smem_bytes(int path) { return path == QP_WGMMA ? QTile::SMEM : 0; }
+}  // namespace
 
 // a: (M, K) row-major; b: the (K, N) values stored K-major, as an (N, K)
 // row-major matrix; 1-byte values of `qdtype` (0 int8, 1
@@ -578,12 +592,8 @@ extern "C" int systolic_qmm(const void* a, const void* a_scales, const void* b,
                             void* workspace, long long workspace_bytes, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int step = scale_step(qk_a, qk_b);
-  if ((qdtype != Q_INT8 && qdtype != Q_FP8) ||
-      (out_dtype != repro::DT_F32 && out_dtype != repro::DT_BF16) || activation < ACT_NONE ||
-      activation > ACT_TANH || M <= 0 || N <= 0 || K <= 0 || qk_a < 0 || qk_b < 0 ||
-      step % 16 != 0 || path < QP_DECODE || path > QP_WGMMA || (path == QP_DECODE) != (M <= D_BM) ||
-      (path == QP_WGMMA && (qdtype != Q_INT8 || K % 16 != 0 || N % 8 != 0 || step % Q_BK != 0 ||
-                            !repro::aligned16(a) || !repro::aligned16(b))) ||
+  if (!valid_call(M, N, K, qk_a, qk_b, qdtype, out_dtype, activation, path,
+                  repro::aligned16(a) && repro::aligned16(b)) ||
       workspace_bytes < split_workspace(M, N, K, 1, 0) ||
       (workspace_bytes > 0 && workspace == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -600,4 +610,32 @@ extern "C" int systolic_qmm(const void* a, const void* a_scales, const void* b,
              ? launch<Q_FP8, float>(path, a, as, b, bs, out, M, N, K, qk_a, qk_b, n_sa, step, activation, s, ws)
              : launch<Q_FP8, __nv_bfloat16>(path, a, as, b, bs, out, M, N, K, qk_a, qk_b, n_sa, step,
                                             activation, s, ws);
+}
+
+// What a systolic_qmm launch of `path` at (M, N, K) with scale blocks qk_a,
+// qk_b and these dtypes runs, taken from the launch above with a
+// LaunchQuery (no launch): QUERY_FIELDS values into `out`.  Returns 0, or
+// the code the launch's checks would give (aligned bases assumed).
+extern "C" int systolic_qmm_query(int M, int N, int K, int qk_a, int qk_b, int qdtype, int out_dtype, int path,
+                                  long long* out) {
+  if (!valid_call(M, N, K, qk_a, qk_b, qdtype, out_dtype, ACT_NONE, path, true))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int step = scale_step(qk_a, qk_b);
+  const int n_sa = qk_a > 0 ? (K + qk_a - 1) / qk_a : 1;
+  LaunchQuery q{};
+  int e;
+  if (qdtype == Q_INT8)
+    e = out_dtype == repro::DT_F32
+            ? launch<Q_INT8, float>(path, nullptr, nullptr, nullptr, nullptr, nullptr, M, N, K, qk_a, qk_b, n_sa,
+                                    step, ACT_NONE, nullptr, nullptr, &q)
+            : launch<Q_INT8, __nv_bfloat16>(path, nullptr, nullptr, nullptr, nullptr, nullptr, M, N, K, qk_a, qk_b,
+                                            n_sa, step, ACT_NONE, nullptr, nullptr, &q);
+  else
+    e = out_dtype == repro::DT_F32
+            ? launch<Q_FP8, float>(path, nullptr, nullptr, nullptr, nullptr, nullptr, M, N, K, qk_a, qk_b, n_sa,
+                                   step, ACT_NONE, nullptr, nullptr, &q)
+            : launch<Q_FP8, __nv_bfloat16>(path, nullptr, nullptr, nullptr, nullptr, nullptr, M, N, K, qk_a, qk_b,
+                                           n_sa, step, ACT_NONE, nullptr, nullptr, &q);
+  if (e == 0) repro::export_query(q, out);
+  return e;
 }

@@ -182,11 +182,16 @@ __global__ void __launch_bounds__(128 * (NCONS + 1), 1)
 // `batch` row-major (M, K) @ (K, N) bf16 products stored one after another
 // (batch 1 unbatched), with `rows` (batched only; null = all M rows) as
 // above.  K and N multiples of 8 and 16-byte-aligned bases (TMA's row
-// pitch and base).  Returns a CUDA error code (0 = ok).
+// pitch and base).  Returns a CUDA error code (0 = ok); given `q`,
+// describes the launch instead (LaunchQuery).
 template <bool BATCHED, int NCONS, int BN, typename O>
 int launch_wgmma(const void* a, const void* b, const float* bias, void* out, int M, int N, int K, int act,
-                 int batch, const int* rows, cudaStream_t s) {
+                 int batch, const int* rows, cudaStream_t s, LaunchQuery* q = nullptr) {
   using T = WgTile<NCONS, BN>;
+  auto kern = mmm_wgmma_kernel<BATCHED, NCONS, BN, O>;
+  // x fastest, then y, then z: the tiles of one matrix are adjacent in launch order.
+  const dim3 grid((N + BN - 1) / BN, (M + T::BM - 1) / T::BM, batch);
+  if (q != nullptr) return describe(q, kern, grid, T::NT, T::SMEM);
   CUtensorMap ta, tb;
   int e;
   if constexpr (BATCHED) {
@@ -205,11 +210,8 @@ int launch_wgmma(const void* a, const void* b, const float* bias, void* out, int
     if (e == 0) e = hp::encode_map(&tb, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, b, 2, b_dims, b_strides, b_box);
   }
   if (e != 0) return e;
-  auto kern = mmm_wgmma_kernel<BATCHED, NCONS, BN, O>;
   const cudaError_t attr = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  // x fastest, then y, then z: the tiles of one matrix are adjacent in launch order.
-  dim3 grid((N + BN - 1) / BN, (M + T::BM - 1) / T::BM, batch);
   kern<<<grid, T::NT, T::SMEM, s>>>(ta, tb, bias, static_cast<O*>(out), M, N, K, act, rows);
   return static_cast<int>(cudaGetLastError());
 }

@@ -20,6 +20,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent / "_build"
@@ -109,3 +110,49 @@ def check(lib: ctypes.CDLL, what: str, code: int) -> None:
     if code != 0:
         msg = lib.cuda_error_string(code).decode()
         raise RuntimeError(f"{what} failed: CUDA error {code} ({msg})")
+
+
+# ---------------------------------------------------------------------------
+# Launch queries: each library's ``<name>_query`` entry point runs its
+# launcher with a ``LaunchQuery`` (csrc/common.cuh) instead of launching, and
+# reports what that launch would run.  The bindings in ``kernels/*/kernel.py``
+# hold these against their Python accounting (``launch_of``), which is what
+# ``repro_torch.check.audit`` checks on the card.
+# ---------------------------------------------------------------------------
+
+QUERY_FIELDS = 11  # csrc/common.cuh QUERY_FIELDS
+
+
+class Launch(NamedTuple):
+    """What one launch runs: grid (x, y, z), threads per block, dynamic
+    shared memory bytes, split-K slices and the contraction per slice (0
+    when the contraction is not split)."""
+
+    grid: tuple[int, int, int]
+    threads: int
+    dyn_smem: int
+    splits: int = 1
+    k_chunk: int = 0
+
+
+class Compiled(NamedTuple):
+    """``cudaFuncGetAttributes`` of the kernel a launch runs: registers per
+    thread, static shared memory bytes, local (spill) bytes per thread and
+    the most threads a block of it may have."""
+
+    regs: int
+    static_smem: int
+    local_bytes: int
+    max_threads: int
+
+
+def query(lib: ctypes.CDLL, fn_name: str, *args: int) -> tuple[Launch, Compiled]:
+    """(Launch, Compiled) of library ``lib``'s ``fn_name`` query at ``args``;
+    raises with the CUDA error when the launch's own checks refuse them."""
+    out = (ctypes.c_longlong * QUERY_FIELDS)()
+    fn = getattr(lib, fn_name)
+    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    check(lib, fn_name, fn(*args, out))
+    v = [int(x) for x in out]
+    return Launch((v[0], v[1], v[2]), v[3], v[4], v[5], v[6]), Compiled(*v[7:11])

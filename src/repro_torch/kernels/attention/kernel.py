@@ -24,11 +24,61 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
 MAX_BATCH = 65535  # the grid's y extent
 
-# Kernel launches made by this process, in all, by the (H, Hkv) head counts
-# they were given and by (B, Sq, Skv) (read and reset by chip_smoke.py).
+# Kernel launches made by this process, in all and by (B, Sq, Skv, H, Hkv,
+# D, dtype name), what an audit of the launch needs (read and reset by
+# chip_smoke.py).
 launches = 0
-launches_by_heads: collections.Counter = collections.Counter()
-launches_by_shape: collections.Counter = collections.Counter()
+launches_by_plan: collections.Counter = collections.Counter()
+
+
+def launches_by_heads() -> collections.Counter:
+    """``launches_by_plan`` summed by the (H, Hkv) head counts."""
+    return _summed(lambda key: key[3:5])
+
+
+def launches_by_shape() -> collections.Counter:
+    """``launches_by_plan`` summed by (B, Sq, Skv)."""
+    return _summed(lambda key: key[:3])
+
+
+def _summed(part) -> collections.Counter:
+    out: collections.Counter = collections.Counter()
+    for key, count in launches_by_plan.items():
+        out[part(key)] += count
+    return out
+
+# csrc/flash_attn.cu: bf16 blocks of W_BQ query rows and W_NT threads (two
+# consumer warpgroups and a producer), K/V tiles of W_BKV keys in a
+# W_STAGES ring; fp32 blocks of F_BQ rows and F_NT threads, K/V tiles of
+# F_BKV keys.
+W_BQ, W_BKV, W_STAGES, W_NT = 128, 128, 2, 384
+F_BQ, F_BKV, F_NT = 64, 64, 128
+
+
+def launch_of(b: int, h: int, sq: int, d: int, dtype: torch.dtype) -> _build.Launch:
+    """The launch a flash call over (B, Sq, H, D) queries of ``dtype`` runs
+    with: a block per (head, batch row, query tile), q tiles on z; dynamic
+    shared memory for bf16 Q's two 64-row halves, the K/V ring of 128-byte
+    panels (D padded to 64 or 128) and the barriers with 1024 bytes of
+    alignment slack (``WgLayout``), for fp32 the Q, K, V, S and O tiles
+    (``F32Layout``, D padded to 16, rows 4 floats longer).  The Python
+    accounting that ``launch_query`` is held to."""
+    if dtype == torch.bfloat16:
+        panels = 64 if d <= 64 else 128
+        q_half = panels // 64 * 64 * 128
+        kv_tile = panels // 64 * W_BKV * 128
+        smem = 2 * q_half + W_STAGES * 2 * kv_tile + (1 + 2 * W_STAGES) * 8 + 1024
+        return _build.Launch((h, b, -(-sq // W_BQ)), W_NT, smem)
+    row = 4 * (-(-d // 16) * 16 + 4)
+    smem = F_BQ * row + 2 * F_BKV * row + 4 * F_BQ * F_BKV + F_BQ * row  # each a multiple of 128 bytes
+    return _build.Launch((h, b, -(-sq // F_BQ)), F_NT, smem)
+
+
+def launch_query(b: int, h: int, hkv: int, sq: int, skv: int, d: int,
+                 dtype: torch.dtype) -> tuple[_build.Launch, _build.Compiled]:
+    """What the binary launches at these sizes, and the compiled kernel's
+    attributes (``flash_attn_query``; needs the card)."""
+    return _build.query(_entry()[0], "flash_attn_query", b, h, hkv, sq, skv, d, DTYPE_CODES[dtype])
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -107,6 +157,5 @@ def flash_attention_call(
     )
     _build.check(lib, "flash_attn_fwd launch", code)
     launches += 1
-    launches_by_heads[(h, hkv)] += 1
-    launches_by_shape[(b, sq, skv)] += 1
+    launches_by_plan[(b, sq, skv, h, hkv, d, str(q.dtype).removeprefix("torch."))] += 1
     return (out, lse) if return_lse else out

@@ -17,6 +17,7 @@ import math
 
 import torch
 
+from repro_torch.core.blocking import BlockPlan
 from repro_torch.kernels import _build
 from repro_torch.kernels.systolic.kernel import DECODE_MAX_M, DTYPE_CODES, TILES as _MM_TILES, _entry, aligned
 
@@ -38,9 +39,33 @@ WGMMA_ROWS = {"wgmma_64x128": 64, "wgmma_128x128": 128, "wgmma_192x128": 192}
 TILES = {"fma": _MM_TILES["fma"], "decode": _MM_TILES["decode"], "wmma": _MM_TILES["wmma"],
          **{p: (rows, 128, 64) for p, rows in WGMMA_ROWS.items()}}
 
+# Threads per block of each path's tile: the systolic GEMM's (32 per warp),
+# the wgmma tiles 128 per consumer warpgroup and the producer's.
+THREADS = {"fma": 256, "decode": 128, "wmma": 256, **{p: 128 * (rows // 64 + 1) for p, rows in WGMMA_ROWS.items()}}
+
+
+def launch_of(path: str, e: int, c: int, k: int, n: int) -> _build.Launch:
+    """The launch ``path`` runs E (C, K) @ (K, N) products with: a block per
+    (bc, bn) tile of each expert, the expert the grid's z, no split-K, the
+    wgmma tiles' ring as dynamic shared memory (``BlockPlan.smem_bytes``).
+    The Python accounting that ``launch_query`` is held to."""
+    bc, bn, bk = TILES[path]
+    dyn = BlockPlan(c, n, k, bc, bn, bk).smem_bytes() if path in WGMMA_ROWS else 0
+    return _build.Launch((-(-n // bn), -(-c // bc), e), THREADS[path], dyn)
+
+
+def launch_query(path: str, e: int, c: int, k: int, n: int,
+                 dtype: torch.dtype) -> tuple[_build.Launch, _build.Compiled]:
+    """What the binary launches for ``path`` at (E, C, K, N) of ``dtype``
+    operands, and the compiled kernel's attributes (``grouped_mmm_query``;
+    needs the card)."""
+    return _build.query(_entry("grouped_mmm")[0], "grouped_mmm_query", e, c, k, n, DTYPE_CODES[dtype],
+                        PATHS.index(path))
+
+
 # Kernel launches made by this process, in all, by (E, C, K, N), by path and
-# by (E, C, K, N, path, source) as the systolic kernel's ``launches_by_plan``
-# (read and reset by chip_smoke.py).
+# by (E, C, K, N, path, source, aligned) as the systolic kernel's
+# ``launches_by_plan`` (read and reset by chip_smoke.py).
 launches = 0
 launches_by_shape: collections.Counter = collections.Counter()
 launches_by_path: collections.Counter = collections.Counter()
@@ -135,8 +160,9 @@ def grouped_matmul_call(x: torch.Tensor, w: torch.Tensor, rows: torch.Tensor | N
     out = torch.empty((e, c, n), dtype=x.dtype, device=x.device)
     if e == 0 or c == 0 or n == 0:
         return out
+    al = aligned(x, w)
     if not settled:
-        path, plan_source = launch_path(path, plan_source, c, k, n, x.dtype, aligned(x, w))
+        path, plan_source = launch_path(path, plan_source, c, k, n, x.dtype, al)
     lib, fn = _entry("grouped_mmm")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     code = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), e, c, k, n, DTYPE_CODES[x.dtype],
@@ -145,5 +171,5 @@ def grouped_matmul_call(x: torch.Tensor, w: torch.Tensor, rows: torch.Tensor | N
     launches += 1
     launches_by_shape[(e, c, k, n)] += 1
     launches_by_path[path] += 1
-    launches_by_plan[(e, c, k, n, path, plan_source)] += 1
+    launches_by_plan[(e, c, k, n, path, plan_source, al)] += 1
     return out

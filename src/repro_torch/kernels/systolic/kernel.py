@@ -21,6 +21,7 @@ import math
 import torch
 
 from repro_torch.core import hw
+from repro_torch.core.blocking import BlockPlan
 from repro_torch.kernels import _build
 from repro_torch.kernels.systolic.ref import ACTIVATIONS
 
@@ -62,10 +63,11 @@ TILES = {
 }
 
 # Kernel launches made by this process, in all, by (M, K, N), by path and
-# by (M, K, N, path, k_chunk, source), the source being where the path came from:
-# "explicit" (a caller's plan), "tuned" (the plan cache), "rule"
-# (``gemm_path``) or "tuned_refused" (the rule's path where the operands at
-# hand could not take the cached one).  Read and reset by chip_smoke.py.
+# by (M, K, N, path, k_chunk, source, aligned), the source being where the
+# path came from: "explicit" (a caller's plan), "tuned" (the plan cache),
+# "rule" (``gemm_path``) or "tuned_refused" (the rule's path where the
+# operands at hand could not take the cached one), ``aligned`` the operands'
+# base alignment the path was settled on.  Read and reset by chip_smoke.py.
 launches = 0
 launches_by_shape: collections.Counter = collections.Counter()
 launches_by_path: collections.Counter = collections.Counter()
@@ -93,8 +95,6 @@ def _entry(name: str):
     fn.restype = _I
     lib.split_workspace.argtypes = [_I, _I, _I, _I, _I]
     lib.split_workspace.restype = _LL
-    lib.tile_smem_bytes.argtypes = [_I]
-    lib.tile_smem_bytes.restype = _I
     return lib, fn
 
 
@@ -114,14 +114,31 @@ def _workspace(name: str, device: torch.device, m: int, n: int, k: int, splittab
     return ws, nbytes
 
 
-def tile_smem_bytes(name: str, path: str) -> int:
-    """Dynamic shared memory one block of ``path``'s tile allocates in
-    library ``name`` (the wgmma tiles'; 0 for the static ones), read from
-    the binary."""
-    paths = {"systolic_mmm": PATHS, "systolic_qmm": QPATHS}.get(name)
-    if paths is None:
-        from repro_torch.kernels.grouped.kernel import PATHS as paths
-    return _entry(name)[0].tile_smem_bytes(paths.index(path))
+# Threads per block of each path's tile (csrc/gemm.cuh: 32 per warp; the
+# wgmma tiles: 128 per consumer warpgroup and the producer's).
+THREADS = {"fma": 256, "decode": 128, "wmma": 256, "wgmma_128x128": 384, "wgmma_64x128": 256, "wgmma_128x256": 384}
+
+
+def launch_of(path: str, m: int, n: int, k: int, sms: int, k_chunk: int = 0) -> _build.Launch:
+    """The launch ``path`` runs an (M, K) @ (K, N) product with on a card of
+    ``sms`` SMs: a block per (bm, bn) tile, the decode tile's split-K slices
+    on the grid's z, the wgmma tiles' ring as dynamic shared memory
+    (``BlockPlan.smem_bytes``).  The Python accounting that ``launch_query``
+    (the binary's own) is held to."""
+    base = path.removesuffix("_kmajor")
+    bm, bn, bk = TILES[base]
+    splits, chunk = plan_split(m, n, k, sms, k_chunk) if base == "decode" else (1, k)
+    dyn = BlockPlan(m, n, k, bm, bn, bk).smem_bytes() if base.startswith("wgmma") else 0
+    return _build.Launch((-(-n // bn), -(-m // bm), splits), THREADS[base], dyn, splits, chunk if splits > 1 else 0)
+
+
+def launch_query(path: str, m: int, n: int, k: int, dtype: torch.dtype, out_dtype: torch.dtype,
+                 k_chunk: int = 0) -> tuple[_build.Launch, _build.Compiled]:
+    """What the binary launches for ``path`` at (M, N, K) with these dtypes
+    and ``k_chunk``, and the compiled kernel's attributes
+    (``systolic_mmm_query``; needs the card)."""
+    return _build.query(_entry("systolic_mmm")[0], "systolic_mmm_query", m, n, k, DTYPE_CODES[dtype],
+                        DTYPE_CODES[out_dtype], PATHS.index(path), k_chunk)
 
 
 def plan_split(m: int, n: int, k: int, sms: int, k_chunk: int = 0) -> tuple[int, int]:
@@ -292,9 +309,10 @@ def systolic_matmul_call(
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     if m == 0 or n == 0:
         return out
+    al = aligned(a, b)
     if not settled:
-        path, k_chunk, plan_source = launch_path(path, k_chunk, plan_source, m, n, k, a.dtype, aligned(a, b),
-                                                 k_major, _sm_count(a.device.index))
+        path, k_chunk, plan_source = launch_path(path, k_chunk, plan_source, m, n, k, a.dtype, al, k_major,
+                                                 _sm_count(a.device.index))
     lib, fn = _entry("systolic_mmm")
     ws, nbytes = _workspace("systolic_mmm", a.device, m, n, k, path.startswith("decode"), k_chunk)
     stream = torch.cuda.current_stream(a.device).cuda_stream
@@ -308,7 +326,7 @@ def systolic_matmul_call(
     launches += 1
     launches_by_shape[(m, k, n)] += 1
     launches_by_path[path] += 1
-    launches_by_plan[(m, k, n, path, k_chunk, plan_source)] += 1
+    launches_by_plan[(m, k, n, path, k_chunk, plan_source, al)] += 1
     return out
 
 
@@ -343,6 +361,28 @@ def qtiles(dtype: torch.dtype) -> dict[str, tuple[int, int, int]]:
     if dtype == torch.int8:
         tiles["wgmma"] = (128, 128, WGMMA_QK)
     return tiles
+
+
+QTHREADS = {"decode": 128, "wmma": 256, "wgmma": 384}  # csrc/systolic_qmm.cu: 32 per warp; QTile::NT
+
+
+def qlaunch_of(path: str, m: int, n: int, k: int, dtype: torch.dtype, sms: int) -> _build.Launch:
+    """The launch the block-scaled GEMM's ``path`` runs an (M, K) @ (K, N)
+    product of ``dtype`` values with, as ``launch_of`` accounts for K1's:
+    the decode tile split as ``plan_split`` rules (no tuned chunk), the int8
+    wgmma tile's ring with one stage's scales as dynamic shared memory."""
+    bm, bn, bk = qtiles(dtype)[path]
+    splits, chunk = plan_split(m, n, k, sms) if path == "decode" else (1, k)
+    dyn = BlockPlan(m, n, k, bm, bn, bk, in_dtype=hw._dtype_name(dtype),
+                    quant_block_k=WGMMA_QK).smem_bytes() if path == "wgmma" else 0
+    return _build.Launch((-(-n // bn), -(-m // bm), splits), QTHREADS[path], dyn, splits, chunk if splits > 1 else 0)
+
+
+def qlaunch_query(path: str, m: int, n: int, k: int, qk_a: int, qk_b: int, dtype: torch.dtype,
+                  out_dtype: torch.dtype) -> tuple[_build.Launch, _build.Compiled]:
+    """``launch_query`` of the block-scaled GEMM (``systolic_qmm_query``)."""
+    return _build.query(_entry("systolic_qmm")[0], "systolic_qmm_query", m, n, k, qk_a, qk_b, QDTYPE_CODES[dtype],
+                        DTYPE_CODES[out_dtype], QPATHS.index(path))
 
 
 def qpath_of_block(bm: int, bn: int, bk: int, dtype: torch.dtype) -> str:
@@ -390,7 +430,9 @@ def qpath_refusal(path: str, m: int, n: int, k: int, step: int, dtype: torch.dty
 
 
 # Launches of the quantized kernel made by this process, in all, by (M, K, N),
-# by path and by (M, K, N, path, source), the source as in ``launches_by_plan``.
+# by path, and by (M, K, N, path, source, values' dtype name, scale blocks
+# qk_a, qk_b as the kernel took them, aligned), the source and alignment as
+# in ``launches_by_plan``: what an audit of the launch needs.
 quant_launches = 0
 quant_launches_by_shape: collections.Counter = collections.Counter()
 quant_launches_by_path: collections.Counter = collections.Counter()
@@ -496,9 +538,9 @@ def quant_systolic_matmul_call(
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     if m == 0 or n == 0:
         return out
+    al = aligned(a, b)
     if not settled:
-        path, plan_source = qlaunch_path(path, plan_source, m, n, k, launch_step(qk_a, qk_b, k), a.dtype,
-                                         aligned(a, b))
+        path, plan_source = qlaunch_path(path, plan_source, m, n, k, launch_step(qk_a, qk_b, k), a.dtype, al)
     lib, fn = _entry("systolic_qmm")
     ws, nbytes = _workspace("systolic_qmm", a.device, m, n, k, True)
     stream = torch.cuda.current_stream(a.device).cuda_stream
@@ -512,5 +554,5 @@ def quant_systolic_matmul_call(
     quant_launches += 1
     quant_launches_by_shape[(m, k, n)] += 1
     quant_launches_by_path[path] += 1
-    quant_launches_by_plan[(m, k, n, path, plan_source)] += 1
+    quant_launches_by_plan[(m, k, n, path, plan_source, hw._dtype_name(a.dtype), qk_a, qk_b, al)] += 1
     return out

@@ -118,9 +118,10 @@ def _flush_pending() -> None:
 def _add_tally(tally: dict, totals: GemmTotals | None = None) -> None:
     """Add a tally's launches to ``totals`` (if given) and the default registry."""
     by_label: dict = {}
-    for (m, n, k, dtype, backend, source), count in tally.items():
+    for key, count in tally.items():
+        m, n, k, dtype, backend, source = key
         source = _SOURCE[source]
-        flops = 2.0 * m * n * k
+        flops = launch_flops(key)
         if totals is not None:
             totals.add(flops, roofline_seconds(m, n, k, dtype, hw.H100.name), source, count)
         calls, fl, hits, misses = by_label.get((backend, dtype), (0, 0.0, 0, 0))
@@ -128,6 +129,14 @@ def _add_tally(tally: dict, totals: GemmTotals | None = None) -> None:
                                       misses + count * (source == "heuristic"))
     for (backend, dtype), counts in by_label.items():
         _count(backend, dtype, *counts)
+
+
+def launch_flops(key: tuple) -> float:
+    """FLOPs of one launch recorded under a tally ``key`` (m, n, k, ...):
+    2*M*N*K, what ``gemm.flops`` and the decode MFU count
+    (``repro_torch.check.audit`` holds each kernel's record to it)."""
+    m, n, k = key[:3]
+    return 2.0 * m * n * k
 
 
 def _inc(name: str, key: tuple, n: float) -> None:

@@ -825,6 +825,7 @@ class ContinuousScheduler:
         never did.
         """
         self._warmed = True
+        # repro-check: allow[span-scope] engine-wide warmup serves no request
         with _obs_trace.span("serve.warmup"):
             self._warmup_impl()
         self._set_gauges()

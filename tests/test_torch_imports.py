@@ -21,6 +21,8 @@ import pytest
 import torch
 
 from repro_torch import configs
+from repro_torch.check import audit as check_audit
+from repro_torch.check.__main__ import main as check_main
 from repro_torch.convert import params_from_jax
 from repro_torch.data.synthetic import make_adversarial_trace, make_batch, make_request_trace, make_shared_prefix_trace
 from repro_torch.launch import serve
@@ -72,6 +74,8 @@ def test_port_and_chip_smoke_import_no_jax_or_repro():
             "repro_torch.tune.__main__"} <= set(res["modules"])
     assert {"repro_torch.obs.drift", "repro_torch.obs.doctor", "repro_torch.obs.ledger",
             "repro_torch.obs.__main__"} <= set(res["modules"])
+    assert {"repro_torch.check", "repro_torch.check.audit", "repro_torch.check.lint", "repro_torch.check.baseline",
+            "repro_torch.check.findings", "repro_torch.check.__main__"} <= set(res["modules"])
     assert res["bad"] == []
 
 
@@ -146,6 +150,9 @@ ENTRY_POINTS = {
     "tune.autotune cuda-grouped": lambda: autotune(160, 768, 2048, backend="cuda-grouped"),
     "tune.measure_matmul": lambda: measure_matmul(64, 64, 64, 64, 64, 16),
     "python -m repro_torch.tune": lambda: tune_main(["--m", "64", "--n", "64", "--k", "64"]),
+    "python -m repro_torch.check": lambda: check_main(["--no-lint", "--no-sweep"]),
+    "check.audit.run_audit": lambda: check_audit.run_audit(),
+    "check.audit.audit_launches": lambda: check_audit.audit_launches(systolic=[(4, 64, 64, "decode", 0, "rule")]),
 }
 
 

@@ -323,12 +323,12 @@ def test_fp32_gemm_at_the_recurrent_forward_rows(cuda, n, k, out_dtype):
 def test_flash_kernel_at_zamba2_heads(cuda, b, dtype):
     dt = DTYPES[dtype]
     q, k, v = (_flash_operand(cuda, dt, b, 512, 32, 112, "bshd", seed) for seed in (28, 29, 30))
-    before = attn_kernel.launches_by_heads[(32, 32)]
+    before = attn_kernel.launches_by_heads()[(32, 32)]
     got = attn_ops.flash_attention(q, k, v, causal=True)
     want = flash_attention_call_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale=112**-0.5,
                                     causal=True, window=None, kv_valid=512).transpose(1, 2)
     torch.cuda.synchronize()
-    assert attn_kernel.launches_by_heads[(32, 32)] == before + 1
+    assert attn_kernel.launches_by_heads()[(32, 32)] == before + 1
     tol = 3e-2 if dtype == "bfloat16" else 2e-4
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
@@ -410,12 +410,12 @@ def test_flash_kernel_gqa_layouts_match_plain(cuda, sq, skv, causal, window, kv_
     q = _flash_operand(cuda, dt, 2, sq, h, d, layout, 11)
     k = _flash_operand(cuda, dt, 2, skv, hkv, d, layout, 12)
     v = _flash_operand(cuda, dt, 2, skv, hkv, d, layout, 13)
-    before = attn_kernel.launches_by_heads[(h, hkv)]
+    before = attn_kernel.launches_by_heads()[(h, hkv)]
     got = attn_ops.flash_attention(q, k, v, causal=causal, window=window, kv_valid=kv_valid)
     kw = dict(scale=d**-0.5, causal=causal, window=window, kv_valid=skv if kv_valid is None else kv_valid)
     want = flash_attention_call_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), **kw).transpose(1, 2)
     torch.cuda.synchronize()
-    assert attn_kernel.launches_by_heads[(h, hkv)] == before + 1
+    assert attn_kernel.launches_by_heads()[(h, hkv)] == before + 1
     assert got.dtype == dt and got.shape == q.shape and got.transpose(1, 2).is_contiguous()
     tol = 3e-2 if dtype == "bfloat16" else 2e-4
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
@@ -432,12 +432,12 @@ def test_flash_kernel_at_batch1_prompt_lengths(cuda, s, dtype):
     q = _flash_operand(cuda, dt, 1, s, 16, 128, "bshd", 17)
     k = _flash_operand(cuda, dt, 1, s, 8, 128, "bshd", 18)
     v = _flash_operand(cuda, dt, 1, s, 8, 128, "bshd", 19)
-    before = attn_kernel.launches_by_heads[(16, 8)]
+    before = attn_kernel.launches_by_heads()[(16, 8)]
     got = attn_ops.flash_attention(q, k, v, causal=True)
     want = flash_attention_call_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale=128**-0.5,
                                     causal=True, window=None, kv_valid=s).transpose(1, 2)
     torch.cuda.synchronize()
-    assert attn_kernel.launches_by_heads[(16, 8)] == before + 1
+    assert attn_kernel.launches_by_heads()[(16, 8)] == before + 1
     tol = 3e-2 if dtype == "bfloat16" else 2e-4
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
@@ -1144,7 +1144,7 @@ def test_quant_forced_path_matches_plain(cuda, qdtype):
         qb = quantize_weight(_rand((k, n), 18).to(cuda), qdtype)
         before = collections.Counter(mm_kernel.quant_launches_by_plan)
         got = mm_ops.quant_matmul(qa, k_major({"w": qb})["w"], plan=_plan(m, n, k, tiles[path]))
-        assert [key[3:] for key in mm_kernel.quant_launches_by_plan - before] == [(path, "explicit")]
+        assert [key[3:5] for key in mm_kernel.quant_launches_by_plan - before] == [(path, "explicit")]
         want = quant_matmul_ref(qa, qb, out_dtype=torch.bfloat16)
         atol = 1e-5 * (quant_matmul_ref(qa, qb, out_dtype=torch.float32).abs().max().item() + 1.0)
         torch.testing.assert_close(got.float(), want.float(), rtol=2**-7, atol=atol)
@@ -1159,7 +1159,7 @@ def test_grouped_forced_path_matches_plain(cuda, path):
     w = (_rand((3, 136, 264), 20) * 136**-0.5).to(cuda, dt)
     before = collections.Counter(grouped_kernel.launches_by_plan)
     got = grouped_ops.grouped_matmul(x, w, plan=_plan(c, 264, 136, grouped_kernel.TILES[path]))
-    assert [key[4:] for key in grouped_kernel.launches_by_plan - before] == [(path, "explicit")]
+    assert [key[4:6] for key in grouped_kernel.launches_by_plan - before] == [(path, "explicit")]
     torch.testing.assert_close(got.float(), grouped_matmul_ref(x, w).float(),
                                **_gemm_tol("float32" if path == "fma" else "bfloat16", 136, dt))
 
@@ -1167,16 +1167,20 @@ def test_grouped_forced_path_matches_plain(cuda, path):
 @pytest.mark.gpu
 def test_block_plan_smem_is_what_each_wgmma_tile_allocates(cuda):
     """core/blocking.py's accounting against the binaries' WgTile / QTile
-    shared memory, per wgmma path of K1, K4 and K5."""
+    shared memory, per wgmma path of K1, K4 and K5, as each library's launch
+    query reports it."""
     from repro_torch.core.blocking import BlockPlan
 
+    bf16 = torch.bfloat16
     for p, _, _ in mm_kernel.WGMMA_TILES:
-        assert mm_kernel.tile_smem_bytes("systolic_mmm", p) == BlockPlan(1, 1, 1, *mm_kernel.TILES[p]).smem_bytes()
+        got, _ = mm_kernel.launch_query(p, 2048, 2048, 2048, bf16, bf16)
+        assert got.dyn_smem == BlockPlan(1, 1, 1, *mm_kernel.TILES[p]).smem_bytes()
     for p in grouped_kernel.WGMMA_ROWS:
-        assert mm_kernel.tile_smem_bytes("grouped_mmm", p) == BlockPlan(1, 1, 1, *grouped_kernel.TILES[p]).smem_bytes()
+        got, _ = grouped_kernel.launch_query(p, 8, 256, 2048, 768, bf16)
+        assert got.dyn_smem == BlockPlan(1, 1, 1, *grouped_kernel.TILES[p]).smem_bytes()
     q = BlockPlan(1, 1, 1, *mm_kernel.qtiles(torch.int8)["wgmma"], in_dtype="int8", quant_block_k=128)
-    assert mm_kernel.tile_smem_bytes("systolic_qmm", "wgmma") == q.smem_bytes()
-    assert mm_kernel.tile_smem_bytes("systolic_mmm", "wmma") == 0
+    assert mm_kernel.qlaunch_query("wgmma", 2048, 2048, 2048, 128, 128, torch.int8, bf16)[0].dyn_smem == q.smem_bytes()
+    assert mm_kernel.launch_query("wmma", 2048, 2048, 2048, bf16, bf16)[0].dyn_smem == 0
 
 
 @pytest.mark.gpu
@@ -1319,3 +1323,128 @@ def test_drift_probe_times_each_decode_gemm_with_cuda_events(cuda, tmp_path, mon
         metrics.reset()
         monkeypatch.delenv("REPRO_TORCH_TUNE_CACHE")
         tune_cache.reset_default_cache()
+
+
+# -- the launch queries and the card audit (repro_torch.check) ----------------------
+
+SERVED_GEMMS = [  # (M, N, K): internlm2-1.8b's decode and prefill projections, the tied head, ragged ones
+    (4, 2048, 2048), (4, 8192, 2048), (4, 2048, 8192), (4, 2560, 2048), (2048, 2048, 2048), (2048, 8192, 2048),
+    (2048, 2048, 8192), (1024, 151655, 896), (100, 130, 70), (1, 300, 1000),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,k", SERVED_GEMMS)
+def test_systolic_launch_query_is_the_python_accounting(cuda, m, n, k):
+    """Each K1 path's launch as the binary reports it (grid, threads, dynamic
+    shared memory, split and chunk) equals ``launch_of``, and the split-K
+    workspace equals ``plan_split``'s splits x M x N x 4 bytes."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lib = mm_kernel._entry("systolic_mmm")[0]
+    for path in mm_kernel.PATHS:
+        dt = torch.float32 if path.startswith("fma") else torch.bfloat16
+        if mm_kernel.path_refusal(path, m, n, k, dt, True, path.endswith("_kmajor")):
+            continue
+        for chunk in ((0, 128, 512) if path.startswith("decode") and k > 64 else (0,)):
+            got, compiled = mm_kernel.launch_query(path, m, n, k, dt, dt, chunk)
+            assert got == mm_kernel.launch_of(path, m, n, k, sms, chunk), (path, chunk)
+            assert compiled.regs > 0 and compiled.max_threads >= got.threads
+            ws = lib.split_workspace(m, n, k, int(path.startswith("decode")), chunk)
+            assert ws == (got.splits * m * n * 4 if got.splits > 1 else 0)
+            if path.startswith("decode"):
+                assert (got.splits, got.k_chunk or k) == mm_kernel.plan_split(m, n, k, sms, chunk)
+                assert mm_kernel.block_of(path, m, n, k, sms, chunk)[2] == (got.k_chunk or -(-k // 64) * 64)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,k", [(4, 2048, 2048), (4, 2048, 8192), (2048, 2048, 2048), (2048, 8192, 2048),
+                                   (100, 130, 96)])
+@pytest.mark.parametrize("qdtype", [torch.int8, torch.float8_e4m3fn])
+def test_quant_launch_query_is_the_python_accounting(cuda, m, n, k, qdtype):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lib = mm_kernel._entry("systolic_qmm")[0]
+    for path in mm_kernel.qtiles(qdtype):
+        step = mm_kernel.launch_step(128, 128, k)
+        if mm_kernel.qpath_refusal(path, m, n, k, step, qdtype, True):
+            continue
+        got, _ = mm_kernel.qlaunch_query(path, m, n, k, 128, 128, qdtype, torch.bfloat16)
+        assert got == mm_kernel.qlaunch_of(path, m, n, k, qdtype, sms), path
+        assert lib.split_workspace(m, n, k, 1, 0) == (got.splits * m * n * 4 if got.splits > 1 else 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("e,c,k,n", [(128, 160, 2048, 768), (128, 8, 2048, 768), (8, 100, 768, 2048),
+                                     (4, 200, 136, 264)])
+def test_grouped_launch_query_is_the_python_accounting(cuda, e, c, k, n):
+    for path in grouped_kernel.PATHS:
+        dt = torch.float32 if path == "fma" else torch.bfloat16
+        if grouped_kernel.path_refusal(path, c, k, n, dt, True):
+            continue
+        got, _ = grouped_kernel.launch_query(path, e, c, k, n, dt)
+        assert got == grouped_kernel.launch_of(path, e, c, k, n), path
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,hkv,s,d", [(4, 16, 8, 512, 128), (1, 32, 4, 8192, 128), (4, 14, 2, 512, 64),
+                                         (4, 32, 32, 512, 112), (2, 4, 1, 100, 16)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_launch_query_is_the_python_accounting(cuda, b, h, hkv, s, d, dtype):
+    got, _ = attn_kernel.launch_query(b, h, hkv, s, s, d, dtype)
+    assert got == attn_kernel.launch_of(b, h, s, d, dtype)
+
+
+@pytest.mark.gpu
+def test_no_compiled_path_spills(cuda):
+    """Every path of every library, at both output dtypes, keeps its fp32
+    accumulator in registers: no local-memory spill (judged by
+    ``localSizeBytes``, not ``numRegs``: setmaxnreg moves registers after the
+    launch)."""
+    from repro_torch.check import audit
+
+    report = audit.kernel_report("cuda")
+    assert report and [r for r in report if r["local_bytes"]] == []
+    assert {r["library"] for r in report} == {"systolic_mmm", "systolic_qmm", "grouped_mmm", "flash_attn"}
+
+
+@pytest.mark.gpu
+def test_card_audit_of_the_dispatch_paths_is_clean(cuda):
+    from repro_torch.check import audit
+
+    findings, stats = audit.audit_dispatch_paths("cuda")
+    assert findings == [], [f.render() for f in findings]
+    assert all(stats["paths"][p] >= 1 for p in ("systolic", "quant", "grouped", "attention"))
+    assert stats["paths"]["collective_matmul"] == audit.COLLECTIVE_SKIP and stats["binary_checks_not_made"] == []
+
+
+@pytest.mark.gpu
+def test_card_audit_catches_a_corrupt_plan(cuda):
+    """Shared memory declared below the binary's block (dynamic + static),
+    on a wgmma tile and on a WMMA tile, whose shared memory the CPU cannot
+    see (static)."""
+    from repro_torch.check import audit
+    from repro_torch.core.blocking import BlockPlan
+
+    wg = BlockPlan(2048, 2048, 2048, 128, 256, 64)
+    assert audit.audit_matmul_plan(wg, device="cuda") == []
+    assert "smem-underdeclared" in {f.rule for f in audit.audit_matmul_plan(wg, device="cuda",
+                                                                            declared_smem_bytes=1000)}
+    wmma = BlockPlan(2048, 2048, 2048, 128, 128, 32)
+    assert audit.audit_matmul_plan(wmma, device="cpu", declared_smem_bytes=1000) == []
+    assert "smem-underdeclared" in {f.rule for f in audit.audit_matmul_plan(wmma, device="cuda",
+                                                                            declared_smem_bytes=1000)}
+
+
+@pytest.mark.gpu
+def test_card_audit_catches_a_wrong_output(cuda, monkeypatch):
+    """An audited launch whose output is wrong (K1's or K3's zeroed after
+    the kernel) is caught by the launch the audit makes against the plain
+    version."""
+    from repro_torch.check import audit
+
+    gemm, flash = (512, 512, 512, "wmma", 0, "explicit", True), (1, 128, 128, 2, 2, 64, "bfloat16")
+    assert audit.audit_launches(systolic=[gemm], attention=[flash], device="cuda")[0] == []
+    mm_call, flash_call = mm_kernel.systolic_matmul_call, attn_kernel.flash_attention_call
+    monkeypatch.setattr(mm_kernel, "systolic_matmul_call", lambda *a, **kw: mm_call(*a, **kw).zero_())
+    monkeypatch.setattr(attn_kernel, "flash_attention_call", lambda *a, **kw: flash_call(*a, **kw).zero_())
+    findings, _ = audit.audit_launches(systolic=[gemm], attention=[flash], device="cuda")
+    assert sorted(f.rule for f in findings) == ["output-mismatch", "output-mismatch"], [f.render() for f in findings]
