@@ -145,7 +145,21 @@ Phases, each printing its own lines; any failure exits non-zero:
      retry), a traced step (device kernels, busy ms, idle share, K1's
      forward and backward ms), step ms, tokens/s, peak memory, the SMOKE
      checkpoint round trip on the card and the SMOKE model's fp32
-     gradients against the CPU path; then the static checks
+     gradients against the CPU path; then the same for the MoE and
+     recurrent families at full width (qwen3-moe-30b-a3b at 2 of 48
+     layers, xlstm-125m whole, zamba2-7b at 14 of 81): one step kernel vs
+     plain with the same gates (the MoE plain path routed to the kernel
+     path's experts), exact launches of K1, K3 and K4 -- the expert GEMMs'
+     forward and K4's backward (dX with W^T copied and ``rows``, dW with
+     X^T copied, the contraction the capacity), 3 + 6 a MoE layer, and a
+     MoE remat step --, the experts no token reached exactly zero on both
+     paths, zamba2's shared block one gradient share per application
+     summing to its gradient on both paths, each share kernel vs plain, the
+     plain path's own gradient move under a one-ulp nudge of the embedding
+     beside each gap, six Trainer steps on one batch (three for the recurrent
+     families; the loss falls, every parameter finite, fp32 and changed) and
+     the readings, the MoE step traced (K1 and K4 forward and backward ms);
+     then the static checks
      (repro_torch.check) on the card: the auditor over every distinct plan
      the run launched (K1, K5 and K4 plans, K3 shapes; coverage 1.0, zero
      findings: each binary's own report of its grid, threads, shared
@@ -168,7 +182,11 @@ Phases, each printing its own lines; any failure exits non-zero:
      scatter at the paged arms' arena beside their bound; K1 at the training
      step's dA shapes (W^T read K-major and copied row-major) and dB shapes
      (X^T copied), the copies apart, and K3 with and without its lse output
-     beside SDPA, the plain attention backward beside SDPA's; one JSON line lists
+     beside SDPA, the plain attention backward beside SDPA's; K1 at the MoE and
+     recurrent training runs' shapes on their operand dtypes (fp32 where the
+     forward writes fp32) and K4 at the MoE run's (E 128, C 160) dX and dW
+     launches (the copies apart, the plain version and ``torch.bmm`` on the
+     transposed views); one JSON line lists
      the kernels, each shape's time
      weighted by the launches the served paths made at that shape;
   5. the last line: {"ok": true, "device": {...}}.
@@ -233,6 +251,7 @@ from repro_torch.launch import trace as trace_tools  # noqa: E402
 from repro_torch.launch.serve import init_params  # noqa: E402
 from repro_torch.models import attention as attn_model  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.models.layers import FP32_KEYS  # noqa: E402
 from repro_torch.models.transformer import cast_params, hybrid_counts, xlstm_counts  # noqa: E402
@@ -411,6 +430,21 @@ TRAIN_LOSS_RTOL = 1e-2
 TRAIN_NORM_RTOL = 5e-2
 TRAIN_LEAF_RTOL = 1e-1
 TRAIN_FP32_TOL = 1e-4
+# Training beyond the dense model, each at full width with fp32 masters from
+# SEED computing in bf16 over BATCH x PROMPT tokens, TRAIN_TCFG and the
+# gates above, the kernel path's routing replayed on the plain path (rounding
+# moves routing): qwen3-moe-30b-a3b at 2 of its 48 layers (its fp32
+# masters, gradients and AdamW moments need ~490 GB at 48; 2 layers hold 1.87 B
+# parameters, internlm2-1.8b's size, which peaks at ~48 GB a step),
+# xlstm-125m whole, zamba2-7b at 14 of its 81 layers (two groups of six
+# Mamba2 layers, each followed by the shared attention block: two
+# applications are the fewest at which the shared block's gradient sums
+# over its uses; 1.37 B parameters).  The MoE model takes TRAIN_STEPS
+# Trainer steps on one batch, a remat step and a traced step; the recurrent
+# families 3 Trainer steps (cut from 6 for time: xlstm-125m's steps take
+# 3.6-8.1 s each on an H100, host-bound, and the script's wall has read up
+# to 1116.6 s of the 1200 it is allowed).
+TRAIN_FAMILIES = {MOE_ARCH: (2, TRAIN_STEPS), SSM_ARCH: (None, 3), HYBRID_ARCH: (14, 3)}  # arch -> (layers kept, steps)
 MOE_WITNESS_SEEDS = (1, 2)  # more models and prompts for the MoE witness
 # The tune phase: each candidate timed TUNE_REPEATS times (the best kept, as
 # the reference's tuner keeps it); the tuned serve decodes TUNE_DECODE_STEPS
@@ -3191,46 +3225,101 @@ def phase_small_reference(arch: str, **over) -> None:
 # ---------------------------------------------------------------------------
 
 
-def train_expected(cfg, forwards: int) -> tuple[dict, dict]:
-    """K1's launches (by (M, K, N) and by path) of one training step over
-    BATCH x PROMPT tokens with ``forwards`` forward passes (2 under remat):
-    each projection's forward at (M, K, N), its dA at (M, N, K) with B = W^T
-    (a row-major copy) and its dB at (K, M, N) with A = X^T (a copy), once
-    per layer.  The untied head is a
-    library product (no launch)."""
+def train_gemms(cfg) -> list[tuple[int, int, torch.dtype, int]]:
+    """(K, N, output dtype, K1 launches per forward pass) of a training
+    forward at M = BATCH x PROMPT: every projection once per layer (the
+    recurrent families' as ``recurrent_gemms`` counts them: each layer's
+    once, the hybrid's shared block once per application), the MoE router
+    writing fp32 logits."""
+    if cfg.family in RECURRENT:
+        return recurrent_gemms(cfg)
+    return [(k, n, gemm_out_dtype(cfg, k, n), c * cfg.n_layers) for (k, n), c in projections(cfg).items()]
+
+
+def flash_per_forward(cfg) -> int:
+    """K3 launches of a training forward: one per attention layer, one per
+    application of the hybrid's shared block, none for the SSM family."""
+    if cfg.family == "ssm":
+        return 0
+    return hybrid_counts(cfg)[1] if cfg.family == "hybrid" else cfg.n_layers
+
+
+def train_expected(cfg, forwards: int) -> dict:
+    """The launches of one training step over BATCH x PROMPT tokens with
+    ``forwards`` forward passes (2 under remat).  K1 ("k1", by (M, K, N,
+    operand dtype, output dtype), and by path): each projection's forward at (M, K, N) on
+    bf16 operands, its dA at (M, N, K) with B = W^T (a row-major copy) and
+    its dB at (K, M, N) with A = X^T (a copy), once per layer, both in the
+    common dtype of the operands and the cotangent: fp32 where the forward
+    writes fp32 (the router's logits, mLSTM's gates, sLSTM's
+    pre-activations); dA and dB write bf16, the operands' dtype.  The untied head is a library product (no launch).
+    K4 ("k4", by (E, C, K, N), and by path; MoE): each expert GEMM's
+    forward at (E, C, K, N), its dX at (E, C, N, K) with W^T copied and its
+    dW at (E, K, C, N) with X^T copied, the contraction C.  K3 ("flash"):
+    ``flash_per_forward`` per forward."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     m = BATCH * PROMPT
-    shapes, paths = collections.Counter(), collections.Counter()
-    for (k, n), c in projections(cfg).items():
-        c *= cfg.n_layers
-        shapes[(m, k, n)] += forwards * c
-        paths[mm_kernel.gemm_path(m, n, k, BF16, True, sms)] += forwards * c
-        shapes[(m, n, k)] += c
-        paths[mm_kernel.gemm_path(m, k, n, BF16, True, sms)] += c
-        shapes[(k, m, n)] += c
-        paths[mm_kernel.gemm_path(k, n, m, BF16, True, sms)] += c
-    return dict(shapes), dict(paths)
+    k1, k1_paths = collections.Counter(), collections.Counter()
+    for k, n, out, c in train_gemms(cfg):
+        ct = torch.float32 if out == torch.float32 else BF16
+        for (mm, kk, nn), dt, o, times in (((m, k, n), BF16, out, forwards), ((m, n, k), ct, BF16, 1),
+                                           ((k, m, n), ct, BF16, 1)):
+            k1[(mm, kk, nn, dt, o)] += times * c
+            k1_paths[mm_kernel.gemm_path(mm, nn, kk, dt, True, sms)] += times * c
+    k4, k4_paths = collections.Counter(), collections.Counter()
+    if cfg.moe is not None:
+        g = cfg.moe.dispatch_groups
+        e, c = cfg.moe.n_experts, g * moe.capacity(m // g, cfg)  # the groups fold into one launch's rows
+        for (k, n), per_layer in expert_gemms(cfg).items():
+            for (ee, cc, kk, nn), times in (((e, c, k, n), forwards), ((e, c, n, k), 1), ((e, k, c, n), 1)):
+                k4[(ee, cc, kk, nn)] += times * per_layer * cfg.n_layers
+                k4_paths[grouped_kernel.grouped_path(cc, kk, nn, BF16, True)] += times * per_layer * cfg.n_layers
+    return {"k1": dict(k1), "k1_paths": dict(k1_paths), "k4": dict(k4), "k4_paths": dict(k4_paths),
+            "flash": flash_per_forward(cfg) * forwards}
+
+
+def k1_by_shape(by_dtype: dict) -> dict:
+    """(M, K, N) -> launches, summed over the operand and output dtypes."""
+    out = collections.Counter()
+    for (m, k, n, *_), c in by_dtype.items():
+        out[(m, k, n)] += c
+    return dict(out)
 
 
 def check_train_launches(label: str, cfg, forwards: int) -> dict:
     """Exact launches of the step just run: K1 in all, per shape and per
-    path; K3 once per layer and forward at the model's heads and (B, S, S);
-    no K4 or K5."""
-    shapes, paths = train_expected(cfg, forwards)
+    path; K4 (MoE) in all, per shape and per path; K3 at the model's heads
+    and (B, S, S); no K5."""
+    want = train_expected(cfg, forwards)
+    shapes = k1_by_shape(want["k1"])
     got, routes = counts(), route_counts()
-    n_flash = cfg.n_layers * forwards
-    per_pass = sum(projections(cfg).values()) * cfg.n_layers
-    expect(got == {"systolic_mmm": sum(shapes.values()), "systolic_qmm": 0, "flash_attn": n_flash, "grouped_mmm": 0},
+    n_flash, n_k4 = want["flash"], sum(want["k4"].values())
+    per_pass = sum(c for *_, c in train_gemms(cfg))
+    k4_text = ""
+    if cfg.moe is not None:
+        per_layer = sum(expert_gemms(cfg).values()) * cfg.n_layers
+        k4_text = f", K4 {n_k4} = {forwards} forward x {per_layer} + {per_layer} dX + {per_layer} dW"
+    expect(got == {"systolic_mmm": sum(shapes.values()), "systolic_qmm": 0, "flash_attn": n_flash,
+                   "grouped_mmm": n_k4},
            f"{label} launches exact: {got} (K1 {sum(shapes.values())} = {forwards} forward x {per_pass} + {per_pass} "
-           f"dA + {per_pass} dB, K3 {n_flash})")
+           f"dA + {per_pass} dB{k4_text}, K3 {n_flash})")
     expect(shape_counts()["systolic_mmm"] == shapes,
            f"{label} K1 launches per (M, K, N) exact: {listed({'systolic_mmm': shapes})}")
-    expect(routes["systolic_mmm_paths"] == paths, f"{label} K1 launches per path exact: {routes['systolic_mmm_paths']}")
-    heads = {(cfg.n_heads, cfg.n_kv_heads): n_flash}
-    expect(routes["flash_attn_heads"] == heads and flash_shape_counts() == {(BATCH, PROMPT, PROMPT): n_flash},
+    expect(routes["systolic_mmm_paths"] == want["k1_paths"],
+           f"{label} K1 launches per path exact: {routes['systolic_mmm_paths']}")
+    if cfg.moe is not None:
+        expect(shape_counts()["grouped_mmm"] == want["k4"] and routes["grouped_mmm_paths"] == want["k4_paths"],
+               f"{label} K4 launches per (E, C, K, N) and per path exact: {listed({'grouped_mmm': want['k4']})} "
+               f"{routes['grouped_mmm_paths']}")
+    heads = {(cfg.n_heads, cfg.n_kv_heads): n_flash} if n_flash else {}
+    flash_shapes = {(BATCH, PROMPT, PROMPT): n_flash} if n_flash else {}
+    expect(routes["flash_attn_heads"] == heads and flash_shape_counts() == flash_shapes,
            f"{label} K3 launches per heads and shape exact: {routes['flash_attn_heads']} {flash_shape_counts()}")
-    return {"launches": got, "shapes": {"systolic_mmm": [[*s, c] for s, c in sorted(shapes.items())]},
-            "flash_shapes": [[BATCH, PROMPT, PROMPT, n_flash]], "paths": routes["systolic_mmm_paths"]}
+    return {"launches": got, "shapes": {"systolic_mmm": [[*s, c] for s, c in sorted(shapes.items())],
+                                        "grouped_mmm": [[*s, c] for s, c in sorted(want["k4"].items())]},
+            "k1_by_dtype": sorted([m, k, n, str(dt)[6:], str(o)[6:], c] for (m, k, n, dt, o), c in want["k1"].items()),
+            "flash_shapes": [[BATCH, PROMPT, PROMPT, n_flash]] if n_flash else [],
+            "paths": routes["systolic_mmm_paths"], "grouped_paths": routes["grouped_mmm_paths"]}
 
 
 def leaf_gaps(got, want) -> list[tuple[float, str]]:
@@ -3259,12 +3348,13 @@ def train_gradient_gate(label: str, grads, metrics, plain_grads, plain_metrics) 
 
 def traced_train_step(trainer, batch) -> dict:
     """One Trainer step under torch.profiler: ``launch/trace.py``'s phase row
-    (host wall, device busy, idle share, device kernels) and K1's device ms,
-    forward and backward apart, and K3's.  A K1 kernel is the forward's when
-    it runs inside the device span of ``make_grad_fn``'s ``train_forward``
-    range; without that span (or with more than one) the split is printed
-    as unresolved (None).  The kernels counted stand beside the times: a
-    trace that dropped events shows it there."""
+    (host wall, device busy, idle share, device kernels) and the device ms of
+    K1 and of K4 (the GEMM templates batched over experts, ``<true``),
+    forward and backward apart, and K3's.  A GEMM kernel is the forward's
+    when it runs inside the device span of ``make_grad_fn``'s
+    ``train_forward`` range; without that span (or with more than one) the
+    split is printed as unresolved (None).  The kernels counted stand beside
+    the times: a trace that dropped events shows it there."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         with record_function("train_step"):
@@ -3274,19 +3364,31 @@ def traced_train_step(trainer, batch) -> dict:
     (row,) = trace_tools.phase_breakdown(events)
     ms = lambda es: sum((e.time_range.end - e.time_range.start) / 1e3 for e in es)
     work = trace_tools._device_work(events)
-    k1 = [e for e in work if "mmm_" in e.name]
+    gemms = {"k1": [e for e in work if "mmm_" in e.name and "<true" not in e.name],
+             "k4": [e for e in work if "mmm_" in e.name and "<true" in e.name]}
     spans = [(e.time_range.start, e.time_range.end) for e in events
              if e.device_type == DeviceType.CUDA and e.name == "train_forward"]
-    split = dict(k1_forward_ms=None, k1_backward_ms=None, k1_forward_kernels=None, k1_backward_kernels=None)
-    if len(spans) == 1:
-        lo, hi = spans[0]
-        fwd = [e for e in k1 if lo <= e.time_range.start < hi]
-        bwd = [e for e in k1 if e.time_range.start >= hi]
-        split = dict(k1_forward_ms=ms(fwd), k1_backward_ms=ms(bwd), k1_forward_kernels=len(fwd),
-                     k1_backward_kernels=len(bwd))
-    row.update(k1_kernels=len(k1), k1_ms=ms(k1), **split, forward_spans=len(spans),
-               k3_ms=ms(e for e in work if "flash" in e.name), top=trace_tools.top_kernels(events, 8))
+    for name, ks in gemms.items():
+        split = {f"{name}_forward_ms": None, f"{name}_backward_ms": None, f"{name}_forward_kernels": None,
+                 f"{name}_backward_kernels": None}
+        if len(spans) == 1:
+            lo, hi = spans[0]
+            fwd = [e for e in ks if lo <= e.time_range.start < hi]
+            bwd = [e for e in ks if e.time_range.start >= hi]
+            split = {f"{name}_forward_ms": ms(fwd), f"{name}_backward_ms": ms(bwd),
+                     f"{name}_forward_kernels": len(fwd), f"{name}_backward_kernels": len(bwd)}
+        row.update({f"{name}_kernels": len(ks), f"{name}_ms": ms(ks)}, **split)
+    row.update(forward_spans=len(spans), k3_ms=ms(e for e in work if "flash" in e.name),
+               top=trace_tools.top_kernels(events, 8))
     return row
+
+
+def gemm_split(row: dict, name: str) -> str:
+    """A traced step's forward / backward split of one GEMM kernel's time."""
+    if row[f"{name}_forward_ms"] is None:
+        return f"forward / backward unresolved ({row['forward_spans']} forward spans in the trace)"
+    return (f"forward {row[f'{name}_forward_kernels']} kernels {row[f'{name}_forward_ms']:.3f} ms, backward "
+            f"{row[f'{name}_backward_kernels']} kernels {row[f'{name}_backward_ms']:.3f} ms")
 
 
 def train_checkpoint_roundtrip() -> None:
@@ -3319,7 +3421,9 @@ def phase_train(smi: str) -> dict:
     """Full-width internlm2-1.8b with fp32 masters from SEED, computing in
     bf16: one step's gradients on the kernel path against the plain path on
     the card, exact launches of a step (and of a remat step), TRAIN_STEPS
-    Trainer steps on one fixed batch, a traced step, the readings."""
+    Trainer steps on one fixed batch, a traced step, the readings; then the
+    MoE and recurrent families (``train_family`` for each of
+    TRAIN_FAMILIES, under "families")."""
     cfg = configs.get_config(ARCH)
     say(f"[3] train {ARCH} (full width: {cfg.n_layers}L d={cfg.d_model} H={cfg.n_heads}/{cfg.n_kv_heads} "
         f"d_ff={cfg.d_ff} V={cfg.vocab_size}), fp32 masters computing in {cfg.dtype}, batch {BATCH} x {PROMPT} "
@@ -3404,7 +3508,7 @@ def phase_train(smi: str) -> dict:
     row = traced_train_step(trainer, batch)
     out["trace"] = row
     steps = TRAIN_STEPS + 1
-    shapes, _ = train_expected(cfg, 1)
+    shapes = k1_by_shape(train_expected(cfg, 1)["k1"])
     expect(counts() == {"systolic_mmm": sum(shapes.values()) * steps, "systolic_qmm": 0, "flash_attn": cfg.n_layers * steps,
                         "grouped_mmm": 0} and shape_counts()["systolic_mmm"] == {k: c * steps for k, c in shapes.items()},
            f"{steps} Trainer steps (the traced one included): launches exact, {counts()}")
@@ -3418,13 +3522,8 @@ def phase_train(smi: str) -> dict:
     say(f"    train step (steady, p50 of steps 2-{TRAIN_STEPS}) {step_ms:.3f} ms, {out['tokens_per_s']:.1f} tokens/s, "
         f"peak device memory {peak:.2f} GB, 6 N tokens / step time / 989e12 = {out['model_flops_share']:.4f} "
         f"(for information); {smi}")
-    if row["k1_forward_ms"] is None:
-        k1_split = f"forward / backward unresolved ({row['forward_spans']} forward spans in the trace)"
-    else:
-        k1_split = (f"forward {row['k1_forward_kernels']} kernels {row['k1_forward_ms']:.3f} ms, backward "
-                    f"{row['k1_backward_kernels']} kernels {row['k1_backward_ms']:.3f} ms")
     say(f"    traced step: {trace_row(row)}; K1 {row['k1_kernels']} of the step's {sum(shapes.values())} kernels in "
-        f"the trace, {row['k1_ms']:.3f} ms: {k1_split}; K3 {row['k3_ms']:.3f} ms")
+        f"the trace, {row['k1_ms']:.3f} ms: {gemm_split(row, 'k1')}; K3 {row['k3_ms']:.3f} ms")
     for r in row["top"]:
         say(f"      {r['device_ms']:9.3f} ms  x{r['calls']:<5d} {r['kernel'][:100]}")
     del trainer, params, batch
@@ -3443,6 +3542,241 @@ def phase_train(smi: str) -> dict:
               for a, b in zip(tree_util.leaves(got["cuda"][0]), tree_util.leaves(got["cpu"][0])))
     expect(err <= TRAIN_FP32_TOL, f"{ARCH} SMOKE fp32 gradients, card vs CPU: worst leaf {err:.2e} of its largest "
                                   f"(tol {TRAIN_FP32_TOL})")
+    del small, cpu, got
+    out["families"] = {}
+    for arch in TRAIN_FAMILIES:
+        t0 = time.perf_counter()
+        out["families"][arch] = train_family(arch, smi)
+        out["families"][arch]["wall_s"] = time.perf_counter() - t0
+        say(f"    [{arch} training wall {out['families'][arch]['wall_s']:.1f} s]")
+    return out
+
+
+@contextlib.contextmanager
+def shared_block_uses(record: list):
+    """Record, for each application of the hybrid's shared block in a
+    forward, the gradient that application alone sends to each of the
+    block's leaves (in ``tree_util.leaves`` order): the block runs on a view
+    of each leaf (the same values), whose gradient hook keeps that
+    application's share; autograd sums the shares into the leaf."""
+    real = transformer._attn_block
+
+    def attn_block(p, h, cfg, *args, **kw):
+        if cfg.family != "hybrid":
+            return real(p, h, cfg, *args, **kw)
+        share: dict = {}
+        record.append(share)
+        views = []
+        for i, t in enumerate(tree_util.leaves(p)):
+            v = t.view_as(t)
+            if v.requires_grad:
+                v.register_hook(lambda g, i=i: share.__setitem__(i, g.detach().clone()))
+            views.append(v)
+        return real(tree_util.unflatten(p, views), h, cfg, *args, **kw)
+
+    with mock.patch.object(transformer, "_attn_block", attn_block):
+        yield
+
+
+def shared_block_gate(arch: str, cfg, grads, plain_grads, uses: list, plain_uses: list) -> dict:
+    """The hybrid's shared block: one gradient share per application on each
+    path, every share nonzero on every leaf, each path's leaf gradient the sum
+    of its shares (autograd's accumulation, 1e-6 relative), and each
+    application's share and the summed leaf gradient, kernel vs plain, within
+    TRAIN_LEAF_RTOL (relative L2)."""
+    n_apps = hybrid_counts(cfg)[1]
+    total, plain_total = tree_util.leaves(grads["shared"]), tree_util.leaves(plain_grads["shared"])
+    ok_count = len(uses) == len(plain_uses) == n_apps and all(len(u) == len(total) for u in (*uses, *plain_uses))
+    expect(ok_count, f"{arch} shared block: {len(uses)} / {len(plain_uses)} applications recorded (kernel / plain), "
+                     f"want {n_apps}, each with all {len(total)} leaves")
+    if not ok_count:
+        return {}
+    rel = lambda a, b: ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
+    sum_gap = max(rel(sum(u[i] for u in us), tot[i]) for us, tot in ((uses, total), (plain_uses, plain_total))
+                  for i in range(len(total)))
+    nonzero = all(bool(u[i].any()) for u in (*uses, *plain_uses) for i in range(len(total)))
+    app_gaps = [max(rel(u[i], p[i]) for i in range(len(total))) for u, p in zip(uses, plain_uses)]
+    total_gap = max(rel(a, b) for a, b in zip(total, plain_total))
+    shares = [sum(u[i].float().norm().item() for i in range(len(total))) for u in uses]
+    expect(nonzero and sum_gap <= 1e-6,
+           f"{arch} shared block: each leaf's gradient the sum of its {n_apps} applications' shares on both paths "
+           f"(worst {sum_gap:.2e} relative), every share nonzero; share norms {[round(x, 4) for x in shares]}")
+    expect(max(app_gaps) <= TRAIN_LEAF_RTOL and total_gap <= TRAIN_LEAF_RTOL,
+           f"{arch} shared block kernel vs plain: each application's share within {TRAIN_LEAF_RTOL} (worst "
+           f"{[round(g, 4) for g in app_gaps]}), the summed gradient {total_gap:.4f}")
+    return {"applications": n_apps, "sum_gap": sum_gap, "application_gaps": app_gaps, "total_gap": total_gap,
+            "share_norms": shares}
+
+
+def idle_expert_gate(arch: str, cfg, routing: list, grads, plain_grads) -> dict:
+    """Experts that no token of a layer reached (from the kernel path's
+    recorded top-k, which the plain path replayed): their w_gate, w_up and
+    w_down gradients exactly zero on both paths."""
+    idle = []
+    zero = True
+    for layer, top_e in enumerate(routing):
+        reached = torch.zeros(cfg.moe.n_experts, dtype=torch.bool, device=top_e.device)
+        reached[top_e.reshape(-1)] = True
+        ids = (~reached).nonzero().flatten()
+        idle.append(len(ids))
+        for g in (grads, plain_grads):
+            for key in ("w_gate", "w_up", "w_down"):
+                zero &= not bool(g["layers"][layer]["ffn"][key][ids].any())
+    expect(len(routing) == cfg.n_layers and sum(idle) > 0 and zero,
+           f"{arch}: the experts no token reached ({idle} of {cfg.moe.n_experts} per layer) have exactly zero "
+           f"expert-weight gradients on both paths")
+    return {"idle_experts": idle}
+
+
+def train_nudge_witness(arch: str, cfg, params, batch, grads_of, routing: list, plain_grads, gate: dict) -> dict:
+    """How far the plain path's own gradients move under a rounding-sized
+    change of its input: the embedding table's fp32 masters rounded to bf16
+    and nudged up by one bf16 ulp on a random half of the elements (the MoE
+    model routed as before); each leaf's relative L2 gap to the unchanged
+    plain path's, printed beside the kernel path's gap (a witness of the
+    model's own sensitivity to a rounding, not a gate)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    table = params["embed"]["table"]
+    bump = torch.randint(0, 2, table.shape, generator=gen, device="cuda", dtype=torch.int16)
+    nudged = {**params, "embed": {**params["embed"], "table": (table.to(BF16).view(torch.int16) + bump).view(BF16).float()}}
+    del bump
+    with plain_versions(), (topk_choices(routing, replay=True) if cfg.moe is not None else contextlib.nullcontext()):
+        moved, _ = grads_of(nudged, batch)
+    gaps = sorted(leaf_gaps(moved, plain_grads))
+    del moved, nudged
+    worst, median = gaps[-1], gaps[len(gaps) // 2][0]
+    expect(all(math.isfinite(g) for g, _ in gaps),
+           f"{arch} plain path, embedding nudged by one bf16 ulp: gradient leaves move by worst {worst[1]} "
+           f"{worst[0]:.4f}, median {median:.4f} (kernel vs plain: worst {gate['worst_leaf']} "
+           f"{gate['worst_leaf_gap']:.4f}, median {gate['median_leaf_gap']:.4f})")
+    return {"worst_leaf": worst[1], "worst_leaf_gap": worst[0], "median_leaf_gap": median}
+
+
+def train_family(arch: str, smi: str) -> dict:
+    """One family's training at full width (TRAIN_FAMILIES): one step's
+    gradients on the kernel path against the plain path on the card, routed
+    alike, with exact launches (K1, K3, and K4 for the MoE model; also a
+    remat step), the idle experts' zero gradients (MoE) or the shared block's
+    sum over its applications (hybrid), its Trainer steps on one batch, the
+    MoE model's traced step, the readings."""
+    cfg = configs.get_config(arch)
+    layers, n_steps = TRAIN_FAMILIES[arch]
+    if layers:
+        cfg = cfg.scaled(n_layers=layers)
+    model = get_model(cfg)
+    what = (f"{cfg.n_layers}L d={cfg.d_model}" + (f" H={cfg.n_heads}/{cfg.n_kv_heads} experts {cfg.moe.n_experts} "
+            f"top-{cfg.moe.top_k} d_ff_expert={cfg.moe.d_ff_expert}" if cfg.moe else "")
+            + (f" ({hybrid_counts(cfg)[0]} Mamba2 layers, {hybrid_counts(cfg)[1]} applications of the shared block)"
+               if cfg.family == "hybrid" else "") + f" V={cfg.vocab_size}")
+    say(f"[3] train {arch} (full width, {what}), fp32 masters computing in {cfg.dtype}, batch {BATCH} x {PROMPT} "
+        f"tokens")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(SEED, "cuda", dtype=torch.float32)
+    n = sum(t.numel() for t in tree_util.leaves(params))
+    expect(all(t.dtype == torch.float32 for t in tree_util.leaves(params)),
+           f"{arch} fp32 masters: {n:,} parameters (count_params: {model.n_params:,}), "
+           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+    batch = make_batch(cfg, batch=BATCH, seq=PROMPT, kind="train", seed=SEED, device="cuda")
+    tcfg = TrainConfig(**TRAIN_TCFG)
+    out: dict = {"arch": arch, "n_layers": cfg.n_layers, "n_params": n, "count_params": model.n_params,
+                 "nvidia_smi": smi}
+    grads_of = make_grad_fn(model, tcfg)
+    hybrid = cfg.family == "hybrid"
+    routing, uses, plain_uses = [], [], []
+    reset_counts()
+    with topk_choices(routing), (shared_block_uses(uses) if hybrid else contextlib.nullcontext()):
+        grads, metrics = grads_of(params, batch)
+    torch.cuda.synchronize()
+    out["step"] = check_train_launches(f"{arch} train step", cfg, 1)
+    with plain_versions(), topk_choices(routing, replay=True), \
+            (shared_block_uses(plain_uses) if hybrid else contextlib.nullcontext()):
+        plain_grads, plain_metrics = grads_of(params, batch)
+    out["gate"] = train_gradient_gate(f"{arch} train step", grads, metrics, plain_grads, plain_metrics)
+    kept = [(k, g) for k, g in _keyed_leaves(grads) if k in FP32_KEYS]
+    expect(all(g.dtype == torch.float32 and bool(torch.isfinite(g).all()) for _, g in kept),
+           f"{arch}: the {len(kept)} gradients of the {sorted({k for k, _ in kept})} leaves fp32 and finite")
+    if cfg.moe is not None:
+        out.update(idle_expert_gate(arch, cfg, routing, grads, plain_grads))
+    if hybrid:
+        out["shared"] = shared_block_gate(arch, cfg, grads, plain_grads, uses, plain_uses)
+    del uses, plain_uses
+    out["nudge"] = train_nudge_witness(arch, cfg, params, batch, grads_of, routing, plain_grads, out["gate"])
+    del plain_grads
+    if cfg.moe is not None:
+        reset_counts()
+        remat_grads, remat_metrics = make_grad_fn(model, dataclasses.replace(tcfg, remat=True))(params, batch)
+        torch.cuda.synchronize()
+        out["remat_step"] = check_train_launches(f"{arch} remat step", cfg, 2)
+        remat_gap = max(leaf_gaps(remat_grads, grads))
+        expect(float(remat_metrics["loss"]) == float(metrics["loss"]) and remat_gap[0] <= TRAIN_LEAF_RTOL,
+               f"{arch} remat step: the same loss, gradients within {TRAIN_LEAF_RTOL} of the step's (worst "
+               f"{remat_gap[1]} {remat_gap[0]:.2e})")
+        del remat_grads
+    del grads
+
+    start = [t.clone() for t in tree_util.leaves(params)]
+    trainer = Trainer(model, tcfg, params)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, walls = [], []
+    for _ in range(n_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = trainer.run(iter([batch]), 1, log_every=0)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    say(f"    {n_steps} steps on one batch: loss {[round(x, 4) for x in losses]}, step ms "
+        f"{[round(x, 1) for x in walls]}")
+    expect(all(map(math.isfinite, losses)) and losses[-1] < losses[0] and min(losses[2:]) < losses[1],
+           f"{arch}: the loss falls on the fixed batch: {losses[0]:.4f} -> {losses[-1]:.4f}")
+    changed = [bool(torch.isfinite(p).all()) and not torch.equal(p, p0)
+               for p, p0 in zip(tree_util.leaves(trainer.params), start)]
+    expect(all(changed) and all(p.dtype == torch.float32 for p in tree_util.leaves(trainer.params)),
+           f"{arch}: every parameter finite, fp32 and changed: {sum(changed)} of {len(changed)} leaves")
+    expect(trainer.step == n_steps and trainer.retries == 0,
+           f"{arch}: step counter {trainer.step}, retries {trainer.retries}")
+    del start
+    step_ms = sorted(walls[1:])[len(walls[1:]) // 2]
+    tokens = BATCH * PROMPT
+    out.update(losses=losses, step_ms=walls, step_ms_p50=step_ms, tokens_per_s=tokens / step_ms * 1e3, peak_gb=peak,
+               retries=trainer.retries)
+    steps = n_steps
+    if cfg.moe is not None:
+        row = traced_train_step(trainer, batch)
+        out["trace"] = row
+        steps += 1
+    want = train_expected(cfg, 1)
+    want_counts = {"systolic_mmm": sum(want["k1"].values()) * steps, "systolic_qmm": 0,
+                   "flash_attn": want["flash"] * steps, "grouped_mmm": sum(want["k4"].values()) * steps}
+    expect(counts() == want_counts and shape_counts()["systolic_mmm"] == {
+        k: c * steps for k, c in k1_by_shape(want["k1"]).items()} and shape_counts()["grouped_mmm"] == {
+        k: c * steps for k, c in want["k4"].items()},
+           f"{arch}: {steps} Trainer steps{' (the traced one included)' if cfg.moe else ''}: launches exact, {counts()}")
+    say(f"    {arch} train step (steady, p50 of steps 2-{n_steps}) {step_ms:.3f} ms, "
+        f"{out['tokens_per_s']:.1f} tokens/s, peak device memory {peak:.2f} GB; {smi}")
+    if cfg.moe is not None:
+        say(f"    traced step: {trace_row(row)}; K1 {row['k1_kernels']} kernels {row['k1_ms']:.3f} ms: "
+            f"{gemm_split(row, 'k1')}; K4 {row['k4_kernels']} of the step's {sum(want['k4'].values())} kernels in the "
+            f"trace, {row['k4_ms']:.3f} ms: {gemm_split(row, 'k4')}; K3 {row['k3_ms']:.3f} ms")
+        for r in row["top"]:
+            say(f"      {r['device_ms']:9.3f} ms  x{r['calls']:<5d} {r['kernel'][:100]}")
+    # every full-width kernel-path launch of the run, for the kernels line
+    runs = [(out["step"], 1 + steps)] + ([(out["remat_step"], 1)] if "remat_step" in out else [])
+    k1, k4, flash = collections.Counter(), collections.Counter(), 0
+    for run, times in runs:
+        for *key, c in run["k1_by_dtype"]:
+            k1[tuple(key)] += c * times
+        for *shp, c in run["shapes"]["grouped_mmm"]:
+            k4[tuple(shp)] += c * times
+        flash += sum(f[-1] for f in run["flash_shapes"]) * times
+    out["k1_launches"] = [[*key, c] for key, c in sorted(k1.items())]
+    out["shapes"] = {"grouped_mmm": [[*shp, c] for shp, c in sorted(k4.items())]}
+    out["flash_shapes"] = [[BATCH, PROMPT, PROMPT, flash]] if flash else []
+    del trainer, params, batch
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3451,27 +3785,30 @@ def phase_train(smi: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _gemm_cost(m, k, n, out_dtype=BF16):
-    """Operations and HBM bytes of one bf16 projection: each input read once,
+def _gemm_cost(m, k, n, out_dtype=BF16, operands=BF16):
+    """Operations and HBM bytes of one projection: each input read once,
     the output written once."""
     flops = 2 * m * n * k
-    nbytes = (m * k + k * n) * dtype_bytes(BF16) + m * n * dtype_bytes(out_dtype)
+    nbytes = (m * k + k * n) * dtype_bytes(operands) + m * n * dtype_bytes(out_dtype)
     return flops, nbytes
 
 
-def time_gemm(m, k, n, gen, out_dtype=BF16, tiles: bool = True, k_major: bool = False) -> dict:
-    """Kernel, plain and library times of one bf16 projection.  Weights are
+def time_gemm(m, k, n, gen, out_dtype=BF16, tiles: bool = True, k_major: bool = False, operands=BF16) -> dict:
+    """Kernel, plain and library times of one projection on ``operands``
+    (bf16, or fp32 as a training step's backward runs the products whose
+    forward writes fp32).  Weights are
     cycled through enough copies to exceed the 50 MB L2, as the main path
     reads each layer's weights cold.  With ``tiles``, a shape on a wgmma path
     is also timed on each wgmma tile through the C entry (launches that no
     counter sees), for the path rule's record.  ``k_major``: B is the
     transpose of an (N, K) tensor, as the tied head's table (the library
     call then multiplies by the same transposed view)."""
-    a = randn((m, k), gen, BF16)
-    copies = max(1, math.ceil(150e6 / (k * n * dtype_bytes(BF16))))
-    nxt = cycler([randn((n, k), gen, BF16).T if k_major else randn((k, n), gen, BF16) for _ in range(copies)])
+    a = randn((m, k), gen, operands)
+    copies = max(1, math.ceil(150e6 / (k * n * dtype_bytes(operands))))
+    nxt = cycler([randn((n, k), gen, operands).T if k_major else randn((k, n), gen, operands)
+                  for _ in range(copies)])
     iters = 20 if m <= 16 else 10
-    lib = (lambda: torch.mm(a, nxt(), out_dtype=torch.float32)) if out_dtype == torch.float32 \
+    lib = (lambda: torch.mm(a, nxt(), out_dtype=torch.float32)) if out_dtype == torch.float32 != operands \
         else (lambda: torch.matmul(a, nxt()))
     t = {
         "kernel": time_ms(lambda: mm_ops.matmul(a, nxt(), out_dtype=out_dtype), iters),
@@ -3479,7 +3816,7 @@ def time_gemm(m, k, n, gen, out_dtype=BF16, tiles: bool = True, k_major: bool = 
         "library": time_ms(lib, iters),
     }
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    path = mm_kernel.gemm_path(m, n, k, BF16, True, sms, k_major)
+    path = mm_kernel.gemm_path(m, n, k, operands, True, sms, k_major)
     by_path = {}
     if tiles and path.startswith("wgmma"):
         lib_, fn = mm_kernel._entry("systolic_mmm")
@@ -3492,10 +3829,11 @@ def time_gemm(m, k, n, gen, out_dtype=BF16, tiles: bool = True, k_major: bool = 
             _build.check(lib_, "systolic_mmm launch", code)
 
         by_path = {tile: time_ms(lambda: on(tile), iters) for tile, _, _ in mm_kernel.WGMMA_TILES}
-    flops, nbytes = _gemm_cost(m, k, n, out_dtype)
-    bound_s, bound_by = H100.bound_s(flops, nbytes, "bfloat16")
-    return {"m": m, "k": k, "n": n, "out": str(out_dtype)[6:], "path": path, "ms": t["kernel"], "plain_ms": t["plain"],
-            "library_ms": t["library"], "bound_ms": bound_s * 1e3, "bound_by": bound_by, "ms_by_path": by_path}
+    flops, nbytes = _gemm_cost(m, k, n, out_dtype, operands)
+    bound_s, bound_by = H100.bound_s(flops, nbytes, operands)
+    return {"m": m, "k": k, "n": n, "operands": str(operands)[6:], "out": str(out_dtype)[6:], "path": path,
+            "ms": t["kernel"], "plain_ms": t["plain"], "library_ms": t["library"], "bound_ms": bound_s * 1e3,
+            "bound_by": bound_by, "ms_by_path": by_path}
 
 
 def _grouped_cost(k, n, c, rows):
@@ -3537,6 +3875,35 @@ def time_grouped(e, c, k, n, gen, patterns: list) -> dict:
             "experts_with_tokens": sum(sum(1 for r in p if r) for p in patterns) / len(patterns),
             "rows_with_tokens": sum(sum(p) for p in patterns) / len(patterns),
             "routed_ms": t["routed"], "routed_bound_ms": routed_bound_s * 1e3, "routed_bound_by": routed_bounds[0][1]}
+
+
+def time_grouped_train(e, c, k, n, role: str, gen) -> dict:
+    """One K4 launch of the MoE training step's backward, E (C, K) @ (K, N)
+    over all rows: ``role`` "dX" (A = dY, B = W^T copied from W (E, N, K))
+    or "dW" (A = X^T copied from X (E, K, C), B = dY).  The kernel on the
+    row-major operands (the launch alone), the copy ``_GroupedMatmul`` makes
+    apart, the plain version and ``torch.bmm`` on the transposed view, each
+    beside the bound.  The operand the step reads cold (W; dW's dY) is
+    cycled through >= 150 MB of copies."""
+    copies = max(1, math.ceil(150e6 / (e * k * n * dtype_bytes(BF16))))
+    bs = cycler([randn((e, k, n), gen, BF16) for _ in range(copies)])  # B as the kernel reads it
+    if role == "dX":
+        a = randn((e, c, k), gen, BF16)
+        held = cycler([randn((e, n, k), gen, BF16) for _ in range(copies)])  # W (E, N, K): B = W^T
+        copy = lambda: held().transpose(1, 2).contiguous()
+        view_a, view_b = (lambda: a), (lambda: held().transpose(1, 2))
+    else:
+        held_x = randn((e, k, c), gen, BF16)  # X (E, K, C): A = X^T
+        a = held_x.transpose(1, 2).contiguous()
+        copy = lambda: held_x.transpose(1, 2).contiguous()
+        view_a, view_b = (lambda: held_x.transpose(1, 2)), bs
+    flops, nbytes = _grouped_cost(k, n, c, [c] * e)
+    bound_s, bound_by = H100.bound_s(flops, nbytes, "bfloat16")
+    return {"role": role, "e": e, "c": c, "k": k, "n": n, "path": grouped_kernel.grouped_path(c, k, n, BF16, True),
+            "ms": time_ms(lambda: grouped_ops.grouped_matmul(a, bs()), 10), "copy_ms": time_ms(copy, 10),
+            "plain_ms": time_ms(lambda: grouped_matmul_ref(view_a(), view_b()), 5),
+            "library_ms": time_ms(lambda: torch.bmm(view_a(), view_b()), 10),
+            "bound_ms": bound_s * 1e3, "bound_by": bound_by}
 
 
 def time_flash(gen, cfg, b: int = BATCH, s: int = PROMPT) -> dict:
@@ -3796,7 +4163,10 @@ def phase_timing(errs: dict, sync_fp: list, sync_w8a8: list, moe_runs: list,
     paths in ``sync_fp``; internvl2-1b's continuous run and the tied check
     in ``served``).  ``train``: the training phase's full-width kernel-path
     launches (K1 at its forward, dA and dB shapes; K3 with its lse output,
-    timed so)."""
+    timed so), and under "families" the MoE and recurrent runs' (K1 by
+    shape and operand / output dtype, K4 by shape, K3 by shape: timed at
+    their shapes, their launches itemised apart as
+    ``launches_train_families``)."""
     say("[4] kernel times at the served paths' shapes (CUDA events; ms per call)")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     moe_r = moe_runs[0]
@@ -3815,6 +4185,20 @@ def phase_timing(errs: dict, sync_fp: list, sync_w8a8: list, moe_runs: list,
         say(f"    systolic_mmm M={m:<5d} K={k:<5d} N={n:<5d} out={r['out']:8s} x{r['launches']:<5d} "
             f"{r['path']:13s} kernel {r['ms']:.4f}  plain {r['plain_ms']:.4f}  torch.matmul {r['library_ms']:.4f}  "
             f"bound {r['bound_ms']:.4f} ({r['bound_by']})" + (f"  [each wgmma tile:{tiles}]" if tiles else ""))
+    # K1 at the family training runs' shapes (train_family), each on its
+    # operand dtype: fp32 for the backward of a product that writes fp32
+    families = train.get("families", {})
+    k1_train = collections.Counter()
+    for fr in families.values():
+        for m, k, n, dt, o, c in fr["k1_launches"]:
+            k1_train[(m, k, n, dt, o)] += c
+    for (m, k, n, dt, o), n_calls in sorted(k1_train.items()):
+        r = time_gemm(m, k, n, gen, getattr(torch, o), tiles=False, operands=getattr(torch, dt))
+        r["launches"] = r["launches_train"] = n_calls
+        shapes.append(r)
+        say(f"    systolic_mmm train M={m:<5d} K={k:<5d} N={n:<5d} {dt}->{o:8s} x{n_calls:<5d} {r['path']:13s} "
+            f"kernel {r['ms']:.4f}  plain {r['plain_ms']:.4f}  torch.matmul {r['library_ms']:.4f}  bound "
+            f"{r['bound_ms']:.4f} ({r['bound_by']})")
     qshapes = []
     for (m, k, n), n_calls in _merged(sync_w8a8, "systolic_qmm").items():
         r = time_qgemm(m, k, n, gen)
@@ -3836,6 +4220,21 @@ def phase_timing(errs: dict, sync_fp: list, sync_w8a8: list, moe_runs: list,
             f"{r['bound_ms']:.4f} ({r['bound_by']}); the model's rows ({r['experts_with_tokens']:.1f} "
             f"experts, {r['rows_with_tokens']:.1f} rows with tokens, mean of {len(patterns)} layers): kernel "
             f"{r['routed_ms']:.4f}  bound {r['routed_bound_ms']:.4f} ({r['routed_bound_by']})")
+    # K4 at the MoE training run's launch shapes: the forward's (E, C, K, N)
+    # are the dX launches' too (gate / up's dX at down's forward shape and
+    # the other way round), so each shape is timed once, as its dX or dW
+    # launch runs (the transposed operand copied, as _GroupedMatmul copies it)
+    if MOE_ARCH in families:
+        mcfg = configs.get_config(MOE_ARCH)
+        cap = moe.capacity(BATCH * PROMPT // mcfg.moe.dispatch_groups, mcfg) * mcfg.moe.dispatch_groups
+        for (e, c, k, n), n_calls in _merged([families[MOE_ARCH]], "grouped_mmm").items():
+            role = "dX" if c == cap else "dW"
+            r = time_grouped_train(e, c, k, n, role, gen)
+            r["launches"] = r["launches_train"] = n_calls
+            gshapes.append(r)
+            say(f"    grouped_mmm train {role} E={e:<4d} C={c:<4d} K={k:<5d} N={n:<5d} x{n_calls:<5d} {r['path']:13s} "
+                f"kernel {r['ms']:.4f} + the copy {r['copy_ms']:.4f}  plain {r['plain_ms']:.4f}  torch.bmm "
+                f"{r['library_ms']:.4f}  bound {r['bound_ms']:.4f} ({r['bound_by']})")
     k2 = time_gemm_bias(BATCH * PROMPT, 2048, 8192, gen)
     say(f"    systolic_mmm + bias (K2) M={k2['m']} K={k2['k']} N={k2['n']} x0 (not on the main path) "
         f"kernel {k2['ms']:.4f}  plain {k2['plain_ms']:.4f}  torch.addmm {k2['library_ms']:.4f}  "
@@ -3856,15 +4255,21 @@ def phase_timing(errs: dict, sync_fp: list, sync_w8a8: list, moe_runs: list,
         for b, sq, _, n_calls in r["flash_shapes"]:
             served_shapes[(r.get("arch", ARCH), b, sq)] += n_calls
     by_shape.update(dict(sorted(served_shapes.items())))
+    flash_train = collections.Counter()  # the family training runs' (K3 with its lse output)
+    for arch, fr in families.items():
+        for b, sq, _, n_calls in fr["flash_shapes"]:
+            flash_train[(arch, b, sq)] += n_calls
+    by_shape.update(flash_train)
     runs = [(configs.get_config(arch), b, sq, n_calls) for (arch, b, sq), n_calls in by_shape.items() if n_calls]
     # zamba2's shared attention (D = 112): no served launch (its prefill is
     # decode steps, whose attention is plain); forward reaches it once per
-    # application, as in phase 3's forward check.
+    # application, as in phase 3's forward check and in training.
     hyb_cfg = configs.get_config(HYBRID_ARCH)
-    runs += [(hyb_cfg, 1, PROMPT, 0), (hyb_cfg, BATCH, PROMPT, 0)]
+    runs += [(hyb_cfg, b, PROMPT, 0) for b in (1, BATCH) if not by_shape.get((HYBRID_ARCH, b, PROMPT))]
     for cfg, b, sq, n_calls in runs:
         fl = time_flash(gen, cfg, b, sq)
         fl["launches"] = n_calls
+        fl["launches_train"] = flash_train.get((cfg.name, b, sq), 0)
         flash.append(fl)
         say(f"    flash_attn B={fl['b']} H={fl['h']}/{fl['hkv']} S={fl['s']} D={fl['d']} causal x{fl['launches']} "
             f"kernel {fl['ms']:.4f}  plain {fl['plain_ms']:.4f}  sdpa(enable_gqa) {fl['library_ms']:.4f}  "
@@ -3891,10 +4296,11 @@ def phase_timing(errs: dict, sync_fp: list, sync_w8a8: list, moe_runs: list,
         f"({paging['bound_by']})")
 
     def entry(name, rows):
-        # Totals over every launch the served paths made (prefill + decode);
-        # the grouped GEMM's also at the model's own rows, apart.
+        # Totals over every launch the served and trained paths made; the
+        # grouped GEMM's served launches also at the model's own rows, apart;
+        # the family training runs' launches (K1, K3, K4) itemised apart.
         keys = ("ms", "plain_ms", "bound_ms") + (("routed_ms", "routed_bound_ms") if "routed_ms" in rows[0] else ())
-        tot = {key: sum(r[key] * r["launches"] for r in rows) for key in keys}
+        tot = {key: sum(r[key] * r["launches"] for r in rows if key in r) for key in keys}
         lib = [r["library_ms"] for r in rows]
         by = {}
         for r in rows:
@@ -3905,7 +4311,8 @@ def phase_timing(errs: dict, sync_fp: list, sync_w8a8: list, moe_runs: list,
                 "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
                 "bound_by": max(by, key=by.get),
                 "library_ms": None if None in lib else sum(x * r["launches"] for x, r in zip(lib, rows)),
-                **{key: tot[key] for key in keys[3:]}, "shapes": rows}
+                **{key: tot[key] for key in keys[3:]},
+                "launches_train_families": sum(r.get("launches_train", 0) for r in rows), "shapes": rows}
 
     # Each kernel's launches are those of every served path that runs it: the
     # fp GEMM on the bf16 paths (synchronized, continuous, kv8, long-prompt,

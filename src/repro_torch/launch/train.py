@@ -9,12 +9,16 @@ is given::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b --smoke --device cpu --steps 4
     PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b --steps 8 --batch 4 --seq 512
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-moe-30b-a3b --layers 2 --steps 8 --batch 4 --seq 512
+
+``--layers N`` keeps the first N layers at the config's full width, for a
+model whose training state exceeds the card: fp32 masters, gradients and
+AdamW moments take 16 bytes a parameter, ~490 GB for qwen3-moe-30b-a3b's
+48 layers and ~30 GB for 2 of them.
 
 The reference's multi-device flags (``--production-mesh``, ``--multi-pod``,
 ``--distributed``) belong to the port's distributed part, which is not
-written yet: they are refused, not ignored.  So is an MoE architecture on
-the card: its expert GEMM kernel has no backward yet (the CPU trains it on
-the plain version).
+written yet: they are refused, not ignored.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--arch", required=True, choices=configs.ALL_ARCHS)
     ap.add_argument("--smoke", action="store_true", help="reduced config")
     ap.add_argument("--device", default=None, help="default: the card; 'cpu' runs the plain CPU path")
+    ap.add_argument("--layers", type=int, default=None, help="keep the first N layers (default: the config's)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=256)
@@ -60,9 +65,8 @@ def main(argv: list[str] | None = None) -> dict:
                      "multi-host init), which is not written yet")
     dev = resolve_device(args.device)
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get_config(args.arch)
-    if cfg.moe is not None and dev.type != "cpu":
-        raise NotImplementedError(f"{cfg.name}: MoE training on the card needs a backward for the grouped expert "
-                                  "GEMM kernel, which is not written yet; train it with --device cpu")
+    if args.layers is not None:
+        cfg = cfg.scaled(n_layers=args.layers)
     model = get_model(cfg)
     print(f"arch={cfg.name} params={model.n_params / 1e6:.1f}M active={model.n_active_params / 1e6:.1f}M "
           f"device={dev}")

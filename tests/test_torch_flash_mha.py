@@ -14,14 +14,17 @@ kernel wrappers' refusals under grad.
   through ``matmul_ref``: dA and dB, a K-major B, an fp32 output of bf16
   operands.
 * Refusals: under grad, with an operand that requires grad, the kernel
-  wrappers without a backward (K3's ``flash_attention``, K4's
-  ``grouped_matmul``, K5's ``quant_matmul``, K1 with a bias or an
-  activation) raise on the kernel route instead of dropping the gradient;
-  a quantized weight is refused on every device.  ``meta`` tensors stand in
-  for the card's: they take the kernel route and the check comes first.
+  wrappers without a backward (K3's ``flash_attention``, K5's
+  ``quant_matmul``, K1 with a bias or an activation) raise on the kernel
+  route instead of dropping the gradient; a quantized weight is refused on
+  every device.  K4's ``grouped_matmul`` has a backward: under grad it
+  takes the kernel route through its autograd Function.  ``meta`` tensors
+  stand in for the card's: they take the kernel route and the check comes
+  first.
 """
 
 import dataclasses
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -33,6 +36,7 @@ from repro.models import attention as jax_attn
 from repro_torch.core import ops as core_ops
 from repro_torch.kernels.attention import flash_attention
 from repro_torch.kernels.attention.ref import flash_attention_call_ref
+from repro_torch.kernels.grouped import kernel as grouped_kernel
 from repro_torch.kernels.grouped import ops as grouped_ops
 from repro_torch.kernels.systolic import ops as mm_ops
 from repro_torch.kernels.systolic.ref import matmul_ref
@@ -140,8 +144,11 @@ def test_kernel_wrappers_refuse_grad_on_the_kernel_route():
     q = _meta(1, 2, 4, 8)
     with pytest.raises(RuntimeError, match="K3.*no backward"):
         flash_attention(q, q, q)
-    with pytest.raises(RuntimeError, match="K4.*no backward"):
-        grouped_ops.grouped_matmul(_meta(2, 4, 8), _meta(2, 8, 3, grad=False))
+    # K4 has a backward: under grad it reaches the kernel (which wants the card), not a refusal
+    launched = []
+    with mock.patch.object(grouped_kernel, "grouped_matmul_call", lambda *a, **kw: launched.append(a) or a[0][..., :3]):
+        y = grouped_ops.grouped_matmul(_meta(2, 4, 8), _meta(2, 8, 3, grad=False))
+    assert len(launched) == 1 and type(y.grad_fn).__name__ == "_GroupedMatmulBackward"
     with pytest.raises(RuntimeError, match="K2"):
         mm_ops.matmul(_meta(4, 8), _meta(8, 3), _meta(3, grad=False))
     with pytest.raises(RuntimeError, match="K2"):

@@ -1039,6 +1039,170 @@ def test_flash_mha_on_the_card_matches_plain_autograd(cuda, dtype):
         torch.testing.assert_close(got.float(), ref, rtol=tol, atol=tol * ref.abs().max().item())
 
 
+# K4's backward (``grouped_ops._GroupedMatmul``): dX = dY W^T at (E, C, N) @
+# (E, N, K) and dW = X^T dY at (E, K, C) @ (E, C, N), the contraction of dW
+# the capacity C.  qwen3-moe-30b-a3b's training shapes (E 128, C 160: 2.5 of
+# the wgmma tile's 64-deep k stages) and ragged ones (C 40, not a multiple of
+# 64 either; K and N not multiples of 64).
+GROUPED_TRAIN_SHAPES = [(128, 160, 2048, 768), (128, 160, 768, 2048), (8, 40, 2048, 768), (5, 40, 200, 136),
+                        (3, 100, 72, 264)]
+
+
+def _grouped_grads(x, w, dy, rows=None, plain=False):
+    x, w = x.detach().clone().requires_grad_(), w.detach().clone().requires_grad_()
+    y = grouped_matmul_ref(x, w) if plain else grouped_ops.grouped_matmul(x, w, rows=rows)
+    y.backward(dy)
+    return y.detach(), x.grad, w.grad
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("e,c,k,n", GROUPED_TRAIN_SHAPES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_grouped_backward_matches_plain_autograd(cuda, e, c, k, n, dtype):
+    """One forward, one dX and one dW launch, each on the path
+    ``grouped_path`` picks for its shape, against autograd through the
+    plain version."""
+    dt = DTYPES[dtype]
+    x = _rand((e, c, k), 41).to(cuda, dt)
+    w = (_rand((e, k, n), 42) * k**-0.5).to(cuda, dt)
+    dy = _rand((e, c, n), 43).to(cuda, dt)
+    before = collections.Counter(grouped_kernel.launches_by_shape)
+    paths = collections.Counter(grouped_kernel.launches_by_path)
+    y, dx, dw = _grouped_grads(x, w, dy)
+    torch.cuda.synchronize()
+    want_shapes = collections.Counter([(e, c, k, n), (e, c, n, k), (e, k, c, n)])
+    assert collections.Counter(grouped_kernel.launches_by_shape) - before == want_shapes
+    want_paths = collections.Counter(grouped_kernel.grouped_path(cc, kk, nn, dt, True)
+                                     for _, cc, kk, nn in want_shapes.elements())
+    assert collections.Counter(grouped_kernel.launches_by_path) - paths == want_paths
+    wy, wdx, wdw = _grouped_grads(x, w, dy, plain=True)
+    assert dx.dtype == dw.dtype == dt
+    torch.testing.assert_close(y.float(), wy.float(), **_gemm_tol(dtype, k, dt))
+    torch.testing.assert_close(dx.float(), wdx.float(), **_gemm_tol(dtype, n, dt))
+    torch.testing.assert_close(dw.float(), wdw.float(), **_gemm_tol(dtype, c, dt))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pattern", ["all", "empty", "partial", "edges", "decode"])
+@pytest.mark.parametrize("e,c,k,n", [(16, 160, 2048, 768), (16, 160, 768, 2048), (5, 40, 200, 136)])
+def test_grouped_backward_with_rows_below_capacity(cuda, e, c, k, n, pattern):
+    """x's and dY's rows past each expert's count zero, as the dispatch and
+    the combine leave them: dX (launched with ``rows``) is zero past the
+    counts and matches the plain gradients, dW too (every row)."""
+    rows = _rows_patterns(e, c)[pattern]
+    x, w, r = _grouped_case(cuda, e, c, k, n, rows, 44)
+    dy = _rand((e, c, n), 46).to(cuda, torch.bfloat16)
+    for i, v in enumerate(rows):
+        dy[i, v:] = 0
+    seen = []
+    real = grouped_kernel.grouped_matmul_call
+
+    def spy(a, b, rows=None, **kw):
+        seen.append((tuple(a.shape), rows is not None))
+        return real(a, b, rows, **kw)
+
+    try:
+        grouped_kernel.grouped_matmul_call = spy
+        y, dx, dw = _grouped_grads(x, w, dy, rows=r)
+    finally:
+        grouped_kernel.grouped_matmul_call = real
+    torch.cuda.synchronize()
+    assert seen == [((e, c, k), True), ((e, c, n), True), ((e, k, c), False)]
+    _, wdx, wdw = _grouped_grads(x, w, dy, plain=True)
+    torch.testing.assert_close(dx.float(), wdx.float(), rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(dw.float(), wdw.float(), rtol=2e-2, atol=2e-2)
+    for i, v in enumerate(rows):
+        assert not bool(dx[i, v:].any())
+        if v == 0:
+            assert not bool(dw[i].any())
+
+
+def _one_step(arch, dtype, device, params=None, replay=None):
+    """(grads, metrics, launches) of one training step of ``arch``'s SMOKE
+    config in ``dtype`` from seed 0 at 2 x 32 tokens; ``replay``: a list of
+    each MoE layer's top-k experts, recorded when empty and replayed when
+    full (rounding moves routing; the paths must dispatch alike)."""
+    from unittest import mock
+
+    from repro_torch import configs
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.models import moe
+    from repro_torch.models.registry import get_model
+    from repro_torch.train.loop import TrainConfig, make_grad_fn
+
+    model = get_model(dataclasses.replace(configs.get_smoke(arch), dtype=dtype))
+    params = params if params is not None else model.init(0, device, dtype=torch.float32)
+    batch = make_batch(model.cfg, batch=2, seq=32, kind="train", seed=0, device=device)
+    real, replaying, recorded = moe._topk_shardable, bool(replay), iter(list(replay or []))
+
+    def topk(probs, k):
+        if replaying:
+            e = next(recorded)
+            return probs.gather(-1, e), e
+        w, e = real(probs, k)
+        if replay is not None:
+            replay.append(e.clone())
+        return w, e
+
+    counts = (mm_kernel.launches, attn_kernel.launches, grouped_kernel.launches)
+    with mock.patch.object(moe, "_topk_shardable", topk):
+        grads, metrics = make_grad_fn(model, TrainConfig())(params, batch)
+    after = (mm_kernel.launches, attn_kernel.launches, grouped_kernel.launches)
+    return model, params, grads, metrics, [b - a for a, b in zip(counts, after)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "xlstm-125m", "zamba2-7b"])
+def test_one_training_step_of_each_family_on_the_card(cuda, arch):
+    """The SMOKE config in fp32 on the card (K1's, K4's and K3's fp32
+    kernels) against the port's CPU path (the plain versions), routed alike:
+    the loss within 1e-5 relative and every gradient leaf within 1e-4 of its largest
+    value (summation order only); an MoE step makes 3 forward and 6
+    backward K4 launches a layer."""
+    from repro_torch.core.tree import leaves, tree_map
+
+    routing: list = []  # the CPU's routing, replayed on the card (a near-tie may round the other way)
+    model, cpu_params, want, want_m, _ = _one_step(arch, "float32", "cpu", replay=routing)
+    card = tree_map(lambda t: t.to(cuda), cpu_params)
+    routing = [e.to(cuda) for e in routing]
+    _, _, got, got_m, (k1, k3, k4) = _one_step(arch, "float32", cuda, params=card, replay=routing)
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    assert k4 == (9 * cfg.n_layers if cfg.moe is not None else 0) and k1 > 0
+    assert (k3 > 0) == (cfg.family != "ssm")
+    np.testing.assert_allclose(float(got_m["loss"]), float(want_m["loss"]), rtol=1e-5)
+    for g, w in zip(leaves(got), leaves(want)):
+        assert g.device.type == "cuda" and g.dtype == w.dtype
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=1e-4 * max(w.abs().max().item(), 1e-12))
+
+
+@pytest.mark.gpu
+def test_bf16_moe_step_kernel_vs_plain_routed_alike(cuda):
+    """The bf16 MoE SMOKE step on the kernels (K4 on a wgmma tile: C = 24,
+    a ragged contraction for dW) against the plain versions on the card,
+    the plain path routed to the kernel path's experts: loss 1e-2, every
+    leaf 1e-1 relative L2, as ``chip_smoke.py`` holds full width."""
+    from unittest import mock
+
+    from repro_torch.core.tree import leaves
+
+    routing: list = []
+    model, params, got, got_m, (_, _, k4) = _one_step("qwen3-moe-30b-a3b", "bfloat16", cuda, replay=routing)
+    paths = collections.Counter(grouped_kernel.launches_by_path)
+    assert k4 == 9 * model.cfg.n_layers
+    with mock.patch.object(grouped_kernel, "grouped_matmul_call", lambda x, w, rows=None, **_: grouped_matmul_ref(x, w)), \
+            mock.patch.object(mm_kernel, "systolic_matmul_call",
+                              lambda a, b, bias, *, out_dtype, activation="none", **_: matmul_ref(
+                                  a, b, bias, activation=activation, out_dtype=out_dtype)), \
+            mock.patch.object(attn_kernel, "flash_attention_call", flash_attention_call_ref):
+        _, _, want, want_m, _ = _one_step("qwen3-moe-30b-a3b", "bfloat16", cuda, params=params, replay=routing)
+    assert collections.Counter(grouped_kernel.launches_by_path) == paths  # the plain run launched nothing
+    loss, want_loss = float(got_m["loss"]), float(want_m["loss"])
+    assert abs(loss - want_loss) <= 1e-2 * abs(want_loss)
+    for g, w in zip(leaves(got), leaves(want)):
+        assert ((g.float() - w.float()).norm() / w.float().norm().clamp_min(1e-30)).item() <= 1e-1
+
+
 # ---------------------------------------------------------------------------
 # Tuned tiles: each path forced through a plan, the decode tile's k_chunk,
 # refused paths, the shared-memory accounting, the plan cache's dispatch.

@@ -14,7 +14,9 @@ across models, only across optimizers).  Tolerances: 1e-6 relative (fp32,
 the same operations in another order at most).
 """
 
+import contextlib
 import dataclasses
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -33,6 +35,8 @@ from repro.optim import schedule as jax_schedule
 from repro_torch import configs, optim
 from repro_torch.convert import params_from_jax
 from repro_torch.core.tree import leaves, leaves_with_path, tree_map
+from repro_torch.kernels.grouped import ops as grouped_ops
+from repro_torch.kernels.systolic import ops as mm_ops
 from repro_torch.models.registry import get_model
 from repro_torch.optim import compress, schedule
 from repro_torch.train.loop import TrainConfig, Trainer
@@ -143,12 +147,31 @@ MODELS = {
 }
 
 
+@contextlib.contextmanager
+def _function_calls():
+    """Count the forward and backward calls of K4's and K1's autograd
+    Functions (``_GroupedMatmul``, ``_Matmul``)."""
+    calls = {}
+    with contextlib.ExitStack() as stack:
+        for name, fn in (("grouped", grouped_ops._GroupedMatmul), ("systolic", mm_ops._Matmul)):
+            calls[name] = {"forward": 0, "backward": 0}
+            for method in ("forward", "backward"):
+                def counted(ctx, *args, _real=getattr(fn, method), _c=calls[name], _m=method):
+                    _c[_m] += 1
+                    return _real(ctx, *args)
+
+                stack.enter_context(mock.patch.object(fn, method, staticmethod(counted)))
+        yield calls
+
+
 @pytest.mark.parametrize("name", list(MODELS))
 def test_trainer_steps_match_jax_with_weight_decay(name):
     """Three ``Trainer`` steps at weight decay 0.1 in both packages from the
     same parameters and batches: every parameter within 1e-5 of JAX's (the
     port's per-layer norm scales were exempt from the decay, 1.6e-4 apart
-    after three steps of the dense model)."""
+    after three steps of the dense model).  The expert GEMMs run through
+    K4's autograd Function, three products a MoE layer, each differentiated
+    once a step; every projection through K1's."""
     arch, over = MODELS[name]
     jmodel = jax_get_model(dataclasses.replace(jax_get_smoke(arch), dtype="float32", **over))
     model = get_model(dataclasses.replace(configs.get_smoke(arch), dtype="float32", **over))
@@ -160,7 +183,11 @@ def test_trainer_steps_match_jax_with_weight_decay(name):
     jtrainer = JaxTrainer(jmodel, JaxTrainConfig(**kw), jparams, donate=False)
     jtrainer.run(iter(jbatches), n_steps=3, log_every=0)
     trainer = Trainer(model, TrainConfig(**kw), params)
-    trainer.run(iter(batches), n_steps=3, log_every=0)
+    with _function_calls() as calls:
+        trainer.run(iter(batches), n_steps=3, log_every=0)
+    per_step = 3 * model.cfg.n_layers if model.cfg.moe is not None else 0
+    assert calls["grouped"] == {"forward": 3 * per_step, "backward": 3 * per_step}
+    assert calls["systolic"]["forward"] > 0 and calls["systolic"]["backward"] == calls["systolic"]["forward"]
     want = params_from_jax(jax.tree.map(np.asarray, jtrainer.params), model.cfg, device="cpu")
     got = dict(leaves_with_path(trainer.params))
     assert list(got) == [k for k, _ in leaves_with_path(want)]

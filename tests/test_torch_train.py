@@ -16,7 +16,8 @@
   shardings yet).
 * ``data/sharded.py``: the copy against the reference, batch for batch.
 * ``launch/train.py``: ``--smoke --device cpu`` a few steps, with a
-  checkpoint and a resume; the refused flags.
+  checkpoint and a resume; the MoE config (also at ``--layers 1``); the
+  refused flags.
 """
 
 import dataclasses
@@ -288,7 +289,11 @@ def test_launcher_refuses_the_distributed_flags(flag, capsys):
     assert "distributed part" in capsys.readouterr().err
 
 
-def test_launcher_refuses_moe_on_the_card(monkeypatch):
-    monkeypatch.setattr(launch_train, "resolve_device", lambda device: torch.device("cuda"))
-    with pytest.raises(NotImplementedError, match="grouped expert"):
-        launch_train.main(["--arch", "qwen3-moe-30b-a3b", "--smoke"])
+@pytest.mark.parametrize("extra", [[], ["--layers", "1", "--remat"]])
+def test_launcher_trains_moe_on_cpu(extra):
+    """The MoE SMOKE config through the launcher (its expert GEMMs through
+    K4's autograd Function), also cut to its first layer."""
+    out = launch_train.main(["--arch", "qwen3-moe-30b-a3b", "--smoke", "--device", "cpu", "--steps", "2",
+                             "--batch", "2", "--seq", "8", *extra])
+    assert set(out) == {"ce", "aux", "loss", "grad_norm", "lr"}
+    assert np.isfinite(out["loss"]) and out["aux"] > 0
