@@ -91,7 +91,19 @@ Phases, each printing its own lines; any failure exits non-zero:
      block-scaled kernel, with the same launch, kernel-vs-plain and decode
      checks (each kernel call of the prefill also against its plain version
      on the model's own inputs), and its logits against the bf16 model's
-     within the reference's bound of 0.15 x the largest logit; then
+     within the reference's bound of 0.15 x the largest logit; then the
+     distributed phase (tensor parallelism over the "model" axis, one
+     spawned process a rank: two ranks sharing one card over Gloo, each hop
+     through host memory, or with two cards or more NCCL and one rank a
+     card): the collective matmul's all-gather and reduce-scatter forms at
+     internlm2's four projections at M = 2048, bf16, both ring directions,
+     against single-card K1 on the whole problem, and full-width
+     internlm2-1.8b served TP-sharded (4 x 512 prefill, 8 greedy decode
+     steps) through ServeEngine(mesh=...), each rank's K1 and flash
+     launches exact by shape and head count, its prefill and decode-step
+     logits (fed the single-card path's tokens) within 5e-2 of the largest
+     logit of the single-card kernel path on the same seed-0 weights, every
+     rank's tokens and logits the same; then
      full-width qwen3-moe-30b-a3b in bf16, every expert GEMM on the grouped
      kernel, with the same launch and decode checks, kernel-vs-plain logits
      with the plain path routed to the kernel path's experts (bf16's
@@ -117,7 +129,8 @@ Phases, each printing its own lines; any failure exits non-zero:
      zamba2-7b (hybrid: Mamba2 + one shared attention block, 5.89 B
      parameters) in bf16 with their fp32 leaves kept fp32, each served
      through ServeEngine (batch 4, prompt 512 -- a prefill of 512 decode
-     steps, as the reference scans them -- and 32 tokens) with exact K1
+     steps, as the reference scans them; zamba2-7b's cut to 128 -- and 32
+     tokens) with exact K1
      launches per shape (60 and 217 a step, all at M = 4 on the decode tile)
      and no flash launch, kernel vs plain on a 4 x 64-token prompt, two
      prefills bit-identical, fp32 forward (chunked mLSTM / SSD, K1 at M =
@@ -226,6 +239,8 @@ from repro_torch.configs import paper  # noqa: E402
 from repro_torch.core import dse  # noqa: E402
 from repro_torch.core.blocking import BlockPlan, derive_block_plan  # noqa: E402
 from repro_torch.core.hw import H100, dtype_bytes  # noqa: E402
+from repro_torch.distributed import collective_matmul as cm  # noqa: E402
+from repro_torch.distributed.tp_layout import kv_heads  # noqa: E402
 from repro_torch.data.synthetic import (  # noqa: E402
     make_adversarial_trace,
     make_batch,
@@ -248,6 +263,7 @@ from repro_torch.kernels.systolic.ref import (  # noqa: E402
     quant_systolic_matmul_ref,
 )
 from repro_torch.launch import trace as trace_tools  # noqa: E402
+from repro_torch.launch.mesh import Mesh, run_ranks  # noqa: E402
 from repro_torch.launch.serve import init_params  # noqa: E402
 from repro_torch.models import attention as attn_model  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
@@ -364,6 +380,10 @@ RECURRENT = ("ssm", "hybrid")
 AUDIO_ARCH, VLM_ARCH = "musicgen-medium", "internvl2-1b"
 TIED_STEPS = 2
 RECURRENT_CHECK_PROMPT = 64
+# zamba2-7b's synchronized serve prefills 4 x 128 tokens, 128 decode steps
+# (cut from 512, which took 50.3-52.7 s, to make room for the distributed
+# phase); its fp32 forward-vs-prefill check keeps the 512-token row.
+HYBRID_SERVE_PROMPT = 128
 SSM_CHUNK = 128
 SSM_CHUNKED_REQUESTS = 10  # the first 10 of the trace's 16 requests (cut for time; > CONT_SLOTS, so slots are reused)
 BF16 = torch.bfloat16
@@ -461,6 +481,19 @@ TUNE_DIR = ""
 # blocks of OBS_STEPS synchronized steps; the stale plan injected at
 # OBS_STALE times the probe's reading of OBS_STALE_GEMM.
 OBS_REQUESTS = 8
+# The distributed phase (tensor parallelism over the "model" axis, one process
+# a rank): on one card two ranks share it over Gloo, each hop through host
+# memory ("gloo-host"); with two cards or more, NCCL and one rank a card (at
+# most four).  The collective matmul at internlm2's four projections at M =
+# 2048, bf16, both ring directions, against single-card K1 on the whole
+# problem; then full-width internlm2-1.8b served TP-sharded (4 x 512
+# prefill, TP_DECODE_STEPS greedy steps) against the single-card kernel
+# path's logits on the same seed-0 weights.
+TP_ONE_CARD_RANKS = 2
+TP_MAX_RANKS = 4
+TP_DECODE_STEPS = 8
+TP_GEMMS = ((2048, 2048), (2048, 1024), (2048, 8192), (8192, 2048))  # internlm2's (K, N): wq, wk / wv, gate / up, down
+TP_TIMEOUT_S = 600
 OBS_BLOCKS, OBS_STEPS = 4, 4
 OBS_STALE, OBS_STALE_GEMM = 3.0, "ffn_in"
 MOE_NUDGES, MOE_NUDGE_STEPS = 2, 2  # one-ulp nudges per model, decode steps each (3, 3 until cut for time)
@@ -2300,8 +2333,9 @@ def phase_paged(model, params, smi: str) -> list[dict]:
     return runs
 
 
-def phase_serve(smi: str) -> tuple[dict, dict, dict, dict, list, list]:
-    """The bf16 model; the same parameters served continuously over the fp
+def phase_serve(smi: str) -> tuple[dict, dict, dict, dict, list, list, dict]:
+    """The bf16 model (and ``tp_reference``'s logits for the distributed
+    phase); the same parameters served continuously over the fp
     pool and over the kv8 pool, through the long-prompt trace monolithic and
     chunked, and through the shared-prefix trace over the slot pool, the
     paged pool, the prefix cache and an undersized arena; then the w8a8
@@ -2322,6 +2356,7 @@ def phase_serve(smi: str) -> tuple[dict, dict, dict, dict, list, list]:
         f"w8a8: {n_q} projection weights -> int8 ({q_bytes / 1e6:.1f} MB resident values)")
     batch = make_batch(cfg, batch=BATCH, seq=PROMPT, kind="prefill", seed=SEED, device="cuda")
     bf16 = serve_path("bf16", model, params, {"gemm": "systolic_mmm", "tol": LOGITS_TOL_BF16}, batch)
+    tp_ref = tp_reference(model, params, batch)
     bf16["tune"] = phase_tune(model, params, batch)
     bf16["obs"] = phase_obs(model, params, batch, smi)
     cont = phase_continuous(model, params, smi)
@@ -2341,7 +2376,194 @@ def phase_serve(smi: str) -> tuple[dict, dict, dict, dict, list, list]:
         del r["logits"], r["fed"]
     del params, qparams, model, batch
     torch.cuda.empty_cache()
-    return bf16, w8a8, cont, kv8, long_runs, paged_runs
+    return bf16, w8a8, cont, kv8, long_runs, paged_runs, tp_ref
+
+
+# ---------------------------------------------------------------------------
+# The distributed phase: tensor parallelism
+# ---------------------------------------------------------------------------
+
+
+def tp_reference(model, params, batch) -> dict:
+    """The single-card kernel path's logits the TP-served model is held to:
+    the prefill's and TP_DECODE_STEPS decode steps' from one cache, each step
+    fed the previous step's greedy tokens (those tokens are fed to the TP
+    path too)."""
+    logits, feed = [], []
+    with torch.no_grad():
+        lg, cache = model.prefill(params, batch, max_len=PROMPT + GEN)
+        for step in range(TP_DECODE_STEPS + 1):
+            logits.append(lg.float().cpu())
+            if step == TP_DECODE_STEPS:
+                break
+            tok = lg.argmax(-1).to(torch.int32)
+            feed.append(tok.cpu())
+            lg, cache = model.decode_step(params, tok, cache=cache, pos=PROMPT + step)
+    reset_counts()
+    return {"logits": logits, "feed": feed}
+
+
+def tp_reference_alone() -> dict:
+    """``tp_reference`` on the bf16 model drawn as ``phase_serve`` draws it."""
+    cfg = configs.get_config(ARCH)
+    model = get_model(cfg)
+    params = cast_params(model.init(SEED, "cuda", dtype=torch.float32), BF16)
+    batch = make_batch(cfg, batch=BATCH, seq=PROMPT, kind="prefill", seed=SEED, device="cuda")
+    ref = tp_reference(model, params, batch)
+    del params
+    torch.cuda.empty_cache()
+    return ref
+
+
+def tp_expected(cfg, tp: int, idx: int, rows: int) -> collections.Counter:
+    """K1 launches by (M, K, N) on rank ``idx`` of one TP-served pass over
+    ``rows`` token rows: every sharded GEMM is tp ring steps at the row
+    block of ceil(rows / tp); the column-parallel ones (wq, the rank's wk /
+    wv columns, gate, up) at (K, N / tp), the row-parallel ones (wo, down)
+    at (K / tp, N)."""
+    hd, d = cfg.resolved_head_dim, cfg.d_model
+    kv0, kv1 = kv_heads(cfg, tp, idx)
+    r = -(-rows // tp)
+    out = collections.Counter()
+    for k, n in ((d, cfg.n_heads * hd // tp), (d, (kv1 - kv0) * hd), (d, (kv1 - kv0) * hd), (d, cfg.d_ff // tp),
+                 (d, cfg.d_ff // tp), (cfg.n_heads * hd // tp, d), (cfg.d_ff // tp, d)):
+        out[(r, k, n)] += tp * cfg.n_layers
+    return out
+
+
+def tp_rank(rank: int, world: int, cards: int, cache_path: str, feed: list) -> dict:
+    """One rank of the distributed phase (a process of its own): the
+    collective matmul checks, then full-width internlm2-1.8b served
+    TP-sharded, with this rank's launch counts, plan keys, times and the
+    layout's logits fed ``feed``."""
+    torch.cuda.set_device(rank % cards)  # before any CUDA work
+    pin_cache(cache_path)
+    mesh = Mesh((1, world), ("data", "model"))
+    out = {"rank": rank, "card": torch.cuda.current_device(), "transport": cm.transport(mesh), "checks": []}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)  # the same operands on every rank
+    reset_counts()
+    for k, n in TP_GEMMS:
+        a = randn((BATCH * PROMPT, k), gen, BF16)
+        b = (randn((k, n), gen, torch.float32) * k**-0.5).to(BF16)  # the models' weight scale
+        whole = mm_ops.matmul(a, b)
+        m_sh, n_sh, k_sh = a.shape[0] // world, n // world, k // world
+        for d in cm.DIRECTIONS:
+            ag = cm.all_gather_matmul(a[rank * m_sh:(rank + 1) * m_sh], b[:, rank * n_sh:(rank + 1) * n_sh].contiguous(),
+                                      mesh=mesh, direction=d)
+            rs = cm.reduce_scatter_matmul(a[:, rank * k_sh:(rank + 1) * k_sh].contiguous(),
+                                          b[rank * k_sh:(rank + 1) * k_sh], mesh=mesh, direction=d)
+            for fn, got, want in (("all_gather_matmul", ag, whole[:, rank * n_sh:(rank + 1) * n_sh]),
+                                  ("reduce_scatter_matmul", rs, whole[rank * m_sh:(rank + 1) * m_sh])):
+                ok, err, _ = close(got, want, *GEMM_TOL_BF16)
+                out["checks"].append({"fn": fn, "k": k, "n": n, "direction": d, "ok": ok, "max_abs": err})
+    torch.cuda.synchronize()
+    out["check_launches"] = counts()
+
+    cfg = configs.get_config(ARCH)
+    model = get_model(cfg)
+    masters = model.init(SEED, "cuda", dtype=torch.float32)  # the single-card path's weights
+    params = cast_params(masters, BF16)
+    del masters
+    engine = ServeEngine(model, params, ServeConfig(max_len=PROMPT + GEN, batch=BATCH), device="cuda", mesh=mesh)
+    del params
+    torch.cuda.empty_cache()
+    out["resident_gb"] = torch.cuda.memory_allocated() / 1e9
+    batch = make_batch(cfg, batch=BATCH, seq=PROMPT, kind="prefill", seed=SEED, device="cuda")
+    engine.generate(batch, 2)  # warm-up (not counted)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    first = engine.prefill(batch)
+    torch.cuda.synchronize()
+    out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    out["prefill"] = (counts(), dict(mm_kernel.launches_by_shape), dict(attn_kernel.launches_by_heads()),
+                      flash_shape_counts())
+    reset_counts()
+    t0 = time.perf_counter()
+    rest = engine.decode(first, TP_DECODE_STEPS)
+    torch.cuda.synchronize()
+    out["decode_ms_per_step"] = (time.perf_counter() - t0) * 1e3 / TP_DECODE_STEPS
+    out["decode"] = (counts(), dict(mm_kernel.launches_by_shape), dict(attn_kernel.launches_by_heads()),
+                     flash_shape_counts())
+    out["tokens"] = torch.cat([first, rest], dim=1).cpu()
+    logits = []
+    with torch.no_grad():
+        lg, cache = engine.layout.prefill(engine.params, batch, PROMPT + GEN)
+        logits.append(lg.cpu())
+        for step, tok in enumerate(feed):
+            lg, cache = engine.layout.decode_step(engine.params, tok.cuda(), cache, PROMPT + step)
+            logits.append(lg.cpu())
+    out["logits"] = logits
+    reset_counts()
+    out["plans"] = {"systolic": sorted(RUN_PLANS["systolic"]), "attention": sorted(RUN_PLANS["attention"])}
+    return out
+
+
+def phase_distributed(smi: str, ref: dict) -> dict:
+    """Tensor parallelism on the card(s): ``tp_rank`` on every rank, spawned
+    once the kernels are built; each rank's checks, exact K1 and K3
+    launches and logits gated here.  A rank's failure fails the run."""
+    cards = torch.cuda.device_count()
+    world = min(cards, TP_MAX_RANKS) if cards >= 2 else TP_ONE_CARD_RANKS
+    backend = "nccl" if cards >= 2 else "gloo"
+    cfg = configs.get_config(ARCH)
+    say(f"[3] distributed: full-width {ARCH} tensor-parallel over {world} ranks on {min(cards, world)} card(s), "
+        f"{backend}")
+    workdir = tempfile.mkdtemp(prefix="tp_", dir=TUNE_DIR)
+    t0 = time.perf_counter()
+    results = run_ranks(tp_rank, world, workdir, backend=backend, timeout_s=TP_TIMEOUT_S,
+                        args=(cards, os.path.join(TUNE_DIR, "untuned.json"), ref["feed"]))
+    wall = time.perf_counter() - t0
+    m = BATCH * PROMPT
+    for r in results:
+        idx = r["rank"]
+        say(f"    rank {idx} on card {r['card']}, transport={r['transport']}: {r['resident_gb']:.2f} GB of shards "
+            f"and cache; prefill {BATCH}x{PROMPT} {r['prefill_ms']:.3f} ms, decode {r['decode_ms_per_step']:.3f} "
+            f"ms/step over {TP_DECODE_STEPS} steps ({smi})")
+        bad = [c for c in r["checks"] if not c["ok"]]
+        worst = max(r["checks"], key=lambda c: c["max_abs"])
+        expect(not bad and len(r["checks"]) == 4 * len(TP_GEMMS),
+               f"rank {idx}: all_gather_matmul and reduce_scatter_matmul at {len(TP_GEMMS)} (K, N) at M={m}, bf16, "
+               f"both directions, against single-card K1 on the whole problem (atol = rtol = {GEMM_TOL_BF16[0]}); "
+               f"worst {worst['fn']} K={worst['k']} N={worst['n']} {worst['direction']} max_abs="
+               f"{worst['max_abs']:.3e}; failing {bad}")
+        want_k1 = len(TP_GEMMS) * (1 + 4 * world)
+        expect(r["check_launches"]["systolic_mmm"] == want_k1,
+               f"rank {idx}: the checks' K1 launches {r['check_launches']['systolic_mmm']}, want {want_k1} (each "
+               f"sharded GEMM {world} ring steps, plus the whole problem once a shape)")
+        for phase, rows, steps in (("prefill", m, 1), ("decode", BATCH, TP_DECODE_STEPS)):
+            got_c, got_s, got_h, got_f = r[phase]
+            want_s = collections.Counter({key: c * steps for key, c in tp_expected(cfg, world, idx, rows).items()})
+            want_f = cfg.n_layers if phase == "prefill" else 0
+            heads = (cfg.n_heads // world, kv_heads(cfg, world, idx)[1] - kv_heads(cfg, world, idx)[0])
+            expect(got_c == {"systolic_mmm": sum(want_s.values()), "systolic_qmm": 0, "flash_attn": want_f,
+                             "grouped_mmm": 0} and got_s == dict(want_s)
+                   and got_h == ({heads: want_f} if want_f else {})
+                   and got_f == ({(BATCH, PROMPT, PROMPT): want_f} if want_f else {}),
+                   f"rank {idx} {phase}: launches {got_c}, K1 by shape {sorted(got_s.items())}, flash by heads "
+                   f"{got_h} by (B, Sq, Skv) {got_f}; want K1 {sum(want_s.values())} ({7 * world} a layer) by "
+                   f"shape {sorted(want_s.items())}, flash {want_f} at {heads}")
+        expect(torch.equal(r["tokens"], results[0]["tokens"]) and tuple(r["tokens"].shape) == (BATCH, 1 + TP_DECODE_STEPS),
+               f"rank {idx} served the same {tuple(r['tokens'].shape)} greedy tokens as rank 0")
+        RUN_PLANS["systolic"].update(r["plans"]["systolic"])
+        RUN_PLANS["attention"].update(r["plans"]["attention"])
+    logits = results[0]["logits"]
+    expect(all(torch.equal(a, b) for r in results[1:] for a, b in zip(r["logits"], logits)),
+           "every rank holds the same gathered logits")
+    errs = [compare_logits(f"tensor-parallel ({world} ranks) {'prefill' if i == 0 else f'decode step {i - 1}'}",
+                           got, want, LOGITS_TOL_BF16, paths="TP path vs the single-card kernel path")[0]
+            for i, (got, want) in enumerate(zip(logits, ref["logits"]))]
+    say(f"    distributed phase: {wall:.1f} s for the ranks (spawn, init, checks, serve)")
+    def pairs(d):
+        return [[*k, c] for k, c in sorted(d.items())]
+
+    return {"world": world, "backend": backend, "transport": results[0]["transport"], "wall_s": wall,
+            "logits_max_abs_err": errs, "logits_scale": max(1.0, ref["logits"][0].abs().max().item()),
+            "ranks": [{**{k: r[k] for k in ("rank", "card", "transport", "checks", "check_launches", "resident_gb",
+                                            "prefill_ms", "decode_ms_per_step")},
+                       **{phase: {"launches": r[phase][0], "k1_shapes": pairs(r[phase][1]),
+                                  "flash_heads": pairs(r[phase][2]), "flash_shapes": pairs(r[phase][3])}
+                          for phase in ("prefill", "decode")}} for r in results]}
 
 
 def pin_cache(path: str) -> None:
@@ -2790,9 +3012,9 @@ def phase_serve_moe() -> tuple[dict, dict]:
 
 def serve_recurrent(model, params, batch) -> dict:
     """Serve one synchronized batch of a recurrent model through ServeEngine
-    (BATCH x PROMPT, GEN greedy tokens), the counts set to 0 just before the
-    prefill and the decode and read just after: the prefill is PROMPT decode
-    steps, so every K1 launch is at M = BATCH on the decode tile, per shape
+    (BATCH x its prompt, GEN greedy tokens), the counts set to 0 just before
+    the prefill and the decode and read just after: the prefill is one decode
+    step a prompt token, so every K1 launch is at M = BATCH on the decode tile, per shape
     ``recurrent_projections`` x steps, and no flash launch.  The model's
     prefill is wrapped here, in the script, to keep the served logits.  Then
     the kernel path against the plain path on the batch's first
@@ -2800,6 +3022,7 @@ def serve_recurrent(model, params, batch) -> dict:
     cache), and a second kernel-path prefill against the first, bit for bit."""
     cfg = model.cfg
     label = cfg.name
+    prompt = batch["tokens"].shape[1]
     served = []
 
     def prefill(p, b, max_len):
@@ -2808,7 +3031,7 @@ def serve_recurrent(model, params, batch) -> dict:
         return logits, cache
 
     engine = ServeEngine(dataclasses.replace(model, prefill=prefill), params,
-                         ServeConfig(max_len=PROMPT + GEN, batch=BATCH), device="cuda")
+                         ServeConfig(max_len=prompt + GEN, batch=BATCH), device="cuda")
     # Warm-up: library handles and every kernel's first launch (not counted).
     # A prefill is decode steps at M = BATCH whatever its length, so 4 tokens do.
     engine.generate({"tokens": batch["tokens"][:, :4].contiguous()}, 2)
@@ -2827,10 +3050,10 @@ def serve_recurrent(model, params, batch) -> dict:
     dec = (counts(), shape_counts(), route_counts())
     tokens = torch.cat([first, rest], dim=1)
     per_step = sum(recurrent_projections(cfg).values())
-    say(f"    {label}: prefill {BATCH}x{PROMPT} ({PROMPT} decode steps) {t_prefill * 1e3:.3f} ms "
-        f"({t_prefill / PROMPT * 1e3:.3f} ms a step); decode {t_decode / (GEN - 1) * 1e3:.3f} ms/step, "
+    say(f"    {label}: prefill {BATCH}x{prompt} ({prompt} decode steps) {t_prefill * 1e3:.3f} ms "
+        f"({t_prefill / prompt * 1e3:.3f} ms a step); decode {t_decode / (GEN - 1) * 1e3:.3f} ms/step, "
         f"{BATCH * (GEN - 1) / t_decode:.1f} tok/s over {GEN - 1} steps; {per_step} K1 launches a step")
-    for phase, (got_c, got_s, got_r), steps in (("prefill", pf, PROMPT), ("decode", dec, GEN - 1)):
+    for phase, (got_c, got_s, got_r), steps in (("prefill", pf, prompt), ("decode", dec, GEN - 1)):
         want_c, want_s = launches_at(cfg, "systolic_mmm", BATCH, steps, phase == "prefill")
         expect(got_c == want_c, f"{label} {phase} launches over {steps} steps: {got_c}, want {want_c} "
                                 f"({per_step} a step, no flash)")
@@ -2870,24 +3093,24 @@ def serve_recurrent(model, params, batch) -> dict:
             tok = lk.argmax(-1).to(torch.int32)
     del engine, cache_k, cache_p
     return {
-        "arch": cfg.name, "prefill_ms": t_prefill * 1e3, "prefill_ms_per_step": t_prefill / PROMPT * 1e3,
+        "arch": cfg.name, "prefill_ms": t_prefill * 1e3, "prefill_ms_per_step": t_prefill / prompt * 1e3, "prompt": prompt,
         "decode_ms_per_step": t_decode / (GEN - 1) * 1e3, "decode_tok_s": BATCH * (GEN - 1) / t_decode,
         "k1_launches_per_step": per_step, "prefill_launches": pf[0], "decode_launches": dec[0],
         "prefill_shapes": listed(pf[1]), "decode_shapes": listed(dec[1]),
         "logits_max_abs_err": err, "logits_scale": scale, "decode_logits_max_abs_err": dec_err,
-        "served_prefill_logits": served[-1],
+        "served_prefill_logits": served[-1], "served_tokens": batch["tokens"],
     }
 
 
-def forward_vs_prefill(model, masters, params, batch, served_logits) -> dict:
+def forward_vs_prefill(model, masters, params, batch, served_logits, served_tokens) -> dict:
     """``forward`` (the parallel path: chunked mLSTM / SSD, zamba2's shared
     attention on the flash kernel at D = 112) against ``prefill`` (the
     recurrence) on the batch's first row, in fp32 at full width (the fp32
     masters): forward's launches exact (K1 once per projection and layer at
     M = PROMPT, flash once per application of the shared block), its last
     logits within FORWARD_TOL_FP32 of the largest.  The bf16 forward on the
-    same row beside the served bf16 prefill's row 0 is printed for
-    information."""
+    served prompt's first row beside the served bf16 prefill's row 0 is
+    printed for information."""
     cfg = model.cfg
     model32 = get_model(dataclasses.replace(cfg, dtype="float32"))
     row = {"tokens": batch["tokens"][:1].contiguous()}
@@ -2915,10 +3138,11 @@ def forward_vs_prefill(model, masters, params, batch, served_logits) -> dict:
                f"{cfg.name} fp32 forward (parallel) vs prefill (recurrent) last logits on 1x{PROMPT}: "
                f"max_abs={err:.3e} (tol {FORWARD_TOL_FP32} x {scale:.2f}); argmax equal: "
                f"{int(f32.argmax(-1)) == int(p32.argmax(-1))}")
-        fb = model.forward(params, row)[:, -1:]
+        fb = model.forward(params, {"tokens": served_tokens[:1].contiguous()})[:, -1:]
         err16 = (fb - served_logits[:1]).abs().max().item()
         scale16 = max(1.0, served_logits[:1].abs().max().item())
-        say(f"    [for information, not a gate] {cfg.name} bf16 forward 1x{PROMPT} vs the served bf16 prefill's row 0: "
+        say(f"    [for information, not a gate] {cfg.name} bf16 forward 1x{served_tokens.shape[1]} vs the served bf16 "
+            f"prefill's row 0: "
             f"max_abs={err16:.3e} ({err16 / scale16:.2%} of the largest logit)")
     say(f"    {cfg.name} fp32: forward 1x{PROMPT} {t_fwd * 1e3:.1f} ms, prefill ({PROMPT} steps) {t_pf * 1e3:.1f} ms")
     return {"forward_vs_prefill_fp32_max_abs_err": err, "forward_vs_prefill_fp32_scale": scale,
@@ -2944,8 +3168,9 @@ def phase_serve_recurrent(arch: str, smi: str) -> tuple[dict, list]:
         shape = (f"{n_mamba} Mamba2 layers (d_inner {s.expand * cfg.d_model}, {s.expand * cfg.d_model // s.head_dim} "
                  f"heads of {s.head_dim}, state {s.state_size}) and {n_apps} applications of one shared attention "
                  f"block (H={cfg.n_heads}/{cfg.n_kv_heads} D={cfg.resolved_head_dim}, d_ff={cfg.d_ff})")
+    prompt = HYBRID_SERVE_PROMPT if cfg.family == "hybrid" else PROMPT  # zamba2's served prompt is cut
     say(f"[3] serve {arch} (full width: {cfg.n_layers}L, {shape}, V={cfg.vocab_size}) in {cfg.dtype}, batch "
-        f"{BATCH}, prompt {PROMPT}, {GEN} tokens")
+        f"{BATCH}, prompt {prompt}, {GEN} tokens")
     model = get_model(cfg)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2960,8 +3185,9 @@ def phase_serve_recurrent(arch: str, smi: str) -> tuple[dict, list]:
     expect(all(t.dtype == torch.float32 for t in kept) and len(kept) > 0,
            f"{arch}: all {len(kept)} leaves of {sorted(FP32_KEYS)} kept fp32 in the bf16 model")
     batch = make_batch(cfg, batch=BATCH, seq=PROMPT, kind="prefill", seed=SEED, device="cuda")
-    r = serve_recurrent(model, params, batch)
-    r.update(forward_vs_prefill(model, masters, params, batch, r.pop("served_prefill_logits")))
+    r = serve_recurrent(model, params, {"tokens": batch["tokens"][:, :prompt].contiguous()})
+    r.update(forward_vs_prefill(model, masters, params, batch, r.pop("served_prefill_logits"),
+                                r.pop("served_tokens")))
     del masters
     torch.cuda.empty_cache()
     r.update(n_params=n, count_params=model.n_params, param_bytes=_nbytes(params))
@@ -3173,7 +3399,8 @@ def rounding_sensitivity(model, batch, variants: list, nudges: int = 1, steps: i
     return out
 
 
-def compare_logits(what: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> tuple[float, float]:
+def compare_logits(what: str, got: torch.Tensor, want: torch.Tensor, tol: float,
+                   paths: str = "kernel path vs plain path") -> tuple[float, float]:
     """Kernel-path logits (B, 1, V) against the plain path's, within ``tol``
     of the largest; then the greedy tokens.  Random weights leave near-ties among
     the top logits, which bf16 rounding may order either way (one row in four
@@ -3184,8 +3411,7 @@ def compare_logits(what: str, got: torch.Tensor, want: torch.Tensor, tol: float)
     err = d.max().item()
     scale = max(1.0, want.abs().max().item())
     expect(bool(torch.isfinite(got).all()) and err <= tol * scale,
-           f"{what} logits {tuple(got.shape)}, kernel path vs plain path: max_abs={err:.3e} "
-           f"(tol {tol} x {scale:.2f})")
+           f"{what} logits {tuple(got.shape)}, {paths}: max_abs={err:.3e} (tol {tol} x {scale:.2f})")
     tk, tp = got.argmax(-1), want.argmax(-1)
     row_err = d.amax(-1)
     gap = want.amax(-1) - want.gather(-1, tk.unsqueeze(-1)).squeeze(-1)
@@ -4326,6 +4552,9 @@ def phase_timing(errs: dict, sync_fp: list, sync_w8a8: list, moe_runs: list,
 def main() -> int:
     ap = argparse.ArgumentParser(description="Drive the PyTorch port on one NVIDIA card.")
     ap.add_argument("--out", default=None, help="also write every number to this JSON file")
+    ap.add_argument("--only", choices=("distributed",), default=None,
+                    help="run only the build and this phase (with the single-card logits it is held to), for a "
+                    "host with more cards; prints no result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4356,8 +4585,19 @@ def run(args) -> int:
         return out
 
     device = timed("device and build", phase_device)
+    if args.only == "distributed":
+        dist_r = timed("distributed", phase_distributed, device["nvidia_smi"], tp_reference_alone())
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+            with open(args.out, "w") as f:
+                json.dump({"device": device, "distributed": dist_r, "failures": failures}, f, indent=1, default=str)
+        for f_ in failures:
+            print(f"  {f_}", file=sys.stderr)
+        return 1 if failures else 0
     errs = timed("kernels vs plain", phase_kernels)
-    bf16, w8a8, cont, kv8, long_runs, paged_runs = timed(f"serve {ARCH}", phase_serve, device["nvidia_smi"])
+    bf16, w8a8, cont, kv8, long_runs, paged_runs, tp_ref = timed(f"serve {ARCH}", phase_serve, device["nvidia_smi"])
+    dist_r = timed("distributed", phase_distributed, device["nvidia_smi"], tp_ref)
+    del tp_ref
     timed(f"small reference {ARCH}", phase_small_reference, ARCH)
     mla_bf16, mla_w8a8, mla_cont, mla_chunked, mla_paged = timed(f"serve {MLA_ARCH}", phase_serve_mla,
                                                                   device["nvidia_smi"])
@@ -4397,7 +4637,7 @@ def run(args) -> int:
                        "serve_mla_paged": mla_paged, "serve_paged": paged_runs, "serve_xlstm": ssm_r,
                        "serve_xlstm_continuous": ssm_runs, "serve_zamba2": hyb_r, "serve_musicgen": audio_r,
                        "serve_internvl2": vlm_r, "serve_internvl2_continuous": vlm_cont, "serve_tied": tied_r,
-                       "train": train_r, "train_timing": train_t, "audit": audit_r,
+                       "train": train_r, "train_timing": train_t, "audit": audit_r, "distributed": dist_r,
                        "kernels": kernels,
                        "systolic_mmm_bias": k2, "chunk_attention": chunk_attn, "paged_pool": paging,
                        "phase_wall_s": walls,

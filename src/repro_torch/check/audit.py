@@ -82,7 +82,6 @@ PAPER_PROBLEMS = ((512, 512, 512), (256, 2048, 512), (512, 512, 2048))
 PAPER_DTYPES = ("bfloat16", "int8", "float8_e4m3fn")
 QUANT_DTYPES = dse.QUANT_DTYPES
 SYSTOLIC, GROUPED = "cuda-systolic", "cuda-grouped"  # the plan cache's backends (kernels/*/ops.py)
-COLLECTIVE_SKIP = "skipped: not ported (ROADMAP item 9)"
 WMMA_RETIRE_K = 16  # csrc/systolic_qmm.cu: the WMMA tiles retire a scale step per 16-deep fragment
 MAX_GRID_YZ = 65535
 MAX_GRID_X = 2**31 - 1
@@ -788,8 +787,9 @@ def _family_calls(device: torch.device, seed: int = 0):
     al = mm_kernel.aligned(a, b)
     path, k_chunk, source = mm_kernel.launch_path(path, k_chunk, source, 512, 512, 512, torch.bfloat16, al, False,
                                                   sms)
+    systolic_key = ((512, 512, 512, path, k_chunk, source, al),)
     yield ("systolic", lambda: mm_ops.matmul(a, b), lambda: matmul_ref(a, b, None, out_dtype=torch.bfloat16),
-           ((512, 512, 512, path, k_chunk, source, al),), GEMM_TOL)
+           systolic_key, GEMM_TOL)
 
     qa = quantize_act(rand(512, 512, dtype=torch.float32), "int8", block_k=128)
     qb = quantize_weight(rand(512, 512, dtype=torch.float32), "int8", block_k=128)
@@ -809,6 +809,15 @@ def _family_calls(device: torch.device, seed: int = 0):
     yield ("grouped", lambda: grouped_ops.grouped_matmul(x, w), lambda: grouped_matmul_ref(x, w),
            ((4, 256, 512, 512, gpath, gsource, al),), GEMM_TOL)
 
+    # The collective matmul on a one-rank "model" mesh (the reference audits
+    # it so): one ring step, a K1 launch the single-card dispatch settles
+    # (``tune.cache.tuned_block`` serves tp > 1 only), so the systolic key.
+    from repro_torch.distributed import collective_matmul as cm
+    from repro_torch.launch.mesh import Mesh
+
+    yield ("collective_matmul", lambda: cm.all_gather_matmul(a, b, mesh=Mesh((1,), ("model",))),
+           lambda: matmul_ref(a, b, None, out_dtype=torch.bfloat16), systolic_key, GEMM_TOL)
+
     q, k, v = (rand(1, 2, 512, 128) for _ in range(3))
     yield ("attention", lambda: attn_ops.flash_attention(q, k, v),
            lambda: flash_attention_call_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
@@ -819,6 +828,7 @@ def _family_calls(device: torch.device, seed: int = 0):
 
 _COUNTERS = {  # family -> the launch counter audit_launches reads
     "systolic": (mm_kernel, "launches_by_plan"),
+    "collective_matmul": (mm_kernel, "launches_by_plan"),  # each ring step is a K1 launch
     "quant": (mm_kernel, "quant_launches_by_plan"),
     "grouped": (grouped_kernel, "launches_by_plan"),
     "attention": (attn_kernel, "launches_by_plan"),
@@ -833,8 +843,8 @@ def audit_dispatch_paths(device: str | torch.device | None = "cuda") -> tuple[li
     public wrapper; the launches are read back from the counters
     (``launches_by_plan``), must be the launch settled statically, are
     audited with the binaries' reports, and each output is held against its
-    plain version.  ``collective_matmul`` is recorded as skipped: it is not
-    ported.
+    plain version.  ``collective_matmul`` runs on a one-rank mesh, as the
+    reference audits it: its ring step's plan is audited as a K1 plan.
     """
     t = _target(device)
     findings: list[Finding] = []
@@ -857,9 +867,8 @@ def audit_dispatch_paths(device: str | torch.device | None = "cuda") -> tuple[li
         stats["paths"][family] = len(keys)
         if not keys:
             emit("no-launch", f"no {family} launch in the dispatch path")
-        f, _ = audit_launches(device=t, **{family: keys})
+        f, _ = audit_launches(device=t, **{"systolic" if family == "collective_matmul" else family: keys})
         findings.extend(emit.findings + f)
-    stats["paths"]["collective_matmul"] = COLLECTIVE_SKIP
     return findings, stats
 
 

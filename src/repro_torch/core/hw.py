@@ -69,8 +69,10 @@ class GPU:
     smem_per_block: int  # bytes of shared memory one block may use
     n_sm: int
     # NVLink: bytes/s one link moves each way (datasheet), for the tp members
-    # of core.blocking.
+    # of core.blocking; and the links a card has (all of them reach the
+    # NVSwitch fabric, so a hop to any other card of the host can use them all).
     nvlink_bw_per_link: float
+    nvlink_links: int = 18
     # Registers a consumer thread of the two-consumer wgmma tile holds after
     # setmaxnreg (csrc/wgmma_gemm.cuh); its fp32 accumulator lives there.
     regs_per_consumer_thread: int = 232

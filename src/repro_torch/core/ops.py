@@ -6,8 +6,10 @@ card every fp projection *is* the hand-written systolic kernel, every w8a8
 projection the block-scaled one and every MoE expert GEMM the grouped one;
 on the CPU their plain versions.  Each fp projection runs in a sampled
 timing window (``obs.profile``) when the profiler is active, as the
-reference's does; the reference's TP hook belongs to a later part of the
-port.
+reference's does.  Under ``distributed.tensor_parallel(mesh)`` an eligible
+fp projection runs as the overlapped collective matmul instead
+(``collective_matmul.maybe_tp_matmul``: replicated operands, the replicated
+product); anything indivisible falls through to the single-card kernel.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch import quant
+from repro_torch.distributed import collective_matmul as _cm
 from repro_torch.kernels.grouped import ops as grouped_ops
 from repro_torch.kernels.systolic import ops as systolic_ops
 from repro_torch.obs import profile as _obs_profile
@@ -37,6 +40,9 @@ def matmul(x: torch.Tensor, w: torch.Tensor | QArray, *, out_dtype: torch.dtype 
                                "the reference does not train them")
         return _quant_matmul(x, w, out_dtype=out_dtype)
     x2, out_dtype = x.reshape(-1, k), out_dtype or x.dtype
+    y2 = _cm.maybe_tp_matmul(x2, w, out_dtype=out_dtype) if _cm.current_tensor_parallel() is not None else None
+    if y2 is not None:
+        return y2.reshape(*lead, w.shape[1])
     prof = _obs_profile.get_profiler()
     if prof.active():
         # Sampled measured timing: the host clock from the call to the card's

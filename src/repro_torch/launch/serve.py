@@ -118,17 +118,20 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import datetime
 import json
 import os
 import time
 import warnings
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import configs, quant
 from repro_torch.core.device import resolve_device
 from repro_torch.data.synthetic import make_adversarial_trace, make_batch, make_request_trace
 from repro_torch.kernels import _build
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models.registry import get_model
 from repro_torch.models.transformer import cast_params
 from repro_torch.obs import drift as obs_drift
@@ -202,7 +205,9 @@ def _prefix(cfg) -> int:
     return cfg.n_patches if cfg.frontend == "vit" else 0
 
 
-def run_synchronized(model, params, args, device: torch.device) -> torch.Tensor:
+def run_synchronized(model, params, args, device: torch.device, mesh=None) -> torch.Tensor:
+    """Prefill and decode one batch; with ``mesh``, every rank serves it
+    tensor-parallel and rank 0 alone prints."""
     cfg = model.cfg
     engine = ServeEngine(
         model,
@@ -210,7 +215,11 @@ def run_synchronized(model, params, args, device: torch.device) -> torch.Tensor:
         ServeConfig(max_len=args.prompt_len + args.gen + _prefix(cfg), batch=args.batch,
                     temperature=args.temperature, seed=args.seed),
         device=device,
+        mesh=mesh,
     )
+    del params  # a mesh engine keeps this rank's shards only
+    leader = mesh is None or dist.get_rank() == 0
+    say = print if leader else (lambda *_a, **_k: None)
     prompts = make_batch(cfg, batch=args.batch, seq=args.prompt_len, kind="prefill",
                          seed=args.seed, device=device)
 
@@ -218,7 +227,7 @@ def run_synchronized(model, params, args, device: torch.device) -> torch.Tensor:
     first = engine.prefill(prompts)
     _sync(device)
     t_pf = time.perf_counter() - t0
-    print(f"prefill {args.batch}x{args.prompt_len} in {t_pf * 1e3:.3f} ms")
+    say(f"prefill {args.batch}x{args.prompt_len} in {t_pf * 1e3:.3f} ms")
 
     pieces = [first]
     n_dec = args.gen - 1
@@ -228,14 +237,14 @@ def run_synchronized(model, params, args, device: torch.device) -> torch.Tensor:
         _sync(device)
         t_dec = time.perf_counter() - t0
         pieces.append(out)
-        print(f"decode {n_dec} steps: {t_dec / n_dec * 1e3:.3f} ms/step, "
-              f"{args.batch * n_dec / t_dec:.1f} tok/s")
-    print(engine.decode_plan_report())
+        say(f"decode {n_dec} steps: {t_dec / n_dec * 1e3:.3f} ms/step, "
+            f"{args.batch * n_dec / t_dec:.1f} tok/s")
+    say(engine.decode_plan_report())
     sample = torch.cat(pieces, dim=1)
-    print("sample tokens:", sample[0, :16].tolist())
-    if args.metrics_dir:
-        print("metrics snapshot:", _dump_metrics(args.metrics_dir))
-        print("chrome trace:", _dump_trace(args.metrics_dir))
+    say("sample tokens:", sample[0, :16].tolist())
+    if args.metrics_dir and leader:
+        say("metrics snapshot:", _dump_metrics(args.metrics_dir))
+        say("chrome trace:", _dump_trace(args.metrics_dir))
     return sample
 
 
@@ -364,6 +373,9 @@ def main(argv: list[str] | None = None) -> torch.Tensor | dict:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--temperature", type=float, default=0.0, help="0 = greedy")
     ap.add_argument("--device", default=None, help="default: cuda (raises without a card)")
+    ap.add_argument("--model-parallel", type=int, default=1, metavar="N",
+                    help="tensor-parallel degree: serve over a (1, N) ('data', 'model') mesh, one process a rank "
+                    "under torchrun --nproc-per-node N (NCCL, one card a rank; --device cpu: Gloo)")
     # continuous-batching mode
     ap.add_argument("--continuous", action="store_true",
                     help="trace-driven continuous batching (Poisson arrivals, ragged lengths)")
@@ -432,6 +444,8 @@ def main(argv: list[str] | None = None) -> torch.Tensor | dict:
     if args.quantize == "kv8" and not args.continuous:
         warnings.warn("--quantize kv8 applies to the continuous-batching KV pool; ignored in synchronized mode")
 
+    if args.model_parallel > 1:
+        return run_model_parallel(args)
     device = resolve_device(args.device)
     if device.type == "cuda":
         print(f"kernel build: {_build.build_all():.1f} s")  # so the prefill time below is the prefill's
@@ -442,6 +456,48 @@ def main(argv: list[str] | None = None) -> torch.Tensor | dict:
         if args.continuous:
             return run_continuous(model, params, args, device)
         return run_synchronized(model, params, args, device)
+
+
+def run_model_parallel(args) -> torch.Tensor:
+    """``--model-parallel N``: this process is one rank of N (torchrun sets
+    RANK, LOCAL_RANK, WORLD_SIZE and the rendezvous address).  On the card
+    NCCL, rank r on card LOCAL_RANK; with ``--device cpu`` Gloo.  Fewer
+    visible cards than N, or a job of another size, exits with a message
+    naming the fix: it never serves on fewer ranks or on the CPU."""
+    n = args.model_parallel
+    cpu = args.device is not None and torch.device(args.device).type == "cpu"
+    run = f"torchrun --nproc-per-node {n} -m repro_torch.launch.serve --model-parallel {n} ..."
+    if not cpu:
+        cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if cards < n:
+            raise SystemExit(f"--model-parallel {n} needs {n} cards, one a rank; {cards} visible. Run it on a host "
+                             f"with {n} cards: {run} (or add --device cpu for Gloo on the CPU)")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world != n:
+        raise SystemExit(f"--model-parallel {n} runs one process a rank, {world} running: {run}")
+    if args.continuous or args.quantize != "none":
+        raise SystemExit("--model-parallel serves synchronized batches of fp weights: drop --continuous and "
+                         "--quantize")
+    local = int(os.environ.get("LOCAL_RANK", "0"))
+    if cpu:
+        device = torch.device("cpu")
+    else:
+        torch.cuda.set_device(local)  # before any CUDA work: every launch goes to this rank's card
+        device = torch.device("cuda", local)
+    dist.init_process_group("gloo" if cpu else "nccl", timeout=datetime.timedelta(seconds=600))
+    try:
+        mesh = make_local_mesh(1, n, device)
+        if dist.get_rank() == 0:
+            print(f"tensor-parallel mesh: 1x{n} ('data', 'model')")
+            if not cpu:
+                print(f"kernel build: {_build.build_all():.1f} s")
+        dist.barrier()  # the other ranks load what rank 0 built
+        cfg = configs.get_smoke(args.arch) if args.smoke else configs.get_config(args.arch)
+        model = get_model(cfg)
+        params, _ = init_params(model, args.seed, device)
+        return run_synchronized(model, params, args, device, mesh=mesh)
+    finally:
+        dist.destroy_process_group()
 
 
 def init_params(model, seed: int, device: torch.device, quantize: str = "none"):

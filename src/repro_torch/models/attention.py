@@ -279,14 +279,21 @@ def gqa_fwd(params: dict, x: torch.Tensor, cfg: ArchConfig, positions: torch.Ten
     else the flash kernel alone."""
     b, s, _ = x.shape
     q, k, v = _qkv(params, x, cfg)
+    o, k = gqa_attend(q, k, v, cfg, positions)
+    y = ops.matmul(o.reshape(b, s, -1), layers.wcast(params["wo"], x.dtype))
+    return y, (k, v)
+
+
+def gqa_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor):
+    """``gqa_fwd`` between its projections: rope, then causal attention over
+    q (B, S, H, hd) and k / v (B, S, Hkv, hd) at ``cfg``'s head counts ->
+    (o (B, S, H, hd), the roped k).  The tensor-parallel layout calls it on
+    a rank's own heads."""
     q = layers.apply_rope(q, positions, cfg.rope_theta)
     k = layers.apply_rope(k, positions, cfg.rope_theta)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        o = flash_mha(q, k, v, causal=True, window=_window(cfg))
-    else:
-        o = _sdpa_flash(q, k, v, cfg)
-    y = ops.matmul(o.reshape(b, s, -1), layers.wcast(params["wo"], x.dtype))
-    return y, (k, v)
+        return flash_mha(q, k, v, causal=True, window=_window(cfg)), k
+    return _sdpa_flash(q, k, v, cfg), k
 
 
 # -- KV cache ----------------------------------------------------------------
@@ -353,9 +360,19 @@ def gqa_decode(params: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict, pos)
     ``pos < 0`` are empty: their cache row is left untouched and their mask
     blanks every key.  Updates ``cache`` in place; -> (y, cache)."""
     b = x.shape[0]
-    hd = cfg.resolved_head_dim
     q, k, v = _qkv(params, x, cfg)
-    pos = slot_positions(pos, b, x.device)
+    o = gqa_decode_attend(q, k, v, cfg, cache, slot_positions(pos, b, x.device))
+    y = ops.matmul(o, layers.wcast(params["wo"], x.dtype))
+    return y, cache
+
+
+def gqa_decode_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg: ArchConfig, cache: dict,
+                      pos: torch.Tensor) -> torch.Tensor:
+    """``gqa_decode`` between its projections: rope at the (B,) per-slot
+    positions, the cache write and the masked attention over the cache, at
+    ``cfg``'s head counts -> o (B, 1, H * hd).  The tensor-parallel layout
+    calls it on a rank's own heads and cache."""
+    b, hd = q.shape[0], cfg.resolved_head_dim
     posq = pos[:, None]  # (B, 1) per-slot rope positions
     q = layers.apply_rope(q, posq, cfg.rope_theta)
     k = layers.apply_rope(k, posq, cfg.rope_theta)
@@ -378,9 +395,7 @@ def gqa_decode(params: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict, pos)
     scores = torch.where(valid[:, None, None, None], scores, -1e30)
     w = torch.softmax(scores, dim=-1)
     o = ops.einsum("bgqst,btgd->bsgqd", w.to(cv.dtype), cv)
-    o = o.reshape(b, 1, cfg.n_heads * hd)
-    y = ops.matmul(o, layers.wcast(params["wo"], x.dtype))
-    return y, cache
+    return o.reshape(b, 1, cfg.n_heads * hd)
 
 
 def gqa_prefill_chunk(params: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict, offset: int, *,

@@ -144,8 +144,16 @@ def _shapes(batch: dict) -> tuple:
 
 class ServeEngine:
     def __init__(self, model: Model, params: Any, scfg: ServeConfig,
-                 device: str | torch.device | None = None):
-        """``device`` defaults to the card; ``params`` must already live there."""
+                 device: str | torch.device | None = None, mesh=None):
+        """``device`` defaults to the card; ``params`` must already live there.
+
+        ``mesh`` (a ``launch.mesh.Mesh``, one process a rank) opts into
+        tensor-parallel serving: each rank keeps its shards of ``params``
+        (``distributed.sharding``'s rules) and runs the layout of
+        ``distributed.tp_layout`` -- warning, as the reference does, when the
+        degree exceeds the query heads, and refusing one that splits a head.
+        Every rank calls the same methods with the same prompts and samples
+        the same tokens.  ``mesh=None`` is the single-card engine."""
         self.device = resolve_device(device)
         for t in _tensors(params):
             if t.device.type != self.device.type:
@@ -153,6 +161,16 @@ class ServeEngine:
         self.model = model
         self.cfg = model.cfg
         self.scfg = scfg
+        self.mesh = mesh
+        self.layout = None  # the tensor-parallel layout a mesh engine runs
+        if mesh is None:
+            self._prefill, self._decode_step = model.prefill, model.decode_step
+        else:
+            from repro_torch.distributed.tp_layout import TPLayout
+
+            self.layout = TPLayout(model.cfg, mesh)
+            params = self.layout.shard(params)
+            self._prefill, self._decode_step = self.layout.prefill, self.layout.decode_step
         self.params = params
         self.cache = None
         self.pos = 0
@@ -190,6 +208,11 @@ class ServeEngine:
             return _obs.collecting(_obs.GemmTotals())
         self._filled.add(key)
         return _obs.collecting(totals)
+
+    def _single_card(self, what: str) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError(f"{what}: continuous batching runs on one card; a mesh engine serves "
+                                      f"synchronized batches (prefill / decode / generate)")
 
     # -- tune-cache consultation ------------------------------------------------
 
@@ -229,7 +252,7 @@ class ServeEngine:
         logits)."""
         _obs_metrics.inc("engine.steps", phase="prefill")
         with self._collecting(self.prefill_totals, ("prefill", _shapes(batch))):
-            logits, self.cache = self.model.prefill(self.params, batch, max_len=self.scfg.max_len)
+            logits, self.cache = self._prefill(self.params, batch, max_len=self.scfg.max_len)
         self.pos = self.prompt_positions(batch)
         return self._sample(logits)
 
@@ -244,7 +267,7 @@ class ServeEngine:
         _obs_metrics.inc("engine.steps", n_steps, phase="decode_sync")
         for _ in range(n_steps):
             with self._collecting(self.generate_totals, ("decode_sync", tuple(tok.shape))):
-                logits, self.cache = self.model.decode_step(self.params, tok, cache=self.cache, pos=self.pos)
+                logits, self.cache = self._decode_step(self.params, tok, cache=self.cache, pos=self.pos)
             tok = self._sample(logits)
             outs.append(tok)
             self.pos += 1
@@ -285,6 +308,7 @@ class ServeEngine:
         for the KV pool to scatter into the assigned slot.
         """
         tokens = batch["tokens"]
+        self._single_card("prefill_request")
         if tokens.device.type != self.device.type:
             raise ValueError(f"prompt on {tokens.device}, engine on {self.device}")
         _obs_metrics.inc("engine.steps", phase="prefill_request")
@@ -323,6 +347,7 @@ class ServeEngine:
         A chunk past the end of the SWA ring takes the ``wrapped`` variant
         (see ``attention.gqa_prefill_chunk``).
         """
+        self._single_card("prefill_chunk")
         if tokens.device.type != self.device.type:
             raise ValueError(f"prompt on {tokens.device}, engine on {self.device}")
         length = tokens.shape[1]
@@ -352,6 +377,7 @@ class ServeEngine:
         n_codebooks]), cache); the cache
         is updated in place and returned, as the synchronized decode does.
         """
+        self._single_card("decode_slots")
         _obs_metrics.inc("engine.steps", phase="decode")
         with self._collecting(self.decode_totals, ("decode", tuple(tokens.shape))), _obs_trace.span(
             "engine.decode_slots", cat="engine", batch=tokens.shape[0]

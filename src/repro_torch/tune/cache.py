@@ -84,8 +84,9 @@ class CacheKey:
     ("cuda-systolic", "cuda-grouped", "reference"); ``chip`` is the
     card the measurement targeted ("h100").  For the grouped kernel the
     (m, n, k) triple holds the *per-expert* (c, n, k) problem.  ``tp`` is
-    the reference's tensor-parallel segment (schema v2), kept so the key
-    encodes as the reference's; the port stores and serves tp=1 only.
+    the reference's tensor-parallel segment (schema v2): the single-card
+    dispatch serves tp=1 entries (``plan_path``), the collective matmul's
+    ring steps tp=N ones (``tuned_block``).
     """
 
     backend: str
@@ -290,10 +291,12 @@ def reset_default_cache() -> None:
 # "cuda-events") for the h100 at tp 1, each resolved once to the kernel path
 # its geometry names on its problem (``core.dse.kernel_path``: a tile runs it
 # on 16-byte-aligned, row-major operands), keyed by (backend, m, n, k, dtype,
-# activation).  A plan no tile runs there is left out; so is one measured
-# another way (a CPU proxy, a stub), which says nothing of the card.  Built
-# at the first lookup and dropped by every store, refresh and
-# reset_default_cache, so the dispatchers pay one dict access a call.
+# activation); and beside it the card-timed plans at tp > 1, keyed by the
+# same and tp, for the collective matmul (``tuned_block``).  A plan no tile
+# runs there is left out; so is one measured another way (a CPU proxy, a
+# stub), which says nothing of the card.  Built at the first lookup and
+# dropped by every store, refresh and reset_default_cache, so the
+# dispatchers pay one dict access a call.
 # ---------------------------------------------------------------------------
 
 DISPATCHED_METHOD = "cuda-events"
@@ -306,30 +309,35 @@ class TunedPath(NamedTuple):
 
 
 _table: dict | None = None
+_tp_table: dict | None = None
 
 
 def _forget_dispatch_table() -> None:
-    global _table
-    _table = None
+    global _table, _tp_table
+    _table = _tp_table = None
 
 
 def _dispatch_table() -> dict:
-    global _table
+    global _table, _tp_table
     table: dict = {}
+    tp_table: dict = {}
     try:
         from repro_torch.core import dse
 
         for key, plan in default_cache().items():
             backend, chip, m, n, k, dtype, activation, tp = key.split("|")
-            if chip != "h100" or tp != "tp1" or plan.method != DISPATCHED_METHOD:
+            if chip != "h100" or plan.method != DISPATCHED_METHOD or backend == "reference":
                 continue
             m, n, k = int(m), int(n), int(k)
+            if tp != "tp1":
+                tp_table[(backend, m, n, k, dtype, activation, int(tp.removeprefix("tp")))] = plan
+                continue
             resolved = dse.kernel_path(plan.bm, plan.bn, plan.bk, m, n, k, dtype, backend)
-            if resolved is not None and backend != "reference":
+            if resolved is not None:
                 table[(backend, m, n, k, dtype, activation)] = TunedPath(*resolved, plan)
     except Exception:  # pragma: no cover - defensive: dispatch must not die
-        table = {}
-    _table = table
+        table, tp_table = {}, {}
+    _table, _tp_table = table, tp_table
     return table
 
 
@@ -353,3 +361,36 @@ def plan_path(backend: str, m: int, n: int, k: int, dtype: str, activation: str 
         return (*dse.block_path(plan.bm, plan.bn, plan.bk, dtype, backend), "explicit")
     hit = tuned_path(backend, m, n, k, dtype, activation)
     return (None, 0, "rule") if hit is None else (hit.path, hit.k_chunk, "tuned")
+
+
+def tuned_block(backend: str, m: int, n: int, k: int, dtype: str, activation: str = "none", tp: int = 1,
+                clamp_to: tuple[int, int, int] | None = None) -> tuple[int, int, int] | None:
+    """The tuned geometry of the h100's (M, N, K) problem at ``tp``, clamped
+    by the reference's rule to the problem the kernel runs, or None.
+
+    The tp-way collective matmul keys the GLOBAL problem, but each ring step
+    runs a shard of it (``clamp_to``), so an over-large cached geometry is
+    cut to it: each block dimension to at most the shard's, rounded up to
+    the wgmma quanta (64 rows, 8 columns, 32 bytes of contraction) where the
+    reference rounds to the TPU's sublanes and lanes.  Only a plan the card
+    timed (``DISPATCHED_METHOD``) is served, and only if a tile of
+    ``backend``'s kernel runs the clamped geometry on that problem
+    (``core.dse.kernel_path``); else None, and the kernel's shape rule
+    decides.  At tp = 1 the ring step is the whole problem, whose plan the
+    single-card dispatch serves itself (``plan_path``): None.  Never raises."""
+    try:
+        from repro_torch.core import dse, hw
+        from repro_torch.core.blocking import round_up
+
+        if _tp_table is None:
+            _dispatch_table()
+        hit = _tp_table.get((backend, m, n, k, str(dtype), activation, tp))
+        if hit is None:
+            return None
+        chip = hw.H100
+        cm, cn, ck = clamp_to or (m, n, k)
+        geo = (min(hit.bm, round_up(cm, chip.mma_m)), min(hit.bn, round_up(cn, chip.mma_n)),
+               min(hit.bk, round_up(ck, chip.mma_k_bytes // hw.dtype_bytes(dtype))))
+        return geo if dse.kernel_path(*geo, cm, cn, ck, dtype, backend) is not None else None
+    except Exception:  # pragma: no cover - defensive: dispatch must not die
+        return None

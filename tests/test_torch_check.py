@@ -557,9 +557,8 @@ def test_paper_sweep_all_plans_verify():
 def test_dispatch_paths_all_settled_and_clean():
     findings, stats = audit.audit_dispatch_paths("cpu")
     assert findings == [], [f.render() for f in findings]
-    for path in ("systolic", "quant", "grouped", "attention"):
+    for path in ("systolic", "quant", "grouped", "attention", "collective_matmul"):
         assert stats["paths"][path] >= 1, stats
-    assert stats["paths"]["collective_matmul"] == "skipped: not ported (ROADMAP item 9)"
 
 
 def test_launched_plan_keys_audit():

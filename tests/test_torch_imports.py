@@ -27,6 +27,7 @@ from repro_torch.convert import params_from_jax
 from repro_torch.data.synthetic import make_adversarial_trace, make_batch, make_request_trace, make_shared_prefix_trace
 from repro_torch.launch import serve
 from repro_torch.launch import train as launch_train
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models.registry import get_model
 from repro_torch.serving import KVPool, PagedKVPool, PrefixCache, ServeConfig, ServeEngine
 from repro_torch.tune import autotune, measure_matmul
@@ -76,6 +77,9 @@ def test_port_and_chip_smoke_import_no_jax_or_repro():
             "repro_torch.obs.__main__"} <= set(res["modules"])
     assert {"repro_torch.check", "repro_torch.check.audit", "repro_torch.check.lint", "repro_torch.check.baseline",
             "repro_torch.check.findings", "repro_torch.check.__main__"} <= set(res["modules"])
+    assert {"repro_torch.distributed", "repro_torch.distributed.collective_matmul", "repro_torch.distributed.sharding",
+            "repro_torch.distributed.tp_layout", "repro_torch.launch.mesh",
+            "repro_torch.models.modelflags"} <= set(res["modules"])
     assert res["bad"] == []
 
 
@@ -153,6 +157,10 @@ ENTRY_POINTS = {
     "python -m repro_torch.check": lambda: check_main(["--no-lint", "--no-sweep"]),
     "check.audit.run_audit": lambda: check_audit.run_audit(),
     "check.audit.audit_launches": lambda: check_audit.audit_launches(systolic=[(4, 64, 64, "decode", 0, "rule")]),
+    "ServeEngine(mesh=...)": lambda: ServeEngine(
+        get_model(_cfg()), get_model(_cfg()).init(0, "cpu"), ServeConfig(max_len=8, batch=1),
+        mesh=Mesh((1, 2), ("data", "model"))
+    ),
 }
 
 
@@ -162,6 +170,18 @@ def test_entry_point_without_device_asks_for_the_card(name):
         pytest.skip("a card is present: the default device is usable here")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ENTRY_POINTS[name]()
+
+
+def test_launcher_model_parallel_without_enough_cards_asks_for_them():
+    """``--model-parallel N`` needs N cards, one a rank, and one process a
+    rank: short of either it exits with a message naming the fix, never
+    serving on fewer ranks or on the CPU."""
+    if torch.cuda.device_count() >= 2:
+        pytest.skip("two cards are present: the launcher would serve")
+    with pytest.raises(SystemExit, match="needs 2 cards.*torchrun --nproc-per-node 2"):
+        serve.main(["--arch", "internlm2-1.8b", "--smoke", "--model-parallel", "2"])
+    with pytest.raises(SystemExit, match="one process a rank, 1 running"):
+        serve.main(["--arch", "internlm2-1.8b", "--smoke", "--device", "cpu", "--model-parallel", "2"])
 
 
 def test_launcher_runs_on_cpu_when_asked(capsys):

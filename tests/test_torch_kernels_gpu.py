@@ -1576,8 +1576,8 @@ def test_card_audit_of_the_dispatch_paths_is_clean(cuda):
 
     findings, stats = audit.audit_dispatch_paths("cuda")
     assert findings == [], [f.render() for f in findings]
-    assert all(stats["paths"][p] >= 1 for p in ("systolic", "quant", "grouped", "attention"))
-    assert stats["paths"]["collective_matmul"] == audit.COLLECTIVE_SKIP and stats["binary_checks_not_made"] == []
+    assert all(stats["paths"][p] >= 1 for p in ("systolic", "quant", "grouped", "attention", "collective_matmul"))
+    assert stats["binary_checks_not_made"] == []
 
 
 @pytest.mark.gpu
@@ -1612,3 +1612,108 @@ def test_card_audit_catches_a_wrong_output(cuda, monkeypatch):
     monkeypatch.setattr(attn_kernel, "flash_attention_call", lambda *a, **kw: flash_call(*a, **kw).zero_())
     findings, _ = audit.audit_launches(systolic=[gemm], attention=[flash], device="cuda")
     assert sorted(f.rule for f in findings) == ["output-mismatch", "output-mismatch"], [f.render() for f in findings]
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: the collective matmul's ring (each step one K1 launch)
+# and the TP-served decoder, over NCCL with one rank a card (two cards or
+# more; they skip with fewer), and over Gloo with two ranks sharing one card
+# (each hop through host memory).
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cards2(cuda):
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two cards or more, {n} visible")
+    return min(n, 4)
+
+
+def _tp_collective_rank(rank, world, cards):
+    """This rank's all_gather_matmul / reduce_scatter_matmul at (2048, 2048)
+    x (2048, 8192) bf16, both directions, overlap on and off, against K1 on
+    the whole problem; -> (worst error share of the tolerance, K1 launches)."""
+    from repro_torch.distributed import collective_matmul as cm
+    from repro_torch.launch.mesh import Mesh
+
+    torch.cuda.set_device(rank % cards)
+    mesh = Mesh((world,), ("model",))
+    a = _rand((2048, 2048), 11).to("cuda", torch.bfloat16)
+    b = (_rand((2048, 8192), 12) * 2048**-0.5).to("cuda", torch.bfloat16)
+    whole = mm_ops.matmul(a, b)
+    m, n, k = 2048 // world, 8192 // world, 2048 // world
+    worst, launches = 0.0, []
+    for direction in ("plus", "minus"):
+        for overlap in (True, False):
+            before = mm_kernel.launches
+            ag = cm.all_gather_matmul(a[rank * m:(rank + 1) * m], b[:, rank * n:(rank + 1) * n].contiguous(),
+                                      mesh=mesh, direction=direction, overlap=overlap)
+            launches.append(mm_kernel.launches - before)
+            before = mm_kernel.launches
+            rs = cm.reduce_scatter_matmul(a[:, rank * k:(rank + 1) * k].contiguous(), b[rank * k:(rank + 1) * k],
+                                          mesh=mesh, direction=direction, overlap=overlap)
+            launches.append(mm_kernel.launches - before)
+            for got, want in ((ag, whole[:, rank * n:(rank + 1) * n]), (rs, whole[rank * m:(rank + 1) * m])):
+                d = (got.float() - want.float()).abs() / (2e-2 + 2e-2 * want.float().abs())
+                worst = max(worst, d.max().item())
+    return worst, launches
+
+
+def _check_collective(results, world):
+    for worst, launches in results:
+        assert worst <= 1.0, worst
+        assert launches == [world, world, 1, 1] * 2  # ring: one K1 launch a step
+
+
+@pytest.mark.gpu
+def test_collective_matmul_over_nccl_matches_k1(cards2, tmp_path):
+    from repro_torch.launch.mesh import run_ranks
+
+    _check_collective(run_ranks(_tp_collective_rank, cards2, str(tmp_path), backend="nccl", args=(cards2,),
+                                timeout_s=180), cards2)
+
+
+@pytest.mark.gpu
+def test_collective_matmul_over_gloo_on_one_card_matches_k1(cuda, tmp_path):
+    """Two ranks on one card over Gloo: card tensors hop through host copies."""
+    from repro_torch.launch.mesh import run_ranks
+
+    _check_collective(run_ranks(_tp_collective_rank, 2, str(tmp_path), backend="gloo", args=(1,), timeout_s=180), 2)
+
+
+def _tp_serve_rank(rank, world, cards):
+    """SMOKE internlm2-1.8b in bf16 served TP-sharded on this rank's card;
+    -> (its tokens, the TP prefill logits' gap to the single-card path's as a
+    share of the largest logit, K1 and flash launches of the TP prefill)."""
+    from repro_torch import configs
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.registry import get_model
+    from repro_torch.serving import ServeConfig, ServeEngine
+
+    torch.cuda.set_device(rank % cards)
+    cfg = configs.get_smoke("internlm2-1.8b")
+    model = get_model(cfg)
+    params = model.init(0, "cuda")
+    batch = make_batch(cfg, batch=4, seq=32, kind="prefill", seed=0, device="cuda")
+    scfg = ServeConfig(max_len=40, batch=4)
+    engine = ServeEngine(model, params, scfg, device="cuda", mesh=Mesh((1, world), ("data", "model")))
+    with torch.no_grad():
+        want, _ = model.prefill(params, batch, max_len=40)
+        k1, fl = mm_kernel.launches, attn_kernel.launches
+        got, _ = engine.layout.prefill(engine.params, batch, 40)
+        k1, fl = mm_kernel.launches - k1, attn_kernel.launches - fl
+    gap = ((got - want).abs().max() / want.abs().max()).item()
+    return engine.generate(batch, 6).cpu(), gap, k1, fl
+
+
+@pytest.mark.gpu
+def test_tp_serving_over_nccl_matches_one_card(cards2, tmp_path):
+    from repro_torch.launch.mesh import run_ranks
+
+    results = run_ranks(_tp_serve_rank, cards2, str(tmp_path), backend="nccl", args=(cards2,), timeout_s=180)
+    for tokens, gap, k1, fl in results:
+        assert torch.equal(tokens, results[0][0]) and tokens.shape == (4, 6)
+        assert gap <= 5e-2, gap
+        assert (k1, fl) == (2 * 7 * cards2, 2)  # 2 layers x 7 sharded GEMMs x tp ring steps; flash once a layer
