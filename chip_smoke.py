@@ -103,7 +103,22 @@ Phases, each printing its own lines; any failure exits non-zero:
      launches exact by shape and head count, its prefill and decode-step
      logits (fed the single-card path's tokens) within 5e-2 of the largest
      logit of the single-card kernel path on the same seed-0 weights, every
-     rank's tokens and logits the same; then
+     rank's tokens and logits the same; then data-parallel training over
+     the "data" axis with ZeRO-1 moments (distributed/data_parallel.py):
+     the main process first takes two steps of full-width internlm2-1.8b
+     (fp32 masters, bf16 compute) on one card, then the ranks (two sharing
+     the card over Gloo at 4 of 24 layers, or with two cards or more NCCL,
+     one rank a card, at full depth) take the same two steps on the same
+     global 4 x 512 batch: step 1's loss within 1e-2 and gradient norm
+     within 5e-2 of the one-card step, every parameter within 1e-1 relative
+     L2 after two steps, K1 21 x layers and K3 layers launches a step on
+     each rank exact, every rank's parameters bitwise equal after each step,
+     each rank's moment bytes what zero1_specs assigns it, a SMOKE dp
+     checkpoint resumed bit for bit by a one-rank Trainer on
+     fault.pick_mesh_for(1); step ms and the exchange's ms (reduce-scatter,
+     all-gather) per rank; with several cards also a weak-scaling reading
+     (4 x 512 a rank) beside one card's tokens/s, the exchange beside its
+     NVLink bytes bound and mesh_balance_report; then
      full-width qwen3-moe-30b-a3b in bf16, every expert GEMM on the grouped
      kernel, with the same launch and decode checks, kernel-vs-plain logits
      with the plain path routed to the kernel path's experts (bf16's
@@ -134,9 +149,10 @@ Phases, each printing its own lines; any failure exits non-zero:
      launches per shape (60 and 217 a step, all at M = 4 on the decode tile)
      and no flash launch, kernel vs plain on a 4 x 64-token prompt, two
      prefills bit-identical, fp32 forward (chunked mLSTM / SSD, K1 at M =
-     512, flash at D = 112) against fp32 prefill on one 512-token row, and
-     the SMOKE config in fp32 against the CPU path; xlstm-125m also served
-     continuously on the same trace, monolithic and in chunks of 128 (the
+     the row's length, flash at D = 112) against fp32 prefill on one row of
+     512 tokens (zamba2-7b's 320), and the SMOKE config in fp32 against the
+     CPU path; xlstm-125m also served continuously on the first 10 requests
+     of the same trace, monolithic and in chunks of 128 (the
      staged path), its state pool's resident bytes exact; full-width
      musicgen-medium (audio: four codebook streams, 1.84 B parameters) and
      internvl2-1b (vlm: 256 projected patches, then 256 text tokens) served
@@ -240,6 +256,8 @@ from repro_torch.core import dse  # noqa: E402
 from repro_torch.core.blocking import BlockPlan, derive_block_plan  # noqa: E402
 from repro_torch.core.hw import H100, dtype_bytes  # noqa: E402
 from repro_torch.distributed import collective_matmul as cm  # noqa: E402
+from repro_torch.distributed import data_parallel, fault  # noqa: E402
+from repro_torch.distributed.sharding import mesh_balance_report, zero1_specs  # noqa: E402
 from repro_torch.distributed.tp_layout import kv_heads  # noqa: E402
 from repro_torch.data.synthetic import (  # noqa: E402
     make_adversarial_trace,
@@ -382,10 +400,17 @@ TIED_STEPS = 2
 RECURRENT_CHECK_PROMPT = 64
 # zamba2-7b's synchronized serve prefills 4 x 128 tokens, 128 decode steps
 # (cut from 512, which took 50.3-52.7 s, to make room for the distributed
-# phase); its fp32 forward-vs-prefill check keeps the 512-token row.
+# phase); its fp32 forward-vs-prefill check runs a 320-token row, which
+# still crosses one of its SSD chunks (256) into a second (cut from 512 for
+# time: 64.1 s of fp32 steps, with the script's wall at 1167.6 s of 1200 on
+# a slow host).
 HYBRID_SERVE_PROMPT = 128
+HYBRID_CHECK_PROMPT = 320
 SSM_CHUNK = 128
-SSM_CHUNKED_REQUESTS = 10  # the first 10 of the trace's 16 requests (cut for time; > CONT_SLOTS, so slots are reused)
+# xlstm-125m serves the first 10 of the trace's 16 requests, monolithic and
+# chunked (cut for time, the chunked run first, the monolithic one with the
+# wall above; > CONT_SLOTS, so slots are reused).
+SSM_REQUESTS = 10
 BF16 = torch.bfloat16
 # Tolerances (|got - want| <= atol + rtol * |want|), with their reasons:
 GEMM_TOL_BF16 = (2e-2, 2e-2)  # one bf16 ulp where kernel and plain round the fp32 sum
@@ -427,7 +452,8 @@ W8A8_VS_BF16_TOL = 0.15  # of the bf16 model's largest logit: tests/test_quant.p
 # grouped call of the prefill against its plain version on the model's own
 # dispatched tokens, the assignments and drops that differ between the paths
 # by layer, the routed-alike gap, and the nudge readings, for the model of
-# the main path and for models and prompts from two more seeds.
+# the main path and for a model and prompt from one more seed (two until cut
+# for time: the script's wall read 1128.3 s of its 1200 on a slow host).
 LOGITS_TOL_MOE = 1e-1
 # kv8 vs the same request served alone on the fp cache: the reference's own
 # quantized-vs-fp bound (tests/test_quant.py), of the largest logit; and its
@@ -465,7 +491,7 @@ TRAIN_FP32_TOL = 1e-4
 # 3.6-8.1 s each on an H100, host-bound, and the script's wall has read up
 # to 1116.6 s of the 1200 it is allowed).
 TRAIN_FAMILIES = {MOE_ARCH: (2, TRAIN_STEPS), SSM_ARCH: (None, 3), HYBRID_ARCH: (14, 3)}  # arch -> (layers kept, steps)
-MOE_WITNESS_SEEDS = (1, 2)  # more models and prompts for the MoE witness
+MOE_WITNESS_SEEDS = (1,)  # more models and prompts for the MoE witness
 # The tune phase: each candidate timed TUNE_REPEATS times (the best kept, as
 # the reference's tuner keeps it); the tuned serve decodes TUNE_DECODE_STEPS
 # steps; the DSE table at DSE_SIZE^3 (one of paper design G's sizes).  The
@@ -494,6 +520,27 @@ TP_MAX_RANKS = 4
 TP_DECODE_STEPS = 8
 TP_GEMMS = ((2048, 2048), (2048, 1024), (2048, 8192), (8192, 2048))  # internlm2's (K, N): wq, wk / wv, gate / up, down
 TP_TIMEOUT_S = 600
+# Data-parallel training (ZeRO-1 over the "data" axis): full-width internlm2
+# at DP_ONE_CARD_LAYERS of its 24 layers over DP_ONE_CARD_RANKS ranks sharing
+# one card (~0.63 B parameters, ~2.5 GB of fp32 masters a rank), or at full
+# depth with one rank a card (at most TP_MAX_RANKS); DP_STEPS steps on the
+# training phase's batch (4 x 512 global), against the same steps on one
+# card; with several cards DP_WEAK_STEPS more at 4 x 512 a rank.  The first
+# step runs at lr 0 (warmup_steps=1), so the third is the first whose loss
+# and gradient norm follow an update.  The gates compare what an update
+# changes: each leaf's change from the initial weights against the one-card
+# run's change (relative L2; a skipped or misplaced update reads 1 or more),
+# and step 3's loss and norm against one card's, each limit above the sound
+# runs' readings and below a dropped update's (the one-card run's step 1
+# against its step 3: the same batch at the initial weights), which each run
+# measures and checks.
+DP_ONE_CARD_RANKS = 2
+DP_ONE_CARD_LAYERS = 4
+DP_STEPS = 3
+DP_WEAK_STEPS = 3
+DP_LOSS_RTOL = 1e-2
+DP_NORM_RTOL = 1e-2
+DP_DELTA_RTOL = 0.3
 OBS_BLOCKS, OBS_STEPS = 4, 4
 OBS_STALE, OBS_STALE_GEMM = 3.0, "ffn_in"
 MOE_NUDGES, MOE_NUDGE_STEPS = 2, 2  # one-ulp nudges per model, decode steps each (3, 3 until cut for time)
@@ -2557,13 +2604,284 @@ def phase_distributed(smi: str, ref: dict) -> dict:
     def pairs(d):
         return [[*k, c] for k, c in sorted(d.items())]
 
+    dp_r = phase_data_parallel(smi, cards)
     return {"world": world, "backend": backend, "transport": results[0]["transport"], "wall_s": wall,
+            "data_parallel": dp_r,
             "logits_max_abs_err": errs, "logits_scale": max(1.0, ref["logits"][0].abs().max().item()),
             "ranks": [{**{k: r[k] for k in ("rank", "card", "transport", "checks", "check_launches", "resident_gb",
                                             "prefill_ms", "decode_ms_per_step")},
                        **{phase: {"launches": r[phase][0], "k1_shapes": pairs(r[phase][1]),
                                   "flash_heads": pairs(r[phase][2]), "flash_shapes": pairs(r[phase][3])}
                           for phase in ("prefill", "decode")}} for r in results]}
+
+
+# ---------------------------------------------------------------------------
+# The distributed phase: data-parallel training
+# ---------------------------------------------------------------------------
+
+
+def dp_config(layers: int | None):
+    """internlm2-1.8b at full width, its first ``layers`` layers (all: None)."""
+    cfg = configs.get_config(ARCH)
+    return cfg if layers is None else cfg.scaled(n_layers=layers)
+
+
+def dp_expected(cfg, rows: int) -> dict:
+    """K1 launches by (M, K, N) of one training step over ``rows`` x PROMPT
+    tokens: each projection's forward at (M, K, N), its dA at (M, N, K) and
+    its dB at (K, M, N), once per layer (the head is a library product)."""
+    m = rows * PROMPT
+    out = collections.Counter()
+    for (k, n), c in projections(cfg).items():
+        for shp in ((m, k, n), (m, n, k), (k, m, n)):
+            out[shp] += c * cfg.n_layers
+    return dict(out)
+
+
+def zero1_bytes(params, mesh: Mesh) -> int:
+    """The bytes of the two fp32 moments a rank holds as ``zero1_specs``
+    assigns them: 1/dp of each leaf sharded over "data" (over a path's
+    layers: whole layers), every other leaf whole."""
+    dp = data_parallel.data_size(mesh)
+    sharded = whole = 0
+    for leaf, spec in zip(tree_util.leaves(params), tree_util.leaves(zero1_specs(params, mesh)), strict=True):
+        if any(e is not None and "data" in (e if isinstance(e, tuple) else (e,)) for e in spec):
+            sharded += leaf.numel()
+        else:
+            whole += leaf.numel()
+    return 2 * 4 * (sharded // dp + whole)
+
+
+def same_on_every_rank(params) -> bool:
+    """Every leaf of this rank bit for bit rank 0's: each broadcast from
+    rank 0 (on Gloo through host memory) and compared as integers."""
+    gloo = torch.distributed.get_backend() == torch.distributed.Backend.GLOO
+    ok = True
+    for t in tree_util.leaves(params):
+        mine = t.detach().cpu() if gloo else t.detach()
+        got = mine.clone()
+        torch.distributed.broadcast(got, 0)
+        ok &= torch.equal(got.view(torch.int32), mine.view(torch.int32))
+    return bool(ok)
+
+
+def dp_step(trainer, batch) -> dict:
+    """One Trainer step on ``batch``, timed on the host clock to the card's
+    end, with its launches and (data-parallel) the exchange's ms."""
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = trainer.run(iter([batch]), 1, log_every=0)
+    torch.cuda.synchronize()
+    out = {"ms": (time.perf_counter() - t0) * 1e3, "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+           "launches": counts(), "k1_shapes": dict(mm_kernel.launches_by_shape),
+           "flash_heads": dict(attn_kernel.launches_by_heads())}
+    if trainer.layout is not None:
+        out["exchange_ms"] = trainer.layout.exchange_ms()
+    return out
+
+
+def dp_json(steps: list[dict]) -> list[dict]:
+    """``dp_step`` readings with their tuple-keyed counts as [*key, count] lists."""
+    return [{**st, **{k: [[*key, c] for key, c in sorted(st[k].items())] for k in ("k1_shapes", "flash_heads")}}
+            for st in steps]
+
+
+def dp_checkpoint(mesh: Mesh, root: str) -> dict | None:
+    """SMOKE internlm2 in fp32 trained two steps data-parallel, writing a
+    checkpoint into ``root`` (rank 0); -> the gathered state, on the host,
+    on rank 0 (None on the others)."""
+    cfg = dataclasses.replace(configs.get_smoke(ARCH), dtype="float32")
+    model = get_model(cfg)
+    tcfg = TrainConfig(peak_lr=1e-3, warmup_steps=1, total_steps=4, ckpt_dir=root, ckpt_every=1)
+    trainer = Trainer(model, tcfg, model.init(SEED, "cuda", dtype=torch.float32), mesh)
+    batch = make_batch(cfg, batch=BATCH, seq=16, kind="train", seed=SEED, device="cuda")
+    trainer.run(iter([batch] * 2), 2, log_every=0)
+    state = trainer.state()
+    return None if state is None else tree_util.tree_map(lambda t: t.cpu(), state)
+
+
+def dp_rank(rank: int, world: int, cards: int, layers: int | None, cache_path: str, ref_path: str, ckpt_root: str,
+            weak: bool) -> dict:
+    """One rank of the data-parallel run (a process of its own): DP_STEPS
+    steps of internlm2 on the global batch with ZeRO-1 moments, each step's
+    launches, ms, exchange ms and bitwise agreement with rank 0; rank 0
+    holds each leaf's change from the initial weights against the one-card
+    run's change (``ref_path``: its parameters after DP_STEPS); the
+    SMOKE checkpoint; with ``weak``, DP_WEAK_STEPS steps at BATCH rows a
+    rank."""
+    torch.cuda.set_device(rank % cards)  # before any CUDA work
+    pin_cache(cache_path)
+    mesh = Mesh((world, 1), ("data", "model"))
+    cfg = dp_config(layers)
+    model = get_model(cfg)
+    params = model.init(SEED, "cuda", dtype=torch.float32)  # the one-card run's masters
+    trainer = Trainer(model, TrainConfig(**TRAIN_TCFG), params, mesh)
+    out = {"rank": rank, "card": torch.cuda.current_device(), "transport": cm.transport(mesh, "data"),
+           "moment_bytes": trainer.layout.moment_bytes(trainer.opt_state), "want_moment_bytes": zero1_bytes(params, mesh)}
+    del params
+    batch = make_batch(cfg, batch=BATCH, seq=PROMPT, kind="train", seed=SEED, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    out["steps"] = []
+    for _ in range(DP_STEPS):
+        out["steps"].append(dp_step(trainer, batch))
+        out["steps"][-1]["same"] = same_on_every_rank(trainer.params)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if rank == 0:
+        ref = torch.load(ref_path, mmap=True, weights_only=True)
+        start = model.init(SEED, "cuda", dtype=torch.float32)  # the initial weights, made again
+        out["gaps"] = []
+        for (key, a), (_, b), p0 in zip(tree_util.leaves_with_path(trainer.params), tree_util.leaves_with_path(ref),
+                                        tree_util.leaves(start), strict=True):
+            b = b.to(a.device)
+            out["gaps"].append((((a - b).norm() / (b - p0).norm().clamp_min(1e-30)).item(), key))
+        del ref, start
+    if weak:
+        big = make_batch(cfg, batch=BATCH * world, seq=PROMPT, kind="train", seed=SEED + 1, device="cuda")
+        out["weak"] = [dp_step(trainer, big) for _ in range(DP_WEAK_STEPS)]
+    del trainer, batch
+    torch.cuda.empty_cache()
+    state = dp_checkpoint(mesh, ckpt_root)
+    if rank == 0:
+        out["ckpt_state"] = state
+    reset_counts()
+    out["plans"] = {"systolic": sorted(RUN_PLANS["systolic"]), "attention": sorted(RUN_PLANS["attention"])}
+    return out
+
+
+def phase_data_parallel(smi: str, cards: int) -> dict:
+    """Data-parallel training on the card(s): DP_STEPS steps on one card in
+    this process, then ``dp_rank`` on every rank, gated here against them.
+    A rank's failure fails the run."""
+    world = min(cards, TP_MAX_RANKS) if cards >= 2 else DP_ONE_CARD_RANKS
+    backend = "nccl" if cards >= 2 else "gloo"
+    layers = None if cards >= 2 else DP_ONE_CARD_LAYERS
+    weak = cards >= 2
+    cfg = dp_config(layers)
+    model = get_model(cfg)
+    n = model.n_params
+    say(f"[3] distributed: full-width {ARCH} at {cfg.n_layers} of 24 layers ({n / 1e9:.3f} B parameters, fp32 "
+        f"masters computing in {cfg.dtype}) trained data-parallel with ZeRO-1 moments over {world} ranks on "
+        f"{min(cards, world)} card(s), {backend}: {DP_STEPS} steps on {BATCH} x {PROMPT} tokens ({BATCH // world} "
+        f"rows a rank) against the same steps on one card, AdamW {TRAIN_TCFG}")
+    t_phase = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="dp_", dir=TUNE_DIR)
+    ref_path, ckpt_root = os.path.join(workdir, "one_card_params.pt"), os.path.join(workdir, "ckpt")
+    trainer = Trainer(model, TrainConfig(**TRAIN_TCFG), model.init(SEED, "cuda", dtype=torch.float32))
+    batch = make_batch(cfg, batch=BATCH, seq=PROMPT, kind="train", seed=SEED, device="cuda")
+    one = []
+    for i in range(DP_STEPS + (DP_WEAK_STEPS if weak else 0)):
+        one.append(dp_step(trainer, batch))
+        if i + 1 == DP_STEPS:
+            torch.save(tree_util.tree_map(lambda t: t.cpu(), trainer.params), ref_path)
+    del trainer, batch
+    torch.cuda.empty_cache()
+    for i, st in enumerate(one):
+        expect(st["launches"] == {"systolic_mmm": 21 * cfg.n_layers, "systolic_qmm": 0, "flash_attn": cfg.n_layers,
+                                  "grouped_mmm": 0} and st["k1_shapes"] == dp_expected(cfg, BATCH),
+               f"one card, step {i + 1}: launches {st['launches']} exact (K1 21 x {cfg.n_layers} at M = "
+               f"{BATCH * PROMPT})")
+    reset_counts()
+    t0 = time.perf_counter()
+    results = run_ranks(dp_rank, world, workdir, backend=backend, timeout_s=TP_TIMEOUT_S,
+                        args=(cards, layers, os.path.join(TUNE_DIR, "untuned.json"), ref_path, ckpt_root, weak))
+    ranks_wall = time.perf_counter() - t0
+    os.remove(ref_path)
+    rows = BATCH // world
+    want_k1 = dp_expected(cfg, rows)
+    want = {"systolic_mmm": 21 * cfg.n_layers, "systolic_qmm": 0, "flash_attn": cfg.n_layers, "grouped_mmm": 0}
+    heads = {(cfg.n_heads, cfg.n_kv_heads): cfg.n_layers}
+    for r in results:
+        idx = r["rank"]
+        say(f"    rank {idx} on card {r['card']}, transport={r['transport']}: step ms "
+            f"{[round(st['ms'], 3) for st in r['steps']]}, exchange ms (reduce, all-gather) "
+            f"{[(round(st['exchange_ms']['reduce'], 3), round(st['exchange_ms']['all_gather'], 3)) for st in r['steps']]}"
+            f", peak {r['peak_gb']:.2f} GB, moments {r['moment_bytes'] / 1e9:.3f} GB ({smi})")
+        for i, st in enumerate(r["steps"]):
+            expect(st["launches"] == want and st["k1_shapes"] == want_k1 and st["flash_heads"] == heads,
+                   f"rank {idx} step {i + 1}: launches {st['launches']}, K1 by shape {sorted(st['k1_shapes'].items())}"
+                   f", flash by heads {st['flash_heads']}; want K1 21 x {cfg.n_layers} at M = {rows * PROMPT}, K3 "
+                   f"{cfg.n_layers} at {tuple(heads)}")
+            expect(st["same"], f"rank {idx} step {i + 1}: every parameter bit for bit rank 0's")
+            expect(st["loss"] == results[0]["steps"][i]["loss"] and st["grad_norm"] == results[0]["steps"][i]["grad_norm"],
+                   f"rank {idx} step {i + 1}: the global batch's loss {st['loss']:.6f} and grad norm "
+                   f"{st['grad_norm']:.6f}, the same on every rank")
+        expect(r["moment_bytes"] == r["want_moment_bytes"],
+               f"rank {idx}: moment bytes {r['moment_bytes']:,} = zero1_specs' assignment {r['want_moment_bytes']:,}")
+        RUN_PLANS["systolic"].update(r["plans"]["systolic"])
+        RUN_PLANS["attention"].update(r["plans"]["attention"])
+    first, ref1 = results[0]["steps"][0], one[0]
+    loss_gap = abs(first["loss"] - ref1["loss"]) / abs(ref1["loss"])
+    norm_gap = abs(first["grad_norm"] - ref1["grad_norm"]) / ref1["grad_norm"]
+    expect(math.isfinite(first["loss"]) and loss_gap <= TRAIN_LOSS_RTOL,
+           f"dp {world} step 1 loss {first['loss']:.6f} vs one card {ref1['loss']:.6f}: {loss_gap:.2e} relative (tol "
+           f"{TRAIN_LOSS_RTOL})")
+    expect(math.isfinite(first["grad_norm"]) and norm_gap <= TRAIN_NORM_RTOL,
+           f"dp {world} step 1 grad norm {first['grad_norm']:.6f} vs one card {ref1['grad_norm']:.6f}: {norm_gap:.2e} "
+           f"relative (tol {TRAIN_NORM_RTOL})")
+    # step DP_STEPS follows an update: its readings, and a dropped update's (the one-card run's step 1, same batch at
+    # the initial weights, against its step DP_STEPS)
+    last, ref_last = results[0]["steps"][DP_STEPS - 1], one[DP_STEPS - 1]
+    after = {k: abs(last[k] - ref_last[k]) / abs(ref_last[k]) for k in ("loss", "grad_norm")}
+    dropped = {k: abs(ref1[k] - ref_last[k]) / abs(ref_last[k]) for k in ("loss", "grad_norm")}
+    for k, tol in (("loss", DP_LOSS_RTOL), ("grad_norm", DP_NORM_RTOL)):
+        expect(math.isfinite(last[k]) and after[k] <= tol < dropped[k],
+               f"dp {world} step {DP_STEPS} {k} {last[k]:.6f} vs one card {ref_last[k]:.6f}: {after[k]:.2e} relative, "
+               f"within {tol}, which a dropped update ({dropped[k]:.2e}: one card's step 1 against its step "
+               f"{DP_STEPS}) exceeds")
+    gaps = results[0]["gaps"]
+    worst = max(gaps)
+    expect(worst[0] <= DP_DELTA_RTOL,
+           f"dp {world} after {DP_STEPS} steps: every parameter leaf's change from the initial weights within "
+           f"{DP_DELTA_RTOL} relative L2 of the one-card run's change (a skipped or misplaced update reads 1 or more): "
+           f"worst {worst[1]} {worst[0]:.2e} ({len(gaps)} leaves)")
+    # the SMOKE checkpoint written at dp `world`, resumed by one rank
+    small = get_model(dataclasses.replace(configs.get_smoke(ARCH), dtype="float32"))
+    resumer = Trainer(small, TrainConfig(peak_lr=1e-3, warmup_steps=1, total_steps=4, ckpt_dir=ckpt_root),
+                      small.init(SEED + 1, "cuda", dtype=torch.float32), fault.pick_mesh_for(1))
+    resumed = resumer.try_resume()
+    got, saved = tree_util.leaves_with_path(resumer.state()), tree_util.leaves_with_path(results[0]["ckpt_state"])
+    same = all(ka == kb and a.dtype == b.dtype and torch.equal(a.cpu(), b) for (ka, a), (kb, b) in zip(got, saved,
+                                                                                                    strict=True))
+    expect(resumed and resumer.step == 2 and same and latest_step(ckpt_root) == 2,
+           f"a dp-{world} SMOKE checkpoint (rank 0 writing whole leaves) resumed by one rank on "
+           f"fault.pick_mesh_for(1): step {resumer.step}, parameters and moments bit for bit the gathered dp-{world} "
+           f"state")
+    del resumer
+    shutil.rmtree(workdir, ignore_errors=True)
+    out = {"world": world, "backend": backend, "layers": cfg.n_layers, "n_params": n,
+           "transport": results[0]["transport"], "ranks_wall_s": ranks_wall, "one_card": dp_json(one),
+           "loss_gap": loss_gap, "norm_gap": norm_gap, "after_update_gap": after, "dropped_update_gap": dropped,
+           "worst_leaf": worst[1], "worst_leaf_change_gap": worst[0],
+           "ranks": [{**{k: r[k] for k in ("rank", "card", "transport", "moment_bytes", "peak_gb")},
+                      "steps": dp_json(r["steps"])} for r in results]}
+    say(f"    one card: step ms {[round(st['ms'], 3) for st in one]} ({smi}); dp {world}: step 1 loss gap "
+        f"{loss_gap:.2e}, grad norm gap {norm_gap:.2e}; step {DP_STEPS} loss gap {after['loss']:.2e} (a dropped "
+        f"update {dropped['loss']:.2e}, tol {DP_LOSS_RTOL}), grad norm gap {after['grad_norm']:.2e} (dropped "
+        f"{dropped['grad_norm']:.2e}, tol {DP_NORM_RTOL}); worst leaf change gap {worst[0]:.2e} ({worst[1]}; dropped "
+        f"1, tol {DP_DELTA_RTOL})")
+    if weak:
+        one_ms = statistics.median(st["ms"] for st in one[1:])
+        ranks_ms = [statistics.median(st["ms"] for st in r["weak"][1:]) for r in results]
+        step_ms = max(ranks_ms)
+        ex = [statistics.median(st["exchange_ms"]["reduce"] + st["exchange_ms"]["all_gather"] for st in r["weak"][1:])
+              for r in results]
+        moved = 2 * (world - 1) / world * 4 * n  # reduce-scatter in, all-gather out, fp32, per rank
+        bound_ms = moved / (H100.nvlink_bw_per_link * H100.nvlink_links) * 1e3
+        bal = mesh_balance_report(n, BATCH * world, PROMPT, Mesh((world, 1), ("data", "model")))
+        out["weak"] = {"one_card_ms": one_ms, "one_card_tokens_per_s": BATCH * PROMPT / one_ms * 1e3,
+                       "step_ms": ranks_ms, "tokens_per_s": BATCH * world * PROMPT / step_ms * 1e3,
+                       "exchange_ms": ex, "exchange_bytes": moved, "exchange_bound_ms": bound_ms, "balance": bal,
+                       "ranks": [dp_json(r["weak"]) for r in results]}
+        say(f"    weak scaling, {BATCH} x {PROMPT} a rank: {out['weak']['tokens_per_s']:.1f} tokens/s over {world} cards "
+            f"(step p50 {[round(x, 3) for x in ranks_ms]} ms) against one card's {out['weak']['one_card_tokens_per_s']:.1f} "
+            f"({one_ms:.3f} ms a step), {out['weak']['tokens_per_s'] / out['weak']['one_card_tokens_per_s']:.2f}x; the "
+            f"exchange p50 {[round(x, 3) for x in ex]} ms a step for {moved / 1e9:.2f} GB a rank against its NVLink "
+            f"bound {bound_ms:.3f} ms (18 links); mesh_balance_report (bf16 all-reduce over one link): all-reduce "
+            f"{bal['t_allreduce_s'] * 1e3:.3f} ms, compute {bal['t_compute_s'] * 1e3:.3f} ms ({smi})")
+    out["wall_s"] = time.perf_counter() - t_phase
+    say(f"    data-parallel part: {out['wall_s']:.1f} s ({ranks_wall:.1f} s for the ranks: spawn, init, steps, checks)")
+    return out
 
 
 def pin_cache(path: str) -> None:
@@ -3106,14 +3424,16 @@ def forward_vs_prefill(model, masters, params, batch, served_logits, served_toke
     """``forward`` (the parallel path: chunked mLSTM / SSD, zamba2's shared
     attention on the flash kernel at D = 112) against ``prefill`` (the
     recurrence) on the batch's first row, in fp32 at full width (the fp32
-    masters): forward's launches exact (K1 once per projection and layer at
-    M = PROMPT, flash once per application of the shared block), its last
+    masters; HYBRID_CHECK_PROMPT tokens of it for zamba2, else PROMPT):
+    forward's launches exact (K1 once per projection and layer at M = the
+    row's length, flash once per application of the shared block), its last
     logits within FORWARD_TOL_FP32 of the largest.  The bf16 forward on the
     served prompt's first row beside the served bf16 prefill's row 0 is
     printed for information."""
     cfg = model.cfg
     model32 = get_model(dataclasses.replace(cfg, dtype="float32"))
-    row = {"tokens": batch["tokens"][:1].contiguous()}
+    seq = HYBRID_CHECK_PROMPT if cfg.family == "hybrid" else PROMPT
+    row = {"tokens": batch["tokens"][:1, :seq].contiguous()}
     n_apps = hybrid_counts(cfg)[1] if cfg.family == "hybrid" else 0
     with torch.no_grad():
         reset_counts()
@@ -3122,20 +3442,20 @@ def forward_vs_prefill(model, masters, params, batch, served_logits, served_toke
         torch.cuda.synchronize()
         t_fwd = time.perf_counter() - t0
         got_c, got_s, got_f = counts(), shape_counts(), flash_shape_counts()
-        want_c, want_s = launches_at(cfg, "systolic_mmm", PROMPT, 1, False)
+        want_c, want_s = launches_at(cfg, "systolic_mmm", seq, 1, False)
         want_c["flash_attn"] = n_apps
         expect(got_c == want_c and got_s["systolic_mmm"] == want_s["systolic_mmm"]
-               and got_f == ({(1, PROMPT, PROMPT): n_apps} if n_apps else {}),
-               f"{cfg.name} fp32 forward 1x{PROMPT} launches: {got_c}, K1 at M={PROMPT} by shape "
+               and got_f == ({(1, seq, seq): n_apps} if n_apps else {}),
+               f"{cfg.name} fp32 forward 1x{seq} launches: {got_c}, K1 at M={seq} by shape "
                f"{sorted(got_s['systolic_mmm'].items())}, flash by (B, Sq, Skv) {got_f}")
         t0 = time.perf_counter()
-        p32, _ = model32.prefill(masters, row, max_len=PROMPT + 1)
+        p32, _ = model32.prefill(masters, row, max_len=seq + 1)
         torch.cuda.synchronize()
         t_pf = time.perf_counter() - t0
         err = (f32 - p32).abs().max().item()
         scale = max(1.0, p32.abs().max().item())
         expect(bool(torch.isfinite(f32).all()) and err <= FORWARD_TOL_FP32 * scale,
-               f"{cfg.name} fp32 forward (parallel) vs prefill (recurrent) last logits on 1x{PROMPT}: "
+               f"{cfg.name} fp32 forward (parallel) vs prefill (recurrent) last logits on 1x{seq}: "
                f"max_abs={err:.3e} (tol {FORWARD_TOL_FP32} x {scale:.2f}); argmax equal: "
                f"{int(f32.argmax(-1)) == int(p32.argmax(-1))}")
         fb = model.forward(params, {"tokens": served_tokens[:1].contiguous()})[:, -1:]
@@ -3144,7 +3464,7 @@ def forward_vs_prefill(model, masters, params, batch, served_logits, served_toke
         say(f"    [for information, not a gate] {cfg.name} bf16 forward 1x{served_tokens.shape[1]} vs the served bf16 "
             f"prefill's row 0: "
             f"max_abs={err16:.3e} ({err16 / scale16:.2%} of the largest logit)")
-    say(f"    {cfg.name} fp32: forward 1x{PROMPT} {t_fwd * 1e3:.1f} ms, prefill ({PROMPT} steps) {t_pf * 1e3:.1f} ms")
+    say(f"    {cfg.name} fp32: forward 1x{seq} {t_fwd * 1e3:.1f} ms, prefill ({seq} steps) {t_pf * 1e3:.1f} ms")
     return {"forward_vs_prefill_fp32_max_abs_err": err, "forward_vs_prefill_fp32_scale": scale,
             "forward_bf16_vs_served_max_abs_err": err16, "forward_fp32_ms": t_fwd * 1e3,
             "prefill_fp32_ms": t_pf * 1e3, "forward_launches": got_c,
@@ -3194,9 +3514,9 @@ def phase_serve_recurrent(arch: str, smi: str) -> tuple[dict, list]:
     runs = []
     if cfg.family == "ssm":
         resident = state_bytes(cfg, CONT_SLOTS)
-        cont = phase_continuous(model, params, smi, resident=resident)
+        cont = phase_continuous(model, params, smi, resident=resident, n_requests=SSM_REQUESTS)
         chunked = phase_continuous(model, params, smi, chunk=SSM_CHUNK, resident=resident, alone=cont["replays"],
-                                   n_requests=SSM_CHUNKED_REQUESTS)
+                                   n_requests=SSM_REQUESTS)
         for run in (cont, chunked):
             del run["replays"], run["logit_rows"]
         runs = [cont, chunked]

@@ -9,7 +9,10 @@ The counterpart of ``repro.checkpoint.ckpt``, with the same contract:
     thread, then written on a worker thread, off the training loop
     (``AsyncCheckpointer``);
   * restore fills a template: its structure, and each leaf's dtype and
-    device (the port has no meshes or shardings yet);
+    device; restore is ELASTIC: leaves are saved whole (a data-parallel
+    trainer gathers its moment blocks first and rank 0 writes), and
+    ``shardings`` cuts each rank's block out of them on restore, so a job
+    saved on one data-parallel mesh resumes on another (one rank included);
   * step resume: the step is part of the checkpoint; the data pipeline is
     stateless (``batch_at(step)``).
 Leaves are keyed by their tree path (``core.tree.leaves_with_path``: dict
@@ -44,15 +47,33 @@ def _flatten(tree: Any) -> dict[str, np.ndarray]:
     return {key: _host(leaf) for key, leaf in leaves_with_path(tree)}
 
 
-def _unflatten_into(tree: Any, blobs: dict[str, np.ndarray]) -> Any:
+def _lookup(tree: Any, path: str):
+    """The entry of ``tree`` at ``path`` ("/"-joined keys, indices and
+    fields), or None where the walk meets None."""
+    for part in path.split("/"):
+        if tree is None:
+            return None
+        if isinstance(tree, dict):
+            tree = tree[part]
+        elif isinstance(tree, list):
+            tree = tree[int(part)]
+        else:
+            tree = getattr(tree, part)
+    return tree
+
+
+def _unflatten_into(tree: Any, blobs: dict[str, np.ndarray], shardings: Any = None) -> Any:
     out = []
     for key, leaf in leaves_with_path(tree):
         if key not in blobs:
             raise KeyError(f"checkpoint missing leaf {key!r}")
-        arr = blobs[key]
-        if tuple(arr.shape) != tuple(leaf.shape):
-            raise ValueError(f"{key}: checkpoint shape {arr.shape} != expected {tuple(leaf.shape)}")
-        out.append(torch.from_numpy(np.array(arr)).to(device=leaf.device, dtype=leaf.dtype))
+        t = torch.from_numpy(np.array(blobs[key]))
+        cut = None if shardings is None else _lookup(shardings, key)
+        if cut is not None:
+            t = cut(t)
+        if tuple(t.shape) != tuple(leaf.shape):
+            raise ValueError(f"{key}: checkpoint shape {tuple(t.shape)} != expected {tuple(leaf.shape)}")
+        out.append(t.to(device=leaf.device, dtype=leaf.dtype))
     return unflatten(tree, out)
 
 
@@ -97,9 +118,14 @@ def latest_step(root: str) -> int | None:
     return steps[-1] if steps else None
 
 
-def restore_checkpoint(root: str, template: Any, *, step: int | None = None) -> tuple[Any, int]:
+def restore_checkpoint(root: str, template: Any, *, step: int | None = None,
+                       shardings: Any = None) -> tuple[Any, int]:
     """Restore into the structure of ``template``, each leaf in the
-    template leaf's dtype and on its device.  -> (tree, step)."""
+    template leaf's dtype and on its device.  ``shardings``: a tree of the
+    template's structure (None standing for a subtree restored whole) whose
+    leaves cut this rank's block out of a whole leaf
+    (``ZeroLayout.shardings``); the template then holds the blocks' shapes.
+    -> (tree, step)."""
     step = latest_step(root) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no complete checkpoint under {root}")
@@ -109,7 +135,7 @@ def restore_checkpoint(root: str, template: Any, *, step: int | None = None) -> 
         if name.endswith(".npz"):
             with np.load(os.path.join(d, name)) as z:
                 blobs.update({k: z[k] for k in z.files})
-    return _unflatten_into(template, blobs), step
+    return _unflatten_into(template, blobs, shardings), step
 
 
 class AsyncCheckpointer:

@@ -92,7 +92,9 @@ class Mesh:
 
 def _fix(model: int, n: int) -> str:
     return (f"start one process per rank on a host with {n} card(s): torchrun --nproc-per-node {n} -m "
-            f"repro_torch.launch.serve --model-parallel {model} ... (on the CPU add --device cpu, which takes Gloo)")
+            f"repro_torch.launch.serve --model-parallel {model} ..., or to train data-parallel torchrun "
+            f"--nproc-per-node {n} -m repro_torch.launch.train --distributed ... (on the CPU add --device cpu, "
+            f"which takes Gloo)")
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:

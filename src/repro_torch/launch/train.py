@@ -16,25 +16,67 @@ model whose training state exceeds the card: fp32 masters, gradients and
 AdamW moments take 16 bytes a parameter, ~490 GB for qwen3-moe-30b-a3b's
 48 layers and ~30 GB for 2 of them.
 
-The reference's multi-device flags (``--production-mesh``, ``--multi-pod``,
-``--distributed``) belong to the port's distributed part, which is not
-written yet: they are refused, not ignored.
+``--distributed`` trains data-parallel, one process a rank under
+``torchrun`` (RANK, LOCAL_RANK, WORLD_SIZE and the rendezvous address from
+its environment): NCCL with rank r on card LOCAL_RANK, Gloo with
+``--device cpu``, over ``make_local_mesh(data=world, model=1)`` as the
+reference's launcher trains over every local device.  ``--batch`` is the
+global batch (each rank computes its rows of it); the AdamW moments are
+ZeRO-1 blocks (``distributed.data_parallel``); rank 0 alone prints and
+writes checkpoints, which hold whole leaves, so a job resumes on any number
+of ranks::
+
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train --distributed --arch internlm2-1.8b --steps 8 --batch 4 --seq 512
+    torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train --distributed --arch internlm2-1.8b --smoke --device cpu --steps 4
+
+``--production-mesh`` and ``--multi-pod`` stay refused: their "model" axis
+of 16 needs tensor-parallel training, which the port does not have.
 """
 
 from __future__ import annotations
 
 import argparse
+import datetime
+import os
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import configs
 from repro_torch.core.device import resolve_device
 from repro_torch.data.sharded import TokenShardDataset
 from repro_torch.data.synthetic import make_batch
+from repro_torch.kernels import _build
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models.registry import get_model
 from repro_torch.train.loop import TrainConfig, Trainer
 
-DISTRIBUTED_FLAGS = ("production_mesh", "multi_pod", "distributed")
+TP_MESH_FLAGS = ("production_mesh", "multi_pod")
+RUN = "torchrun --nproc-per-node N -m repro_torch.launch.train --distributed ..."
+
+
+def init_distributed(device: str | None) -> torch.device:
+    """Join the process group torchrun describes: NCCL with this rank on
+    card LOCAL_RANK (set before any CUDA work), Gloo with ``--device cpu``.
+    -> this rank's device.  Without torchrun's environment, or with fewer
+    cards than ranks, it exits with a message naming the fix."""
+    cpu = device is not None and torch.device(device).type == "cpu"
+    if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+        raise SystemExit(f"--distributed runs one process a rank under torchrun, which sets RANK and WORLD_SIZE: "
+                         f"{RUN} (add --device cpu for Gloo on the CPU)")
+    world, local = int(os.environ["WORLD_SIZE"]), int(os.environ.get("LOCAL_RANK", "0"))
+    if cpu:
+        dev = torch.device("cpu")
+    else:
+        cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if local >= cards:
+            raise SystemExit(f"--distributed with {world} ranks needs a card a rank; rank {local} of this host finds "
+                             f"{cards} card(s). Start as many ranks a host as it has cards: {RUN} (or add --device "
+                             f"cpu for Gloo on the CPU)")
+        torch.cuda.set_device(local)  # before any CUDA work: every launch goes to this rank's card
+        dev = torch.device("cuda", local)
+    dist.init_process_group("gloo" if cpu else "nccl", timeout=datetime.timedelta(seconds=600))
+    return dev
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -53,23 +95,41 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--data-dir", default=None, help="token shards (else synthetic)")
     ap.add_argument("--resume", action="store_true")
-    ap.add_argument("--production-mesh", action="store_true", help="refused: no meshes in the port yet")
-    ap.add_argument("--multi-pod", action="store_true", help="refused: no meshes in the port yet")
-    ap.add_argument("--distributed", action="store_true", help="refused: no multi-host init in the port yet")
+    ap.add_argument("--production-mesh", action="store_true", help="refused: its model axis needs TP training")
+    ap.add_argument("--multi-pod", action="store_true", help="refused: its model axis needs TP training")
+    ap.add_argument("--distributed", action="store_true", help="data-parallel, one process a rank under torchrun")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
-    for flag in DISTRIBUTED_FLAGS:
+    for flag in TP_MESH_FLAGS:
         if getattr(args, flag):
-            ap.error(f"--{flag.replace('_', '-')} needs the port's distributed part (meshes, shardings, "
-                     "multi-host init), which is not written yet")
-    dev = resolve_device(args.device)
+            ap.error(f"--{flag.replace('_', '-')} trains over a 'model' axis of 16, which needs tensor-parallel "
+                     "training (the collective matmul's backward); the port trains data-parallel only: "
+                     f"{RUN}")
+    if not args.distributed:
+        return train(args, resolve_device(args.device))
+    dev = init_distributed(args.device)
+    try:
+        return train(args, dev, make_local_mesh(data=dist.get_world_size(), model=1, device=dev))
+    finally:
+        dist.destroy_process_group()
+
+
+def train(args, dev: torch.device, mesh=None) -> dict:
+    """Train as ``args`` say on ``dev``; with a mesh, as one data-parallel
+    rank of it.  -> the last step's metrics."""
+    leader = mesh is None or dist.get_rank() == 0
+    if mesh is not None and dev.type == "cuda":
+        if leader:
+            print(f"kernel build: {_build.build_all():.1f} s")
+        dist.barrier()  # the other ranks load what rank 0 built
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get_config(args.arch)
     if args.layers is not None:
         cfg = cfg.scaled(n_layers=args.layers)
     model = get_model(cfg)
-    print(f"arch={cfg.name} params={model.n_params / 1e6:.1f}M active={model.n_active_params / 1e6:.1f}M "
-          f"device={dev}")
+    if leader:
+        print(f"arch={cfg.name} params={model.n_params / 1e6:.1f}M active={model.n_active_params / 1e6:.1f}M "
+              f"device={dev}" + (f" data-parallel mesh: {mesh.shape['data']}x1 ('data', 'model')" if mesh else ""))
     tcfg = TrainConfig(
         peak_lr=args.lr,
         warmup_steps=max(1, args.steps // 10),
@@ -79,9 +139,9 @@ def main(argv: list[str] | None = None) -> dict:
         ckpt_dir=args.ckpt_dir,
         ckpt_every=args.ckpt_every,
     )
-    params = model.init(args.seed, dev, dtype=torch.float32)  # fp32 masters
-    trainer = Trainer(model, tcfg, params)
-    if args.resume and trainer.try_resume():
+    params = model.init(args.seed, dev, dtype=torch.float32)  # fp32 masters, alike on every rank
+    trainer = Trainer(model, tcfg, params, mesh)
+    if args.resume and trainer.try_resume() and leader:
         print(f"resumed from step {trainer.step}")
 
     if args.data_dir:
@@ -107,7 +167,8 @@ def main(argv: list[str] | None = None) -> dict:
 
     metrics = trainer.run(batches(), args.steps)
     out = {k: float(v) for k, v in metrics.items()}
-    print(out)
+    if leader:
+        print(out)
     if trainer.retries:
         print(f"retries: {trainer.retries}")
     return out

@@ -11,6 +11,11 @@ the final norm's scale is 1-D in both and exempt.  The reference's ``adamw_updat
 trainer donates the old state to the jitted step; here ``adamw_update``
 writes the new parameters and moments into the old tensors, leaf by leaf,
 so a full-width model never holds two copies of its state.
+
+On a data-parallel mesh each rank holds only its ZeRO-1 blocks of the
+moments (``distributed.data_parallel``) and steps its blocks of the masters
+with them; the weight decay then still follows the whole tree's leaves
+(``ndims=``), never the blocks' shapes.
 """
 
 from __future__ import annotations
@@ -67,16 +72,20 @@ def adamw_update(
     b2: float = 0.95,
     eps: float = 1e-8,
     weight_decay: float = 0.1,
+    ndims: list[int] | None = None,
 ) -> tuple[Any, AdamWState]:
     """Steps ``params`` and ``state`` in place and returns them.  ``lr`` may
-    be a scalar tensor (the schedule's).  The leaves are stepped one after
+    be a scalar tensor (the schedule's).  ``ndims``: each leaf's rank in the
+    reference's tree, which decides its weight decay (default
+    ``reference_ndims(params)``; a caller stepping blocks of the leaves
+    passes the whole tree's).  The leaves are stepped one after
     another and the step count last: an error part way leaves some leaves
     stepped, so a caller must not run the update again on that state."""
     step = state.step + 1
     b1c = 1.0 - b1 ** step.float()
     b2c = 1.0 - b2 ** step.float()
     for g, m, v, p, nd in zip(leaves(grads), leaves(state.mu), leaves(state.nu), leaves(params),
-                              reference_ndims(params), strict=True):
+                              reference_ndims(params) if ndims is None else ndims, strict=True):
         _step_leaf(g, m, v, p, lr=lr, b1=b1, b2=b2, eps=eps, b1c=b1c, b2c=b2c, weight_decay=weight_decay,
                    ref_ndim=nd)
     state.step.copy_(step)

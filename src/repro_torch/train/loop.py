@@ -20,6 +20,18 @@ the classes in ``TRANSIENT_ERRORS`` are retried, each retry is counted
 the gradient computation is retried: it reads the state and writes none of
 it.  The update writes the parameters and moments in place, leaf by leaf,
 so an error inside it is raised at once.
+
+With a ``mesh`` (one process a rank under ``torch.distributed``) a step is
+data-parallel: each rank computes the gradient of its rows of the global
+batch, and ``apply_update`` runs the ZeRO-1 exchange of
+``distributed.data_parallel`` between the gradient and AdamW (reduce-scatter
+into this rank's moment blocks, the global clip, AdamW on the blocks, the
+all-gather into every rank's masters).  The retry stays on the gradient
+computation, which is this rank's alone; a collective is never retried on
+one rank.  Each rank's microbatches are weighted by their loss tokens, so a
+masked batch gives the one-process step.  Rank 0 alone logs and writes
+checkpoints; a checkpoint holds the whole moments (every rank's blocks sent
+to rank 0), so it resumes on any data-parallel mesh, one rank included.
 """
 
 from __future__ import annotations
@@ -33,8 +45,11 @@ from torch.profiler import record_function
 
 from repro_torch.checkpoint import AsyncCheckpointer, latest_step, restore_checkpoint
 from repro_torch.core.tree import leaves, tree_map, unflatten
+from repro_torch.distributed import data_parallel
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models.registry import Model
-from repro_torch.optim import adamw_init, adamw_update, clip_by_global_norm
+from repro_torch.optim import AdamWState, adamw_init, adamw_update, clip_by_global_norm
+from repro_torch.optim.clip import clip_scale
 from repro_torch.optim.schedule import cosine_with_warmup
 
 # Errors after which a step is tried again as it was: the card's allocator
@@ -69,10 +84,11 @@ def _split_microbatches(batch: dict, n: int) -> list[dict]:
 
 
 def make_grad_fn(model: Model, tcfg: TrainConfig) -> Callable:
-    """-> grads_of(params, batch) -> (grads, metrics): the gradient of
-    ``model.loss_fn`` w.r.t. every floating leaf of ``params`` (a tree of
-    the params' structure, each gradient in its leaf's dtype, or fp32
-    averaged over ``tcfg.microbatches``), and the loss metrics."""
+    """-> grads_of(params, batch, weights=None) -> (grads, metrics): the
+    gradient of ``model.loss_fn`` w.r.t. every floating leaf of ``params`` (a
+    tree of the params' structure, each gradient in its leaf's dtype, or, over
+    ``tcfg.microbatches``, fp32 and averaged, or summed with the float64
+    ``weights`` of the microbatches), and the loss metrics alike."""
 
     def one(params, batch):
         flat = leaves(params)
@@ -86,87 +102,167 @@ def make_grad_fn(model: Model, tcfg: TrainConfig) -> Callable:
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(live, grads)]
         return unflatten(params, grads), {k: metrics[k].detach() for k in METRICS}
 
-    def grads_of(params, batch):
+    def grads_of(params, batch, weights=None):
         if tcfg.microbatches <= 1:
             return one(params, batch)
         g_acc = m_acc = None
-        for mb in _split_microbatches(batch, tcfg.microbatches):
+        for i, mb in enumerate(_split_microbatches(batch, tcfg.microbatches)):
             g, m = one(params, mb)
+            if weights is not None:
+                w = weights[i].to(torch.float32)
+                g = tree_map(lambda x: x.float().mul_(w), g)
+                m = {k: m[k] * w for k in METRICS}
             if g_acc is None:
                 g_acc, m_acc = tree_map(lambda x: x.float(), g), m
             else:
                 g_acc = tree_map(lambda a, x: a.add_(x.float()), g_acc, g)
                 m_acc = {k: m_acc[k] + m[k] for k in METRICS}
             del g
+        if weights is not None:
+            return g_acc, m_acc
         inv = 1.0 / tcfg.microbatches
         return tree_map(lambda x: x.mul_(inv), g_acc), {k: v * inv for k, v in m_acc.items()}
 
     return grads_of
 
 
-def apply_update(tcfg: TrainConfig, params, opt_state, grads, metrics: dict, step) -> tuple[Any, Any, dict]:
+def apply_update(tcfg: TrainConfig, params, opt_state, grads, metrics: dict, step,
+                 layout: data_parallel.ZeroLayout | None = None,
+                 weight: torch.Tensor | float | None = None) -> tuple[Any, Any, dict]:
     """Clip, the cosine schedule at ``step``, then AdamW, which writes the
     new parameters and moments into ``params`` and ``opt_state``.
-    -> (params, opt_state, metrics with grad_norm and lr)."""
-    grads, gnorm = clip_by_global_norm(grads, tcfg.clip_norm)
+    -> (params, opt_state, metrics with grad_norm and lr).  With a
+    data-parallel ``layout``, ``grads`` and ``metrics`` are this rank's on its
+    rows, to be scaled by ``weight`` (``rank_grads``): the exchange makes
+    them the global batch's, and ``opt_state`` holds this rank's moment
+    blocks."""
     lr = cosine_with_warmup(step, peak_lr=tcfg.peak_lr, warmup_steps=tcfg.warmup_steps,
                             total_steps=tcfg.total_steps)
-    params, opt_state = adamw_update(grads, opt_state, params, lr=lr, weight_decay=tcfg.weight_decay)
+    if layout is None:
+        grads, gnorm = clip_by_global_norm(grads, tcfg.clip_norm)
+        params, opt_state = adamw_update(grads, opt_state, params, lr=lr, weight_decay=tcfg.weight_decay)
+        return params, opt_state, dict(metrics, grad_norm=gnorm, lr=lr)
+    local, metrics = layout.reduce(grads, metrics, weight)
+    del grads
+    gnorm = layout.global_norm(local)
+    scale = clip_scale(gnorm, tcfg.clip_norm)
+    for g in local:
+        g.mul_(scale)
+    adamw_update(local, opt_state, layout.local(params), lr=lr, weight_decay=tcfg.weight_decay, ndims=layout.ndims)
+    layout.all_gather_(params)
     return params, opt_state, dict(metrics, grad_norm=gnorm, lr=lr)
 
 
-def make_train_step(model: Model, tcfg: TrainConfig) -> Callable:
+def rank_grads(grads_of: Callable, layout: data_parallel.ZeroLayout | None, model: Model, tcfg: TrainConfig,
+               params, batch: dict) -> tuple[Any, dict, torch.Tensor | float | None]:
+    """-> (grads, metrics, the weight ``apply_update`` scales them by) on
+    ``batch``: without a layout, the whole batch's (weight None); with one,
+    this rank's rows of the global batch, each microbatch weighted by its
+    loss tokens (``data_parallel.microbatch_weights``; one microbatch's
+    weight is left to the exchange, which applies it in fp32)."""
+    if layout is None:
+        return (*grads_of(params, batch), None)
+    local, w = layout.rows(batch, model.cfg, tcfg.microbatches)
+    if tcfg.microbatches <= 1:
+        return (*grads_of(params, local), w[0])
+    return (*grads_of(params, local, w), 1.0)
+
+
+def _data_parallel(model: Model, mesh: Mesh | None, params) -> data_parallel.ZeroLayout | None:
+    """The ZeRO-1 layout of a data-parallel ``mesh`` (None without a mesh or
+    at one data rank); raises for what is not trained on a mesh."""
+    if mesh is None:
+        return None
+    data_parallel.check_trainable(model.cfg, mesh)
+    return data_parallel.ZeroLayout(params, mesh) if data_parallel.data_size(mesh) > 1 else None
+
+
+def make_train_step(model: Model, tcfg: TrainConfig, mesh: Mesh | None = None) -> Callable:
     """-> train_step(params, opt_state, batch, step) -> (params, opt_state,
     metrics).  ``step`` drives the LR schedule; the new parameters and
-    moments are written into the old tensors."""
+    moments are written into the old tensors.  With a data-parallel
+    ``mesh``, ``batch`` is the global batch, of which this rank computes its
+    rows, and ``opt_state`` holds this rank's moment blocks
+    (``ZeroLayout(params, mesh).zero_state(params)``)."""
     grads_of = make_grad_fn(model, tcfg)
+    layouts: list = []
 
     def train_step(params, opt_state, batch, step):
-        grads, metrics = grads_of(params, batch)
-        return apply_update(tcfg, params, opt_state, grads, metrics, step)
+        if not layouts:
+            layouts.append(_data_parallel(model, mesh, params))
+        grads, metrics, weight = rank_grads(grads_of, layouts[0], model, tcfg, params, batch)
+        return apply_update(tcfg, params, opt_state, grads, metrics, step, layouts[0], weight)
 
     return train_step
 
 
 class Trainer:
-    """Single-controller training harness with restart semantics."""
+    """Single-controller training harness with restart semantics; with a
+    ``mesh``, one rank of a data-parallel job (every rank builds one, on
+    the same parameters)."""
 
-    def __init__(self, model: Model, tcfg: TrainConfig, params: Any):
+    def __init__(self, model: Model, tcfg: TrainConfig, params: Any, mesh: Mesh | None = None):
         self.model = model
         self.tcfg = tcfg
         self.params = params
-        self.opt_state = adamw_init(params)
+        self.layout = _data_parallel(model, mesh, params)  # the ZeRO-1 layout of a data-parallel trainer
+        self.leader = self.layout is None or self.layout.idx == 0  # logs and writes checkpoints
+        self.opt_state = adamw_init(params) if self.layout is None else self.layout.zero_state(params)
         self.step = 0
         self.retries = 0
         self._grads_of = make_grad_fn(model, tcfg)
-        self._ckpt = AsyncCheckpointer(tcfg.ckpt_dir) if tcfg.ckpt_dir else None
+        self._ckpt = AsyncCheckpointer(tcfg.ckpt_dir) if tcfg.ckpt_dir and self.leader else None
 
     # -- fault tolerance ----------------------------------------------------
 
     def try_resume(self) -> bool:
-        """Restore the newest complete checkpoint if one exists."""
+        """Restore the newest complete checkpoint if one exists; on a
+        data-parallel mesh each rank cuts its moment blocks out of the whole
+        leaves, whatever mesh wrote them."""
         if not self.tcfg.ckpt_dir:
             return False
         step = latest_step(self.tcfg.ckpt_dir)
         if step is None:
             return False
         state = {"params": self.params, "opt": self.opt_state}
-        state, step = restore_checkpoint(self.tcfg.ckpt_dir, state, step=step)
+        shardings = None
+        if self.layout is not None:
+            cut = self.layout.shardings(self.params)
+            shardings = {"params": None, "opt": AdamWState(step=None, mu=cut, nu=cut)}
+        state, step = restore_checkpoint(self.tcfg.ckpt_dir, state, step=step, shardings=shardings)
         self.params, self.opt_state = state["params"], state["opt"]
         self.step = step
         return True
 
+    def state(self) -> dict | None:
+        """The whole training state a checkpoint holds: the parameters and the
+        moments.  On a data-parallel mesh every rank calls it (each sends its
+        moment blocks to rank 0): the whole state on rank 0, None on the
+        others."""
+        opt = self.opt_state
+        if self.layout is not None:
+            mu, nu = self.layout.gather(opt.mu, self.params), self.layout.gather(opt.nu, self.params)
+            if not self.leader:
+                return None
+            opt = AdamWState(step=opt.step, mu=mu, nu=nu)
+        return {"params": self.params, "opt": opt}
+
     def _checkpoint(self) -> None:
+        if not self.tcfg.ckpt_dir:
+            return
+        # rank 0 has every rank's blocks, so every rank has reached the save, before it writes (and marks it DONE)
+        state = self.state()
         if self._ckpt is not None:
-            self._ckpt.save(self.step, {"params": self.params, "opt": self.opt_state})
+            self._ckpt.save(self.step, state)
 
     # -- the loop -------------------------------------------------------------
 
     def run(self, batches: Iterable[dict], n_steps: int, log_every: int = 10) -> dict:
-        """Run n_steps.  A gradient computation that fails with a transient
-        error is tried again (up to ``max_step_retries`` times, each
-        counted); a persistent failure, or any failure of the update,
-        re-raises after the checkpoint writer is flushed."""
+        """Run n_steps on the (global) batches.  A gradient computation that
+        fails with a transient error is tried again (up to
+        ``max_step_retries`` times, each counted); a persistent failure, or
+        any failure of the update, re-raises after the checkpoint writer is
+        flushed."""
         it = iter(batches)
         metrics: dict = {}
         t0 = time.perf_counter()
@@ -175,7 +271,8 @@ class Trainer:
                 batch = next(it)
                 for attempt in range(self.tcfg.max_step_retries + 1):
                     try:
-                        grads, metrics = self._grads_of(self.params, batch)
+                        grads, metrics, weight = rank_grads(self._grads_of, self.layout, self.model, self.tcfg,
+                                                            self.params, batch)
                         break
                     except TRANSIENT_ERRORS as e:
                         if attempt == self.tcfg.max_step_retries:
@@ -184,7 +281,7 @@ class Trainer:
                         print(f"step {self.step}: retry {attempt + 1} after {type(e).__name__}: {e}")
                         torch.cuda.empty_cache()
                 self.params, self.opt_state, metrics = apply_update(
-                    self.tcfg, self.params, self.opt_state, grads, metrics, self.step
+                    self.tcfg, self.params, self.opt_state, grads, metrics, self.step, self.layout, weight
                 )
                 del grads
                 self.step += 1
@@ -193,13 +290,15 @@ class Trainer:
                 if log_every and self.step % log_every == 0:
                     dt = (time.perf_counter() - t0) / log_every
                     t0 = time.perf_counter()
-                    print(f"step {self.step:6d}  loss {float(metrics['loss']):8.4f}  "
-                          f"lr {float(metrics['lr']):.2e}  {dt * 1e3:7.1f} ms/step")
+                    if self.leader:
+                        print(f"step {self.step:6d}  loss {float(metrics['loss']):8.4f}  "
+                              f"lr {float(metrics['lr']):.2e}  {dt * 1e3:7.1f} ms/step")
         except BaseException:
             if self._ckpt:
                 self._ckpt.wait()
             raise
-        if self._ckpt:
+        if self.tcfg.ckpt_dir:
             self._checkpoint()
+        if self._ckpt:
             self._ckpt.wait()
         return metrics

@@ -79,7 +79,8 @@ def test_port_and_chip_smoke_import_no_jax_or_repro():
             "repro_torch.check.findings", "repro_torch.check.__main__"} <= set(res["modules"])
     assert {"repro_torch.distributed", "repro_torch.distributed.collective_matmul", "repro_torch.distributed.sharding",
             "repro_torch.distributed.tp_layout", "repro_torch.launch.mesh",
-            "repro_torch.models.modelflags"} <= set(res["modules"])
+            "repro_torch.models.modelflags", "repro_torch.distributed.annotate", "repro_torch.distributed.fault",
+            "repro_torch.distributed.data_parallel"} <= set(res["modules"])
     assert res["bad"] == []
 
 
@@ -170,6 +171,18 @@ def test_entry_point_without_device_asks_for_the_card(name):
         pytest.skip("a card is present: the default device is usable here")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ENTRY_POINTS[name]()
+
+
+def test_launcher_distributed_without_a_card_a_rank_asks_for_them(monkeypatch):
+    """``launch/train.py --distributed`` on the card needs one card a rank:
+    a rank whose LOCAL_RANK has no card exits naming the fix, before any
+    process group or CUDA work, never training on the CPU."""
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    monkeypatch.setenv("RANK", str(cards))
+    monkeypatch.setenv("WORLD_SIZE", str(cards + 1))
+    monkeypatch.setenv("LOCAL_RANK", str(cards))
+    with pytest.raises(SystemExit, match="needs a card a rank.*torchrun --nproc-per-node N"):
+        launch_train.main(["--arch", "internlm2-1.8b", "--smoke", "--distributed"])
 
 
 def test_launcher_model_parallel_without_enough_cards_asks_for_them():

@@ -1717,3 +1717,66 @@ def test_tp_serving_over_nccl_matches_one_card(cards2, tmp_path):
         assert torch.equal(tokens, results[0][0]) and tokens.shape == (4, 6)
         assert gap <= 5e-2, gap
         assert (k1, fl) == (2 * 7 * cards2, 2)  # 2 layers x 7 sharded GEMMs x tp ring steps; flash once a layer
+
+
+# ---------------------------------------------------------------------------
+# Data-parallel training: ZeRO-1 moments over the "data" axis, two ranks
+# sharing one card over Gloo (the exchange through host memory).
+# ---------------------------------------------------------------------------
+
+
+def _dp_train_rank(rank, world):
+    """Three Trainer steps of SMOKE internlm2-1.8b (fp32 masters, bf16
+    compute) at dp ``world`` on card 0 -> (the first and the third step's
+    metrics, its initial and final parameters on the host, K1 and flash
+    launches of the third step)."""
+    from repro_torch import configs
+    from repro_torch.core.tree import leaves
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.registry import get_model
+    from repro_torch.train.loop import TrainConfig, Trainer
+
+    torch.cuda.set_device(0)
+    cfg = configs.get_smoke("internlm2-1.8b")
+    model = get_model(cfg)
+    mesh = None if world == 1 else Mesh((world, 1), ("data", "model"))
+    trainer = Trainer(model, TrainConfig(peak_lr=1e-3, warmup_steps=1, total_steps=4),
+                      model.init(0, "cuda", dtype=torch.float32), mesh)
+    start = [t.cpu() for t in leaves(trainer.params)]
+    batch = make_batch(cfg, batch=4, seq=32, kind="train", seed=0, device="cuda")
+    first = trainer.run(iter([batch]), 1, log_every=0)  # step 1 at lr 0 (the warmup), metrics at the initial weights
+    first = {k: float(v) for k, v in first.items()}
+    trainer.run(iter([batch]), 1, log_every=0)  # the first update, at lr 1e-3
+    k1, fl = mm_kernel.launches, attn_kernel.launches
+    m = trainer.run(iter([batch]), 1, log_every=0)  # metrics after that update
+    k1, fl = mm_kernel.launches - k1, attn_kernel.launches - fl
+    return first, {k: float(v) for k, v in m.items()}, start, [t.cpu() for t in leaves(trainer.params)], k1, fl
+
+
+@pytest.mark.gpu
+def test_data_parallel_training_over_gloo_on_one_card_matches_one_card(cuda, tmp_path):
+    """dp 2 on one card against the one-card Trainer, three steps (the first
+    at lr 0): the third step's loss within 1e-2 and gradient norm within
+    5e-2 (bf16 compute at 2 rows a rank against 4), each limit below what a
+    dropped update reads (the one-card run's first step against its third);
+    every parameter leaf's change from the initial weights within 0.5
+    relative L2 of the one-card change (a skipped or misplaced update reads
+    1 or more); both ranks' parameters bit for bit equal; each rank's step
+    K1 21 x 2 layers at its rows and K3 once a layer."""
+    from repro_torch.launch.mesh import run_ranks
+
+    one_first, one_m, start, one_p, one_k1, one_fl = _dp_train_rank(0, 1)
+    assert (one_k1, one_fl) == (42, 2)
+    for k, tol in (("loss", 1e-2), ("grad_norm", 5e-2)):
+        assert abs(one_first[k] - one_m[k]) > tol * abs(one_m[k]), (k, one_first[k], one_m[k])
+    results = run_ranks(_dp_train_rank, 2, str(tmp_path), backend="gloo", args=(), timeout_s=180)
+    for _, m, p_start, p, k1, fl in results:
+        assert all(torch.equal(a, b) for a, b in zip(p_start, start, strict=True))
+        assert abs(m["loss"] - one_m["loss"]) <= 1e-2 * abs(one_m["loss"])
+        assert abs(m["grad_norm"] - one_m["grad_norm"]) <= 5e-2 * one_m["grad_norm"]
+        gaps = [((a - b).norm() / (b - p0).norm().clamp_min(1e-30)).item()
+                for a, b, p0 in zip(p, one_p, start, strict=True)]
+        assert max(gaps) <= 0.5, max(gaps)
+        assert all(torch.equal(a, b) for a, b in zip(p, results[0][3], strict=True))
+        assert (k1, fl) == (42, 2)

@@ -17,7 +17,7 @@
 * ``data/sharded.py``: the copy against the reference, batch for batch.
 * ``launch/train.py``: ``--smoke --device cpu`` a few steps, with a
   checkpoint and a resume; the MoE config (also at ``--layers 1``); the
-  refused flags.
+  refused flags (``--distributed`` itself: ``tests/test_torch_fault.py``).
 """
 
 import dataclasses
@@ -283,10 +283,18 @@ def test_launcher_reads_token_shards_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flag", ["--production-mesh", "--multi-pod", "--distributed"])
-def test_launcher_refuses_the_distributed_flags(flag, capsys):
-    with pytest.raises(SystemExit):
+def test_launcher_refuses_the_distributed_flags(flag, capsys, monkeypatch):
+    """``--production-mesh`` / ``--multi-pod`` train over a "model" axis,
+    which needs tensor-parallel training; ``--distributed`` outside
+    torchrun's environment has no process group.  Each exits naming the
+    fix."""
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(SystemExit) as e:
         launch_train.main(["--arch", "internlm2-1.8b", "--smoke", "--device", "cpu", flag])
-    assert "distributed part" in capsys.readouterr().err
+    msg = f"{e.value} {capsys.readouterr().err}"
+    assert ("under torchrun" if flag == "--distributed" else "tensor-parallel training") in msg
+    assert "torchrun --nproc-per-node N -m repro_torch.launch.train --distributed" in msg
 
 
 @pytest.mark.parametrize("extra", [[], ["--layers", "1", "--remat"]])
