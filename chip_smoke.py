@@ -257,8 +257,9 @@ from repro_torch.core.blocking import BlockPlan, derive_block_plan  # noqa: E402
 from repro_torch.core.hw import H100, dtype_bytes  # noqa: E402
 from repro_torch.distributed import collective_matmul as cm  # noqa: E402
 from repro_torch.distributed import data_parallel, fault  # noqa: E402
+from repro_torch.distributed import sharding  # noqa: E402
 from repro_torch.distributed.sharding import mesh_balance_report, zero1_specs  # noqa: E402
-from repro_torch.distributed.tp_layout import kv_heads  # noqa: E402
+from repro_torch.distributed.tp_layout import TPLayout, kv_heads  # noqa: E402
 from repro_torch.data.synthetic import (  # noqa: E402
     make_adversarial_trace,
     make_batch,
@@ -281,7 +282,7 @@ from repro_torch.kernels.systolic.ref import (  # noqa: E402
     quant_systolic_matmul_ref,
 )
 from repro_torch.launch import trace as trace_tools  # noqa: E402
-from repro_torch.launch.mesh import Mesh, run_ranks  # noqa: E402
+from repro_torch.launch.mesh import Mesh, batch_axes, run_ranks  # noqa: E402
 from repro_torch.launch.serve import init_params  # noqa: E402
 from repro_torch.models import attention as attn_model  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
@@ -542,6 +543,23 @@ DP_LOSS_RTOL = 1e-2
 DP_NORM_RTOL = 1e-2
 DP_DELTA_RTOL = 0.3
 OBS_BLOCKS, OBS_STEPS = 4, 4
+# Tensor-parallel training (the rings under autograd, the vocab-parallel loss,
+# ZeRO-1 over "data" of the TP shards): on one card full-width glm4-9b at
+# TPT_ONE_CARD_LAYERS of its 40 layers over two Gloo ranks at (1, 2) (16
+# query heads and one KV head a rank), against one card's DP_STEPS steps of
+# the same model under the data-parallel gates; with four cards or more,
+# glm4-9b at full depth over (1, 4) NCCL, its step 1 held to one card's bf16
+# forward of the same weights (the whole model's training state does not fit
+# one card), and full-depth internlm2-1.8b over (2, 2) under the one-card
+# gates.  Each rank first holds the ring Functions' dX and dW at glm4-9b's
+# shard shapes against plain fp32 products on the card, within
+# TPT_GRAD_RTOL of each gradient's largest magnitude (one bf16 rounding of
+# the output), and times them.
+TPT_ARCH = "glm4-9b"
+TPT_ONE_CARD_LAYERS = 2
+TPT_FOUR_CARD_SHAPES = ((1, 4), (2, 2))
+TPT_GRAD_RTOL = 1e-2
+TPT_RING_REPS = 3
 OBS_STALE, OBS_STALE_GEMM = 3.0, "ffn_in"
 MOE_NUDGES, MOE_NUDGE_STEPS = 2, 2  # one-ulp nudges per model, decode steps each (3, 3 until cut for time)
 SOURCES = {
@@ -2604,9 +2622,11 @@ def phase_distributed(smi: str, ref: dict) -> dict:
     def pairs(d):
         return [[*k, c] for k, c in sorted(d.items())]
 
-    dp_r = phase_data_parallel(smi, cards)
+    tpt = tpt_prepare(cards)
+    dp_r, tpt_results = phase_data_parallel(smi, cards, tpt["cases"] if tpt["world"] == dp_world(cards) else None)
+    tpt_r = phase_tp_train(smi, cards, tpt, tpt_results)
     return {"world": world, "backend": backend, "transport": results[0]["transport"], "wall_s": wall,
-            "data_parallel": dp_r,
+            "data_parallel": dp_r, "tp_train": tpt_r,
             "logits_max_abs_err": errs, "logits_scale": max(1.0, ref["logits"][0].abs().max().item()),
             "ranks": [{**{k: r[k] for k in ("rank", "card", "transport", "checks", "check_launches", "resident_gb",
                                             "prefill_ms", "decode_ms_per_step")},
@@ -2622,8 +2642,7 @@ def phase_distributed(smi: str, ref: dict) -> dict:
 
 def dp_config(layers: int | None):
     """internlm2-1.8b at full width, its first ``layers`` layers (all: None)."""
-    cfg = configs.get_config(ARCH)
-    return cfg if layers is None else cfg.scaled(n_layers=layers)
+    return tpt_config(ARCH, layers)
 
 
 def dp_expected(cfg, rows: int) -> dict:
@@ -2683,8 +2702,8 @@ def dp_step(trainer, batch) -> dict:
 
 def dp_json(steps: list[dict]) -> list[dict]:
     """``dp_step`` readings with their tuple-keyed counts as [*key, count] lists."""
-    return [{**st, **{k: [[*key, c] for key, c in sorted(st[k].items())] for k in ("k1_shapes", "flash_heads")}}
-            for st in steps]
+    return [{**st, **{k: [[*key, c] for key, c in sorted(st[k].items())]
+                      for k in ("k1_shapes", "flash_heads", "flash_shapes") if k in st}} for st in steps]
 
 
 def dp_checkpoint(mesh: Mesh, root: str) -> dict | None:
@@ -2749,11 +2768,32 @@ def dp_rank(rank: int, world: int, cards: int, layers: int | None, cache_path: s
     return out
 
 
-def phase_data_parallel(smi: str, cards: int) -> dict:
+def dp_world(cards: int) -> int:
+    """The data-parallel part's ranks: one a card (at most TP_MAX_RANKS), or
+    DP_ONE_CARD_RANKS sharing one card."""
+    return min(cards, TP_MAX_RANKS) if cards >= 2 else DP_ONE_CARD_RANKS
+
+
+def train_rank(rank: int, world: int, cards: int, dp_args: tuple, tpt_cases: list[dict] | None) -> dict:
+    """One rank of the distributed phase's training runs: the data-parallel
+    run (``dp_rank``), then in the same process, when they take as many
+    ranks, the tensor-parallel ones (``tpt_rank``, with its own wall): one
+    process start for both."""
+    out = {"dp": dp_rank(rank, world, cards, *dp_args)}
+    if tpt_cases:
+        t0 = time.perf_counter()
+        out["tpt"] = tpt_rank(rank, world, cards, dp_args[1], tpt_cases)
+        out["tpt"]["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def phase_data_parallel(smi: str, cards: int, tpt_cases: list[dict] | None = None) -> tuple[dict, list | None]:
     """Data-parallel training on the card(s): DP_STEPS steps on one card in
-    this process, then ``dp_rank`` on every rank, gated here against them.
-    A rank's failure fails the run."""
-    world = min(cards, TP_MAX_RANKS) if cards >= 2 else DP_ONE_CARD_RANKS
+    this process, then ``dp_rank`` on every rank, gated here against them;
+    ``tpt_cases`` (the tensor-parallel runs) run in the same ranks after it.
+    -> (the readings, the ranks' ``tpt_rank`` results or None).  A rank's
+    failure fails the run."""
+    world = dp_world(cards)
     backend = "nccl" if cards >= 2 else "gloo"
     layers = None if cards >= 2 else DP_ONE_CARD_LAYERS
     weak = cards >= 2
@@ -2783,9 +2823,11 @@ def phase_data_parallel(smi: str, cards: int) -> dict:
                f"{BATCH * PROMPT})")
     reset_counts()
     t0 = time.perf_counter()
-    results = run_ranks(dp_rank, world, workdir, backend=backend, timeout_s=TP_TIMEOUT_S,
-                        args=(cards, layers, os.path.join(TUNE_DIR, "untuned.json"), ref_path, ckpt_root, weak))
-    ranks_wall = time.perf_counter() - t0
+    both = run_ranks(train_rank, world, workdir, backend=backend, timeout_s=TP_TIMEOUT_S,
+                     args=(cards, (layers, os.path.join(TUNE_DIR, "untuned.json"), ref_path, ckpt_root, weak), tpt_cases))
+    results = [r["dp"] for r in both]
+    tpt_results = [r["tpt"] for r in both] if tpt_cases else None
+    ranks_wall = time.perf_counter() - t0 - (max(r["wall_s"] for r in tpt_results) if tpt_results else 0.0)
     os.remove(ref_path)
     rows = BATCH // world
     want_k1 = dp_expected(cfg, rows)
@@ -2879,8 +2921,397 @@ def phase_data_parallel(smi: str, cards: int) -> dict:
             f"exchange p50 {[round(x, 3) for x in ex]} ms a step for {moved / 1e9:.2f} GB a rank against its NVLink "
             f"bound {bound_ms:.3f} ms (18 links); mesh_balance_report (bf16 all-reduce over one link): all-reduce "
             f"{bal['t_allreduce_s'] * 1e3:.3f} ms, compute {bal['t_compute_s'] * 1e3:.3f} ms ({smi})")
-    out["wall_s"] = time.perf_counter() - t_phase
+    out["wall_s"] = time.perf_counter() - t_phase - (max(r["wall_s"] for r in tpt_results) if tpt_results else 0.0)
     say(f"    data-parallel part: {out['wall_s']:.1f} s ({ranks_wall:.1f} s for the ranks: spawn, init, steps, checks)")
+    return out, tpt_results
+
+
+# ---------------------------------------------------------------------------
+# The distributed phase: tensor-parallel training
+# ---------------------------------------------------------------------------
+
+
+def tpt_config(arch: str, layers: int | None):
+    """``arch`` at full width, its first ``layers`` layers (all: None)."""
+    cfg = configs.get_config(arch)
+    return cfg if layers is None else cfg.scaled(n_layers=layers)
+
+
+def tp_train_expected(cfg, tp: int, idx: int, rows: int) -> collections.Counter:
+    """K1 launches by (M, K, N) on rank ``idx`` of one tensor-parallel
+    training step over ``rows`` token rows: the forward's rings as
+    ``tp_expected`` counts them; in the backward each column-parallel GEMM
+    (K, N / tp) runs its dA as a reduce-scatter ring, tp steps at (R, N / tp,
+    K), and its dB as one launch at (K, R tp, N / tp) on the rows the
+    forward's ring gathered, and each row-parallel GEMM (K / tp, N) its dA as
+    an all-gather ring, tp steps at (R, N, K / tp), and its dB as one launch
+    at (K / tp, R tp, N) on the gathered cotangent (R = ceil(rows / tp)).
+    The head is a library product."""
+    hd, d, layers = cfg.resolved_head_dim, cfg.d_model, cfg.n_layers
+    kv0, kv1 = kv_heads(cfg, tp, idx)
+    r = -(-rows // tp)
+    out = collections.Counter(tp_expected(cfg, tp, idx, rows))
+    for k, n in ((d, cfg.n_heads * hd // tp), (d, (kv1 - kv0) * hd), (d, (kv1 - kv0) * hd), (d, cfg.d_ff // tp),
+                 (d, cfg.d_ff // tp), (cfg.n_heads * hd // tp, d), (cfg.d_ff // tp, d)):
+        out[(r, n, k)] += tp * layers
+        out[(k, r * tp, n)] += layers
+    return out
+
+
+def tp_param_count(cfg, tp: int) -> int:
+    """The parameters a rank holds at ``tp``: the column- and row-parallel
+    weights, and the vocabulary where it divides, a tp-th; wk / wv, the
+    norms whole."""
+    hd, d = cfg.resolved_head_dim, cfg.d_model
+    vocab = cfg.vocab_size // tp if cfg.vocab_size % tp == 0 else cfg.vocab_size
+    layer = 2 * d + 2 * d * cfg.n_heads * hd // tp + 2 * d * cfg.n_kv_heads * hd + 3 * d * cfg.d_ff // tp
+    layer += 2 * hd if cfg.qk_norm else 0
+    return d + 2 * vocab * d + cfg.n_layers * layer
+
+
+def tp_zero1_bytes(whole, mesh: Mesh) -> int:
+    """The bytes of the two fp32 moments a rank holds as ``zero1_specs``
+    assigns them over both axes: each leaf divided by the sizes of the axes
+    its spec shards it over."""
+    total = 0
+    for leaf, spec in zip(tree_util.leaves(whole), tree_util.leaves(zero1_specs(whole, mesh)), strict=True):
+        div = 1
+        for ax in spec:
+            for a in (ax if isinstance(ax, tuple) else (ax,)):
+                div *= 1 if a is None else mesh.shape[a]
+        total += 2 * 4 * leaf.numel() // div
+    return total
+
+
+def tp_same(trainer) -> bool:
+    """Every leaf bit for bit equal to its group's first rank's: a leaf
+    replicated over "model" on every rank, a shard on the ranks of its data
+    group; each broadcast from there (on Gloo through host memory) and
+    compared as integers."""
+    layout = trainer.layout
+    world = torch.distributed.group.WORLD
+    gloo = torch.distributed.get_backend() == torch.distributed.Backend.GLOO
+    ok = True
+    for t, sharded in zip(tree_util.leaves(trainer.params), layout.model_sharded, strict=True):
+        if sharded and layout.dp == 1:
+            continue
+        group = layout.mesh.group(batch_axes(layout.mesh)) if sharded else world
+        src = layout.data_ranks[0] if sharded else 0
+        mine = t.detach().cpu() if gloo else t.detach()
+        got = mine.clone()
+        torch.distributed.broadcast(got, src, group=group)
+        ok &= torch.equal(got.view(torch.int32), mine.view(torch.int32))
+    return bool(ok)
+
+
+def tp_ring_checks(mesh: Mesh, cfg) -> list[dict]:
+    """The ring Functions under autograd at ``cfg``'s shard shapes (M =
+    BATCH x PROMPT; wq's and gate's all-gather rings, wo's and down's
+    reduce-scatter rings), bf16: this rank's dX and dW against plain fp32
+    products of the whole problem on the card, and the forward's and the
+    backward's ms (CUDA events, the median of TPT_RING_REPS)."""
+    tp, idx = mesh.shape["model"], mesh.axis_index("model")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)  # the same operands on every rank
+    m, d, hq = BATCH * PROMPT, cfg.d_model, cfg.n_heads * cfg.resolved_head_dim
+    rows = slice(idx * m // tp, (idx + 1) * m // tp)
+    out = []
+    for name, mode, k, n in (("wq", "allgather", d, hq), ("gate", "allgather", d, cfg.d_ff),
+                             ("wo", "reducescatter", hq, d), ("down", "reducescatter", cfg.d_ff, d)):
+        a = randn((m, k), gen, BF16)
+        b = (randn((k, n), gen, torch.float32) * k**-0.5).to(BF16)
+        dy = randn((m, n), gen, BF16)
+        da, db = dy.float() @ b.float().t(), a.float().t() @ dy.float()  # the plain gradients, fp32
+        if mode == "allgather":
+            cols = slice(idx * n // tp, (idx + 1) * n // tp)
+            x, w, gy, want_x, want_w = a[rows].clone(), b[:, cols].contiguous(), dy[:, cols], da[rows], db[:, cols]
+            fn = cm.all_gather_matmul
+        else:
+            kk = slice(idx * k // tp, (idx + 1) * k // tp)
+            x, w, gy, want_x, want_w = a[:, kk].contiguous(), b[kk].clone(), dy[rows], da[:, kk], db[kk]
+            fn = cm.reduce_scatter_matmul
+        x.requires_grad_()
+        w.requires_grad_()
+        fwd, bwd = [], []
+        for _ in range(TPT_RING_REPS):
+            x.grad = w.grad = None
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            torch.cuda.synchronize()
+            ev[0].record()
+            y = fn(x, w, mesh=mesh)
+            ev[1].record()
+            y.backward(gy)
+            ev[2].record()
+            torch.cuda.synchronize()
+            fwd.append(ev[0].elapsed_time(ev[1]))
+            bwd.append(ev[1].elapsed_time(ev[2]))
+        ex = (x.grad.float() - want_x).abs().max().item() / want_x.abs().max().item()
+        ew = (w.grad.float() - want_w).abs().max().item() / want_w.abs().max().item()
+        out.append({"gemm": name, "mode": mode, "m": m, "k": k, "n": n, "tp": tp, "dx_err": ex, "dw_err": ew,
+                    "ok": bool(torch.isfinite(x.grad).all() and torch.isfinite(w.grad).all())
+                    and max(ex, ew) <= TPT_GRAD_RTOL,
+                    "fwd_ms": statistics.median(fwd), "bwd_ms": statistics.median(bwd)})
+        del a, b, dy, da, db, x, w, gy, want_x, want_w, y
+    torch.cuda.empty_cache()
+    return out
+
+
+def tpt_case(rank: int, arch: str, layers: int | None, shape: tuple[int, int], ref_path: str | None,
+             rings: bool, trace: bool = False) -> dict:
+    """One tensor-parallel training run on this rank: DP_STEPS Trainer steps
+    of ``arch`` from seed-0 shards (``TPLayout.init_shards``) on the global
+    batch, each step's launches, ms and bitwise agreement; with
+    ``ref_path`` (one card's parameters after DP_STEPS) each leaf's squared
+    distance from them and their squared change from the initial weights,
+    on this rank's shard; with ``trace`` one more step under torch.profiler
+    (``traced_train_step``), a reading, not a gate."""
+    mesh = Mesh(shape, ("data", "model"))
+    cfg = tpt_config(arch, layers)
+    model = get_model(cfg)
+    layout = TPLayout(cfg, mesh)
+    out = {"arch": arch, "layers": cfg.n_layers, "shape": shape, "transport": cm.transport(mesh)}
+    if rings:
+        out["rings"] = tp_ring_checks(mesh, cfg)
+    trainer = Trainer(model, TrainConfig(**TRAIN_TCFG), layout.init_shards(model, SEED, "cuda"), mesh)
+    out["param_bytes"] = sum(t.numel() * t.element_size() for t in tree_util.leaves(trainer.params))
+    out["want_param_bytes"] = 4 * tp_param_count(cfg, shape[1])
+    out["moment_bytes"] = trainer.layout.moment_bytes(trainer.opt_state)
+    out["want_moment_bytes"] = tp_zero1_bytes(trainer.whole, mesh)
+    batch = make_batch(cfg, batch=BATCH, seq=PROMPT, kind="train", seed=SEED, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    out["steps"] = []
+    for _ in range(DP_STEPS):
+        st = dp_step(trainer, batch)
+        st["flash_shapes"] = flash_shape_counts()
+        st["same"] = tp_same(trainer)
+        out["steps"].append(st)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if ref_path is not None:
+        ref = torch.load(ref_path, mmap=True, weights_only=True)
+        start = layout.init_shards(model, SEED, "cuda")  # the initial weights, drawn again
+        out["sq"] = []
+        for (key, a), b, p0, spec, sharded in zip(tree_util.leaves_with_path(trainer.params), tree_util.leaves(ref),
+                                                   tree_util.leaves(start), layout.leaf_specs(trainer.whole),
+                                                   trainer.layout.model_sharded, strict=True):
+            b = sharding.shard_of(b, spec, mesh, torch.distributed.get_rank()).to(a.device)
+            out["sq"].append((key, sharded, ((a - b).float().norm() ** 2).item(), ((b - p0).float().norm() ** 2).item()))
+        del ref, start
+    if trace:
+        try:
+            out["trace"] = traced_train_step(trainer, batch)  # its top kernels name NCCL's where they weigh
+        except Exception as e:  # a measurement only: the profiler in a rank process is untried
+            out["trace"] = {"error": f"{type(e).__name__}: {e}"}
+    del trainer, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def tpt_rank(rank: int, world: int, cards: int, cache_path: str, cases: list[dict]) -> dict:
+    """One rank of the tensor-parallel training runs (a process of its
+    own): ``tpt_case`` for each of ``cases``."""
+    torch.cuda.set_device(rank % cards)  # before any CUDA work
+    pin_cache(cache_path)
+    out = {"rank": rank, "card": torch.cuda.current_device(), "cases": [tpt_case(rank, **c) for c in cases]}
+    reset_counts()
+    out["plans"] = {"systolic": sorted(RUN_PLANS["systolic"]), "attention": sorted(RUN_PLANS["attention"])}
+    return out
+
+
+def tpt_one_card(arch: str, layers: int | None, path: str) -> list[dict]:
+    """One card's DP_STEPS Trainer steps of ``arch`` (fp32 masters from seed
+    0, the training phase's batch), exact launches each; the parameters after
+    them saved to ``path``."""
+    cfg = tpt_config(arch, layers)
+    model = get_model(cfg)
+    trainer = Trainer(model, TrainConfig(**TRAIN_TCFG), model.init(SEED, "cuda", dtype=torch.float32))
+    batch = make_batch(cfg, batch=BATCH, seq=PROMPT, kind="train", seed=SEED, device="cuda")
+    one = [dp_step(trainer, batch) for _ in range(DP_STEPS)]
+    torch.save(tree_util.tree_map(lambda t: t.cpu(), trainer.params), path)
+    del trainer, batch
+    torch.cuda.empty_cache()
+    for i, st in enumerate(one):
+        expect(st["launches"] == {"systolic_mmm": 21 * cfg.n_layers, "systolic_qmm": 0, "flash_attn": cfg.n_layers,
+                                  "grouped_mmm": 0} and st["k1_shapes"] == dp_expected(cfg, BATCH),
+               f"{arch} at {cfg.n_layers} layers, one card, step {i + 1}: launches {st['launches']} exact (K1 21 x "
+               f"{cfg.n_layers} at M = {BATCH * PROMPT})")
+    return one
+
+
+def tpt_bf16_loss(arch: str) -> float:
+    """One card's loss of ``arch``'s seed-0 weights in bf16 (the masters'
+    values cast once, as each use casts them) on the training batch, no
+    grad: what a model too large to train on one card is held to."""
+    cfg = tpt_config(arch, None)
+    model = get_model(cfg)
+    params = model.init(SEED, "cuda", dtype=BF16)
+    batch = make_batch(cfg, batch=BATCH, seq=PROMPT, kind="train", seed=SEED, device="cuda")
+    with torch.no_grad():
+        loss = float(model.loss_fn(params, batch)[0])
+    del params, batch
+    torch.cuda.empty_cache()
+    reset_counts()
+    return loss
+
+
+def tpt_gates(case: dict, ranks: list[dict], one: list[dict] | None, ref_loss: float | None, smi: str) -> dict:
+    """The gates of one tensor-parallel training run over its ranks' readings
+    (``tpt_case``), against one card's steps (``one``) or its bf16 loss."""
+    shape = case["shape"]
+    mesh = Mesh(shape, ("data", "model"))
+    dp, tp = shape
+    cfg = tpt_config(case["arch"], case["layers"])
+    rows = BATCH // dp * PROMPT
+    label = f"{case['arch']} at {cfg.n_layers} layers, {shape} ('data', 'model')"
+    for r in ranks:
+        idx = mesh.coords(r["rank"])["model"]
+        c = r["case"]
+        want_k1 = dict(tp_train_expected(cfg, tp, idx, rows))
+        kv0, kv1 = kv_heads(cfg, tp, idx)
+        heads = {(cfg.n_heads // tp, kv1 - kv0): cfg.n_layers}
+        want = {"systolic_mmm": sum(want_k1.values()), "systolic_qmm": 0, "flash_attn": cfg.n_layers,
+                "grouped_mmm": 0}
+        say(f"    {label} rank {r['rank']} on card {r['card']}, transport={c['transport']}: step ms "
+            f"{[round(st['ms'], 3) for st in c['steps']]}, peak {c['peak_gb']:.2f} GB, parameters "
+            f"{c['param_bytes'] / 1e9:.3f} GB, moments {c['moment_bytes'] / 1e9:.3f} GB ({smi})")
+        for i, st in enumerate(c["steps"]):
+            expect(st["launches"] == want and st["k1_shapes"] == want_k1 and st["flash_heads"] == heads
+                   and st["flash_shapes"] == {(BATCH // dp, PROMPT, PROMPT): cfg.n_layers},
+                   f"{label} rank {r['rank']} step {i + 1}: launches {st['launches']}, K1 by shape "
+                   f"{sorted(st['k1_shapes'].items())}, flash by heads {st['flash_heads']} by (B, Sq, Skv) "
+                   f"{st['flash_shapes']}; want K1 {want['systolic_mmm']} ({14 * tp + 7} a layer: 7 rings forward, "
+                   f"7 backward, 7 dW) by shape {sorted(want_k1.items())}, K3 {cfg.n_layers} at {tuple(heads)}")
+            expect(st["same"], f"{label} rank {r['rank']} step {i + 1}: every leaf replicated over 'model' bit for "
+                               f"bit rank 0's, every shard its data group's")
+            first = ranks[0]["case"]["steps"][i]
+            expect(st["loss"] == first["loss"] and st["grad_norm"] == first["grad_norm"],
+                   f"{label} rank {r['rank']} step {i + 1}: loss {st['loss']:.6f} and grad norm {st['grad_norm']:.6f}"
+                   f", the same on every rank")
+        expect(c["param_bytes"] == c["want_param_bytes"] and c["moment_bytes"] == c["want_moment_bytes"],
+               f"{label} rank {r['rank']}: parameter bytes {c['param_bytes']:,} = its shard's {c['want_param_bytes']:,};"
+               f" moment bytes {c['moment_bytes']:,} = zero1_specs' assignment {c['want_moment_bytes']:,}")
+        for ring in c.get("rings", []):
+            expect(ring["ok"], f"rank {r['rank']}: {ring['mode']} ring of {ring['gemm']} (M {ring['m']}, K {ring['k']}, "
+                               f"N {ring['n']}, tp {ring['tp']}) under autograd: dX {ring['dx_err']:.2e}, dW "
+                               f"{ring['dw_err']:.2e} of the largest plain fp32 gradient (tol {TPT_GRAD_RTOL}); fwd "
+                               f"{ring['fwd_ms']:.3f} ms, bwd {ring['bwd_ms']:.3f} ms ({smi})")
+        RUN_PLANS["systolic"].update(r["plans"]["systolic"])
+        RUN_PLANS["attention"].update(r["plans"]["attention"])
+    steps = ranks[0]["case"]["steps"]
+    out = {"arch": case["arch"], "layers": cfg.n_layers, "shape": list(shape), "transport": ranks[0]["case"]["transport"],
+           "ranks": [{"rank": r["rank"], "card": r["card"],
+                      **{k: r["case"][k] for k in ("param_bytes", "moment_bytes", "peak_gb")},
+                      "steps": dp_json(r["case"]["steps"]), "rings": r["case"].get("rings", [])} for r in ranks]}
+    if ref_loss is not None:
+        gap = abs(steps[0]["loss"] - ref_loss) / abs(ref_loss)
+        expect(math.isfinite(steps[0]["loss"]) and gap <= TRAIN_LOSS_RTOL,
+               f"{label} step 1 loss {steps[0]['loss']:.6f} vs one card's bf16 forward {ref_loss:.6f}: {gap:.2e} "
+               f"relative (tol {TRAIN_LOSS_RTOL})")
+        expect(all(math.isfinite(st["loss"]) for st in steps) and steps[-1]["loss"] < steps[0]["loss"],
+               f"{label}: the loss finite and falling over {DP_STEPS} steps on one batch: "
+               f"{[round(st['loss'], 6) for st in steps]}")
+        out.update(ref_loss=ref_loss, loss_gap=gap)
+    if one is not None:
+        first, ref1 = steps[0], one[0]
+        loss_gap = abs(first["loss"] - ref1["loss"]) / abs(ref1["loss"])
+        norm_gap = abs(first["grad_norm"] - ref1["grad_norm"]) / ref1["grad_norm"]
+        expect(math.isfinite(first["loss"]) and loss_gap <= TRAIN_LOSS_RTOL,
+               f"{label} step 1 loss {first['loss']:.6f} vs one card {ref1['loss']:.6f}: {loss_gap:.2e} relative "
+               f"(tol {TRAIN_LOSS_RTOL})")
+        expect(math.isfinite(first["grad_norm"]) and norm_gap <= TRAIN_NORM_RTOL,
+               f"{label} step 1 grad norm {first['grad_norm']:.6f} vs one card {ref1['grad_norm']:.6f}: "
+               f"{norm_gap:.2e} relative (tol {TRAIN_NORM_RTOL})")
+        last, ref_last = steps[DP_STEPS - 1], one[DP_STEPS - 1]
+        after = {k: abs(last[k] - ref_last[k]) / abs(ref_last[k]) for k in ("loss", "grad_norm")}
+        dropped = {k: abs(ref1[k] - ref_last[k]) / abs(ref_last[k]) for k in ("loss", "grad_norm")}
+        for k, tol in (("loss", DP_LOSS_RTOL), ("grad_norm", DP_NORM_RTOL)):
+            expect(math.isfinite(last[k]) and after[k] <= tol < dropped[k],
+                   f"{label} step {DP_STEPS} {k} {last[k]:.6f} vs one card {ref_last[k]:.6f}: {after[k]:.2e} "
+                   f"relative, within {tol}, which a dropped update ({dropped[k]:.2e}) exceeds")
+        # each leaf's distance from one card's and one card's change, summed over the ranks holding its blocks once
+        num, den = collections.defaultdict(float), collections.defaultdict(float)
+        for r in ranks:
+            coords = mesh.coords(r["rank"])
+            for key, sharded, a, b in r["case"]["sq"]:
+                if coords["data"] == 0 and (sharded or coords["model"] == 0):
+                    num[key] += a
+                    den[key] += b
+        gaps = [(math.sqrt(num[k]) / max(math.sqrt(den[k]), 1e-30), k) for k in num]
+        worst = max(gaps)
+        expect(worst[0] <= DP_DELTA_RTOL,
+               f"{label} after {DP_STEPS} steps: every parameter leaf's change from the initial weights within "
+               f"{DP_DELTA_RTOL} relative L2 of the one-card run's change (a skipped or misplaced update reads 1 or "
+               f"more): worst {worst[1]} {worst[0]:.2e} ({len(gaps)} leaves)")
+        out.update(one_card=dp_json(one), loss_gap=loss_gap, norm_gap=norm_gap, after_update_gap=after,
+                   dropped_update_gap=dropped, worst_leaf=worst[1], worst_leaf_change_gap=worst[0])
+    traces = [r["case"]["trace"] for r in ranks if "trace" in r["case"]]
+    if traces:
+        out["traced_step"] = traces
+        t = traces[0]
+        say(f"    {label} rank 0 traced step: " + (t["error"] if "error" in t else
+            f"wall {t['wall_ms']:.3f} ms, device busy {t['device_busy_ms']:.3f} ms (idle {t['idle_share']:.3f}), "
+            f"{t['device_kernels']} kernels; K1 {t['k1_ms']:.3f} ms over {t['k1_kernels']}, K3 {t['k3_ms']:.3f} ms; top "
+            f"{[(k['kernel'][:40], k['calls'], round(k['device_ms'], 3)) for k in t['top']]}") + f" ({smi})")
+    ms = [statistics.median(st["ms"] for st in r["case"]["steps"][1:]) for r in ranks]
+    out["step_ms"] = ms
+    out["tokens_per_s"] = BATCH * PROMPT / max(ms) * 1e3
+    say(f"    {label}: step p50 {[round(x, 3) for x in ms]} ms a rank, {out['tokens_per_s']:.1f} tokens/s, peak "
+        f"{[round(r['case']['peak_gb'], 2) for r in ranks]} GB; losses {[round(st['loss'], 6) for st in steps]} ({smi})")
+    return out
+
+
+def tpt_prepare(cards: int) -> dict:
+    """The tensor-parallel training runs on ``cards`` card(s) and their
+    one-card references, made in this process before any rank starts:
+    -> {"world", "backend", "cases" (``tpt_case``'s keyword arguments),
+    "refs" ((one card's steps, its bf16 loss) a case), "wall_s", "workdir"}."""
+    t0 = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="tpt_", dir=TUNE_DIR)
+    four = max(math.prod(s) for s in TPT_FOUR_CARD_SHAPES)
+    if cards >= four:
+        world = four
+        ref_path = os.path.join(workdir, "one_card_internlm2.pt")
+        cases = [{"arch": TPT_ARCH, "layers": None, "shape": TPT_FOUR_CARD_SHAPES[0], "ref_path": None, "rings": True,
+                  "trace": True},
+                 {"arch": ARCH, "layers": None, "shape": TPT_FOUR_CARD_SHAPES[1], "ref_path": ref_path, "rings": False}]
+        refs = [(None, tpt_bf16_loss(TPT_ARCH)), (tpt_one_card(ARCH, None, ref_path), None)]
+    else:
+        world = TP_ONE_CARD_RANKS
+        ref_path = os.path.join(workdir, "one_card_glm4.pt")
+        cases = [{"arch": TPT_ARCH, "layers": TPT_ONE_CARD_LAYERS, "shape": (1, world), "ref_path": ref_path,
+                  "rings": True}]
+        refs = [(tpt_one_card(TPT_ARCH, TPT_ONE_CARD_LAYERS, ref_path), None)]
+    return {"world": world, "backend": "nccl" if cards >= 2 else "gloo", "cases": cases, "refs": refs,
+            "wall_s": time.perf_counter() - t0, "workdir": workdir}
+
+
+def phase_tp_train(smi: str, cards: int, prep: dict, results: list | None = None) -> dict:
+    """Tensor-parallel training on the card(s): ``tpt_prepare``'s runs, their
+    ranks' ``tpt_rank`` readings (``results``, from the data-parallel part's
+    ranks; else spawned here) gated here (``tpt_gates``).  A rank's failure
+    fails the run."""
+    t_phase = time.perf_counter()
+    world, backend = prep["world"], prep["backend"]
+    for case in prep["cases"]:
+        cfg = tpt_config(case["arch"], case["layers"])
+        say(f"[3] distributed: full-width {case['arch']} at {cfg.n_layers} of {configs.get_config(case['arch']).n_layers}"
+            f" layers ({get_model(cfg).n_params / 1e9:.3f} B parameters, fp32 masters computing in {cfg.dtype}) trained "
+            f"tensor-parallel on a {case['shape']} ('data', 'model') mesh over {world} ranks on {min(cards, world)} "
+            f"card(s), {backend}: {DP_STEPS} steps on {BATCH} x {PROMPT} tokens, AdamW {TRAIN_TCFG}")
+    if results is None:
+        reset_counts()
+        t0 = time.perf_counter()
+        results = run_ranks(tpt_rank, world, prep["workdir"], backend=backend, timeout_s=TP_TIMEOUT_S,
+                            args=(cards, os.path.join(TUNE_DIR, "untuned.json"), prep["cases"]))
+        for r in results:
+            r["wall_s"] = time.perf_counter() - t0  # the spawn included
+    ranks_wall = max(r["wall_s"] for r in results)
+    out = {"world": world, "backend": backend, "ranks_wall_s": ranks_wall, "runs": []}
+    for i, (case, (one, ref_loss)) in enumerate(zip(prep["cases"], prep["refs"], strict=True)):
+        ranks = [{**{k: r[k] for k in ("rank", "card", "plans")}, "case": r["cases"][i]} for r in results]
+        out["runs"].append(tpt_gates(case, ranks, one, ref_loss, smi))
+    shutil.rmtree(prep["workdir"], ignore_errors=True)
+    out["wall_s"] = prep["wall_s"] + ranks_wall + time.perf_counter() - t_phase
+    say(f"    tensor-parallel training part: {out['wall_s']:.1f} s ({prep['wall_s']:.1f} s for one card's reference, "
+        f"{ranks_wall:.1f} s in the ranks: checks, shards, steps, gaps)")
     return out
 
 

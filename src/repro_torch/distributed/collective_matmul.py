@@ -201,8 +201,7 @@ class _Ring:
             recv.copy_(host_recv)
 
 
-def all_gather_rows(x: torch.Tensor, group, tp: int) -> torch.Tensor:
-    """The ranks' (R, ...) row blocks stacked in rank order -> (tp * R, ...)."""
+def _all_gather_rows(x: torch.Tensor, group, tp: int) -> torch.Tensor:
     if tp == 1:
         return x
     if dist.get_backend(group) == dist.Backend.GLOO:
@@ -215,10 +214,7 @@ def all_gather_rows(x: torch.Tensor, group, tp: int) -> torch.Tensor:
     return out
 
 
-def reduce_scatter_rows(x: torch.Tensor, group, tp: int, idx: int) -> torch.Tensor:
-    """The ranks' (tp * R, ...) tensors summed, this rank's ``idx``-th row
-    block kept -> (R, ...).  On Gloo (whose reduce-scatter and bf16 sums are
-    not in every PyTorch build) an fp32 all-reduce, then the block."""
+def _reduce_scatter_rows(x: torch.Tensor, group, tp: int, idx: int) -> torch.Tensor:
     if tp == 1:
         return x
     r = x.shape[0] // tp
@@ -229,6 +225,89 @@ def reduce_scatter_rows(x: torch.Tensor, group, tp: int, idx: int) -> torch.Tens
     out = x.new_empty((r, *x.shape[1:]))
     dist.reduce_scatter_tensor(out, x.contiguous(), group=group)
     return out
+
+
+def _wants_grad(*xs: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
+class _AllGatherRows(torch.autograd.Function):
+    """The gather's transpose is the reduce-scatter: each rank's gradient of
+    the gathered rows is partial (its own columns' products), and the
+    ranks' sum lands on the rows each one sent."""
+
+    @staticmethod
+    def forward(ctx, x, group, tp):
+        ctx.group, ctx.tp = group, tp
+        return _all_gather_rows(x, group, tp)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _reduce_scatter_rows(dy, ctx.group, ctx.tp, dist.get_rank(ctx.group)), None, None
+
+
+class _ReduceScatterRows(torch.autograd.Function):
+    """The reduce-scatter's transpose is the gather: every rank's summand
+    receives the gradient of the block it was summed into."""
+
+    @staticmethod
+    def forward(ctx, x, group, tp, idx):
+        ctx.group, ctx.tp = group, tp
+        return _reduce_scatter_rows(x, group, tp, idx)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _all_gather_rows(dy, ctx.group, ctx.tp), None, None, None
+
+
+def all_gather_rows(x: torch.Tensor, group, tp: int) -> torch.Tensor:
+    """The ranks' (R, ...) row blocks stacked in rank order -> (tp * R, ...).
+    Differentiable: the backward reduce-scatters the gradient."""
+    if tp > 1 and _wants_grad(x):
+        return _AllGatherRows.apply(x, group, tp)
+    return _all_gather_rows(x, group, tp)
+
+
+def reduce_scatter_rows(x: torch.Tensor, group, tp: int, idx: int) -> torch.Tensor:
+    """The ranks' (tp * R, ...) tensors summed, this rank's ``idx``-th row
+    block kept -> (R, ...).  On Gloo (whose reduce-scatter and bf16 sums are
+    not in every PyTorch build) an fp32 all-reduce, then the block.
+    Differentiable: the backward all-gathers the gradient."""
+    if tp > 1 and _wants_grad(x):
+        return _ReduceScatterRows.apply(x, group, tp, idx)
+    return _reduce_scatter_rows(x, group, tp, idx)
+
+
+def all_reduce_(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``x`` reduced over ``group`` in place (Gloo: a card tensor through a
+    host copy); not differentiable."""
+    if x.is_cuda and dist.get_backend(group) == dist.Backend.GLOO:
+        buf = x.cpu()
+        dist.all_reduce(buf, op=op, group=group)
+        x.copy_(buf)
+    else:
+        dist.all_reduce(x, op=op, group=group)
+    return x
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """The ranks' values summed, for a quantity every rank then uses alike
+    (the vocab-parallel loss's sums): each rank's loss is the same function
+    of the sum, so the gradient of its summand is the sum's, unreduced."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy, None
+
+
+def sum_over_ranks(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over ``group``'s ranks (a new tensor); its gradient
+    passes to each rank's summand unreduced (``_SumOverRanks``)."""
+    return _SumOverRanks.apply(x, group)
 
 
 # ---------------------------------------------------------------------------
@@ -246,13 +325,15 @@ def _tp_tuned_block(m, n, k, dtype, tp, shard_shape: tuple[int, int, int]) -> tu
                                   tp=tp, clamp_to=shard_shape)
 
 
-def _local_matmul(x: torch.Tensor, w: torch.Tensor, *, out_dtype, block) -> torch.Tensor:
-    """One ring step: one launch of the systolic kernel (K1)."""
+def _local_matmul(x: torch.Tensor, w: torch.Tensor, *, out_dtype, block, record: bool = True) -> torch.Tensor:
+    """One ring step: one launch of the systolic kernel (K1).  ``record``
+    False for the backward's products, which ``obs.attribution`` does not
+    record (as ``kernels/systolic/ops.py``'s ``_Matmul`` backward)."""
     plan = None
     if block is not None:
         plan = BlockPlan(x.shape[0], w.shape[1], x.shape[1], *block,
                          in_dtype=systolic_ops.DTYPE_NAMES.get(x.dtype, "bfloat16"))
-    return systolic_ops.matmul(x, w, out_dtype=out_dtype, plan=plan)
+    return systolic_ops._matmul(x, w, out_dtype=out_dtype, plan=plan, record=record)
 
 
 def _ring_perm(tp: int, direction: str) -> list[tuple[int, int]]:
@@ -276,32 +357,82 @@ def _hop_span(mode: str, hop: int, nbytes: int, modeled_s: float):
 # ---------------------------------------------------------------------------
 
 
-def _ag_shard(a, b, ring: _Ring, *, overlap, out_dtype, block, t_hop):
+def _ag_shard(a, b, ring: _Ring, *, overlap, out_dtype, block, t_hop, keep=False, record=True):
+    """-> (A's gathered rows times B, the gathered A when ``keep`` else
+    None).  With ``keep`` each hop receives straight into the gathered
+    buffer's block of the chunk's origin (never the block being sent), so
+    the backward reads the whole A without a second ring."""
     tp = ring.tp
     if tp == 1:
-        return _local_matmul(a, b, out_dtype=out_dtype, block=block)
+        return _local_matmul(a, b, out_dtype=out_dtype, block=block, record=record), (a if keep else None)
     if not overlap:
-        return _local_matmul(all_gather_rows(a, ring.group, tp), b, out_dtype=out_dtype, block=block)
+        whole = _all_gather_rows(a, ring.group, tp)
+        return _local_matmul(whole, b, out_dtype=out_dtype, block=block, record=record), (whole if keep else None)
     m_sh = a.shape[0]
     out = torch.empty((m_sh * tp, b.shape[1]), dtype=out_dtype, device=a.device)
-    spare = (torch.empty_like(a), torch.empty_like(a))
     # With the ring i -> i+1 the chunk held after s hops originated at idx - s;
     # the opposite direction negates the offset.
     sign = -1 if ring.direction == "plus" else 1
+    if keep:
+        gathered = torch.empty((m_sh * tp, a.shape[1]), dtype=a.dtype, device=a.device)
+        gathered[ring.idx * m_sh:(ring.idx + 1) * m_sh] = a
+    else:
+        spare = (torch.empty_like(a), torch.empty_like(a))
     cur = a
     for s in range(tp):
         src = (ring.idx + sign * s) % tp
         rows = slice(src * m_sh, (src + 1) * m_sh)
         if s == tp - 1:  # the last chunk needs no hop
-            out[rows] = _local_matmul(cur, b, out_dtype=out_dtype, block=block)
+            out[rows] = _local_matmul(cur, b, out_dtype=out_dtype, block=block, record=record)
             break
-        nxt = spare[s % 2]
+        if keep:
+            nsrc = (ring.idx + sign * (s + 1)) % tp
+            nxt = gathered[nsrc * m_sh:(nsrc + 1) * m_sh]
+        else:
+            nxt = spare[s % 2]
         with _hop_span("allgather", s, a.numel() * a.element_size(), t_hop):
             hop = ring.start(cur, nxt)  # the hop first ...
-            out[rows] = _local_matmul(cur, b, out_dtype=out_dtype, block=block)  # ... then K1
+            out[rows] = _local_matmul(cur, b, out_dtype=out_dtype, block=block, record=record)  # ... then K1
             ring.wait(hop)  # only once the launch is queued
         cur = nxt
-    return out
+    return out, (gathered if keep else None)
+
+
+def _t(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """x^T in ``dtype``, copied row-major: K1 reads its A row-major, and a
+    B^T read K-major takes the slower tile (``kernels/systolic/ops.py``'s
+    ``_Matmul``)."""
+    return x.to(dtype).t().contiguous()
+
+
+class _AllGatherMatmul(torch.autograd.Function):
+    """Y = AG(A) B, differentiable.  The backward is the other ring:
+    dA = RS(dY B^T) (fp32 carries, cast once to A's dtype), and
+    dB = AG(A)^T dY, one K1 launch on the gathered A the forward kept.  A
+    cotangent wider than the operands widens them, as ``_Matmul`` does."""
+
+    @staticmethod
+    def forward(ctx, a, b, ring, overlap, out_dtype, block, t_hop):
+        keep = ctx.needs_input_grad[1]
+        out, gathered = _ag_shard(a, b, ring, overlap=overlap, out_dtype=out_dtype, block=block, t_hop=t_hop,
+                                  keep=keep)
+        ctx.save_for_backward(gathered if keep else None, b if ctx.needs_input_grad[0] else None)
+        ctx.ring, ctx.overlap, ctx.t_hop, ctx.dtypes = ring, overlap, t_hop, (a.dtype, b.dtype)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        gathered, b = ctx.saved_tensors
+        a_dtype, b_dtype = ctx.dtypes
+        ct = torch.promote_types(dy.dtype, a_dtype)
+        dy = dy.to(ct)
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = _rs_shard(dy, _t(b, ct), ctx.ring, overlap=ctx.overlap, out_dtype=a_dtype, block=None,
+                           t_hop=ctx.t_hop, record=False)
+        if ctx.needs_input_grad[1]:
+            db = _local_matmul(_t(gathered, ct), dy, out_dtype=b_dtype, block=None, record=False)
+        return da, db, None, None, None, None, None
 
 
 def all_gather_matmul(a: torch.Tensor, b: torch.Tensor, *, mesh: Mesh, axis: str = "model",
@@ -311,7 +442,9 @@ def all_gather_matmul(a: torch.Tensor, b: torch.Tensor, *, mesh: Mesh, axis: str
     ``a`` is this rank's (M/tp, K) rows, ``b`` its (K, N/tp) columns; returns
     its (M, N/tp) columns of the product (the reference's ``P(None, axis)``).
     The all-gather of A is ``tp - 1`` ring hops, each issued before the
-    block product it hides under."""
+    block product it hides under.  Under grad (an operand requiring it) the
+    product is ``_AllGatherMatmul``, whose backward runs the reduce-scatter
+    ring; every rank must then run its backward too."""
     if a.shape[1] != b.shape[0]:
         raise ValueError(f"contraction mismatch: {tuple(a.shape)} @ {tuple(b.shape)}")
     tp = mesh.shape[axis]
@@ -325,7 +458,9 @@ def all_gather_matmul(a: torch.Tensor, b: torch.Tensor, *, mesh: Mesh, axis: str
     t_hop = _hop_step_model(tp, m, n, k, a.dtype, hop_bytes)[0]
 
     def run():
-        return _ag_shard(a, b, ring, overlap=overlap, out_dtype=out_dtype, block=block, t_hop=t_hop)
+        if _wants_grad(a, b):
+            return _AllGatherMatmul.apply(a, b, ring, overlap, out_dtype, block, t_hop)
+        return _ag_shard(a, b, ring, overlap=overlap, out_dtype=out_dtype, block=block, t_hop=t_hop)[0]
 
     if overlap:
         out, wall = _obs_profile.get_profiler().timed("collective", run, mode="allgather", tp=tp)
@@ -340,13 +475,13 @@ def all_gather_matmul(a: torch.Tensor, b: torch.Tensor, *, mesh: Mesh, axis: str
 # ---------------------------------------------------------------------------
 
 
-def _rs_shard(a, b, ring: _Ring, *, overlap, out_dtype, block, t_hop):
+def _rs_shard(a, b, ring: _Ring, *, overlap, out_dtype, block, t_hop, record=True):
     tp = ring.tp
     if tp == 1:
-        return _local_matmul(a, b, out_dtype=torch.float32, block=block).to(out_dtype)
+        return _local_matmul(a, b, out_dtype=torch.float32, block=block, record=record).to(out_dtype)
     if not overlap:
-        partial = _local_matmul(a, b, out_dtype=torch.float32, block=block)
-        return reduce_scatter_rows(partial, ring.group, tp, ring.idx).to(out_dtype)
+        partial = _local_matmul(a, b, out_dtype=torch.float32, block=block, record=record)
+        return _reduce_scatter_rows(partial, ring.group, tp, ring.idx).to(out_dtype)
     m_sh = a.shape[0] // tp
     # Carry continuity (the carry moves i -> i+1): at step s rank idx adds its
     # partial for output chunk idx - s - 1, so after tp steps the carry that
@@ -355,7 +490,7 @@ def _rs_shard(a, b, ring: _Ring, *, overlap, out_dtype, block, t_hop):
 
     def partial(s):  # fp32 partials: the cross-shard sum continues K1's fp32 accumulation
         c = (ring.idx + sign * (s + 1)) % tp
-        return _local_matmul(a[c * m_sh:(c + 1) * m_sh], b, out_dtype=torch.float32, block=block)
+        return _local_matmul(a[c * m_sh:(c + 1) * m_sh], b, out_dtype=torch.float32, block=block, record=record)
 
     acc = partial(0)
     spare = torch.empty_like(acc)
@@ -369,6 +504,34 @@ def _rs_shard(a, b, ring: _Ring, *, overlap, out_dtype, block, t_hop):
     return acc.to(out_dtype)
 
 
+class _ReduceScatterMatmul(torch.autograd.Function):
+    """Y = RS(A B), differentiable.  The backward is the other ring:
+    dA = AG(dY) B^T, whose ring keeps the gathered dY, and dB = A^T AG(dY),
+    one K1 launch on it."""
+
+    @staticmethod
+    def forward(ctx, a, b, ring, overlap, out_dtype, block, t_hop):
+        ctx.save_for_backward(a if ctx.needs_input_grad[1] else None, b if ctx.needs_input_grad[0] else None)
+        ctx.ring, ctx.overlap, ctx.t_hop, ctx.dtypes = ring, overlap, t_hop, (a.dtype, b.dtype)
+        return _rs_shard(a, b, ring, overlap=overlap, out_dtype=out_dtype, block=block, t_hop=t_hop)
+
+    @staticmethod
+    def backward(ctx, dy):
+        a, b = ctx.saved_tensors
+        a_dtype, b_dtype = ctx.dtypes
+        ct = torch.promote_types(dy.dtype, a_dtype)
+        dy = dy.to(ct)
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da, gathered = _ag_shard(dy, _t(b, ct), ctx.ring, overlap=ctx.overlap, out_dtype=a_dtype, block=None,
+                                     t_hop=ctx.t_hop, keep=ctx.needs_input_grad[1], record=False)
+        elif ctx.needs_input_grad[1]:
+            gathered = _all_gather_rows(dy, ctx.ring.group, ctx.ring.tp)
+        if ctx.needs_input_grad[1]:
+            db = _local_matmul(_t(a, ct), gathered, out_dtype=b_dtype, block=None, record=False)
+        return da, db, None, None, None, None, None
+
+
 def reduce_scatter_matmul(a: torch.Tensor, b: torch.Tensor, *, mesh: Mesh, axis: str = "model",
                           out_dtype: torch.dtype | None = None, direction: str = "plus", overlap: bool = True,
                           block: tuple[int, int, int] | None = None) -> torch.Tensor:
@@ -377,7 +540,8 @@ def reduce_scatter_matmul(a: torch.Tensor, b: torch.Tensor, *, mesh: Mesh, axis:
     its (M/tp, N) rows of the product (the reference's ``P(axis, None)``).
     Each rank's partial products over its K slice are reduced along a ring of
     fp32 carries, one hop issued before each (M/tp, K/tp) x (K/tp, N) block
-    product it hides under."""
+    product it hides under.  Under grad the product is
+    ``_ReduceScatterMatmul``, whose backward runs the all-gather ring."""
     if a.shape[1] != b.shape[0]:
         raise ValueError(f"contraction mismatch: {tuple(a.shape)} @ {tuple(b.shape)}")
     tp = mesh.shape[axis]
@@ -392,6 +556,8 @@ def reduce_scatter_matmul(a: torch.Tensor, b: torch.Tensor, *, mesh: Mesh, axis:
     t_hop = _hop_step_model(tp, m, n, k, a.dtype, hop_bytes)[0]
 
     def run():
+        if _wants_grad(a, b):
+            return _ReduceScatterMatmul.apply(a, b, ring, overlap, out_dtype, block, t_hop)
         return _rs_shard(a, b, ring, overlap=overlap, out_dtype=out_dtype, block=block, t_hop=t_hop)
 
     if overlap:

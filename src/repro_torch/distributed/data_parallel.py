@@ -1,31 +1,43 @@
 """Data-parallel training with ZeRO-1 optimizer state, one process a rank.
 
 The reference trains over a ("data", "model") mesh by handing GSPMD the
-shardings: the batch over ("pod", "data"), the fp32 masters replicated on
-that axis, the fp32 AdamW moments sharded over it (``zero1_specs``).  GSPMD
-then derives the ZeRO-1 exchange.  This module writes that exchange out for
-the "data" axis at ``model = 1`` (every rank holds the masters whole):
+shardings: the batch over ("pod", "data"), the fp32 masters TP-sharded over
+"model" and replicated over "data", the fp32 AdamW moments sharded over
+both (``zero1_specs``).  GSPMD then derives the exchange.  This module
+writes it out, one process a rank:
 
   the batch     rank r of dp takes rows [r B/dp, (r+1) B/dp) of the global
                 batch (``sharding.batch_specs``); a batch that does not
-                divide raises, no row is padded.
+                divide raises, no row is padded.  The ranks of a "model"
+                line take the same rows.
+  the model     at model > 1 each rank holds its ``TPLayout.shard_train``
+                shards and computes the loss laid out over its line
+                (``distributed.tp_layout``).  A leaf sharded over "model"
+                gets its whole gradient on its rank; a leaf replicated over
+                it gets a partial one (the norms see the rank's token rows,
+                wk / wv its query heads' use of its KV columns, an
+                indivisible head or table its rows), all-reduced over the
+                line in fp32 before the exchange.
   the gradient  each leaf that ``zero1_specs`` shards over "data" is
-                reduce-scattered into this rank's block of it, each leaf it
-                leaves replicated (indivisible) is all-reduced; both in fp32.
-                Each of the rank's microbatches is weighted by its loss
-                tokens over those of the global microbatch it lies in
+                reduce-scattered over the rank's data group into this rank's
+                block of its shard, each leaf it leaves replicated
+                (indivisible) is all-reduced there; both in fp32.  Each of
+                the rank's microbatches is weighted by its loss tokens over
+                those of the global microbatch it lies in
                 (``microbatch_weights``), so the sum over the ranks is the
                 one-process step's mean of per-microbatch masked means: the
                 reference's ``_ce`` over the whole batch with one microbatch.
-  the clip      the global norm is the all-reduced sum of squares of the
-                blocks each rank owns, plus the replicated leaves once.
+  the clip      the global norm: each element's square counted once over
+                both axes (a block sharded over "data" summed over the data
+                group, a leaf sharded over "model" over the line).
   AdamW         each rank steps its blocks of the masters with its moment
                 blocks, the weight decay decided by the *whole* tree's leaf
                 ranks (``optim.adamw.reference_ndims``); a replicated leaf is
                 stepped alike on every rank.
-  the gather    the updated blocks are all-gathered into every rank's
-                masters, so after a step every rank's parameters are bitwise
-                equal.
+  the gather    the updated blocks are all-gathered over the data group into
+                every rank's masters, so after a step the ranks of a data
+                group hold bitwise equal shards and a leaf replicated over
+                "model" is bitwise equal on every rank.
 
 Where a leaf sits in a list of layers (the reference's stacked axis), its
 block is cut from the leaf with that axis put back (``leaf.unsqueeze(0)``,
@@ -38,11 +50,10 @@ step.  NCCL moves card tensors; on Gloo (the CPU, or two ranks sharing one
 card) a card tensor goes through host memory, and the reduce-scatter is an
 fp32 all-reduce of the whole buffer (``collective_matmul.reduce_scatter_rows``).
 
-Refused, not approximated: a mesh with a "model" axis above 1 (training
-under tensor parallelism needs the ring's backward), and a MoE model at
-dp > 1 (its aux loss is a product of batch means and its expert capacity is
-counted over the batch, so a rank's step on its rows is not the reference's
-step on the global batch).
+Refused, not approximated: a MoE model at dp > 1 (its aux loss is a product
+of batch means and its expert capacity is counted over the batch, so a
+rank's step on its rows is not the reference's step on the global batch),
+and at model > 1 whatever ``TPLayout`` does not lay out.
 """
 
 from __future__ import annotations
@@ -56,8 +67,9 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.tree import _children, leaves, unflatten
-from repro_torch.distributed.collective_matmul import all_gather_rows, reduce_scatter_rows
+from repro_torch.distributed.collective_matmul import all_gather_rows, all_reduce_, reduce_scatter_rows
 from repro_torch.distributed.sharding import batch_specs, shard_of, zero1_specs
+from repro_torch.distributed.tp_layout import TPLayout
 from repro_torch.launch.mesh import Mesh, batch_axes
 from repro_torch.optim.adamw import AdamWState, reference_ndims
 
@@ -77,18 +89,16 @@ def data_index(mesh: Mesh, rank: int) -> int:
 
 
 def check_trainable(cfg, mesh: Mesh) -> None:
-    """Raise for what this module does not train: a "model" axis above 1,
-    a MoE model at dp > 1."""
-    if mesh.shape.get("model", 1) > 1:
-        raise NotImplementedError(
-            f"{mesh!r}: training with a 'model' axis of {mesh.shape['model']} needs tensor-parallel training (the "
-            f"collective matmul's backward), which the port does not have; train over the 'data' axis alone "
-            f"(model = 1)")
+    """Raise for what this module does not train: a MoE model at dp > 1,
+    and at a "model" axis above 1 what ``TPLayout`` does not lay out (its
+    message)."""
     if cfg.moe is not None and data_size(mesh) > 1:
         raise NotImplementedError(
             f"{cfg.name}: data-parallel MoE training is not written: the aux loss is a product of batch means and "
             f"the expert capacity is counted over the batch, so a rank's step on its rows is not the global step "
             f"(it needs expert parallelism); train it on one rank")
+    if mesh.shape.get("model", 1) > 1:
+        TPLayout(cfg, mesh)
 
 
 def _rank() -> int:
@@ -157,22 +167,32 @@ def _placed(tree, layers: int | None = None, index: int = 0):
         yield from _placed(v, layers, index)
 
 
-class ZeroLayout:
-    """Where each parameter leaf's optimizer state lives on a data-parallel
-    mesh, and the exchange of one step.  ``params`` gives the structure and
-    shapes; ``rank`` is this process's (``dist.get_rank()`` by default)."""
+def _axes(entry) -> set:
+    return set(entry if isinstance(entry, tuple) else (entry,))
 
-    def __init__(self, params: Any, mesh: Mesh, rank: int | None = None):
-        self.mesh, self.dp = mesh, data_size(mesh)
+
+class ZeroLayout:
+    """Where each parameter leaf's optimizer state lives on a (data, model)
+    mesh, and the exchange of one step.  ``params`` gives the structure and
+    this rank's shapes (at model > 1 its ``TPLayout.shard_train`` shards,
+    and ``whole`` the whole leaves' shapes, ``TPLayout.whole_shapes``);
+    ``rank`` is this process's (``dist.get_rank()`` by default)."""
+
+    def __init__(self, params: Any, mesh: Mesh, rank: int | None = None, whole: Any = None):
+        self.mesh, self.dp, self.tp = mesh, data_size(mesh), mesh.shape.get("model", 1)
+        self.whole = whole
         self.rank = _rank() if rank is None else rank
         self.idx = data_index(mesh, self.rank)
-        self._rank_of = {data_index(mesh, r): r for r in range(mesh.size)}  # data rank -> process rank
+        self.data_ranks = mesh.axis_ranks(batch_axes(mesh), self.rank)  # data index -> process rank, this line
         self.ndims = reference_ndims(params)
         baxes = set(batch_axes(mesh))
         self.places: list[_Place] = []
-        for (leaf, layers, index), spec in zip(_placed(params), leaves(zero1_specs(params, mesh)), strict=True):
+        self.model_sharded: list[bool] = []  # the leaf is cut over "model" (its gradient whole on this rank)
+        for (leaf, layers, index), spec in zip(_placed(params), leaves(zero1_specs(params if whole is None else whole,
+                                                                                   mesh)), strict=True):
+            self.model_sharded.append(self.tp > 1 and any("model" in _axes(ax) for ax in spec))
             shape = (1, *leaf.shape) if layers is not None else tuple(leaf.shape)
-            dims = [d for d, ax in enumerate(spec) if set(ax if isinstance(ax, tuple) else (ax,)) & baxes]
+            dims = [d for d, ax in enumerate(spec) if _axes(ax) & baxes]
             if not dims or self.dp == 1:
                 self.places.append(_Place(layers is not None, None, ()))
                 continue
@@ -201,6 +221,7 @@ class ZeroLayout:
             raise RuntimeError(f"ZeRO-1 blocks of unequal sizes {sizes} over {self.dp} data ranks")
         self.shard_numel = sizes.pop() if sizes else 0
         self.replicated = [i for i, p in enumerate(self.places) if p.dim is None]
+        self.model_replicated = [i for i, m in enumerate(self.model_sharded) if self.tp > 1 and not m]
         self._marks: dict[str, object] = {}  # CUDA events on the card, host-clock seconds on the CPU
 
     # -- blocks -------------------------------------------------------------
@@ -250,21 +271,18 @@ class ZeroLayout:
     # -- collectives --------------------------------------------------------
 
     def _group(self):
+        """The rank's data group (the world at model = 1)."""
         if not dist.is_initialized() or dist.get_world_size() != self.mesh.size:
             raise RuntimeError(f"{self.mesh!r}: one process a rank, {self.mesh.size} of them, under "
                                f"torch.distributed (torchrun --nproc-per-node {self.mesh.size} ...)")
-        return dist.group.WORLD
+        return self.mesh.group(batch_axes(self.mesh))
 
-    def _all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """Sum ``x`` over the ranks in place (Gloo: a card tensor through the host)."""
-        group = self._group()
-        if x.is_cuda and dist.get_backend(group) == dist.Backend.GLOO:
-            buf = x.cpu()
-            dist.all_reduce(buf, group=group)
-            x.copy_(buf)
-        else:
-            dist.all_reduce(x, group=group)
-        return x
+    def _all_reduce(self, x: torch.Tensor, axis: str = "data") -> torch.Tensor:
+        """Sum ``x`` in place over the rank's data group (``axis`` "model":
+        its "model" line); a no-op on a line of one rank."""
+        if axis == "model":
+            return x if self.tp == 1 else all_reduce_(x, self.mesh.group("model"))
+        return x if self.dp == 1 else all_reduce_(x, self._group())
 
     def _mark(self, name: str, device: torch.device) -> None:
         if device.type == "cuda":
@@ -298,6 +316,12 @@ class ZeroLayout:
         g = leaves(grads)
         dev = g[0].device
         self._mark("reduce0", dev)
+        if self.model_replicated:  # partial on each rank of the "model" line: summed there first
+            flat = self._all_reduce(torch.cat([g[i].float().reshape(-1) for i in self.model_replicated]), "model")
+            off = 0
+            for i in self.model_replicated:
+                g[i] = flat[off:off + g[i].numel()].view(g[i].shape)
+                off += g[i].numel()
         weight = torch.as_tensor(weight, dtype=torch.float64, device=dev)
         stats = torch.stack([weight * metrics[k].double() for k in ("ce", "aux", "loss")])
         self._all_reduce(stats)
@@ -310,7 +334,7 @@ class ZeroLayout:
                 b = self.block(i, g[i], j)
                 send[j * s + off:j * s + off + n].view(b.shape).copy_(b)
         send.mul_(weight)
-        mine = reduce_scatter_rows(send, self._group(), self.dp, self.idx)
+        mine = send if self.dp == 1 else reduce_scatter_rows(send, self._group(), self.dp, self.idx)
         del send
         local: list[torch.Tensor | None] = [None] * len(g)
         for i, off, n in self.parts[self.idx]:
@@ -327,16 +351,22 @@ class ZeroLayout:
         return local, out
 
     def global_norm(self, local: list[torch.Tensor]) -> torch.Tensor:
-        """sqrt of the global gradient's sum of squares: the owned blocks'
-        all-reduced, the replicated leaves' (alike on every rank) once."""
+        """sqrt of the global gradient's sum of squares, each element once: a
+        block sharded over "data" summed over the data group, a leaf sharded
+        over "model" over the line, a leaf replicated over both (alike on
+        every rank) taken as it is."""
         dev = local[0].device
-        sq = torch.zeros(1, dtype=torch.float32, device=dev)
+        sq = torch.zeros(4, dtype=torch.float32, device=dev)  # over data: model-sharded, replicated; not over data
         for i, _, _ in self.parts[self.idx]:
-            sq += local[i].square().sum()
-        self._all_reduce(sq)
+            sq[0 if self.model_sharded[i] else 1] += local[i].square().sum()
         for i in self.replicated:
-            sq += local[i].square().sum()
-        return torch.sqrt(sq[0])
+            sq[2 if self.model_sharded[i] else 3] += local[i].square().sum()
+        self._all_reduce(sq[:2])
+        if self.tp > 1:
+            both = torch.stack([sq[0], sq[2]])
+            self._all_reduce(both, "model")
+            sq[0], sq[2] = both[0], both[1]
+        return torch.sqrt(sq.sum())
 
     def all_gather_(self, params: Any) -> Any:
         """Every rank's updated blocks into this rank's masters, in place."""
@@ -350,7 +380,7 @@ class ZeroLayout:
         for i, off, n in self.parts[self.idx]:
             b = self.block(i, p[i])
             mine[off:off + n].view(b.shape).copy_(b)
-        got = all_gather_rows(mine, self._group(), self.dp)
+        got = mine if self.dp == 1 else all_gather_rows(mine, self._group(), self.dp)
         del mine
         for j, part in enumerate(self.parts):
             if j == self.idx:
@@ -379,7 +409,7 @@ class ZeroLayout:
             mine = mine.cpu()
         if self.idx != 0:
             if s:
-                dist.send(mine, self._rank_of[0], group=group)
+                dist.send(mine, self.data_ranks[0], group=group)
             return None
         p = leaves(params)
         whole = [torch.empty(t.shape, dtype=b.dtype, device=device) for t, b in zip(p, loc)]
@@ -392,7 +422,7 @@ class ZeroLayout:
             if j == 0:
                 got = mine
             else:
-                dist.recv(buf, self._rank_of[j], group=group)
+                dist.recv(buf, self.data_ranks[j], group=group)
                 got = buf
             got = got.to(device)
             for i, off, n in part:

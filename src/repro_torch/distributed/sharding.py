@@ -253,12 +253,10 @@ def cache_specs(cache: Any, mesh: Mesh) -> Any:
 # ---------------------------------------------------------------------------
 
 
-def shard_of(full: torch.Tensor, spec: tuple, mesh: Mesh, rank: int) -> torch.Tensor:
-    """``rank``'s contiguous shard of ``full`` under ``spec``: each sharded
+def block_of(full: torch.Tensor, spec: tuple, mesh: Mesh, rank: int) -> torch.Tensor:
+    """``rank``'s block of ``full`` under ``spec``, a view: each sharded
     dimension cut into equal blocks along its axes (several axes: row-major
-    over them), materialized row-major, the layout the unsharded weight has
-    on the kernel's path (a column block of a (K, N) weight would otherwise
-    be a strided view)."""
+    over them)."""
     coords = mesh.coords(rank)
     out = full
     for dim, ax in enumerate(spec):
@@ -270,6 +268,15 @@ def shard_of(full: torch.Tensor, spec: tuple, mesh: Mesh, rank: int) -> torch.Te
             n, idx = n * mesh.shape[a], idx * mesh.shape[a] + coords[a]
         size = full.shape[dim] // n
         out = out.narrow(dim, idx * size, size)
+    return out
+
+
+def shard_of(full: torch.Tensor, spec: tuple, mesh: Mesh, rank: int) -> torch.Tensor:
+    """``rank``'s contiguous shard of ``full`` under ``spec`` (``block_of``),
+    materialized row-major, the layout the unsharded weight has on the
+    kernel's path (a column block of a (K, N) weight would otherwise be a
+    strided view)."""
+    out = block_of(full, spec, mesh, rank)
     return out.contiguous() if out is full else out.clone(memory_format=torch.contiguous_format)
 
 

@@ -35,6 +35,23 @@ A tensor that does not divide tp is replicated (``sharding``'s rule), and
 the layout then computes it whole.  The dense GQA / SWA decoder is laid out
 here; the MoE, MLA, recurrent and frontend families and the tied head are
 not yet (expert parallelism comes with them).
+
+Training (``loss_fn``) runs the same stream over full sequences under
+autograd: the rings' backward is the other ring
+(``collective_matmul._AllGatherMatmul`` / ``_ReduceScatterMatmul``), the
+embedding's reduce-scatter and the head's gather transpose into each other,
+and the loss is a vocab-parallel cross entropy equal to
+``transformer._ce``: the row max and the sum of exponentials over the
+ranks' vocabulary blocks, the gold logit from the rank owning the label.
+Its parameters (``shard_train`` / ``init_shards``) keep wk / wv whole on
+every rank, as the reference replicates them, and slice the rank's KV
+columns at use: a rank's gradient of them is then zero outside its columns
+and partial inside (its own query heads), and so is every other leaf
+replicated over "model" (the norms see only the rank's token rows; a head
+or table that does not divide runs on the rank's rows alone), so the sum
+over "model" is the whole gradient (``data_parallel.ZeroLayout.reduce``).
+Padded stream rows are zero, stay zero through every layer, and carry no
+loss.
 """
 
 from __future__ import annotations
@@ -45,11 +62,13 @@ import warnings
 import torch
 import torch.distributed as dist
 
+from repro_torch.core.tree import leaves, leaves_with_path, unflatten
 from repro_torch.distributed import collective_matmul as cm
 from repro_torch.distributed import sharding
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models import attention as attn
 from repro_torch.models import layers
+from repro_torch.models.transformer import _remat
 from repro_torch.models.config import ArchConfig
 
 
@@ -76,24 +95,30 @@ def kv_heads(cfg: ArchConfig, tp: int, idx: int) -> tuple[int, int]:
     return kv0, kv1
 
 
+def _rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
 class TPLayout:
     """One rank's side of the tensor-parallel decoder: its shards of the
-    parameters, and prefill / decode over them.  Every rank of the mesh
-    calls the same functions with the same replicated inputs (tokens,
-    positions) and gets the same full logits."""
+    parameters, and prefill / decode / the training loss over them.  Every
+    rank of the mesh calls the same functions with the same replicated
+    inputs (tokens, positions) and gets the same full logits (the same
+    loss)."""
 
     def __init__(self, cfg: ArchConfig, mesh: Mesh, axis: str = "model"):
         if cfg.family != "dense" or cfg.attention not in ("gqa", "swa") or cfg.moe is not None \
                 or cfg.frontend is not None or cfg.tie_embeddings:
-            raise NotImplementedError(f"{cfg.name}: tensor-parallel serving lays out the dense GQA / SWA decoder "
-                                      f"with an untied head (family={cfg.family!r}, attention={cfg.attention!r})")
+            raise NotImplementedError(f"{cfg.name}: the tensor-parallel layout lays out the dense GQA / SWA decoder "
+                                      f"with an untied head (family={cfg.family!r}, attention={cfg.attention!r}, "
+                                      f"moe={cfg.moe is not None}, frontend={cfg.frontend!r}, "
+                                      f"tied head={cfg.tie_embeddings})")
         self.cfg, self.mesh, self.axis = cfg, mesh, axis
         self.tp = mesh.shape[axis]
         check_heads(cfg, self.tp)
         if cfg.d_ff % self.tp:
             raise ValueError(f"{cfg.name}: d_ff={cfg.d_ff} does not divide over tp={self.tp}")
         self.idx = mesh.axis_index(axis)
-        self.group = mesh.group(axis) if self.tp > 1 else None
         self.kv0, self.kv1 = kv_heads(cfg, self.tp, self.idx)
         hd = cfg.resolved_head_dim
         # The rank's attention config: its own head counts (head_dim pinned).
@@ -101,20 +126,105 @@ class TPLayout:
                                              head_dim=hd)
         self.vocab_sharded = cfg.vocab_size % self.tp == 0
 
+    @property
+    def group(self):
+        """The "model" axis' process group (made on first use: ``new_group``
+        is collective); None at tp 1."""
+        return self.mesh.group(self.axis) if self.tp > 1 else None
+
     # -- parameters ---------------------------------------------------------
 
+    def shard_train(self, params: dict) -> dict:
+        """This rank's training parameters: ``sharding.param_specs``' shard of
+        each leaf (contiguous, row-major), wk / wv whole.  A replicated leaf
+        is ``params``' own tensor, which a training step updates in place."""
+        return sharding.shard_params(params, sharding.param_specs(params, self.mesh), self.mesh, _rank())
+
+    def init_shards(self, model, seed: int, device, dtype: torch.dtype = torch.float32) -> dict:
+        """``shard_train(model.init(seed, device, dtype=dtype))`` with each
+        piece cut as soon as it is drawn (``init_model``'s ``transform``): the
+        same values, one piece whole at a time."""
+        rank = _rank()
+        return model.init(seed, device, dtype=dtype, transform=lambda piece: sharding.shard_params(
+            piece, sharding.param_specs(piece, self.mesh), self.mesh, rank))
+
     def shard(self, params: dict) -> dict:
-        """This rank's parameters: ``sharding.param_specs``' shard of each
-        leaf (contiguous, row-major), and of the replicated wk / wv only the
-        columns of the rank's KV heads."""
-        specs = sharding.param_specs(params, self.mesh)
-        rank = dist.get_rank() if dist.is_initialized() else 0
-        local = sharding.shard_params(params, specs, self.mesh, rank)
+        """This rank's served parameters: ``shard_train``'s, and of the
+        replicated wk / wv only the columns of the rank's KV heads."""
+        local = self.shard_train(params)
         hd = self.cfg.resolved_head_dim
         for lp in local["layers"]:
             for name in ("wk", "wv"):
                 lp["attn"][name] = lp["attn"][name][:, self.kv0 * hd:self.kv1 * hd].contiguous()
         return local
+
+    def whole_shapes(self, local: dict) -> dict:
+        """A tree of ``local``'s structure holding meta tensors of the whole
+        leaves' shapes: each "model"-sharded dimension tp times the shard's
+        (the vocabulary's only where it divides).  Raises when ``local`` is
+        not a ``shard_train`` tree of this layout."""
+        def whole(path, leaf, layers):
+            base = sharding._param_rule(path, tuple(leaf.shape))
+            vocab = path.split("/")[-1] in ("table", "w")
+            shape = [d * self.tp if ax == "model" and (self.vocab_sharded or not vocab) else d
+                     for d, ax in zip(leaf.shape, base)]
+            return torch.empty(shape, dtype=leaf.dtype, device="meta")
+
+        out = sharding._map_with_path(whole, local)
+        specs = sharding.param_specs(out, self.mesh)
+        for (path, w), spec, leaf in zip(leaves_with_path(out), leaves(specs), leaves(local), strict=True):
+            want = tuple(d // self.tp if ax == "model" else d for d, ax in zip(w.shape, spec[-w.ndim:]))
+            if want != tuple(leaf.shape):
+                raise ValueError(f"{path}: shard {tuple(leaf.shape)} is not this layout's cut of a whole leaf "
+                                 f"{tuple(w.shape)} over tp={self.tp}")
+        return out
+
+    def leaf_specs(self, whole: dict) -> list[tuple]:
+        """Each leaf's ``param_specs`` entry in leaf order, without the layer
+        axis of a leaf held in a list of layers."""
+        specs = sharding.param_specs(whole, self.mesh)
+        return leaves(sharding._map_with_path(
+            lambda path, leaf, layers: sharding._get(specs, path)[0 if layers is None else 1:], whole))
+
+    def cutters(self, whole: dict) -> dict:
+        """A tree of ``whole``'s structure (``whole_shapes``) whose leaves cut
+        this rank's shard out of a whole leaf: ``restore_checkpoint``'s
+        ``shardings`` for the parameters."""
+        rank = _rank()
+        return unflatten(whole, [lambda t, spec=spec: sharding.shard_of(t, spec, self.mesh, rank)
+                                 for spec in self.leaf_specs(whole)])
+
+    def gather(self, local: dict, whole: dict, device: str | torch.device = "cpu") -> dict | None:
+        """This rank's shards (``local``, of ``whole``'s structure) -> the
+        whole leaves on ``device`` on the "model" line's rank 0, None on the
+        others.  Every rank of the line calls it: each sends its sharded
+        leaves to rank 0 as one flat fp32 buffer, which rank 0 receives one
+        rank at a time; a replicated leaf is rank 0's own."""
+        specs = self.leaf_specs(whole)
+        loc, shapes = leaves(local), leaves(whole)
+        sharded = [i for i, spec in enumerate(specs) if self.tp > 1 and any(a is not None for a in spec)]
+        mine = torch.cat([loc[i].float().reshape(-1) for i in sharded]) if sharded else None
+        ranks = self.mesh.axis_ranks(self.axis, _rank())
+        if mine is not None and mine.is_cuda and dist.get_backend(self.group) == dist.Backend.GLOO:
+            mine = mine.cpu()  # Gloo moves host tensors only
+        if self.idx != 0:
+            if mine is not None:
+                dist.send(mine, ranks[0], group=self.group)
+            return None
+        out = [torch.empty(w.shape, dtype=t.dtype, device=device) for w, t in zip(shapes, loc)]
+        for i, t in enumerate(loc):
+            if i not in sharded:
+                out[i].copy_(t)
+        buf = None if mine is None else torch.empty_like(mine)
+        for j in range(self.tp if sharded else 0):
+            if j:
+                dist.recv(buf, ranks[j], group=self.group)
+            got, off = (mine if j == 0 else buf).to(device), 0
+            for i in sharded:
+                blk = sharding.block_of(out[i], specs[i], self.mesh, ranks[j])
+                blk.copy_(got[off:off + blk.numel()].view(blk.shape))
+                off += blk.numel()
+        return unflatten(local, out)
 
     # -- collectives --------------------------------------------------------
 
@@ -161,9 +271,12 @@ class TPLayout:
 
     def _qkv(self, p: dict, xin: torch.Tensor, b: int, s: int):
         c, hd = self.local_cfg, self.cfg.resolved_head_dim
+        wk, wv = p["wk"], p["wv"]
+        if wk.shape[1] == self.cfg.n_kv_heads * hd:  # the whole masters (training): the rank's KV heads' columns
+            wk, wv = wk[:, self.kv0 * hd:self.kv1 * hd], wv[:, self.kv0 * hd:self.kv1 * hd]
         q = self._ag(xin, p["wq"])[:b * s].reshape(b, s, c.n_heads, hd)
-        k = self._ag(xin, p["wk"])[:b * s].reshape(b, s, c.n_kv_heads, hd)
-        v = self._ag(xin, p["wv"])[:b * s].reshape(b, s, c.n_kv_heads, hd)
+        k = self._ag(xin, wk)[:b * s].reshape(b, s, c.n_kv_heads, hd)
+        v = self._ag(xin, wv)[:b * s].reshape(b, s, c.n_kv_heads, hd)
         if c.qk_norm:
             q = layers.rmsnorm(p["q_norm"], q, c.norm_eps)
             k = layers.rmsnorm(p["k_norm"], k, c.norm_eps)
@@ -221,3 +334,61 @@ class TPLayout:
             x = self._block(lp, x, b, 1,
                             lambda q, k, v, lc=lc: attn.gqa_decode_attend(q, k, v, self.local_cfg, lc, pos))
         return self._logits(params, x, torch.arange(b, device=x.device))[:, None], cache
+
+    # -- training -----------------------------------------------------------
+
+    def _sum(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.tp == 1 else cm.sum_over_ranks(x, self.group)
+
+    def _ce(self, params: dict, x: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+        """This rank's (R, d) stream rows -> ``transformer._ce`` over every
+        token, the same on every rank.  A vocabulary that divides is
+        vocab-parallel: the final-normed rows gathered, this rank's block of
+        fp32 logits, the row max and the sum of exponentials over the
+        ranks, the gold logit from the rank owning the label.  Otherwise the
+        whole head runs on the rank's own rows and the masked sums are
+        summed over the ranks."""
+        m = labels.numel()
+        lab = labels.reshape(-1).long()
+        wts = None if mask is None else mask.reshape(-1).float()
+        count = float(m) if wts is None else wts.sum().clamp_min(1.0)
+        xn = layers.rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
+        w = params["lm_head"]["w"].to(xn.dtype)
+        if self.vocab_sharded and self.tp > 1:
+            logits = layers.matmul_f32_out(cm.all_gather_rows(xn, self.group, self.tp)[:m], w)  # (m, V / tp)
+            v = logits.shape[1]
+            mx = cm.all_reduce_(logits.detach().amax(-1), self.group, dist.ReduceOp.MAX)
+            lse = mx + torch.log(self._sum(torch.exp(logits - mx[:, None]).sum(-1)))
+            local = lab - self.idx * v
+            hit = (local >= 0) & (local < v)
+            gold = self._sum(logits.gather(-1, local.clamp(0, v - 1)[:, None])[:, 0] * hit)
+            nll = lse - gold
+            return nll.mean() if wts is None else (nll * wts).sum() / count
+        r = x.shape[0]
+        lo, hi = min(self.idx * r, m), min((self.idx + 1) * r, m)
+        logits = layers.matmul_f32_out(xn[:hi - lo], w)  # this rank's own rows, every class
+        nll = torch.logsumexp(logits, -1) - logits.gather(-1, lab[lo:hi, None])[:, 0]
+        own = nll.sum() if wts is None else (nll * wts[lo:hi]).sum()
+        return self._sum(own) / count
+
+    def loss_fn(self, params: dict, batch: dict, *, remat: bool = False):
+        """``transformer.loss_fn`` laid out over the ranks, on this rank's
+        ``shard_train`` parameters and the (replicated) batch -> (scalar
+        loss, {"ce", "aux", "loss"}), the same on every rank; aux is 0 (no
+        MoE).  ``remat`` recomputes each layer in the backward, its rings
+        again, in the same order on every rank."""
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        positions = torch.arange(s, dtype=torch.int32, device=tokens.device)
+
+        def attend(q, k, v):
+            return attn.gqa_attend(q, k, v, self.local_cfg, positions)[0]
+
+        layer = _remat(lambda h, lp: self._block(lp, h, b, s, attend), remat)
+        x = self._embed(params, tokens)
+        for lp in params["layers"]:
+            x = layer(x, lp)
+        ce = self._ce(params, x, batch["labels"], batch.get("loss_mask"))
+        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+        loss = ce + aux
+        return loss, {"ce": ce, "aux": aux, "loss": loss}

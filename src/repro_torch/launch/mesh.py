@@ -56,26 +56,37 @@ class Mesh:
             r = r * self.shape[name] + coords[name]
         return r
 
-    def axis_ranks(self, axis: str, rank: int) -> list[int]:
-        """The global ranks on ``axis`` through ``rank``, in axis order."""
+    def axis_ranks(self, axis: str | tuple[str, ...], rank: int) -> list[int]:
+        """The global ranks on ``axis`` through ``rank``, in axis order (a
+        tuple of axes: the ranks sharing ``rank``'s other coordinates,
+        row-major over those axes)."""
+        axes = (axis,) if isinstance(axis, str) else tuple(axis)
         c = self.coords(rank)
-        return [self.rank_of({**c, axis: i}) for i in range(self.shape[axis])]
+        out = []
+        for i in range(math.prod(self.shape[a] for a in axes)):
+            at = {}
+            for a in reversed(axes):
+                i, at[a] = divmod(i, self.shape[a])
+            out.append(self.rank_of({**c, **at}))
+        return out
 
     def axis_index(self, axis: str) -> int:
         """This process's coordinate on ``axis`` (0 without a process group)."""
         return self.coords(dist.get_rank())[axis] if dist.is_initialized() else 0
 
-    def group(self, axis: str):
-        """The process group of this rank's line along ``axis`` (the whole
-        world when the axis spans it).  Every rank must make its first call
-        for an axis together: ``new_group`` is collective."""
+    def group(self, axis: str | tuple[str, ...]):
+        """The process group of this rank's line along ``axis`` (a tuple of
+        axes: the ranks sharing its other coordinates; the whole world when
+        the axes span it).  Every rank must make its first call for an axis
+        together: ``new_group`` is collective."""
         if axis not in self._groups:
             if not dist.is_initialized():
                 raise RuntimeError(f"mesh axis {axis!r}: torch.distributed is not initialized")
             world = dist.get_world_size()
             if world != self.size:
                 raise ValueError(f"{self!r} needs {self.size} ranks; this job runs {world}")
-            if self.shape[axis] == world:
+            axes = (axis,) if isinstance(axis, str) else tuple(axis)
+            if math.prod(self.shape[a] for a in axes) == world:
                 self._groups[axis] = dist.group.WORLD
             else:
                 mine = None
@@ -92,9 +103,8 @@ class Mesh:
 
 def _fix(model: int, n: int) -> str:
     return (f"start one process per rank on a host with {n} card(s): torchrun --nproc-per-node {n} -m "
-            f"repro_torch.launch.serve --model-parallel {model} ..., or to train data-parallel torchrun "
-            f"--nproc-per-node {n} -m repro_torch.launch.train --distributed ... (on the CPU add --device cpu, "
-            f"which takes Gloo)")
+            f"repro_torch.launch.serve --model-parallel {model} ..., or to train torchrun --nproc-per-node {n} -m "
+            f"repro_torch.launch.train --distributed ... (on the CPU add --device cpu, which takes Gloo)")
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:

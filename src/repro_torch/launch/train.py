@@ -29,8 +29,13 @@ of ranks::
     torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train --distributed --arch internlm2-1.8b --steps 8 --batch 4 --seq 512
     torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train --distributed --arch internlm2-1.8b --smoke --device cpu --steps 4
 
-``--production-mesh`` and ``--multi-pod`` stay refused: their "model" axis
-of 16 needs tensor-parallel training, which the port does not have.
+``--production-mesh`` and ``--multi-pod`` train over the reference's
+production meshes (``make_production_mesh``: (16, 16) ("data", "model"), or
+(2, 16, 16) with "pod"), one process a rank under torchrun: the weights
+TP-sharded over "model" (``distributed.tp_layout``, each rank drawing its
+shards piece by piece), the batch over ("pod", "data"), the moments ZeRO-1
+blocks of the shards.  A job of another size than the mesh's 256 / 512
+ranks exits naming both counts.
 """
 
 from __future__ import annotations
@@ -47,7 +52,8 @@ from repro_torch.core.device import resolve_device
 from repro_torch.data.sharded import TokenShardDataset
 from repro_torch.data.synthetic import make_batch
 from repro_torch.kernels import _build
-from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.distributed.tp_layout import TPLayout
+from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
 from repro_torch.models.registry import get_model
 from repro_torch.train.loop import TrainConfig, Trainer
 
@@ -95,29 +101,35 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--data-dir", default=None, help="token shards (else synthetic)")
     ap.add_argument("--resume", action="store_true")
-    ap.add_argument("--production-mesh", action="store_true", help="refused: its model axis needs TP training")
-    ap.add_argument("--multi-pod", action="store_true", help="refused: its model axis needs TP training")
+    ap.add_argument("--production-mesh", action="store_true", help="(16, 16) ('data', 'model'): 256 ranks")
+    ap.add_argument("--multi-pod", action="store_true", help="(2, 16, 16) ('pod', 'data', 'model'): 512 ranks")
     ap.add_argument("--distributed", action="store_true", help="data-parallel, one process a rank under torchrun")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
-    for flag in TP_MESH_FLAGS:
-        if getattr(args, flag):
-            ap.error(f"--{flag.replace('_', '-')} trains over a 'model' axis of 16, which needs tensor-parallel "
-                     "training (the collective matmul's backward); the port trains data-parallel only: "
-                     f"{RUN}")
-    if not args.distributed:
+    flag = next((f for f in TP_MESH_FLAGS if getattr(args, f)), None)
+    if flag is not None:
+        mesh = make_production_mesh(multi_pod=args.multi_pod)
+        world = int(os.environ.get("WORLD_SIZE", "1"))
+        if world != mesh.size:  # as Mesh.group refuses it, before any process group is made
+            raise SystemExit(f"--{flag.replace('_', '-')}: {mesh!r} needs {mesh.size} ranks; this job runs {world}. "
+                             f"Start one process a rank under torchrun, as for {RUN}, with --{flag.replace('_', '-')} "
+                             f"in place of --distributed")
+        dev = init_distributed(args.device)
+    elif not args.distributed:
         return train(args, resolve_device(args.device))
-    dev = init_distributed(args.device)
+    else:
+        dev = init_distributed(args.device)
+        mesh = make_local_mesh(data=dist.get_world_size(), model=1, device=dev)
     try:
-        return train(args, dev, make_local_mesh(data=dist.get_world_size(), model=1, device=dev))
+        return train(args, dev, mesh)
     finally:
         dist.destroy_process_group()
 
 
 def train(args, dev: torch.device, mesh=None) -> dict:
-    """Train as ``args`` say on ``dev``; with a mesh, as one data-parallel
-    rank of it.  -> the last step's metrics."""
+    """Train as ``args`` say on ``dev``; with a mesh, as one rank of it.
+    -> the last step's metrics."""
     leader = mesh is None or dist.get_rank() == 0
     if mesh is not None and dev.type == "cuda":
         if leader:
@@ -129,7 +141,8 @@ def train(args, dev: torch.device, mesh=None) -> dict:
     model = get_model(cfg)
     if leader:
         print(f"arch={cfg.name} params={model.n_params / 1e6:.1f}M active={model.n_active_params / 1e6:.1f}M "
-              f"device={dev}" + (f" data-parallel mesh: {mesh.shape['data']}x1 ('data', 'model')" if mesh else ""))
+              f"device={dev}" + ("" if mesh is None else f" data-parallel mesh: {mesh.shape['data']}x1 ('data', 'model')"
+                                 if mesh.shape.get("model", 1) == 1 else f" mesh: {mesh!r}"))
     tcfg = TrainConfig(
         peak_lr=args.lr,
         warmup_steps=max(1, args.steps // 10),
@@ -139,7 +152,10 @@ def train(args, dev: torch.device, mesh=None) -> dict:
         ckpt_dir=args.ckpt_dir,
         ckpt_every=args.ckpt_every,
     )
-    params = model.init(args.seed, dev, dtype=torch.float32)  # fp32 masters, alike on every rank
+    if mesh is not None and mesh.shape.get("model", 1) > 1:  # this rank's shards of the fp32 masters
+        params = TPLayout(cfg, mesh).init_shards(model, args.seed, dev)
+    else:
+        params = model.init(args.seed, dev, dtype=torch.float32)  # fp32 masters, alike on every rank
     trainer = Trainer(model, tcfg, params, mesh)
     if args.resume and trainer.try_resume() and leader:
         print(f"resumed from step {trainer.step}")

@@ -32,6 +32,14 @@ one rank.  Each rank's microbatches are weighted by their loss tokens, so a
 masked batch gives the one-process step.  Rank 0 alone logs and writes
 checkpoints; a checkpoint holds the whole moments (every rank's blocks sent
 to rank 0), so it resumes on any data-parallel mesh, one rank included.
+
+With a "model" axis above 1 the parameters a step takes are this rank's
+``TPLayout.shard_train`` shards (``TPLayout.init_shards`` draws them), the
+loss is ``TPLayout.loss_fn`` over them, and the exchange runs over the
+rank's data group after the leaves replicated over "model" are summed over
+its line (``distributed.data_parallel``).  A checkpoint holds whole leaves,
+reassembled on rank 0 from the TP shards and the ZeRO blocks, and restores
+on any mesh (``TPLayout.cutters``).
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ from torch.profiler import record_function
 from repro_torch.checkpoint import AsyncCheckpointer, latest_step, restore_checkpoint
 from repro_torch.core.tree import leaves, tree_map, unflatten
 from repro_torch.distributed import data_parallel
+from repro_torch.distributed.tp_layout import TPLayout
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models.registry import Model
 from repro_torch.optim import AdamWState, adamw_init, adamw_update, clip_by_global_norm
@@ -83,19 +92,22 @@ def _split_microbatches(batch: dict, n: int) -> list[dict]:
     return [{k: v[i] for k, v in split.items()} for i in range(n)]
 
 
-def make_grad_fn(model: Model, tcfg: TrainConfig) -> Callable:
+def make_grad_fn(model: Model, tcfg: TrainConfig, loss_fn: Callable | None = None) -> Callable:
     """-> grads_of(params, batch, weights=None) -> (grads, metrics): the
-    gradient of ``model.loss_fn`` w.r.t. every floating leaf of ``params`` (a
-    tree of the params' structure, each gradient in its leaf's dtype, or, over
-    ``tcfg.microbatches``, fp32 and averaged, or summed with the float64
-    ``weights`` of the microbatches), and the loss metrics alike."""
+    gradient of ``loss_fn`` (``model.loss_fn`` by default; a
+    ``TPLayout.loss_fn`` on a rank's shards) w.r.t. every floating leaf of
+    ``params`` (a tree of the params' structure, each gradient in its leaf's
+    dtype, or, over ``tcfg.microbatches``, fp32 and averaged, or summed with
+    the float64 ``weights`` of the microbatches), and the loss metrics
+    alike."""
+    loss_fn = loss_fn or model.loss_fn
 
     def one(params, batch):
         flat = leaves(params)
         live = [p.detach().requires_grad_(p.is_floating_point()) for p in flat]
         with torch.enable_grad():
             with record_function("train_forward"):  # the forward's span in a profiler trace
-                loss, metrics = model.loss_fn(unflatten(params, live), batch, remat=tcfg.remat)
+                loss, metrics = loss_fn(unflatten(params, live), batch, remat=tcfg.remat)
             wrt = [p for p in live if p.requires_grad]
             got = iter(torch.autograd.grad(loss, wrt, allow_unused=True))
         grads = [None if not p.requires_grad else next(got) for p in live]
@@ -168,57 +180,67 @@ def rank_grads(grads_of: Callable, layout: data_parallel.ZeroLayout | None, mode
     return (*grads_of(params, local, w), 1.0)
 
 
-def _data_parallel(model: Model, mesh: Mesh | None, params) -> data_parallel.ZeroLayout | None:
-    """The ZeRO-1 layout of a data-parallel ``mesh`` (None without a mesh or
-    at one data rank); raises for what is not trained on a mesh."""
+def _mesh_layouts(model: Model, mesh: Mesh | None,
+                  params) -> tuple[data_parallel.ZeroLayout | None, TPLayout | None]:
+    """(the ZeRO-1 layout, the tensor-parallel layout) of ``mesh``: (None,
+    None) without a mesh or on one rank; raises for what is not trained on
+    a mesh.  At model > 1 ``params`` are this rank's shards."""
     if mesh is None:
-        return None
+        return None, None
     data_parallel.check_trainable(model.cfg, mesh)
-    return data_parallel.ZeroLayout(params, mesh) if data_parallel.data_size(mesh) > 1 else None
+    tp = TPLayout(model.cfg, mesh) if mesh.shape.get("model", 1) > 1 else None
+    if tp is None and data_parallel.data_size(mesh) == 1:
+        return None, None
+    return data_parallel.ZeroLayout(params, mesh, whole=None if tp is None else tp.whole_shapes(params)), tp
 
 
 def make_train_step(model: Model, tcfg: TrainConfig, mesh: Mesh | None = None) -> Callable:
     """-> train_step(params, opt_state, batch, step) -> (params, opt_state,
     metrics).  ``step`` drives the LR schedule; the new parameters and
-    moments are written into the old tensors.  With a data-parallel
-    ``mesh``, ``batch`` is the global batch, of which this rank computes its
-    rows, and ``opt_state`` holds this rank's moment blocks
-    (``ZeroLayout(params, mesh).zero_state(params)``)."""
-    grads_of = make_grad_fn(model, tcfg)
-    layouts: list = []
+    moments are written into the old tensors.  With a ``mesh``, ``batch`` is
+    the global batch, of which this rank computes its rows, and
+    ``opt_state`` holds this rank's moment blocks
+    (``ZeroLayout(params, mesh).zero_state(params)``); at model > 1
+    ``params`` are this rank's ``TPLayout.shard_train`` shards, and the
+    layout is given their whole shapes (``whole=TPLayout.whole_shapes``)."""
+    made: list = []
 
     def train_step(params, opt_state, batch, step):
-        if not layouts:
-            layouts.append(_data_parallel(model, mesh, params))
-        grads, metrics, weight = rank_grads(grads_of, layouts[0], model, tcfg, params, batch)
-        return apply_update(tcfg, params, opt_state, grads, metrics, step, layouts[0], weight)
+        if not made:
+            layout, tp = _mesh_layouts(model, mesh, params)
+            made.append((layout, make_grad_fn(model, tcfg, None if tp is None else tp.loss_fn)))
+        layout, grads_of = made[0]
+        grads, metrics, weight = rank_grads(grads_of, layout, model, tcfg, params, batch)
+        return apply_update(tcfg, params, opt_state, grads, metrics, step, layout, weight)
 
     return train_step
 
 
 class Trainer:
     """Single-controller training harness with restart semantics; with a
-    ``mesh``, one rank of a data-parallel job (every rank builds one, on
-    the same parameters)."""
+    ``mesh``, one rank of a (data, model) job (every rank builds one, on the
+    same parameters: at model > 1 its ``TPLayout.shard_train`` shards of
+    them)."""
 
     def __init__(self, model: Model, tcfg: TrainConfig, params: Any, mesh: Mesh | None = None):
         self.model = model
         self.tcfg = tcfg
         self.params = params
-        self.layout = _data_parallel(model, mesh, params)  # the ZeRO-1 layout of a data-parallel trainer
-        self.leader = self.layout is None or self.layout.idx == 0  # logs and writes checkpoints
+        self.layout, self.tp = _mesh_layouts(model, mesh, params)  # the ZeRO-1 layout; the tensor-parallel one
+        self.whole = None if self.tp is None else self.layout.whole  # the whole leaves' shapes (meta tensors)
+        self.leader = self.layout is None or self.layout.rank == 0  # logs and writes checkpoints
         self.opt_state = adamw_init(params) if self.layout is None else self.layout.zero_state(params)
         self.step = 0
         self.retries = 0
-        self._grads_of = make_grad_fn(model, tcfg)
+        self._grads_of = make_grad_fn(model, tcfg, None if self.tp is None else self.tp.loss_fn)
         self._ckpt = AsyncCheckpointer(tcfg.ckpt_dir) if tcfg.ckpt_dir and self.leader else None
 
     # -- fault tolerance ----------------------------------------------------
 
     def try_resume(self) -> bool:
-        """Restore the newest complete checkpoint if one exists; on a
-        data-parallel mesh each rank cuts its moment blocks out of the whole
-        leaves, whatever mesh wrote them."""
+        """Restore the newest complete checkpoint if one exists; on a mesh
+        each rank cuts its shards and moment blocks out of the whole leaves,
+        whatever mesh wrote them."""
         if not self.tcfg.ckpt_dir:
             return False
         step = latest_step(self.tcfg.ckpt_dir)
@@ -227,8 +249,12 @@ class Trainer:
         state = {"params": self.params, "opt": self.opt_state}
         shardings = None
         if self.layout is not None:
-            cut = self.layout.shardings(self.params)
-            shardings = {"params": None, "opt": AdamWState(step=None, mu=cut, nu=cut)}
+            tp_cut = [None] * len(leaves(self.params)) if self.tp is None else leaves(self.tp.cutters(self.whole))
+            cut = unflatten(self.params, [
+                lambda whole, i=i, first=first: self.layout.cut(i, whole if first is None else first(whole))
+                for i, first in enumerate(tp_cut)])
+            shardings = {"params": None if self.tp is None else self.tp.cutters(self.whole),
+                         "opt": AdamWState(step=None, mu=cut, nu=cut)}
         state, step = restore_checkpoint(self.tcfg.ckpt_dir, state, step=step, shardings=shardings)
         self.params, self.opt_state = state["params"], state["opt"]
         self.step = step
@@ -236,16 +262,22 @@ class Trainer:
 
     def state(self) -> dict | None:
         """The whole training state a checkpoint holds: the parameters and the
-        moments.  On a data-parallel mesh every rank calls it (each sends its
-        moment blocks to rank 0): the whole state on rank 0, None on the
-        others."""
+        moments.  On a mesh every rank calls it (each sends its moment blocks
+        to its data group's rank 0, and at model > 1 those send their shards
+        to rank 0): the whole state on rank 0, None on the others."""
         opt = self.opt_state
-        if self.layout is not None:
-            mu, nu = self.layout.gather(opt.mu, self.params), self.layout.gather(opt.nu, self.params)
-            if not self.leader:
+        if self.layout is None:
+            return {"params": self.params, "opt": opt}
+        dev = "cpu" if self.tp is None else leaves(self.params)[0].device  # the TP gather's ranks send from there
+        mu, nu = self.layout.gather(opt.mu, self.params, dev), self.layout.gather(opt.nu, self.params, dev)
+        params = self.params
+        if self.tp is not None:
+            if self.layout.idx != 0:
                 return None
-            opt = AdamWState(step=opt.step, mu=mu, nu=nu)
-        return {"params": self.params, "opt": opt}
+            params, mu, nu = (self.tp.gather(t, self.whole) for t in (self.params, mu, nu))
+        if not self.leader:
+            return None
+        return {"params": params, "opt": AdamWState(step=opt.step, mu=mu, nu=nu)}
 
     def _checkpoint(self) -> None:
         if not self.tcfg.ckpt_dir:

@@ -24,8 +24,10 @@
   leaves are all-reduced while the rest are reduce-scattered.
 * minicpm3-4b, xlstm-125m, musicgen-medium and internvl2-1b at dp 2 against
   the port's one-process step.
-* The refusals: a MoE config at dp 2 and a mesh with a "model" axis of 2
-  raise; a batch that does not divide raises.
+* The refusals: a MoE config at dp 2 raises, and at a "model" axis of 2 the
+  MoE, MLA, recurrent and frontend configs and a tied head raise with the
+  tensor-parallel layout's reason; a dense GQA config there builds a
+  ``Trainer``; a batch that does not divide raises.
 * ``distributed/annotate.py``: every spec the port chooses equals the
   reference's ``_resolve`` / ``PartitionSpec`` on stand-in meshes (4, 2),
   (2, 16, 16) and (1, 1) (the reference's ``with_sharding_constraint`` and
@@ -349,6 +351,9 @@ def test_indivisible_leaves_are_all_reduced(reference, spawned, world):
 
 
 def test_moe_at_dp2_and_a_model_axis_are_refused():
+    """MoE at dp 2 is refused for its batch-wide aux loss and capacity; at a
+    "model" axis of 2 the tensor-parallel layout refuses it (expert
+    parallelism is not written)."""
     cfg = _cfg("qwen3-moe-30b-a3b")
     model = get_model(cfg)
     params = model.init(0, "cpu", dtype=torch.float32)
@@ -356,10 +361,41 @@ def test_moe_at_dp2_and_a_model_axis_are_refused():
         Trainer(model, TrainConfig(), params, mesh=Mesh((2, 1), ("data", "model")))
     with pytest.raises(NotImplementedError, match="MoE"):
         make_train_step(model, TrainConfig(), Mesh((2, 1), ("data", "model")))(params, None, None, 0)
-    dense = get_model(_cfg(ARCH))
-    with pytest.raises(NotImplementedError, match="tensor-parallel training"):
-        Trainer(dense, TrainConfig(), dense.init(0, "cpu"), mesh=Mesh((1, 2), ("data", "model")))
+    with pytest.raises(NotImplementedError, match="tensor-parallel layout lays out the dense GQA / SWA decoder"):
+        Trainer(model, TrainConfig(), params, mesh=Mesh((1, 2), ("data", "model")))
     Trainer(model, TrainConfig(), params, mesh=Mesh((1, 1), ("data", "model")))  # one rank: trained as today
+
+
+@pytest.mark.parametrize("arch,tied", [("minicpm3-4b", False), ("xlstm-125m", False), ("zamba2-7b", False),
+                                       ("musicgen-medium", False), ("internvl2-1b", False), (ARCH, True)],
+                         ids=["mla", "ssm", "hybrid", "audio", "vlm", "tied"])
+def test_what_the_tp_layout_does_not_lay_out_is_refused_at_model2(arch, tied):
+    cfg = _cfg(arch)
+    if tied:
+        cfg = dataclasses.replace(cfg, tie_embeddings=True)
+    model = get_model(cfg)
+    with pytest.raises(NotImplementedError, match="tensor-parallel layout lays out the dense GQA / SWA decoder"):
+        Trainer(model, TrainConfig(), model.init(0, "cpu"), mesh=Mesh((1, 2), ("data", "model")))
+    with pytest.raises(NotImplementedError, match="tensor-parallel layout lays out the dense GQA / SWA decoder"):
+        data_parallel.check_trainable(cfg, Mesh((2, 2), ("data", "model")))
+
+
+def test_dense_gqa_at_a_model_axis_of_2_builds_a_trainer():
+    """On one process (no collective runs until a step): the rank's shards,
+    its moment blocks at their shapes, the TP loss."""
+    from repro_torch.distributed.tp_layout import TPLayout
+
+    model = get_model(_cfg(ARCH))
+    mesh = Mesh((1, 2), ("data", "model"))
+    layout = TPLayout(model.cfg, mesh)
+    whole = model.init(0, "cpu", dtype=torch.float32)
+    trainer = Trainer(model, TrainConfig(), layout.shard_train(whole), mesh=mesh)
+    assert trainer.tp is not None and trainer.layout is not None and trainer.leader
+    wq = trainer.params["layers"][0]["attn"]["wq"]
+    assert wq.shape[1] == whole["layers"][0]["attn"]["wq"].shape[1] // 2
+    assert trainer.params["layers"][0]["attn"]["wk"].shape == whole["layers"][0]["attn"]["wk"].shape  # kept whole
+    assert [tuple(t.shape) for t in leaves(trainer.whole)] == [tuple(t.shape) for t in leaves(whole)]
+    assert trainer.opt_state.mu["layers"][0]["attn"]["wq"].shape == (1, *wq.shape)
 
 
 def test_batch_that_does_not_divide_raises():

@@ -1780,3 +1780,80 @@ def test_data_parallel_training_over_gloo_on_one_card_matches_one_card(cuda, tmp
         assert max(gaps) <= 0.5, max(gaps)
         assert all(torch.equal(a, b) for a, b in zip(p, results[0][3], strict=True))
         assert (k1, fl) == (42, 2)
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel training: the rings under autograd and the vocab-parallel
+# loss, two ranks sharing one card over Gloo at tp 2.
+# ---------------------------------------------------------------------------
+
+TP_TRAIN_LAYERS = 1
+
+
+def _tp_train_rank(rank, world):
+    """Three Trainer steps of full-width glm4-9b at TP_TRAIN_LAYERS layer(s)
+    (fp32 masters, bf16 compute) on card 0, at tp ``world`` on a (1, world)
+    mesh -> (the first and the third step's metrics, the whole parameters
+    after them on the host (rank 0; None elsewhere), this rank's leaves
+    replicated over "model", K1 and flash launches of the third step)."""
+    from repro_torch import configs
+    from repro_torch.core.tree import leaves
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.distributed.tp_layout import TPLayout
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.registry import get_model
+    from repro_torch.train.loop import TrainConfig, Trainer
+
+    torch.cuda.set_device(0)
+    cfg = configs.get_config("glm4-9b").scaled(n_layers=TP_TRAIN_LAYERS)
+    model = get_model(cfg)
+    tcfg = TrainConfig(peak_lr=1e-3, warmup_steps=1, total_steps=4)
+    if world == 1:
+        trainer = Trainer(model, tcfg, model.init(0, "cuda", dtype=torch.float32))
+    else:
+        mesh = Mesh((1, world), ("data", "model"))
+        trainer = Trainer(model, tcfg, TPLayout(cfg, mesh).init_shards(model, 0, "cuda"), mesh)
+    batch = make_batch(cfg, batch=4, seq=64, kind="train", seed=0, device="cuda")
+    first = {k: float(v) for k, v in trainer.run(iter([batch]), 1, log_every=0).items()}  # lr 0
+    trainer.run(iter([batch]), 1, log_every=0)  # the first update
+    k1, fl = mm_kernel.launches, attn_kernel.launches
+    m = trainer.run(iter([batch]), 1, log_every=0)
+    k1, fl = mm_kernel.launches - k1, attn_kernel.launches - fl
+    state = trainer.state()
+    whole = None if state is None else [t.cpu() for t in leaves(state["params"])]
+    repl = [] if world == 1 else [t.cpu() for t, sh in zip(leaves(trainer.params), trainer.layout.model_sharded)
+                                  if not sh]
+    return first, {k: float(v) for k, v in m.items()}, whole, repl, k1, fl
+
+
+@pytest.mark.gpu
+def test_tp_training_over_gloo_on_one_card_matches_one_card(cuda, tmp_path):
+    """tp 2 on one card against the one-card Trainer, full-width glm4-9b at
+    one layer, three steps (the first at lr 0): the third step's loss and
+    gradient norm within 1e-2, each limit below what a dropped update reads;
+    every parameter leaf's change from the initial weights within 0.3
+    relative L2 of the one-card change; the leaves replicated over "model"
+    bit for bit equal on both ranks; each rank's step 35 K1 launches a layer
+    (7 rings of 2 steps forward, 7 backward, 7 dW) and K3 once a layer."""
+    from repro_torch import configs
+    from repro_torch.core.tree import leaves
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models.registry import get_model
+
+    one_first, one_m, one_p, _, one_k1, one_fl = _tp_train_rank(0, 1)
+    model = get_model(configs.get_config("glm4-9b").scaled(n_layers=TP_TRAIN_LAYERS))
+    start = [t.cpu() for t in leaves(model.init(0, "cuda", dtype=torch.float32))]
+    assert (one_k1, one_fl) == (21 * TP_TRAIN_LAYERS, TP_TRAIN_LAYERS)
+    for k in ("loss", "grad_norm"):
+        assert abs(one_first[k] - one_m[k]) > 1e-2 * abs(one_m[k]), (k, one_first[k], one_m[k])
+    results = run_ranks(_tp_train_rank, 2, str(tmp_path), backend="gloo", args=(), timeout_s=300)
+    for _, m, _, repl, k1, fl in results:
+        for k in ("loss", "grad_norm"):
+            assert abs(m[k] - one_m[k]) <= 1e-2 * abs(one_m[k]), (k, m[k], one_m[k])
+        assert all(torch.equal(a, b) for a, b in zip(repl, results[0][3], strict=True))
+        assert (k1, fl) == (35 * TP_TRAIN_LAYERS, TP_TRAIN_LAYERS)
+    got = results[0][2]
+    assert got is not None and results[1][2] is None
+    gaps = [((a - b).norm() / (b - p0).norm().clamp_min(1e-30)).item() for a, b, p0 in zip(got, one_p, start,
+                                                                                             strict=True)]
+    assert max(gaps) <= 0.3, max(gaps)

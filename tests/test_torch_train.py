@@ -284,16 +284,18 @@ def test_launcher_reads_token_shards_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("flag", ["--production-mesh", "--multi-pod", "--distributed"])
 def test_launcher_refuses_the_distributed_flags(flag, capsys, monkeypatch):
-    """``--production-mesh`` / ``--multi-pod`` train over a "model" axis,
-    which needs tensor-parallel training; ``--distributed`` outside
-    torchrun's environment has no process group.  Each exits naming the
-    fix."""
+    """``--production-mesh`` / ``--multi-pod`` train over the reference's
+    production mesh of 256 / 512 ranks, which a job of one process is not;
+    ``--distributed`` outside torchrun's environment has no process group.
+    Each exits naming the fix."""
     for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
         monkeypatch.delenv(var, raising=False)
     with pytest.raises(SystemExit) as e:
         launch_train.main(["--arch", "internlm2-1.8b", "--smoke", "--device", "cpu", flag])
     msg = f"{e.value} {capsys.readouterr().err}"
-    assert ("under torchrun" if flag == "--distributed" else "tensor-parallel training") in msg
+    want = {"--distributed": "under torchrun", "--production-mesh": "needs 256 ranks; this job runs 1",
+            "--multi-pod": "needs 512 ranks; this job runs 1"}[flag]
+    assert want in msg
     assert "torchrun --nproc-per-node N -m repro_torch.launch.train --distributed" in msg
 
 
