@@ -118,7 +118,18 @@ Phases, each printing its own lines; any failure exits non-zero:
      fault.pick_mesh_for(1); step ms and the exchange's ms (reduce-scatter,
      all-gather) per rank; with several cards also a weak-scaling reading
      (4 x 512 a rank) beside one card's tokens/s, the exchange beside its
-     NVLink bytes bound and mesh_balance_report; then
+     NVLink bytes bound and mesh_balance_report; then tensor-parallel
+     training (glm4-9b) and expert parallelism in the same ranks:
+     full-width qwen3-moe-30b-a3b at 2 of 48 layers at (1, 2) (four cards:
+     full depth at (1, 4)), its experts cut over "model", served against the
+     single-card kernel path (K1 / K3 / K4 launches exact by shape, K4 at
+     the rank's E / tp experts; logits routed alike within 5e-2 and every
+     MoE call's kept and dropped slots one card's; routing freely within
+     1e-1 until a decode step routes a slot otherwise) and trained three
+     steps routed as one card's steps were, against them (four cards: also
+     at (2, 2), and at (1, 4) at 16 layers against one card's bf16
+     forward), the idle experts' gradients zero, the exchange's ms beside
+     its NVLink bytes bound; then
      full-width qwen3-moe-30b-a3b in bf16, every expert GEMM on the grouped
      kernel, with the same launch and decode checks, kernel-vs-plain logits
      with the plain path routed to the kernel path's experts (bf16's
@@ -132,7 +143,7 @@ Phases, each printing its own lines; any failure exits non-zero:
      launcher builds it, one layer of fp32 masters at a time: attention and
      the head int8, the router and the experts bf16) with the same MoE gates
      and exact launches of all four of its kernels, its logits beside the
-     bf16 model's for information; minicpm3-4b at full width and 31 of its
+     bf16 model's for information; minicpm3-4b at full width and 16 of its
      62 layers (MLA: its
      attention plain, as the reference computes it, every projection on the
      GEMM kernels, wkv_b at prefill and per chunk only) in bf16 and w8a8 with
@@ -151,8 +162,8 @@ Phases, each printing its own lines; any failure exits non-zero:
      prefills bit-identical, fp32 forward (chunked mLSTM / SSD, K1 at M =
      the row's length, flash at D = 112) against fp32 prefill on one row of
      512 tokens (zamba2-7b's 320), and the SMOKE config in fp32 against the
-     CPU path; xlstm-125m also served continuously on the first 10 requests
-     of the same trace, monolithic and in chunks of 128 (the
+     CPU path; xlstm-125m also served continuously on the first 9 requests
+     of the same trace at 6 of its 12 layers, monolithic and in chunks of 128 (the
      staged path), its state pool's resident bytes exact; full-width
      musicgen-medium (audio: four codebook streams, 1.84 B parameters) and
      internvl2-1b (vlm: 256 projected patches, then 256 text tokens) served
@@ -256,6 +267,7 @@ from repro_torch.core import dse  # noqa: E402
 from repro_torch.core.blocking import BlockPlan, derive_block_plan  # noqa: E402
 from repro_torch.core.hw import H100, dtype_bytes  # noqa: E402
 from repro_torch.distributed import collective_matmul as cm  # noqa: E402
+from repro_torch.distributed import expert_parallel as ep  # noqa: E402
 from repro_torch.distributed import data_parallel, fault  # noqa: E402
 from repro_torch.distributed import sharding  # noqa: E402
 from repro_torch.distributed.sharding import mesh_balance_report, zero1_specs  # noqa: E402
@@ -300,7 +312,7 @@ from repro_torch.serving.kvpool import _nbytes  # noqa: E402
 from repro_torch.serving.paged import PagedKVPool, _gather_pages, _scatter_pages  # noqa: E402
 from repro_torch.serving.scheduler import FINISHED  # noqa: E402
 from repro_torch.optim import global_norm  # noqa: E402
-from repro_torch.train.loop import TrainConfig, Trainer, make_grad_fn  # noqa: E402
+from repro_torch.train.loop import TrainConfig, Trainer, make_grad_fn, rank_grads  # noqa: E402
 from repro_torch.tune import autotune, candidates, measure_matmul  # noqa: E402
 from repro_torch.tune import cache as tune_cache  # noqa: E402
 from repro_torch.tune.measure import cycler, time_ms  # noqa: E402
@@ -367,10 +379,11 @@ KV8_BYTES = 161_611_776 + 12_288 + 315_648
 # 411 positions x 62 layers x (bf16 c_kv 256 + k_rope 32, 2 x 288 bytes, and
 # an int32 position, 4 bytes).
 MLA_CHUNK = 128
-# minicpm3-4b runs at full width but 31 of its 62 layers (cut to keep the
-# script's wall under 900 s once the training phase came in; its paths were
-# the longest, 211-251 s at 62 layers).
-MLA_LAYERS = 31
+# minicpm3-4b runs at full width but 16 of its 62 layers (cut to keep the
+# script's wall under 900 s once the training phase came in, 62 -> 31: its
+# paths were the longest, 211-251 s at 62 layers; then 31 -> 16 for the
+# expert-parallel runs, 118.7-152.9 s at 31).
+MLA_LAYERS = 16
 MLA_CONT_BYTES = 8 * 411 * MLA_LAYERS * (2 * (256 + 32) + 4)
 # ... and over the paged latent pool, pages of 16 rows: 26 a slot hold 416
 # rows, of which the gather keeps 411; one page is 575,360 bytes.
@@ -408,10 +421,13 @@ RECURRENT_CHECK_PROMPT = 64
 HYBRID_SERVE_PROMPT = 128
 HYBRID_CHECK_PROMPT = 320
 SSM_CHUNK = 128
-# xlstm-125m serves the first 10 of the trace's 16 requests, monolithic and
-# chunked (cut for time, the chunked run first, the monolithic one with the
-# wall above; > CONT_SLOTS, so slots are reused).
-SSM_REQUESTS = 10
+# xlstm-125m serves the first 9 of the trace's 16 requests, monolithic and
+# chunked (cut for time: 16, then 10, then 9 for the expert-parallel runs;
+# > CONT_SLOTS, so slots are reused), at full width and 6 of its 12 layers
+# (a model of its own, drawn from SEED; its prefill is a decode step a prompt
+# token, so these runs took 92-119 s at 12 layers).
+SSM_REQUESTS = 9
+SSM_CONT_LAYERS = 6
 BF16 = torch.bfloat16
 # Tolerances (|got - want| <= atol + rtol * |want|), with their reasons:
 GEMM_TOL_BF16 = (2e-2, 2e-2)  # one bf16 ulp where kernel and plain round the fp32 sum
@@ -560,6 +576,23 @@ TPT_ONE_CARD_LAYERS = 2
 TPT_FOUR_CARD_SHAPES = ((1, 4), (2, 2))
 TPT_GRAD_RTOL = 1e-2
 TPT_RING_REPS = 3
+# Expert parallelism (qwen3-moe-30b-a3b's experts cut over "model", the
+# routing all-gathered so that every rank decides the drops over the whole
+# batch, each kept slot's row sent to its expert's rank and back,
+# distributed/expert_parallel.py), in the same ranks after the
+# tensor-parallel training runs: on one card two Gloo ranks at (1, 2) at
+# full width and EP_ONE_CARD_LAYERS of its 48 layers, served (BATCH x
+# PROMPT, TP_DECODE_STEPS greedy steps) against the single-card kernel path
+# routed freely and routed alike (one card's experts replayed on each rank's
+# rows; every MoE call's kept and dropped slots then equal) and trained
+# DP_STEPS steps against one card's under the data-parallel gates, routed
+# alike (the steps' experts replayed from one card's run); with four
+# cards, NCCL: served at full depth at (1, 4), trained at (2, 2) at
+# EP_ONE_CARD_LAYERS layers against one card's steps and at (1, 4) at
+# EP_FOUR_CARD_LAYERS layers (~169 GB of state: no card holds it) against one
+# card's bf16 forward of the same weights.
+EP_ONE_CARD_LAYERS = 2
+EP_FOUR_CARD_LAYERS = 16
 OBS_STALE, OBS_STALE_GEMM = 3.0, "ffn_in"
 MOE_NUDGES, MOE_NUDGE_STEPS = 2, 2  # one-ulp nudges per model, decode steps each (3, 3 until cut for time)
 SOURCES = {
@@ -2480,19 +2513,48 @@ def tp_reference_alone() -> dict:
     return ref
 
 
-def tp_expected(cfg, tp: int, idx: int, rows: int) -> collections.Counter:
-    """K1 launches by (M, K, N) on rank ``idx`` of one TP-served pass over
-    ``rows`` token rows: every sharded GEMM is tp ring steps at the row
-    block of ceil(rows / tp); the column-parallel ones (wq, the rank's wk /
-    wv columns, gate, up) at (K, N / tp), the row-parallel ones (wo, down)
-    at (K / tp, N)."""
+def tp_gemms(cfg, tp: int, idx: int) -> list[tuple[int, int]]:
+    """(K, N) of one layer's sharded GEMMs on rank ``idx``: the
+    column-parallel ones (wq, the rank's wk / wv columns, a SwiGLU's gate
+    and up) at (K, N / tp), the row-parallel ones (wo, a SwiGLU's down) at
+    (K / tp, N); a MoE layer's experts run on K4 instead."""
     hd, d = cfg.resolved_head_dim, cfg.d_model
     kv0, kv1 = kv_heads(cfg, tp, idx)
+    hq = cfg.n_heads * hd // tp
+    out = [(d, hq), (d, (kv1 - kv0) * hd), (d, (kv1 - kv0) * hd), (hq, d)]
+    if cfg.moe is None:
+        out += [(d, cfg.d_ff // tp), (d, cfg.d_ff // tp), (cfg.d_ff // tp, d)]
+    return out
+
+
+def tp_expected(cfg, tp: int, idx: int, rows: int) -> collections.Counter:
+    """K1 launches by (M, K, N) on rank ``idx`` of one TP-served pass over
+    ``rows`` token rows: every sharded GEMM (``tp_gemms``) is tp ring steps
+    at the row block of ceil(rows / tp); a MoE layer's router one launch
+    on the rank's rows."""
     r = -(-rows // tp)
     out = collections.Counter()
-    for k, n in ((d, cfg.n_heads * hd // tp), (d, (kv1 - kv0) * hd), (d, (kv1 - kv0) * hd), (d, cfg.d_ff // tp),
-                 (d, cfg.d_ff // tp), (cfg.n_heads * hd // tp, d), (cfg.d_ff // tp, d)):
+    for k, n in tp_gemms(cfg, tp, idx):
         out[(r, k, n)] += tp * cfg.n_layers
+    if cfg.moe is not None:
+        out[(r, cfg.d_model, cfg.moe.n_experts)] += cfg.n_layers
+    return out
+
+
+def ep_k4_expected(cfg, tp: int, line_tokens: int, batch_tokens: int, train: bool = False) -> collections.Counter:
+    """K4 launches by (E, C, K, N) on a rank of one expert-parallel pass of
+    its line's ``line_tokens`` tokens of a batch of ``batch_tokens``: each
+    expert GEMM at the rank's E / tp experts and C' rows, the dispatch
+    capacity times the groups the line's tokens cover (lines aligned with
+    the groups; one group: every line in it); with ``train`` also its dX at
+    (E / tp, C', N, K) and dW at (E / tp, K, C', N)."""
+    m = cfg.moe
+    tg = batch_tokens // m.dispatch_groups
+    e, c = m.n_experts // tp, max(1, line_tokens // tg) * moe.capacity(tg, cfg)
+    out = collections.Counter()
+    for (k, n), per_layer in expert_gemms(cfg).items():
+        for key in ((e, c, k, n), (e, c, n, k), (e, k, c, n)) if train else ((e, c, k, n),):
+            out[key] += per_layer * cfg.n_layers
     return out
 
 
@@ -2694,7 +2756,7 @@ def dp_step(trainer, batch) -> dict:
     torch.cuda.synchronize()
     out = {"ms": (time.perf_counter() - t0) * 1e3, "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
            "launches": counts(), "k1_shapes": dict(mm_kernel.launches_by_shape),
-           "flash_heads": dict(attn_kernel.launches_by_heads())}
+           "k4_shapes": dict(grouped_kernel.launches_by_shape), "flash_heads": dict(attn_kernel.launches_by_heads())}
     if trainer.layout is not None:
         out["exchange_ms"] = trainer.layout.exchange_ms()
     return out
@@ -2703,7 +2765,7 @@ def dp_step(trainer, batch) -> dict:
 def dp_json(steps: list[dict]) -> list[dict]:
     """``dp_step`` readings with their tuple-keyed counts as [*key, count] lists."""
     return [{**st, **{k: [[*key, c] for key, c in sorted(st[k].items())]
-                      for k in ("k1_shapes", "flash_heads", "flash_shapes") if k in st}} for st in steps]
+                      for k in ("k1_shapes", "k4_shapes", "flash_heads", "flash_shapes") if k in st}} for st in steps]
 
 
 def dp_checkpoint(mesh: Mesh, root: str) -> dict | None:
@@ -2946,25 +3008,30 @@ def tp_train_expected(cfg, tp: int, idx: int, rows: int) -> collections.Counter:
     forward's ring gathered, and each row-parallel GEMM (K / tp, N) its dA as
     an all-gather ring, tp steps at (R, N, K / tp), and its dB as one launch
     at (K / tp, R tp, N) on the gathered cotangent (R = ceil(rows / tp)).
-    The head is a library product."""
-    hd, d, layers = cfg.resolved_head_dim, cfg.d_model, cfg.n_layers
-    kv0, kv1 = kv_heads(cfg, tp, idx)
+    A MoE layer's router adds its dA at (R, E, d) and its dB at (d, R, E),
+    one launch each.  The head is a library product."""
+    layers = cfg.n_layers
     r = -(-rows // tp)
     out = collections.Counter(tp_expected(cfg, tp, idx, rows))
-    for k, n in ((d, cfg.n_heads * hd // tp), (d, (kv1 - kv0) * hd), (d, (kv1 - kv0) * hd), (d, cfg.d_ff // tp),
-                 (d, cfg.d_ff // tp), (cfg.n_heads * hd // tp, d), (cfg.d_ff // tp, d)):
+    for k, n in tp_gemms(cfg, tp, idx):
         out[(r, n, k)] += tp * layers
         out[(k, r * tp, n)] += layers
+    if cfg.moe is not None:
+        d, e = cfg.d_model, cfg.moe.n_experts
+        out[(r, e, d)] += layers
+        out[(d, r, e)] += layers
     return out
 
 
 def tp_param_count(cfg, tp: int) -> int:
     """The parameters a rank holds at ``tp``: the column- and row-parallel
-    weights, and the vocabulary where it divides, a tp-th; wk / wv, the
-    norms whole."""
+    weights, a MoE layer's experts and the vocabulary where it divides, a
+    tp-th; wk / wv, the router, the norms whole."""
     hd, d = cfg.resolved_head_dim, cfg.d_model
     vocab = cfg.vocab_size // tp if cfg.vocab_size % tp == 0 else cfg.vocab_size
-    layer = 2 * d + 2 * d * cfg.n_heads * hd // tp + 2 * d * cfg.n_kv_heads * hd + 3 * d * cfg.d_ff // tp
+    m = cfg.moe
+    ffn = 3 * d * cfg.d_ff // tp if m is None else d * m.n_experts + 3 * d * m.d_ff_expert * m.n_experts // tp
+    layer = 2 * d + 2 * d * cfg.n_heads * hd // tp + 2 * d * cfg.n_kv_heads * hd + ffn
     layer += 2 * hd if cfg.qk_norm else 0
     return d + 2 * vocab * d + cfg.n_layers * layer
 
@@ -3059,10 +3126,12 @@ def tpt_case(rank: int, arch: str, layers: int | None, shape: tuple[int, int], r
              rings: bool, trace: bool = False) -> dict:
     """One tensor-parallel training run on this rank: DP_STEPS Trainer steps
     of ``arch`` from seed-0 shards (``TPLayout.init_shards``) on the global
-    batch, each step's launches, ms and bitwise agreement; with
-    ``ref_path`` (one card's parameters after DP_STEPS) each leaf's squared
-    distance from them and their squared change from the initial weights,
-    on this rank's shard; with ``trace`` one more step under torch.profiler
+    batch, each step's launches, ms and bitwise agreement; a MoE model's
+    idle experts and exchange at the initial weights (``ep_train_readings``);
+    with ``ref_path`` (one card's parameters after DP_STEPS) a MoE model's
+    steps routed as one card's (its recorded experts replayed on this rank's
+    rows), and each leaf's squared distance from them and their squared
+    change from the initial weights, on this rank's shard; with ``trace`` one more step under torch.profiler
     (``traced_train_step``), a reading, not a gate."""
     mesh = Mesh(shape, ("data", "model"))
     cfg = tpt_config(arch, layers)
@@ -3078,12 +3147,18 @@ def tpt_case(rank: int, arch: str, layers: int | None, shape: tuple[int, int], r
     out["want_moment_bytes"] = tp_zero1_bytes(trainer.whole, mesh)
     batch = make_batch(cfg, batch=BATCH, seq=PROMPT, kind="train", seed=SEED, device="cuda")
     torch.cuda.reset_peak_memory_stats()
+    routing = contextlib.nullcontext()
+    if cfg.moe is not None:
+        out["ep"] = ep_train_readings(trainer, batch)  # at the initial weights
+        if ref_path is not None:  # route as one card's steps did (bf16 rounding moves near-ties otherwise)
+            routing = ep_replay(torch.load(ref_path + ".topk", weights_only=True), mesh, True)
     out["steps"] = []
-    for _ in range(DP_STEPS):
-        st = dp_step(trainer, batch)
-        st["flash_shapes"] = flash_shape_counts()
-        st["same"] = tp_same(trainer)
-        out["steps"].append(st)
+    with routing:
+        for _ in range(DP_STEPS):
+            st = dp_step(trainer, batch)
+            st["flash_shapes"] = flash_shape_counts()
+            st["same"] = tp_same(trainer)
+            out["steps"].append(st)
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     if ref_path is not None:
         ref = torch.load(ref_path, mmap=True, weights_only=True)
@@ -3106,11 +3181,13 @@ def tpt_case(rank: int, arch: str, layers: int | None, shape: tuple[int, int], r
 
 
 def tpt_rank(rank: int, world: int, cards: int, cache_path: str, cases: list[dict]) -> dict:
-    """One rank of the tensor-parallel training runs (a process of its
-    own): ``tpt_case`` for each of ``cases``."""
+    """One rank of the tensor-parallel training runs and the expert-parallel
+    serving runs (a process of its own): ``tpt_case``, or ``ep_serve_case``
+    for a case marked "serve", for each of ``cases``."""
     torch.cuda.set_device(rank % cards)  # before any CUDA work
     pin_cache(cache_path)
-    out = {"rank": rank, "card": torch.cuda.current_device(), "cases": [tpt_case(rank, **c) for c in cases]}
+    out = {"rank": rank, "card": torch.cuda.current_device(),
+           "cases": [(ep_serve_case if c.get("serve") else tpt_case)(rank, **c) for c in cases]}
     reset_counts()
     out["plans"] = {"systolic": sorted(RUN_PLANS["systolic"]), "attention": sorted(RUN_PLANS["attention"])}
     return out
@@ -3118,29 +3195,38 @@ def tpt_rank(rank: int, world: int, cards: int, cache_path: str, cases: list[dic
 
 def tpt_one_card(arch: str, layers: int | None, path: str) -> list[dict]:
     """One card's DP_STEPS Trainer steps of ``arch`` (fp32 masters from seed
-    0, the training phase's batch), exact launches each; the parameters after
-    them saved to ``path``."""
+    0, the training phase's batch), exact launches each (``train_expected``);
+    the parameters after them saved to ``path``, and a MoE model's top-k
+    experts of every layer and step to ``path`` + ".topk" (the
+    expert-parallel ranks replay them)."""
     cfg = tpt_config(arch, layers)
     model = get_model(cfg)
     trainer = Trainer(model, TrainConfig(**TRAIN_TCFG), model.init(SEED, "cuda", dtype=torch.float32))
     batch = make_batch(cfg, batch=BATCH, seq=PROMPT, kind="train", seed=SEED, device="cuda")
-    one = [dp_step(trainer, batch) for _ in range(DP_STEPS)]
+    topk = []
+    with topk_choices(topk):
+        one = [dp_step(trainer, batch) for _ in range(DP_STEPS)]
+    if cfg.moe is not None:
+        torch.save([e.cpu() for e in topk], path + ".topk")
     torch.save(tree_util.tree_map(lambda t: t.cpu(), trainer.params), path)
     del trainer, batch
     torch.cuda.empty_cache()
+    want = train_expected(cfg, 1)
     for i, st in enumerate(one):
-        expect(st["launches"] == {"systolic_mmm": 21 * cfg.n_layers, "systolic_qmm": 0, "flash_attn": cfg.n_layers,
-                                  "grouped_mmm": 0} and st["k1_shapes"] == dp_expected(cfg, BATCH),
-               f"{arch} at {cfg.n_layers} layers, one card, step {i + 1}: launches {st['launches']} exact (K1 21 x "
-               f"{cfg.n_layers} at M = {BATCH * PROMPT})")
+        expect(st["launches"] == {"systolic_mmm": sum(want["k1"].values()), "systolic_qmm": 0,
+                                  "flash_attn": want["flash"], "grouped_mmm": sum(want["k4"].values())}
+               and st["k1_shapes"] == k1_by_shape(want["k1"]) and st["k4_shapes"] == want["k4"],
+               f"{arch} at {cfg.n_layers} layers, one card, step {i + 1}: launches {st['launches']} exact (K1 "
+               f"{sum(want['k1'].values())}, K4 {sum(want['k4'].values())} by shape at M = {BATCH * PROMPT})")
     return one
 
 
-def tpt_bf16_loss(arch: str) -> float:
-    """One card's loss of ``arch``'s seed-0 weights in bf16 (the masters'
-    values cast once, as each use casts them) on the training batch, no
-    grad: what a model too large to train on one card is held to."""
-    cfg = tpt_config(arch, None)
+def tpt_bf16_loss(arch: str, layers: int | None = None) -> float:
+    """One card's loss of ``arch``'s seed-0 weights (its first ``layers``
+    layers) in bf16 (the masters' values cast once, as each use casts them)
+    on the training batch, no grad: what a model too large to train on one
+    card is held to."""
+    cfg = tpt_config(arch, layers)
     model = get_model(cfg)
     params = model.init(SEED, "cuda", dtype=BF16)
     batch = make_batch(cfg, batch=BATCH, seq=PROMPT, kind="train", seed=SEED, device="cuda")
@@ -3165,20 +3251,23 @@ def tpt_gates(case: dict, ranks: list[dict], one: list[dict] | None, ref_loss: f
         idx = mesh.coords(r["rank"])["model"]
         c = r["case"]
         want_k1 = dict(tp_train_expected(cfg, tp, idx, rows))
+        want_k4 = {} if cfg.moe is None else dict(ep_k4_expected(cfg, tp, rows, BATCH * PROMPT, train=True))
         kv0, kv1 = kv_heads(cfg, tp, idx)
         heads = {(cfg.n_heads // tp, kv1 - kv0): cfg.n_layers}
         want = {"systolic_mmm": sum(want_k1.values()), "systolic_qmm": 0, "flash_attn": cfg.n_layers,
-                "grouped_mmm": 0}
+                "grouped_mmm": sum(want_k4.values())}
         say(f"    {label} rank {r['rank']} on card {r['card']}, transport={c['transport']}: step ms "
             f"{[round(st['ms'], 3) for st in c['steps']]}, peak {c['peak_gb']:.2f} GB, parameters "
             f"{c['param_bytes'] / 1e9:.3f} GB, moments {c['moment_bytes'] / 1e9:.3f} GB ({smi})")
         for i, st in enumerate(c["steps"]):
-            expect(st["launches"] == want and st["k1_shapes"] == want_k1 and st["flash_heads"] == heads
-                   and st["flash_shapes"] == {(BATCH // dp, PROMPT, PROMPT): cfg.n_layers},
+            expect(st["launches"] == want and st["k1_shapes"] == want_k1 and st["k4_shapes"] == want_k4
+                   and st["flash_heads"] == heads and st["flash_shapes"] == {(BATCH // dp, PROMPT, PROMPT): cfg.n_layers},
                    f"{label} rank {r['rank']} step {i + 1}: launches {st['launches']}, K1 by shape "
-                   f"{sorted(st['k1_shapes'].items())}, flash by heads {st['flash_heads']} by (B, Sq, Skv) "
-                   f"{st['flash_shapes']}; want K1 {want['systolic_mmm']} ({14 * tp + 7} a layer: 7 rings forward, "
-                   f"7 backward, 7 dW) by shape {sorted(want_k1.items())}, K3 {cfg.n_layers} at {tuple(heads)}")
+                   f"{sorted(st['k1_shapes'].items())}, K4 by shape {sorted(st['k4_shapes'].items())}, flash by heads "
+                   f"{st['flash_heads']} by (B, Sq, Skv) {st['flash_shapes']}; want K1 {want['systolic_mmm']} "
+                   f"({want['systolic_mmm'] // cfg.n_layers} a layer: each ring forward and backward, each dW, a "
+                   f"MoE router's three) by shape {sorted(want_k1.items())}, K4 {sorted(want_k4.items())}, K3 "
+                   f"{cfg.n_layers} at {tuple(heads)}")
             expect(st["same"], f"{label} rank {r['rank']} step {i + 1}: every leaf replicated over 'model' bit for "
                                f"bit rank 0's, every shard its data group's")
             first = ranks[0]["case"]["steps"][i]
@@ -3188,6 +3277,16 @@ def tpt_gates(case: dict, ranks: list[dict], one: list[dict] | None, ref_loss: f
         expect(c["param_bytes"] == c["want_param_bytes"] and c["moment_bytes"] == c["want_moment_bytes"],
                f"{label} rank {r['rank']}: parameter bytes {c['param_bytes']:,} = its shard's {c['want_param_bytes']:,};"
                f" moment bytes {c['moment_bytes']:,} = zero1_specs' assignment {c['want_moment_bytes']:,}")
+        if "ep" in c:
+            e = c["ep"]
+            bound = e["bytes_per_layer"] / (H100.nvlink_bw_per_link * H100.nvlink_links) * 1e3
+            expect(e["idle_zero"] and e["busy_nonzero"],
+                   f"{label} rank {r['rank']}: the {e['idle']} (layer, expert) pairs of its {cfg.moe.n_experts // tp} "
+                   f"experts that no token of its line reached have gradients of exactly zero, and every other "
+                   f"expert's are not")
+            say(f"    {label} rank {r['rank']}: the exchange {e['ms_per_layer']:.3f} ms a layer forward for "
+                f"{e['bytes_per_layer'] / 1e6:.3f} MB sent and received (NVLink bytes bound {bound:.3f} ms, 18 links; "
+                f"transport {c['transport']}) ({smi})")
         for ring in c.get("rings", []):
             expect(ring["ok"], f"rank {r['rank']}: {ring['mode']} ring of {ring['gemm']} (M {ring['m']}, K {ring['k']}, "
                                f"N {ring['n']}, tp {ring['tp']}) under autograd: dX {ring['dx_err']:.2e}, dW "
@@ -3195,9 +3294,13 @@ def tpt_gates(case: dict, ranks: list[dict], one: list[dict] | None, ref_loss: f
                                f"{ring['fwd_ms']:.3f} ms, bwd {ring['bwd_ms']:.3f} ms ({smi})")
         RUN_PLANS["systolic"].update(r["plans"]["systolic"])
         RUN_PLANS["attention"].update(r["plans"]["attention"])
+    if cfg.moe is not None:
+        idle = sum(r["case"]["ep"]["idle"] for r in ranks)
+        expect(idle > 0, f"{label}: {idle} (layer, expert) pairs on the ranks that no token reached, so the idle "
+                         f"experts' gate above read some")
     steps = ranks[0]["case"]["steps"]
     out = {"arch": case["arch"], "layers": cfg.n_layers, "shape": list(shape), "transport": ranks[0]["case"]["transport"],
-           "ranks": [{"rank": r["rank"], "card": r["card"],
+           "ranks": [{"rank": r["rank"], "card": r["card"], "ep": r["case"].get("ep"),
                       **{k: r["case"][k] for k in ("param_bytes", "moment_bytes", "peak_gb")},
                       "steps": dp_json(r["case"]["steps"]), "rings": r["case"].get("rings", [])} for r in ranks]}
     if ref_loss is not None:
@@ -3259,26 +3362,42 @@ def tpt_gates(case: dict, ranks: list[dict], one: list[dict] | None, ref_loss: f
 
 
 def tpt_prepare(cards: int) -> dict:
-    """The tensor-parallel training runs on ``cards`` card(s) and their
-    one-card references, made in this process before any rank starts:
-    -> {"world", "backend", "cases" (``tpt_case``'s keyword arguments),
-    "refs" ((one card's steps, its bf16 loss) a case), "wall_s", "workdir"}."""
+    """The tensor-parallel training runs and the expert-parallel serving and
+    training runs on ``cards`` card(s) and their one-card references, made
+    in this process before any rank starts: -> {"world", "backend", "cases"
+    (``tpt_case``'s or, marked "serve", ``ep_serve_case``'s keyword
+    arguments), "refs" ((one card's steps, its bf16 loss) a training case,
+    ``ep_serve_reference``'s readings a serving one), "wall_s", "workdir"}."""
     t0 = time.perf_counter()
     workdir = tempfile.mkdtemp(prefix="tpt_", dir=TUNE_DIR)
     four = max(math.prod(s) for s in TPT_FOUR_CARD_SHAPES)
+    moe_path, serve_path = os.path.join(workdir, "one_card_moe.pt"), os.path.join(workdir, "one_card_moe_serve.pt")
     if cards >= four:
         world = four
         ref_path = os.path.join(workdir, "one_card_internlm2.pt")
         cases = [{"arch": TPT_ARCH, "layers": None, "shape": TPT_FOUR_CARD_SHAPES[0], "ref_path": None, "rings": True,
                   "trace": True},
-                 {"arch": ARCH, "layers": None, "shape": TPT_FOUR_CARD_SHAPES[1], "ref_path": ref_path, "rings": False}]
-        refs = [(None, tpt_bf16_loss(TPT_ARCH)), (tpt_one_card(ARCH, None, ref_path), None)]
+                 {"arch": ARCH, "layers": None, "shape": TPT_FOUR_CARD_SHAPES[1], "ref_path": ref_path, "rings": False},
+                 {"arch": MOE_ARCH, "layers": None, "shape": (1, four), "ref_path": serve_path, "serve": True},
+                 {"arch": MOE_ARCH, "layers": EP_ONE_CARD_LAYERS, "shape": (2, four // 2), "ref_path": moe_path,
+                  "rings": False},
+                 {"arch": MOE_ARCH, "layers": EP_FOUR_CARD_LAYERS, "shape": (1, four), "ref_path": None,
+                  "rings": False}]
+        refs = [(None, tpt_bf16_loss(TPT_ARCH)), (tpt_one_card(ARCH, None, ref_path), None),
+                ep_serve_reference(None, serve_path), (tpt_one_card(MOE_ARCH, EP_ONE_CARD_LAYERS, moe_path), None),
+                (None, tpt_bf16_loss(MOE_ARCH, EP_FOUR_CARD_LAYERS))]
     else:
         world = TP_ONE_CARD_RANKS
         ref_path = os.path.join(workdir, "one_card_glm4.pt")
         cases = [{"arch": TPT_ARCH, "layers": TPT_ONE_CARD_LAYERS, "shape": (1, world), "ref_path": ref_path,
-                  "rings": True}]
-        refs = [(tpt_one_card(TPT_ARCH, TPT_ONE_CARD_LAYERS, ref_path), None)]
+                  "rings": True},
+                 {"arch": MOE_ARCH, "layers": EP_ONE_CARD_LAYERS, "shape": (1, world), "ref_path": serve_path,
+                  "serve": True},
+                 {"arch": MOE_ARCH, "layers": EP_ONE_CARD_LAYERS, "shape": (1, world), "ref_path": moe_path,
+                  "rings": False}]
+        refs = [(tpt_one_card(TPT_ARCH, TPT_ONE_CARD_LAYERS, ref_path), None),
+                ep_serve_reference(EP_ONE_CARD_LAYERS, serve_path),
+                (tpt_one_card(MOE_ARCH, EP_ONE_CARD_LAYERS, moe_path), None)]
     return {"world": world, "backend": "nccl" if cards >= 2 else "gloo", "cases": cases, "refs": refs,
             "wall_s": time.perf_counter() - t0, "workdir": workdir}
 
@@ -3292,10 +3411,16 @@ def phase_tp_train(smi: str, cards: int, prep: dict, results: list | None = None
     world, backend = prep["world"], prep["backend"]
     for case in prep["cases"]:
         cfg = tpt_config(case["arch"], case["layers"])
-        say(f"[3] distributed: full-width {case['arch']} at {cfg.n_layers} of {configs.get_config(case['arch']).n_layers}"
-            f" layers ({get_model(cfg).n_params / 1e9:.3f} B parameters, fp32 masters computing in {cfg.dtype}) trained "
-            f"tensor-parallel on a {case['shape']} ('data', 'model') mesh over {world} ranks on {min(cards, world)} "
-            f"card(s), {backend}: {DP_STEPS} steps on {BATCH} x {PROMPT} tokens, AdamW {TRAIN_TCFG}")
+        head = (f"[3] distributed: full-width {case['arch']} at {cfg.n_layers} of "
+                f"{configs.get_config(case['arch']).n_layers} layers ({get_model(cfg).n_params / 1e9:.3f} B parameters")
+        where = (f"on a {case['shape']} ('data', 'model') mesh over {world} ranks on {min(cards, world)} card(s), "
+                 f"{backend}")
+        if case.get("serve"):
+            say(f"{head} in {cfg.dtype}) served expert-parallel {where}: {BATCH} x {PROMPT} prefill, "
+                f"{TP_DECODE_STEPS} greedy steps")
+        else:
+            say(f"{head}, fp32 masters computing in {cfg.dtype}) trained {'expert' if cfg.moe else 'tensor'}-parallel "
+                f"{where}: {DP_STEPS} steps on {BATCH} x {PROMPT} tokens, AdamW {TRAIN_TCFG}")
     if results is None:
         reset_counts()
         t0 = time.perf_counter()
@@ -3305,14 +3430,277 @@ def phase_tp_train(smi: str, cards: int, prep: dict, results: list | None = None
             r["wall_s"] = time.perf_counter() - t0  # the spawn included
     ranks_wall = max(r["wall_s"] for r in results)
     out = {"world": world, "backend": backend, "ranks_wall_s": ranks_wall, "runs": []}
-    for i, (case, (one, ref_loss)) in enumerate(zip(prep["cases"], prep["refs"], strict=True)):
+    for i, (case, ref) in enumerate(zip(prep["cases"], prep["refs"], strict=True)):
         ranks = [{**{k: r[k] for k in ("rank", "card", "plans")}, "case": r["cases"][i]} for r in results]
-        out["runs"].append(tpt_gates(case, ranks, one, ref_loss, smi))
+        out["runs"].append(ep_serve_gates(case, ranks, ref, smi) if case.get("serve") else tpt_gates(case, ranks, *ref, smi))
     shutil.rmtree(prep["workdir"], ignore_errors=True)
     out["wall_s"] = prep["wall_s"] + ranks_wall + time.perf_counter() - t_phase
-    say(f"    tensor-parallel training part: {out['wall_s']:.1f} s ({prep['wall_s']:.1f} s for one card's reference, "
-        f"{ranks_wall:.1f} s in the ranks: checks, shards, steps, gaps)")
+    say(f"    tensor- and expert-parallel part: {out['wall_s']:.1f} s ({prep['wall_s']:.1f} s for one card's "
+        f"references, {ranks_wall:.1f} s in the ranks: checks, shards, serving, steps, gaps)")
     return out
+
+
+# ---------------------------------------------------------------------------
+# The distributed phase: expert parallelism
+# ---------------------------------------------------------------------------
+
+
+def ep_train_readings(trainer, batch) -> dict:
+    """A gradient of the training loss on this rank's rows (no update), each
+    MoE block's exchange logged: whether every (layer, expert)
+    of this rank that no token of its line reached has a gradient of exactly
+    zero and every other expert's is not, and the forward's exchange ms and
+    bytes a layer."""
+    cfg = trainer.model.cfg
+    ep.LOG.clear()
+    ep.LOG.on = True
+    try:
+        grads, _, _ = rank_grads(trainer._grads_of, trainer.layout, trainer.model, trainer.tcfg, trainer.params, batch)
+        torch.cuda.synchronize()
+        entries = ep.LOG.entries()[:cfg.n_layers]  # the forward's blocks, one a layer
+    finally:
+        ep.LOG.on = False
+    idle, idle_zero, busy_nonzero = 0, True, True
+    for lp, e in zip(grads["layers"], entries, strict=True):
+        none = torch.tensor([n == 0 for n in e["rows"]], device="cuda")
+        idle += int(none.sum())
+        for name in ("w_gate", "w_up", "w_down"):
+            zero = (lp["ffn"][name].reshape(none.shape[0], -1) == 0).all(1)
+            idle_zero &= bool(zero[none].all())
+            busy_nonzero &= not bool(zero[~none].any())
+    del grads
+    torch.cuda.empty_cache()
+    return {"idle": idle, "idle_zero": idle_zero, "busy_nonzero": busy_nonzero,
+            "ms_per_layer": statistics.mean(e["ms"] for e in entries),
+            "bytes_per_layer": statistics.mean(e["bytes"] for e in entries)}
+
+
+def ep_serve_reference(layers: int | None, path: str) -> dict:
+    """One card's kernel path of qwen3-moe-30b-a3b in bf16 from seed 0 (its
+    first ``layers`` layers), as the expert-parallel ranks serve it:
+    ``tp_reference``'s prefill and decode-step logits and fed tokens, each
+    MoE call's top-k experts and kept / dropped slots; the fed tokens and
+    the experts saved to ``path``, which the ranks replay."""
+    cfg = tpt_config(MOE_ARCH, layers)
+    model = get_model(cfg)
+    params = model.init(SEED, "cuda")
+    batch = make_batch(cfg, batch=BATCH, seq=PROMPT, kind="prefill", seed=SEED, device="cuda")
+    topk, routing = [], []
+    with topk_choices(topk), recorded_routing(routing):
+        ref = tp_reference(model, params, batch)
+    torch.save({"feed": ref["feed"], "topk": [e.cpu() for e in topk]}, path)
+    del params, batch, topk
+    torch.cuda.empty_cache()
+    return {"logits": ref["logits"], "kept": [(int((~d).sum()), int(d.sum())) for _, d, _ in routing]}
+
+
+def ep_first_row(mesh: Mesh, tokens: int, whole_mesh: bool, r: int) -> int:
+    """This rank's first token in the batch's order when the batch has
+    ``tokens`` tokens and a rank R = ``r`` stream rows: the mesh's data
+    lines hold a share each (``whole_mesh``, as in training) or every line
+    all of them (serving)."""
+    coords = mesh.coords(torch.distributed.get_rank())
+    return (coords["data"] * tokens // mesh.shape["data"] if whole_mesh else 0) + coords["model"] * r
+
+
+@contextlib.contextmanager
+def ep_replay(record: list, mesh: Mesh, whole_mesh: bool):
+    """Route each MoE call of this rank to one card's recorded experts for
+    its own rows (``topk_choices``' record of the whole batch's tokens,
+    ``ep_first_row``; pad rows to expert 0, which the routing leaves out),
+    weighted by this run's router probabilities."""
+    calls = iter(record)
+
+    def topk(probs, k):
+        whole = next(calls).to(probs.device)
+        r = probs.shape[0]
+        e = torch.zeros((r, k), dtype=torch.long, device=probs.device)
+        first = ep_first_row(mesh, whole.shape[0], whole_mesh, r)
+        mine = whole[first:first + r]
+        e[:mine.shape[0]] = mine
+        return probs.gather(-1, e), e
+
+    with mock.patch.object(moe, "_topk_shardable", topk):
+        yield
+
+
+def ep_counts() -> tuple:
+    """Launches since the last reset: in all, K1 and K4 by shape, flash by
+    heads and by (B, Sq, Skv)."""
+    return (counts(), dict(mm_kernel.launches_by_shape), dict(grouped_kernel.launches_by_shape),
+            dict(attn_kernel.launches_by_heads()), flash_shape_counts())
+
+
+def ep_time_k4(cfg, rows: list[int], c: int) -> list[dict]:
+    """K4 at a rank's expert-parallel prefill launches, (E / tp, C') over the
+    rows it received (``rows``, the rest zero), each expert GEMM's (K, N):
+    CUDA-event ms beside the bound over the experts and rows it reads
+    (``_grouped_cost``) and ``torch.bmm`` on every row."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    e = len(rows)
+    r = torch.tensor(rows, dtype=torch.int32, device="cuda")
+    live = (torch.arange(c, device="cuda")[None, :, None] < r[:, None, None]).to(BF16)
+    out = []
+    for k, n in expert_gemms(cfg):
+        x = randn((e, c, k), gen, BF16) * live
+        w = (randn((e, k, n), gen, torch.float32) * k**-0.5).to(BF16)
+        bound_s, bound_by = H100.bound_s(*_grouped_cost(k, n, c, rows), "bfloat16")
+        out.append({"e": e, "c": c, "k": k, "n": n, "rows": sum(rows),
+                    "ms": time_ms(lambda: grouped_ops.grouped_matmul(x, w, rows=r), 10),
+                    "library_ms": time_ms(lambda: torch.bmm(x, w), 10), "bound_ms": bound_s * 1e3,
+                    "bound_by": bound_by})
+    return out
+
+
+def ep_serve_case(rank: int, arch: str, layers: int | None, shape: tuple[int, int], ref_path: str,
+                  serve: bool = True) -> dict:
+    """One expert-parallel serving run on this rank: ``arch`` (its first
+    ``layers`` layers) in bf16 from this rank's seed-0 shards
+    (``TPLayout.init_shards``: its E / tp experts), served by
+    ``ServeEngine(mesh=...)`` (BATCH x PROMPT, TP_DECODE_STEPS greedy steps)
+    with its launches and ms; then the layout's logits fed one card's
+    tokens (``ep_serve_reference``), routing freely and routed alike, each
+    MoE call's kept and dropped slots, the exchange's ms and bytes; K4 at
+    the prefill's launch shape over the rows the rank received, timed."""
+    mesh = Mesh(shape, ("data", "model"))
+    cfg = tpt_config(arch, layers)
+    model = get_model(cfg)
+    layout = TPLayout(cfg, mesh)
+    engine = ServeEngine(model, layout.init_shards(model, SEED, "cuda", dtype=None),
+                         ServeConfig(max_len=PROMPT + GEN, batch=BATCH), device="cuda", mesh=mesh, shards=True)
+    torch.cuda.empty_cache()
+    out = {"shape": shape, "layers": cfg.n_layers, "transport": cm.transport(mesh),
+           "resident_gb": torch.cuda.memory_allocated() / 1e9,
+           "experts": engine.params["layers"][0]["ffn"]["w_gate"].shape[0]}
+    batch = make_batch(cfg, batch=BATCH, seq=PROMPT, kind="prefill", seed=SEED, device="cuda")
+    engine.generate(batch, 2)  # warm-up (not counted)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    first = engine.prefill(batch)
+    torch.cuda.synchronize()
+    out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    out["prefill"] = ep_counts()
+    reset_counts()
+    t0 = time.perf_counter()
+    rest = engine.decode(first, TP_DECODE_STEPS)
+    torch.cuda.synchronize()
+    out["decode_ms_per_step"] = (time.perf_counter() - t0) * 1e3 / TP_DECODE_STEPS
+    out["decode"] = ep_counts()
+    out["tokens"] = torch.cat([first, rest], dim=1).cpu()
+    ref = torch.load(ref_path, weights_only=True)
+    chosen = []
+    for name, ctx in (("free", topk_choices(chosen)), ("alike", ep_replay(ref["topk"], mesh, False))):
+        ep.LOG.clear()
+        ep.LOG.on = True
+        try:
+            with ctx, torch.no_grad():
+                lg, cache = engine.layout.prefill(engine.params, batch, PROMPT + GEN)
+                logits = [lg.float().cpu()]
+                for step, tok in enumerate(ref["feed"]):
+                    lg, cache = engine.layout.decode_step(engine.params, tok.cuda(), cache, PROMPT + step)
+                    logits.append(lg.float().cpu())
+            torch.cuda.synchronize()
+            entries = ep.LOG.entries()
+        finally:
+            ep.LOG.on = False
+        out[name] = {"logits": logits, "kept": [(e["kept"], e["dropped"]) for e in entries]}
+        if name == "free":  # each call's slots on this rank's token rows routed otherwise than on one card
+            flips = []
+            for mine, want in zip(chosen, ref["topk"], strict=True):
+                first = ep_first_row(mesh, want.shape[0], False, mine.shape[0])
+                want = want[first:first + mine.shape[0]].to(mine.device)
+                flips.append(int((mine[:want.shape[0]] != want).sum()))
+            out[name]["flips"] = flips
+            pre, dec = entries[:cfg.n_layers], entries[cfg.n_layers:]
+            out["exchange"] = {f"{what}_{k}_per_layer": statistics.mean(e[k] for e in part)
+                               for what, part in (("prefill", pre), ("decode", dec)) for k in ("ms", "bytes")}
+            out["k4"] = ep_time_k4(cfg, pre[0]["rows"], pre[0]["cap"])
+    del engine, cache, batch, ref
+    torch.cuda.empty_cache()
+    reset_counts()
+    return out
+
+
+def ep_serve_gates(case: dict, ranks: list[dict], ref: dict, smi: str) -> dict:
+    """The gates of one expert-parallel serving run over its ranks' readings
+    (``ep_serve_case``) against one card's (``ep_serve_reference``)."""
+    shape = case["shape"]
+    mesh = Mesh(shape, ("data", "model"))
+    tp = shape[1]
+    cfg = tpt_config(case["arch"], case["layers"])
+    label = f"{case['arch']} at {cfg.n_layers} layers served over {shape} ('data', 'model')"
+    for r in ranks:
+        idx = mesh.coords(r["rank"])["model"]
+        c = r["case"]
+        kv0, kv1 = kv_heads(cfg, tp, idx)
+        heads = (cfg.n_heads // tp, kv1 - kv0)
+        ex = c["exchange"]
+        bound = ex["prefill_bytes_per_layer"] / (H100.nvlink_bw_per_link * H100.nvlink_links) * 1e3
+        say(f"    {label} rank {r['rank']} on card {r['card']}, transport={c['transport']}: {c['resident_gb']:.2f} GB "
+            f"of shards ({c['experts']} experts a layer); prefill {BATCH}x{PROMPT} {c['prefill_ms']:.3f} ms, decode "
+            f"{c['decode_ms_per_step']:.3f} ms/step; the exchange {ex['prefill_ms_per_layer']:.3f} ms a prefill layer "
+            f"for {ex['prefill_bytes_per_layer'] / 1e6:.3f} MB (NVLink bytes bound {bound:.4f} ms), "
+            f"{ex['decode_ms_per_layer']:.3f} ms a decode layer for {ex['decode_bytes_per_layer'] / 1e3:.1f} kB; K4 at "
+            f"(E/tp, C') {[(k['e'], k['c'], k['k'], k['n'], k['rows'], round(k['ms'], 4), round(k['bound_ms'], 4)) for k in c['k4']]} "
+            f"(e, c, k, n, rows, ms, bound ms) ({smi})")
+        expect(c["experts"] == cfg.moe.n_experts // tp, f"{label} rank {r['rank']}: {c['experts']} experts a layer, "
+                                                        f"its {cfg.moe.n_experts} // {tp}")
+        for phase, rows, steps in (("prefill", BATCH * PROMPT, 1), ("decode", BATCH, TP_DECODE_STEPS)):
+            got_c, got_k1, got_k4, got_h, got_f = c[phase]
+            want_k1 = {key: n * steps for key, n in tp_expected(cfg, tp, idx, rows).items()}
+            want_k4 = {key: n * steps for key, n in ep_k4_expected(cfg, tp, rows, rows).items()}
+            want_f = cfg.n_layers if phase == "prefill" else 0
+            expect(got_c == {"systolic_mmm": sum(want_k1.values()), "systolic_qmm": 0, "flash_attn": want_f,
+                             "grouped_mmm": sum(want_k4.values())}
+                   and got_k1 == want_k1 and got_k4 == want_k4 and got_h == ({heads: want_f} if want_f else {})
+                   and got_f == ({(BATCH, PROMPT, PROMPT): want_f} if want_f else {}),
+                   f"{label} rank {r['rank']} {phase}: launches {got_c}, K1 by shape {sorted(got_k1.items())}, K4 by "
+                   f"shape {sorted(got_k4.items())}, flash by heads {got_h} by (B, Sq, Skv) {got_f}; want K1 "
+                   f"{sorted(want_k1.items())} (attention's rings and the router), K4 {sorted(want_k4.items())} (3 a "
+                   f"layer at {cfg.moe.n_experts // tp} experts), flash {want_f} at {heads}")
+        expect(torch.equal(c["tokens"], ranks[0]["case"]["tokens"])
+               and tuple(c["tokens"].shape) == (BATCH, 1 + TP_DECODE_STEPS),
+               f"{label} rank {r['rank']} served the same {tuple(c['tokens'].shape)} greedy tokens as rank 0")
+        expect(c["alike"]["kept"] == ref["kept"],
+               f"{label} rank {r['rank']}: routed alike, every MoE call's kept and dropped slots (decided from the "
+               f"all-gathered routing over the whole batch) equal one card's dispatch's exactly: "
+               f"{c['alike']['kept'][:cfg.n_layers]} vs {ref['kept'][:cfg.n_layers]} at prefill, "
+               f"{sum(d for _, d in ref['kept'])} dropped in all")
+        expect(all(torch.equal(a, b) for a, b in zip(c["free"]["logits"], ranks[0]["case"]["free"]["logits"])),
+               f"{label} rank {r['rank']}: the same gathered logits as rank 0")
+    r0 = ranks[0]["case"]
+    # slots routed otherwise than on one card, per prefill / decode step (its MoE calls), summed over the ranks
+    flips = [sum(sum(r["case"]["free"]["flips"][i * cfg.n_layers:(i + 1) * cfg.n_layers]) for r in ranks)
+             for i in range(len(ref["logits"]))]
+    first_flip = next((i for i, f in enumerate(flips) if i and f), len(flips))  # the first decode step with one
+    errs = {"alike": [compare_logits(f"{label} {'prefill' if i == 0 else f'decode step {i - 1}'} routed alike",
+                                     got, want, LOGITS_TOL_BF16,
+                                     paths="expert-parallel path vs the single-card kernel path")[0]
+                      for i, (got, want) in enumerate(zip(r0["alike"]["logits"], ref["logits"], strict=True))]}
+    errs["free"] = [(got - want).abs().max().item() for got, want in zip(r0["free"]["logits"], ref["logits"],
+                                                                            strict=True)]
+    for i in range(first_flip):  # the prefill (its last positions), and each decode step routed as on one card
+        compare_logits(f"{label} {'prefill' if i == 0 else f'decode step {i - 1}'} routed freely ({flips[i]} slots "
+                       f"routed otherwise than on one card)", r0["free"]["logits"][i], ref["logits"][i],
+                       LOGITS_TOL_MOE, paths="expert-parallel path vs the single-card kernel path")
+    scale = max(1.0, ref["logits"][0].abs().max().item())
+    say(f"    {label}: logits against one card's, largest gap as a share of the prefill's largest logit: routed alike "
+        f"{max(errs['alike']) / scale:.2%} (tol {LOGITS_TOL_BF16:.0%}); routing freely "
+        f"{max(errs['free'][:first_flip]) / scale:.2%} over the prefill and the decode steps before the first whose "
+        f"routing differs from one card's (tol {LOGITS_TOL_MOE:.0%}), {[round(e / scale, 4) for e in errs['free']]} by step, slots routed "
+        f"otherwise {flips} (bf16 rounding of the router's input moves near-ties); {sum(d for _, d in ref['kept'])} "
+        f"slots dropped over {len(ref['kept'])} MoE calls, as on one card ({smi})")
+    return {"arch": case["arch"], "layers": cfg.n_layers, "shape": list(shape), "serve": True,
+            "transport": r0["transport"], "logits_max_abs_err": errs, "logits_scale": scale, "routing_flips": flips,
+            "kept_dropped": ref["kept"],
+            "ranks": [{"rank": r["rank"], "card": r["card"],
+                       **{k: r["case"][k] for k in ("resident_gb", "experts", "prefill_ms", "decode_ms_per_step",
+                                                    "exchange", "k4")},
+                       **{phase: {"launches": r["case"][phase][0],
+                                  "k1_shapes": [[*k, n] for k, n in sorted(r["case"][phase][1].items())],
+                                  "k4_shapes": [[*k, n] for k, n in sorted(r["case"][phase][2].items())]}
+                          for phase in ("prefill", "decode")}} for r in ranks]}
 
 
 def pin_cache(path: str) -> None:
@@ -3944,13 +4332,18 @@ def phase_serve_recurrent(arch: str, smi: str) -> tuple[dict, list]:
     r.update(n_params=n, count_params=model.n_params, param_bytes=_nbytes(params))
     runs = []
     if cfg.family == "ssm":
-        resident = state_bytes(cfg, CONT_SLOTS)
-        cont = phase_continuous(model, params, smi, resident=resident, n_requests=SSM_REQUESTS)
-        chunked = phase_continuous(model, params, smi, chunk=SSM_CHUNK, resident=resident, alone=cont["replays"],
-                                   n_requests=SSM_REQUESTS)
+        cut = dataclasses.replace(cfg, n_layers=SSM_CONT_LAYERS)
+        say(f"    {arch}'s continuous runs at {cut.n_layers} of its {cfg.n_layers} layers, drawn from seed {SEED}")
+        cut_model = get_model(cut)
+        cut_params = cast_params(cut_model.init(SEED, "cuda", dtype=torch.float32), BF16)
+        resident = state_bytes(cut, CONT_SLOTS)
+        cont = phase_continuous(cut_model, cut_params, smi, resident=resident, n_requests=SSM_REQUESTS)
+        chunked = phase_continuous(cut_model, cut_params, smi, chunk=SSM_CHUNK, resident=resident,
+                                   alone=cont["replays"], n_requests=SSM_REQUESTS)
         for run in (cont, chunked):
             del run["replays"], run["logit_rows"]
         runs = [cont, chunked]
+        del cut_model, cut_params
     r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     say(f"    peak device memory over the {arch} phase: {r['peak_gb']:.2f} GB")
     del params, model, batch

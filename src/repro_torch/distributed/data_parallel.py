@@ -10,9 +10,9 @@ writes it out, one process a rank:
                 batch (``sharding.batch_specs``); a batch that does not
                 divide raises, no row is padded.  The ranks of a "model"
                 line take the same rows.
-  the model     at model > 1 each rank holds its ``TPLayout.shard_train``
-                shards and computes the loss laid out over its line
-                (``distributed.tp_layout``).  A leaf sharded over "model"
+  the model     at model > 1 (and for a MoE model on any mesh) each rank
+                holds its ``TPLayout.shard_train`` shards and computes the
+                loss laid out over its line (``distributed.tp_layout``).  A leaf sharded over "model"
                 gets its whole gradient on its rank; a leaf replicated over
                 it gets a partial one (the norms see the rank's token rows,
                 wk / wv its query heads' use of its KV columns, an
@@ -50,10 +50,18 @@ step.  NCCL moves card tensors; on Gloo (the CPU, or two ranks sharing one
 card) a card tensor goes through host memory, and the reduce-scatter is an
 fp32 all-reduce of the whole buffer (``collective_matmul.reduce_scatter_rows``).
 
-Refused, not approximated: a MoE model at dp > 1 (its aux loss is a product
-of batch means and its expert capacity is counted over the batch, so a
-rank's step on its rows is not the reference's step on the global batch),
-and at model > 1 whatever ``TPLayout`` does not lay out.
+A MoE model trains through ``TPLayout`` at any mesh of more than one rank
+(at model = 1 too): its aux loss is a product of batch means and its expert
+capacity is counted over a dispatch group of the global batch, so the
+layout pools the ranks' routing (``distributed.expert_parallel``) and every
+rank holds the batch's aux.  Its gradient reaches each rank's own tokens,
+so the aux enters each rank's objective once, not weighted by the rank's
+share of the loss tokens (``train.loop.make_grad_fn``'s ``aux_once``), and
+the data group's sum is the whole gradient.  With microbatches the ranks
+step through the global microbatches together: rank r's k-th microbatch is
+global microbatch k's r-th part (``ZeroLayout.rows``), so each microbatch's
+routing is pooled over its own rows.  At model > 1 whatever ``TPLayout``
+does not lay out is refused.
 """
 
 from __future__ import annotations
@@ -89,15 +97,10 @@ def data_index(mesh: Mesh, rank: int) -> int:
 
 
 def check_trainable(cfg, mesh: Mesh) -> None:
-    """Raise for what this module does not train: a MoE model at dp > 1,
-    and at a "model" axis above 1 what ``TPLayout`` does not lay out (its
-    message)."""
-    if cfg.moe is not None and data_size(mesh) > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: data-parallel MoE training is not written: the aux loss is a product of batch means and "
-            f"the expert capacity is counted over the batch, so a rank's step on its rows is not the global step "
-            f"(it needs expert parallelism); train it on one rank")
-    if mesh.shape.get("model", 1) > 1:
+    """Raise for what this module does not train: at a "model" axis above 1,
+    and for a MoE model on more than one rank, what ``TPLayout`` does not
+    lay out (its message)."""
+    if mesh.shape.get("model", 1) > 1 or (cfg.moe is not None and mesh.size > 1):
         TPLayout(cfg, mesh)
 
 
@@ -264,9 +267,15 @@ class ZeroLayout:
 
     def rows(self, batch: dict, cfg, microbatches: int = 1) -> tuple[dict, torch.Tensor]:
         """This rank's rows of the global ``batch`` and the weight of each of
-        its ``microbatches`` (``microbatch_weights``)."""
-        return (local_batch(batch, self.mesh, self.rank),
-                microbatch_weights(batch, cfg, self.dp, microbatches)[self.idx])
+        its ``microbatches`` (``microbatch_weights``).  A MoE model's ranks
+        take their microbatches interleaved: rank r's k-th is part (k dp + r)
+        of dp x microbatches, the r-th part of global microbatch k."""
+        weights = microbatch_weights(batch, cfg, self.dp, microbatches)
+        if cfg.moe is None or microbatches <= 1 or self.dp == 1:
+            return local_batch(batch, self.mesh, self.rank), weights[self.idx]
+        n = microbatches
+        return ({k: v.reshape(n, self.dp, -1, *v.shape[1:])[:, self.idx].reshape(-1, *v.shape[1:])
+                 for k, v in batch.items()}, weights.reshape(n, self.dp)[:, self.idx])
 
     # -- collectives --------------------------------------------------------
 

@@ -31,10 +31,19 @@ process a rank, over the "model" axis of a mesh (tp ranks):
                     logits' vocab blocks after, so every rank samples the
                     same greedy tokens
 
+  MoE block        expert-parallel (``distributed.expert_parallel``): the
+                    router replicated, the expert stacks cut on E over
+                    "model"; each rank routes its token rows, the routing
+                    is pooled so that drops are decided over the whole
+                    batch, each kept slot's row travels to its expert's rank
+                    and back (``all_to_all_single``)
+
 A tensor that does not divide tp is replicated (``sharding``'s rule), and
-the layout then computes it whole.  The dense GQA / SWA decoder is laid out
-here; the MoE, MLA, recurrent and frontend families and the tied head are
-not yet (expert parallelism comes with them).
+the layout then computes it whole.  The dense and MoE GQA / SWA decoders are
+laid out here; the MLA, recurrent and frontend families and the tied head
+are not yet.  The expert stacks are cut over "model" only: the reference's
+FSDP "data" dimension on them is left to the optimizer state (ZeRO-1), as
+every other leaf's.
 
 Training (``loss_fn``) runs the same stream over full sequences under
 autograd: the rings' backward is the other ring
@@ -51,7 +60,10 @@ replicated over "model" (the norms see only the rank's token rows; a head
 or table that does not divide runs on the rank's rows alone), so the sum
 over "model" is the whole gradient (``data_parallel.ZeroLayout.reduce``).
 Padded stream rows are zero, stay zero through every layer, and carry no
-loss.
+loss.  A MoE model's aux loss is the batch's: its statistics are summed over
+every rank of the mesh, whose data lines hold different rows in training,
+and only over the "model" line in serving, where each line serves the same
+batch.
 """
 
 from __future__ import annotations
@@ -65,7 +77,8 @@ import torch.distributed as dist
 from repro_torch.core.tree import leaves, leaves_with_path, unflatten
 from repro_torch.distributed import collective_matmul as cm
 from repro_torch.distributed import sharding
-from repro_torch.launch.mesh import Mesh
+from repro_torch.distributed.expert_parallel import ExpertParallel
+from repro_torch.launch.mesh import Mesh, batch_axes
 from repro_torch.models import attention as attn
 from repro_torch.models import layers
 from repro_torch.models.transformer import _remat
@@ -107,16 +120,17 @@ class TPLayout:
     loss)."""
 
     def __init__(self, cfg: ArchConfig, mesh: Mesh, axis: str = "model"):
-        if cfg.family != "dense" or cfg.attention not in ("gqa", "swa") or cfg.moe is not None \
+        if cfg.family not in ("dense", "moe") or cfg.attention not in ("gqa", "swa") \
                 or cfg.frontend is not None or cfg.tie_embeddings:
-            raise NotImplementedError(f"{cfg.name}: the tensor-parallel layout lays out the dense GQA / SWA decoder "
-                                      f"with an untied head (family={cfg.family!r}, attention={cfg.attention!r}, "
-                                      f"moe={cfg.moe is not None}, frontend={cfg.frontend!r}, "
+            raise NotImplementedError(f"{cfg.name}: the tensor-parallel layout lays out the dense GQA / SWA decoder, "
+                                      f"MoE or not, with an untied head (family={cfg.family!r}, "
+                                      f"attention={cfg.attention!r}, frontend={cfg.frontend!r}, "
                                       f"tied head={cfg.tie_embeddings})")
         self.cfg, self.mesh, self.axis = cfg, mesh, axis
         self.tp = mesh.shape[axis]
         check_heads(cfg, self.tp)
-        if cfg.d_ff % self.tp:
+        self.ep = None if cfg.moe is None else ExpertParallel(cfg, mesh, axis)
+        if self.ep is None and cfg.d_ff % self.tp:
             raise ValueError(f"{cfg.name}: d_ff={cfg.d_ff} does not divide over tp={self.tp}")
         self.idx = mesh.axis_index(axis)
         self.kv0, self.kv1 = kv_heads(cfg, self.tp, self.idx)
@@ -134,24 +148,34 @@ class TPLayout:
 
     # -- parameters ---------------------------------------------------------
 
-    def shard_train(self, params: dict) -> dict:
-        """This rank's training parameters: ``sharding.param_specs``' shard of
-        each leaf (contiguous, row-major), wk / wv whole.  A replicated leaf
-        is ``params``' own tensor, which a training step updates in place."""
-        return sharding.shard_params(params, sharding.param_specs(params, self.mesh), self.mesh, _rank())
+    def specs(self, params: dict) -> dict:
+        """``sharding.param_specs`` over "model" alone: the expert stacks'
+        FSDP "data" entry dropped (the masters stay whole over "data")."""
+        baxes = set(batch_axes(self.mesh))
+        return sharding._map_with_path(lambda path, spec, layers: tuple(None if ax in baxes else ax for ax in spec),
+                                       sharding.param_specs(params, self.mesh))
 
-    def init_shards(self, model, seed: int, device, dtype: torch.dtype = torch.float32) -> dict:
+    def shard_train(self, params: dict) -> dict:
+        """This rank's training parameters: ``specs``' shard of each leaf
+        (contiguous, row-major), wk / wv whole.  A replicated leaf is
+        ``params``' own tensor, which a training step updates in place."""
+        return sharding.shard_params(params, self.specs(params), self.mesh, _rank())
+
+    def init_shards(self, model, seed: int, device, dtype: torch.dtype | None = torch.float32) -> dict:
         """``shard_train(model.init(seed, device, dtype=dtype))`` with each
         piece cut as soon as it is drawn (``init_model``'s ``transform``): the
-        same values, one piece whole at a time."""
+        same values, one piece whole at a time (``dtype`` None: the config's
+        compute dtype, as served)."""
         rank = _rank()
         return model.init(seed, device, dtype=dtype, transform=lambda piece: sharding.shard_params(
-            piece, sharding.param_specs(piece, self.mesh), self.mesh, rank))
+            piece, self.specs(piece), self.mesh, rank))
 
-    def shard(self, params: dict) -> dict:
-        """This rank's served parameters: ``shard_train``'s, and of the
-        replicated wk / wv only the columns of the rank's KV heads."""
-        local = self.shard_train(params)
+    def shard(self, params: dict, cut: bool = True) -> dict:
+        """This rank's served parameters: ``shard_train``'s (``cut`` False:
+        ``params`` are already this rank's ``shard_train`` / ``init_shards``
+        tree), and of the replicated wk / wv only the columns of the rank's
+        KV heads."""
+        local = self.shard_train(params) if cut else sharding._map_with_path(lambda path, leaf, n: leaf, params)
         hd = self.cfg.resolved_head_dim
         for lp in local["layers"]:
             for name in ("wk", "wv"):
@@ -171,7 +195,7 @@ class TPLayout:
             return torch.empty(shape, dtype=leaf.dtype, device="meta")
 
         out = sharding._map_with_path(whole, local)
-        specs = sharding.param_specs(out, self.mesh)
+        specs = self.specs(out)
         for (path, w), spec, leaf in zip(leaves_with_path(out), leaves(specs), leaves(local), strict=True):
             want = tuple(d // self.tp if ax == "model" else d for d, ax in zip(w.shape, spec[-w.ndim:]))
             if want != tuple(leaf.shape):
@@ -182,7 +206,7 @@ class TPLayout:
     def leaf_specs(self, whole: dict) -> list[tuple]:
         """Each leaf's ``param_specs`` entry in leaf order, without the layer
         axis of a leaf held in a list of layers."""
-        specs = sharding.param_specs(whole, self.mesh)
+        specs = self.specs(whole)
         return leaves(sharding._map_with_path(
             lambda path, leaf, layers: sharding._get(specs, path)[0 if layers is None else 1:], whole))
 
@@ -282,17 +306,23 @@ class TPLayout:
             k = layers.rmsnorm(p["k_norm"], k, c.norm_eps)
         return q, k, v
 
-    def _block(self, lp: dict, x: torch.Tensor, b: int, s: int, attend) -> torch.Tensor:
-        """One pre-norm attention + SwiGLU layer on this rank's token rows;
-        ``attend(q, k, v)`` -> (B, S, H_local * hd)."""
+    def _block(self, lp: dict, x: torch.Tensor, b: int, s: int, attend, train: bool = False):
+        """One pre-norm attention + SwiGLU / MoE layer on this rank's token
+        rows; ``attend(q, k, v)`` -> (B, S, H_local * hd).  -> (x, the MoE
+        block's aux loss, None for SwiGLU or when serving).  ``train``: the
+        mesh's data lines hold different rows, whose routing the MoE block
+        pools, and the aux loss is computed."""
         m_pad = x.shape[0] * self.tp
         xin = layers.rmsnorm(lp["attn_norm"], x, self.cfg.norm_eps)
         o = attend(*self._qkv(lp["attn"], xin, b, s))
         x = x + self._rs(self._pad(o.reshape(b * s, -1), m_pad), lp["attn"]["wo"])
         hin = layers.rmsnorm(lp["ffn_norm"], x, self.cfg.norm_eps)
         f = lp["ffn"]
+        if self.ep is not None:
+            y, aux = self.ep.block(f, hin, b * s, train=train)
+            return x + y, aux
         gate, up = self._ag(hin, f["w_gate"]), self._ag(hin, f["w_up"])
-        return x + self._rs(torch.nn.functional.silu(gate.float()).to(x.dtype) * up, f["w_down"])
+        return x + self._rs(torch.nn.functional.silu(gate.float()).to(x.dtype) * up, f["w_down"]), None
 
     # -- serving ------------------------------------------------------------
 
@@ -318,7 +348,7 @@ class TPLayout:
                 kv.append((k, v))
                 return o
 
-            x = self._block(lp, x, b, s, attend)
+            x = self._block(lp, x, b, s, attend)[0]
             attn.gqa_prime_cache(lc, *kv[0], s)
         last = torch.arange(b, device=x.device) * s + s - 1
         return self._logits(params, x, last)[:, None], cache
@@ -332,7 +362,7 @@ class TPLayout:
         pos = attn.slot_positions(pos, b, x.device)
         for lp, lc in zip(params["layers"], cache["layers"]):
             x = self._block(lp, x, b, 1,
-                            lambda q, k, v, lc=lc: attn.gqa_decode_attend(q, k, v, self.local_cfg, lc, pos))
+                            lambda q, k, v, lc=lc: attn.gqa_decode_attend(q, k, v, self.local_cfg, lc, pos))[0]
         return self._logits(params, x, torch.arange(b, device=x.device))[:, None], cache
 
     # -- training -----------------------------------------------------------
@@ -371,24 +401,43 @@ class TPLayout:
         own = nll.sum() if wts is None else (nll * wts[lo:hi]).sum()
         return self._sum(own) / count
 
-    def loss_fn(self, params: dict, batch: dict, *, remat: bool = False):
-        """``transformer.loss_fn`` laid out over the ranks, on this rank's
-        ``shard_train`` parameters and the (replicated) batch -> (scalar
-        loss, {"ce", "aux", "loss"}), the same on every rank; aux is 0 (no
-        MoE).  ``remat`` recomputes each layer in the backward, its rings
-        again, in the same order on every rank."""
-        tokens = batch["tokens"]
+    def _stream(self, params: dict, tokens: torch.Tensor, remat: bool = False):
+        """The full-sequence stream over this line's rows ``tokens`` (B, S),
+        the mesh's data lines holding different rows -> (this rank's (R, d)
+        rows after the last layer, the MoE blocks' summed aux loss, fp32 0
+        without MoE).  ``remat`` recomputes each layer in the backward, its
+        collectives again, in the same order on every rank."""
         b, s = tokens.shape
         positions = torch.arange(s, dtype=torch.int32, device=tokens.device)
 
         def attend(q, k, v):
             return attn.gqa_attend(q, k, v, self.local_cfg, positions)[0]
 
-        layer = _remat(lambda h, lp: self._block(lp, h, b, s, attend), remat)
+        layer = _remat(lambda h, lp: self._block(lp, h, b, s, attend, train=True), remat)
         x = self._embed(params, tokens)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for lp in params["layers"]:
-            x = layer(x, lp)
+            x, da = layer(x, lp)
+            if da is not None:
+                aux = aux + da
+        return x, aux
+
+    def forward(self, params: dict, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+        """``transformer.forward(..., return_aux=True)`` laid out over the
+        ranks, on this line's rows of the batch -> (fp32 logits (B, S, V) of
+        those rows, on every rank of the line; the aux loss of the whole
+        batch, the same on every rank)."""
+        b, s = batch["tokens"].shape
+        x, aux = self._stream(params, batch["tokens"])
+        return self._logits(params, x, torch.arange(b * s, device=x.device)).reshape(b, s, -1), aux
+
+    def loss_fn(self, params: dict, batch: dict, *, remat: bool = False):
+        """``transformer.loss_fn`` laid out over the ranks, on this rank's
+        ``shard_train`` parameters and its line's rows of the batch ->
+        (scalar loss, {"ce", "aux", "loss"}): ce over the line's rows, the
+        same on every rank of the line; aux the whole batch's (0 without
+        MoE), the same on every rank."""
+        x, aux = self._stream(params, batch["tokens"], remat)
         ce = self._ce(params, x, batch["labels"], batch.get("loss_mask"))
-        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
         loss = ce + aux
         return loss, {"ce": ce, "aux": aux, "loss": loss}

@@ -22,6 +22,7 @@ import datetime
 import math
 import multiprocessing
 import os
+import queue
 import time
 import traceback
 
@@ -148,8 +149,16 @@ def axis_size(mesh: Mesh, name: str) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _rank_main(fn, rank: int, world: int, backend: str, workdir: str, timeout_s: float, args: tuple) -> None:
+# The ranks' start-up (spawn, imports, arguments loaded): seconds to tens of seconds on a loaded host.
+START_TIMEOUT_S = 300.0
+
+
+def _rank_main(fn, rank: int, world: int, backend: str, workdir: str, timeout_s: float, ready, go) -> None:
     try:
+        args = torch.load(os.path.join(workdir, "args.pt"), weights_only=False)
+        ready.put(rank)  # imported (``fn`` unpickled, ``args`` loaded): this rank has started
+        if not go.wait(START_TIMEOUT_S):
+            raise TimeoutError(f"rank {rank}: the other ranks did not start within {START_TIMEOUT_S} s")
         dist.init_process_group(backend, store=dist.FileStore(os.path.join(workdir, "store"), world), rank=rank,
                                 world_size=world, timeout=datetime.timedelta(seconds=timeout_s))
         try:
@@ -163,23 +172,50 @@ def _rank_main(fn, rank: int, world: int, backend: str, workdir: str, timeout_s:
         raise SystemExit(1)
 
 
+def _await_start(procs: list, ready) -> tuple[float, list[int]]:
+    """Wait until every rank has started or one has exited -> (the seconds
+    it took, the ranks not started)."""
+    t0 = time.monotonic()
+    started: set[int] = set()
+    while len(started) < len(procs) and time.monotonic() - t0 < START_TIMEOUT_S:
+        try:
+            started.add(ready.get(timeout=0.05))
+        except queue.Empty:
+            if any(p.exitcode is not None for r, p in enumerate(procs) if r not in started):
+                break
+    return time.monotonic() - t0, [r for r in range(len(procs)) if r not in started]
+
+
 def run_ranks(fn, world: int, workdir: str, *, backend: str = "gloo", args: tuple = (),
               timeout_s: float = 60.0) -> list:
     """``fn(rank, world, *args)`` in ``world`` spawned processes, each a rank
     of a ``backend`` process group that rendezvous through a file in
     ``workdir`` (no port to pick); -> the ranks' return values, in rank
-    order.  Each collective times out after ``timeout_s``, and so does the
-    whole run: a rank that raises, exits or hangs fails it with the ranks'
-    tracebacks, and every process is stopped before this returns or raises."""
+    order.  ``args`` reach the ranks through a file in ``workdir``, not the
+    spawn's pipe: a start blocks on a pipe holding more than its buffer
+    until the child has imported ``fn``'s module, which would start the
+    ranks one after another.  The ranks' start-up (the spawn, the imports,
+    ``args`` loaded) has its own limit, ``START_TIMEOUT_S``: on a loaded
+    host it takes seconds to tens of seconds, and no rank joins the process
+    group before every rank has started.  From then on each collective
+    times out after ``timeout_s``, and so does the whole run: a rank that
+    raises, exits or hangs fails it with the ranks' tracebacks, and every
+    process is stopped before this returns or raises."""
     ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=_rank_main, args=(fn, r, world, backend, workdir, timeout_s, args))
+    ready, go = ctx.Queue(), ctx.Event()
+    torch.save(args, os.path.join(workdir, "args.pt"))
+    procs = [ctx.Process(target=_rank_main, args=(fn, r, world, backend, workdir, timeout_s, ready, go))
              for r in range(world)]
     for p in procs:
         p.start()
-    deadline = time.monotonic() + timeout_s
-    for p in procs:
-        p.join(max(0.0, deadline - time.monotonic()))
-    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    start_s, late = _await_start(procs, ready)
+    hung: list[int] = []
+    if not late:
+        go.set()
+        deadline = time.monotonic() + timeout_s
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
     for p in procs:
         if p.is_alive():
             p.kill()
@@ -190,9 +226,13 @@ def run_ranks(fn, world: int, workdir: str, *, backend: str = "gloo", args: tupl
         if os.path.exists(path):
             with open(path) as f:
                 errors.append(f"rank {r}:\n{f.read()}")
-        elif p.exitcode != 0 and r not in hung:
+        elif p.exitcode != 0 and r not in hung and r not in late:
             errors.append(f"rank {r}: exit code {p.exitcode}")
-    if hung or errors:
-        raise RuntimeError(f"{world} ranks: " + (f"ranks {hung} still running after {timeout_s} s; " if hung else "")
+    if late or hung or errors:
+        raise RuntimeError(f"{world} ranks: "
+                           + (f"ranks {late} not started after {start_s:.1f} s (limit {START_TIMEOUT_S} s); "
+                              if late else "")
+                           + (f"ranks {hung} still running {timeout_s} s after all {world} started "
+                              f"(start-up {start_s:.1f} s); " if hung else "")
                            + "\n".join(errors))
     return [torch.load(os.path.join(workdir, f"result-{r}.pt"), weights_only=False) for r in range(world)]

@@ -130,6 +130,7 @@ import torch.distributed as dist
 from repro_torch import configs, quant
 from repro_torch.core.device import resolve_device
 from repro_torch.data.synthetic import make_adversarial_trace, make_batch, make_request_trace
+from repro_torch.distributed.tp_layout import TPLayout
 from repro_torch.kernels import _build
 from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models.registry import get_model
@@ -207,7 +208,8 @@ def _prefix(cfg) -> int:
 
 def run_synchronized(model, params, args, device: torch.device, mesh=None) -> torch.Tensor:
     """Prefill and decode one batch; with ``mesh``, every rank serves it
-    tensor-parallel and rank 0 alone prints."""
+    tensor-parallel from its ``TPLayout.init_shards`` ``params`` and rank 0
+    alone prints."""
     cfg = model.cfg
     engine = ServeEngine(
         model,
@@ -216,8 +218,9 @@ def run_synchronized(model, params, args, device: torch.device, mesh=None) -> to
                     temperature=args.temperature, seed=args.seed),
         device=device,
         mesh=mesh,
+        shards=mesh is not None,
     )
-    del params  # a mesh engine keeps this rank's shards only
+    del params
     leader = mesh is None or dist.get_rank() == 0
     say = print if leader else (lambda *_a, **_k: None)
     prompts = make_batch(cfg, batch=args.batch, seq=args.prompt_len, kind="prefill",
@@ -375,7 +378,8 @@ def main(argv: list[str] | None = None) -> torch.Tensor | dict:
     ap.add_argument("--device", default=None, help="default: cuda (raises without a card)")
     ap.add_argument("--model-parallel", type=int, default=1, metavar="N",
                     help="tensor-parallel degree: serve over a (1, N) ('data', 'model') mesh, one process a rank "
-                    "under torchrun --nproc-per-node N (NCCL, one card a rank; --device cpu: Gloo)")
+                    "under torchrun --nproc-per-node N (NCCL, one card a rank; --device cpu: Gloo); a MoE model's "
+                    "experts are cut over the N ranks (expert parallelism); each rank draws only its shards")
     # continuous-batching mode
     ap.add_argument("--continuous", action="store_true",
                     help="trace-driven continuous batching (Poisson arrivals, ragged lengths)")
@@ -494,7 +498,7 @@ def run_model_parallel(args) -> torch.Tensor:
         dist.barrier()  # the other ranks load what rank 0 built
         cfg = configs.get_smoke(args.arch) if args.smoke else configs.get_config(args.arch)
         model = get_model(cfg)
-        params, _ = init_params(model, args.seed, device)
+        params = TPLayout(cfg, mesh).init_shards(model, args.seed, device, dtype=None)  # cut as each piece is drawn
         return run_synchronized(model, params, args, device, mesh=mesh)
     finally:
         dist.destroy_process_group()

@@ -55,6 +55,24 @@ def capacity(tokens_per_group: int, cfg: ArchConfig) -> int:
     return max(8, _round_up(c, 8))
 
 
+def _sort_slots(flat_e: torch.Tensor, e: int):
+    """The dispatch's sort of G groups' slots.  flat_e: (G, n) int64, each
+    slot's expert in flat (token, choice) order.  -> (order, se, pos, counts):
+    order, se and pos are (G, n) in expert-sorted slot order (the sort is
+    stable, as ``jnp.argsort``): the slot's index in the flat order, its
+    expert, its place within the expert; counts (G, E) int32 each expert's
+    slots."""
+    g, n = flat_e.shape
+    dev = flat_e.device
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    se = flat_e.gather(-1, order)
+    # Place within the expert: rank minus the expert's first rank; the
+    # expert's count: the next expert's first rank minus its own.
+    bounds = torch.searchsorted(se, torch.arange(e + 1, device=dev).expand(g, e + 1).contiguous(), out_int32=True)
+    pos = torch.arange(n, device=dev) - bounds[:, :-1].gather(-1, se)
+    return order, se, pos, bounds.diff(dim=-1)
+
+
 def _dispatch_group(xf: torch.Tensor, top_e: torch.Tensor, top_w: torch.Tensor, cap: int, cfg: ArchConfig):
     """Sort-based dispatch of G groups at once.  xf: (G, T, d); top_e, top_w:
     (G, T, k).  -> (xdisp (G, E, C, d), se, pos, order, sw, rows): se, pos,
@@ -68,16 +86,9 @@ def _dispatch_group(xf: torch.Tensor, top_e: torch.Tensor, top_w: torch.Tensor, 
     g, t, d = xf.shape
     k, e = m.top_k, m.n_experts
     dev = xf.device
-    flat_e = top_e.reshape(g, t * k).long()
     flat_w = top_w.reshape(g, t * k).to(xf.dtype)
-
-    order = torch.argsort(flat_e, dim=-1, stable=True)  # jnp.argsort is stable too
-    se = flat_e.gather(-1, order)
-    # Place within the expert: rank minus the expert's first rank; the
-    # expert's count: the next expert's first rank minus its own.
-    bounds = torch.searchsorted(se, torch.arange(e + 1, device=dev).expand(g, e + 1).contiguous(), out_int32=True)
-    pos = torch.arange(t * k, device=dev) - bounds[:, :-1].gather(-1, se)
-    rows = bounds.diff(dim=-1).clamp_(max=cap)
+    order, se, pos, counts = _sort_slots(top_e.reshape(g, t * k).long(), e)
+    rows = counts.clamp_(max=cap)
 
     # Kept slots go to row (group, expert, pos) of a flat buffer, dropped ones
     # all to one spare last row, which is cut off (its value is not defined).

@@ -144,16 +144,20 @@ def _shapes(batch: dict) -> tuple:
 
 class ServeEngine:
     def __init__(self, model: Model, params: Any, scfg: ServeConfig,
-                 device: str | torch.device | None = None, mesh=None):
+                 device: str | torch.device | None = None, mesh=None, shards: bool = False):
         """``device`` defaults to the card; ``params`` must already live there.
 
         ``mesh`` (a ``launch.mesh.Mesh``, one process a rank) opts into
         tensor-parallel serving: each rank keeps its shards of ``params``
         (``distributed.sharding``'s rules) and runs the layout of
         ``distributed.tp_layout`` -- warning, as the reference does, when the
-        degree exceeds the query heads, and refusing one that splits a head.
-        Every rank calls the same methods with the same prompts and samples
-        the same tokens.  ``mesh=None`` is the single-card engine."""
+        degree exceeds the query heads, and refusing one that splits a head;
+        a MoE model's experts are cut over "model" (expert parallelism).
+        ``shards``: ``params`` are already this rank's
+        ``TPLayout.init_shards`` (drawn piece by piece: the whole tree of a
+        large model and its shards need not fit the card at once).  Every
+        rank calls the same methods with the same prompts and samples the
+        same tokens.  ``mesh=None`` is the single-card engine."""
         self.device = resolve_device(device)
         for t in _tensors(params):
             if t.device.type != self.device.type:
@@ -169,7 +173,7 @@ class ServeEngine:
             from repro_torch.distributed.tp_layout import TPLayout
 
             self.layout = TPLayout(model.cfg, mesh)
-            params = self.layout.shard(params)
+            params = self.layout.shard(params, cut=not shards)
             self._prefill, self._decode_step = self.layout.prefill, self.layout.decode_step
         self.params = params
         self.cache = None

@@ -33,11 +33,14 @@ masked batch gives the one-process step.  Rank 0 alone logs and writes
 checkpoints; a checkpoint holds the whole moments (every rank's blocks sent
 to rank 0), so it resumes on any data-parallel mesh, one rank included.
 
-With a "model" axis above 1 the parameters a step takes are this rank's
+With a "model" axis above 1 (and for a MoE model on any mesh of more than
+one rank) the parameters a step takes are this rank's
 ``TPLayout.shard_train`` shards (``TPLayout.init_shards`` draws them), the
 loss is ``TPLayout.loss_fn`` over them, and the exchange runs over the
 rank's data group after the leaves replicated over "model" are summed over
-its line (``distributed.data_parallel``).  A checkpoint holds whole leaves,
+its line (``distributed.data_parallel``).  A MoE model's aux loss is the
+whole batch's on every rank and enters each rank's objective once
+(``make_grad_fn``'s ``aux_once``).  A checkpoint holds whole leaves,
 reassembled on rank 0 from the TP shards and the ZeRO blocks, and restores
 on any mesh (``TPLayout.cutters``).
 """
@@ -92,22 +95,30 @@ def _split_microbatches(batch: dict, n: int) -> list[dict]:
     return [{k: v[i] for k, v in split.items()} for i in range(n)]
 
 
-def make_grad_fn(model: Model, tcfg: TrainConfig, loss_fn: Callable | None = None) -> Callable:
+def make_grad_fn(model: Model, tcfg: TrainConfig, loss_fn: Callable | None = None, aux_once: bool = False) -> Callable:
     """-> grads_of(params, batch, weights=None) -> (grads, metrics): the
     gradient of ``loss_fn`` (``model.loss_fn`` by default; a
     ``TPLayout.loss_fn`` on a rank's shards) w.r.t. every floating leaf of
     ``params`` (a tree of the params' structure, each gradient in its leaf's
     dtype, or, over ``tcfg.microbatches``, fp32 and averaged, or summed with
     the float64 ``weights`` of the microbatches), and the loss metrics
-    alike."""
+    alike.  ``aux_once``: the loss's aux term is the whole batch's, the same
+    on every rank, with each rank's gradient of it reaching only its own
+    tokens (expert parallelism); with ``weights`` each microbatch's
+    objective is then its ce times its weight plus its aux over the
+    microbatches, so the ranks' sum is the one-process step's, and the
+    gradients come back unweighted (the metrics weighted)."""
     loss_fn = loss_fn or model.loss_fn
+    n_micro = max(1, tcfg.microbatches)
 
-    def one(params, batch):
+    def one(params, batch, weight=None):
         flat = leaves(params)
         live = [p.detach().requires_grad_(p.is_floating_point()) for p in flat]
         with torch.enable_grad():
             with record_function("train_forward"):  # the forward's span in a profiler trace
                 loss, metrics = loss_fn(unflatten(params, live), batch, remat=tcfg.remat)
+                if weight is not None:
+                    loss = metrics["ce"] * weight + metrics["aux"] / n_micro
             wrt = [p for p in live if p.requires_grad]
             got = iter(torch.autograd.grad(loss, wrt, allow_unused=True))
         grads = [None if not p.requires_grad else next(got) for p in live]
@@ -115,14 +126,16 @@ def make_grad_fn(model: Model, tcfg: TrainConfig, loss_fn: Callable | None = Non
         return unflatten(params, grads), {k: metrics[k].detach() for k in METRICS}
 
     def grads_of(params, batch, weights=None):
-        if tcfg.microbatches <= 1:
+        inside = aux_once and weights is not None  # the weight enters the objective
+        if tcfg.microbatches <= 1 and not inside:
             return one(params, batch)
         g_acc = m_acc = None
-        for i, mb in enumerate(_split_microbatches(batch, tcfg.microbatches)):
-            g, m = one(params, mb)
-            if weights is not None:
-                w = weights[i].to(torch.float32)
-                g = tree_map(lambda x: x.float().mul_(w), g)
+        for i, mb in enumerate(_split_microbatches(batch, n_micro)):
+            w = None if weights is None else weights[i].to(torch.float32)
+            g, m = one(params, mb, w if inside else None)
+            if w is not None:
+                if not inside:
+                    g = tree_map(lambda x: x.float().mul_(w), g)
                 m = {k: m[k] * w for k in METRICS}
             if g_acc is None:
                 g_acc, m_acc = tree_map(lambda x: x.float(), g), m
@@ -175,9 +188,9 @@ def rank_grads(grads_of: Callable, layout: data_parallel.ZeroLayout | None, mode
     if layout is None:
         return (*grads_of(params, batch), None)
     local, w = layout.rows(batch, model.cfg, tcfg.microbatches)
-    if tcfg.microbatches <= 1:
+    if tcfg.microbatches <= 1 and model.cfg.moe is None:
         return (*grads_of(params, local), w[0])
-    return (*grads_of(params, local, w), 1.0)
+    return (*grads_of(params, local, w), 1.0)  # a MoE model's weights enter its objective (``aux_once``)
 
 
 def _mesh_layouts(model: Model, mesh: Mesh | None,
@@ -185,13 +198,19 @@ def _mesh_layouts(model: Model, mesh: Mesh | None,
     """(the ZeRO-1 layout, the tensor-parallel layout) of ``mesh``: (None,
     None) without a mesh or on one rank; raises for what is not trained on
     a mesh.  At model > 1 ``params`` are this rank's shards."""
-    if mesh is None:
+    if mesh is None or mesh.size == 1:
         return None, None
     data_parallel.check_trainable(model.cfg, mesh)
-    tp = TPLayout(model.cfg, mesh) if mesh.shape.get("model", 1) > 1 else None
-    if tp is None and data_parallel.data_size(mesh) == 1:
-        return None, None
+    tp = TPLayout(model.cfg, mesh) if mesh.shape.get("model", 1) > 1 or model.cfg.moe is not None else None
     return data_parallel.ZeroLayout(params, mesh, whole=None if tp is None else tp.whole_shapes(params)), tp
+
+
+def _layout_grad_fn(model: Model, tcfg: TrainConfig, tp: TPLayout | None) -> Callable:
+    """``make_grad_fn`` of the model's loss, or of ``tp``'s (a MoE model's
+    aux once a rank)."""
+    if tp is None:
+        return make_grad_fn(model, tcfg)
+    return make_grad_fn(model, tcfg, tp.loss_fn, aux_once=model.cfg.moe is not None)
 
 
 def make_train_step(model: Model, tcfg: TrainConfig, mesh: Mesh | None = None) -> Callable:
@@ -208,7 +227,7 @@ def make_train_step(model: Model, tcfg: TrainConfig, mesh: Mesh | None = None) -
     def train_step(params, opt_state, batch, step):
         if not made:
             layout, tp = _mesh_layouts(model, mesh, params)
-            made.append((layout, make_grad_fn(model, tcfg, None if tp is None else tp.loss_fn)))
+            made.append((layout, _layout_grad_fn(model, tcfg, tp)))
         layout, grads_of = made[0]
         grads, metrics, weight = rank_grads(grads_of, layout, model, tcfg, params, batch)
         return apply_update(tcfg, params, opt_state, grads, metrics, step, layout, weight)
@@ -232,7 +251,7 @@ class Trainer:
         self.opt_state = adamw_init(params) if self.layout is None else self.layout.zero_state(params)
         self.step = 0
         self.retries = 0
-        self._grads_of = make_grad_fn(model, tcfg, None if self.tp is None else self.tp.loss_fn)
+        self._grads_of = _layout_grad_fn(model, tcfg, self.tp)
         self._ckpt = AsyncCheckpointer(tcfg.ckpt_dir) if tcfg.ckpt_dir and self.leader else None
 
     # -- fault tolerance ----------------------------------------------------

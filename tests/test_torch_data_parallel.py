@@ -24,10 +24,11 @@
   leaves are all-reduced while the rest are reduce-scattered.
 * minicpm3-4b, xlstm-125m, musicgen-medium and internvl2-1b at dp 2 against
   the port's one-process step.
-* The refusals: a MoE config at dp 2 raises, and at a "model" axis of 2 the
-  MoE, MLA, recurrent and frontend configs and a tied head raise with the
-  tensor-parallel layout's reason; a dense GQA config there builds a
-  ``Trainer``; a batch that does not divide raises.
+* The refusals: at a "model" axis of 2 the MLA, recurrent and frontend
+  configs and a tied head raise with the tensor-parallel layout's reason; a
+  dense GQA config there builds a ``Trainer``, and so does a MoE config at
+  dp 2 and at (2, 2) (``tests/test_torch_expert_parallel.py`` steps it); a
+  batch that does not divide raises.
 * ``distributed/annotate.py``: every spec the port chooses equals the
   reference's ``_resolve`` / ``PartitionSpec`` on stand-in meshes (4, 2),
   (2, 16, 16) and (1, 1) (the reference's ``with_sharding_constraint`` and
@@ -350,20 +351,28 @@ def test_indivisible_leaves_are_all_reduced(reference, spawned, world):
     _same_on_every_rank(spawned(world), "odd")
 
 
-def test_moe_at_dp2_and_a_model_axis_are_refused():
-    """MoE at dp 2 is refused for its batch-wide aux loss and capacity; at a
-    "model" axis of 2 the tensor-parallel layout refuses it (expert
-    parallelism is not written)."""
+def test_moe_at_dp2_and_a_model_axis_build_a_trainer():
+    """On one process (no collective runs until a step): MoE at dp 2 trains
+    through the layout at tp 1 (its routing pooled over the data ranks),
+    and at a "model" axis of 2 each rank holds half the experts whole over
+    "data" (the expert masters are not cut over "data"; their moments are,
+    by ``zero1_specs``), the router whole."""
+    from repro_torch.distributed.tp_layout import TPLayout
+
     cfg = _cfg("qwen3-moe-30b-a3b")
     model = get_model(cfg)
     params = model.init(0, "cpu", dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        Trainer(model, TrainConfig(), params, mesh=Mesh((2, 1), ("data", "model")))
-    with pytest.raises(NotImplementedError, match="MoE"):
-        make_train_step(model, TrainConfig(), Mesh((2, 1), ("data", "model")))(params, None, None, 0)
-    with pytest.raises(NotImplementedError, match="tensor-parallel layout lays out the dense GQA / SWA decoder"):
-        Trainer(model, TrainConfig(), params, mesh=Mesh((1, 2), ("data", "model")))
-    Trainer(model, TrainConfig(), params, mesh=Mesh((1, 1), ("data", "model")))  # one rank: trained as today
+    at_dp2 = Trainer(model, TrainConfig(), params, mesh=Mesh((2, 1), ("data", "model")))
+    assert at_dp2.tp is not None and at_dp2.tp.tp == 1 and at_dp2.layout.dp == 2
+    data_parallel.check_trainable(cfg, Mesh((2, 2), ("data", "model")))
+    mesh = Mesh((2, 2), ("data", "model"))
+    trainer = Trainer(model, TrainConfig(), TPLayout(cfg, mesh).shard_train(params), mesh=mesh)
+    ffn, whole = trainer.params["layers"][0]["ffn"], params["layers"][0]["ffn"]
+    assert ffn["w_gate"].shape == (cfg.moe.n_experts // 2, *whole["w_gate"].shape[1:])
+    assert ffn["router"].shape == whole["router"].shape
+    assert trainer.opt_state.mu["layers"][0]["ffn"]["w_gate"].shape == (1, cfg.moe.n_experts // 2, cfg.d_model // 2,
+                                                                         cfg.moe.d_ff_expert)
+    Trainer(model, TrainConfig(), params, mesh=Mesh((1, 1), ("data", "model")))  # one rank: trained as on one card
 
 
 @pytest.mark.parametrize("arch,tied", [("minicpm3-4b", False), ("xlstm-125m", False), ("zamba2-7b", False),

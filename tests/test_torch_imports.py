@@ -80,7 +80,7 @@ def test_port_and_chip_smoke_import_no_jax_or_repro():
     assert {"repro_torch.distributed", "repro_torch.distributed.collective_matmul", "repro_torch.distributed.sharding",
             "repro_torch.distributed.tp_layout", "repro_torch.launch.mesh",
             "repro_torch.models.modelflags", "repro_torch.distributed.annotate", "repro_torch.distributed.fault",
-            "repro_torch.distributed.data_parallel"} <= set(res["modules"])
+            "repro_torch.distributed.data_parallel", "repro_torch.distributed.expert_parallel"} <= set(res["modules"])
     assert res["bad"] == []
 
 

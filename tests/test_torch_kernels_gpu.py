@@ -1857,3 +1857,93 @@ def test_tp_training_over_gloo_on_one_card_matches_one_card(cuda, tmp_path):
     gaps = [((a - b).norm() / (b - p0).norm().clamp_min(1e-30)).item() for a, b, p0 in zip(got, one_p, start,
                                                                                              strict=True)]
     assert max(gaps) <= 0.3, max(gaps)
+
+
+# ---------------------------------------------------------------------------
+# Expert parallelism: the experts cut over "model", the routing pooled, each
+# kept slot's row exchanged with its expert's rank; two ranks sharing one card
+# over Gloo.
+# ---------------------------------------------------------------------------
+
+EP_LAYERS = 1
+
+
+def _ep_rank(rank, world):
+    """Full-width qwen3-moe-30b-a3b at EP_LAYERS layer(s) on card 0, on one
+    card (``world`` 1) or over a (1, world) mesh: the bf16 prefill's logits
+    of 4 x 64 prompts, then three Trainer steps (fp32 masters, the first at
+    lr 0) -> (the logits on the host, the first and third step's metrics,
+    the whole parameters after them (rank 0; None elsewhere), K4 launches
+    of the prefill and of the third step, this rank's experts)."""
+    from repro_torch import configs
+    from repro_torch.core.tree import leaves, tree_map
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.distributed.tp_layout import TPLayout
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.registry import get_model
+    from repro_torch.serving import ServeConfig, ServeEngine
+    from repro_torch.train.loop import TrainConfig, Trainer
+
+    torch.cuda.set_device(0)
+    cfg = configs.get_config("qwen3-moe-30b-a3b").scaled(n_layers=EP_LAYERS)
+    model = get_model(cfg)
+    mesh = None if world == 1 else Mesh((1, world), ("data", "model"))
+    served = tree_map(lambda t: t.to(torch.bfloat16), model.init(0, "cuda", dtype=torch.float32))
+    engine = ServeEngine(model, served, ServeConfig(max_len=72, batch=4), device="cuda", mesh=mesh)
+    del served
+    prompt = make_batch(cfg, batch=4, seq=64, kind="prefill", seed=0, device="cuda")
+    k4 = grouped_kernel.launches
+    with torch.no_grad():
+        logits = engine._prefill(engine.params, prompt, max_len=72)[0].float().cpu()
+    k4_prefill = grouped_kernel.launches - k4
+    del engine
+    tcfg = TrainConfig(peak_lr=1e-3, warmup_steps=1, total_steps=4)
+    if world == 1:
+        trainer = Trainer(model, tcfg, model.init(0, "cuda", dtype=torch.float32))
+    else:
+        trainer = Trainer(model, tcfg, TPLayout(cfg, mesh).init_shards(model, 0, "cuda"), mesh)
+    batch = make_batch(cfg, batch=4, seq=64, kind="train", seed=0, device="cuda")
+    first = {k: float(v) for k, v in trainer.run(iter([batch]), 1, log_every=0).items()}  # lr 0
+    trainer.run(iter([batch]), 1, log_every=0)  # the first update
+    k4 = grouped_kernel.launches
+    m = trainer.run(iter([batch]), 1, log_every=0)
+    k4_step = grouped_kernel.launches - k4
+    state = trainer.state()
+    whole = None if state is None else [t.cpu() for t in leaves(state["params"])]
+    experts = trainer.params["layers"][0]["ffn"]["w_gate"].shape[0]
+    return logits, first, {k: float(v) for k, v in m.items()}, whole, k4_prefill, k4_step, experts
+
+
+@pytest.mark.gpu
+def test_expert_parallel_serving_and_training_over_gloo_on_one_card_match_one_card(cuda, tmp_path):
+    """tp 2 on one card against one card, full-width qwen3-moe-30b-a3b at one
+    layer: the prefill's logits within 1e-1 of the largest logit (each path
+    routing freely in bf16), 3 K4 launches a layer at 64 of the 128 experts
+    a rank; three training steps (the first at lr 0), the third's loss and
+    gradient norm within 1e-2 of one card's, each limit below what a
+    dropped update reads, every parameter leaf's change from the initial
+    weights within 0.3 relative L2 of one card's, K4 launches a step as one
+    card's."""
+    from repro_torch import configs
+    from repro_torch.core.tree import leaves
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models.registry import get_model
+
+    one_logits, one_first, one_m, one_p, one_k4p, one_k4s, one_e = _ep_rank(0, 1)
+    model = get_model(configs.get_config("qwen3-moe-30b-a3b").scaled(n_layers=EP_LAYERS))
+    start = [t.cpu() for t in leaves(model.init(0, "cuda", dtype=torch.float32))]
+    assert one_k4p == 3 * EP_LAYERS and one_e == 128
+    for k in ("loss", "grad_norm"):
+        assert abs(one_first[k] - one_m[k]) > 1e-2 * abs(one_m[k]), (k, one_first[k], one_m[k])
+    results = run_ranks(_ep_rank, 2, str(tmp_path), backend="gloo", args=(), timeout_s=600)
+    scale = one_logits.abs().max().item()
+    for logits, _, m, _, k4p, k4s, experts in results:
+        assert (logits - one_logits).abs().max().item() <= 1e-1 * scale
+        assert (k4p, k4s, experts) == (3 * EP_LAYERS, one_k4s, 64)
+        for k in ("loss", "grad_norm"):
+            assert abs(m[k] - one_m[k]) <= 1e-2 * abs(one_m[k]), (k, m[k], one_m[k])
+    got = results[0][3]
+    assert got is not None and results[1][3] is None
+    gaps = [((a - b).norm() / (b - p0).norm().clamp_min(1e-30)).item() for a, b, p0 in zip(got, one_p, start,
+                                                                                             strict=True)]
+    assert max(gaps) <= 0.3, max(gaps)

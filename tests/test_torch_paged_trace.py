@@ -63,8 +63,8 @@ def test_chip_smoke_gates_are_the_reference_run():
     # prefix arm's peak 588 pages hold 0.28 of the slot pool
     assert chip_smoke.PAGE_BYTES == 1_574_400 and chip_smoke.STRIPE_BYTES == 3_299_942_400
     assert 588 * chip_smoke.PAGE_BYTES == 925_747_200
-    # minicpm3-4b's latent page at the 31 of its 62 layers the script runs
-    assert chip_smoke.MLA_LAYERS == 31 and chip_smoke.MLA_PAGE_BYTES == 287_680
+    # minicpm3-4b's latent page at the 16 of its 62 layers the script runs
+    assert chip_smoke.MLA_LAYERS == 16 and chip_smoke.MLA_PAGE_BYTES == 148_480
 
 
 @pytest.fixture(scope="module")

@@ -108,10 +108,6 @@ def test_tp_above_the_query_heads_warns_and_is_refused():
     with pytest.warns(UserWarning, match="n_heads"), pytest.raises(ValueError, match="split a head"):
         ServeEngine(model, params, ServeConfig(max_len=MAX_LEN, batch=BATCH), device="cpu",
                     mesh=Mesh((1, 8), ("data", "model")))
-    with pytest.raises(NotImplementedError, match="dense GQA"):
-        moe = get_model(configs.get_smoke("qwen3-moe-30b-a3b"))
-        ServeEngine(moe, moe.init(0, "cpu"), ServeConfig(max_len=MAX_LEN, batch=BATCH), device="cpu",
-                    mesh=Mesh((1, 2), ("data", "model")))
 
 
 def test_launcher_serves_model_parallel_under_torchrun_on_the_cpu(tmp_path):
